@@ -1,0 +1,157 @@
+"""Parity of the PyTorch port's models with the JAX package.
+
+Weights come from a JAX init, with every BatchNorm given non-identity
+scale/bias/mean/var drawn with numpy, and are carried to the port by
+`flax_resnet_to_torch`. Logits are compared at 1e-4 (absolute and
+relative): both sides compute float32 convolutions with different
+summation orders across up to 50 layers.
+"""
+
+import zlib
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from wam_tpu.models import bind_inference as jbind
+from wam_tpu.models import resnet18 as jresnet18
+from wam_tpu.models import resnet50 as jresnet50
+from wam_tpu.models.toy import toy_conv_model as jtoy
+from wam_tpu_torch.models import resnet as tres
+from wam_tpu_torch.models.ingest import flax_resnet_to_torch
+from wam_tpu_torch.models.toy import toy_conv_model as ttoy
+
+TOL = 1e-4
+
+
+def _perturbed(variables, seed=3):
+    """Non-identity BatchNorm affines and running stats, so the weight map
+    and the fold are exercised; the scales stay near 1 so ReLUs stay alive."""
+    def perturb(path, a):
+        name = path[-1].key
+        rng = np.random.default_rng(zlib.crc32(f"{seed}{path}".encode()))
+        if name == "mean":
+            return rng.standard_normal(a.shape).astype(np.float32) * 0.05
+        if name in ("var", "scale"):
+            return (rng.uniform(size=a.shape) * 0.8 + 0.6).astype(np.float32)
+        if name == "bias":
+            return rng.standard_normal(a.shape).astype(np.float32) * 0.05
+        return np.asarray(a)
+
+    params = jax.tree_util.tree_map_with_path(perturb, variables["params"])
+    stats = jax.tree_util.tree_map_with_path(perturb, variables["batch_stats"])
+    return {"params": params, "batch_stats": stats}
+
+
+def _pair(jctor, tctor, side, num_classes):
+    model = jctor(num_classes=num_classes)
+    variables = _perturbed(model.init(jax.random.PRNGKey(0), jnp.zeros((1, side, side, 3))))
+    tmodel = tctor(num_classes=num_classes)
+    return model, variables, tmodel, flax_resnet_to_torch(variables)
+
+
+@pytest.fixture(scope="module")
+def r18():
+    return _pair(jresnet18, tres.resnet18, 64, 10)
+
+
+@pytest.fixture(scope="module")
+def r50():
+    return _pair(jresnet50, tres.resnet50, 64, 1000)
+
+
+def _x(shape, seed=1):
+    return np.random.default_rng(seed).standard_normal(shape).astype(np.float32)
+
+
+@pytest.mark.parametrize("fold_bn", [False, True])
+def test_resnet18_logits_match_jax(r18, fold_bn):
+    model, variables, tmodel, state = r18
+    x = _x((2, 3, 64, 64))
+    want = np.asarray(jbind(model, variables, nchw=True, fold_bn=fold_bn)(jnp.asarray(x)))
+    fn = tres.bind_inference(tres.resnet18(num_classes=10), state, fold_bn=fold_bn,
+                             device="cpu")
+    with torch.no_grad():
+        got = fn(torch.from_numpy(x)).numpy()
+    assert np.abs(want).max() > 0.1
+    np.testing.assert_allclose(got, want, atol=TOL, rtol=TOL)
+
+
+def test_resnet50_logits_match_jax(r50):
+    model, variables, tmodel, state = r50
+    x = _x((1, 3, 64, 64), seed=2)
+    want = np.asarray(jbind(model, variables, nchw=True)(jnp.asarray(x)))
+    fn = tres.bind_inference(tmodel, state, device="cpu")
+    with torch.no_grad():
+        got = fn(torch.from_numpy(x)).numpy()
+    assert got.shape == (1, 1000)
+    np.testing.assert_allclose(got, want, atol=TOL, rtol=TOL)
+
+
+def test_ingest_covers_every_state_key(r50):
+    *_, tmodel, state = r50
+    assert set(state) == set(tmodel.state_dict())
+    for k, v in tmodel.state_dict().items():
+        assert tuple(state[k].shape) == tuple(v.shape), k
+
+
+def test_fold_bn_is_a_reparameterization(r18):
+    """Folded and unfolded bindings give the same logits and input
+    gradients, and the fold really rewrote the BatchNorms."""
+    *_, state = r18
+    x = torch.from_numpy(_x((2, 3, 64, 64), seed=4)).requires_grad_(True)
+    m0, m1 = tres.resnet18(num_classes=10), tres.resnet18(num_classes=10)
+    f0 = tres.bind_inference(m0, state, device="cpu")
+    f1 = tres.bind_inference(m1, state, fold_bn=True, device="cpu")
+    assert torch.equal(m1.bn1.weight, torch.ones_like(m1.bn1.weight))
+    assert torch.equal(m1.layer2[0].downsample[1].running_mean,
+                       torch.zeros_like(m1.layer2[0].downsample[1].running_mean))
+    assert not torch.equal(m0.conv1.weight, m1.conv1.weight)
+    l0, l1 = f0(x), f1(x)
+    torch.testing.assert_close(l1, l0, atol=2e-5, rtol=2e-5)
+    g0, = torch.autograd.grad(l0.sum(), x)
+    g1, = torch.autograd.grad(l1.sum(), x)
+    torch.testing.assert_close(g1, g0, atol=2e-5, rtol=2e-5)
+
+
+def test_bind_inference_freezes_weights_and_takes_nhwc(r18):
+    *_, state = r18
+    model = tres.resnet18(num_classes=10)
+    fn = tres.bind_inference(model, state, device="cpu")
+    assert not model.training
+    assert not any(p.requires_grad for p in model.parameters())
+    x = torch.from_numpy(_x((2, 3, 32, 32), seed=5))
+    nhwc = tres.bind_inference(model, nchw=False, device="cpu")
+    with torch.no_grad():
+        torch.testing.assert_close(nhwc(x.permute(0, 2, 3, 1)), fn(x))
+
+
+def test_bind_inference_bf16_close_to_f32(r18):
+    """bf16 compute keeps ~3 significant digits per layer; the gate is the
+    cosine of the logits against the port's own f32 path (>= 0.99)."""
+    *_, state = r18
+    x = torch.from_numpy(_x((2, 3, 64, 64), seed=6))
+    f32 = tres.bind_inference(tres.resnet18(num_classes=10), state, device="cpu")
+    bf16 = tres.bind_inference(tres.resnet18(num_classes=10), state,
+                               compute_dtype=torch.bfloat16, device="cpu")
+    with torch.no_grad():
+        a, b = f32(x), bf16(x)
+    assert b.dtype == torch.float32
+    cos = torch.nn.functional.cosine_similarity(a.flatten(), b.flatten(), dim=0)
+    assert float(cos) >= 0.99
+
+
+def test_fused_relu_vjp_not_ported():
+    with pytest.raises(NotImplementedError, match="K4/K5"):
+        tres.bind_inference(tres.resnet18(num_classes=2), fused_relu_vjp=True, device="cpu")
+
+
+def test_toy_model_matches_jax():
+    key = jax.random.PRNGKey(3)
+    kern = np.asarray(jax.random.normal(key, (4, 1, 5, 5), jnp.float32) * 0.3)
+    x = _x((3, 20, 24), seed=7)
+    want = np.asarray(jtoy(key, ndim=2)(jnp.asarray(x)))
+    got = ttoy(kern, ndim=2, device="cpu")(torch.from_numpy(x)).numpy()
+    np.testing.assert_allclose(got, want, atol=1e-6, rtol=1e-5)

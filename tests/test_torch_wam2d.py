@@ -1,0 +1,175 @@
+"""Parity of the PyTorch port's WAM-2D slice with the JAX package: packing,
+estimators, the engine and `WaveletAttribution2D` end to end.
+
+Weights are a JAX ResNet-18 init carried across by `flax_resnet_to_torch`;
+SmoothGrad noise is drawn once with numpy and handed to both packages (the
+JAX side averages `BaseWAM2D` passes on x + sigma * z_i, the port takes the
+draws through ``noise=``). The port runs on its "kernel" impl (the path the
+card runs, through the kernels' plain versions on CPU tensors) and on its
+"conv" impl.
+
+Tolerance: mosaics are normalized to [0, 1] per block and come out of
+float32 gradients through ResNet-18 computed with different summation orders
+on the two sides; they agree to ~1e-6 and the bound is 1e-4.
+"""
+
+import zlib
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from wam_tpu import wam2d as jwam
+from wam_tpu.core import engine as jengine
+from wam_tpu.core import estimators as jest
+from wam_tpu.models import bind_inference as jbind
+from wam_tpu.models import resnet18 as jresnet18
+from wam_tpu.ops import packing2d as jpack
+from wam_tpu_torch import wam2d as twam
+from wam_tpu_torch.models import resnet as tres
+from wam_tpu_torch.models.ingest import flax_resnet_to_torch
+
+SLICE_TOL = 1e-4
+
+
+def _rng(*key):
+    return np.random.default_rng(zlib.crc32(repr(key).encode()))
+
+
+def _np(t):
+    return t.detach().numpy()
+
+
+# -- the slice: WaveletAttribution2D on ResNet-18 ----------------------------------
+
+
+@pytest.fixture(scope="module")
+def r18():
+    model = jresnet18(num_classes=10)
+    variables = model.init(jax.random.PRNGKey(0), jnp.zeros((1, 64, 64, 3)))
+    jfn = jbind(model, variables, nchw=True)
+    tfn = tres.bind_inference(tres.resnet18(num_classes=10), flax_resnet_to_torch(variables),
+                              device="cpu")
+    rng = _rng("slice")
+    x = rng.standard_normal((2, 3, 64, 64)).astype(np.float32)
+    y = np.array([1, 7])
+    return jfn, tfn, x, y
+
+
+def test_base_wam2d_matches_jax(r18):
+    jfn, tfn, x, y = r18
+    jm = jwam.BaseWAM2D(jfn, wavelet="db4", J=3)
+    want = np.asarray(jm(jnp.asarray(x), jnp.asarray(y)))
+    tm = twam.BaseWAM2D(tfn, wavelet="db4", J=3, device="cpu", impl="kernel")
+    got = _np(tm(torch.from_numpy(x), torch.from_numpy(y)))
+    assert got.shape == want.shape == (2, 70, 70)
+    np.testing.assert_allclose(got, want, atol=SLICE_TOL, rtol=0)
+    np.testing.assert_allclose(_np(tm.scales), np.asarray(jm.scales), atol=SLICE_TOL, rtol=0)
+
+
+@pytest.fixture(scope="module")
+def jax_smooth(r18):
+    """JAX SmoothGrad on handed-over draws: the mean of `BaseWAM2D` passes
+    on x + sigma * z_i."""
+    jfn, _, x, y = r18
+    z = _rng("noise").standard_normal((3,) + x.shape).astype(np.float32)
+    sigma = np.asarray(jest.noise_sigma(jnp.asarray(x), 0.25)).reshape(-1, 1, 1, 1)
+    jm = jwam.BaseWAM2D(jfn, wavelet="db4", J=3)
+    want = np.mean([np.asarray(jm(jnp.asarray(x + zi * sigma), jnp.asarray(y))) for zi in z],
+                   axis=0)
+    return z, want
+
+
+@pytest.mark.parametrize("impl", ["kernel", "conv"])
+def test_smooth_wam_matches_jax_with_handed_noise(r18, jax_smooth, impl):
+    _, tfn, x, y = r18
+    z, want = jax_smooth
+    tm = twam.WaveletAttribution2D(tfn, wavelet="db4", J=3, method="smooth", n_samples=3,
+                                   stdev_spread=0.25, device="cpu", impl=impl)
+    got = _np(tm(torch.from_numpy(x), torch.from_numpy(y), noise=torch.from_numpy(z)))
+    np.testing.assert_allclose(got, want, atol=SLICE_TOL, rtol=0)
+    want_scales = np.asarray(jpack.reproject_mosaic(jnp.asarray(want), 3))
+    np.testing.assert_allclose(_np(tm.scales), want_scales, atol=SLICE_TOL * 3, rtol=0)
+
+
+@pytest.fixture(scope="module")
+def jax_ig(r18):
+    """JAX IG two ways: the package's own pieces evaluated op by op
+    (baseline mosaic of the input coefficients times the trapezoid over
+    alpha in {0, .5, 1}, dx=1, of the gradient mosaics), and the class."""
+    jfn, _, x, y = r18
+    je = jengine.WamEngine(jfn, ndim=2, wavelet="db4", level=3)
+    coeffs = je.decompose(jnp.asarray(x))
+    path = [jpack.mosaic2d(je.grads_from_coeffs(
+        jax.tree_util.tree_map(lambda c, a=a: c * a, coeffs), jnp.asarray(y), (64, 64)))
+        for a in (0.0, 0.5, 1.0)]
+    eager = np.asarray(jpack.mosaic2d(coeffs) * (path[0] / 2 + path[1] + path[2] / 2))
+    jm = jwam.WaveletAttribution2D(jfn, wavelet="db4", J=3, method="integratedgrad",
+                                   n_samples=3, sample_batch_size=None)
+    return eager, np.asarray(jm(jnp.asarray(x), jnp.asarray(y)))
+
+
+@pytest.mark.parametrize("impl", ["kernel", "conv"])
+def test_integrated_wam_matches_jax(r18, jax_ig, impl):
+    _, tfn, x, y = r18
+    eager, cls = jax_ig
+    tm = twam.WaveletAttribution2D(tfn, wavelet="db4", J=3, method="integratedgrad",
+                                   n_samples=3, device="cpu", impl=impl)
+    got = _np(tm(torch.from_numpy(x), torch.from_numpy(y)))
+    # the integral sums 3 normalized mosaics: 3x the slice tolerance
+    np.testing.assert_allclose(got, eager, atol=3 * SLICE_TOL, rtol=0)
+    # The JAX class jit-compiles the same math into one scan; at this input
+    # its result differs from its op-by-op evaluation by 2.3e-3 (a few ReLU
+    # gates near zero flip under XLA's reordered sums), so against the class
+    # the bound is 3e-3.
+    np.testing.assert_allclose(got, cls, atol=3e-3, rtol=0)
+
+
+@pytest.mark.parametrize("method", ["smooth", "integratedgrad"])
+@pytest.mark.parametrize("normalize", [False, True])
+def test_chunked_run_equals_unchunked(r18, method, normalize):
+    """sample_batch_size=2 folds two samples into one model call of 2B rows:
+    the loss must be the sum of per-sample batch means (else every gradient
+    is 1/2 of the right one, visible with normalize_coeffs=False) and the
+    mosaic max must be per sample (visible with normalization on)."""
+    _, tfn, x, y = r18
+    z = torch.from_numpy(_rng("chunk").standard_normal((3,) + x.shape).astype(np.float32))
+    kw = dict(wavelet="db4", J=3, method=method, n_samples=3, normalize_coeffs=normalize,
+              device="cpu", impl="kernel")
+    extra = {"noise": z} if method == "smooth" else {}
+    one = twam.WaveletAttribution2D(tfn, sample_batch_size=None, **kw)(x, y, **extra)
+    two = twam.WaveletAttribution2D(tfn, sample_batch_size=2, **kw)(x, y, **extra)
+    scale = float(one.abs().max())
+    assert scale > 0
+    torch.testing.assert_close(two, one, atol=1e-5 * scale, rtol=1e-5)
+
+
+def test_dwt_bf16_cast_after_noise(r18):
+    """dwt_bf16 rounds the NOISY input to bf16 inside the step: the result
+    equals the f32 run on bf16-rounded noisy inputs, and stays close to the
+    f32 run."""
+    _, tfn, x, y = r18
+    z = torch.from_numpy(_rng("bf16").standard_normal((2,) + x.shape).astype(np.float32))
+    kw = dict(wavelet="db4", J=3, n_samples=2, device="cpu", impl="kernel")
+    bf = twam.WaveletAttribution2D(tfn, dwt_bf16=True, **kw)(x, y, noise=z)
+    f32 = twam.WaveletAttribution2D(tfn, **kw)(x, y, noise=z)
+    assert bf.dtype == torch.float32
+    assert not torch.equal(bf, f32)
+    cos = torch.nn.functional.cosine_similarity(bf.flatten(), f32.flatten(), dim=0)
+    assert float(cos) > 0.99
+
+
+def test_wam2d_rejects_unported_options(r18):
+    _, tfn, *_ = r18
+    with pytest.raises(NotImplementedError):
+        twam.WaveletAttribution2D(tfn, mesh=object(), device="cpu")
+    with pytest.raises(NotImplementedError):
+        twam.BaseWAM2D(tfn, model_layout="nhwc", device="cpu")
+    m = twam.WaveletAttribution2D(tfn, device="cpu")
+    for entry in (m.serve_entry, m.anytime_serve_entry):
+        with pytest.raises(NotImplementedError):
+            entry()
+    with pytest.raises(ValueError):
+        twam.WaveletAttribution2D(tfn, method="gradcam", device="cpu")

@@ -1,0 +1,184 @@
+"""ResNet-18 and ResNet-50 as PyTorch modules, NCHW.
+
+Counterpart of `wam_tpu.models.resnet`: the same architecture (stride on the
+3x3 conv of a bottleneck, 1x1 projection shortcut where the shape changes,
+BatchNorm eps 1e-5, max-pool 3/2 pad 1, global mean, dense head) with
+torchvision's state-dict names, so `wam_tpu_torch.models.ingest` carries the
+JAX package's weights across mechanically. Convolutions are cuDNN's, as the
+JAX package leaves them to XLA.
+"""
+
+from __future__ import annotations
+
+from functools import partial
+from typing import Callable, Sequence
+
+import torch
+import torch.nn as nn
+
+from wam_tpu_torch.device import resolve_device
+
+__all__ = ["BasicBlock", "Bottleneck", "ResNet", "resnet18", "resnet50", "bind_inference"]
+
+
+def _bn(ch: int) -> nn.BatchNorm2d:
+    return nn.BatchNorm2d(ch, eps=1e-5)
+
+
+def _shortcut(in_ch: int, out_ch: int, stride: int) -> nn.Module | None:
+    if stride == 1 and in_ch == out_ch:
+        return None
+    return nn.Sequential(nn.Conv2d(in_ch, out_ch, 1, stride, bias=False), _bn(out_ch))
+
+
+class BasicBlock(nn.Module):
+    expansion = 1
+
+    def __init__(self, in_ch: int, features: int, stride: int = 1):
+        super().__init__()
+        self.conv1 = nn.Conv2d(in_ch, features, 3, stride, 1, bias=False)
+        self.bn1 = _bn(features)
+        self.conv2 = nn.Conv2d(features, features, 3, 1, 1, bias=False)
+        self.bn2 = _bn(features)
+        self.downsample = _shortcut(in_ch, features, stride)
+
+    def forward(self, x):
+        y = torch.relu(self.bn1(self.conv1(x)))
+        y = self.bn2(self.conv2(y))
+        residual = x if self.downsample is None else self.downsample(x)
+        return torch.relu(y + residual)
+
+
+class Bottleneck(nn.Module):
+    expansion = 4
+
+    def __init__(self, in_ch: int, features: int, stride: int = 1):
+        super().__init__()
+        out_ch = features * self.expansion
+        self.conv1 = nn.Conv2d(in_ch, features, 1, bias=False)
+        self.bn1 = _bn(features)
+        self.conv2 = nn.Conv2d(features, features, 3, stride, 1, bias=False)
+        self.bn2 = _bn(features)
+        self.conv3 = nn.Conv2d(features, out_ch, 1, bias=False)
+        self.bn3 = _bn(out_ch)
+        self.downsample = _shortcut(in_ch, out_ch, stride)
+
+    def forward(self, x):
+        y = torch.relu(self.bn1(self.conv1(x)))
+        y = torch.relu(self.bn2(self.conv2(y)))
+        y = self.bn3(self.conv3(y))
+        residual = x if self.downsample is None else self.downsample(x)
+        return torch.relu(y + residual)
+
+
+class ResNet(nn.Module):
+    """x: (B, 3, H, W) -> logits (B, num_classes)."""
+
+    def __init__(self, stage_sizes: Sequence[int], block_cls, num_classes: int = 1000):
+        super().__init__()
+        self.conv1 = nn.Conv2d(3, 64, 7, 2, 3, bias=False)
+        self.bn1 = _bn(64)
+        self.maxpool = nn.MaxPool2d(3, 2, 1)
+        in_ch = 64
+        for stage, n_blocks in enumerate(stage_sizes):
+            blocks = []
+            for i in range(n_blocks):
+                stride = 2 if stage > 0 and i == 0 else 1
+                blocks.append(block_cls(in_ch, 64 * 2**stage, stride))
+                in_ch = 64 * 2**stage * block_cls.expansion
+            setattr(self, f"layer{stage + 1}", nn.Sequential(*blocks))
+        self.n_stages = len(stage_sizes)
+        self.fc = nn.Linear(in_ch, num_classes)
+
+    def forward(self, x):
+        x = self.maxpool(torch.relu(self.bn1(self.conv1(x))))
+        for stage in range(self.n_stages):
+            x = getattr(self, f"layer{stage + 1}")(x)
+        return self.fc(x.mean(dim=(2, 3)))
+
+
+resnet18 = partial(ResNet, (2, 2, 2, 2), BasicBlock)
+resnet50 = partial(ResNet, (3, 4, 6, 3), Bottleneck)
+
+
+def _conv_of(bn_name: str) -> str | None:
+    """The conv a BatchNorm follows, by this package's naming: bnN <-> convN,
+    downsample.1 <-> downsample.0."""
+    parent, _, leaf = bn_name.rpartition(".")
+    if leaf.startswith("bn"):
+        conv = "conv" + leaf[2:]
+    elif leaf == "1" and parent.endswith("downsample"):
+        conv = "0"
+    else:
+        return None
+    return f"{parent}.{conv}" if parent else conv
+
+
+@torch.no_grad()
+def _fold_bn(model: nn.Module, eps: float = 1e-5) -> None:
+    """Fold inference-mode BatchNorm affines into the preceding conv weights,
+    in place: BN with running stats is y = x*a + b with a = gamma/sqrt(var+eps),
+    b = beta - mean*a; the conv's output channels are scaled by a and the BN
+    becomes the pure shift (weight 1, bias b, mean 0, var 1-eps)."""
+    modules = dict(model.named_modules())
+    for name, bn in modules.items():
+        if not isinstance(bn, nn.BatchNorm2d):
+            continue
+        conv = modules.get(_conv_of(name) or "")
+        if not isinstance(conv, nn.Conv2d):
+            continue
+        a = bn.weight / torch.sqrt(bn.running_var + eps)
+        conv.weight.mul_(a.reshape(-1, 1, 1, 1))
+        if conv.bias is not None:
+            conv.bias.mul_(a)
+        bn.bias.copy_(bn.bias - bn.running_mean * a)
+        bn.weight.fill_(1.0)
+        bn.running_mean.zero_()
+        bn.running_var.fill_(1.0 - eps)
+
+
+def bind_inference(
+    model: nn.Module,
+    variables=None,
+    *,
+    nchw: bool = True,
+    compute_dtype: torch.dtype | None = None,
+    fold_bn: bool = False,
+    fused_relu_vjp: bool = False,
+    device=None,
+) -> Callable[[torch.Tensor], torch.Tensor]:
+    """Bind a model for attribution: a pure ``x -> logits`` function.
+
+    The module is prepared IN PLACE: ``variables`` (a state dict, e.g. from
+    `ingest.flax_resnet_to_torch`) is loaded when given, the module is put in
+    eval mode on ``device`` (CUDA unless the caller asks otherwise), and every
+    parameter gets ``requires_grad=False`` — attribution differentiates only
+    with respect to the input, so no weight gradient is ever computed.
+
+    ``nchw=False`` accepts (B, H, W, C) input. ``compute_dtype`` (e.g.
+    ``torch.bfloat16``) casts parameters and buffers once and the input at
+    the boundary; logits come back float32. ``fold_bn`` folds BatchNorm
+    multiplies into the conv weights (same function, cheaper backward).
+    ``fused_relu_vjp`` needs kernels K4/K5, not ported yet."""
+    if fused_relu_vjp:
+        raise NotImplementedError(
+            "fused_relu_vjp needs kernels K4/K5 (wam_tpu/tune/fused_relu.py), which are "
+            "not ported yet (ROADMAP.md, queue 2)")
+    device = resolve_device(device)
+    if variables is not None:
+        model.load_state_dict(variables)
+    model.eval().to(device)
+    model.requires_grad_(False)
+    if fold_bn:
+        _fold_bn(model)
+    if compute_dtype is not None:
+        model.to(compute_dtype)
+
+    def fn(x: torch.Tensor) -> torch.Tensor:
+        if not nchw:
+            x = x.permute(0, 3, 1, 2)
+        if compute_dtype is not None:
+            return model(x.to(compute_dtype)).float()
+        return model(x)
+
+    return fn

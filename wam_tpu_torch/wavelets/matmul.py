@@ -1,0 +1,351 @@
+"""DWT as banded matrix products, with the hand-written CUDA kernels K1/K3.
+
+PyTorch counterpart of `wam_tpu.wavelets.matmul`. Boundary padding (reflect /
+symmetric / zero / edge / periodic, pywt semantics) is folded into a dense
+per-axis analysis matrix, so one full 2D level is
+
+    [[aa, ad], [da, dd]] = [A_lo; A_hi] @ X @ [B_lo; B_hi]^T
+
+and the deep tail of small synthesis levels collapses into one operator pair
+``R @ Y @ C^T``. The operators are built host-side in float64 numpy and cached.
+
+Two functions carry a kernel, each a ``torch.autograd.Function`` with its
+plain PyTorch version beside it:
+
+- `dwt2_kernel` (counterpart of ``dwt2_pallas``): K1, ``csrc/dwt2.cu``;
+  backward is the plain adjoint ``A^T gY B`` (``_core_bwd``).
+- `waverec2_collapsed`: K3, ``csrc/pair.cu``; backward ``R^T g C``
+  (``_pair_bwd``) launches the same kernel with the operators swapped.
+
+A CUDA tensor goes to the kernel, or the call raises; the plain version
+serves CPU tensors only. `analysis2_mm` / `synthesis2_mm` are the plain
+matmul forms, differentiable by construction.
+"""
+
+from __future__ import annotations
+
+import functools
+
+import numpy as np
+import torch
+
+from wam_tpu_torch import kernels
+from wam_tpu_torch.wavelets.filters import Wavelet, build_wavelet
+
+__all__ = [
+    "analysis_matrices",
+    "synthesis_matrices",
+    "analysis2_mm",
+    "synthesis2_mm",
+    "dwt2_kernel",
+    "waverec2_collapsed",
+]
+
+
+def _source_index(p: int, n: int, mode: str) -> int:
+    """Map an (possibly out-of-range) padded position to an index in [0, n),
+    or -1 when the contribution is zero (mode='zero'). Follows pywt/numpy pad
+    semantics: 'reflect' = whole-sample, 'symmetric' = half-sample,
+    'constant' = edge-replicate (pywt naming), 'periodic' = wrap."""
+    if 0 <= p < n:
+        return p
+    if mode == "zero":
+        return -1
+    if mode == "constant":  # pywt 'constant' replicates the edge value
+        return 0 if p < 0 else n - 1
+    if mode == "periodic":
+        return p % n
+    if mode == "reflect":
+        if n == 1:
+            return 0
+        period = 2 * n - 2
+        m = p % period
+        return m if m < n else period - m
+    if mode == "symmetric":
+        period = 2 * n
+        m = p % period
+        return m if m < n else period - 1 - m
+    raise ValueError(f"Unsupported mode {mode!r}")
+
+
+@functools.lru_cache(maxsize=256)
+def _analysis_np(n: int, dec_lo: tuple, dec_hi: tuple, mode: str) -> np.ndarray:
+    """Stacked analysis matrix [A_lo; A_hi] of shape (2*n_out, n): row i of
+    A_f computes coefficient i of the f-subband, boundary handling folded in.
+    out[i] = sum_k f_rev[k] * xp[2i + k] with xp = pad(x, L-1)[1:]
+    (transform._analysis)."""
+    L = len(dec_lo)
+    n_out = (n + L - 1) // 2
+    mats = []
+    for filt in (dec_lo, dec_hi):
+        f_rev = np.asarray(filt[::-1], dtype=np.float64)
+        A = np.zeros((n_out, n))
+        for i in range(n_out):
+            for k in range(L):
+                s = _source_index(2 * i + k - L + 2, n, mode)
+                if s >= 0:
+                    A[i, s] += f_rev[k]
+        mats.append(A)
+    return np.concatenate(mats, axis=0)
+
+
+@functools.lru_cache(maxsize=256)
+def _synthesis_np(n_out: int, rec_lo: tuple, rec_hi: tuple) -> np.ndarray:
+    """Stacked synthesis matrix [S_lo | S_hi] of shape (full, 2*n_out) with
+    full = 2*n_out - L + 2: the zero-stuffed true convolution with the rec
+    filters, trimmed by L-2 per side (transform._synthesis)."""
+    L = len(rec_lo)
+    full = 2 * n_out - L + 2
+    mats = []
+    for filt in (rec_lo, rec_hi):
+        f = np.asarray(filt, dtype=np.float64)
+        S = np.zeros((full, n_out))
+        for i in range(n_out):
+            for k in range(L):
+                t = 2 * i + k - (L - 2)
+                if 0 <= t < full:
+                    S[t, i] += f[k]
+        mats.append(S)
+    return np.concatenate(mats, axis=1)
+
+
+@functools.lru_cache(maxsize=256)
+def _collapsed_axis_np(sizes: tuple, rec_lo: tuple, rec_hi: tuple) -> np.ndarray:
+    """Per-axis level-collapsed synthesis operator.
+
+    ``sizes`` are the per-level coefficient lengths along one axis, COARSEST
+    FIRST (n_J, ..., n_1). The synthesis cascade is linear, so it composes
+    into one banded matrix: with S_l = [S_lo | S_hi] the level-l synthesis
+    matrix and the inter-level trim folded in as a row slice,
+
+        C_1 = S_1,   C_l = C_{l-1}[:, :n_{l-1}] @ S_l[:n_{l-1}, :]
+
+    maps level-l [lo; hi] coefficients straight to the finest level's full
+    output. Returns [C_J | ... | C_1], shape (2*n_1 - L + 2, 2*sum(sizes))."""
+    fine_first = sizes[::-1]
+    blocks: list[np.ndarray] = []
+    e_lo = None  # C_{l-1}[:, :n_{l-1}]: the lo chain up to the previous level
+    for i, n in enumerate(fine_first):
+        S = _synthesis_np(int(n), rec_lo, rec_hi)
+        if e_lo is None:
+            C = S
+        else:
+            n_prev = int(fine_first[i - 1])
+            C = e_lo @ S[:n_prev, :]
+        blocks.append(C)
+        e_lo = C[:, : int(n)]
+    return np.concatenate(blocks[::-1], axis=1)
+
+
+def _wav(wavelet) -> Wavelet:
+    return wavelet if isinstance(wavelet, Wavelet) else build_wavelet(str(wavelet))
+
+
+def analysis_matrices(n: int, wavelet, mode: str, dtype=torch.float32,
+                      device=None) -> torch.Tensor:
+    """(2*n_out, n) stacked [A_lo; A_hi] analysis matrix for one axis."""
+    w = _wav(wavelet)
+    return torch.as_tensor(_analysis_np(n, tuple(w.dec_lo), tuple(w.dec_hi), mode),
+                           dtype=dtype, device=device)
+
+
+def synthesis_matrices(n_out: int, wavelet, dtype=torch.float32,
+                       device=None) -> torch.Tensor:
+    """(2*n_out - L + 2, 2*n_out) stacked [S_lo | S_hi] synthesis matrix."""
+    w = _wav(wavelet)
+    return torch.as_tensor(_synthesis_np(n_out, tuple(w.rec_lo), tuple(w.rec_hi)),
+                           dtype=dtype, device=device)
+
+
+@functools.lru_cache(maxsize=256)
+def _kernel_analysis(n: int, dec_lo: tuple, dec_hi: tuple, mode: str,
+                     device: torch.device) -> tuple[torch.Tensor, torch.Tensor]:
+    """(A, A^T) float32 on ``device``, both contiguous; cached so the hot
+    path copies no operator to the device."""
+    A = torch.as_tensor(_analysis_np(n, dec_lo, dec_hi, mode), dtype=torch.float32,
+                        device=device)
+    return A, A.T.contiguous()
+
+
+@functools.lru_cache(maxsize=256)
+def _kernel_collapsed(sizes: tuple, rec_lo: tuple, rec_hi: tuple,
+                      device: torch.device) -> tuple[torch.Tensor, torch.Tensor]:
+    """(C, C^T) float32 on ``device``, both contiguous."""
+    C = torch.as_tensor(_collapsed_axis_np(sizes, rec_lo, rec_hi), dtype=torch.float32,
+                        device=device)
+    return C, C.T.contiguous()
+
+
+def _split_quadrants(y: torch.Tensor, h_out: int, w_out: int) -> torch.Tensor:
+    """(..., 2*h_out, 2*w_out) block matrix -> (..., 4, h_out, w_out) in the
+    conv path's channel order (row, col): 0=aa, 1=ad, 2=da, 3=dd."""
+    return torch.stack([y[..., :h_out, :w_out], y[..., :h_out, w_out:],
+                        y[..., h_out:, :w_out], y[..., h_out:, w_out:]], dim=-3)
+
+
+def _merge_quadrants(sub: torch.Tensor) -> torch.Tensor:
+    """(..., 4, h, w) in (aa, ad, da, dd) order -> (..., 2h, 2w) block matrix."""
+    top = torch.cat([sub[..., 0, :, :], sub[..., 1, :, :]], dim=-1)
+    bot = torch.cat([sub[..., 2, :, :], sub[..., 3, :, :]], dim=-1)
+    return torch.cat([top, bot], dim=-2)
+
+
+def analysis2_mm(x: torch.Tensor, wavelet, mode: str) -> torch.Tensor:
+    """One 2D analysis level as two matmuls. x: (..., H, W) ->
+    (..., 4, H', W') matching `transform._analysis(x, wav, mode)`."""
+    h, w = x.shape[-2:]
+    A = analysis_matrices(h, wavelet, mode, x.dtype, x.device)
+    B = analysis_matrices(w, wavelet, mode, x.dtype, x.device)
+    y = torch.matmul(torch.matmul(A, x), B.T)
+    return _split_quadrants(y, A.shape[0] // 2, B.shape[0] // 2)
+
+
+def synthesis2_mm(subbands: torch.Tensor, wavelet, out_shape) -> torch.Tensor:
+    """Inverse of one 2D level as two matmuls. subbands: (..., 4, h, w) ->
+    (..., out_shape), trimmed like `transform._synthesis`."""
+    h, w = subbands.shape[-2:]
+    S_r = synthesis_matrices(h, wavelet, subbands.dtype, subbands.device)
+    S_c = synthesis_matrices(w, wavelet, subbands.dtype, subbands.device)
+    out = torch.matmul(torch.matmul(S_r, _merge_quadrants(subbands)), S_c.T)
+    return out[..., : out_shape[0], : out_shape[1]]
+
+
+# ---------------------------------------------------------------------------
+# The two-sided product m1t^T @ x[n] @ m2: the kernel on CUDA, plain on CPU
+# ---------------------------------------------------------------------------
+
+
+def pair_plain(x3: torch.Tensor, m1t: torch.Tensor, m2: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch version of K3: m1t^T @ x3[n] @ m2 (f32 accumulate)."""
+    return torch.matmul(torch.matmul(m1t.T, x3.float()), m2)
+
+
+def dwt2_plain(x3: torch.Tensor, At: torch.Tensor, Bt: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch version of K1: quadrant split of A @ x3[n] @ B^T."""
+    return _split_quadrants(pair_plain(x3, At, Bt), At.shape[1] // 2, Bt.shape[1] // 2)
+
+
+def _on_cpu(t: torch.Tensor) -> bool:
+    if t.is_cuda:
+        return False
+    if t.device.type != "cpu":
+        raise ValueError(f"unsupported device {t.device}: the port runs on cuda or cpu")
+    return True
+
+
+def _dwt2_forward(x3, At, Bt) -> torch.Tensor:
+    if _on_cpu(x3):
+        return dwt2_plain(x3, At, Bt)
+    return kernels.dwt2(x3, At, Bt)
+
+
+def _pair_forward(y3, m1t, m2) -> torch.Tensor:
+    if _on_cpu(y3):
+        return pair_plain(y3, m1t, m2)
+    return kernels.pair(y3, m1t, m2)
+
+
+class _Dwt2Core(torch.autograd.Function):
+    """x3 (N, H, W) -> (N, 4, h', w') float32; backward ``_core_bwd``."""
+
+    @staticmethod
+    def forward(ctx, x3, A, At, Bt):
+        ctx.save_for_backward(A, Bt)
+        ctx.x_dtype = x3.dtype
+        return _dwt2_forward(x3, At, Bt)
+
+    @staticmethod
+    def backward(ctx, g):
+        A, Bt = ctx.saved_tensors
+        dx = torch.matmul(torch.matmul(A.T, _merge_quadrants(g)), Bt.T)
+        return dx.to(ctx.x_dtype), None, None, None
+
+
+class _PairCore(torch.autograd.Function):
+    """y3 (N, 2Σr, 2Σc) -> (N, F_r, F_c) = R y C^T; backward ``_pair_bwd``
+    (R^T g C) on the same kernel."""
+
+    @staticmethod
+    def forward(ctx, y3, R, Rt, C, Ct):
+        ctx.save_for_backward(R, C)
+        ctx.y_dtype = y3.dtype
+        return _pair_forward(y3, Rt, Ct)
+
+    @staticmethod
+    def backward(ctx, g):
+        R, C = ctx.saved_tensors
+        dy = _pair_forward(g.contiguous(), R, C)
+        return dy.to(ctx.y_dtype), None, None, None, None
+
+
+def dwt2_kernel(x: torch.Tensor, wavelet, mode: str) -> torch.Tensor:
+    """One 2D analysis level through K1 (counterpart of ``dwt2_pallas``).
+
+    x: (..., H, W) -> (..., 4, H', W'), identical layout and values to
+    `transform._analysis(x, wav, mode)`; differentiable. bf16 inputs are read
+    as bf16 and upcast inside the kernel; bf16 and f32 inputs both return
+    FLOAT32 coefficients, so the multi-level cascade never re-rounds to bf16;
+    other dtypes are computed in float32 (the conv and matmul impls of
+    `transform` keep float64)."""
+    w = _wav(wavelet)
+    h, wd = x.shape[-2:]
+    taps = (tuple(w.dec_lo), tuple(w.dec_hi), mode)
+    A, At = _kernel_analysis(h, *taps, x.device)
+    _, Bt = _kernel_analysis(wd, *taps, x.device)
+    batch_shape = x.shape[:-2]
+    x3 = x.reshape((-1, h, wd))
+    if x3.dtype != torch.bfloat16:
+        x3 = x3.float()
+    out = _Dwt2Core.apply(x3.contiguous(), A, At, Bt)
+    return out.reshape(batch_shape + out.shape[1:])
+
+
+def waverec2_collapsed(cA: torch.Tensor, details, wavelet) -> torch.Tensor:
+    """Multi-level 2D synthesis of the given levels as ONE operator pair
+    through K3: out = R @ Y @ C^T with R/C the host-composed per-axis
+    collapsed operators and Y the block-diagonal coefficient matrix — per
+    level a 2x2 block [[aa, V], [H, D]] whose aa slot is zero except at the
+    coarsest level (the approximation cascade is folded into the operators).
+
+    ``details`` are Detail2D levels COARSEST FIRST. Returns the FULL
+    reconstruction of the finest given level (2n - L + 2 per side); the
+    caller trims. Leaves of any dtype are assembled in float32 (f32
+    accumulate)."""
+    Y = assemble_collapsed(cA, details)
+    out = _PairCore.apply(Y.reshape((-1,) + Y.shape[-2:]),
+                          *collapsed_operators(details, wavelet, cA.device))
+    return out.reshape(cA.shape[:-2] + out.shape[1:])
+
+
+def collapsed_operators(details, wavelet, device) -> tuple[torch.Tensor, ...]:
+    """(R, R^T, C, C^T) float32 on ``device`` for Detail2D levels given
+    COARSEST FIRST: the K3 operands of `waverec2_collapsed`."""
+    w = _wav(wavelet)
+    rlo, rhi = tuple(w.rec_lo), tuple(w.rec_hi)
+    R, Rt = _kernel_collapsed(tuple(int(d.horizontal.shape[-2]) for d in details), rlo, rhi,
+                              device)
+    C, Ct = _kernel_collapsed(tuple(int(d.horizontal.shape[-1]) for d in details), rlo, rhi,
+                              device)
+    return R, Rt, C, Ct
+
+
+def assemble_collapsed(cA: torch.Tensor, details) -> torch.Tensor:
+    """The block-diagonal coefficient matrix Y (..., 2*sum(r), 2*sum(c)) of
+    the collapsed levels: per level [[aa, V], [H, D]], aa only at the
+    coarsest; float32. Differentiable (slice assignment into a fresh zero
+    tensor)."""
+    rsizes = [int(d.horizontal.shape[-2]) for d in details]
+    csizes = [int(d.horizontal.shape[-1]) for d in details]
+    Y = torch.zeros(cA.shape[:-2] + (2 * sum(rsizes), 2 * sum(csizes)),
+                    dtype=torch.float32, device=cA.device)
+    off_r = off_c = 0
+    for i, det in enumerate(details):
+        hr, wc = rsizes[i], csizes[i]
+        if i == 0:  # coarsest: the only level whose aa slot carries data
+            Y[..., off_r:off_r + hr, off_c:off_c + wc] = cA[..., :hr, :wc]
+        Y[..., off_r:off_r + hr, off_c + wc:off_c + 2 * wc] = det.vertical
+        Y[..., off_r + hr:off_r + 2 * hr, off_c:off_c + wc] = det.horizontal
+        Y[..., off_r + hr:off_r + 2 * hr, off_c + wc:off_c + 2 * wc] = det.diagonal
+        off_r += 2 * hr
+        off_c += 2 * wc
+    return Y
