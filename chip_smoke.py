@@ -7,15 +7,24 @@ Run from the repository root on a machine with one CUDA card (Hopper,
 sm_90a). Phases, each fatal on failure:
 
 1. device: the card's name and power limit (nvidia-smi);
-2. build:  every kernel of the main path, compiled from ``wam_tpu_torch/csrc``
-   by nvcc (one process per source, all at once);
-3. kernels: each kernel against its plain PyTorch version at the shapes the
-   main path gives it, TF32 off, and timed with CUDA events;
-4. slice:  the main path, `WaveletAttribution2D` SmoothGrad on ResNet-50
-   (1000 classes, seeded random weights) at batch 32, 3x224x224, db4, J=3,
-   reflect, n_samples=25, stdev_spread=0.25, with launch counts reset just
-   before and read just after; then a reduced run (2 images, 2 samples) of
-   the kernel path against the same call on the plain versions.
+2. build:  every kernel, compiled from ``wam_tpu_torch/csrc`` by nvcc (one
+   process per source, all at once);
+3. kernels: each kernel against its plain PyTorch version at the shapes
+   each path that runs it gives it, TF32 off, and timed with CUDA events:
+   K1 and K3 at the flagship's and at path 2's, K2 (both directions) and
+   K4/K5 at path 2's; one line per kernel and path;
+4. slice:  the flagship path, `WaveletAttribution2D` SmoothGrad on
+   ResNet-50 (1000 classes, seeded random weights) at batch 32, 3x224x224,
+   db4, J=3, reflect, n_samples=25, stdev_spread=0.25, sample_batch_size=4,
+   with launch counts reset just before and read just after (K1 and K3
+   must have run); then a reduced run (2 images, 2 samples) of the kernel
+   path against the same call on the plain versions;
+5. slice2: path 2, the same call at 3x288x288 on ResNet-50 bound with
+   ``fused_relu_vjp=True``, where the finest synthesis level runs through K2
+   and every ReLU through K4/K5 (all five kernels must have run, at least as
+   often as the path needs); the same call with ``fused_relu_vjp=False``,
+   timed; and the reduced check at 288², kernel path with the fused ReLU
+   against plain path without it.
 
 Prints the kernels' JSON line, the nvidia-smi line, and as its last line
 ``{"ok": true, "device": {...}}``. Exits nonzero, printing no result, when
@@ -34,6 +43,7 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 
 BATCH, CHANNELS, SIDE = 32, 3, 224
+SIDE2 = 288               # path 2: timm's resnet50.a1_in1k test size
 WAVELET, LEVELS, MODE = "db4", 3, "reflect"
 N_SAMPLES, SPREAD = 25, 0.25
 SAMPLE_CHUNK = 4          # samples per model call: 4 x 32 = 128 ResNet-50 rows
@@ -129,140 +139,312 @@ def _check(name: str, got, want) -> tuple[float, float]:
     return err, tol
 
 
-def phase_kernels(torch, tmm, kernels) -> list[dict]:
-    """K1 at the three analysis levels (f32 and bf16 input) and K3 forward and
-    backward, at the main path's launch shapes: N = SAMPLE_CHUNK * BATCH *
-    CHANNELS images per launch."""
+def _case(torch, label: str, got, want, kernel_fn, plain_fn, product, reads, out_bytes: int,
+          library: bool = True, extra=None, **tags) -> dict:
+    """One launch shape of a two-sided product kernel (K1-K3): ``got`` held
+    against ``want``, then the kernel, its plain version, the einsum of the
+    pair on ``product`` = (M1^T, X, M2) as the product sees it (when
+    ``library``) and any ``extra`` callables timed. The bound counts the
+    tensors in ``reads`` read once and ``out_bytes`` written once, and the
+    FLOP the product needs (`_needed_flops`)."""
+    m1t, x, m2 = product
+    err, tol = _check(label, got, want)
+    case = {**tags, "max_abs_err": err, "tol": tol, "ms": _time_ms(kernel_fn),
+            "plain_ms": _time_ms(plain_fn), "library_ms": None}
+    if library:
+        case["library_ms"] = _time_ms(lambda: torch.einsum("qp,nqs,st->npt", m1t, x, m2))
+    for key, fn in (extra or {}).items():
+        case[key] = _time_ms(fn)
+    nbytes = _nbytes(*reads) + out_bytes
+    flops, dense = _needed_flops(x, m1t, m2), _dense_flops(x, m1t, m2)
+    bound, by = _bound_ms(nbytes, flops)
+    case.update(bound_ms=bound, bound_by=by, flops=flops, dense_flops=dense, bytes=nbytes,
+                dense_bound_ms=_bound_ms(nbytes, dense)[0])
+    lib = "" if case["library_ms"] is None else f", einsum {case['library_ms']:.4f}"
+    _log(f"  {label}: {case['ms']:.4f} ms (plain {case['plain_ms']:.4f}{lib}, "
+         f"bound {bound:.4f} by {by})")
+    return case
+
+
+def _row(kernel: str, name: str, source: str, replaces: str, path: str, cases: list,
+         library: str, work: str) -> dict:
+    """A kernel's line for one path: its cases, and ms / plain_ms /
+    library_ms / bound summed over the float32 cases (the path runs float32:
+    one sample chunk's launches of this kernel)."""
+    main = [c for c in cases if c["dtype"] == "float32"]
+
+    def total(key):
+        return sum(c[key] for c in main)
+
+    bound, by = _bound_ms(total("bytes"), total("flops"))
+    return {"name": f"{name}, {path}", "kernel": kernel, "path": path, "route": "cuda",
+            "source": source, "replaces": replaces, "launches": None,
+            "max_abs_err": max(c["max_abs_err"] for c in cases),
+            "tol": max(c["tol"] for c in cases), "ms": total("ms"),
+            "plain_ms": total("plain_ms"), "bound_ms": bound, "bound_by": by,
+            "flops": total("flops"), "bytes": total("bytes"),
+            "dense_bound_ms": _bound_ms(total("bytes"), total("dense_flops"))[0],
+            "library_ms": total("library_ms"), "library": library, "work": work,
+            "cases": cases}
+
+
+def _k1_cases(torch, tmm, kernels, g, side: int) -> list[dict]:
+    """K1 at the three analysis levels of a side x side path, float32 and
+    bfloat16 input; level l reads level l-1's float32 approximation."""
+    dev = torch.device(DEVICE)
+    n = SAMPLE_CHUNK * BATCH * CHANNELS
+    from wam_tpu_torch.wavelets.filters import build_wavelet
+
+    w = build_wavelet(WAVELET)
+    taps = (tuple(w.dec_lo), tuple(w.dec_hi), MODE)
+    cases = []
+    x = torch.randn((n, side, side), generator=g, device=dev)
+    for level in range(1, LEVELS + 1):
+        q = x.shape[-1]
+        _, At = tmm._kernel_analysis(q, *taps, dev)
+        Bt = At
+        out_bytes = n * At.shape[1] * Bt.shape[1] * 4
+        for dtype in (torch.float32, torch.bfloat16):
+            xin = x.to(dtype).contiguous()
+            want = tmm.dwt2_plain(xin, At, Bt)
+            f32 = dtype == torch.float32
+            cases.append(_case(
+                torch, f"K1 {side}^2 level {level} {str(dtype)[6:]}", kernels.dwt2(xin, At, Bt),
+                want, lambda: kernels.dwt2(xin, At, Bt), lambda: tmm.dwt2_plain(xin, At, Bt),
+                (At, xin, Bt), (xin, At, Bt), out_bytes, library=f32,
+                extra={"matmul_pair_ms": lambda: tmm.pair_plain(xin, At, Bt)} if f32 else None,
+                part=f"analysis level {level}", dtype=str(dtype)[6:], shape=[n, q, q]))
+            if f32:
+                nxt = want[:, 0].contiguous()
+        x = nxt
+    return cases
+
+
+def _k3_cases(torch, tmm, kernels, g, side: int) -> list[dict]:
+    """K3 forward and backward (through autograd) on Y of a real
+    decomposition of a side x side noisy batch, over the levels that
+    `transform.waverec2` collapses at that side."""
+    from wam_tpu_torch.wavelets import transform as tt
+
+    dev = torch.device(DEVICE)
+    n = SAMPLE_CHUNK * BATCH * CHANNELS
+    imgs = torch.randn((n // CHANNELS, CHANNELS, side, side), generator=g, device=dev)
+    coeffs = tt.wavedec2(imgs, WAVELET, LEVELS, MODE, impl="matmul")
+    details = coeffs[1:][:tt._collapse_count(coeffs[1:])]
+    R, Rt, C, Ct = tmm.collapsed_operators(details, WAVELET, dev)
+    y3 = tmm.assemble_collapsed(coeffs[0], details).reshape(n, Rt.shape[0], Ct.shape[0])
+    gout = torch.randn((n, R.shape[0], C.shape[0]), generator=g, device=dev)
+    yv = y3.clone().requires_grad_(True)
+    (dy,) = torch.autograd.grad(tmm._PairCore.apply(yv, R, Rt, C, Ct), yv, gout)
+    cases = []
+    for name, got, (m1t, xin, m2) in (
+            ("forward", kernels.pair(y3, Rt, Ct), (Rt, y3, Ct)),
+            ("backward (autograd)", dy, (R, gout, C))):
+        cases.append(_case(
+            torch, f"K3 {side}^2 {name}", got, tmm.pair_plain(xin, m1t, m2),
+            lambda: kernels.pair(xin, m1t, m2), lambda: tmm.pair_plain(xin, m1t, m2),
+            (m1t, xin, m2), (xin, m1t, m2), n * m1t.shape[1] * m2.shape[1] * 4,
+            part=name, dtype="float32", shape=list(xin.shape)))
+    return cases
+
+
+def _k2_cases(torch, tmm, kernels, g) -> tuple[list[dict], dict]:
+    """K2 forward (float32 and bfloat16 subbands) at path 2's finest
+    synthesis level, N = SAMPLE_CHUNK * BATCH * CHANNELS images of (4, 147,
+    147) -> 288 x 288; and its backward through autograd, which is a K1
+    launch (returned apart: it is one of K1's launches on path 2)."""
+    dev = torch.device(DEVICE)
+    n = SAMPLE_CHUNK * BATCH * CHANNELS
+    from wam_tpu_torch.wavelets.filters import build_wavelet
+
+    w = build_wavelet(WAVELET)
+    h = (SIDE2 + w.filt_len - 1) // 2
+    Sr, Srt = tmm._kernel_synthesis(h, tuple(w.rec_lo), tuple(w.rec_hi), dev)
+    Sc, Sct = Sr, Srt
+    full = Sr.shape[0]
+    sub = torch.randn((n, 4, h, h), generator=g, device=dev)
+    cases = []
+    for dtype in (torch.float32, torch.bfloat16):
+        sin = sub.to(dtype).contiguous()
+        merged = tmm._merge_quadrants(sin.float())  # the product as the einsum sees it
+        cases.append(_case(
+            torch, f"K2 forward {str(dtype)[6:]}", kernels.synth2(sin, Srt, Sct),
+            tmm.idwt2_plain(sin, Sr, Sct), lambda: kernels.synth2(sin, Srt, Sct),
+            lambda: tmm.idwt2_plain(sin, Sr, Sct), (Srt, merged, Sct), (sin, Srt, Sct),
+            n * full * full * 4, part="forward", dtype=str(dtype)[6:], shape=[n, 4, h, h]))
+        del merged
+
+    # the backward as autograd runs it: the quadrant split of Sr^T g Sc on K1
+    gout = torch.randn((n, full, full), generator=g, device=dev)
+    sv = sub.clone().requires_grad_(True)
+    (dsub,) = torch.autograd.grad(tmm._Idwt2Core.apply(sv, Sr, Srt, Sc, Sct), sv, gout)
+    bwd = _case(torch, "K2 backward (autograd, a K1 launch)", dsub, tmm.dwt2_plain(gout, Sr, Sc),
+                lambda: kernels.dwt2(gout, Sr, Sc), lambda: tmm.dwt2_plain(gout, Sr, Sc),
+                (Sr, gout, Sc), (gout, Sr, Sc), n * 4 * h * h * 4,
+                extra={"matmul_pair_ms": lambda: tmm.pair_plain(gout, Sr, Sc)},
+                part="K2 backward (autograd)", dtype="float32", shape=[n, full, full])
+    return cases, bwd
+
+
+def phase_kernels(torch, tmm, kernels, sites) -> list[dict]:
+    """Every kernel against its plain version at the launch shapes of each
+    path that runs it (N = SAMPLE_CHUNK * BATCH * CHANNELS images per
+    launch), TF32 off: K1 and K3 at the flagship's and at path 2's, K2 and
+    K4/K5 (at the ReLU ``sites``) at path 2's. One line per kernel and path."""
     dev = torch.device(DEVICE)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     _log("phase kernels: torch.backends.cuda.matmul.allow_tf32=False "
          "torch.backends.cudnn.allow_tf32=False")
     g = torch.Generator(device=dev).manual_seed(SEED)
-    n = SAMPLE_CHUNK * BATCH * CHANNELS
-    from wam_tpu_torch.wavelets.filters import build_wavelet
-
-    w = build_wavelet(WAVELET)
-    taps = (tuple(w.dec_lo), tuple(w.dec_hi), MODE)
-
-    # K1: level l reads the previous level's approximation
-    k1 = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "matmul_pair_ms": 0.0, "err": 0.0,
-          "tol": 0.0, "bytes": 0, "flops": 0, "dense_flops": 0, "cases": []}
-    x = torch.randn((n, SIDE, SIDE), generator=g, device=dev)
-    for level in range(1, LEVELS + 1):
-        side = x.shape[-1]
-        A, At = tmm._kernel_analysis(side, *taps, dev)
-        _, Bt = tmm._kernel_analysis(side, *taps, dev)
-        for dtype in (torch.float32, torch.bfloat16):
-            xin = x.to(dtype).contiguous()
-            want = tmm.dwt2_plain(xin, At, Bt)
-            err, tol = _check(f"K1 level {level} {str(dtype)[6:]}", kernels.dwt2(xin, At, Bt), want)
-            ms = _time_ms(lambda: kernels.dwt2(xin, At, Bt))
-            plain_ms = _time_ms(lambda: tmm.dwt2_plain(xin, At, Bt))
-            p, q, s, t = At.shape[1], side, side, Bt.shape[1]
-            nbytes = _nbytes(xin, At, Bt) + n * p * t * 4
-            flops, dense = _needed_flops(xin, At, Bt), _dense_flops(xin, At, Bt)
-            bound, by = _bound_ms(nbytes, flops)
-            case = {"level": level, "dtype": str(dtype)[6:], "shape": [n, q, s],
-                    "max_abs_err": err, "tol": tol, "ms": ms, "plain_ms": plain_ms,
-                    "bound_ms": bound, "bound_by": by, "flops": flops,
-                    "dense_flops": dense, "bytes": nbytes,
-                    "dense_bound_ms": _bound_ms(nbytes, dense)[0]}
-            if dtype == torch.float32:
-                xf = xin
-                case["library_ms"] = _time_ms(
-                    lambda: torch.einsum("qp,nqs,st->npt", At, xf, Bt))
-                case["matmul_pair_ms"] = _time_ms(lambda: tmm.pair_plain(xf, At, Bt))
-                # the main path's per-step work: its dtype (f32) at every level
-                for key in ("ms", "plain_ms", "library_ms", "matmul_pair_ms"):
-                    k1[key] += case[key]
-                k1["bytes"] += nbytes
-                k1["flops"] += flops
-                k1["dense_flops"] += dense
-            k1["err"] = max(k1["err"], err)
-            k1["tol"] = max(k1["tol"], tol)
-            k1["cases"].append(case)
-            _log(f"  K1 level {level} {case['dtype']}: {ms:.4f} ms (plain {plain_ms:.4f}, "
-                 f"bound {bound:.4f} by {by})")
-        x = want[:, 0].contiguous()
-
-    # K3: Y of a real decomposition of the noisy-batch shape
-    from wam_tpu_torch.wavelets import transform as tt
-
-    imgs = torch.randn((n // CHANNELS, CHANNELS, SIDE, SIDE), generator=g, device=dev)
-    coeffs = tt.wavedec2(imgs, WAVELET, LEVELS, MODE, impl="matmul")
-    details = coeffs[1:]
-    R, Rt, C, Ct = tmm.collapsed_operators(details, WAVELET, dev)
-    y3 = tmm.assemble_collapsed(coeffs[0], details).reshape(n, Rt.shape[0], Ct.shape[0])
-    gout = torch.randn((n, R.shape[0], C.shape[0]), generator=g, device=dev)
-    k3 = {"cases": []}
-    fwd_err, fwd_tol = _check("K3 forward", kernels.pair(y3, Rt, Ct), tmm.pair_plain(y3, Rt, Ct))
-    yv = y3.clone().requires_grad_(True)
-    out = tmm._PairCore.apply(yv, R, Rt, C, Ct)
-    (dy,) = torch.autograd.grad(out, yv, gout)
-    bwd_err, bwd_tol = _check("K3 backward (autograd)", dy, tmm.pair_plain(gout, R, C))
-    for name, (xin, m1t, m2), err, tol in (
-            ("forward", (y3, Rt, Ct), fwd_err, fwd_tol),
-            ("backward", (gout, R, C), bwd_err, bwd_tol)):
-        ms = _time_ms(lambda: kernels.pair(xin, m1t, m2))
-        plain_ms = _time_ms(lambda: tmm.pair_plain(xin, m1t, m2))
-        library_ms = _time_ms(lambda: torch.einsum("qp,nqs,st->npt", m1t, xin, m2))
-        p, q, s, t = m1t.shape[1], m1t.shape[0], m2.shape[0], m2.shape[1]
-        nbytes = _nbytes(xin, m1t, m2) + n * p * t * 4
-        flops, dense = _needed_flops(xin, m1t, m2), _dense_flops(xin, m1t, m2)
-        bound, by = _bound_ms(nbytes, flops)
-        k3["cases"].append({"pass": name, "shape": [n, q, s], "max_abs_err": err, "tol": tol,
-                            "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
-                            "bound_ms": bound, "bound_by": by, "flops": flops,
-                            "dense_flops": dense, "bytes": nbytes,
-                            "dense_bound_ms": _bound_ms(nbytes, dense)[0]})
-        _log(f"  K3 {name}: {ms:.4f} ms (plain {plain_ms:.4f}, einsum {library_ms:.4f}, "
-             f"bound {bound:.4f} by {by})")
-    def total(cases, key):
-        return sum(c[key] for c in cases)
-
-    k3_bound, k3_by = _bound_ms(total(k3["cases"], "bytes"), total(k3["cases"], "flops"))
-    k1_bound, k1_by = _bound_ms(k1["bytes"], k1["flops"])
-
-    return [
-        {"name": "dwt2_kernel (K1)", "route": "cuda", "source": "wam_tpu_torch/csrc/dwt2.cu",
-         "replaces": "wam_tpu/wavelets/matmul.py:176", "launches": None,
-         "max_abs_err": k1["err"], "tol": k1["tol"], "ms": k1["ms"], "plain_ms": k1["plain_ms"],
-         "bound_ms": k1_bound, "bound_by": k1_by, "flops": k1["flops"], "bytes": k1["bytes"],
-         "dense_bound_ms": _bound_ms(k1["bytes"], k1["dense_flops"])[0],
-         "library_ms": k1["library_ms"],
-         "library": "torch.einsum (the matmul pair, without the quadrant split)",
-         "matmul_pair_ms": k1["matmul_pair_ms"],
-         "work": "3 analysis levels, f32 input, one sample chunk", "cases": k1["cases"]},
-        {"name": "waverec2_collapsed (K3)", "route": "cuda", "source": "wam_tpu_torch/csrc/pair.cu",
-         "replaces": "wam_tpu/wavelets/matmul.py:439", "launches": None,
-         "max_abs_err": max(fwd_err, bwd_err), "tol": max(fwd_tol, bwd_tol),
-         "ms": total(k3["cases"], "ms"), "plain_ms": total(k3["cases"], "plain_ms"),
-         "bound_ms": k3_bound, "bound_by": k3_by, "flops": total(k3["cases"], "flops"),
-         "bytes": total(k3["cases"], "bytes"),
-         "dense_bound_ms": _bound_ms(total(k3["cases"], "bytes"),
-                                     total(k3["cases"], "dense_flops"))[0],
-         "library_ms": total(k3["cases"], "library_ms"),
-         "library": "torch.einsum (the matmul pair)",
-         "matmul_pair_ms": total(k3["cases"], "plain_ms"),
-         "work": "forward + backward, one sample chunk", "cases": k3["cases"]},
-    ]
+    k2_cases, k2_bwd = _k2_cases(torch, tmm, kernels, g)
+    k1 = ("dwt2", "dwt2_kernel (K1)", "wam_tpu_torch/csrc/dwt2.cu",
+          "wam_tpu/wavelets/matmul.py:176")
+    k3 = ("pair", "waverec2_collapsed (K3)", "wam_tpu_torch/csrc/pair.cu",
+          "wam_tpu/wavelets/matmul.py:439")
+    einsum = "torch.einsum (the matmul pair, without the quadrant split)"
+    rows = []
+    for path, side in (("flagship", SIDE), ("path 2", SIDE2)):
+        k1_cases = _k1_cases(torch, tmm, kernels, g, side)
+        k1_work = f"3 analysis levels at {side}^2, f32 input, one sample chunk"
+        if path == "path 2":
+            k1_cases.append(k2_bwd)
+            k1_work += ", and K2's backward at the finest synthesis level"
+        rows.append(_row(*k1, path, k1_cases, einsum, k1_work))
+        rows.append(_row(*k3, path, _k3_cases(torch, tmm, kernels, g, side),
+                         "torch.einsum (the matmul pair)",
+                         f"forward + backward of the collapsed levels at {side}^2, "
+                         "one sample chunk"))
+    rows.insert(3, _row("synth2", "idwt2_kernel (K2)", "wam_tpu_torch/csrc/synth2.cu",
+                        "wam_tpu/wavelets/matmul.py:313", "path 2", k2_cases,
+                        "torch.einsum (the matmul pair on the merged matrix, merge not timed)",
+                        f"forward, f32 subbands, one sample chunk at {SIDE2}^2 (its backward "
+                        "is a K1 launch, timed and counted on K1's path-2 line)"))
+    return rows + _relu_rows(torch, kernels, g, sites)
 
 
-def build_slice(torch, wtt):
-    """The main path's set-up, shared with scripts/torch_slice_profile.py:
-    the library's precision defaults, stated (cuDNN convolutions in TF32,
-    matmuls in float32), ResNet-50 with 1000 classes and weights from SEED,
-    a (BATCH, CHANNELS, SIDE, SIDE) batch and its labels from a generator
-    seeded SEED + 1, and the SmoothGrad attribution object on the kernels.
-    Returns (model_fn, wam, x, y, generator)."""
+def relu_sites(torch, wtt) -> list[tuple[int, ...]]:
+    """(C, H, W) of every ReLU site of ResNet-50 at SIDE2, in call order,
+    recorded through the model's ``act``."""
+    sites = []
+
+    def record(t):
+        sites.append(tuple(t.shape[1:]))
+        return torch.relu(t)
+
+    model = wtt.resnet50(num_classes=1000).to(DEVICE).eval()
+    for m in model.modules():
+        if hasattr(m, "act"):
+            m.act = record
+    with torch.no_grad():
+        model(torch.zeros((1, CHANNELS, SIDE2, SIDE2), device=DEVICE))
+    return sites
+
+
+def _equal(name: str, got, want) -> None:
+    import torch
+
+    torch.cuda.synchronize()
+    if not all(torch.equal(a, b) for a, b in zip(got, want)):
+        raise AssertionError(f"{name}: kernel output is not equal to its plain version")
+
+
+def _relu_rows(torch, kernels, g, sites) -> list[dict]:
+    """K4 and K5 at every ReLU site shape of a path-2 step (SAMPLE_CHUNK *
+    BATCH rows; ``sites`` from `relu_sites`), float32 and bfloat16, the
+    float32 times summed over the sites with their multiplicity (the path
+    runs float32); ragged sizes. Outputs must EQUAL the plain versions (mask
+    bytes, y, dx)."""
+    from collections import Counter
+
+    from wam_tpu_torch.tune import fused_relu as tfr
+
     dev = torch.device(DEVICE)
+    rows = SAMPLE_CHUNK * BATCH
+    by_size = sorted(Counter(sites).items(), key=lambda kv: -math.prod(kv[0]))
+    total = {k: {"ms": 0.0, "plain_ms": 0.0, "nearest_ms": 0.0, "bytes": 0, "ops": 0}
+             for k in ("K4", "K5")}
+    cases = {"K4": [], "K5": []}
+    for dtype in (torch.float32, torch.bfloat16):
+        for shape, count in by_size:
+            x = torch.randn((rows,) + shape, generator=g, device=dev).to(dtype)
+            x.view(-1)[::97] = 0  # exact zeros: gate x > 0
+            gout = torch.randn((rows,) + shape, generator=g, device=dev).to(dtype)
+            numel, tag = x.numel(), f"{(rows,) + shape} {str(dtype)[6:]}"
+            y, m = kernels.relu_fwd(x)
+            dx = kernels.relu_bwd(m, gout)
+            _equal(f"K4 {tag}", (y, m), tfr.relu_fwd_plain(x))
+            _equal(f"K5 {tag}", (dx,), (tfr.relu_bwd_plain(m, gout),))
+            timings = {
+                "K4": (_time_ms(lambda: kernels.relu_fwd(x)),
+                       _time_ms(lambda: tfr.relu_fwd_plain(x)),
+                       _time_ms(lambda: torch.relu(x)), _nbytes(x, y, m)),
+                "K5": (_time_ms(lambda: kernels.relu_bwd(m, gout)),
+                       _time_ms(lambda: tfr.relu_bwd_plain(m, gout)),
+                       _time_ms(lambda: torch.ops.aten.threshold_backward(gout, y, 0)),
+                       _nbytes(m, gout, dx)),
+            }
+            for k, (ms, plain_ms, nearest_ms, nbytes) in timings.items():
+                bound, by = _bound_ms(nbytes, numel)
+                cases[k].append({"shape": [rows, *shape], "dtype": str(dtype)[6:],
+                                 "sites": count, "ms": ms, "plain_ms": plain_ms,
+                                 "nearest_ms": nearest_ms, "bound_ms": bound, "bound_by": by,
+                                 "bytes": nbytes, "max_abs_err": 0.0})
+                if dtype == torch.float32:
+                    for key, v in (("ms", ms), ("plain_ms", plain_ms), ("nearest_ms", nearest_ms),
+                                   ("bytes", nbytes), ("ops", numel)):
+                        total[k][key] += count * v
+            _log(f"  K4/K5 {tag} x{count}: K4 {timings['K4'][0]:.4f} ms (plain "
+                 f"{timings['K4'][1]:.4f}, torch.relu {timings['K4'][2]:.4f}); K5 "
+                 f"{timings['K5'][0]:.4f} ms (plain {timings['K5'][1]:.4f}, threshold_backward "
+                 f"{timings['K5'][2]:.4f}); equal")
+            del x, gout, y, m, dx
+    for numel in (1, 1000, 3 * 1025):  # the ragged tail is masked in the kernels
+        x = torch.randn(numel, generator=g, device=dev)
+        gout = torch.randn(numel, generator=g, device=dev)
+        y, m = kernels.relu_fwd(x)
+        _equal(f"K4 ragged {numel}", (y, m), tfr.relu_fwd_plain(x))
+        _equal(f"K5 ragged {numel}", (kernels.relu_bwd(m, gout),), (tfr.relu_bwd_plain(m, gout),))
+    _log(f"  K4/K5: {len(sites)} ReLU sites, {len(by_size)} shapes; ragged sizes equal")
+
+    out = []
+    for k, line, nearest in (("K4", 110, "torch.relu"),
+                             ("K5", 116, "torch.ops.aten.threshold_backward")):
+        t = total[k]
+        bound, by = _bound_ms(t["bytes"], t["ops"])
+        out.append({
+            "name": f"fused_relu {'forward' if k == 'K4' else 'backward'} ({k}), path 2",
+            "kernel": "relu_fwd" if k == "K4" else "relu_bwd", "path": "path 2", "route": "cuda",
+            "source": "wam_tpu_torch/csrc/relu_mask.cu",
+            "replaces": f"wam_tpu/tune/fused_relu.py:{line}", "launches": None,
+            "max_abs_err": 0.0, "tol": 0.0, "ms": t["ms"], "plain_ms": t["plain_ms"],
+            "bound_ms": bound, "bound_by": by, "bytes": t["bytes"], "ops": t["ops"],
+            "library_ms": None, "nearest_call": nearest, "nearest_call_ms": t["nearest_ms"],
+            "work": f"all {len(sites)} ReLU sites of one {rows}-row ResNet-50 step at "
+                    f"{SIDE2}^2, float32 (the nearest call computes relu or its gate-from-"
+                    "output backward, not the packed mask)",
+            "cases": cases[k]})
+    return out
+
+
+def build_slice(torch, wtt, side: int | None = None, fused_relu_vjp: bool = False):
+    """A path's set-up, shared with scripts/torch_slice_profile.py: the
+    library's precision defaults, stated (cuDNN convolutions in TF32, matmuls
+    in float32), ResNet-50 with 1000 classes and weights from SEED (bound with
+    ``fused_relu_vjp``), a (BATCH, CHANNELS, side, side) batch and its labels
+    from a generator seeded SEED + 1, and the SmoothGrad attribution object
+    on the kernels. The flagship is ``side=SIDE`` (the default); path 2 is
+    ``side=SIDE2, fused_relu_vjp=True``. Returns (model_fn, wam, x, y,
+    generator)."""
+    dev = torch.device(DEVICE)
+    side = SIDE if side is None else side
     torch.backends.cudnn.allow_tf32 = True
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.manual_seed(SEED)
-    fn = wtt.bind_inference(wtt.resnet50(num_classes=1000), device=dev)
+    fn = wtt.bind_inference(wtt.resnet50(num_classes=1000), device=dev,
+                            fused_relu_vjp=fused_relu_vjp)
     g = torch.Generator(device=dev).manual_seed(SEED + 1)
-    x = torch.randn((BATCH, CHANNELS, SIDE, SIDE), generator=g, device=dev)
+    x = torch.randn((BATCH, CHANNELS, side, side), generator=g, device=dev)
     y = torch.randint(0, 1000, (BATCH,), generator=g, device=dev)
     wam = wtt.WaveletAttribution2D(fn, wavelet=WAVELET, J=LEVELS, mode=MODE, method="smooth",
                                    n_samples=N_SAMPLES, stdev_spread=SPREAD,
@@ -270,15 +452,11 @@ def build_slice(torch, wtt):
     return fn, wam, x, y, g
 
 
-def phase_slice(torch, wtt, kernels, smi: str) -> dict:
-    """The main path at full width, then the reduced kernel-vs-plain check."""
-    dev = torch.device(DEVICE)
-    fn, wam, x, y, g = build_slice(torch, wtt)
-    _log(f"phase slice: ResNet-50 x ({BATCH},{CHANNELS},{SIDE},{SIDE}) {WAVELET} J={LEVELS} "
-         f"{MODE} n_samples={N_SAMPLES} sample_batch_size={SAMPLE_CHUNK} "
-         "cudnn.allow_tf32=True matmul.allow_tf32=False")
+def _drive(torch, kernels, wam, x, y) -> dict:
+    """One warm-up call (cuDNN plans, allocator), then the timed call with
+    the launch counts set to 0 just before and read just after."""
     t0 = time.perf_counter()
-    wam(x, y)  # warm-up: cuDNN plans, allocator
+    wam(x, y)
     torch.cuda.synchronize()
     warm_s = time.perf_counter() - t0
 
@@ -289,29 +467,40 @@ def phase_slice(torch, wtt, kernels, smi: str) -> dict:
     out = wam(x, y)
     torch.cuda.synchronize()
     run_s = time.perf_counter() - t0
-    launches = kernels.launch_counts()
-    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    return {"out": out, "launches": kernels.launch_counts(), "seconds": run_s,
+            "first_call_s": warm_s, "attributions_per_s": BATCH / run_s,
+            "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9}
 
-    side = 2 * ((SIDE + wtt.wavelets.filters.build_wavelet(WAVELET).filt_len - 1) // 2)
-    if tuple(out.shape) != (BATCH, side, side):
-        raise AssertionError(f"mosaic shape {tuple(out.shape)} != {(BATCH, side, side)}")
+
+def _check_result(wtt, wam, run: dict, side: int, expected: dict) -> None:
+    """The mosaic and the scales have the path's shapes, the mosaic is
+    finite and nonzero, and every kernel of the path ran at least as often
+    as the path needs."""
+    import torch
+
+    out = run["out"]
+    mosaic = 2 * ((side + wtt.wavelets.filters.build_wavelet(WAVELET).filt_len - 1) // 2)
+    if tuple(out.shape) != (BATCH, mosaic, mosaic):
+        raise AssertionError(f"mosaic shape {tuple(out.shape)} != {(BATCH, mosaic, mosaic)}")
     if not bool(torch.isfinite(out).all()) or float(out.abs().sum()) == 0.0:
         raise AssertionError("mosaic is not finite and nonzero")
-    if tuple(wam.scales.shape) != (BATCH, LEVELS, side, side):
+    if tuple(wam.scales.shape) != (BATCH, LEVELS, mosaic, mosaic):
         raise AssertionError(f"scales shape {tuple(wam.scales.shape)}")
-    for name, count in launches.items():
-        if count == 0:
-            raise AssertionError(f"kernel {name} was not launched on the main path")
-    _log(f"  launches on the main path: {launches}")
-    _log(f"  first call {warm_s:.3f} s; timed call {run_s:.3f} s = "
-         f"{BATCH / run_s:.2f} attributions/s; peak memory {peak_gb:.2f} GB on {smi}")
+    for name, need in expected.items():
+        if run["launches"][name] < need:
+            raise AssertionError(f"kernel {name} launched {run['launches'][name]} times on "
+                                 f"this path, expected at least {need}")
 
-    # reduced check: kernel path vs the same call on the plain versions
+
+def _reduced_check(torch, wtt, fn_kernel, fn_plain, x, y, g) -> dict:
+    """The kernel path (impl="kernel" on ``fn_kernel``) against the plain
+    path (impl="matmul" on ``fn_plain``) on 2 images x 2 samples, TF32 off."""
+    dev = torch.device(DEVICE)
     torch.backends.cudnn.allow_tf32 = False
     n_img, n_smp = 2, 2
-    z = torch.randn((n_smp, n_img, CHANNELS, SIDE, SIDE), generator=g, device=dev)
+    z = torch.randn((n_smp, n_img) + tuple(x.shape[1:]), generator=g, device=dev)
     res = {}
-    for impl in ("kernel", "matmul"):
+    for impl, fn in (("kernel", fn_kernel), ("matmul", fn_plain)):
         small = wtt.WaveletAttribution2D(fn, wavelet=WAVELET, J=LEVELS, mode=MODE,
                                          n_samples=n_smp, stdev_spread=SPREAD,
                                          sample_batch_size=SAMPLE_CHUNK, device=dev, impl=impl)
@@ -329,9 +518,59 @@ def phase_slice(torch, wtt, kernels, smi: str) -> dict:
          f"mean_abs_err={float(diff.mean()):.3e}")
     if not (err <= 1e-2 and cos >= 0.9999):
         raise AssertionError("reduced check: kernel path disagrees with the plain path")
-    return {"launches": launches, "seconds": run_s, "first_call_s": warm_s,
-            "attributions_per_s": BATCH / run_s, "peak_memory_gb": peak_gb,
-            "reduced_max_abs_err": err, "reduced_cosine": cos}
+    return {"reduced_max_abs_err": err, "reduced_cosine": cos}
+
+
+def _summary(run: dict) -> dict:
+    return {k: v for k, v in run.items() if k != "out"}
+
+
+def phase_slice(torch, wtt, kernels, smi: str) -> dict:
+    """The flagship at full width, then the reduced kernel-vs-plain check."""
+    fn, wam, x, y, g = build_slice(torch, wtt)
+    _log(f"phase slice: ResNet-50 x ({BATCH},{CHANNELS},{SIDE},{SIDE}) {WAVELET} J={LEVELS} "
+         f"{MODE} n_samples={N_SAMPLES} sample_batch_size={SAMPLE_CHUNK} "
+         "cudnn.allow_tf32=True matmul.allow_tf32=False")
+    run = _drive(torch, kernels, wam, x, y)
+    chunks = -(-N_SAMPLES // SAMPLE_CHUNK)
+    _check_result(wtt, wam, run, SIDE, {"dwt2": LEVELS * chunks, "pair": 2 * chunks})
+    _log(f"  launches on the flagship path: {run['launches']}")
+    _log(f"  first call {run['first_call_s']:.3f} s; timed call {run['seconds']:.3f} s = "
+         f"{run['attributions_per_s']:.2f} attributions/s; peak memory "
+         f"{run['peak_memory_gb']:.2f} GB on {smi}")
+    return {**_summary(run), **_reduced_check(torch, wtt, fn, fn, x, y, g)}
+
+
+def phase_slice2(torch, wtt, kernels, smi: str, n_sites: int) -> dict:
+    """Path 2 at full width (288², fused ReLU VJP): every kernel must run;
+    then the same call without the fused ReLU, timed; then the reduced check
+    of the kernel path with the fused ReLU against the plain path without."""
+    fn, wam, x, y, g = build_slice(torch, wtt, side=SIDE2, fused_relu_vjp=True)
+    _log(f"phase slice2: ResNet-50 (fused_relu_vjp=True) x ({BATCH},{CHANNELS},{SIDE2},{SIDE2}) "
+         f"{WAVELET} J={LEVELS} {MODE} n_samples={N_SAMPLES} sample_batch_size={SAMPLE_CHUNK} "
+         "cudnn.allow_tf32=True matmul.allow_tf32=False")
+    run = _drive(torch, kernels, wam, x, y)
+    chunks = -(-N_SAMPLES // SAMPLE_CHUNK)
+    # per chunk: 3 analysis levels + K2's backward on K1, one K2 level, K3
+    # forward and backward, and K4/K5 at every ReLU site
+    expected = {"dwt2": (LEVELS + 1) * chunks, "synth2": chunks, "pair": 2 * chunks,
+                "relu_fwd": n_sites * chunks, "relu_bwd": n_sites * chunks}
+    _check_result(wtt, wam, run, SIDE2, expected)
+    _log(f"  launches on path 2: {run['launches']} (at least {expected})")
+    _log(f"  first call {run['first_call_s']:.3f} s; timed call {run['seconds']:.3f} s = "
+         f"{run['attributions_per_s']:.2f} attributions/s; peak memory "
+         f"{run['peak_memory_gb']:.2f} GB on {smi}")
+    del wam, run["out"]
+
+    fn_plain, wam_plain, *_ = build_slice(torch, wtt, side=SIDE2, fused_relu_vjp=False)
+    plain = _drive(torch, kernels, wam_plain, x, y)
+    _log(f"  same call, fused_relu_vjp=False: first call {plain['first_call_s']:.3f} s; timed "
+         f"call {plain['seconds']:.3f} s = {plain['attributions_per_s']:.2f} attributions/s; "
+         f"peak memory {plain['peak_memory_gb']:.2f} GB on {smi}")
+    del wam_plain
+    unfused = {f"unfused_{k}": v for k, v in _summary(plain).items() if k != "launches"}
+    return {**_summary(run), **unfused,
+            **_reduced_check(torch, wtt, fn, fn_plain, x, y, g)}
 
 
 def main() -> int:
@@ -363,13 +602,16 @@ def main() -> int:
             if "registers" in line or "spill" in line:
                 _log(f"  {name}: {line.strip()}")
 
-    rows = phase_kernels(torch, tmm, kernels)
+    sites = relu_sites(torch, wtt)
+    rows = phase_kernels(torch, tmm, kernels, sites)
     slice_ = phase_slice(torch, wtt, kernels, smi)
-    names = {"dwt2_kernel (K1)": "dwt2", "waverec2_collapsed (K3)": "pair"}
+    slice2 = phase_slice2(torch, wtt, kernels, smi, len(sites))
+    launches = {"flagship": slice_["launches"], "path 2": slice2["launches"]}
     for row in rows:
-        row["launches"] = slice_["launches"][names[row["name"]]]
+        row["launches"] = launches[row["path"]][row["kernel"]]
 
     print(json.dumps({"slice": {k: v for k, v in slice_.items() if k != "launches"},
+                      "slice2": {k: v for k, v in slice2.items() if k != "launches"},
                       "gpu": smi}), flush=True)
     print(json.dumps({"kernels": rows}), flush=True)
     print(smi, flush=True)

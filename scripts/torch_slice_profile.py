@@ -1,16 +1,17 @@
 #!/usr/bin/env python3
 """Where the time of the port's flagship slice goes on the card.
 
-    python3 scripts/torch_slice_profile.py
+    python3 scripts/torch_slice_profile.py [--path2]
 
 Runs `wam_tpu_torch.WaveletAttribution2D` SmoothGrad on ResNet-50, set up by
-`chip_smoke.build_slice` (the main path of chip_smoke.py, one definition for
-both: batch 32, 3x224x224, db4, J=3, n_samples=25, sample_batch_size=4,
-cuDNN TF32 on) once to warm up, then once under
-`torch.profiler`, and prints one JSON line: the call's wall time, the summed
-device time of its kernels by group (K1, K3, convolutions, matmuls, other),
-and the device's idle share (1 - summed kernel time / wall time; one stream,
-so kernels do not overlap). Needs one CUDA card.
+`chip_smoke.build_slice` (the paths of chip_smoke.py, one definition for
+both: batch 32, db4, J=3, n_samples=25, sample_batch_size=4, cuDNN TF32 on;
+3x224x224 for the flagship, or with ``--path2`` 3x288x288 with
+``fused_relu_vjp=True``) once to warm up, then once under `torch.profiler`,
+and prints one JSON line: the call's wall time, the summed device time of
+its kernels by group (K1-K5, convolutions, matmuls, other), and the
+device's idle share (1 - summed kernel time / wall time; one stream, so
+kernels do not overlap). Needs one CUDA card.
 """
 
 from __future__ import annotations
@@ -24,8 +25,11 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent.parent
 
 GROUPS = (  # first match wins, on the lower-cased kernel name
+    ("K2 idwt2_kernel", ("quadrantsource",)),
     ("K1 dwt2_kernel", ("quadrantstore",)),
     ("K3 waverec2_collapsed", ("rowmajorstore",)),
+    ("K4 fused_relu forward", ("relu_fwd_kernel",)),
+    ("K5 fused_relu backward", ("relu_bwd_kernel",)),
     ("convolution (cuDNN)", ("conv", "cudnn", "xmma", "implicit", "wgrad", "dgrad",
                              "fprop", "winograd", "cutlass")),
     ("matmul (cuBLAS)", ("gemm", "gemv")),
@@ -54,7 +58,9 @@ def main() -> int:
     from wam_tpu_torch import kernels
 
     kernels.build_all()
-    _, wam, x, y, _ = chip_smoke.build_slice(torch, wtt)
+    path2 = "--path2" in sys.argv[1:]
+    side = chip_smoke.SIDE2 if path2 else chip_smoke.SIDE
+    _, wam, x, y, _ = chip_smoke.build_slice(torch, wtt, side=side, fused_relu_vjp=path2)
     wam(x, y)
     torch.cuda.synchronize()
 
@@ -79,6 +85,7 @@ def main() -> int:
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip()
     print(json.dumps({
+        "path": "path2 (288^2, fused_relu_vjp)" if path2 else "flagship (224^2)",
         "gpu": smi, "wall_ms": wall_ms, "device_busy_ms": busy_ms,
         "device_idle_share": 1.0 - busy_ms / wall_ms if busy_ms else None,
         "groups_ms": dict(sorted(groups.items(), key=lambda kv: -kv[1])),

@@ -7,6 +7,7 @@ relative): both sides compute float32 convolutions with different
 summation orders across up to 50 layers.
 """
 
+import importlib
 import zlib
 
 import jax
@@ -22,8 +23,11 @@ from wam_tpu.models.toy import toy_conv_model as jtoy
 from wam_tpu_torch.models import resnet as tres
 from wam_tpu_torch.models.ingest import flax_resnet_to_torch
 from wam_tpu_torch.models.toy import toy_conv_model as ttoy
+from wam_tpu_torch.tune.fused_relu import fused_relu
 
 TOL = 1e-4
+# `wam_tpu.tune` re-exports the function `fused_relu` under the module's name
+jfr = importlib.import_module("wam_tpu.tune.fused_relu")
 
 
 def _perturbed(variables, seed=3):
@@ -143,9 +147,66 @@ def test_bind_inference_bf16_close_to_f32(r18):
     assert float(cos) >= 0.99
 
 
-def test_fused_relu_vjp_not_ported():
-    with pytest.raises(NotImplementedError, match="K4/K5"):
-        tres.bind_inference(tres.resnet18(num_classes=2), fused_relu_vjp=True, device="cpu")
+def test_fused_relu_vjp_binds_and_runs_on_cpu():
+    """fused_relu_vjp=True swaps every ``act`` (the stem's and each block's)
+    for `fused_relu` without touching a parameter, and the bound model runs
+    forward and backward on CPU tensors (the kernels' plain versions)."""
+    model = tres.resnet18(num_classes=2)
+    before = {k: v.clone() for k, v in model.state_dict().items()}
+    fn = tres.bind_inference(model, fused_relu_vjp=True, fold_bn=True,
+                             compute_dtype=torch.bfloat16, device="cpu")
+    acts = [m.act for m in model.modules() if hasattr(m, "act")]
+    assert len(acts) == 1 + 8 and all(a is fused_relu for a in acts)
+    assert set(model.state_dict()) == set(before)
+    x = torch.from_numpy(_x((1, 3, 32, 32), seed=8)).requires_grad_(True)
+    out = fn(x)
+    (g,) = torch.autograd.grad(out[:, 1].sum(), x)
+    assert out.dtype == torch.float32 and out.shape == (1, 2)
+    assert bool(torch.isfinite(g).all()) and float(g.abs().sum()) > 0
+
+
+def test_fused_relu_vjp_needs_an_act():
+    with pytest.raises(ValueError, match="act"):
+        tres.bind_inference(torch.nn.Linear(3, 2), fused_relu_vjp=True, device="cpu")
+
+
+@pytest.fixture
+def jax_fused_relu_interpret():
+    """The JAX impl knob is a module global: set it per test, put it back."""
+    before = jfr.get_fused_relu_impl()
+    jfr.set_fused_relu_impl("pallas_interpret")
+    yield
+    jfr.set_fused_relu_impl(before)
+
+
+def test_resnet18_fused_relu_matches_jax(r18, jax_fused_relu_interpret):
+    """bind_inference(fused_relu_vjp=True) on both sides: logits and input
+    gradients agree at the model tolerance; the port's fused binding equals
+    its own unfused binding exactly (same gate, same values)."""
+    model, variables, _, state = r18
+    x = _x((2, 3, 64, 64), seed=9)
+    y = np.array([3, 8])
+    jfn = jbind(model, variables, nchw=True, fused_relu_vjp=True)
+
+    def jloss(a):
+        return jnp.take_along_axis(jfn(a), jnp.asarray(y)[:, None], axis=1).sum()
+
+    want = np.asarray(jfn(jnp.asarray(x)))
+    want_g = np.asarray(jax.grad(jloss)(jnp.asarray(x)))
+
+    def port(fused):
+        fn = tres.bind_inference(tres.resnet18(num_classes=10), state, fused_relu_vjp=fused,
+                                 device="cpu")
+        tx = torch.from_numpy(x).requires_grad_(True)
+        out = fn(tx)
+        (g,) = torch.autograd.grad(out.gather(1, torch.from_numpy(y)[:, None]).sum(), tx)
+        return out.detach(), g
+
+    (got, got_g), (plain, plain_g) = port(True), port(False)
+    assert np.abs(want_g).max() > 0
+    np.testing.assert_allclose(got.numpy(), want, atol=TOL, rtol=TOL)
+    np.testing.assert_allclose(got_g.numpy(), want_g, atol=TOL * np.abs(want_g).max(), rtol=TOL)
+    assert torch.equal(got, plain) and torch.equal(got_g, plain_g)
 
 
 def test_toy_model_matches_jax():

@@ -5,6 +5,7 @@ its kernels are built for Hopper from the repository's sources, and
 
 import ast
 import os
+import re
 import subprocess
 import sys
 from pathlib import Path
@@ -18,6 +19,7 @@ from wam_tpu_torch import kernels
 from wam_tpu_torch.device import resolve_device
 from wam_tpu_torch.models import resnet as tres
 from wam_tpu_torch.models.toy import toy_conv_model
+from wam_tpu_torch.tune import fused_relu as tfr
 from wam_tpu_torch.wam2d import BaseWAM2D, WaveletAttribution2D
 from wam_tpu_torch.wavelets import matmul as tmm
 from wam_tpu_torch.wavelets import transform as tt
@@ -62,7 +64,7 @@ def test_pyproject_packages_include_the_port():
 
     found = set(find_packages(where=str(ROOT), include=["wam_tpu*"]))
     assert {"wam_tpu_torch", "wam_tpu_torch.wavelets", "wam_tpu_torch.core",
-            "wam_tpu_torch.ops", "wam_tpu_torch.models"} <= found
+            "wam_tpu_torch.ops", "wam_tpu_torch.models", "wam_tpu_torch.tune"} <= found
     assert 'include = ["wam_tpu*"]' in (ROOT / "pyproject.toml").read_text()
 
 
@@ -87,25 +89,34 @@ def test_entry_points_raise_without_a_card(monkeypatch):
     assert resolve_device("cpu") == torch.device("cpu")
 
 
-def test_cpu_tensors_never_reach_the_kernels(monkeypatch):
+LAUNCHERS = ("dwt2", "synth2", "pair", "relu_fwd", "relu_bwd")
+
+
+@pytest.mark.parametrize("crossover", [128, 9], ids=["collapsed", "per-level"])
+def test_cpu_tensors_never_reach_the_kernels(monkeypatch, crossover):
     """The kernel impl on CPU tensors runs the plain versions only: the
-    launchers and the build are never called and no count moves."""
+    launchers and the build are never called and no count moves, on the
+    collapsed synthesis (K3), the per-level one (K2) and a model bound with
+    the fused ReLU (K4/K5)."""
     def boom(*a, **k):
         raise AssertionError("CUDA path reached from CPU tensors")
 
-    monkeypatch.setattr(kernels, "dwt2", boom)
-    monkeypatch.setattr(kernels, "pair", boom)
-    monkeypatch.setattr(kernels, "build_all", boom)
+    for name in (*LAUNCHERS, "build_all"):
+        monkeypatch.setattr(kernels, name, boom)
+    monkeypatch.setattr(tt, "SYNTH_COLLAPSE", crossover)
     before = kernels.launch_counts()
     x = torch.from_numpy(np.random.default_rng(0).standard_normal((2, 1, 24, 24))
                          .astype(np.float32))
     coeffs = tt.wavedec2(x, "db4", 3, impl="kernel")
-    assert tt._collapse_count(coeffs[1:]) == 3
+    assert tt._collapse_count(coeffs[1:]) == {128: 3, 9: 0}[crossover]
     rec = tt.waverec2(coeffs, "db4", impl="kernel")
     torch.testing.assert_close(rec[..., :24, :24], x, atol=1e-4, rtol=0)
     toy = toy_conv_model(device="cpu")
     WaveletAttribution2D(lambda v: toy(v[:, 0]), wavelet="db4", n_samples=2, device="cpu",
                          impl="kernel")(x, torch.tensor([0, 1]))
+    fn = tres.bind_inference(tres.resnet18(num_classes=2), fused_relu_vjp=True, device="cpu")
+    WaveletAttribution2D(fn, wavelet="db4", n_samples=2, device="cpu",
+                         impl="kernel")(x.expand(2, 3, 24, 24), torch.tensor([0, 1]))
     assert kernels.launch_counts() == before
 
 
@@ -118,6 +129,12 @@ def test_kernel_launchers_refuse_cpu_tensors(monkeypatch):
         kernels.dwt2(x, m, m)
     with pytest.raises(ValueError, match="CUDA tensor"):
         kernels.pair(x, m, m)
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        kernels.synth2(torch.zeros(2, 4, 4, 4), m, m)
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        kernels.relu_fwd(x)
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        kernels.relu_bwd(torch.zeros(1, 128, dtype=torch.uint8), x)
     with pytest.raises(TypeError):
         kernels.pair(x.double(), m, m)
 
@@ -128,18 +145,63 @@ def test_unknown_device_is_rejected():
         tmm.dwt2_kernel(x, "haar", "reflect")
 
 
-def test_per_level_synthesis_on_cuda_raises_until_k2_is_ported(monkeypatch):
-    """impl="kernel" on a CUDA tensor never quietly runs the plain
-    per-level synthesis: it raises and points at the roadmap."""
-    class FakeCuda(torch.Tensor):
-        @property
-        def is_cuda(self):
-            return True
+class FakeCuda(torch.Tensor):
+    """A CPU tensor that says it lives on CUDA, to follow the CUDA route."""
 
-    cA = torch.zeros(1, 1, 8, 8).as_subclass(FakeCuda)
-    det = tt.Detail2D(cA, cA, cA)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tt.idwt2(cA, det, "haar", impl="kernel")
+    @property
+    def is_cuda(self):
+        return True
+
+
+def test_per_level_synthesis_on_cuda_reaches_k2(monkeypatch):
+    """impl="kernel" on a CUDA tensor runs the per-level synthesis through
+    the K2 launcher, with the subbands stacked (aa, ad, da, dd) and Sr^T,
+    Sc^T as operands, and its backward through the K1 launcher with Sr, Sc;
+    never through a plain version."""
+    calls = []
+    plain = tmm.idwt2_plain
+
+    def synth2(sub, sr_t, sc_t):
+        calls.append(("synth2", tuple(sub.shape), tuple(sr_t.shape), tuple(sc_t.shape)))
+        return plain(sub, sr_t.T, sc_t)
+
+    def dwt2(g, a_t, bt):
+        calls.append(("dwt2", tuple(g.shape), tuple(a_t.shape), tuple(bt.shape)))
+        return tmm.dwt2_plain(g, a_t, bt)
+
+    monkeypatch.setattr(kernels, "synth2", synth2)
+    monkeypatch.setattr(kernels, "dwt2", dwt2)
+    monkeypatch.setattr(tmm, "idwt2_plain", lambda *a: pytest.fail("plain K2 on CUDA"))
+    leaves = [torch.randn(1, 1, 9, 7).as_subclass(FakeCuda).requires_grad_(True)
+              for _ in range(4)]
+    out = tt.idwt2(leaves[0], tt.Detail2D(*leaves[1:]), "db4", impl="kernel")
+    assert tuple(out.shape[-2:]) == (12, 8)
+    # autograd hands the backward a plain tensor: follow the CUDA route there too
+    monkeypatch.setattr(tmm, "on_cpu", lambda t: False)
+    torch.autograd.grad(out.sum(), leaves)
+    assert calls == [("synth2", (1, 4, 9, 7), (18, 12), (14, 8)),
+                     ("dwt2", (1, 12, 8), (12, 18), (8, 14))]
+
+
+def test_fused_relu_on_cuda_reaches_k4_and_k5(monkeypatch):
+    calls = []
+    plain = tfr.relu_fwd_plain
+
+    def relu_fwd(x):
+        calls.append("relu_fwd")
+        return plain(x)
+
+    def relu_bwd(m, g):
+        calls.append("relu_bwd")
+        return tfr.relu_bwd_plain(m, g)
+
+    monkeypatch.setattr(kernels, "relu_fwd", relu_fwd)
+    monkeypatch.setattr(kernels, "relu_bwd", relu_bwd)
+    monkeypatch.setattr(tfr, "relu_fwd_plain", lambda *a: pytest.fail("plain K4 on CUDA"))
+    x = torch.randn(3, 50).as_subclass(FakeCuda).requires_grad_(True)
+    y = tfr.fused_relu(x)
+    torch.autograd.grad(y, x, torch.ones_like(y).as_subclass(FakeCuda))
+    assert calls == ["relu_fwd", "relu_bwd"]
 
 
 # -- build -------------------------------------------------------------------------
@@ -169,10 +231,22 @@ def test_library_name_follows_the_sources(monkeypatch, tmp_path):
 
 
 def test_every_cu_source_names_the_tpu_kernel_it_replaces():
+    """Each source's head names the TPU kernel(s) it replaces as
+    wam_tpu/<path>.py::<function>, each a function of that file, and says
+    what bounds it on the card; together they cover every kernel."""
+    named = set()
     for src in (PKG / "csrc").glob("*.cu"):
-        head = src.read_text()[:1500]
-        assert "Replaces the TPU kernel wam_tpu/wavelets/matmul.py::" in head, src.name
+        head = " ".join(src.read_text()[:2000].replace("//", " ").split())
+        found = re.findall(r"(wam_tpu/[\w/]+\.py)::(\w+)", head)
+        assert "Replaces the TPU kernel" in head and found, src.name
+        for path, fn in found:
+            defs = {n.name for n in ast.walk(ast.parse((ROOT / path).read_text()))
+                    if isinstance(n, ast.FunctionDef)}
+            assert fn in defs, f"{src.name}: {path} has no function {fn}"
+            named.add(fn)
         assert "Bound on an H100" in head, src.name
+    assert named == {"_fused_kernel", "_fused_synth_kernel", "_pair_kernel", "_fwd_kernel",
+                     "_bwd_kernel"}
 
 
 # -- chip_smoke.py ---------------------------------------------------------------
@@ -199,5 +273,5 @@ def test_chip_smoke_alone_fails(tmp_path):
 def test_public_names_exported():
     for name in ("WaveletAttribution2D", "BaseWAM2D", "WamEngine", "wavedec2", "waverec2",
                  "mosaic2d", "reproject_mosaic", "bind_inference", "resnet50",
-                 "flax_resnet_to_torch", "smoothgrad"):
+                 "flax_resnet_to_torch", "smoothgrad", "fused_relu", "idwt2_kernel"):
         assert hasattr(wam_tpu_torch, name), name

@@ -13,6 +13,7 @@ float32 gradients through ResNet-18 computed with different summation orders
 on the two sides; they agree to ~1e-6 and the bound is 1e-4.
 """
 
+import importlib
 import zlib
 
 import jax
@@ -27,11 +28,15 @@ from wam_tpu.core import estimators as jest
 from wam_tpu.models import bind_inference as jbind
 from wam_tpu.models import resnet18 as jresnet18
 from wam_tpu.ops import packing2d as jpack
+from wam_tpu.wavelets import transform as jt
 from wam_tpu_torch import wam2d as twam
 from wam_tpu_torch.models import resnet as tres
 from wam_tpu_torch.models.ingest import flax_resnet_to_torch
+from wam_tpu_torch.wavelets import transform as tt
 
 SLICE_TOL = 1e-4
+# `wam_tpu.tune` re-exports the function `fused_relu` under the module's name
+jfr = importlib.import_module("wam_tpu.tune.fused_relu")
 
 
 def _rng(*key):
@@ -55,11 +60,11 @@ def r18():
     rng = _rng("slice")
     x = rng.standard_normal((2, 3, 64, 64)).astype(np.float32)
     y = np.array([1, 7])
-    return jfn, tfn, x, y
+    return jfn, tfn, x, y, model, variables
 
 
 def test_base_wam2d_matches_jax(r18):
-    jfn, tfn, x, y = r18
+    jfn, tfn, x, y, *_ = r18
     jm = jwam.BaseWAM2D(jfn, wavelet="db4", J=3)
     want = np.asarray(jm(jnp.asarray(x), jnp.asarray(y)))
     tm = twam.BaseWAM2D(tfn, wavelet="db4", J=3, device="cpu", impl="kernel")
@@ -73,7 +78,7 @@ def test_base_wam2d_matches_jax(r18):
 def jax_smooth(r18):
     """JAX SmoothGrad on handed-over draws: the mean of `BaseWAM2D` passes
     on x + sigma * z_i."""
-    jfn, _, x, y = r18
+    jfn, _, x, y, *_ = r18
     z = _rng("noise").standard_normal((3,) + x.shape).astype(np.float32)
     sigma = np.asarray(jest.noise_sigma(jnp.asarray(x), 0.25)).reshape(-1, 1, 1, 1)
     jm = jwam.BaseWAM2D(jfn, wavelet="db4", J=3)
@@ -84,7 +89,7 @@ def jax_smooth(r18):
 
 @pytest.mark.parametrize("impl", ["kernel", "conv"])
 def test_smooth_wam_matches_jax_with_handed_noise(r18, jax_smooth, impl):
-    _, tfn, x, y = r18
+    _, tfn, x, y, *_ = r18
     z, want = jax_smooth
     tm = twam.WaveletAttribution2D(tfn, wavelet="db4", J=3, method="smooth", n_samples=3,
                                    stdev_spread=0.25, device="cpu", impl=impl)
@@ -99,7 +104,7 @@ def jax_ig(r18):
     """JAX IG two ways: the package's own pieces evaluated op by op
     (baseline mosaic of the input coefficients times the trapezoid over
     alpha in {0, .5, 1}, dx=1, of the gradient mosaics), and the class."""
-    jfn, _, x, y = r18
+    jfn, _, x, y, *_ = r18
     je = jengine.WamEngine(jfn, ndim=2, wavelet="db4", level=3)
     coeffs = je.decompose(jnp.asarray(x))
     path = [jpack.mosaic2d(je.grads_from_coeffs(
@@ -113,7 +118,7 @@ def jax_ig(r18):
 
 @pytest.mark.parametrize("impl", ["kernel", "conv"])
 def test_integrated_wam_matches_jax(r18, jax_ig, impl):
-    _, tfn, x, y = r18
+    _, tfn, x, y, *_ = r18
     eager, cls = jax_ig
     tm = twam.WaveletAttribution2D(tfn, wavelet="db4", J=3, method="integratedgrad",
                                    n_samples=3, device="cpu", impl=impl)
@@ -134,7 +139,7 @@ def test_chunked_run_equals_unchunked(r18, method, normalize):
     the loss must be the sum of per-sample batch means (else every gradient
     is 1/2 of the right one, visible with normalize_coeffs=False) and the
     mosaic max must be per sample (visible with normalization on)."""
-    _, tfn, x, y = r18
+    _, tfn, x, y, *_ = r18
     z = torch.from_numpy(_rng("chunk").standard_normal((3,) + x.shape).astype(np.float32))
     kw = dict(wavelet="db4", J=3, method=method, n_samples=3, normalize_coeffs=normalize,
               device="cpu", impl="kernel")
@@ -150,7 +155,7 @@ def test_dwt_bf16_cast_after_noise(r18):
     """dwt_bf16 rounds the NOISY input to bf16 inside the step: the result
     equals the f32 run on bf16-rounded noisy inputs, and stays close to the
     f32 run."""
-    _, tfn, x, y = r18
+    _, tfn, x, y, *_ = r18
     z = torch.from_numpy(_rng("bf16").standard_normal((2,) + x.shape).astype(np.float32))
     kw = dict(wavelet="db4", J=3, n_samples=2, device="cpu", impl="kernel")
     bf = twam.WaveletAttribution2D(tfn, dwt_bf16=True, **kw)(x, y, noise=z)
@@ -159,6 +164,45 @@ def test_dwt_bf16_cast_after_noise(r18):
     assert not torch.equal(bf, f32)
     cos = torch.nn.functional.cosine_similarity(bf.flatten(), f32.flatten(), dim=0)
     assert float(cos) > 0.99
+
+
+@pytest.fixture
+def k2_route(monkeypatch):
+    """Both packages with the synthesis crossover lowered to 32, so at 64²
+    (db4 J=3, detail sides 35/21/14) the two coarsest levels collapse (K3)
+    and the finest runs per level (K2); the JAX side on its Pallas
+    synthesis and its Pallas fused ReLU (interpret mode). The JAX knobs are
+    module globals and are put back after the test."""
+    monkeypatch.setattr(jt, "_SYNTH_COLLAPSE", 32)
+    monkeypatch.setattr(tt, "SYNTH_COLLAPSE", 32)
+    synth, relu = jt.get_synth2_impl(), jfr.get_fused_relu_impl()
+    jt.set_synth2_impl("pallas")
+    jfr.set_fused_relu_impl("pallas_interpret")
+    yield
+    jt.set_synth2_impl(synth)
+    jfr.set_fused_relu_impl(relu)
+
+
+def test_smooth_wam_with_k2_and_fused_relu_matches_jax(r18, k2_route):
+    """The second slice's path at a small size: SmoothGrad through a K2
+    synthesis level, on a model bound with fused_relu_vjp=True, against the
+    JAX package on the same route, noise handed over."""
+    _, _, x, y, model, variables = r18
+    jfn = jbind(model, variables, nchw=True, fused_relu_vjp=True)
+    tfn = tres.bind_inference(tres.resnet18(num_classes=10), flax_resnet_to_torch(variables),
+                              fused_relu_vjp=True, device="cpu")
+    assert tt._collapse_count(tt.wavedec2(torch.from_numpy(x), "db4", 3)[1:]) == 2
+    z = _rng("noise-k2").standard_normal((2,) + x.shape).astype(np.float32)
+    sigma = np.asarray(jest.noise_sigma(jnp.asarray(x), 0.25)).reshape(-1, 1, 1, 1)
+    jm = jwam.BaseWAM2D(jfn, wavelet="db4", J=3)
+    want = np.mean([np.asarray(jm(jnp.asarray(x + zi * sigma), jnp.asarray(y))) for zi in z],
+                   axis=0)
+    tm = twam.WaveletAttribution2D(tfn, wavelet="db4", J=3, method="smooth", n_samples=2,
+                                   stdev_spread=0.25, sample_batch_size=2, device="cpu",
+                                   impl="kernel")
+    got = _np(tm(torch.from_numpy(x), torch.from_numpy(y), noise=torch.from_numpy(z)))
+    assert got.shape == (2, 70, 70) and np.abs(got).max() > 0
+    np.testing.assert_allclose(got, want, atol=SLICE_TOL, rtol=0)
 
 
 def test_wam2d_rejects_unported_options(r18):

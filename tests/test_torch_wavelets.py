@@ -1,10 +1,11 @@
 """Parity of the PyTorch port's wavelet layer with the JAX package.
 
 Inputs are made with numpy from a seed and go through both packages. The
-JAX side of K1 is `dwt2_pallas` itself, which runs its Pallas kernel in
-interpret mode off the TPU; the JAX side of K3 is `waverec2_collapsed`,
-whose `_pair_forward` runs its plain matmul pair off the TPU. The port side
-of both is the plain PyTorch version that CPU tensors take.
+JAX side of K1 is `dwt2_pallas` itself, and of K2 `idwt2_pallas`: both run
+their Pallas kernels in interpret mode off the TPU. The JAX side of K3 is
+`waverec2_collapsed`, whose `_pair_forward` runs its plain matmul pair off
+the TPU. The port side of each is the plain PyTorch version that CPU
+tensors take.
 
 Tolerances: both packages compute in float32 with different summation
 orders, so values of O(1) agree to ~1e-6; 1e-5 is the stated bound.
@@ -163,6 +164,113 @@ def test_k3_bf16_leaves_upcast_at_assembly():
                                                   for d in bf[1:]], "db4")
     assert got.dtype == torch.float32
     torch.testing.assert_close(got, want, atol=0, rtol=0)
+
+
+# -- K2: the plain version against idwt2_pallas (interpret mode) -------------
+
+
+@pytest.fixture
+def jax_synth_knobs():
+    """The JAX synthesis knob is a module global: set it per test and put it
+    back after."""
+    before = jt.get_synth2_impl()
+    yield
+    jt.set_synth2_impl(before)
+
+
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+@pytest.mark.parametrize("trim", [False, True], ids=["full", "trimmed"])
+@pytest.mark.parametrize("shape", [(2, 4, 9, 13), (1, 3, 4, 17, 6)], ids=["h<w", "h>w"])
+@pytest.mark.parametrize("wavelet", ["haar", "db4"])
+def test_k2_plain_matches_idwt2_pallas(wavelet, shape, trim, dtype):
+    """Values and VJP of `idwt2_kernel` on CPU tensors (K2's plain version,
+    backward K1's plain version) against `idwt2_pallas`, with h != w so a
+    swapped row/column operator shows, an ``out_shape`` trim, and bf16
+    subbands read as they are."""
+    rng = _rng("k2", wavelet, shape, trim, dtype)
+    sub = rng.standard_normal(shape).astype(np.float32)
+    L = tfilters.build_wavelet(wavelet).filt_len
+    full = (2 * shape[-2] - L + 2, 2 * shape[-1] - L + 2)
+    out_shape = (full[0] - 1, full[1] - 2) if trim else None
+    jdt, tdt = (jnp.bfloat16, torch.bfloat16) if dtype == "bf16" else (jnp.float32, torch.float32)
+    want, vjp = jax.vjp(lambda v: jmm.idwt2_pallas(v, wavelet, out_shape),
+                        jnp.asarray(sub, dtype=jdt))
+    g = rng.standard_normal(want.shape).astype(np.float32)
+    (want_dsub,) = vjp(jnp.asarray(g))
+
+    tsub = torch.from_numpy(sub).to(tdt).requires_grad_(True)
+    got = tmm.idwt2_kernel(tsub, wavelet, out_shape)
+    assert got.dtype == torch.float32 and tuple(got.shape) == want.shape
+    assert tuple(got.shape[-2:]) == (out_shape or full)
+    np.testing.assert_allclose(_np(got), np.asarray(want), atol=TOL, rtol=0)
+    (got_dsub,) = torch.autograd.grad(got, tsub, torch.from_numpy(g))
+    assert got_dsub.dtype == tdt
+    if dtype == "f32":
+        np.testing.assert_allclose(_np(got_dsub), np.asarray(want_dsub), atol=TOL, rtol=0)
+    else:
+        # both round the same float32 adjoint to bfloat16 (see the K1 test)
+        np.testing.assert_allclose(_np(got_dsub), np.asarray(want_dsub, np.float32),
+                                   atol=TOL, rtol=2.0**-7)
+
+
+def test_k2_plain_is_the_merged_matmul_pair():
+    """`idwt2_plain` (what chip_smoke.py holds K2 against) is the quadrant
+    merge followed by Sr @ Y @ Sc^T, and equals `synthesis2_mm`."""
+    sub = torch.from_numpy(_rng("k2pair").standard_normal((3, 4, 10, 7)).astype(np.float32))
+    w = tfilters.build_wavelet("db4")
+    Sr, _ = tmm._kernel_synthesis(10, tuple(w.rec_lo), tuple(w.rec_hi), sub.device)
+    _, Sct = tmm._kernel_synthesis(7, tuple(w.rec_lo), tuple(w.rec_hi), sub.device)
+    got = tmm.idwt2_plain(sub, Sr, Sct)
+    assert got.shape == (3, 14, 8)
+    torch.testing.assert_close(got, tmm.synthesis2_mm(sub, "db4", (14, 8)), atol=1e-6, rtol=0)
+
+
+@pytest.mark.parametrize("crossover", [32, 14], ids=["collapsed+K2", "K2-only"])
+def test_waverec2_kernel_with_k2_levels_matches_jax(monkeypatch, jax_synth_knobs, crossover):
+    """waverec2(impl="kernel") with the crossover lowered below the finest
+    detail side, so the collapsed pair (K3) is followed by per-level K2
+    synthesis, against the JAX waverec2 on its pallas synthesis (db4 J=3 at
+    64²: sides 35/21/14, so crossover 32 collapses 2 levels and leaves one K2
+    level; 14 collapses none and runs all three through K2). Values and the
+    gradient of every leaf."""
+    monkeypatch.setattr(jt, "_SYNTH_COLLAPSE", crossover)
+    monkeypatch.setattr(tt, "SYNTH_COLLAPSE", crossover)
+    jt.set_synth2_impl("pallas")
+    rng = _rng("rec-k2", crossover)
+    x = rng.standard_normal((1, 2, 64, 64)).astype(np.float32)
+    coeffs = tt.wavedec2(torch.from_numpy(x), "db4", 3)
+    assert tt._collapse_count(coeffs[1:]) == {32: 2, 14: 0}[crossover]
+    leaves = [_np(coeffs[0])] + [_np(t) for d in coeffs[1:] for t in d]
+
+    def jfn(*ls):
+        return jt.waverec2([ls[0]] + [jt.Detail2D(*ls[1 + 3 * i: 4 + 3 * i]) for i in range(3)],
+                           "db4")
+
+    want, vjp = jax.vjp(jfn, *(jnp.asarray(v) for v in leaves))
+    g = rng.standard_normal(want.shape).astype(np.float32)
+    want_grads = vjp(jnp.asarray(g))
+
+    tleaves = [torch.from_numpy(v).requires_grad_(True) for v in leaves]
+    tcoeffs = [tleaves[0]] + [tt.Detail2D(*tleaves[1 + 3 * i: 4 + 3 * i]) for i in range(3)]
+    got = tt.waverec2(tcoeffs, "db4", impl="kernel")
+    assert tuple(got.shape) == want.shape == (1, 2, 64, 64)
+    np.testing.assert_allclose(_np(got), np.asarray(want), atol=TOL, rtol=0)
+    np.testing.assert_allclose(_np(got), x, atol=1e-4, rtol=0)  # the round trip
+    for gg, wg in zip(torch.autograd.grad(got, tleaves, torch.from_numpy(g)), want_grads):
+        np.testing.assert_allclose(_np(gg), np.asarray(wg), atol=TOL, rtol=0)
+
+
+def test_path2_shapes_take_k2():
+    """At 288² (db4, J=3) the detail sides are 147/77/42: the two coarsest
+    levels collapse (R is 148 x 238) and the finest runs through K2 with
+    subbands (4, 147, 147), Sr (288, 294) and a 288² output."""
+    coeffs = tt.wavedec2(torch.zeros(1, 1, 288, 288), "db4", 3)
+    assert [d.horizontal.shape[-1] for d in coeffs[1:]] == [42, 77, 147]
+    assert tt._collapse_count(coeffs[1:]) == 2
+    w = tfilters.build_wavelet("db4")
+    R = tmm._collapsed_axis_np((42, 77), tuple(w.rec_lo), tuple(w.rec_hi))
+    assert R.shape == (148, 238)
+    assert tmm._synthesis_np(147, tuple(w.rec_lo), tuple(w.rec_hi)).shape == (288, 294)
 
 
 # -- transforms -----------------------------------------------------------------

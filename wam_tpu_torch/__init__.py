@@ -24,7 +24,9 @@ from wam_tpu_torch.ops.packing2d import (
     mosaic_size,
     reproject_mosaic,
 )
+from wam_tpu_torch.tune.fused_relu import fused_relu
 from wam_tpu_torch.wam2d import BaseWAM2D, WaveletAttribution2D
+from wam_tpu_torch.wavelets.matmul import idwt2_kernel
 from wam_tpu_torch.wavelets.transform import (
     Detail2D,
     dwt2,
@@ -44,7 +46,9 @@ __all__ = [
     "dwt2",
     "dwt_max_level",
     "flax_resnet_to_torch",
+    "fused_relu",
     "idwt2",
+    "idwt2_kernel",
     "integrated_path",
     "mosaic2d",
     "mosaic_size",

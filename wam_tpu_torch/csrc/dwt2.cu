@@ -36,15 +36,22 @@ struct QuadrantStore {
 
 // x: (N, Q=H, S=W); m1t = A^T: (H, P=2h'); m2 = B^T: (W, T=2w');
 // out: (N, 4, h', w') float32.
+// Also the backward of K2 (synth2.cu): with A^T = Sr and B^T = Sc it computes
+// the quadrant split of Sr^T . g . Sc, as _synth_bwd does on the TPU.
+template <typename TX>
+static int dwt2(const void* x, const void* m1t, const void* m2, void* out, int N, int P,
+                int Q, int S, int T, void* stream) {
+  return wam::launch(wam::DenseSource<TX>{static_cast<const TX*>(x), Q, S}, m1t, m2,
+                     wam_dwt2::QuadrantStore{static_cast<float*>(out), P / 2, T / 2},
+                     N, P, Q, S, T, stream);
+}
+
 extern "C" int wam_dwt2_f32(const void* x, const void* m1t, const void* m2, void* out,
                             int N, int P, int Q, int S, int T, void* stream) {
-  return wam::launch<float>(x, m1t, m2, wam_dwt2::QuadrantStore{static_cast<float*>(out), P / 2, T / 2},
-                            N, P, Q, S, T, stream);
+  return dwt2<float>(x, m1t, m2, out, N, P, Q, S, T, stream);
 }
 
 extern "C" int wam_dwt2_bf16(const void* x, const void* m1t, const void* m2, void* out,
                              int N, int P, int Q, int S, int T, void* stream) {
-  return wam::launch<__nv_bfloat16>(x, m1t, m2,
-                                    wam_dwt2::QuadrantStore{static_cast<float*>(out), P / 2, T / 2},
-                                    N, P, Q, S, T, stream);
+  return dwt2<__nv_bfloat16>(x, m1t, m2, out, N, P, Q, S, T, stream);
 }

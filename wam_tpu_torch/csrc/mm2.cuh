@@ -1,9 +1,13 @@
 // Two-sided batched matrix product, out[n] = M1 . X[n] . M2, the shared
 // body of the port's wavelet kernels (dwt2.cu: one analysis level, K1;
-// pair.cu: the level-collapsed synthesis, K3).
+// synth2.cu: one synthesis level, K2; pair.cu: the level-collapsed
+// synthesis, K3).
 //
 // Shapes: M1 is P x Q (passed transposed, as the contiguous Q x P matrix
-// M1T), X[n] is Q x S (float or bfloat16), M2 is S x T, out[n] is P x T.
+// M1T), X[n] is Q x S, M2 is S x T, out[n] is P x T. X is read through the
+// caller's Source: a dense float or bfloat16 tensor (DenseSource) or, for
+// the synthesis, four subbands read as the 2 x 2 block matrix they stand
+// for; either way every column of a row is read off one row pointer.
 // Everything accumulates in float32 with plain FMAs on the CUDA cores: no
 // tensor cores and no TF32, so the result matches a float32 matmul pair up
 // to summation order.
@@ -16,15 +20,15 @@
 // for the synthesis, a quadrant split for the analysis.
 //
 // What bounds it on an H100: the function needs only the products of the
-// operators' nonzeros (the analysis operators are banded, at most 8
-// nonzeros per row for db4; Y of the synthesis is block-diagonal), and at
-// the wavelet shapes that work is bound by HBM bytes, not FLOP. This
-// routine does the dense 2.P.S.(Q + T) FLOP per image instead, so the f32
-// CUDA-core rate is what bounds it. It keeps both products on chip (T
-// never reaches device memory) and reads each M1 value from shared memory
-// once per kCols columns and each X/M2 value once per kRows rows. Skipping
-// the zeros, and moving what stays dense onto wgmma with TMA-fed tiles, are
-// the next levers.
+// operators' nonzeros (the analysis and synthesis operators are banded, at
+// most 8 nonzeros per row or column for db4; Y of the collapsed synthesis
+// is block-diagonal), and at the wavelet shapes that work is bound by HBM
+// bytes, not FLOP. This routine does the dense 2.P.S.(Q + T) FLOP per
+// image instead, so the f32 CUDA-core rate is what bounds it. It keeps both
+// products on chip (T never reaches device memory) and reads each M1 value
+// from shared memory once per kCols columns and each X/M2 value once per
+// kRows rows. Skipping the zeros, and moving what stays dense onto wgmma
+// with TMA-fed tiles, are the next levers.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -43,20 +47,30 @@ constexpr int kChunk = 64;    // rows of M1T staged in shared memory per step
 __device__ __forceinline__ float to_float(float v) { return v; }
 __device__ __forceinline__ float to_float(__nv_bfloat16 v) { return __bfloat162float(v); }
 
-// acc[i][c] += sum_k L[k][i] * R[k][col_c] for k < k_count, where L lives in
-// shared memory (kRows floats per k, 16-byte aligned) and R is row-major in
-// global memory with leading dimension ld; col_c = c0 + tid + c * kThreads.
-template <typename TR>
+// Where column col of a row lives, as an offset from the row's start: the
+// column itself for a dense row (Identity); synth2.cu maps the columns of
+// two side-by-side subbands.
+struct Identity {
+  __device__ __forceinline__ int operator()(int col) const { return col; }
+};
+
+// acc[i][c] += sum_k L[k][i] * R[k * ld + map(col_c)] for k < k_count, where
+// L lives in shared memory (kRows floats per k, 16-byte aligned) and R
+// points at row 0 in global memory, rows ld elements apart;
+// col_c = c0 + tid + c * kThreads < ncols.
+template <typename TR, typename ColMap = Identity>
 __device__ __forceinline__ void accumulate(float (&acc)[kRows][kCols],
                                            const float* __restrict__ L,
                                            const TR* __restrict__ R, size_t ld,
-                                           int k_count, int c0, int ncols) {
+                                           int k_count, int c0, int ncols,
+                                           ColMap map = ColMap()) {
   int col[kCols];
   bool ok[kCols];
 #pragma unroll
   for (int c = 0; c < kCols; ++c) {
     col[c] = c0 + threadIdx.x + c * kThreads;
     ok[c] = col[c] < ncols;
+    col[c] = map(col[c]);
   }
 #pragma unroll 4
   for (int k = 0; k < k_count; ++k) {
@@ -79,6 +93,27 @@ __device__ __forceinline__ void accumulate(float (&acc)[kRows][kCols],
   }
 }
 
+// X[n] as a dense row-major (N, Q, S) tensor of float or bfloat16. A Source
+// adds sum_k L[k][i] * X[n][q0 + k][col_c] for k < kc to acc.
+template <typename TX>
+struct DenseSource {
+  const TX* x;
+  int Q, S;
+  __device__ __forceinline__ void accumulate(float (&acc)[kRows][kCols], const float* L,
+                                             int n, int q0, int kc, int c0) const {
+    wam::accumulate(acc, L, x + ((size_t)n * Q + q0) * S, (size_t)S, kc, c0, S);
+  }
+};
+
+// The epilogue of a plain product: out[n] row-major (N, P, T).
+struct RowMajorStore {
+  float* out;
+  int P, T;
+  __device__ __forceinline__ void operator()(int n, int p, int t, float v) const {
+    out[((size_t)n * P + p) * T + t] = v;
+  }
+};
+
 __device__ __forceinline__ void zero(float (&acc)[kRows][kCols]) {
 #pragma unroll
   for (int i = 0; i < kRows; ++i)
@@ -88,9 +123,9 @@ __device__ __forceinline__ void zero(float (&acc)[kRows][kCols]) {
 
 // Dynamic shared memory: kChunk x kRows staged M1T values, then the
 // S x kRows strip T (column-major in the strip, so one k reads 4 float4s).
-template <typename TX, typename Store>
+template <typename Source, typename Store>
 __global__ void __launch_bounds__(kThreads)
-    mm2_kernel(const TX* __restrict__ X, const float* __restrict__ M1T,
+    mm2_kernel(Source src, const float* __restrict__ M1T,
                const float* __restrict__ M2, int N, int P, int Q, int S, int T,
                Store store) {
   extern __shared__ __align__(16) float smem[];
@@ -99,7 +134,6 @@ __global__ void __launch_bounds__(kThreads)
   const int p0 = blockIdx.x * kRows;
 
   for (int n = blockIdx.y; n < N; n += gridDim.y) {
-    const TX* Xn = X + (size_t)n * Q * S;
     // T = M1[p0 : p0 + kRows] . X[n]
     for (int c0 = 0; c0 < S; c0 += kThreads * kCols) {
       float acc[kRows][kCols];
@@ -112,7 +146,7 @@ __global__ void __launch_bounds__(kThreads)
           Ls[idx] = (p0 + i < P) ? M1T[(size_t)(q0 + k) * P + p0 + i] : 0.f;
         }
         __syncthreads();
-        accumulate(acc, Ls, Xn + (size_t)q0 * S, (size_t)S, kc, c0, S);
+        src.accumulate(acc, Ls, n, q0, kc, c0);
       }
 #pragma unroll
       for (int c = 0; c < kCols; ++c) {
@@ -156,8 +190,8 @@ constexpr int kMaxDevices = 64;
 // `out` and checks shapes; N >= 1. The dynamic shared-memory cap is a
 // per-device attribute of the function: it is raised to the device's
 // opt-in maximum on the first launch there.
-template <typename TX, typename Store>
-int launch(const void* x, const void* m1t, const void* m2, Store store, int N,
+template <typename Source, typename Store>
+int launch(Source src, const void* m1t, const void* m2, Store store, int N,
            int P, int Q, int S, int T, void* stream) {
   static std::atomic<bool> configured[kMaxDevices];
   int device = 0;
@@ -167,15 +201,15 @@ int launch(const void* x, const void* m1t, const void* m2, Store store, int N,
     int optin = 0;
     err = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, device);
     if (err != cudaSuccess) return (int)err;
-    err = cudaFuncSetAttribute(mm2_kernel<TX, Store>,
+    err = cudaFuncSetAttribute(mm2_kernel<Source, Store>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize, optin);
     if (err != cudaSuccess) return (int)err;
     if (device < kMaxDevices) configured[device].store(true, std::memory_order_release);
   }
   const dim3 grid((P + kRows - 1) / kRows, N < 65535 ? N : 65535);
-  mm2_kernel<TX, Store><<<grid, kThreads, smem_bytes(S), (cudaStream_t)stream>>>(
-      static_cast<const TX*>(x), static_cast<const float*>(m1t),
-      static_cast<const float*>(m2), N, P, Q, S, T, store);
+  mm2_kernel<Source, Store><<<grid, kThreads, smem_bytes(S), (cudaStream_t)stream>>>(
+      src, static_cast<const float*>(m1t), static_cast<const float*>(m2), N, P, Q, S, T,
+      store);
   return (int)cudaGetLastError();
 }
 

@@ -18,22 +18,10 @@
 
 #include "mm2.cuh"
 
-namespace wam_pair {
-
-struct RowMajorStore {
-  float* out;
-  int P, T;
-  __device__ __forceinline__ void operator()(int n, int p, int t, float v) const {
-    out[((size_t)n * P + p) * T + t] = v;
-  }
-};
-
-}  // namespace wam_pair
-
 // y: (N, Q, S) float32; m1t: (Q, P) = M1^T; m2: (S, T); out: (N, P, T).
 // Forward: m1t = R^T, m2 = C^T. Backward: m1t = R, m2 = C.
 extern "C" int wam_pair_f32(const void* y, const void* m1t, const void* m2, void* out,
                             int N, int P, int Q, int S, int T, void* stream) {
-  return wam::launch<float>(y, m1t, m2, wam_pair::RowMajorStore{static_cast<float*>(out), P, T},
-                            N, P, Q, S, T, stream);
+  return wam::launch(wam::DenseSource<float>{static_cast<const float*>(y), Q, S}, m1t, m2,
+                     wam::RowMajorStore{static_cast<float*>(out), P, T}, N, P, Q, S, T, stream);
 }

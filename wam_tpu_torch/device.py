@@ -5,7 +5,7 @@ from __future__ import annotations
 
 import torch
 
-__all__ = ["resolve_device"]
+__all__ = ["resolve_device", "on_cpu"]
 
 
 def resolve_device(device=None) -> torch.device:
@@ -22,3 +22,14 @@ def resolve_device(device=None) -> torch.device:
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(f"device {device} requested but no CUDA device is available")
     return device
+
+
+def on_cpu(t: torch.Tensor) -> bool:
+    """Whether a kernel wrapper serves ``t`` with its plain version: True for
+    a CPU tensor, False for a CUDA tensor (which goes to the kernel), and
+    ValueError for any other device."""
+    if t.is_cuda:
+        return False
+    if t.device.type != "cpu":
+        raise ValueError(f"unsupported device {t.device}: the port runs on cuda or cpu")
+    return True

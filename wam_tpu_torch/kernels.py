@@ -5,17 +5,21 @@ its own shared library under ``build/wam_tpu_torch/`` at the repository root,
 at first use, and loaded with ``ctypes``. The library name carries a hash of
 the sources, so an edited kernel is rebuilt and a stale one is never loaded.
 
-| kernel  | source          | replaces (TPU kernel)                            |
-|---------|-----------------|--------------------------------------------------|
-| ``dwt2``| ``csrc/dwt2.cu``| ``wam_tpu/wavelets/matmul.py::_fused_kernel`` (K1)|
-| ``pair``| ``csrc/pair.cu``| ``wam_tpu/wavelets/matmul.py::_pair_kernel`` (K3) |
+| kernel      | source               | replaces (TPU kernel)                                   |
+|-------------|----------------------|---------------------------------------------------------|
+| ``dwt2``    | ``csrc/dwt2.cu``     | ``wam_tpu/wavelets/matmul.py::_fused_kernel`` (K1)      |
+| ``synth2``  | ``csrc/synth2.cu``   | ``wam_tpu/wavelets/matmul.py::_fused_synth_kernel`` (K2)|
+| ``pair``    | ``csrc/pair.cu``     | ``wam_tpu/wavelets/matmul.py::_pair_kernel`` (K3)       |
+| ``relu_fwd``| ``csrc/relu_mask.cu``| ``wam_tpu/tune/fused_relu.py::_fwd_kernel`` (K4)        |
+| ``relu_bwd``| ``csrc/relu_mask.cu``| ``wam_tpu/tune/fused_relu.py::_bwd_kernel`` (K5)        |
 
-The launch wrappers take CUDA tensors only: they check device, dtype, shape
-and contiguity, allocate the output with ``torch.empty``, launch on the
-current stream and raise when the launch fails. Each counts its launches in
-``KERNELS[name].launches`` (one per launch, nowhere else). Nothing here runs
-on the CPU: the plain PyTorch versions live beside their callers in
-`wam_tpu_torch.wavelets.matmul`.
+K1-K3 share the two-sided product of ``csrc/mm2.cuh``; K4 and K5 share one
+library. The launch wrappers take CUDA tensors only: they check device,
+dtype, shape and contiguity, allocate the outputs with ``torch.empty``,
+launch on the current stream and raise when the launch fails. Each counts
+its launches in ``KERNELS[name].launches`` (one per launch, nowhere else).
+Nothing here runs on the CPU: the plain PyTorch versions live beside their
+callers in `wam_tpu_torch.wavelets.matmul` and `wam_tpu_torch.tune.fused_relu`.
 """
 
 from __future__ import annotations
@@ -30,8 +34,8 @@ from pathlib import Path
 
 import torch
 
-__all__ = ["KERNELS", "build_all", "dwt2", "pair", "launch_counts",
-           "reset_launch_counts", "nvcc_command"]
+__all__ = ["KERNELS", "build_all", "dwt2", "synth2", "pair", "relu_fwd", "relu_bwd",
+           "launch_counts", "reset_launch_counts", "nvcc_command"]
 
 _CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "wam_tpu_torch"
@@ -45,17 +49,24 @@ _MAX_DIM = 2**31 - 1
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
-# (x, m1t, m2, out, N, P, Q, S, T, stream) -> cudaError_t, on the current device
-_ARGTYPES = [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P]
+_L = ctypes.c_longlong
+# Every entry point returns cudaError_t and launches on the current device.
+# mm2.cuh kernels: (x, m1t, m2, out, N, P, Q, S, T, stream)
+_MM2_ARGS = (_P, _P, _P, _P, _I, _I, _I, _I, _I, _P)
+# relu_mask.cu: (x, y, m, n, stream) forward, (m, g, dx, n, stream) backward
+_RELU_ARGS = (_P, _P, _P, _L, _P)
 
 
 class Kernel:
-    """One CUDA source, its shared library and its launch count."""
+    """One kernel: its CUDA source, the entry points it uses in the source's
+    shared library (with their ctypes argument types) and its launch count.
+    Kernels of one source share one library."""
 
-    def __init__(self, name: str, source: str, symbols: tuple[str, ...]):
+    def __init__(self, name: str, source: str, symbols: tuple[str, ...], argtypes):
         self.name = name
         self.source = _CSRC / source
         self.symbols = symbols
+        self.argtypes = list(argtypes)
         self.launches = 0
         self._lib = None
 
@@ -64,7 +75,7 @@ class Kernel:
         for p in (self.source, *(_CSRC / s for s in _HEADERS)):
             h.update(p.read_bytes())
         h.update(" ".join(NVCC_FLAGS).encode())
-        return BUILD_DIR / f"lib{self.name}-{h.hexdigest()[:16]}.so"
+        return BUILD_DIR / f"lib{self.source.stem}-{h.hexdigest()[:16]}.so"
 
     def fn(self, symbol: str):
         if self._lib is None:
@@ -74,15 +85,20 @@ class Kernel:
             lib = ctypes.CDLL(str(path))
             for s in self.symbols:
                 f = getattr(lib, s)
-                f.argtypes = _ARGTYPES
+                f.argtypes = self.argtypes
                 f.restype = ctypes.c_int
             self._lib = lib
         return getattr(self._lib, symbol)
 
 
 KERNELS = {
-    "dwt2": Kernel("dwt2", "dwt2.cu", ("wam_dwt2_f32", "wam_dwt2_bf16")),
-    "pair": Kernel("pair", "pair.cu", ("wam_pair_f32",)),
+    "dwt2": Kernel("dwt2", "dwt2.cu", ("wam_dwt2_f32", "wam_dwt2_bf16"), _MM2_ARGS),
+    "synth2": Kernel("synth2", "synth2.cu", ("wam_synth2_f32", "wam_synth2_bf16"), _MM2_ARGS),
+    "pair": Kernel("pair", "pair.cu", ("wam_pair_f32",), _MM2_ARGS),
+    "relu_fwd": Kernel("relu_fwd", "relu_mask.cu", ("wam_relu_fwd_f32", "wam_relu_fwd_bf16"),
+                       _RELU_ARGS),
+    "relu_bwd": Kernel("relu_bwd", "relu_mask.cu", ("wam_relu_bwd_f32", "wam_relu_bwd_bf16"),
+                       _RELU_ARGS),
 }
 
 
@@ -113,11 +129,13 @@ def nvcc_command(kernel: Kernel, out: Path, nvcc: str = "nvcc") -> list[str]:
 
 
 def build_all(kernels=None) -> dict[str, dict]:
-    """Compile every kernel whose library is missing, one ``nvcc`` per source,
-    all started together. Returns {name: {"seconds", "log"}} for the kernels
-    built (``log`` holds ptxas's register and shared-memory report)."""
+    """Compile every library that is missing, one ``nvcc`` per source, all
+    started together. Returns {source name: {"seconds", "log"}} for the
+    libraries built (``log`` holds ptxas's register and shared-memory
+    report)."""
     kernels = list(KERNELS.values()) if kernels is None else list(kernels)
-    todo = [k for k in kernels if not k.library_path().exists()]
+    todo = list({k.library_path(): k for k in kernels
+                 if not k.library_path().exists()}.values())
     if not todo:
         return {}
     nvcc = _nvcc()
@@ -137,13 +155,13 @@ def build_all(kernels=None) -> dict[str, dict]:
             failed.append(f"{k.source.name} (exit {proc.returncode}):\n{log}")
             continue
         os.replace(tmp, final)  # atomic: a concurrent loader never sees half a file
-        report[k.name] = {"seconds": time.perf_counter() - t0, "log": log}
+        report[k.source.stem] = {"seconds": time.perf_counter() - t0, "log": log}
     if failed:
         raise RuntimeError("nvcc failed for " + "\n".join(failed))
     return report
 
 
-def _check(t: torch.Tensor, name: str, dtypes, ndim: int, device) -> None:
+def _check(t: torch.Tensor, name: str, dtypes, ndim: int | None, device) -> None:
     if not t.is_cuda:
         raise ValueError(f"{name} must be a CUDA tensor (got device {t.device}); "
                          "the plain PyTorch version serves CPU tensors")
@@ -151,18 +169,31 @@ def _check(t: torch.Tensor, name: str, dtypes, ndim: int, device) -> None:
         raise ValueError(f"{name} is on {t.device}, expected {device}")
     if t.dtype not in dtypes:
         raise TypeError(f"{name} must be one of {dtypes}, got {t.dtype}")
-    if t.ndim != ndim:
+    if ndim is not None and t.ndim != ndim:
         raise ValueError(f"{name} must be {ndim}-D, got shape {tuple(t.shape)}")
     if not t.is_contiguous():
         raise ValueError(f"{name} must be contiguous")
 
 
-def _launch(kernel: Kernel, symbol: str, x, m1t, m2, out_shape) -> torch.Tensor:
+def _call(kernel: Kernel, symbol: str, dev, *args) -> None:
+    """Launch ``symbol`` on ``dev``'s current stream, raise if the launch
+    failed, count it."""
+    launcher = kernel.fn(symbol)
+    with torch.cuda.device(dev):  # the caller's current device is restored on exit
+        err = launcher(*args, torch.cuda.current_stream(dev).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"{kernel.name} kernel launch failed: cudaError_t {err}")
+    kernel.launches += 1
+
+
+def _launch_mm2(kernel: Kernel, symbol: str, x, m1t, m2, q: int, s: int,
+                out_shape) -> torch.Tensor:
+    """out[n] = m1t^T . X[n] . m2 through mm2.cuh, X[n] (q x s) read from
+    ``x`` (already checked by the caller)."""
     dev = x.device
-    _check(x, "x", (torch.float32, torch.bfloat16), 3, dev)
     _check(m1t, "m1t", (torch.float32,), 2, dev)
     _check(m2, "m2", (torch.float32,), 2, dev)
-    n, q, s = x.shape
+    n = x.shape[0]
     if m1t.shape[0] != q or m2.shape[0] != s:
         raise ValueError(f"shape mismatch: x {tuple(x.shape)}, m1t {tuple(m1t.shape)}, "
                          f"m2 {tuple(m2.shape)}")
@@ -175,31 +206,80 @@ def _launch(kernel: Kernel, symbol: str, x, m1t, m2, out_shape) -> torch.Tensor:
     out = torch.empty(out_shape, device=dev, dtype=torch.float32)
     if n == 0:
         return out
-    launcher = kernel.fn(symbol)
-    with torch.cuda.device(dev):  # the caller's current device is restored on exit
-        err = launcher(x.data_ptr(), m1t.data_ptr(), m2.data_ptr(), out.data_ptr(),
-                       n, p, q, s, t, torch.cuda.current_stream(dev).cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"{kernel.name} kernel launch failed: cudaError_t {err}")
-    kernel.launches += 1
+    _call(kernel, symbol, dev, x.data_ptr(), m1t.data_ptr(), m2.data_ptr(), out.data_ptr(),
+          n, p, q, s, t)
     return out
+
+
+def _suffix(t: torch.Tensor) -> str:
+    return "bf16" if t.dtype == torch.bfloat16 else "f32"
 
 
 def dwt2(x3: torch.Tensor, a_t: torch.Tensor, bt: torch.Tensor) -> torch.Tensor:
     """K1: (N, H, W) f32/bf16 -> (N, 4, h', w') f32 with
     [[aa, ad], [da, dd]] = A . x . B^T; ``a_t`` = A^T (H, 2h'), ``bt`` = B^T
     (W, 2w'), both contiguous float32."""
-    n = x3.shape[0]
+    _check(x3, "x", (torch.float32, torch.bfloat16), 3, x3.device)
+    n, q, s = x3.shape
     h2, w2 = a_t.shape[-1], bt.shape[-1]
     if h2 % 2 or w2 % 2:
         raise ValueError(f"analysis operators must have even output sides, got {h2}, {w2}")
-    symbol = "wam_dwt2_bf16" if x3.dtype == torch.bfloat16 else "wam_dwt2_f32"
-    return _launch(KERNELS["dwt2"], symbol, x3, a_t, bt, (n, 4, h2 // 2, w2 // 2))
+    return _launch_mm2(KERNELS["dwt2"], f"wam_dwt2_{_suffix(x3)}", x3, a_t, bt, q, s,
+                       (n, 4, h2 // 2, w2 // 2))
+
+
+def synth2(sub: torch.Tensor, sr_t: torch.Tensor, sc_t: torch.Tensor) -> torch.Tensor:
+    """K2: (N, 4, h, w) f32/bf16 subbands in (aa, ad, da, dd) order ->
+    (N, P, T) f32 = Sr . [[aa, ad], [da, dd]] . Sc^T; ``sr_t`` = Sr^T (2h, P),
+    ``sc_t`` = Sc^T (2w, T), both contiguous float32. The merge happens in
+    the kernel."""
+    _check(sub, "sub", (torch.float32, torch.bfloat16), 4, sub.device)
+    n, four, h, w = sub.shape
+    if four != 4:
+        raise ValueError(f"sub must be (N, 4, h, w), got {tuple(sub.shape)}")
+    return _launch_mm2(KERNELS["synth2"], f"wam_synth2_{_suffix(sub)}", sub, sr_t, sc_t,
+                       2 * h, 2 * w, (n, sr_t.shape[-1], sc_t.shape[-1]))
 
 
 def pair(y3: torch.Tensor, m1t: torch.Tensor, m2: torch.Tensor) -> torch.Tensor:
     """K3: (N, Q, S) f32 -> (N, P, T) f32, out[n] = m1t^T . y3[n] . m2."""
     if y3.dtype != torch.float32:
         raise TypeError(f"pair kernel takes float32, got {y3.dtype}")
-    return _launch(KERNELS["pair"], "wam_pair_f32", y3, m1t, m2,
-                   (y3.shape[0], m1t.shape[1], m2.shape[1]))
+    _check(y3, "x", (torch.float32,), 3, y3.device)
+    n, q, s = y3.shape
+    return _launch_mm2(KERNELS["pair"], "wam_pair_f32", y3, m1t, m2, q, s,
+                       (n, m1t.shape[-1], m2.shape[-1]))
+
+
+MASK_LANES, MASK_PACK = 128, 8  # the (R/8, 128) uint8 sign-mask layout
+
+
+def mask_rows(numel: int) -> int:
+    """Rows of the packed mask of ``numel`` elements: ceil(numel / 1024)."""
+    return -(-numel // (MASK_PACK * MASK_LANES))
+
+
+def relu_fwd(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """K4: contiguous f32/bf16 x of any shape -> (y = relu(x), same shape and
+    dtype; m, (ceil(numel / 1024), 128) uint8 sign mask)."""
+    _check(x, "x", (torch.float32, torch.bfloat16), None, x.device)
+    y = torch.empty_like(x)
+    m = torch.empty((mask_rows(x.numel()), MASK_LANES), device=x.device, dtype=torch.uint8)
+    if x.numel():
+        _call(KERNELS["relu_fwd"], f"wam_relu_fwd_{_suffix(x)}", x.device, x.data_ptr(),
+              y.data_ptr(), m.data_ptr(), x.numel())
+    return y, m
+
+
+def relu_bwd(m: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
+    """K5: dx = g * unpack(m), g contiguous f32/bf16 of any shape, ``m`` the
+    mask K4 gave for an input of g's size."""
+    _check(g, "g", (torch.float32, torch.bfloat16), None, g.device)
+    _check(m, "m", (torch.uint8,), 2, g.device)
+    if tuple(m.shape) != (mask_rows(g.numel()), MASK_LANES):
+        raise ValueError(f"mask of shape {tuple(m.shape)} does not fit {g.numel()} elements")
+    dx = torch.empty_like(g)
+    if g.numel():
+        _call(KERNELS["relu_bwd"], f"wam_relu_bwd_{_suffix(g)}", g.device, m.data_ptr(),
+              g.data_ptr(), dx.data_ptr(), g.numel())
+    return dx

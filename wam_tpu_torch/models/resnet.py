@@ -5,7 +5,10 @@ Counterpart of `wam_tpu.models.resnet`: the same architecture (stride on the
 BatchNorm eps 1e-5, max-pool 3/2 pad 1, global mean, dense head) with
 torchvision's state-dict names, so `wam_tpu_torch.models.ingest` carries the
 JAX package's weights across mechanically. Convolutions are cuDNN's, as the
-JAX package leaves them to XLA.
+JAX package leaves them to XLA. The activation is the ``act`` attribute of
+every block and of the network (``torch.relu`` by default), as the
+reference's ``act`` field is, so `bind_inference` can swap in the fused
+ReLU VJP.
 """
 
 from __future__ import annotations
@@ -17,6 +20,7 @@ import torch
 import torch.nn as nn
 
 from wam_tpu_torch.device import resolve_device
+from wam_tpu_torch.tune.fused_relu import fused_relu
 
 __all__ = ["BasicBlock", "Bottleneck", "ResNet", "resnet18", "resnet50", "bind_inference"]
 
@@ -36,6 +40,7 @@ class BasicBlock(nn.Module):
 
     def __init__(self, in_ch: int, features: int, stride: int = 1):
         super().__init__()
+        self.act = torch.relu
         self.conv1 = nn.Conv2d(in_ch, features, 3, stride, 1, bias=False)
         self.bn1 = _bn(features)
         self.conv2 = nn.Conv2d(features, features, 3, 1, 1, bias=False)
@@ -43,10 +48,10 @@ class BasicBlock(nn.Module):
         self.downsample = _shortcut(in_ch, features, stride)
 
     def forward(self, x):
-        y = torch.relu(self.bn1(self.conv1(x)))
+        y = self.act(self.bn1(self.conv1(x)))
         y = self.bn2(self.conv2(y))
         residual = x if self.downsample is None else self.downsample(x)
-        return torch.relu(y + residual)
+        return self.act(y + residual)
 
 
 class Bottleneck(nn.Module):
@@ -54,6 +59,7 @@ class Bottleneck(nn.Module):
 
     def __init__(self, in_ch: int, features: int, stride: int = 1):
         super().__init__()
+        self.act = torch.relu
         out_ch = features * self.expansion
         self.conv1 = nn.Conv2d(in_ch, features, 1, bias=False)
         self.bn1 = _bn(features)
@@ -64,11 +70,11 @@ class Bottleneck(nn.Module):
         self.downsample = _shortcut(in_ch, out_ch, stride)
 
     def forward(self, x):
-        y = torch.relu(self.bn1(self.conv1(x)))
-        y = torch.relu(self.bn2(self.conv2(y)))
+        y = self.act(self.bn1(self.conv1(x)))
+        y = self.act(self.bn2(self.conv2(y)))
         y = self.bn3(self.conv3(y))
         residual = x if self.downsample is None else self.downsample(x)
-        return torch.relu(y + residual)
+        return self.act(y + residual)
 
 
 class ResNet(nn.Module):
@@ -76,6 +82,7 @@ class ResNet(nn.Module):
 
     def __init__(self, stage_sizes: Sequence[int], block_cls, num_classes: int = 1000):
         super().__init__()
+        self.act = torch.relu
         self.conv1 = nn.Conv2d(3, 64, 7, 2, 3, bias=False)
         self.bn1 = _bn(64)
         self.maxpool = nn.MaxPool2d(3, 2, 1)
@@ -91,7 +98,7 @@ class ResNet(nn.Module):
         self.fc = nn.Linear(in_ch, num_classes)
 
     def forward(self, x):
-        x = self.maxpool(torch.relu(self.bn1(self.conv1(x))))
+        x = self.maxpool(self.act(self.bn1(self.conv1(x))))
         for stage in range(self.n_stages):
             x = getattr(self, f"layer{stage + 1}")(x)
         return self.fc(x.mean(dim=(2, 3)))
@@ -159,11 +166,14 @@ def bind_inference(
     ``torch.bfloat16``) casts parameters and buffers once and the input at
     the boundary; logits come back float32. ``fold_bn`` folds BatchNorm
     multiplies into the conv weights (same function, cheaper backward).
-    ``fused_relu_vjp`` needs kernels K4/K5, not ported yet."""
-    if fused_relu_vjp:
-        raise NotImplementedError(
-            "fused_relu_vjp needs kernels K4/K5 (wam_tpu/tune/fused_relu.py), which are "
-            "not ported yet (ROADMAP.md, queue 2)")
+    ``fused_relu_vjp`` sets ``act = fused_relu`` on every module that has an
+    ``act`` (`wam_tpu_torch.tune.fused_relu`: the backward keeps a bit-packed
+    sign mask instead of the activation, kernels K4/K5 on CUDA); same values
+    and gradients, parameters untouched, so it composes with ``fold_bn`` and
+    ``compute_dtype``. A model without ``act`` raises ValueError."""
+    if fused_relu_vjp and not hasattr(model, "act"):
+        raise ValueError("fused_relu_vjp=True requires a model with an `act` attribute "
+                         f"(got {type(model).__name__})")
     device = resolve_device(device)
     if variables is not None:
         model.load_state_dict(variables)
@@ -173,6 +183,10 @@ def bind_inference(
         _fold_bn(model)
     if compute_dtype is not None:
         model.to(compute_dtype)
+    if fused_relu_vjp:
+        for module in model.modules():
+            if hasattr(module, "act"):
+                module.act = fused_relu
 
     def fn(x: torch.Tensor) -> torch.Tensor:
         if not nchw:

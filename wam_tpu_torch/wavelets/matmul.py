@@ -1,4 +1,4 @@
-"""DWT as banded matrix products, with the hand-written CUDA kernels K1/K3.
+"""DWT as banded matrix products, with the hand-written CUDA kernels K1-K3.
 
 PyTorch counterpart of `wam_tpu.wavelets.matmul`. Boundary padding (reflect /
 symmetric / zero / edge / periodic, pywt semantics) is folded into a dense
@@ -9,11 +9,14 @@ per-axis analysis matrix, so one full 2D level is
 and the deep tail of small synthesis levels collapses into one operator pair
 ``R @ Y @ C^T``. The operators are built host-side in float64 numpy and cached.
 
-Two functions carry a kernel, each a ``torch.autograd.Function`` with its
+Three functions carry a kernel, each a ``torch.autograd.Function`` with its
 plain PyTorch version beside it:
 
 - `dwt2_kernel` (counterpart of ``dwt2_pallas``): K1, ``csrc/dwt2.cu``;
   backward is the plain adjoint ``A^T gY B`` (``_core_bwd``).
+- `idwt2_kernel` (counterpart of ``idwt2_pallas``): K2, ``csrc/synth2.cu``,
+  which merges the subbands inside the kernel; backward is the quadrant
+  split of ``Sr^T g Sc``, a launch of K1 (``_synth_bwd``).
 - `waverec2_collapsed`: K3, ``csrc/pair.cu``; backward ``R^T g C``
   (``_pair_bwd``) launches the same kernel with the operators swapped.
 
@@ -30,6 +33,7 @@ import numpy as np
 import torch
 
 from wam_tpu_torch import kernels
+from wam_tpu_torch.device import on_cpu
 from wam_tpu_torch.wavelets.filters import Wavelet, build_wavelet
 
 __all__ = [
@@ -38,6 +42,7 @@ __all__ = [
     "analysis2_mm",
     "synthesis2_mm",
     "dwt2_kernel",
+    "idwt2_kernel",
     "waverec2_collapsed",
 ]
 
@@ -168,6 +173,15 @@ def _kernel_analysis(n: int, dec_lo: tuple, dec_hi: tuple, mode: str,
 
 
 @functools.lru_cache(maxsize=256)
+def _kernel_synthesis(n: int, rec_lo: tuple, rec_hi: tuple,
+                      device: torch.device) -> tuple[torch.Tensor, torch.Tensor]:
+    """(S, S^T) float32 on ``device``, both contiguous: the synthesis
+    operator [S_lo | S_hi] of an n-long coefficient axis and its transpose."""
+    S = torch.as_tensor(_synthesis_np(n, rec_lo, rec_hi), dtype=torch.float32, device=device)
+    return S, S.T.contiguous()
+
+
+@functools.lru_cache(maxsize=256)
 def _kernel_collapsed(sizes: tuple, rec_lo: tuple, rec_hi: tuple,
                       device: torch.device) -> tuple[torch.Tensor, torch.Tensor]:
     """(C, C^T) float32 on ``device``, both contiguous."""
@@ -225,22 +239,26 @@ def dwt2_plain(x3: torch.Tensor, At: torch.Tensor, Bt: torch.Tensor) -> torch.Te
     return _split_quadrants(pair_plain(x3, At, Bt), At.shape[1] // 2, Bt.shape[1] // 2)
 
 
-def _on_cpu(t: torch.Tensor) -> bool:
-    if t.is_cuda:
-        return False
-    if t.device.type != "cpu":
-        raise ValueError(f"unsupported device {t.device}: the port runs on cuda or cpu")
-    return True
+def idwt2_plain(sub3: torch.Tensor, Sr: torch.Tensor, Sct: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch version of K2: Sr @ [[aa, ad], [da, dd]] @ Sct per image
+    (f32 accumulate)."""
+    return torch.matmul(torch.matmul(Sr, _merge_quadrants(sub3.float())), Sct)
 
 
 def _dwt2_forward(x3, At, Bt) -> torch.Tensor:
-    if _on_cpu(x3):
+    if on_cpu(x3):
         return dwt2_plain(x3, At, Bt)
     return kernels.dwt2(x3, At, Bt)
 
 
+def _idwt2_forward(sub3, Sr, Srt, Sct) -> torch.Tensor:
+    if on_cpu(sub3):
+        return idwt2_plain(sub3, Sr, Sct)
+    return kernels.synth2(sub3, Srt, Sct)
+
+
 def _pair_forward(y3, m1t, m2) -> torch.Tensor:
-    if _on_cpu(y3):
+    if on_cpu(y3):
         return pair_plain(y3, m1t, m2)
     return kernels.pair(y3, m1t, m2)
 
@@ -259,6 +277,24 @@ class _Dwt2Core(torch.autograd.Function):
         A, Bt = ctx.saved_tensors
         dx = torch.matmul(torch.matmul(A.T, _merge_quadrants(g)), Bt.T)
         return dx.to(ctx.x_dtype), None, None, None
+
+
+class _Idwt2Core(torch.autograd.Function):
+    """sub3 (N, 4, h, w) -> (N, F_r, F_c) = Sr Y Sc^T float32; backward
+    ``_synth_bwd``: the quadrant split of Sr^T g Sc, which is K1 with
+    A^T = Sr and B^T = Sc."""
+
+    @staticmethod
+    def forward(ctx, sub3, Sr, Srt, Sc, Sct):
+        ctx.save_for_backward(Sr, Sc)
+        ctx.sub_dtype = sub3.dtype
+        return _idwt2_forward(sub3, Sr, Srt, Sct)
+
+    @staticmethod
+    def backward(ctx, g):
+        Sr, Sc = ctx.saved_tensors
+        dsub = _dwt2_forward(g.contiguous(), Sr, Sc)
+        return dsub.to(ctx.sub_dtype), None, None, None, None
 
 
 class _PairCore(torch.autograd.Function):
@@ -298,6 +334,30 @@ def dwt2_kernel(x: torch.Tensor, wavelet, mode: str) -> torch.Tensor:
         x3 = x3.float()
     out = _Dwt2Core.apply(x3.contiguous(), A, At, Bt)
     return out.reshape(batch_shape + out.shape[1:])
+
+
+def idwt2_kernel(subbands: torch.Tensor, wavelet, out_shape=None) -> torch.Tensor:
+    """Inverse of one 2D level through K2 (counterpart of ``idwt2_pallas``).
+
+    subbands: (..., 4, h, w) in the conv channel order (aa, ad, da, dd) ->
+    (..., out_shape), the full (2h - L + 2, 2w - L + 2) when None; the trim
+    is applied after the kernel. Differentiable: the backward is K1. bf16
+    subbands are read as bf16 and upcast inside the kernel; bf16 and f32
+    both give FLOAT32 pixels; other dtypes are computed in float32."""
+    w = _wav(wavelet)
+    h, wd = subbands.shape[-2:]
+    rec = (tuple(w.rec_lo), tuple(w.rec_hi))
+    Sr, Srt = _kernel_synthesis(h, *rec, subbands.device)
+    Sc, Sct = _kernel_synthesis(wd, *rec, subbands.device)
+    batch_shape = subbands.shape[:-3]
+    sub3 = subbands.reshape((-1, 4, h, wd))
+    if sub3.dtype != torch.bfloat16:
+        sub3 = sub3.float()
+    out = _Idwt2Core.apply(sub3.contiguous(), Sr, Srt, Sc, Sct)
+    out = out.reshape(batch_shape + out.shape[1:])
+    if out_shape is not None and tuple(out_shape) != tuple(out.shape[-2:]):
+        out = out[..., : out_shape[0], : out_shape[1]]
+    return out
 
 
 def waverec2_collapsed(cA: torch.Tensor, details, wavelet) -> torch.Tensor:

@@ -11,10 +11,10 @@ Three implementations of the same linear maps, chosen per call by ``impl``:
 - ``"matmul"``: the banded-matrix form `matmul.analysis2_mm` /
   `matmul.synthesis2_mm` (plain torch);
 - ``"kernel"``: the hand-written CUDA kernels — K1 (`matmul.dwt2_kernel`)
-  for every analysis level, and K3 (`matmul.waverec2_collapsed`) for the
+  for every analysis level, K3 (`matmul.waverec2_collapsed`) for the
   contiguous run of coarsest synthesis levels whose sides all fall below
-  ``SYNTH_COLLAPSE``. A remaining per-level synthesis needs K2, which is not
-  ported yet: on CUDA it raises; CPU tensors run its plain version.
+  ``SYNTH_COLLAPSE``, and K2 (`matmul.idwt2_kernel`) for every remaining
+  synthesis level. CPU tensors run the kernels' plain versions.
 
 ``impl=None`` resolves to ``"kernel"`` for CUDA tensors and ``"conv"`` for
 CPU tensors. bf16 inputs give float32 coefficients on every impl.
@@ -171,23 +171,19 @@ def idwt2(cA: torch.Tensor, detail: Detail2D, wavelet, out_shape=None,
           impl: str | None = None):
     """Single-level inverse 2D DWT; bf16 coefficients give float32 pixels.
 
-    On ``impl="kernel"`` this level needs K2 (``idwt2_pallas`` on the TPU),
-    which is not ported yet: a CUDA tensor raises NotImplementedError (see
-    ROADMAP.md, queue 2); a CPU tensor runs the plain matmul form."""
+    On ``impl="kernel"`` the level runs through K2 (`matmul.idwt2_kernel`,
+    ``idwt2_pallas`` on the TPU), which reads bf16 subbands as they are;
+    conv and matmul upcast them here."""
     wav = _resolve(wavelet)
     n0, n1 = cA.shape[-2:]
     L = wav.filt_len
     target = (2 * n0 - L + 2, 2 * n1 - L + 2) if out_shape is None else tuple(out_shape)
     impl = _resolve_impl(impl, cA)
     sub = torch.stack([cA, detail.vertical, detail.horizontal, detail.diagonal], dim=-3)
+    if impl == "kernel":
+        return _mm.idwt2_kernel(sub, wav, target)
     if sub.dtype == torch.bfloat16:
         sub = sub.float()
-    if impl == "kernel" and sub.is_cuda:
-        raise NotImplementedError(
-            "per-level 2D synthesis on CUDA needs kernel K2 (idwt2_pallas), which is not "
-            "ported yet (ROADMAP.md, queue 2); it runs only when a detail side is at least "
-            f"SYNTH_COLLAPSE={SYNTH_COLLAPSE} or fewer than 2 levels collapse. "
-            "Pass impl='matmul' or impl='conv' for the plain synthesis.")
     if impl == "conv":
         return _synthesis(sub, wav, target)
     return _mm.synthesis2_mm(sub, wav, target)
@@ -220,7 +216,8 @@ def _collapse_count(details) -> int:
 def waverec2(coeffs, wavelet, impl: str | None = None):
     """Inverse of `wavedec2`. On ``impl="kernel"`` the coarsest contiguous
     run of >= 2 levels below ``SYNTH_COLLAPSE`` is one K3 operator pair
-    (`matmul.waverec2_collapsed`); remaining levels run through `idwt2`."""
+    (`matmul.waverec2_collapsed`); remaining levels run through `idwt2`
+    (K2)."""
     wav = _resolve(wavelet)
     a = coeffs[0]
     details = list(coeffs[1:])
