@@ -8,11 +8,14 @@ sm_90a). Phases, each fatal on failure:
 
 1. device: the card's name and power limit (nvidia-smi);
 2. build:  every kernel, compiled from ``wam_tpu_torch/csrc`` by nvcc (one
-   process per source, all at once);
+   process per source, all at once), with ptxas's report of K1 and K2;
 3. kernels: each kernel against its plain PyTorch version at the shapes
    each path that runs it gives it, TF32 off, and timed with CUDA events:
    K1 and K3 at the flagship's and at path 2's, K2 (both directions) and
-   K4/K5 at path 2's; one line per kernel and path;
+   K4/K5 at path 2's; one line per kernel and path, each case and line
+   with its bound and bound_share (bound / kernel time). K1 and K2 launch
+   with their band plans; the plain versions and the einsum yardstick use
+   the dense operators;
 4. slice:  the flagship path, `WaveletAttribution2D` SmoothGrad on
    ResNet-50 (1000 classes, seeded random weights) at batch 32, 3x224x224,
    db4, J=3, reflect, n_samples=25, stdev_spread=0.25, sample_batch_size=4,
@@ -158,12 +161,19 @@ def _case(torch, label: str, got, want, kernel_fn, plain_fn, product, reads, out
     nbytes = _nbytes(*reads) + out_bytes
     flops, dense = _needed_flops(x, m1t, m2), _dense_flops(x, m1t, m2)
     bound, by = _bound_ms(nbytes, flops)
-    case.update(bound_ms=bound, bound_by=by, flops=flops, dense_flops=dense, bytes=nbytes,
-                dense_bound_ms=_bound_ms(nbytes, dense)[0])
+    case.update(bound_ms=bound, bound_by=by, bound_share=bound / case["ms"], flops=flops,
+                dense_flops=dense, bytes=nbytes, dense_bound_ms=_bound_ms(nbytes, dense)[0])
     lib = "" if case["library_ms"] is None else f", einsum {case['library_ms']:.4f}"
     _log(f"  {label}: {case['ms']:.4f} ms (plain {case['plain_ms']:.4f}{lib}, "
-         f"bound {bound:.4f} by {by})")
+         f"bound {bound:.4f} by {by}, bound_share {case['bound_share']:.3f})")
     return case
+
+
+def _plan_tags(kernels, plan) -> dict:
+    """The band plan's shape, as the kernel launches it (K1, K2)."""
+    return {"plan": {"rt": plan.rt, "sm": plan.sm, "k": plan.k, "kc": plan.kc,
+                     "stages": plan.stages, "cols_shared": plan.cols_shared,
+                     "tiles_per_image": plan.ntiles, "smem_bytes": plan.smem_bytes()}}
 
 
 def _row(kernel: str, name: str, source: str, replaces: str, path: str, cases: list,
@@ -182,6 +192,7 @@ def _row(kernel: str, name: str, source: str, replaces: str, path: str, cases: l
             "max_abs_err": max(c["max_abs_err"] for c in cases),
             "tol": max(c["tol"] for c in cases), "ms": total("ms"),
             "plain_ms": total("plain_ms"), "bound_ms": bound, "bound_by": by,
+            "bound_share": bound / total("ms"),
             "flops": total("flops"), "bytes": total("bytes"),
             "dense_bound_ms": _bound_ms(total("bytes"), total("dense_flops"))[0],
             "library_ms": total("library_ms"), "library": library, "work": work,
@@ -201,19 +212,21 @@ def _k1_cases(torch, tmm, kernels, g, side: int) -> list[dict]:
     x = torch.randn((n, side, side), generator=g, device=dev)
     for level in range(1, LEVELS + 1):
         q = x.shape[-1]
-        _, At = tmm._kernel_analysis(q, *taps, dev)
+        _, At = tmm._kernel_analysis(q, *taps, dev)  # dense: the plain version and einsum
         Bt = At
+        plan = tmm.dwt2_band(q, q, *taps, dev)
         out_bytes = n * At.shape[1] * Bt.shape[1] * 4
         for dtype in (torch.float32, torch.bfloat16):
             xin = x.to(dtype).contiguous()
             want = tmm.dwt2_plain(xin, At, Bt)
             f32 = dtype == torch.float32
             cases.append(_case(
-                torch, f"K1 {side}^2 level {level} {str(dtype)[6:]}", kernels.dwt2(xin, At, Bt),
-                want, lambda: kernels.dwt2(xin, At, Bt), lambda: tmm.dwt2_plain(xin, At, Bt),
+                torch, f"K1 {side}^2 level {level} {str(dtype)[6:]}", kernels.dwt2(xin, plan),
+                want, lambda: kernels.dwt2(xin, plan), lambda: tmm.dwt2_plain(xin, At, Bt),
                 (At, xin, Bt), (xin, At, Bt), out_bytes, library=f32,
                 extra={"matmul_pair_ms": lambda: tmm.pair_plain(xin, At, Bt)} if f32 else None,
-                part=f"analysis level {level}", dtype=str(dtype)[6:], shape=[n, q, q]))
+                part=f"analysis level {level}", dtype=str(dtype)[6:], shape=[n, q, q],
+                **_plan_tags(kernels, plan)))
             if f32:
                 nxt = want[:, 0].contiguous()
         x = nxt
@@ -259,8 +272,10 @@ def _k2_cases(torch, tmm, kernels, g) -> tuple[list[dict], dict]:
 
     w = build_wavelet(WAVELET)
     h = (SIDE2 + w.filt_len - 1) // 2
-    Sr, Srt = tmm._kernel_synthesis(h, tuple(w.rec_lo), tuple(w.rec_hi), dev)
+    rec = (tuple(w.rec_lo), tuple(w.rec_hi))
+    Sr, Srt = tmm._kernel_synthesis(h, *rec, dev)  # dense: the plain version and einsum
     Sc, Sct = Sr, Srt
+    plans = tmm.idwt2_band(h, h, *rec, dev)  # (K2's, its backward's on K1)
     full = Sr.shape[0]
     sub = torch.randn((n, 4, h, h), generator=g, device=dev)
     cases = []
@@ -268,21 +283,23 @@ def _k2_cases(torch, tmm, kernels, g) -> tuple[list[dict], dict]:
         sin = sub.to(dtype).contiguous()
         merged = tmm._merge_quadrants(sin.float())  # the product as the einsum sees it
         cases.append(_case(
-            torch, f"K2 forward {str(dtype)[6:]}", kernels.synth2(sin, Srt, Sct),
-            tmm.idwt2_plain(sin, Sr, Sct), lambda: kernels.synth2(sin, Srt, Sct),
+            torch, f"K2 forward {str(dtype)[6:]}", kernels.synth2(sin, plans[0]),
+            tmm.idwt2_plain(sin, Sr, Sct), lambda: kernels.synth2(sin, plans[0]),
             lambda: tmm.idwt2_plain(sin, Sr, Sct), (Srt, merged, Sct), (sin, Srt, Sct),
-            n * full * full * 4, part="forward", dtype=str(dtype)[6:], shape=[n, 4, h, h]))
+            n * full * full * 4, part="forward", dtype=str(dtype)[6:], shape=[n, 4, h, h],
+            **_plan_tags(kernels, plans[0])))
         del merged
 
     # the backward as autograd runs it: the quadrant split of Sr^T g Sc on K1
     gout = torch.randn((n, full, full), generator=g, device=dev)
     sv = sub.clone().requires_grad_(True)
-    (dsub,) = torch.autograd.grad(tmm._Idwt2Core.apply(sv, Sr, Srt, Sc, Sct), sv, gout)
+    (dsub,) = torch.autograd.grad(tmm._Idwt2Core.apply(sv, Sr, Sc, Sct, plans), sv, gout)
     bwd = _case(torch, "K2 backward (autograd, a K1 launch)", dsub, tmm.dwt2_plain(gout, Sr, Sc),
-                lambda: kernels.dwt2(gout, Sr, Sc), lambda: tmm.dwt2_plain(gout, Sr, Sc),
+                lambda: kernels.dwt2(gout, plans[1]), lambda: tmm.dwt2_plain(gout, Sr, Sc),
                 (Sr, gout, Sc), (gout, Sr, Sc), n * 4 * h * h * 4,
                 extra={"matmul_pair_ms": lambda: tmm.pair_plain(gout, Sr, Sc)},
-                part="K2 backward (autograd)", dtype="float32", shape=[n, full, full])
+                part="K2 backward (autograd)", dtype="float32", shape=[n, full, full],
+                **_plan_tags(kernels, plans[1]))
     return cases, bwd
 
 
@@ -389,7 +406,8 @@ def _relu_rows(torch, kernels, g, sites) -> list[dict]:
                 cases[k].append({"shape": [rows, *shape], "dtype": str(dtype)[6:],
                                  "sites": count, "ms": ms, "plain_ms": plain_ms,
                                  "nearest_ms": nearest_ms, "bound_ms": bound, "bound_by": by,
-                                 "bytes": nbytes, "max_abs_err": 0.0})
+                                 "bound_share": bound / ms, "bytes": nbytes,
+                                 "max_abs_err": 0.0})
                 if dtype == torch.float32:
                     for key, v in (("ms", ms), ("plain_ms", plain_ms), ("nearest_ms", nearest_ms),
                                    ("bytes", nbytes), ("ops", numel)):
@@ -418,7 +436,8 @@ def _relu_rows(torch, kernels, g, sites) -> list[dict]:
             "source": "wam_tpu_torch/csrc/relu_mask.cu",
             "replaces": f"wam_tpu/tune/fused_relu.py:{line}", "launches": None,
             "max_abs_err": 0.0, "tol": 0.0, "ms": t["ms"], "plain_ms": t["plain_ms"],
-            "bound_ms": bound, "bound_by": by, "bytes": t["bytes"], "ops": t["ops"],
+            "bound_ms": bound, "bound_by": by, "bound_share": bound / t["ms"],
+            "bytes": t["bytes"], "ops": t["ops"],
             "library_ms": None, "nearest_call": nearest, "nearest_call_ms": t["nearest_ms"],
             "work": f"all {len(sites)} ReLU sites of one {rows}-row ResNet-50 step at "
                     f"{SIDE2}^2, float32 (the nearest call computes relu or its gate-from-"
@@ -597,9 +616,11 @@ def main() -> int:
     report = kernels.build_all()
     _log(f"phase build: {time.perf_counter() - t0:.2f} s for {sorted(report)} "
          f"into {kernels.BUILD_DIR}")
-    for name, rep in report.items():
+    for name, rep in report.items():  # ptxas: registers, static shared memory, spills
+        keys = (("entry function", "registers", "spill", "smem") if name in ("dwt2", "synth2")
+                else ("registers", "spill"))
         for line in rep["log"].splitlines():
-            if "registers" in line or "spill" in line:
+            if any(k in line for k in keys):
                 _log(f"  {name}: {line.strip()}")
 
     sites = relu_sites(torch, wtt)

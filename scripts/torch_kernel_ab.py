@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Times the wavelet kernels of two or more checkouts of the port, in turns.
+"""Times K1 and K2 of two or more checkouts of the port, in turns.
 
     python3 scripts/torch_kernel_ab.py DIR [DIR ...]
 
@@ -7,12 +7,21 @@ Each DIR is the root of a checkout (for example the parent commit unpacked
 with ``git archive`` into a git-ignored directory). The checkouts run in the
 order given, each in its own process that imports ``wam_tpu_torch`` from
 that DIR and builds its kernels there, so list them as A B B A to see the
-spread. Each process times K1 at the flagship's three analysis levels and
-K3 forward and backward (float32, one sample chunk of images per launch, the
-inputs made from one seed) with CUDA events, and the script prints one JSON
-line per process and a last line with the card. The flagship's constants and
-the timer come from that DIR's own ``chip_smoke.py``, so every checkout is
-timed at the shapes and in the way its smoke test states. Needs one CUDA card.
+spread. Each process calls the public functions under ``torch.no_grad()``,
+so the script is the same for checkouts whose kernel wrappers differ:
+
+- ``matmul.dwt2_kernel`` (K1) at the three analysis levels of the flagship
+  (224²) and of path 2 (288²);
+- ``matmul.idwt2_kernel`` (K2) forward at path 2's finest synthesis level
+  (4 x 147² -> 288²), and forward + backward through autograd (the backward
+  is a K1 launch; ``K2_backward`` is the difference).
+
+Float32, one sample chunk of images per launch, inputs from one seed. Each
+case gives the event time per call (CUDA events around many calls, host
+launch gaps included) and the device time per call (`torch.profiler`, the
+kernels alone). Constants and the event timer come from that DIR's own
+``chip_smoke.py``. Prints one JSON line per process and a last line with
+the card. Needs one CUDA card.
 """
 
 from __future__ import annotations
@@ -22,6 +31,23 @@ import subprocess
 import sys
 from pathlib import Path
 
+ITERS, WARMUP = 50, 5
+
+
+def _device_ms(torch, fn) -> float:
+    """Summed CUDA kernel time per call of ``fn`` under torch.profiler."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(ITERS):
+            fn()
+        torch.cuda.synchronize()
+    total = sum(getattr(ev, "self_device_time_total", 0.0) or 0.0 for ev in prof.key_averages()
+                if ev.device_type == torch.autograd.DeviceType.CUDA)
+    return total / 1e3 / ITERS
+
 
 def one(root: str) -> dict:
     sys.path.insert(0, root)
@@ -30,35 +56,42 @@ def one(root: str) -> dict:
     import chip_smoke as cs
     from wam_tpu_torch import kernels
     from wam_tpu_torch.wavelets import matmul as tmm
-    from wam_tpu_torch.wavelets import transform as tt
-    from wam_tpu_torch.wavelets.filters import build_wavelet
 
-    for mod in (cs, kernels):
+    for mod in (cs, kernels, tmm):
         assert Path(mod.__file__).resolve().is_relative_to(Path(root).resolve())
     kernels.build_all()
-    dev = torch.device("cuda")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device(cs.DEVICE)
     g = torch.Generator(device=dev).manual_seed(cs.SEED)
     n = cs.SAMPLE_CHUNK * cs.BATCH * cs.CHANNELS
-    w = build_wavelet(cs.WAVELET)
-    taps = (tuple(w.dec_lo), tuple(w.dec_hi), cs.MODE)
-
-    def time_ms(fn):
-        return cs._time_ms(fn, iters=50, warmup=5)
-
     res = {"tree": root}
-    x = torch.randn((n, cs.SIDE, cs.SIDE), generator=g, device=dev)
-    for level in range(1, cs.LEVELS + 1):
-        _, At = tmm._kernel_analysis(x.shape[-1], *taps, dev)
-        res[f"K1_level{level}_ms"] = time_ms(lambda: kernels.dwt2(x, At, At))
-        x = kernels.dwt2(x, At, At)[:, 0].contiguous()
-    imgs = torch.randn((n // cs.CHANNELS, cs.CHANNELS, cs.SIDE, cs.SIDE), generator=g,
-                       device=dev)
-    coeffs = tt.wavedec2(imgs, cs.WAVELET, cs.LEVELS, cs.MODE, impl="matmul")
-    R, Rt, C, Ct = tmm.collapsed_operators(coeffs[1:], cs.WAVELET, dev)
-    y3 = tmm.assemble_collapsed(coeffs[0], coeffs[1:]).reshape(n, Rt.shape[0], Ct.shape[0])
-    gout = torch.randn((n, R.shape[0], C.shape[0]), generator=g, device=dev)
-    res["K3_forward_ms"] = time_ms(lambda: kernels.pair(y3, Rt, Ct))
-    res["K3_backward_ms"] = time_ms(lambda: kernels.pair(gout, R, C))
+
+    def record(name, fn):
+        res[f"{name}_ms"] = cs._time_ms(fn, iters=ITERS, warmup=WARMUP)
+        res[f"{name}_device_ms"] = _device_ms(torch, fn)
+
+    with torch.no_grad():
+        for tag, side in (("flagship", cs.SIDE), ("path2", cs.SIDE2)):
+            x = torch.randn((n, side, side), generator=g, device=dev)
+            for level in range(1, cs.LEVELS + 1):
+                record(f"K1_{tag}_level{level}",
+                       lambda x=x: tmm.dwt2_kernel(x, cs.WAVELET, cs.MODE))
+                x = tmm.dwt2_kernel(x, cs.WAVELET, cs.MODE)[:, 0].contiguous()
+        h = (cs.SIDE2 + 7) // 2
+        sub = torch.randn((n, 4, h, h), generator=g, device=dev)
+        record("K2_forward", lambda: tmm.idwt2_kernel(sub, cs.WAVELET))
+    sv = sub.clone().requires_grad_(True)
+    gout = torch.randn((n, cs.SIDE2, cs.SIDE2), generator=g, device=dev)
+    record("K2_forward_backward",
+           lambda: torch.autograd.grad(tmm.idwt2_kernel(sv, cs.WAVELET), sv, gout))
+    for key in ("", "_device"):
+        res[f"K2_backward{key}_ms"] = (res[f"K2_forward_backward{key}_ms"]
+                                       - res[f"K2_forward{key}_ms"])
+    for key in ("", "_device"):
+        for tag in ("flagship", "path2"):
+            res[f"K1_{tag}_chunk{key}_ms"] = sum(res[f"K1_{tag}_level{lv}{key}_ms"]
+                                                 for lv in range(1, cs.LEVELS + 1))
+        res[f"K1_path2_chunk{key}_ms"] += res[f"K2_backward{key}_ms"]
     return res
 
 
@@ -73,7 +106,7 @@ def main() -> int:
         return 1
     for root in sys.argv[1:]:
         proc = subprocess.run([sys.executable, __file__, "--one", root], capture_output=True,
-                              text=True, timeout=600)
+                              text=True, timeout=900)
         if proc.returncode != 0:
             print(proc.stderr, file=sys.stderr)
             return proc.returncode

@@ -21,6 +21,7 @@ from wam_tpu_torch.models import resnet as tres
 from wam_tpu_torch.models.toy import toy_conv_model
 from wam_tpu_torch.tune import fused_relu as tfr
 from wam_tpu_torch.wam2d import BaseWAM2D, WaveletAttribution2D
+from wam_tpu_torch.wavelets import filters as tfilters
 from wam_tpu_torch.wavelets import matmul as tmm
 from wam_tpu_torch.wavelets import transform as tt
 
@@ -125,12 +126,14 @@ def test_kernel_launchers_refuse_cpu_tensors(monkeypatch):
     build: they have no CPU path of their own."""
     monkeypatch.setattr(kernels, "build_all", lambda *a: pytest.fail("built on CPU input"))
     x, m = torch.zeros(2, 8, 8), torch.zeros(8, 8)
+    cpu = torch.device("cpu")
     with pytest.raises(ValueError, match="CUDA tensor"):
-        kernels.dwt2(x, m, m)
+        kernels.dwt2(x, tmm.dwt2_band(8, 8, (0.5, 0.5), (-0.5, 0.5), "reflect", cpu))
     with pytest.raises(ValueError, match="CUDA tensor"):
         kernels.pair(x, m, m)
     with pytest.raises(ValueError, match="CUDA tensor"):
-        kernels.synth2(torch.zeros(2, 4, 4, 4), m, m)
+        kernels.synth2(torch.zeros(2, 4, 4, 4),
+                       tmm.idwt2_band(4, 4, (0.5, 0.5), (0.5, -0.5), cpu)[0])
     with pytest.raises(ValueError, match="CUDA tensor"):
         kernels.relu_fwd(x)
     with pytest.raises(ValueError, match="CUDA tensor"):
@@ -155,19 +158,25 @@ class FakeCuda(torch.Tensor):
 
 def test_per_level_synthesis_on_cuda_reaches_k2(monkeypatch):
     """impl="kernel" on a CUDA tensor runs the per-level synthesis through
-    the K2 launcher, with the subbands stacked (aa, ad, da, dd) and Sr^T,
-    Sc^T as operands, and its backward through the K1 launcher with Sr, Sc;
-    never through a plain version."""
+    the K2 launcher, with the subbands stacked (aa, ad, da, dd) and the band
+    plan of Sr, Sc^T, and its backward through the K1 launcher with the plan
+    of Sr^T, Sc; never through a plain version."""
     calls = []
     plain = tmm.idwt2_plain
+    w = tfilters.build_wavelet("db4")
+    Sr, _ = tmm._kernel_synthesis(9, tuple(w.rec_lo), tuple(w.rec_hi), torch.device("cpu"))
+    Sc, Sct = tmm._kernel_synthesis(7, tuple(w.rec_lo), tuple(w.rec_hi), torch.device("cpu"))
 
-    def synth2(sub, sr_t, sc_t):
-        calls.append(("synth2", tuple(sub.shape), tuple(sr_t.shape), tuple(sc_t.shape)))
-        return plain(sub, sr_t.T, sc_t)
+    def dims(plan):
+        return plan.q, plan.s, plan.p, plan.t
 
-    def dwt2(g, a_t, bt):
-        calls.append(("dwt2", tuple(g.shape), tuple(a_t.shape), tuple(bt.shape)))
-        return tmm.dwt2_plain(g, a_t, bt)
+    def synth2(sub, plan):
+        calls.append(("synth2", tuple(sub.shape), dims(plan)))
+        return plain(sub, Sr, Sct)
+
+    def dwt2(g, plan):
+        calls.append(("dwt2", tuple(g.shape), dims(plan)))
+        return tmm.dwt2_plain(g, Sr, Sc)
 
     monkeypatch.setattr(kernels, "synth2", synth2)
     monkeypatch.setattr(kernels, "dwt2", dwt2)
@@ -179,8 +188,8 @@ def test_per_level_synthesis_on_cuda_reaches_k2(monkeypatch):
     # autograd hands the backward a plain tensor: follow the CUDA route there too
     monkeypatch.setattr(tmm, "on_cpu", lambda t: False)
     torch.autograd.grad(out.sum(), leaves)
-    assert calls == [("synth2", (1, 4, 9, 7), (18, 12), (14, 8)),
-                     ("dwt2", (1, 12, 8), (12, 18), (8, 14))]
+    assert calls == [("synth2", (1, 4, 9, 7), (18, 14, 12, 8)),
+                     ("dwt2", (1, 12, 8), (12, 8, 18, 14))]
 
 
 def test_fused_relu_on_cuda_reaches_k4_and_k5(monkeypatch):
@@ -228,6 +237,24 @@ def test_library_name_follows_the_sources(monkeypatch, tmp_path):
     src.write_text(k.source.read_text() + "\n// edited\n")
     monkeypatch.setattr(k, "source", src)
     assert k.library_path() != before
+
+
+@pytest.mark.parametrize("header", ["mm2.cuh", "band2.cuh"])
+def test_library_name_follows_the_headers(monkeypatch, tmp_path, header):
+    """Both shared headers are hashed into every library's name: an edited
+    header never loads a stale build of K1-K3."""
+    assert header in kernels._HEADERS
+    before = {k: kernels.KERNELS[k].library_path() for k in ("dwt2", "synth2", "pair")}
+    edited = tmp_path / "csrc"
+    edited.mkdir()
+    for src in kernels._CSRC.iterdir():
+        (edited / src.name).write_text(src.read_text() + ("\n// edited\n" if src.name == header
+                                                          else ""))
+    monkeypatch.setattr(kernels, "_CSRC", edited)
+    for name, path in before.items():
+        k = kernels.KERNELS[name]
+        monkeypatch.setattr(k, "source", edited / k.source.name)
+        assert k.library_path() != path, name
 
 
 def test_every_cu_source_names_the_tpu_kernel_it_replaces():

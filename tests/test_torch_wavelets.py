@@ -22,6 +22,7 @@ import torch
 from wam_tpu.wavelets import filters as jfilters
 from wam_tpu.wavelets import matmul as jmm
 from wam_tpu.wavelets import transform as jt
+from wam_tpu_torch import kernels
 from wam_tpu_torch.wavelets import filters as tfilters
 from wam_tpu_torch.wavelets import matmul as tmm
 from wam_tpu_torch.wavelets import transform as tt
@@ -85,6 +86,252 @@ def test_analysis_band_width_at_most_filter_length():
         A = tmm._analysis_np(n, tuple(w.dec_lo), tuple(w.dec_hi), "reflect")
         assert A.shape == (2 * ((n + 7) // 2), n)
         assert (np.count_nonzero(A, axis=1) <= 8).all()
+
+
+# -- band form: what K1 and K2 read in place of the dense operators ------------
+
+BAND_WAVELETS = ["haar", "db4", "sym3", "db8"]
+BAND_SIDES = [5, 17, 64, 115, 147]
+
+
+def _other_side(side):
+    """A second side for h != w: the next of BAND_SIDES, cyclically."""
+    return BAND_SIDES[(BAND_SIDES.index(side) + 1) % len(BAND_SIDES)]
+
+
+def _scatter(idx, w, shape):
+    dense = np.zeros(shape)
+    np.add.at(dense, (np.arange(shape[0])[:, None], idx), w)
+    return dense
+
+
+def _band_operators(wavelet, mode, side):
+    """A (h rows of input), B^T (w columns), and the synthesis operators of
+    the levels they produce: Sr (h'), Sc^T (w'), Sr^T; with h != w."""
+    wv = tfilters.build_wavelet(wavelet)
+    dec, rec = (tuple(wv.dec_lo), tuple(wv.dec_hi)), (tuple(wv.rec_lo), tuple(wv.rec_hi))
+    h, w = side, _other_side(side)
+    A, B = tmm._analysis_np(h, *dec, mode), tmm._analysis_np(w, *dec, mode)
+    Sr = tmm._synthesis_np(A.shape[0] // 2, *rec)
+    Sc = tmm._synthesis_np(B.shape[0] // 2, *rec)
+    return wv, {"A": (A, "rows"), "B^T": (B.T, "cols"), "Sr": (Sr, "rows"),
+                "Sc^T": (Sc.T, "cols"), "Sr^T": (Sr.T, "rows")}
+
+
+@pytest.mark.parametrize("side", BAND_SIDES)
+@pytest.mark.parametrize("wavelet", BAND_WAVELETS)
+@pytest.mark.parametrize("mode", MODES)
+def test_band_form_scatters_back_bit_for_bit(mode, wavelet, side):
+    """The ELL pair of every operator K1 and K2 take (rows of M1, columns of
+    M2) scatters back to the float64 operator bit for bit, with at most L
+    taps per row or column (periodic rows wrap, folded taps are summed)."""
+    wv, ops = _band_operators(wavelet, mode, side)
+    for name, (M, along) in ops.items():
+        idx, w = tmm.band_form(M, along)
+        rows = M if along == "rows" else M.T
+        assert idx.dtype == np.int32 and idx.shape == w.shape, name
+        assert idx.shape[1] <= wv.filt_len, (name, idx.shape)
+        np.testing.assert_array_equal(_scatter(idx, w, rows.shape), rows, err_msg=name)
+
+
+def _emulate_band(plan, stage_row, n):
+    """The data flow of csrc/band2.cuh over a plan, in numpy float64: per row
+    tile, stage the named source rows (``stage_row(q)`` -> (n, s)), form the
+    row pairs' strip (odd columns from odd_off on when permuted), then the
+    column pairs against it. Checks that taps name staged slots only and
+    that every output element is written exactly once."""
+    rt, s = plan["rt"], plan["s"]
+    c = np.arange(s)
+    perm = np.where(c % 2, plan["odd_off"] + c // 2, c // 2) if plan["odd_off"] else c
+    out = np.zeros((n, plan["p"], plan["t"]))
+    hits = np.zeros((plan["p"], plan["t"]), int)
+    for j in range(plan["ntiles"]):
+        slots = plan["tsrc"][j]
+        stage = np.stack([stage_row(q) if q >= 0 else np.full((n, s), np.nan) for q in slots], 1)
+        live = plan["trow"][j, :, 0] >= 0
+        assert (slots[plan["tidx"][j][live]] >= 0).all()
+        strip = np.full((n, 2 * rt, plan["ts_stride"]), np.nan)
+        # (n, rt, 2, s): both rows of every pair from the pair's shared taps
+        pairs = np.einsum("rhk,nrks->nrhs", plan["tw"][j].astype(np.float64),
+                          stage[:, plan["tidx"][j]])
+        strip[:, :, perm] = pairs.reshape(n, 2 * rt, s)
+        rows = plan["trow"][j].ravel()
+        vals = strip[:, :, plan["cidx"]]  # (n, 2rt, tp, k)
+        for half in range(2):
+            cols = plan["ccol"][:, half]
+            res = np.einsum("nrpk,pk->nrp", vals, plan["cw"][:, half].astype(np.float64))
+            keep_r, keep_c = rows >= 0, cols >= 0
+            out[:, rows[keep_r][:, None], cols[keep_c][None, :]] = res[:, keep_r][:, :, keep_c]
+            np.add.at(hits, (rows[keep_r][:, None], cols[keep_c][None, :]), 1)
+    assert (hits == 1).all()
+    return out
+
+
+def _quadrants(y):
+    h, w = y.shape[-2] // 2, y.shape[-1] // 2
+    return np.stack([y[..., :h, :w], y[..., :h, w:], y[..., h:, :w], y[..., h:, w:]], -3)
+
+
+@pytest.mark.parametrize("side", BAND_SIDES)
+@pytest.mark.parametrize("wavelet", BAND_WAVELETS)
+@pytest.mark.parametrize("mode", MODES)
+def test_band_plan_gather_sum_matches_k1_plain(mode, wavelet, side):
+    """K1's plan (band forms of A and B^T, row pairs (i, h' + i), the strip
+    deinterleaved), gathered and summed in numpy with K1's quadrant split,
+    equals `dwt2_plain` within 1e-5, h != w, periodic wrap included."""
+    wv = tfilters.build_wavelet(wavelet)
+    taps = (tuple(wv.dec_lo), tuple(wv.dec_hi), mode)
+    h, w = side, _other_side(side)
+    x = _rng("band-k1", wavelet, mode, side).standard_normal((2, h, w)).astype(np.float32)
+    plan = tmm._dwt2_plan_np(h, w, *taps)
+    assert plan["k"] == max(plan["kc"], min(wv.filt_len, max(h, w)))
+    got = _quadrants(_emulate_band(plan, lambda q: x[:, q].astype(np.float64), 2))
+    cpu = torch.device("cpu")
+    _, At = tmm._kernel_analysis(h, *taps, cpu)
+    _, Bt = tmm._kernel_analysis(w, *taps, cpu)
+    np.testing.assert_allclose(got, _np(tmm.dwt2_plain(torch.from_numpy(x), At, Bt)),
+                               atol=TOL, rtol=0)
+
+
+@pytest.mark.parametrize("trim", [False, True], ids=["full", "trimmed"])
+@pytest.mark.parametrize("side", BAND_SIDES)
+@pytest.mark.parametrize("wavelet", BAND_WAVELETS)
+def test_band_plan_gather_sum_matches_k2_plain(wavelet, side, trim):
+    """K2's plan (Sr, Sc^T; row and column pairs (2m, 2m + 1)), gathered in
+    numpy with the subband row split (merged row q from subbands 0 | 1 or
+    2 | 3), equals `idwt2_plain`; its backward's plan (Sr^T, Sc, on K1)
+    equals `dwt2_plain(g, Sr, Sc)`, with g zero-padded from the trimmed
+    output as autograd hands it over. h != w; within 1e-5."""
+    wv = tfilters.build_wavelet(wavelet)
+    rec = (tuple(wv.rec_lo), tuple(wv.rec_hi))
+    h, w = (max(n, wv.filt_len) for n in (side, _other_side(side)))  # 2n - L + 2 > 0
+    rng = _rng("band-k2", wavelet, side, trim)
+    sub = rng.standard_normal((2, 4, h, w)).astype(np.float32)
+    cpu = torch.device("cpu")
+    Sr, _ = tmm._kernel_synthesis(h, *rec, cpu)
+    Sc, Sct = tmm._kernel_synthesis(w, *rec, cpu)
+    full = (Sr.shape[0], Sc.shape[0])
+    out_shape = (full[0] - 1, full[1] - 2) if trim else full
+
+    def subband_row(q):
+        top = q < h
+        return np.concatenate([sub[:, 0 if top else 2, q % h], sub[:, 1 if top else 3, q % h]],
+                              -1).astype(np.float64)
+
+    fwd = tmm._idwt2_plan_np(h, w, *rec, False)
+    got = _emulate_band(fwd, subband_row, 2)[:, :out_shape[0], :out_shape[1]]
+    want = _np(tmm.idwt2_plain(torch.from_numpy(sub), Sr, Sct))[:, :out_shape[0], :out_shape[1]]
+    np.testing.assert_allclose(got, want, atol=TOL, rtol=0)
+
+    g = np.zeros((2,) + full, np.float32)
+    g[:, :out_shape[0], :out_shape[1]] = rng.standard_normal((2,) + out_shape)
+    bwd = tmm._idwt2_plan_np(h, w, *rec, True)
+    got = _quadrants(_emulate_band(bwd, lambda q: g[:, q].astype(np.float64), 2))
+    np.testing.assert_allclose(got, _np(tmm.dwt2_plain(torch.from_numpy(g), Sr, Sc)),
+                               atol=TOL, rtol=0)
+
+
+def _dense_from_blob(plan):
+    """Decode a `kernels.BandPlan` blob (the layout csrc/band2.cuh reads:
+    tsrc | per tile trow, tidx, tw | ccol, cidx, cw pair-minor) back to the
+    dense M1 (p x q) and M2 (s x t) it stands for."""
+    blob, at = plan.blob.cpu().numpy(), 0
+
+    def take(count, shape):
+        nonlocal at
+        at += count
+        return blob[at - count:at].reshape(shape)
+
+    nt, rt, k, tp = plan.ntiles, plan.rt, plan.k, plan.tp
+    tsrc = take(nt * plan.sm, (nt, plan.sm))
+    tdat = take(nt * (2 * rt + 3 * rt * k), (nt, -1))
+    trow = tdat[:, :2 * rt].reshape(nt, rt, 2)
+    tidx = tdat[:, 2 * rt:2 * rt + rt * k].reshape(nt, rt, k)
+    tw = np.ascontiguousarray(tdat[:, 2 * rt + rt * k:]).view(np.float32).reshape(nt, rt, 2, k)
+    ccol, cidx = take(tp * 2, (2, tp)).T, take(tp * k, (k, tp)).T
+    cw = np.moveaxis(take(tp * 2 * k, (2, k, tp)).view(np.float32), -1, 0)
+    c = np.arange(plan.s)
+    perm = np.where(c % 2, plan.odd_off + c // 2, c // 2) if plan.odd_off else c
+    unperm = np.zeros(plan.ts_stride, int)
+    unperm[perm] = c
+    m1, m2 = np.zeros((plan.p, plan.q)), np.zeros((plan.s, plan.t))
+    for j in range(nt):
+        for r in range(rt):
+            for half in range(2):
+                if trow[j, r, half] >= 0:
+                    np.add.at(m1[trow[j, r, half]], tsrc[j][tidx[j, r]], tw[j, r, half])
+    for u in range(tp):
+        for half in range(2):
+            if ccol[u, half] >= 0:
+                np.add.at(m2[:, ccol[u, half]], unperm[cidx[u]], cw[u, half])
+    return m1, m2
+
+
+@pytest.mark.parametrize("wavelet,mode,h,w", [
+    ("db4", "reflect", 224, 115), ("db4", "periodic", 61, 34), ("haar", "zero", 17, 5),
+    ("sym3", "constant", 64, 147), ("db8", "symmetric", 115, 17)])
+def test_band_plan_blob_decodes_to_the_operators(wavelet, mode, h, w):
+    """The device plans of K1 (A, B^T), K2 (Sr, Sc^T) and K2's backward
+    (Sr^T, Sc), read back from the int32 blob the kernel reads, are the
+    float32 operators."""
+    wv = tfilters.build_wavelet(wavelet)
+    dec, rec = (tuple(wv.dec_lo), tuple(wv.dec_hi)), (tuple(wv.rec_lo), tuple(wv.rec_hi))
+    cpu = torch.device("cpu")
+    A, B = tmm._analysis_np(h, *dec, mode), tmm._analysis_np(w, *dec, mode)
+    hs, ws = A.shape[0] // 2, B.shape[0] // 2
+    Sr, Sc = tmm._synthesis_np(hs, *rec), tmm._synthesis_np(ws, *rec)
+    fwd, bwd = tmm.idwt2_band(hs, ws, *rec, cpu)
+    for plan, (m1, m2) in ((tmm.dwt2_band(h, w, *dec, mode, cpu), (A, B.T)),
+                           (fwd, (Sr, Sc.T)), (bwd, (Sr.T, Sc))):
+        assert plan.blob.dtype == torch.int32
+        got1, got2 = _dense_from_blob(plan)
+        np.testing.assert_array_equal(got1, m1.astype(np.float32))
+        np.testing.assert_array_equal(got2, m2.astype(np.float32))
+
+
+def test_band_plans_at_the_paths_shapes():
+    """db4 at the paths' sides: 8 taps in registers, two stages, the column
+    pairs' taps in shared memory, and blocks within the shared-memory
+    target; the strip's odd columns start at 16 mod 32 for K1, unpermuted
+    for K2's forward."""
+    w = tfilters.build_wavelet("db4")
+    dec, rec = (tuple(w.dec_lo), tuple(w.dec_hi)), (tuple(w.rec_lo), tuple(w.rec_hi))
+    plans = [tmm._dwt2_plan_np(n, n, *dec, "reflect") for n in (224, 115, 61, 288, 147, 77)]
+    plans += [tmm._idwt2_plan_np(147, 147, *rec, bwd) for bwd in (False, True)]
+    for plan in plans:
+        assert (plan["k"], plan["kc"], plan["stages"], plan["cols_shared"]) == (8, 8, 2, 1)
+        smem = kernels.band_smem_bytes(plan["s"], plan["sm"], plan["rt"], plan["k"],
+                                       plan["tp"], plan["ts_stride"], 2, 1)
+        assert smem <= tmm.SMEM_TARGET
+        assert plan["odd_off"] % 32 == 16 or (plan is plans[-2] and plan["odd_off"] == 0)
+    # a tile of rt row pairs stages the 2 rt + L - 2 source rows they read
+    assert (plans[0]["rt"], plans[0]["sm"], plans[0]["ntiles"]) == (16, 38, 8)
+    assert (plans[3]["rt"], plans[3]["sm"], plans[3]["ntiles"]) == (8, 22, 19)
+
+
+def test_band_plan_long_filters_and_wide_sides():
+    """db20 (40 taps) keeps 16 in registers and the rest in a loop; a side
+    too wide for two stages and for the column pairs' taps in shared memory
+    falls back to one stage and taps read from device memory; one wider
+    still is refused."""
+    wv = tfilters.build_wavelet("db20")
+    dec = (tuple(wv.dec_lo), tuple(wv.dec_hi))
+    plan = tmm._dwt2_plan_np(64, 50, *dec, "symmetric")
+    assert (plan["kc"], plan["k"]) == (16, 40)
+    x = _rng("db20").standard_normal((1, 64, 50))
+    got = _quadrants(_emulate_band(plan, lambda q: x[:, q], 1))
+    A, B = tmm._analysis_np(64, *dec, "symmetric"), tmm._analysis_np(50, *dec, "symmetric")
+    np.testing.assert_allclose(got, _quadrants(A @ x @ B.T), atol=TOL, rtol=0)  # f32 taps
+    d4 = tfilters.build_wavelet("db4")
+    dec4 = (tuple(d4.dec_lo), tuple(d4.dec_hi))
+    wide = tmm._dwt2_plan_np(16, 4000, *dec4, "zero")
+    assert (wide["stages"], wide["cols_shared"]) == (1, 0)
+    x = _rng("wide").standard_normal((1, 16, 4000))
+    got = _quadrants(_emulate_band(wide, lambda q: x[:, q], 1))
+    A, B = tmm._analysis_np(16, *dec4, "zero"), tmm._analysis_np(4000, *dec4, "zero")
+    np.testing.assert_allclose(got, _quadrants(A @ x @ B.T), atol=TOL, rtol=0)
+    with pytest.raises(ValueError, match="shared memory"):
+        tmm._dwt2_plan_np(16, 9000, *dec4, "zero")
 
 
 # -- K1: the plain version against dwt2_pallas (interpret mode) ---------------

@@ -1,37 +1,30 @@
-// Two-sided batched matrix product, out[n] = M1 . X[n] . M2, the shared
-// body of the port's wavelet kernels (dwt2.cu: one analysis level, K1;
-// synth2.cu: one synthesis level, K2; pair.cu: the level-collapsed
-// synthesis, K3).
+// Two-sided batched matrix product, out[n] = M1 . X[n] . M2, the body of
+// the level-collapsed synthesis K3 (pair.cu). K1 and K2 run the banded
+// product of band2.cuh instead.
 //
 // Shapes: M1 is P x Q (passed transposed, as the contiguous Q x P matrix
-// M1T), X[n] is Q x S, M2 is S x T, out[n] is P x T. X is read through the
-// caller's Source: a dense float or bfloat16 tensor (DenseSource) or, for
-// the synthesis, four subbands read as the 2 x 2 block matrix they stand
-// for; either way every column of a row is read off one row pointer.
-// Everything accumulates in float32 with plain FMAs on the CUDA cores: no
-// tensor cores and no TF32, so the result matches a float32 matmul pair up
-// to summation order.
+// M1T), X[n] is Q x S, M2 is S x T, out[n] is P x T, all float32 (X read
+// through DenseSource). Everything accumulates in float32 with plain FMAs
+// on the CUDA cores: no tensor cores and no TF32, so the result matches a
+// float32 matmul pair up to summation order.
 //
 // One block owns kRows consecutive output rows of one image. It computes
 // the kRows x S strip T = M1[rows] . X[n] into shared memory, streaming X
 // once along its rows (coalesced along S) against kChunk staged rows of
 // M1T, then computes T . M2, streaming M2 the same way, and hands each
-// output element to the caller's Store (the epilogue): a row-major store
-// for the synthesis, a quadrant split for the analysis.
+// output element to the caller's Store (the epilogue).
 //
 // What bounds it on an H100: the function needs only the products of the
-// operators' nonzeros (the analysis and synthesis operators are banded, at
-// most 8 nonzeros per row or column for db4; Y of the collapsed synthesis
-// is block-diagonal), and at the wavelet shapes that work is bound by HBM
+// operators' nonzeros (R is banded, Y of the collapsed synthesis is
+// block-diagonal), and at the wavelet shapes that work is bound by HBM
 // bytes, not FLOP. This routine does the dense 2.P.S.(Q + T) FLOP per
 // image instead, so the f32 CUDA-core rate is what bounds it. It keeps both
 // products on chip (T never reaches device memory) and reads each M1 value
 // from shared memory once per kCols columns and each X/M2 value once per
-// kRows rows. Skipping the zeros, and moving what stays dense onto wgmma
-// with TMA-fed tiles, are the next levers.
+// kRows rows. Skipping Y's zero blocks and R's zeros, as band2.cuh does for
+// K1 and K2, is the next lever.
 #pragma once
 
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <atomic>
@@ -44,40 +37,28 @@ constexpr int kThreads = 256;
 constexpr int kCols = 2;      // columns per thread per pass over a row strip
 constexpr int kChunk = 64;    // rows of M1T staged in shared memory per step
 
-__device__ __forceinline__ float to_float(float v) { return v; }
-__device__ __forceinline__ float to_float(__nv_bfloat16 v) { return __bfloat162float(v); }
-
-// Where column col of a row lives, as an offset from the row's start: the
-// column itself for a dense row (Identity); synth2.cu maps the columns of
-// two side-by-side subbands.
-struct Identity {
-  __device__ __forceinline__ int operator()(int col) const { return col; }
-};
-
-// acc[i][c] += sum_k L[k][i] * R[k * ld + map(col_c)] for k < k_count, where
+// acc[i][c] += sum_k L[k][i] * R[k * ld + col_c] for k < k_count, where
 // L lives in shared memory (kRows floats per k, 16-byte aligned) and R
 // points at row 0 in global memory, rows ld elements apart;
 // col_c = c0 + tid + c * kThreads < ncols.
-template <typename TR, typename ColMap = Identity>
+template <typename TR>
 __device__ __forceinline__ void accumulate(float (&acc)[kRows][kCols],
                                            const float* __restrict__ L,
                                            const TR* __restrict__ R, size_t ld,
-                                           int k_count, int c0, int ncols,
-                                           ColMap map = ColMap()) {
+                                           int k_count, int c0, int ncols) {
   int col[kCols];
   bool ok[kCols];
 #pragma unroll
   for (int c = 0; c < kCols; ++c) {
     col[c] = c0 + threadIdx.x + c * kThreads;
     ok[c] = col[c] < ncols;
-    col[c] = map(col[c]);
   }
 #pragma unroll 4
   for (int k = 0; k < k_count; ++k) {
     float r[kCols];
 #pragma unroll
     for (int c = 0; c < kCols; ++c)
-      r[c] = ok[c] ? to_float(R[(size_t)k * ld + col[c]]) : 0.f;
+      r[c] = ok[c] ? R[(size_t)k * ld + col[c]] : 0.f;
     const float4* l4 = reinterpret_cast<const float4*>(L + k * kRows);
 #pragma unroll
     for (int i4 = 0; i4 < kRows / 4; ++i4) {
@@ -93,8 +74,8 @@ __device__ __forceinline__ void accumulate(float (&acc)[kRows][kCols],
   }
 }
 
-// X[n] as a dense row-major (N, Q, S) tensor of float or bfloat16. A Source
-// adds sum_k L[k][i] * X[n][q0 + k][col_c] for k < kc to acc.
+// X[n] as a dense row-major (N, Q, S) tensor. A Source adds
+// sum_k L[k][i] * X[n][q0 + k][col_c] for k < kc to acc.
 template <typename TX>
 struct DenseSource {
   const TX* x;

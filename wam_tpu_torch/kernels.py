@@ -13,9 +13,11 @@ the sources, so an edited kernel is rebuilt and a stale one is never loaded.
 | ``relu_fwd``| ``csrc/relu_mask.cu``| ``wam_tpu/tune/fused_relu.py::_fwd_kernel`` (K4)        |
 | ``relu_bwd``| ``csrc/relu_mask.cu``| ``wam_tpu/tune/fused_relu.py::_bwd_kernel`` (K5)        |
 
-K1-K3 share the two-sided product of ``csrc/mm2.cuh``; K4 and K5 share one
-library. The launch wrappers take CUDA tensors only: they check device,
-dtype, shape and contiguity, allocate the outputs with ``torch.empty``,
+K1 and K2 share the banded two-sided product of ``csrc/band2.cuh``, which
+takes its operators as a `BandPlan` (built by `wam_tpu_torch.wavelets.matmul`);
+K3 runs the dense one of ``csrc/mm2.cuh``; K4 and K5 share one library. The
+launch wrappers take CUDA tensors only: they check device, dtype, shape and
+contiguity, allocate the outputs with ``torch.empty``,
 launch on the current stream and raise when the launch fails. Each counts
 its launches in ``KERNELS[name].launches`` (one per launch, nowhere else).
 Nothing here runs on the CPU: the plain PyTorch versions live beside their
@@ -31,20 +33,24 @@ import shutil
 import subprocess
 import time
 from pathlib import Path
+from typing import NamedTuple
 
 import torch
 
-__all__ = ["KERNELS", "build_all", "dwt2", "synth2", "pair", "relu_fwd", "relu_bwd",
-           "launch_counts", "reset_launch_counts", "nvcc_command"]
+__all__ = ["KERNELS", "BandPlan", "build_all", "dwt2", "synth2", "pair", "relu_fwd",
+           "relu_bwd", "band_smem_bytes", "launch_counts", "reset_launch_counts",
+           "nvcc_command"]
 
 _CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "wam_tpu_torch"
-_HEADERS = ("mm2.cuh",)
+_HEADERS = ("mm2.cuh", "band2.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
-# Largest S (columns of X) whose row strip fits the 227 KB of shared memory a
-# block may use: (kChunk + S) * kRows * 4 bytes, kChunk = 64, kRows = 16.
-MAX_INNER = 227 * 1024 // (16 * 4) - 64
+# Shared memory a block may use on an H100 (the opt-in maximum).
+MAX_SMEM = 227 * 1024
+# K3 (mm2.cuh): largest S (columns of X) whose row strip fits MAX_SMEM:
+# (kChunk + S) * kRows * 4 bytes, kChunk = 64, kRows = 16.
+MAX_INNER = MAX_SMEM // (16 * 4) - 64
 _MAX_DIM = 2**31 - 1
 
 _P = ctypes.c_void_p
@@ -53,6 +59,9 @@ _L = ctypes.c_longlong
 # Every entry point returns cudaError_t and launches on the current device.
 # mm2.cuh kernels: (x, m1t, m2, out, N, P, Q, S, T, stream)
 _MM2_ARGS = (_P, _P, _P, _P, _I, _I, _I, _I, _I, _P)
+# band2.cuh kernels: (x, out, plan, kc, N, Q, S, P, T, ntiles, rt, sm, k, tp,
+# odd_off, ts_stride, stages, cols_shared, stream)
+_BAND_ARGS = (_P, _P, _P) + (_I,) * 15 + (_P,)
 # relu_mask.cu: (x, y, m, n, stream) forward, (m, g, dx, n, stream) backward
 _RELU_ARGS = (_P, _P, _P, _L, _P)
 
@@ -92,8 +101,8 @@ class Kernel:
 
 
 KERNELS = {
-    "dwt2": Kernel("dwt2", "dwt2.cu", ("wam_dwt2_f32", "wam_dwt2_bf16"), _MM2_ARGS),
-    "synth2": Kernel("synth2", "synth2.cu", ("wam_synth2_f32", "wam_synth2_bf16"), _MM2_ARGS),
+    "dwt2": Kernel("dwt2", "dwt2.cu", ("wam_dwt2_f32", "wam_dwt2_bf16"), _BAND_ARGS),
+    "synth2": Kernel("synth2", "synth2.cu", ("wam_synth2_f32", "wam_synth2_bf16"), _BAND_ARGS),
     "pair": Kernel("pair", "pair.cu", ("wam_pair_f32",), _MM2_ARGS),
     "relu_fwd": Kernel("relu_fwd", "relu_mask.cu", ("wam_relu_fwd_f32", "wam_relu_fwd_bf16"),
                        _RELU_ARGS),
@@ -215,30 +224,93 @@ def _suffix(t: torch.Tensor) -> str:
     return "bf16" if t.dtype == torch.bfloat16 else "f32"
 
 
-def dwt2(x3: torch.Tensor, a_t: torch.Tensor, bt: torch.Tensor) -> torch.Tensor:
+class BandPlan(NamedTuple):
+    """The operators of one banded product out[n] = M1 . X[n] . M2 on one
+    device, in the layout ``csrc/band2.cuh`` reads (X[n] is q x s, out[n]
+    p x t; built by `wam_tpu_torch.wavelets.matmul`). ``blob`` holds the
+    tiles' staged source rows, the row pairs' taps and the column pairs'
+    taps (int32, weights as float32 bits)."""
+
+    blob: torch.Tensor  # tsrc | per tile: trow, tidx, tw | ccol, cidx, cw (pair-minor)
+    q: int
+    s: int
+    p: int
+    t: int
+    kc: int         # taps held in registers: 2, 4, 8 or 16
+    k: int          # taps per row pair and per column pair (padded to kc up to 16)
+    ntiles: int     # row tiles per image
+    rt: int         # row pairs per tile
+    sm: int         # staged source rows per tile
+    tp: int         # column pairs
+    odd_off: int    # where the strip's odd columns start (0: not permuted)
+    ts_stride: int  # floats per strip row
+    stages: int     # 2: the next tile's rows load while this one computes
+    cols_shared: int  # 1: the column pairs' taps are copied into shared memory
+
+    def smem_bytes(self) -> int:
+        """Dynamic shared memory of one block launched on this plan."""
+        return band_smem_bytes(self.s, self.sm, self.rt, self.k, self.tp, self.ts_stride,
+                               self.stages, self.cols_shared)
+
+
+def band_smem_bytes(s: int, sm: int, rt: int, k: int, tp: int, ts_stride: int,
+                    stages: int, cols_shared: int) -> int:
+    """Dynamic shared memory of a band2.cuh block (``band::smem_bytes``):
+    per stage the staged rows and the tile's row-pair data, then the strip
+    and (when ``cols_shared``) the column pairs' data."""
+    return (stages * (sm * s + 2 * rt + 3 * rt * k) + 2 * rt * ts_stride
+            + cols_shared * tp * (2 + 3 * k)) * 4
+
+
+def _launch_band(kernel: Kernel, symbol: str, x, plan: BandPlan, out_shape) -> torch.Tensor:
+    """Launch a band2.cuh kernel on ``x`` (already checked by the caller)."""
+    dev = x.device
+    _check(plan.blob, "plan", (torch.int32,), 1, dev)
+    smem = plan.smem_bytes()
+    if smem > MAX_SMEM:
+        raise ValueError(f"{kernel.name}: plan needs {smem} bytes of shared memory, "
+                         f"more than {MAX_SMEM}")
+    n = x.shape[0]
+    if max(n * plan.q * plan.s, n * plan.p * plan.t, n * plan.ntiles) > _MAX_DIM:
+        raise ValueError(f"{kernel.name}: tensor too large for int32 sides")
+    out = torch.empty(out_shape, device=dev, dtype=torch.float32)
+    if n == 0:
+        return out
+    _call(kernel, symbol, dev, x.data_ptr(), out.data_ptr(), plan.blob.data_ptr(), plan.kc, n,
+          plan.q, plan.s, plan.p, plan.t, plan.ntiles, plan.rt, plan.sm, plan.k, plan.tp,
+          plan.odd_off, plan.ts_stride, plan.stages, plan.cols_shared)
+    return out
+
+
+def dwt2(x3: torch.Tensor, plan: BandPlan) -> torch.Tensor:
     """K1: (N, H, W) f32/bf16 -> (N, 4, h', w') f32 with
-    [[aa, ad], [da, dd]] = A . x . B^T; ``a_t`` = A^T (H, 2h'), ``bt`` = B^T
-    (W, 2w'), both contiguous float32."""
+    [[aa, ad], [da, dd]] = M1 . x . M2, M1 = A (2h' x H) and M2 = B^T
+    (W x 2w') given as ``plan`` (`matmul.dwt2_band`; K2's backward passes
+    the plan of Sr^T and Sc)."""
     _check(x3, "x", (torch.float32, torch.bfloat16), 3, x3.device)
     n, q, s = x3.shape
-    h2, w2 = a_t.shape[-1], bt.shape[-1]
-    if h2 % 2 or w2 % 2:
-        raise ValueError(f"analysis operators must have even output sides, got {h2}, {w2}")
-    return _launch_mm2(KERNELS["dwt2"], f"wam_dwt2_{_suffix(x3)}", x3, a_t, bt, q, s,
-                       (n, 4, h2 // 2, w2 // 2))
+    if (q, s) != (plan.q, plan.s):
+        raise ValueError(f"x of shape {tuple(x3.shape)} does not fit a plan for "
+                         f"{plan.q} x {plan.s}")
+    if plan.p % 2 or plan.t % 2:
+        raise ValueError(f"analysis operators must have even output sides, got {plan.p}, "
+                         f"{plan.t}")
+    return _launch_band(KERNELS["dwt2"], f"wam_dwt2_{_suffix(x3)}", x3, plan,
+                        (n, 4, plan.p // 2, plan.t // 2))
 
 
-def synth2(sub: torch.Tensor, sr_t: torch.Tensor, sc_t: torch.Tensor) -> torch.Tensor:
+def synth2(sub: torch.Tensor, plan: BandPlan) -> torch.Tensor:
     """K2: (N, 4, h, w) f32/bf16 subbands in (aa, ad, da, dd) order ->
-    (N, P, T) f32 = Sr . [[aa, ad], [da, dd]] . Sc^T; ``sr_t`` = Sr^T (2h, P),
-    ``sc_t`` = Sc^T (2w, T), both contiguous float32. The merge happens in
-    the kernel."""
+    (N, P, T) f32 = Sr . [[aa, ad], [da, dd]] . Sc^T, M1 = Sr and M2 = Sc^T
+    given as ``plan`` (`matmul.idwt2_band`). The merge happens in the
+    kernel."""
     _check(sub, "sub", (torch.float32, torch.bfloat16), 4, sub.device)
     n, four, h, w = sub.shape
-    if four != 4:
-        raise ValueError(f"sub must be (N, 4, h, w), got {tuple(sub.shape)}")
-    return _launch_mm2(KERNELS["synth2"], f"wam_synth2_{_suffix(sub)}", sub, sr_t, sc_t,
-                       2 * h, 2 * w, (n, sr_t.shape[-1], sc_t.shape[-1]))
+    if four != 4 or (2 * h, 2 * w) != (plan.q, plan.s):
+        raise ValueError(f"sub of shape {tuple(sub.shape)} does not fit a plan for "
+                         f"{plan.q} x {plan.s}")
+    return _launch_band(KERNELS["synth2"], f"wam_synth2_{_suffix(sub)}", sub, plan,
+                        (n, plan.p, plan.t))
 
 
 def pair(y3: torch.Tensor, m1t: torch.Tensor, m2: torch.Tensor) -> torch.Tensor:

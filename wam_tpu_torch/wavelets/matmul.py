@@ -20,6 +20,11 @@ plain PyTorch version beside it:
 - `waverec2_collapsed`: K3, ``csrc/pair.cu``; backward ``R^T g C``
   (``_pair_bwd``) launches the same kernel with the operators swapped.
 
+K1 and K2 skip the operators' zeros: they take each operator in band form
+(`band_form`: the nonzeros of each row, or column, and their indices) laid
+out for the kernel as a `kernels.BandPlan` (`dwt2_band`, `idwt2_band`). The
+plain versions stay dense matmul pairs.
+
 A CUDA tensor goes to the kernel, or the call raises; the plain version
 serves CPU tensors only. `analysis2_mm` / `synthesis2_mm` are the plain
 matmul forms, differentiable by construction.
@@ -41,6 +46,9 @@ __all__ = [
     "synthesis_matrices",
     "analysis2_mm",
     "synthesis2_mm",
+    "band_form",
+    "dwt2_band",
+    "idwt2_band",
     "dwt2_kernel",
     "idwt2_kernel",
     "waverec2_collapsed",
@@ -190,6 +198,199 @@ def _kernel_collapsed(sizes: tuple, rec_lo: tuple, rec_hi: tuple,
     return C, C.T.contiguous()
 
 
+# ---------------------------------------------------------------------------
+# Band form: what K1 and K2 read instead of the dense operators
+# ---------------------------------------------------------------------------
+
+
+def band_form(M: np.ndarray, along: str = "rows") -> tuple[np.ndarray, np.ndarray]:
+    """ELL form of a banded operator: for each row of ``M`` (``along="rows"``,
+    the M1 of a product M1 . X . M2) or each column (``"cols"``, the M2), the
+    indices of its nonzeros in ascending order and their values, padded to
+    K = the most nonzeros of any row (column) with weight 0 at the row's
+    first index. Returns (idx int32 (R, K), w float64 (R, K)); scattering
+    ``w`` to ``idx`` gives ``M`` (or ``M.T``) back bit for bit."""
+    if along not in ("rows", "cols"):
+        raise ValueError(f"along must be 'rows' or 'cols', got {along!r}")
+    rows = M if along == "rows" else M.T
+    nz = rows != 0
+    k = max(1, int(nz.sum(1).max(initial=0)))
+    idx = np.zeros((rows.shape[0], k), np.int32)
+    w = np.zeros((rows.shape[0], k))
+    for r in range(rows.shape[0]):
+        cols = np.flatnonzero(nz[r])
+        if len(cols):
+            idx[r] = cols[0]
+            idx[r, :len(cols)] = cols
+            w[r, :len(cols)] = rows[r, cols]
+    return idx, w
+
+
+def _pairs(n: int, pairing: str) -> list[tuple[int, int]]:
+    """Output rows (or columns) that share their taps, two by two: K1's lo
+    and hi halves (i, n/2 + i), or K2's neighbours (2m, 2m + 1); -1 pads."""
+    if pairing == "halves":
+        return [(i, n // 2 + i) for i in range(n // 2)]
+    return [(2 * m, 2 * m + 1 if 2 * m + 1 < n else -1) for m in range((n + 1) // 2)]
+
+
+def _pair_taps(ell, pairs) -> list[tuple[list, list, list]]:
+    """For each pair: the union of its two rows' taps (ascending) and each
+    row's weight on them (0 where it has none)."""
+    idx, w = ell
+    out = []
+    for a, b in pairs:
+        wts = [{int(i): float(v) for i, v in zip(idx[r], w[r]) if v != 0} if r >= 0 else {}
+               for r in (a, b)]
+        cols = sorted(set(wts[0]) | set(wts[1]))
+        out.append((cols, [wts[0].get(c, 0.0) for c in cols], [wts[1].get(c, 0.0) for c in cols]))
+    return out
+
+
+# Shared memory a band block aims for: two blocks share an SM (228 KB, 1 KB
+# reserved per block). Measured against three, four and six blocks with
+# scripts/torch_band_sweep.py: the larger tiles of two blocks won every case.
+SMEM_TARGET = 228 * 1024 // 2 - 1024
+
+
+def _band_plan_np(m1, m2, q: int, s: int, pairing: str, deinterleave: bool,
+                  smem_target: int = SMEM_TARGET) -> dict:
+    """The `kernels.BandPlan` fields of out[n] = M1 . X[n] . M2 as numpy
+    arrays and ints (``csrc/band2.cuh`` documents the layout). ``m1`` is the
+    band form of M1's rows (P of them, taps in [0, q)), ``m2`` of M2's
+    columns (T, taps in [0, s)). Output rows and columns are paired by
+    ``pairing``; ``deinterleave`` stores the strip's odd columns apart (K1's
+    analysis taps step by 2). Row tiles take the most row pairs (16 at
+    most) whose block fits ``smem_target`` bytes, else the whole of a
+    block's shared memory; failing that, the column pairs' taps stay in
+    device memory, then one stage is tried in place of two."""
+    p, t = m1[0].shape[0], m2[0].shape[0]
+    row_pairs, col_pairs = _pairs(p, pairing), _pairs(t, pairing)
+    row_taps, col_taps = _pair_taps(m1, row_pairs), _pair_taps(m2, col_pairs)
+    k = max(len(c) for c, _, _ in row_taps + col_taps)
+    kc = next((c for c in (2, 4, 8) if k <= c), 16)
+    k = max(k, kc)
+    if deinterleave:
+        half = (s + 1) // 2
+        odd_off = half + (16 - half) % 32  # 16 mod 32: the two halves use other banks
+        ts_stride = odd_off + s // 2
+    else:
+        odd_off, ts_stride = 0, s
+
+    def tiling(rt):
+        tiles = [row_taps[i:i + rt] for i in range(0, len(row_taps), rt)]
+        slots = [sorted({c for cols, _, _ in tile for c in cols}) or [0] for tile in tiles]
+        return tiles, slots, max(len(sl) for sl in slots)
+
+    choice = None
+    options = [(2, 1, smem_target)] + [(st, cs, kernels.MAX_SMEM)
+                                       for st in (2, 1) for cs in (1, 0)]
+    for stages, cols_shared, budget in options:
+        for rt in (16, 8, 4, 2, 1):
+            tiles, slots, sm = tiling(rt)
+            if kernels.band_smem_bytes(s, sm, rt, k, len(col_pairs), ts_stride, stages,
+                                       cols_shared) <= budget:
+                choice = (stages, cols_shared, rt, tiles, slots, sm)
+                break
+        if choice:
+            break
+    if choice is None:
+        raise ValueError(f"band plan: a {q} x {s} source with {k} taps does not fit "
+                         f"{kernels.MAX_SMEM} bytes of shared memory")
+    stages, cols_shared, rt, tiles, slots, sm = choice
+
+    ntiles = len(tiles)
+    tsrc = np.full((ntiles, sm), -1, np.int32)
+    trow = np.full((ntiles, rt, 2), -1, np.int32)
+    tidx = np.zeros((ntiles, rt, k), np.int32)
+    tw = np.zeros((ntiles, rt, 2, k), np.float32)
+    for j, (tile, sl) in enumerate(zip(tiles, slots)):
+        tsrc[j, :len(sl)] = sl
+        local = {c: i for i, c in enumerate(sl)}
+        for r, (cols, wa, wb) in enumerate(tile):
+            trow[j, r] = row_pairs[j * rt + r]
+            if cols:
+                tidx[j, r, :] = local[cols[0]]
+                tidx[j, r, :len(cols)] = [local[c] for c in cols]
+                tw[j, r, 0, :len(cols)] = wa
+                tw[j, r, 1, :len(cols)] = wb
+
+    def perm(c):
+        return c if not deinterleave else (odd_off + c // 2 if c % 2 else c // 2)
+
+    tp = len(col_pairs)
+    ccol = np.asarray(col_pairs, np.int32).reshape(tp, 2)
+    cidx = np.zeros((tp, k), np.int32)
+    cw = np.zeros((tp, 2, k), np.float32)
+    for u, (cols, wa, wb) in enumerate(col_taps):
+        if cols:
+            cidx[u, :] = perm(cols[0])
+            cidx[u, :len(cols)] = [perm(c) for c in cols]
+            cw[u, 0, :len(cols)] = wa
+            cw[u, 1, :len(cols)] = wb
+    return dict(tsrc=tsrc, trow=trow, tidx=tidx, tw=tw, ccol=ccol, cidx=cidx, cw=cw, q=q, s=s,
+                p=p, t=t, kc=kc, k=k, ntiles=ntiles, rt=rt, sm=sm, tp=tp, odd_off=odd_off,
+                ts_stride=ts_stride, stages=stages, cols_shared=cols_shared)
+
+
+def _plan_blob(plan: dict) -> np.ndarray:
+    """The int32 blob ``csrc/band2.cuh`` reads: tsrc, then each tile's row
+    pairs (trow, tidx, tw) side by side, then ccol, cidx, cw with the column
+    pair as the last (fastest) axis."""
+    nt = plan["ntiles"]
+    tdat = np.concatenate([plan[f].view(np.int32).reshape(nt, -1) for f in ("trow", "tidx", "tw")],
+                          axis=1)
+    return np.concatenate([plan["tsrc"].ravel(), tdat.ravel()]
+                          + [np.moveaxis(plan[f].view(np.int32), 0, -1).ravel()
+                             for f in ("ccol", "cidx", "cw")])
+
+
+def _device_plan(plan: dict, device) -> kernels.BandPlan:
+    blob = _plan_blob(plan)
+    return kernels.BandPlan(torch.from_numpy(blob).to(device),
+                            **{f: plan[f] for f in kernels.BandPlan._fields if f != "blob"})
+
+
+@functools.lru_cache(maxsize=256)
+def _dwt2_plan_np(h: int, w: int, dec_lo: tuple, dec_hi: tuple, mode: str,
+                  smem_target: int = SMEM_TARGET) -> dict:
+    """K1's plan: M1 = A (rows of H), M2 = B^T (columns of W)."""
+    A, B = _analysis_np(h, dec_lo, dec_hi, mode), _analysis_np(w, dec_lo, dec_hi, mode)
+    return _band_plan_np(band_form(A, "rows"), band_form(B.T, "cols"), h, w, "halves", True,
+                         smem_target)
+
+
+@functools.lru_cache(maxsize=256)
+def _idwt2_plan_np(h: int, w: int, rec_lo: tuple, rec_hi: tuple, backward: bool,
+                   smem_target: int = SMEM_TARGET) -> dict:
+    """K2's plan (M1 = Sr, M2 = Sc^T on the 2h x 2w merged subbands) or,
+    with ``backward``, its adjoint's on K1 (M1 = Sr^T, M2 = Sc on the full
+    reconstruction)."""
+    Sr, Sc = _synthesis_np(h, rec_lo, rec_hi), _synthesis_np(w, rec_lo, rec_hi)
+    if backward:
+        return _band_plan_np(band_form(Sr.T, "rows"), band_form(Sc, "cols"), Sr.shape[0],
+                             Sc.shape[0], "halves", True, smem_target)
+    return _band_plan_np(band_form(Sr, "rows"), band_form(Sc.T, "cols"), 2 * h, 2 * w,
+                         "adjacent", False, smem_target)
+
+
+@functools.lru_cache(maxsize=256)
+def dwt2_band(h: int, w: int, dec_lo: tuple, dec_hi: tuple, mode: str,
+              device: torch.device) -> kernels.BandPlan:
+    """K1's operators for an h x w level on ``device``; cached so the hot
+    path copies nothing to the device."""
+    return _device_plan(_dwt2_plan_np(h, w, dec_lo, dec_hi, mode), device)
+
+
+@functools.lru_cache(maxsize=256)
+def idwt2_band(h: int, w: int, rec_lo: tuple, rec_hi: tuple,
+               device: torch.device) -> tuple[kernels.BandPlan, kernels.BandPlan]:
+    """(forward, backward) plans of K2 for (4, h, w) subbands on ``device``:
+    K2's own and its adjoint's, which runs on K1; cached."""
+    return tuple(_device_plan(_idwt2_plan_np(h, w, rec_lo, rec_hi, bwd), device)
+                 for bwd in (False, True))
+
+
 def _split_quadrants(y: torch.Tensor, h_out: int, w_out: int) -> torch.Tensor:
     """(..., 2*h_out, 2*w_out) block matrix -> (..., 4, h_out, w_out) in the
     conv path's channel order (row, col): 0=aa, 1=ad, 2=da, 3=dd."""
@@ -245,16 +446,16 @@ def idwt2_plain(sub3: torch.Tensor, Sr: torch.Tensor, Sct: torch.Tensor) -> torc
     return torch.matmul(torch.matmul(Sr, _merge_quadrants(sub3.float())), Sct)
 
 
-def _dwt2_forward(x3, At, Bt) -> torch.Tensor:
+def _dwt2_forward(x3, At, Bt, plan) -> torch.Tensor:
     if on_cpu(x3):
         return dwt2_plain(x3, At, Bt)
-    return kernels.dwt2(x3, At, Bt)
+    return kernels.dwt2(x3, plan)
 
 
-def _idwt2_forward(sub3, Sr, Srt, Sct) -> torch.Tensor:
+def _idwt2_forward(sub3, Sr, Sct, plan) -> torch.Tensor:
     if on_cpu(sub3):
         return idwt2_plain(sub3, Sr, Sct)
-    return kernels.synth2(sub3, Srt, Sct)
+    return kernels.synth2(sub3, plan)
 
 
 def _pair_forward(y3, m1t, m2) -> torch.Tensor:
@@ -264,36 +465,39 @@ def _pair_forward(y3, m1t, m2) -> torch.Tensor:
 
 
 class _Dwt2Core(torch.autograd.Function):
-    """x3 (N, H, W) -> (N, 4, h', w') float32; backward ``_core_bwd``."""
+    """x3 (N, H, W) -> (N, 4, h', w') float32; backward ``_core_bwd``.
+    ``plan`` is K1's band plan (None on the CPU, which takes At, Bt)."""
 
     @staticmethod
-    def forward(ctx, x3, A, At, Bt):
+    def forward(ctx, x3, A, At, Bt, plan):
         ctx.save_for_backward(A, Bt)
         ctx.x_dtype = x3.dtype
-        return _dwt2_forward(x3, At, Bt)
+        return _dwt2_forward(x3, At, Bt, plan)
 
     @staticmethod
     def backward(ctx, g):
         A, Bt = ctx.saved_tensors
         dx = torch.matmul(torch.matmul(A.T, _merge_quadrants(g)), Bt.T)
-        return dx.to(ctx.x_dtype), None, None, None
+        return dx.to(ctx.x_dtype), None, None, None, None
 
 
 class _Idwt2Core(torch.autograd.Function):
     """sub3 (N, 4, h, w) -> (N, F_r, F_c) = Sr Y Sc^T float32; backward
     ``_synth_bwd``: the quadrant split of Sr^T g Sc, which is K1 with
-    A^T = Sr and B^T = Sc."""
+    M1 = Sr^T and M2 = Sc. ``plans`` are K2's (forward, backward) band
+    plans (None on the CPU, which takes the dense operators)."""
 
     @staticmethod
-    def forward(ctx, sub3, Sr, Srt, Sc, Sct):
+    def forward(ctx, sub3, Sr, Sc, Sct, plans):
         ctx.save_for_backward(Sr, Sc)
         ctx.sub_dtype = sub3.dtype
-        return _idwt2_forward(sub3, Sr, Srt, Sct)
+        ctx.bwd_plan = plans and plans[1]
+        return _idwt2_forward(sub3, Sr, Sct, plans and plans[0])
 
     @staticmethod
     def backward(ctx, g):
         Sr, Sc = ctx.saved_tensors
-        dsub = _dwt2_forward(g.contiguous(), Sr, Sc)
+        dsub = _dwt2_forward(g.contiguous(), Sr, Sc, ctx.bwd_plan)
         return dsub.to(ctx.sub_dtype), None, None, None, None
 
 
@@ -328,11 +532,12 @@ def dwt2_kernel(x: torch.Tensor, wavelet, mode: str) -> torch.Tensor:
     taps = (tuple(w.dec_lo), tuple(w.dec_hi), mode)
     A, At = _kernel_analysis(h, *taps, x.device)
     _, Bt = _kernel_analysis(wd, *taps, x.device)
+    plan = None if on_cpu(x) else dwt2_band(h, wd, *taps, x.device)
     batch_shape = x.shape[:-2]
     x3 = x.reshape((-1, h, wd))
     if x3.dtype != torch.bfloat16:
         x3 = x3.float()
-    out = _Dwt2Core.apply(x3.contiguous(), A, At, Bt)
+    out = _Dwt2Core.apply(x3.contiguous(), A, At, Bt, plan)
     return out.reshape(batch_shape + out.shape[1:])
 
 
@@ -347,13 +552,14 @@ def idwt2_kernel(subbands: torch.Tensor, wavelet, out_shape=None) -> torch.Tenso
     w = _wav(wavelet)
     h, wd = subbands.shape[-2:]
     rec = (tuple(w.rec_lo), tuple(w.rec_hi))
-    Sr, Srt = _kernel_synthesis(h, *rec, subbands.device)
+    Sr, _ = _kernel_synthesis(h, *rec, subbands.device)
     Sc, Sct = _kernel_synthesis(wd, *rec, subbands.device)
+    plans = None if on_cpu(subbands) else idwt2_band(h, wd, *rec, subbands.device)
     batch_shape = subbands.shape[:-3]
     sub3 = subbands.reshape((-1, 4, h, wd))
     if sub3.dtype != torch.bfloat16:
         sub3 = sub3.float()
-    out = _Idwt2Core.apply(sub3.contiguous(), Sr, Srt, Sc, Sct)
+    out = _Idwt2Core.apply(sub3.contiguous(), Sr, Sc, Sct, plans)
     out = out.reshape(batch_shape + out.shape[1:])
     if out_shape is not None and tuple(out_shape) != tuple(out.shape[-2:]):
         out = out[..., : out_shape[0], : out_shape[1]]
