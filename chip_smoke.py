@@ -8,14 +8,15 @@ sm_90a). Phases, each fatal on failure:
 
 1. device: the card's name and power limit (nvidia-smi);
 2. build:  every kernel, compiled from ``wam_tpu_torch/csrc`` by nvcc (one
-   process per source, all at once), with ptxas's report of K1 and K2;
+   process per source, all at once), with ptxas's report of K1, K2 and K3;
 3. kernels: each kernel against its plain PyTorch version at the shapes
    each path that runs it gives it, TF32 off, and timed with CUDA events:
    K1 and K3 at the flagship's and at path 2's, K2 (both directions) and
    K4/K5 at path 2's; one line per kernel and path, each case and line
-   with its bound and bound_share (bound / kernel time). K1 and K2 launch
-   with their band plans; the plain versions and the einsum yardstick use
-   the dense operators;
+   with its bound and bound_share (bound / kernel time). K1-K3 launch
+   with their band plans (K3 on the coefficient leaves, views of K1's
+   output, forward and every leaf's gradient checked); the plain versions
+   and the einsum yardstick use the dense operators;
 4. slice:  the flagship path, `WaveletAttribution2D` SmoothGrad on
    ResNet-50 (1000 classes, seeded random weights) at batch 32, 3x224x224,
    db4, J=3, reflect, n_samples=25, stdev_spread=0.25, sample_batch_size=4,
@@ -143,13 +144,13 @@ def _check(name: str, got, want) -> tuple[float, float]:
 
 
 def _case(torch, label: str, got, want, kernel_fn, plain_fn, product, reads, out_bytes: int,
-          library: bool = True, extra=None, **tags) -> dict:
+          library: bool = True, extra=None, flops: int | None = None, **tags) -> dict:
     """One launch shape of a two-sided product kernel (K1-K3): ``got`` held
     against ``want``, then the kernel, its plain version, the einsum of the
     pair on ``product`` = (M1^T, X, M2) as the product sees it (when
     ``library``) and any ``extra`` callables timed. The bound counts the
     tensors in ``reads`` read once and ``out_bytes`` written once, and the
-    FLOP the product needs (`_needed_flops`)."""
+    FLOP the product needs (`_needed_flops`, unless ``flops`` is given)."""
     m1t, x, m2 = product
     err, tol = _check(label, got, want)
     case = {**tags, "max_abs_err": err, "tol": tol, "ms": _time_ms(kernel_fn),
@@ -159,7 +160,7 @@ def _case(torch, label: str, got, want, kernel_fn, plain_fn, product, reads, out
     for key, fn in (extra or {}).items():
         case[key] = _time_ms(fn)
     nbytes = _nbytes(*reads) + out_bytes
-    flops, dense = _needed_flops(x, m1t, m2), _dense_flops(x, m1t, m2)
+    flops, dense = flops or _needed_flops(x, m1t, m2), _dense_flops(x, m1t, m2)
     bound, by = _bound_ms(nbytes, flops)
     case.update(bound_ms=bound, bound_by=by, bound_share=bound / case["ms"], flops=flops,
                 dense_flops=dense, bytes=nbytes, dense_bound_ms=_bound_ms(nbytes, dense)[0])
@@ -234,30 +235,84 @@ def _k1_cases(torch, tmm, kernels, g, side: int) -> list[dict]:
 
 
 def _k3_cases(torch, tmm, kernels, g, side: int) -> list[dict]:
-    """K3 forward and backward (through autograd) on Y of a real
-    decomposition of a side x side noisy batch, over the levels that
-    `transform.waverec2` collapses at that side."""
+    """K3 forward and backward over the levels that `transform.waverec2`
+    collapses at a side x side path, on leaves made as the engine makes them:
+    detached views of K1's output for a noisy batch, which the kernel reads
+    in place. The output and every leaf's gradient (through autograd of
+    `waverec2_collapsed`) are held against the plain version, the assembly
+    of Y and `pair_plain`. The bound counts the bytes the function must
+    move: the leaves read and the output written (forward), g read and the
+    leaves' gradients written (backward). The einsum yardstick runs on the
+    assembled Y (forward) and gives the dense dY (backward); the assembly is
+    timed apart as ``assemble_ms``."""
     from wam_tpu_torch.wavelets import transform as tt
+    from wam_tpu_torch.wavelets.filters import build_wavelet
 
     dev = torch.device(DEVICE)
     n = SAMPLE_CHUNK * BATCH * CHANNELS
     imgs = torch.randn((n // CHANNELS, CHANNELS, side, side), generator=g, device=dev)
-    coeffs = tt.wavedec2(imgs, WAVELET, LEVELS, MODE, impl="matmul")
+    with torch.no_grad():
+        coeffs = tt.wavedec2(imgs, WAVELET, LEVELS, MODE, impl="kernel")
     details = coeffs[1:][:tt._collapse_count(coeffs[1:])]
+    flat = [coeffs[0]] + [t for d in details for t in d]
+
+    def unflat(ls):
+        return ls[0], [tt.Detail2D(*ls[1 + 3 * i:4 + 3 * i]) for i in range(len(details))]
+
+    w = build_wavelet(WAVELET)
+    rs = tuple(int(d.horizontal.shape[-2]) for d in details)
+    cs = tuple(int(d.horizontal.shape[-1]) for d in details)
+    fwd, bwd = tmm.pair_band(rs, cs, tuple(w.rec_lo), tuple(w.rec_hi), dev)
     R, Rt, C, Ct = tmm.collapsed_operators(details, WAVELET, dev)
-    y3 = tmm.assemble_collapsed(coeffs[0], details).reshape(n, Rt.shape[0], Ct.shape[0])
-    gout = torch.randn((n, R.shape[0], C.shape[0]), generator=g, device=dev)
-    yv = y3.clone().requires_grad_(True)
-    (dy,) = torch.autograd.grad(tmm._PairCore.apply(yv, R, Rt, C, Ct), yv, gout)
-    cases = []
-    for name, got, (m1t, xin, m2) in (
-            ("forward", kernels.pair(y3, Rt, Ct), (Rt, y3, Ct)),
-            ("backward (autograd)", dy, (R, gout, C))):
-        cases.append(_case(
-            torch, f"K3 {side}^2 {name}", got, tmm.pair_plain(xin, m1t, m2),
-            lambda: kernels.pair(xin, m1t, m2), lambda: tmm.pair_plain(xin, m1t, m2),
-            (m1t, xin, m2), (xin, m1t, m2), n * m1t.shape[1] * m2.shape[1] * 4,
-            part=name, dtype="float32", shape=list(xin.shape)))
+    leaves = [tmm._leaf3(t) for t in flat]  # (n, r, c) views of K1's output
+    if any(a.data_ptr() != b.data_ptr() for a, b in zip(leaves, flat)):
+        raise AssertionError("K3: a leaf view of K1's output was copied")
+
+    def plain_fwd(ls):
+        cA, dets = unflat(ls)
+        y = tmm.assemble_collapsed(cA, dets)
+        return tmm.pair_plain(y.reshape((n,) + y.shape[-2:]), Rt, Ct)
+
+    def plain_bwd():  # _pair_bwd and the leaves' slices of dY
+        return tmm.pair_plain(gout, R, C)
+
+    gout = torch.randn((n, fwd.p, fwd.t), generator=g, device=dev)
+    kv = [t.detach().requires_grad_(True) for t in flat]
+    out = tmm.waverec2_collapsed(kv[0], unflat(kv)[1], WAVELET)
+    kgrads = torch.autograd.grad(out, kv, gout.reshape(out.shape))
+    out = out.detach().reshape(n, fwd.p, fwd.t)
+    pv = [t.detach().clone().requires_grad_(True) for t in leaves]
+    want = plain_fwd(pv)
+    wgrads = torch.autograd.grad(want, pv, gout)
+    want = want.detach()
+    names = ["cA"] + [f"{q}{len(rs) - i}" for i in range(len(rs)) for q in "HVD"]
+    for name, got_g, want_g in zip(names, kgrads, wgrads):
+        _check(f"K3 {side}^2 gradient of {name}", got_g.reshape(want_g.shape), want_g)
+    with torch.no_grad():
+        y3 = tmm.assemble_collapsed(*unflat(leaves))
+        y3 = y3.reshape((n,) + y3.shape[-2:])
+    tags = {"dtype": "float32", "levels": list(zip(rs, cs)),
+            "plan": {"threads": [fwd.threads, bwd.threads],
+                     "smem_bytes": [fwd.smem_bytes(), bwd.smem_bytes()],
+                     "rt": [[lv.rt for lv in p.levels] for p in (fwd, bwd)],
+                     "k": [[lv.k for lv in p.levels] for p in (fwd, bwd)],
+                     "fold_log2": [lv.fold_log2 for lv in bwd.levels]}}
+    bwd_flops = 0
+    off_r = off_c = 0
+    for r, c in zip(rs, cs):  # the leaves' blocks of R^T g C, level by level
+        bwd_flops += _needed_flops(gout, R[:, off_r:off_r + 2 * r], C[:, off_c:off_c + 2 * c])
+        off_r, off_c = off_r + 2 * r, off_c + 2 * c
+    leaf_bytes = _nbytes(*leaves)
+    cases = [
+        _case(torch, f"K3 {side}^2 forward", out, want, lambda: kernels.pair(leaves, fwd),
+              lambda: plain_fwd(leaves), (Rt, y3, Ct), leaves, n * fwd.p * fwd.t * 4,
+              extra={"assemble_ms": lambda: tmm.assemble_collapsed(*unflat(leaves))},
+              part="forward", shape=[n, fwd.p, fwd.t], **tags),
+        _case(torch, f"K3 {side}^2 backward (autograd)",
+              torch.cat([t.reshape(-1) for t in kgrads]), torch.cat([t.reshape(-1) for t in wgrads]),
+              lambda: kernels.pair_bwd(gout, bwd), plain_bwd, (R, gout, C), (gout,), leaf_bytes,
+              flops=bwd_flops, part="backward (autograd)", shape=[n, fwd.p, fwd.t], **tags)]
+    del y3
     return cases
 
 
@@ -328,10 +383,12 @@ def phase_kernels(torch, tmm, kernels, sites) -> list[dict]:
             k1_cases.append(k2_bwd)
             k1_work += ", and K2's backward at the finest synthesis level"
         rows.append(_row(*k1, path, k1_cases, einsum, k1_work))
-        rows.append(_row(*k3, path, _k3_cases(torch, tmm, kernels, g, side),
-                         "torch.einsum (the matmul pair)",
+        k3_cases = _k3_cases(torch, tmm, kernels, g, side)
+        rows.append(_row(*k3, path, k3_cases,
+                         "torch.einsum (the matmul pair on the assembled Y; dense dY)",
                          f"forward + backward of the collapsed levels at {side}^2, "
                          "one sample chunk"))
+        rows[-1]["assemble_ms"] = k3_cases[0]["assemble_ms"]
     rows.insert(3, _row("synth2", "idwt2_kernel (K2)", "wam_tpu_torch/csrc/synth2.cu",
                         "wam_tpu/wavelets/matmul.py:313", "path 2", k2_cases,
                         "torch.einsum (the matmul pair on the merged matrix, merge not timed)",
@@ -617,8 +674,8 @@ def main() -> int:
     _log(f"phase build: {time.perf_counter() - t0:.2f} s for {sorted(report)} "
          f"into {kernels.BUILD_DIR}")
     for name, rep in report.items():  # ptxas: registers, static shared memory, spills
-        keys = (("entry function", "registers", "spill", "smem") if name in ("dwt2", "synth2")
-                else ("registers", "spill"))
+        keys = (("entry function", "registers", "spill", "smem")
+                if name in ("dwt2", "synth2", "pair") else ("registers", "spill"))
         for line in rep["log"].splitlines():
             if any(k in line for k in keys):
                 _log(f"  {name}: {line.strip()}")

@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Times K1 and K2 on the card against the shared-memory target of their
+"""Times K1, K2 and K3 on the card against the shared-memory target of their
 band plans, the knob that sets a tile's row pairs and so how many blocks
 share an SM.
 
@@ -8,8 +8,10 @@ share an SM.
 For each target (default: two, three, four and six blocks per SM) it
 builds the band plans (`wam_tpu_torch.wavelets.matmul`, ``smem_target``)
 of K1 at the flagship's and path 2's three analysis levels and of K2
-forward and K2's backward at path 2's finest synthesis level, checks each
-launch against its dense plain version, and times it: device time under
+forward and K2's backward at path 2's finest synthesis level, and of K3
+forward and backward at each path's collapsed levels (on leaves that are
+views of K1's output; two stages a block and one), checks each launch against its dense plain version,
+and times it: device time under
 `torch.profiler` and CUDA-event time (host launch gaps included), float32,
 one sample chunk of images per launch, inputs from one seed. Prints one
 JSON line per target (with each plan's rows per tile, staged rows and
@@ -71,8 +73,50 @@ def main() -> int:
                   lambda t: tmm._idwt2_plan_np(h, h, *rec, True, t),
                   tmm.dwt2_plain(gout, Sr, Sr)))
 
+    from wam_tpu_torch.wavelets import transform as tt
+
+    k3 = []  # (tag, leaves, rows, cols, forward reference, g, backward reference)
+    for tag, side in (("flagship", cs.SIDE), ("path2", cs.SIDE2)):
+        imgs = torch.randn((n // cs.CHANNELS, cs.CHANNELS, side, side), generator=g, device=dev)
+        coeffs = tt.wavedec2(imgs, cs.WAVELET, cs.LEVELS, cs.MODE, impl="kernel")
+        dets = coeffs[1:][:tt._collapse_count(coeffs[1:])]
+        leaves = [tmm._leaf3(t) for t in [coeffs[0]] + [t for d in dets for t in d]]
+        rs = tuple(d.horizontal.shape[-2] for d in dets)
+        cols = tuple(d.horizontal.shape[-1] for d in dets)
+        R, Rt, C, Ct = tmm.collapsed_operators(dets, cs.WAVELET, dev)
+        y = tmm.assemble_collapsed(leaves[0], [tt.Detail2D(*leaves[1 + 3 * i:4 + 3 * i])
+                                               for i in range(len(dets))])
+        gk = torch.randn((n, R.shape[0], C.shape[0]), generator=g, device=dev)
+        k3.append((tag, leaves, rs, cols, tmm.pair_plain(y, Rt, Ct), gk, tmm.pair_plain(gk, R, C)))
+        del y
+
+    def k3_check(name, got, want):
+        torch.cuda.synchronize()
+        err = float((got - want).abs().max())
+        if not err <= cs.KERNEL_RTOL * max(1.0, float(want.abs().max())):
+            raise AssertionError(f"{name}: max abs err {err:.3e}")
+
     for target in targets:
         row = {"smem_target": target}
+        for (tag, leaves, rs, cols, want, gk, dy), st in (
+                (case, st) for case in k3 for st in (2, 1)):
+            fwd, bwd = tmm.pair_band(rs, cols, *rec, dev, target, (st, st))
+            k3_check(f"K3_{tag}_forward at {target}", kernels.pair(leaves, fwd), want)
+            grads, off_r, off_c = kernels.pair_bwd(gk, bwd), 0, 0
+            for i, (r, c) in enumerate(zip(rs, cols)):  # the leaves' blocks of dY
+                blk = dy[:, off_r:off_r + 2 * r, off_c:off_c + 2 * c]
+                quads = ([blk[:, :r, :c]] if i == 0 else []) + [
+                    blk[:, r:, :c], blk[:, :r, c:], blk[:, r:, c:]]
+                for q, got in zip(quads, grads[(1 if i else 0) + 3 * i:4 + 3 * i]):
+                    k3_check(f"K3_{tag}_backward at {target}", got, q)
+                off_r, off_c = off_r + 2 * r, off_c + 2 * c
+            for name, fn, plan in (
+                    (f"K3_{tag}_forward_{st}stage", lambda: kernels.pair(leaves, fwd), fwd),
+                    (f"K3_{tag}_backward_{st}stage", lambda: kernels.pair_bwd(gk, bwd), bwd)):
+                row[name] = {"ms": cs._time_ms(fn, iters=50, warmup=5),
+                             "device_ms": _device_ms(torch, fn), "threads": plan.threads,
+                             "rt": [lv.rt for lv in plan.levels],
+                             "sm": [lv.sm for lv in plan.levels], "smem_bytes": plan.smem_bytes()}
         for name, launch, x, build, want in cases:
             plan = tmm._device_plan(build(target), dev)
             got = launch(x, plan)

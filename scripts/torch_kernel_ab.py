@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Times K1 and K2 of two or more checkouts of the port, in turns.
+"""Times K1, K2 and K3 of two or more checkouts of the port, in turns.
 
     python3 scripts/torch_kernel_ab.py DIR [DIR ...]
 
@@ -14,7 +14,12 @@ so the script is the same for checkouts whose kernel wrappers differ:
   (224²) and of path 2 (288²);
 - ``matmul.idwt2_kernel`` (K2) forward at path 2's finest synthesis level
   (4 x 147² -> 288²), and forward + backward through autograd (the backward
-  is a K1 launch; ``K2_backward`` is the difference).
+  is a K1 launch; ``K2_backward`` is the difference);
+- ``matmul.waverec2_collapsed`` (K3) on the levels each path collapses
+  (flagship 34/61/115, path 2 42/77), its leaves made as the engine makes
+  them (views of K1's output): forward, and forward + backward through
+  autograd (``K3_<path>_backward`` is the difference). A checkout that
+  assembles Y has the assembly timed as part of K3.
 
 Float32, one sample chunk of images per launch, inputs from one seed. Each
 case gives the event time per call (CUDA events around many calls, host
@@ -84,9 +89,31 @@ def one(root: str) -> dict:
     gout = torch.randn((n, cs.SIDE2, cs.SIDE2), generator=g, device=dev)
     record("K2_forward_backward",
            lambda: torch.autograd.grad(tmm.idwt2_kernel(sv, cs.WAVELET), sv, gout))
+    from wam_tpu_torch.wavelets import transform as tt
+
+    for tag, side in (("flagship", cs.SIDE), ("path2", cs.SIDE2)):
+        imgs = torch.randn((n // cs.CHANNELS, cs.CHANNELS, side, side), generator=g, device=dev)
+        with torch.no_grad():
+            coeffs = tt.wavedec2(imgs, cs.WAVELET, cs.LEVELS, cs.MODE, impl="kernel")
+        keep = tt._collapse_count(coeffs[1:])
+        flat = [coeffs[0]] + [t for d in coeffs[1:1 + keep] for t in d]
+        leaves = [t.detach().requires_grad_(True) for t in flat]
+
+        def rec(ls=leaves, keep=keep):
+            return tmm.waverec2_collapsed(
+                ls[0], [tt.Detail2D(*ls[1 + 3 * i:4 + 3 * i]) for i in range(keep)], cs.WAVELET)
+
+        with torch.no_grad():
+            gout = torch.randn(rec().shape, generator=g, device=dev)
+            record(f"K3_{tag}_forward", rec)
+        record(f"K3_{tag}_forward_backward",
+               lambda rec=rec, gout=gout, leaves=leaves: torch.autograd.grad(rec(), leaves, gout))
     for key in ("", "_device"):
         res[f"K2_backward{key}_ms"] = (res[f"K2_forward_backward{key}_ms"]
                                        - res[f"K2_forward{key}_ms"])
+        for tag in ("flagship", "path2"):
+            res[f"K3_{tag}_backward{key}_ms"] = (res[f"K3_{tag}_forward_backward{key}_ms"]
+                                                 - res[f"K3_{tag}_forward{key}_ms"])
     for key in ("", "_device"):
         for tag in ("flagship", "path2"):
             res[f"K1_{tag}_chunk{key}_ms"] = sum(res[f"K1_{tag}_level{lv}{key}_ms"]

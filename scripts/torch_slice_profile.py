@@ -27,7 +27,7 @@ ROOT = Path(__file__).resolve().parent.parent
 GROUPS = (  # first match wins, on the lower-cased kernel name
     ("K2 idwt2_kernel", ("wam_synth2",)),        # band2_kernel<.., wam_synth2::QuadrantSource<..>, ..>
     ("K1 dwt2_kernel", ("wam_dwt2",)),           # band2_kernel<.., wam_dwt2::QuadrantStore>
-    ("K3 waverec2_collapsed", ("mm2_kernel",)),
+    ("K3 waverec2_collapsed", ("collapsed::",)),  # collapsed::forward_kernel, backward_kernel
     ("K4 fused_relu forward", ("relu_fwd_kernel",)),
     ("K5 fused_relu backward", ("relu_bwd_kernel",)),
     ("convolution (cuDNN)", ("conv", "cudnn", "xmma", "implicit", "wgrad", "dgrad",

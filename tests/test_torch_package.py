@@ -90,7 +90,7 @@ def test_entry_points_raise_without_a_card(monkeypatch):
     assert resolve_device("cpu") == torch.device("cpu")
 
 
-LAUNCHERS = ("dwt2", "synth2", "pair", "relu_fwd", "relu_bwd")
+LAUNCHERS = ("dwt2", "synth2", "pair", "pair_bwd", "relu_fwd", "relu_bwd")
 
 
 @pytest.mark.parametrize("crossover", [128, 9], ids=["collapsed", "per-level"])
@@ -125,12 +125,16 @@ def test_kernel_launchers_refuse_cpu_tensors(monkeypatch):
     """Called directly with CPU tensors, the launchers raise before any
     build: they have no CPU path of their own."""
     monkeypatch.setattr(kernels, "build_all", lambda *a: pytest.fail("built on CPU input"))
-    x, m = torch.zeros(2, 8, 8), torch.zeros(8, 8)
+    x = torch.zeros(2, 8, 8)
     cpu = torch.device("cpu")
     with pytest.raises(ValueError, match="CUDA tensor"):
         kernels.dwt2(x, tmm.dwt2_band(8, 8, (0.5, 0.5), (-0.5, 0.5), "reflect", cpu))
+    fwd, bwd = tmm.pair_band((3, 5), (3, 5), (0.5, 0.5), (0.5, -0.5), cpu)
+    leaves = [torch.zeros(2, 3, 3)] + [torch.zeros(2, r, r) for r in (3, 5) for _ in range(3)]
     with pytest.raises(ValueError, match="CUDA tensor"):
-        kernels.pair(x, m, m)
+        kernels.pair(leaves, fwd)
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        kernels.pair_bwd(torch.zeros(2, bwd.p, bwd.t), bwd)
     with pytest.raises(ValueError, match="CUDA tensor"):
         kernels.synth2(torch.zeros(2, 4, 4, 4),
                        tmm.idwt2_band(4, 4, (0.5, 0.5), (0.5, -0.5), cpu)[0])
@@ -139,7 +143,7 @@ def test_kernel_launchers_refuse_cpu_tensors(monkeypatch):
     with pytest.raises(ValueError, match="CUDA tensor"):
         kernels.relu_bwd(torch.zeros(1, 128, dtype=torch.uint8), x)
     with pytest.raises(TypeError):
-        kernels.pair(x.double(), m, m)
+        kernels.pair([t.double() for t in leaves], fwd)
 
 
 def test_unknown_device_is_rejected():
@@ -192,6 +196,90 @@ def test_per_level_synthesis_on_cuda_reaches_k2(monkeypatch):
                      ("dwt2", (1, 12, 8), (12, 8, 18, 14))]
 
 
+def test_collapsed_synthesis_on_cuda_reaches_k3_with_the_leaves(monkeypatch):
+    """impl="kernel" on CUDA tensors runs the collapsed levels through the K3
+    launchers in both directions: the forward gets the leaves themselves
+    (cA, then H, V, D per level, coarsest first), K1's subband views passed
+    in place, and the backward returns every leaf's gradient. Neither the
+    assembly of Y nor the plain pair runs, and no op of the forward or the
+    backward makes a tensor of Y's (or dY's) shape. Values and gradients
+    equal the plain CPU route."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+    from torch.utils._pytree import tree_flatten
+
+    class Shapes(TorchDispatchMode):
+        def __init__(self):
+            super().__init__()
+            self.shapes, self.paused = [], False
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            out = func(*args, **(kwargs or {}))
+            if not self.paused:
+                self.shapes += [tuple(t.shape) for t in tree_flatten(out)[0]
+                                if isinstance(t, torch.Tensor)]
+            return out
+
+    w = tfilters.build_wavelet("db4")
+    rng = np.random.default_rng(5)
+    x = torch.from_numpy(rng.standard_normal((2, 3, 40, 44)).astype(np.float32))
+    coeffs = tt.wavedec2(x, "db4", 3, impl="kernel")  # leaves: views of (N, 4, h, w) outputs
+    flat = [coeffs[0]] + [t for d in coeffs[1:] for t in d]
+    rs = tuple(d.horizontal.shape[-2] for d in coeffs[1:])
+    cs = tuple(d.horizontal.shape[-1] for d in coeffs[1:])
+    assert tt._collapse_count(coeffs[1:]) == 3
+    Rb = [torch.from_numpy(b).float() for b in tmm._level_blocks(rs, tuple(w.rec_lo), tuple(w.rec_hi))]
+    Cb = [torch.from_numpy(b).float() for b in tmm._level_blocks(cs, tuple(w.rec_lo), tuple(w.rec_hi))]
+    mode, calls = Shapes(), []
+
+    def pair(leaves, plan):  # sum_l R_l Y_l C_l^T, level by level
+        calls.append(("pair", [t.data_ptr() for t in leaves], plan.rows, plan.cols))
+        mode.paused = True
+        out = 0
+        for i, (R, C) in enumerate(zip(Rb, Cb)):
+            h, v, d = leaves[1 + 3 * i:4 + 3 * i]
+            aa = leaves[0] if i == 0 else torch.zeros_like(h)
+            y = torch.cat([torch.cat([aa, v], -1), torch.cat([h, d], -1)], -2)
+            out = out + R @ y @ C.T
+        mode.paused = False
+        return out
+
+    def pair_bwd(g, plan):
+        calls.append(("pair_bwd", tuple(g.shape), plan.rows, plan.cols))
+        mode.paused = True
+        grads = []
+        for i, (R, C, r, c) in enumerate(zip(Rb, Cb, rs, cs)):
+            dy = R.T @ g @ C
+            grads += ([dy[:, :r, :c]] if i == 0 else []) + [
+                dy[:, r:, :c], dy[:, :r, c:], dy[:, r:, c:]]  # (aa,) H, V, D
+        mode.paused = False
+        return [t.contiguous() for t in grads]
+
+    monkeypatch.setattr(kernels, "pair", pair)
+    monkeypatch.setattr(kernels, "pair_bwd", pair_bwd)
+    monkeypatch.setattr(tmm, "assemble_collapsed", lambda *a: pytest.fail("Y assembled on CUDA"))
+    monkeypatch.setattr(tmm, "pair_plain", lambda *a: pytest.fail("plain K3 on CUDA"))
+    leaves = [t.detach().as_subclass(FakeCuda).requires_grad_(True) for t in flat]
+    g = torch.from_numpy(rng.standard_normal((2, 3, 40, 44)).astype(np.float32))
+    with mode:
+        rec = tt.waverec2([leaves[0]] + [tt.Detail2D(*leaves[1 + 3 * i:4 + 3 * i])
+                                         for i in range(3)], "db4", impl="kernel")
+        got = rec[..., :40, :44]
+        grads = torch.autograd.grad(got, leaves, g)
+    y_shape = (2 * sum(rs), 2 * sum(cs))
+    assert [c[0] for c in calls] == ["pair", "pair_bwd"]
+    assert calls[0][1] == [t.data_ptr() for t in flat]  # the leaves, read in place
+    assert calls[0][2:] == calls[1][2:] == (rs, cs)
+    assert not any(s[-2:] == y_shape for s in mode.shapes if len(s) >= 2), y_shape
+
+    monkeypatch.undo()
+    plain = [t.detach().clone().requires_grad_(True) for t in flat]
+    want = tt.waverec2([plain[0]] + [tt.Detail2D(*plain[1 + 3 * i:4 + 3 * i]) for i in range(3)],
+                       "db4", impl="kernel")[..., :40, :44]
+    torch.testing.assert_close(got.as_subclass(torch.Tensor), want, atol=1e-5, rtol=0)
+    for a, b in zip(grads, torch.autograd.grad(want, plain, g)):
+        torch.testing.assert_close(a.as_subclass(torch.Tensor), b, atol=1e-5, rtol=0)
+
+
 def test_fused_relu_on_cuda_reaches_k4_and_k5(monkeypatch):
     calls = []
     plain = tfr.relu_fwd_plain
@@ -239,10 +327,11 @@ def test_library_name_follows_the_sources(monkeypatch, tmp_path):
     assert k.library_path() != before
 
 
-@pytest.mark.parametrize("header", ["mm2.cuh", "band2.cuh"])
+@pytest.mark.parametrize("header", ["collapsed.cuh", "band2.cuh"])
 def test_library_name_follows_the_headers(monkeypatch, tmp_path, header):
-    """Both shared headers are hashed into every library's name: an edited
-    header never loads a stale build of K1-K3."""
+    """Both shared headers (band2.cuh for K1-K3, collapsed.cuh for K3) are
+    hashed into every library's name: an edited header never loads a stale
+    build of K1-K3."""
     assert header in kernels._HEADERS
     before = {k: kernels.KERNELS[k].library_path() for k in ("dwt2", "synth2", "pair")}
     edited = tmp_path / "csrc"

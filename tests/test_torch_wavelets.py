@@ -134,15 +134,25 @@ def test_band_form_scatters_back_bit_for_bit(mode, wavelet, side):
         np.testing.assert_array_equal(_scatter(idx, w, rows.shape), rows, err_msg=name)
 
 
+def _strip_perm(plan):
+    """Where the strip keeps each column: K1's odd columns from odd_off on,
+    or K3's groups of c mod 2^fold_log2, fstride apart."""
+    c = np.arange(plan["s"])
+    if "fold_log2" in plan:
+        f = 1 << plan["fold_log2"]
+        return (c % f) * plan["fstride"] + c // f
+    return np.where(c % 2, plan["odd_off"] + c // 2, c // 2) if plan["odd_off"] else c
+
+
 def _emulate_band(plan, stage_row, n):
-    """The data flow of csrc/band2.cuh over a plan, in numpy float64: per row
-    tile, stage the named source rows (``stage_row(q)`` -> (n, s)), form the
-    row pairs' strip (odd columns from odd_off on when permuted), then the
-    column pairs against it. Checks that taps name staged slots only and
-    that every output element is written exactly once."""
+    """The data flow of csrc/band2.cuh (and of one level of
+    csrc/collapsed.cuh) over a plan, in numpy float64: per row tile, stage
+    the named source rows (``stage_row(q)`` -> (n, s)), form the row pairs'
+    strip (columns permuted as `_strip_perm` says), then the column pairs
+    against it. Checks that taps name staged slots only and that every
+    output element is written exactly once."""
     rt, s = plan["rt"], plan["s"]
-    c = np.arange(s)
-    perm = np.where(c % 2, plan["odd_off"] + c // 2, c // 2) if plan["odd_off"] else c
+    perm = _strip_perm(plan)
     out = np.zeros((n, plan["p"], plan["t"]))
     hits = np.zeros((plan["p"], plan["t"]), int)
     for j in range(plan["ntiles"]):
@@ -235,26 +245,31 @@ def _dense_from_blob(plan):
     """Decode a `kernels.BandPlan` blob (the layout csrc/band2.cuh reads:
     tsrc | per tile trow, tidx, tw | ccol, cidx, cw pair-minor) back to the
     dense M1 (p x q) and M2 (s x t) it stands for."""
-    blob, at = plan.blob.cpu().numpy(), 0
+    fields = plan._asdict()
+    return _decode_band(plan.blob.cpu().numpy(), 0, fields, _strip_perm(fields), plan.p,
+                        plan.q, plan.t)
 
+
+def _decode_band(blob, at, plan, perm, p, q, t):
+    """The dense M1 (p x q) and M2 (s x t) of the band plan whose arrays
+    start at word ``at`` of ``blob``; ``plan`` gives its shape."""
     def take(count, shape):
         nonlocal at
         at += count
         return blob[at - count:at].reshape(shape)
 
-    nt, rt, k, tp = plan.ntiles, plan.rt, plan.k, plan.tp
-    tsrc = take(nt * plan.sm, (nt, plan.sm))
+    nt, rt, k, tp = plan["ntiles"], plan["rt"], plan["k"], plan["tp"]
+    tsrc = take(nt * plan["sm"], (nt, plan["sm"]))
     tdat = take(nt * (2 * rt + 3 * rt * k), (nt, -1))
     trow = tdat[:, :2 * rt].reshape(nt, rt, 2)
     tidx = tdat[:, 2 * rt:2 * rt + rt * k].reshape(nt, rt, k)
     tw = np.ascontiguousarray(tdat[:, 2 * rt + rt * k:]).view(np.float32).reshape(nt, rt, 2, k)
     ccol, cidx = take(tp * 2, (2, tp)).T, take(tp * k, (k, tp)).T
     cw = np.moveaxis(take(tp * 2 * k, (2, k, tp)).view(np.float32), -1, 0)
-    c = np.arange(plan.s)
-    perm = np.where(c % 2, plan.odd_off + c // 2, c // 2) if plan.odd_off else c
-    unperm = np.zeros(plan.ts_stride, int)
+    c = np.arange(plan["s"])
+    unperm = np.zeros(plan["ts_stride"], int)
     unperm[perm] = c
-    m1, m2 = np.zeros((plan.p, plan.q)), np.zeros((plan.s, plan.t))
+    m1, m2 = np.zeros((p, q)), np.zeros((plan["s"], t))
     for j in range(nt):
         for r in range(rt):
             for half in range(2):
@@ -370,13 +385,11 @@ def test_k1_plain_matches_dwt2_pallas(wavelet, mode, shape, dtype):
 # -- K3: the plain version against waverec2_collapsed -------------------------
 
 
-@pytest.mark.parametrize("wavelet,shape,level", [
-    ("db4", (2, 3, 64, 64), 3),
-    ("db4", (1, 2, 45, 50), 3),
-    ("haar", (1, 3, 40, 36), 3),
-    ("sym3", (2, 1, 33, 33), 2),
-])
-def test_k3_plain_matches_waverec2_collapsed(wavelet, shape, level):
+def _k3_against_jax(wavelet, shape, level, views):
+    """waverec2_collapsed of the port (CPU: the plain version) against the
+    JAX one, values and the gradient of every leaf. With ``views`` the
+    port's leaves are made as the engine makes them: detached views of one
+    (..., 4, h, w) tensor per level, in K1's subband order."""
     rng = _rng("k3", wavelet, shape, level)
     x = rng.standard_normal(shape).astype(np.float32)
     coeffs = jt.wavedec2(jnp.asarray(x), wavelet, level, "reflect")
@@ -392,13 +405,43 @@ def test_k3_plain_matches_waverec2_collapsed(wavelet, shape, level):
     g = rng.standard_normal(want.shape).astype(np.float32)
     want_grads = vjp(jnp.asarray(g))
 
-    tleaves = [torch.from_numpy(v).requires_grad_(True) for v in leaves]
+    tleaves = [torch.from_numpy(v) for v in leaves]
+    if views:
+        subs = []
+        for i in range(level):
+            h, v, d = tleaves[1 + 3 * i:4 + 3 * i]
+            aa = tleaves[0] if i == 0 else torch.zeros_like(h)
+            subs.append(torch.stack([aa, v, h, d], -3))  # (aa, ad, da, dd)
+        tleaves = [subs[0][..., 0, :, :]] + [
+            sub[..., k, :, :] for sub in subs for k in (2, 1, 3)]
+        assert not any(t.is_contiguous() for t in tleaves)
+    tleaves = [t.detach().requires_grad_(True) for t in tleaves]
     tdets = [tt.Detail2D(*tleaves[1 + 3 * i: 4 + 3 * i]) for i in range(level)]
     got = tmm.waverec2_collapsed(tleaves[0], tdets, wavelet)
     np.testing.assert_allclose(_np(got), np.asarray(want), atol=TOL, rtol=0)
     got_grads = torch.autograd.grad(got, tleaves, torch.from_numpy(g))
     for gg, wg in zip(got_grads, want_grads):
         np.testing.assert_allclose(_np(gg), np.asarray(wg), atol=TOL, rtol=0)
+
+
+@pytest.mark.parametrize("wavelet,shape,level", [
+    ("db4", (2, 3, 64, 64), 3),
+    ("db4", (1, 2, 45, 50), 3),
+    ("haar", (1, 3, 40, 36), 3),
+    ("sym3", (2, 1, 33, 33), 2),
+])
+def test_k3_plain_matches_waverec2_collapsed(wavelet, shape, level):
+    _k3_against_jax(wavelet, shape, level, views=False)
+
+
+@pytest.mark.parametrize("wavelet,shape,level", [
+    ("db4", (2, 3, 64, 64), 3),
+    ("sym3", (1, 2, 45, 50), 2),
+])
+def test_k3_plain_matches_waverec2_collapsed_on_leaf_views(wavelet, shape, level):
+    """The same on non-contiguous leaves: views of K1-shaped outputs, as the
+    engine hands them over."""
+    _k3_against_jax(wavelet, shape, level, views=True)
 
 
 def test_k3_bf16_leaves_upcast_at_assembly():
@@ -411,6 +454,126 @@ def test_k3_bf16_leaves_upcast_at_assembly():
                                                   for d in bf[1:]], "db4")
     assert got.dtype == torch.float32
     torch.testing.assert_close(got, want, atol=0, rtol=0)
+
+
+# -- K3's plans: one band product per collapsed level and direction ----------
+
+# (wavelet, image side(s), levels, collapsed levels): the flagship (224^2,
+# sides 34/61/115), path 2 (288^2, its two coarsest levels 42/77), h != w,
+# J = 2..4
+K3_PLAN_CASES = [("db4", (224, 224), 3, 3), ("db4", (288, 288), 3, 2), ("haar", (40, 36), 3, 3),
+                 ("sym3", (64, 50), 4, 4), ("db8", (90, 70), 2, 2), ("db4", (45, 50), 2, 2)]
+
+
+def _k3_setup(wavelet, hw, level, keep):
+    """Leaves of a real decomposition (2 images), the collapsed levels'
+    sides and K3's (forward, backward) plans."""
+    x = _rng("k3plan", wavelet, hw).standard_normal((2,) + hw).astype(np.float32)
+    coeffs = jt.wavedec2(jnp.asarray(x), wavelet, level, "reflect")
+    leaves = [np.asarray(coeffs[0], np.float64)] + [
+        np.asarray(t, np.float64) for d in coeffs[1:1 + keep] for t in d]
+    rs = tuple(leaves[1 + 3 * i].shape[-2] for i in range(keep))
+    cs = tuple(leaves[1 + 3 * i].shape[-1] for i in range(keep))
+    wv = tfilters.build_wavelet(wavelet)
+    rec = (tuple(wv.rec_lo), tuple(wv.rec_hi))
+    return leaves, rs, cs, rec, tmm._pair_plans_np(rs, cs, *rec)
+
+
+@pytest.mark.parametrize("wavelet,hw,level,keep", K3_PLAN_CASES)
+def test_k3_plans_emulated_match_dense_and_jax(wavelet, hw, level, keep):
+    """csrc/collapsed.cuh's data flow over K3's plans, in numpy: the forward
+    sums each level's band product on rows of Y_l staged from the leaves
+    ([aa or 0 | V] above, [H | D] below), with every level on the same row
+    tiles and column pairs (a thread's sums stay in registers); the backward
+    runs each level's product on g and splits it into aa (coarsest only),
+    V, H, D. Held against the dense R Y C^T and against the JAX
+    waverec2_collapsed forward and per-leaf VJP, within 1e-5."""
+    leaves, rs, cs, rec, (fwd, bwd) = _k3_setup(wavelet, hw, level, keep)
+    n = leaves[0].shape[0]
+    first = fwd["levels"][0]
+    for lv in fwd["levels"]:
+        assert np.array_equal(lv["trow"], first["trow"]) and np.array_equal(lv["ccol"], first["ccol"])
+        assert 2 * lv["rt"] <= kernels.PAIR_ROWS_PER_THREAD * (fwd["threads"] // lv["tp"])
+
+    def y_rows(i):
+        r, c = rs[i], cs[i]
+        h, v, d = leaves[1 + 3 * i:4 + 3 * i]
+        aa = leaves[0] if i == 0 else np.zeros_like(h)
+        return lambda q: (np.concatenate([aa[:, q], v[:, q]], -1) if q < r
+                          else np.concatenate([h[:, q - r], d[:, q - r]], -1))
+
+    got = sum(_emulate_band(lv, y_rows(i), n) for i, lv in enumerate(fwd["levels"]))
+    R, C = tmm._collapsed_axis_np(rs, *rec), tmm._collapsed_axis_np(cs, *rec)
+    Y = np.zeros((n, R.shape[1], C.shape[1]))
+    at_r = at_c = 0
+    for i, (r, c) in enumerate(zip(rs, cs)):
+        h, v, d = leaves[1 + 3 * i:4 + 3 * i]
+        if i == 0:
+            Y[:, :r, :c] = leaves[0]
+        Y[:, at_r:at_r + r, at_c + c:at_c + 2 * c] = v
+        Y[:, at_r + r:at_r + 2 * r, at_c:at_c + c] = h
+        Y[:, at_r + r:at_r + 2 * r, at_c + c:at_c + 2 * c] = d
+        at_r, at_c = at_r + 2 * r, at_c + 2 * c
+    np.testing.assert_allclose(got, R @ Y @ C.T, atol=TOL, rtol=0)
+
+    def jfn(*ls):
+        return jmm.waverec2_collapsed(ls[0], [jt.Detail2D(*ls[1 + 3 * i:4 + 3 * i])
+                                              for i in range(keep)], wavelet)
+
+    want, vjp = jax.vjp(jfn, *(jnp.asarray(v, jnp.float32) for v in leaves))
+    np.testing.assert_allclose(got, np.asarray(want), atol=TOL, rtol=0)
+    g = _rng("k3plan-g", wavelet, hw).standard_normal(want.shape).astype(np.float32)
+    grads = []
+    for i, lv in enumerate(bwd["levels"]):
+        q = _quadrants(_emulate_band(lv, lambda row: g[:, row].astype(np.float64), n))
+        grads += ([q[:, 0]] if i == 0 else []) + [q[:, 2], q[:, 1], q[:, 3]]  # H, V, D
+    for got_g, want_g in zip(grads, vjp(jnp.asarray(g))):
+        np.testing.assert_allclose(got_g, np.asarray(want_g), atol=TOL, rtol=0)
+
+
+@pytest.mark.parametrize("wavelet,hw,level,keep", K3_PLAN_CASES)
+def test_k3_plan_blob_decodes_to_the_level_operators(wavelet, hw, level, keep):
+    """Each level of K3's device plans, read back from the int32 blob the
+    kernel reads at its PairLevel offsets, is R_l and C_l^T (forward) or
+    R_l^T and C_l (backward) in float32, bit for bit."""
+    _, rs, cs, rec, _ = _k3_setup(wavelet, hw, level, keep)
+    plans = tmm.pair_band(rs, cs, *rec, torch.device("cpu"))
+    Rb, Cb = tmm._level_blocks(rs, *rec), tmm._level_blocks(cs, *rec)
+    for plan, backward in zip(plans, (False, True)):
+        assert (plan.rows, plan.cols) == (rs, cs) and len(plan.levels) == keep
+        blob = plan.blob.numpy()
+        for lv, R, C in zip(plan.levels, Rb, Cb):
+            fields = lv._asdict()
+            m1, m2 = (R.T, C) if backward else (R, C.T)
+            got1, got2 = _decode_band(blob, lv.tsrc, fields, _strip_perm(fields), m1.shape[0],
+                                      m1.shape[1], m2.shape[1])
+            np.testing.assert_array_equal(got1, m1.astype(np.float32))
+            np.testing.assert_array_equal(got2, m2.astype(np.float32))
+        assert plan.smem_bytes() <= kernels.MAX_SMEM
+
+
+def test_k3_plans_at_the_paths_shapes():
+    """db4 at the paths' collapsed levels: the forward tiles 16 row pairs
+    (taps 16 at the coarse levels, 8 at the finest), the backward folds its
+    strip by the taps' step (8, 4, 2 columns coarsest first) and takes up
+    to 50 taps (16 in registers); the flagship's backward takes one stage
+    (two would stage twice the rows of g), path 2's two; all within the
+    shared-memory target (two blocks an SM)."""
+    wv = tfilters.build_wavelet("db4")
+    rec = (tuple(wv.rec_lo), tuple(wv.rec_hi))
+    flag = tmm._pair_plans_np((34, 61, 115), (34, 61, 115), *rec)
+    p2 = tmm._pair_plans_np((42, 77), (42, 77), *rec)
+    assert [lv["rt"] for lv in flag[0]["levels"]] == [16] * 3
+    assert [lv["k"] for lv in flag[0]["levels"]] == [16, 16, 8]
+    assert [lv["fold_log2"] for lv in flag[1]["levels"]] == [3, 2, 1]
+    assert [(lv["k"], lv["kc"]) for lv in flag[1]["levels"]] == [(50, 16), (22, 16), (8, 8)]
+    assert [lv["fold_log2"] for lv in p2[1]["levels"]] == [2, 1]
+    assert [p["stages"] for p in (*flag, *p2)] == [2, 1, 2, 2]
+    for fwd, bwd in (flag, p2):
+        for plan in (fwd, bwd):
+            assert kernels.pair_smem_bytes(plan["stages"], plan["stage_words"],
+                                           plan["strip_words"]) <= tmm.SMEM_TARGET
+    assert (flag[0]["threads"], p2[0]["threads"]) == (256, 256)
 
 
 # -- K2: the plain version against idwt2_pallas (interpret mode) -------------

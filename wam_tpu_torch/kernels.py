@@ -15,9 +15,10 @@ the sources, so an edited kernel is rebuilt and a stale one is never loaded.
 
 K1 and K2 share the banded two-sided product of ``csrc/band2.cuh``, which
 takes its operators as a `BandPlan` (built by `wam_tpu_torch.wavelets.matmul`);
-K3 runs the dense one of ``csrc/mm2.cuh``; K4 and K5 share one library. The
-launch wrappers take CUDA tensors only: they check device, dtype, shape and
-contiguity, allocate the outputs with ``torch.empty``,
+K3 runs the per-level banded products of ``csrc/collapsed.cuh`` on a
+`PairPlan`, reading the coefficient leaves where they lie; K4 and K5 share one
+library. The launch wrappers take CUDA tensors only: they check device, dtype,
+shape and layout, allocate the outputs with ``torch.empty``,
 launch on the current stream and raise when the launch fails. Each counts
 its launches in ``KERNELS[name].launches`` (one per launch, nowhere else).
 Nothing here runs on the CPU: the plain PyTorch versions live beside their
@@ -37,28 +38,30 @@ from typing import NamedTuple
 
 import torch
 
-__all__ = ["KERNELS", "BandPlan", "build_all", "dwt2", "synth2", "pair", "relu_fwd",
-           "relu_bwd", "band_smem_bytes", "launch_counts", "reset_launch_counts",
-           "nvcc_command"]
+__all__ = ["KERNELS", "BandPlan", "PairLevel", "PairPlan", "pair_plan", "build_all", "dwt2",
+           "synth2", "pair", "pair_bwd", "relu_fwd", "relu_bwd", "band_smem_bytes", "launch_counts",
+           "reset_launch_counts", "nvcc_command"]
 
 _CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "wam_tpu_torch"
-_HEADERS = ("mm2.cuh", "band2.cuh")
+_HEADERS = ("band2.cuh", "collapsed.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 # Shared memory a block may use on an H100 (the opt-in maximum).
 MAX_SMEM = 227 * 1024
-# K3 (mm2.cuh): largest S (columns of X) whose row strip fits MAX_SMEM:
-# (kChunk + S) * kRows * 4 bytes, kChunk = 64, kRows = 16.
-MAX_INNER = MAX_SMEM // (16 * 4) - 64
+MAX_THREADS = 512  # threads of a block (band2.cuh's kMaxThreads, collapsed.cuh's)
+# K3 (collapsed.cuh): collapsed levels at most, output rows a forward thread
+# sums in registers, threads of a backward block.
+MAX_LEVELS, PAIR_ROWS_PER_THREAD, PAIR_BWD_THREADS = 8, 16, 256
 _MAX_DIM = 2**31 - 1
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _L = ctypes.c_longlong
 # Every entry point returns cudaError_t and launches on the current device.
-# mm2.cuh kernels: (x, m1t, m2, out, N, P, Q, S, T, stream)
-_MM2_ARGS = (_P, _P, _P, _P, _I, _I, _I, _I, _I, _P)
+# collapsed.cuh (K3): (leaves, plans, out, N, P, T, stream) forward,
+# (g, grads, plans, N, P, T, stream) backward; leaves and plans by reference
+_PAIR_ARGS = (_P, _P, _P, _I, _I, _I, _P)
 # band2.cuh kernels: (x, out, plan, kc, N, Q, S, P, T, ntiles, rt, sm, k, tp,
 # odd_off, ts_stride, stages, cols_shared, stream)
 _BAND_ARGS = (_P, _P, _P) + (_I,) * 15 + (_P,)
@@ -103,7 +106,7 @@ class Kernel:
 KERNELS = {
     "dwt2": Kernel("dwt2", "dwt2.cu", ("wam_dwt2_f32", "wam_dwt2_bf16"), _BAND_ARGS),
     "synth2": Kernel("synth2", "synth2.cu", ("wam_synth2_f32", "wam_synth2_bf16"), _BAND_ARGS),
-    "pair": Kernel("pair", "pair.cu", ("wam_pair_f32",), _MM2_ARGS),
+    "pair": Kernel("pair", "pair.cu", ("wam_pair_fwd_f32", "wam_pair_bwd_f32"), _PAIR_ARGS),
     "relu_fwd": Kernel("relu_fwd", "relu_mask.cu", ("wam_relu_fwd_f32", "wam_relu_fwd_bf16"),
                        _RELU_ARGS),
     "relu_bwd": Kernel("relu_bwd", "relu_mask.cu", ("wam_relu_bwd_f32", "wam_relu_bwd_bf16"),
@@ -193,31 +196,6 @@ def _call(kernel: Kernel, symbol: str, dev, *args) -> None:
     if err != 0:
         raise RuntimeError(f"{kernel.name} kernel launch failed: cudaError_t {err}")
     kernel.launches += 1
-
-
-def _launch_mm2(kernel: Kernel, symbol: str, x, m1t, m2, q: int, s: int,
-                out_shape) -> torch.Tensor:
-    """out[n] = m1t^T . X[n] . m2 through mm2.cuh, X[n] (q x s) read from
-    ``x`` (already checked by the caller)."""
-    dev = x.device
-    _check(m1t, "m1t", (torch.float32,), 2, dev)
-    _check(m2, "m2", (torch.float32,), 2, dev)
-    n = x.shape[0]
-    if m1t.shape[0] != q or m2.shape[0] != s:
-        raise ValueError(f"shape mismatch: x {tuple(x.shape)}, m1t {tuple(m1t.shape)}, "
-                         f"m2 {tuple(m2.shape)}")
-    p, t = m1t.shape[1], m2.shape[1]
-    if s > MAX_INNER:
-        raise ValueError(f"{kernel.name}: inner side {s} exceeds the shared-memory "
-                         f"strip limit {MAX_INNER}")
-    if max(n * q * s, n * p * t, q * p, s * t) > _MAX_DIM:
-        raise ValueError(f"{kernel.name}: tensor too large for int32 sides")
-    out = torch.empty(out_shape, device=dev, dtype=torch.float32)
-    if n == 0:
-        return out
-    _call(kernel, symbol, dev, x.data_ptr(), m1t.data_ptr(), m2.data_ptr(), out.data_ptr(),
-          n, p, q, s, t)
-    return out
 
 
 def _suffix(t: torch.Tensor) -> str:
@@ -313,14 +291,175 @@ def synth2(sub: torch.Tensor, plan: BandPlan) -> torch.Tensor:
                         (n, plan.p, plan.t))
 
 
-def pair(y3: torch.Tensor, m1t: torch.Tensor, m2: torch.Tensor) -> torch.Tensor:
-    """K3: (N, Q, S) f32 -> (N, P, T) f32, out[n] = m1t^T . y3[n] . m2."""
-    if y3.dtype != torch.float32:
-        raise TypeError(f"pair kernel takes float32, got {y3.dtype}")
-    _check(y3, "x", (torch.float32,), 3, y3.device)
-    n, q, s = y3.shape
-    return _launch_mm2(KERNELS["pair"], "wam_pair_f32", y3, m1t, m2, q, s,
-                       (n, m1t.shape[-1], m2.shape[-1]))
+class PairLevel(NamedTuple):
+    """One collapsed level of a K3 plan: a band product in ``csrc/band2.cuh``'s
+    layout, its arrays at word offsets of the plan's blob."""
+
+    tsrc: int       # offsets of the level's tsrc, tile data and column data
+    tdat: int
+    ccols: int
+    ntiles: int     # row tiles per image
+    rt: int         # row pairs per tile
+    sm: int         # staged source rows per tile
+    k: int          # taps per row pair and per column pair
+    kc: int         # taps held in registers: 2, 4, 8 or 16
+    tp: int         # column pairs
+    s: int          # floats per staged source row
+    fold_log2: int  # the strip groups its columns by c mod 2^fold_log2
+    fstride: int    # floats between those groups
+    ts_stride: int  # floats per strip row
+
+
+class _Leaf(ctypes.Structure):
+    """``collapsed::Leaf``: an (N, rows, cols) float32 tensor, columns
+    contiguous, by its pointer, image stride and row stride (elements)."""
+
+    _fields_ = [("ptr", _P), ("img", _L), ("row", _L)]
+
+
+class _Leaves(ctypes.Structure):
+    """``collapsed::Leaves``: the approximation, then each level's H, V, D
+    (the order of `pair`'s leaves), and the levels' sides."""
+
+    _fields_ = [("leaf", _Leaf * (1 + 3 * MAX_LEVELS)), ("rows", _I * MAX_LEVELS),
+                ("cols", _I * MAX_LEVELS), ("levels", _I)]
+
+
+class _LevelPlan(ctypes.Structure):
+    _fields_ = [(f, _I) for f in PairLevel._fields]
+
+
+class _Plans(ctypes.Structure):
+    """``collapsed::Plans``."""
+
+    _fields_ = [("blob", _P), ("levels", _I), ("threads", _I), ("stages", _I),
+                ("stage_words", _I), ("strip_words", _I), ("lv", _LevelPlan * MAX_LEVELS)]
+
+
+class PairPlan(NamedTuple):
+    """One direction of K3 on one device (`matmul.pair_band`): the levels'
+    band plans end to end in ``blob`` (int32, weights as float32 bits) and
+    the block's shape. ``rows`` and ``cols`` are the levels' coefficient
+    sides, coarsest first; the product's image is p x t."""
+
+    blob: torch.Tensor
+    levels: tuple   # of PairLevel, coarsest first
+    threads: int
+    stages: int       # 2: the next work item's rows load while one computes
+    stage_words: int  # floats of each stage
+    strip_words: int  # floats of the strip
+    rows: tuple
+    cols: tuple
+    p: int
+    t: int
+    args: _Plans    # the launch argument, built once (`pair_plan`)
+
+    def smem_bytes(self) -> int:
+        """Dynamic shared memory of one block: the stages and the strip."""
+        return pair_smem_bytes(self.stages, self.stage_words, self.strip_words)
+
+
+def pair_smem_bytes(stages: int, stage_words: int, strip_words: int) -> int:
+    """Dynamic shared memory of a collapsed.cuh block (``collapsed::smem_bytes``)."""
+    return (stages * stage_words + strip_words) * 4
+
+
+def pair_plan(blob: torch.Tensor, levels, threads: int, stages: int, stage_words: int,
+              strip_words: int, rows: tuple, cols: tuple, p: int, t: int) -> PairPlan:
+    """A `PairPlan` with its launch argument (``collapsed::Plans``)."""
+    args = _Plans(blob=blob.data_ptr(), levels=len(levels), threads=threads, stages=stages,
+                  stage_words=stage_words, strip_words=strip_words)
+    for i, lv in enumerate(levels):
+        args.lv[i] = tuple(lv)
+    return PairPlan(blob, tuple(levels), threads, stages, stage_words, strip_words, rows, cols,
+                    p, t, args)
+
+
+def pair_fwd_threads(tp: int) -> int:
+    """Threads of a K3 forward block, a thread per column pair and group of
+    strip rows: 256 up to 256 column pairs (eight warps share a tile's 16
+    row pairs evenly), else one per pair in whole warps."""
+    return 256 if tp <= 256 else min(MAX_THREADS, (tp + 31) // 32 * 32)
+
+
+def _leaves_struct(leaves, plan: PairPlan) -> _Leaves:
+    st = _Leaves(rows=plan.rows, cols=plan.cols, levels=len(plan.levels))
+    for i, t in enumerate(leaves):
+        st.leaf[i] = (t.data_ptr(), t.stride(0), t.stride(1))
+    return st
+
+
+def _check_pair(plan: PairPlan, dev) -> None:
+    _check(plan.blob, "plan", (torch.int32,), 1, dev)
+    if not 1 <= len(plan.levels) <= MAX_LEVELS:
+        raise ValueError(f"pair: {len(plan.levels)} levels, expected 1 to {MAX_LEVELS}")
+    if plan.smem_bytes() > MAX_SMEM:
+        raise ValueError(f"pair: plan needs {plan.smem_bytes()} bytes of shared memory, more "
+                         f"than {MAX_SMEM}")
+
+
+def _check_leaves(leaves, plan: PairPlan, dev) -> int:
+    """The leaves' shapes against the plan: cA (N, r_J, c_J), then H, V, D
+    of each level (N, r_l, c_l), float32 CUDA tensors with contiguous
+    columns (any image and row strides: views of K1's output are read in
+    place). Returns N."""
+    if len(leaves) != 1 + 3 * len(plan.levels):
+        raise ValueError(f"pair: {len(leaves)} leaves for {len(plan.levels)} levels")
+    n = leaves[0].shape[0] if leaves[0].ndim == 3 else -1
+    for i, t in enumerate(leaves):
+        lv = max(0, (i - 1) // 3)
+        want = (n, plan.rows[lv], plan.cols[lv])
+        if t.dtype != torch.float32:
+            raise TypeError(f"pair kernel takes float32 leaves, got {t.dtype} for leaf {i}")
+        if not t.is_cuda:
+            raise ValueError(f"leaf {i} must be a CUDA tensor (got device {t.device}); the "
+                             "plain PyTorch version serves CPU tensors")
+        if t.device != dev:
+            raise ValueError(f"leaf {i} is on {t.device}, expected {dev}")
+        if tuple(t.shape) != want:
+            raise ValueError(f"leaf {i} has shape {tuple(t.shape)}, expected {want}")
+        if t.stride(2) != 1 and t.shape[2] != 1:
+            raise ValueError(f"leaf {i} must have contiguous columns, got strides {t.stride()}")
+    return n
+
+
+def pair(leaves, plan: PairPlan) -> torch.Tensor:
+    """K3 forward: out[n] = sum_l R_l . Y_l[n] . C_l^T, (N, P, T) float32,
+    with Y_l = [[aa or 0, V_l], [H_l, D_l]] read straight from ``leaves``:
+    [cA, H_J, V_J, D_J, ..., H_1, V_1, D_1], coarsest first, each an (N,
+    r_l, c_l) float32 CUDA tensor with contiguous columns (`_check_leaves`);
+    ``plan`` is `matmul.pair_band`'s forward plan."""
+    dev = leaves[0].device
+    n = _check_leaves(leaves, plan, dev)
+    _check_pair(plan, dev)
+    out = torch.empty((n, plan.p, plan.t), device=dev, dtype=torch.float32)
+    if n:
+        _call(KERNELS["pair"], "wam_pair_fwd_f32", dev,
+              ctypes.byref(_leaves_struct(leaves, plan)), ctypes.byref(plan.args),
+              out.data_ptr(), n, plan.p, plan.t)
+    return out
+
+
+def pair_bwd(g: torch.Tensor, plan: PairPlan) -> list[torch.Tensor]:
+    """K3 backward: each leaf's gradient from g (N, P, T) float32, the
+    quadrants of R_l^T . g[n] . C_l (aa only at the coarsest level), in the
+    leaves' order, each (N, r_l, c_l) float32 and contiguous; ``plan`` is
+    `matmul.pair_band`'s backward plan."""
+    _check(g, "g", (torch.float32,), 3, g.device)
+    dev = g.device
+    _check_pair(plan, dev)
+    n = g.shape[0]
+    if tuple(g.shape[1:]) != (plan.p, plan.t):
+        raise ValueError(f"g of shape {tuple(g.shape)} does not fit a plan for "
+                         f"{plan.p} x {plan.t}")
+    grads = [torch.empty((n, plan.rows[0], plan.cols[0]), device=dev, dtype=torch.float32)]
+    for r, c in zip(plan.rows, plan.cols):
+        grads += [torch.empty((n, r, c), device=dev, dtype=torch.float32) for _ in range(3)]
+    if n:
+        _call(KERNELS["pair"], "wam_pair_bwd_f32", dev, g.data_ptr(),
+              ctypes.byref(_leaves_struct(grads, plan)), ctypes.byref(plan.args), n, plan.p,
+              plan.t)
+    return grads
 
 
 MASK_LANES, MASK_PACK = 128, 8  # the (R/8, 128) uint8 sign-mask layout

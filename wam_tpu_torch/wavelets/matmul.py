@@ -17,12 +17,15 @@ plain PyTorch version beside it:
 - `idwt2_kernel` (counterpart of ``idwt2_pallas``): K2, ``csrc/synth2.cu``,
   which merges the subbands inside the kernel; backward is the quadrant
   split of ``Sr^T g Sc``, a launch of K1 (``_synth_bwd``).
-- `waverec2_collapsed`: K3, ``csrc/pair.cu``; backward ``R^T g C``
-  (``_pair_bwd``) launches the same kernel with the operators swapped.
+- `waverec2_collapsed`: K3, ``csrc/pair.cu``, which reads the coefficient
+  leaves in place of the assembled Y; backward ``R^T g C`` (``_pair_bwd``)
+  and its slices, one launch of K3's adjoint that writes the leaves'
+  gradients.
 
-K1 and K2 skip the operators' zeros: they take each operator in band form
+The kernels skip the operators' zeros: they take each operator in band form
 (`band_form`: the nonzeros of each row, or column, and their indices) laid
-out for the kernel as a `kernels.BandPlan` (`dwt2_band`, `idwt2_band`). The
+out for the kernel as a `kernels.BandPlan` (`dwt2_band`, `idwt2_band`), or,
+for K3, one such plan per collapsed level and direction (`pair_band`). The
 plain versions stay dense matmul pairs.
 
 A CUDA tensor goes to the kernel, or the call raises; the plain version
@@ -49,6 +52,7 @@ __all__ = [
     "band_form",
     "dwt2_band",
     "idwt2_band",
+    "pair_band",
     "dwt2_kernel",
     "idwt2_kernel",
     "waverec2_collapsed",
@@ -253,52 +257,36 @@ def _pair_taps(ell, pairs) -> list[tuple[list, list, list]]:
 SMEM_TARGET = 228 * 1024 // 2 - 1024
 
 
-def _band_plan_np(m1, m2, q: int, s: int, pairing: str, deinterleave: bool,
-                  smem_target: int = SMEM_TARGET) -> dict:
-    """The `kernels.BandPlan` fields of out[n] = M1 . X[n] . M2 as numpy
-    arrays and ints (``csrc/band2.cuh`` documents the layout). ``m1`` is the
-    band form of M1's rows (P of them, taps in [0, q)), ``m2`` of M2's
-    columns (T, taps in [0, s)). Output rows and columns are paired by
-    ``pairing``; ``deinterleave`` stores the strip's odd columns apart (K1's
-    analysis taps step by 2). Row tiles take the most row pairs (16 at
-    most) whose block fits ``smem_target`` bytes, else the whole of a
-    block's shared memory; failing that, the column pairs' taps stay in
-    device memory, then one stage is tried in place of two."""
-    p, t = m1[0].shape[0], m2[0].shape[0]
-    row_pairs, col_pairs = _pairs(p, pairing), _pairs(t, pairing)
-    row_taps, col_taps = _pair_taps(m1, row_pairs), _pair_taps(m2, col_pairs)
-    k = max(len(c) for c, _, _ in row_taps + col_taps)
-    kc = next((c for c in (2, 4, 8) if k <= c), 16)
-    k = max(k, kc)
-    if deinterleave:
-        half = (s + 1) // 2
-        odd_off = half + (16 - half) % 32  # 16 mod 32: the two halves use other banks
-        ts_stride = odd_off + s // 2
-    else:
-        odd_off, ts_stride = 0, s
+def _taps_kc(k: int) -> int:
+    """Taps held in registers for rows of at most ``k`` taps: 2, 4, 8 or 16."""
+    return next((c for c in (2, 4, 8) if k <= c), 16)
 
-    def tiling(rt):
-        tiles = [row_taps[i:i + rt] for i in range(0, len(row_taps), rt)]
-        slots = [sorted({c for cols, _, _ in tile for c in cols}) or [0] for tile in tiles]
-        return tiles, slots, max(len(sl) for sl in slots)
 
-    choice = None
-    options = [(2, 1, smem_target)] + [(st, cs, kernels.MAX_SMEM)
-                                       for st in (2, 1) for cs in (1, 0)]
-    for stages, cols_shared, budget in options:
-        for rt in (16, 8, 4, 2, 1):
-            tiles, slots, sm = tiling(rt)
-            if kernels.band_smem_bytes(s, sm, rt, k, len(col_pairs), ts_stride, stages,
-                                       cols_shared) <= budget:
-                choice = (stages, cols_shared, rt, tiles, slots, sm)
-                break
-        if choice:
-            break
-    if choice is None:
-        raise ValueError(f"band plan: a {q} x {s} source with {k} taps does not fit "
-                         f"{kernels.MAX_SMEM} bytes of shared memory")
-    stages, cols_shared, rt, tiles, slots, sm = choice
+def _fold(s: int, fold: int) -> tuple[np.ndarray, int, int]:
+    """Where a strip of ``s`` columns keeps column c when it groups its
+    columns by c mod ``fold`` (1: unpermuted; 2: K1's even and odd halves).
+    Group i starts at i * fstride, fstride = 32 / fold (mod 32), so a warp
+    that reads one tap of 32 neighbouring column pairs, ``fold`` columns
+    apart, hits 32 banks. Returns (position of each column, fstride, floats
+    per strip row)."""
+    c = np.arange(s)
+    if fold == 1:
+        return c, 0, s
+    block = -(-s // fold)
+    fstride = block + (32 // fold - block) % 32
+    return (c % fold) * fstride + c // fold, fstride, (fold - 1) * fstride + s // fold
 
+
+def _tiling(row_taps, rt: int):
+    """Row tiles of ``rt`` row pairs, each tile's staged source rows (the
+    union of its pairs' taps) and the most rows any tile stages."""
+    tiles = [row_taps[i:i + rt] for i in range(0, len(row_taps), rt)]
+    slots = [sorted({c for cols, _, _ in tile for c in cols}) or [0] for tile in tiles]
+    return tiles, slots, max(len(sl) for sl in slots)
+
+
+def _tile_arrays(tiles, slots, sm: int, row_pairs, rt: int, k: int) -> dict:
+    """tsrc, trow, tidx, tw of a tiling (``csrc/band2.cuh``'s layout)."""
     ntiles = len(tiles)
     tsrc = np.full((ntiles, sm), -1, np.int32)
     trow = np.full((ntiles, rt, 2), -1, np.int32)
@@ -314,23 +302,62 @@ def _band_plan_np(m1, m2, q: int, s: int, pairing: str, deinterleave: bool,
                 tidx[j, r, :len(cols)] = [local[c] for c in cols]
                 tw[j, r, 0, :len(cols)] = wa
                 tw[j, r, 1, :len(cols)] = wb
+    return dict(tsrc=tsrc, trow=trow, tidx=tidx, tw=tw, ntiles=ntiles, rt=rt, sm=sm)
 
-    def perm(c):
-        return c if not deinterleave else (odd_off + c // 2 if c % 2 else c // 2)
 
+def _col_arrays(col_taps, col_pairs, k: int, perm: np.ndarray) -> dict:
+    """ccol, cidx, cw of the column pairs, taps at their strip positions."""
     tp = len(col_pairs)
     ccol = np.asarray(col_pairs, np.int32).reshape(tp, 2)
     cidx = np.zeros((tp, k), np.int32)
     cw = np.zeros((tp, 2, k), np.float32)
     for u, (cols, wa, wb) in enumerate(col_taps):
         if cols:
-            cidx[u, :] = perm(cols[0])
-            cidx[u, :len(cols)] = [perm(c) for c in cols]
+            cidx[u, :] = perm[cols[0]]
+            cidx[u, :len(cols)] = perm[cols]
             cw[u, 0, :len(cols)] = wa
             cw[u, 1, :len(cols)] = wb
-    return dict(tsrc=tsrc, trow=trow, tidx=tidx, tw=tw, ccol=ccol, cidx=cidx, cw=cw, q=q, s=s,
-                p=p, t=t, kc=kc, k=k, ntiles=ntiles, rt=rt, sm=sm, tp=tp, odd_off=odd_off,
-                ts_stride=ts_stride, stages=stages, cols_shared=cols_shared)
+    return dict(ccol=ccol, cidx=cidx, cw=cw, tp=tp)
+
+
+def _band_plan_np(m1, m2, q: int, s: int, pairing: str, deinterleave: bool,
+                  smem_target: int = SMEM_TARGET) -> dict:
+    """The `kernels.BandPlan` fields of out[n] = M1 . X[n] . M2 as numpy
+    arrays and ints (``csrc/band2.cuh`` documents the layout). ``m1`` is the
+    band form of M1's rows (P of them, taps in [0, q)), ``m2`` of M2's
+    columns (T, taps in [0, s)). Output rows and columns are paired by
+    ``pairing``; ``deinterleave`` stores the strip's odd columns apart (K1's
+    analysis taps step by 2). Row tiles take the most row pairs (16 at
+    most) whose block fits ``smem_target`` bytes, else the whole of a
+    block's shared memory; failing that, the column pairs' taps stay in
+    device memory, then one stage is tried in place of two."""
+    p, t = m1[0].shape[0], m2[0].shape[0]
+    row_pairs, col_pairs = _pairs(p, pairing), _pairs(t, pairing)
+    row_taps, col_taps = _pair_taps(m1, row_pairs), _pair_taps(m2, col_pairs)
+    k = max(len(c) for c, _, _ in row_taps + col_taps)
+    kc = _taps_kc(k)
+    k = max(k, kc)
+    perm, odd_off, ts_stride = _fold(s, 2 if deinterleave else 1)
+
+    choice = None
+    options = [(2, 1, smem_target)] + [(st, cs, kernels.MAX_SMEM)
+                                       for st in (2, 1) for cs in (1, 0)]
+    for stages, cols_shared, budget in options:
+        for rt in (16, 8, 4, 2, 1):
+            tiles, slots, sm = _tiling(row_taps, rt)
+            if kernels.band_smem_bytes(s, sm, rt, k, len(col_pairs), ts_stride, stages,
+                                       cols_shared) <= budget:
+                choice = (stages, cols_shared, rt, tiles, slots, sm)
+                break
+        if choice:
+            break
+    if choice is None:
+        raise ValueError(f"band plan: a {q} x {s} source with {k} taps does not fit "
+                         f"{kernels.MAX_SMEM} bytes of shared memory")
+    stages, cols_shared, rt, tiles, slots, sm = choice
+    return dict(**_tile_arrays(tiles, slots, sm, row_pairs, rt, k),
+                **_col_arrays(col_taps, col_pairs, k, perm), q=q, s=s, p=p, t=t, kc=kc, k=k,
+                odd_off=odd_off, ts_stride=ts_stride, stages=stages, cols_shared=cols_shared)
 
 
 def _plan_blob(plan: dict) -> np.ndarray:
@@ -389,6 +416,190 @@ def idwt2_band(h: int, w: int, rec_lo: tuple, rec_hi: tuple,
     K2's own and its adjoint's, which runs on K1; cached."""
     return tuple(_device_plan(_idwt2_plan_np(h, w, rec_lo, rec_hi, bwd), device)
                  for bwd in (False, True))
+
+
+# ---------------------------------------------------------------------------
+# K3's plans: one band plan per collapsed level, in each direction
+# ---------------------------------------------------------------------------
+
+
+def _level_blocks(sizes: tuple, rec_lo: tuple, rec_hi: tuple) -> list[np.ndarray]:
+    """The per-level blocks [C_J, ..., C_1] of `_collapsed_axis_np`, each
+    (F, 2 n_l), coarsest first."""
+    C = _collapsed_axis_np(sizes, rec_lo, rec_hi)
+    edges = np.cumsum([0] + [2 * int(n) for n in sizes])
+    return [C[:, a:b] for a, b in zip(edges[:-1], edges[1:])]
+
+
+def _tap_step(col_taps) -> int:
+    """The power of two nearest the median step between neighbouring column
+    pairs' first taps (2, 4, 8 at the finest, middle and coarsest of three
+    collapsed levels), at most 32: the strip's `_fold`."""
+    firsts = [cols[0] for cols, _, _ in col_taps if cols]
+    step = float(np.median(np.diff(firsts))) if len(firsts) > 1 else 1.0
+    return int(min(32, 2 ** max(0, round(np.log2(max(step, 1.0))))))
+
+
+def _pair_words(levels: list[dict]) -> tuple[int, int]:
+    """Floats of one stage (the largest level's staged rows and row-pair
+    data) and of the strip, over a plan's levels (``csrc/collapsed.cuh``)."""
+    stage = max(lv["sm"] * lv["s"] + 2 * lv["rt"] + 3 * lv["rt"] * lv["k"] for lv in levels)
+    return stage, max(2 * lv["rt"] * lv["ts_stride"] for lv in levels)
+
+
+def _level_plan(row_taps, row_pairs, col_taps, col_pairs, rt: int, s: int, fold: int) -> dict:
+    """One level's band plan (`_band_plan_np`'s fields: taps in registers
+    as `kc` allows, the rest in a loop; the strip folded by ``fold``) for
+    output rows ``row_pairs`` and columns ``col_pairs`` from ``s``-wide
+    source rows."""
+    k = max(len(c) for c, _, _ in row_taps + col_taps)
+    kc = _taps_kc(k)
+    k = max(k, kc)
+    tiles, slots, sm = _tiling(row_taps, rt)
+    perm, fstride, ts_stride = _fold(s, fold)
+    return dict(**_tile_arrays(tiles, slots, sm, row_pairs, rt, k),
+                **_col_arrays(col_taps, col_pairs, k, perm), s=s, k=k, kc=kc,
+                fold_log2=int(np.log2(fold)), fstride=fstride, ts_stride=ts_stride,
+                p=max(max(pr) for pr in row_pairs) + 1, t=max(max(pr) for pr in col_pairs) + 1)
+
+
+def _pair_fwd_plan_np(rsizes: tuple, csizes: tuple, rec_lo: tuple, rec_hi: tuple,
+                      smem_target: int, stages: int) -> dict:
+    """K3's forward: out = sum_l R_l . Y_l . C_l^T, one level plan per
+    collapsed level (M1 = R_l, taps in Y_l's 2 r_l rows; M2 = C_l^T, taps in
+    its 2 c_l columns), output rows and columns paired (2m, 2m + 1). The
+    levels share their row tiles and column pairs, since a block sums every
+    level of a tile in registers: one row-tile size for all, the largest
+    (16 pairs at most) whose block fits ``smem_target`` bytes (else the
+    whole of a block's shared memory) and whose rows fit a thread's 16
+    accumulators."""
+    Rb, Cb = _level_blocks(rsizes, rec_lo, rec_hi), _level_blocks(csizes, rec_lo, rec_hi)
+    row_pairs = _pairs(Rb[0].shape[0], "adjacent")
+    col_pairs = _pairs(Cb[0].shape[0], "adjacent")
+    tp, s_out = len(col_pairs), Cb[0].shape[0]
+    if tp > kernels.MAX_THREADS:
+        raise ValueError(f"collapsed synthesis: {s_out} output columns, more than "
+                         f"{2 * kernels.MAX_THREADS}")
+    threads = kernels.pair_fwd_threads(tp)
+    groups = threads // tp
+    taps = [(_pair_taps(band_form(R, "rows"), row_pairs),
+             _pair_taps(band_form(C.T, "cols"), col_pairs)) for R, C in zip(Rb, Cb)]
+    for budget in (smem_target, kernels.MAX_SMEM):
+        for rt in (16, 8, 4, 2, 1):
+            if 2 * rt > kernels.PAIR_ROWS_PER_THREAD * groups:
+                continue
+            levels = [_level_plan(rows, row_pairs, cols, col_pairs, rt, C.shape[1], 1)
+                      for (rows, cols), C in zip(taps, Cb)]
+            stage, strip = _pair_words(levels)
+            if kernels.pair_smem_bytes(stages, stage, strip) <= budget:
+                return dict(levels=levels, threads=threads, stages=stages, stage_words=stage,
+                            strip_words=strip, p=Rb[0].shape[0], t=s_out)
+    raise ValueError(f"collapsed synthesis of sides {rsizes} x {csizes} does not fit "
+                     f"{kernels.MAX_SMEM} bytes of shared memory")
+
+
+# A backward block takes one stage in place of two (larger tiles, no copy
+# overlap but a second block on the SM) when two stages would stage this many
+# times more rows of g: at the flagship's levels one stage stages half the
+# rows and ran 1.5x faster, at path 2's 1.1x fewer rows and 8% slower
+# (scripts/torch_band_sweep.py on an H100 80GB HBM3 at 700 W).
+PAIR_ONE_STAGE_GAIN = 1.5
+
+
+def _pair_bwd_plan_np(rsizes: tuple, csizes: tuple, rec_lo: tuple, rec_hi: tuple,
+                      smem_target: int, stages: int | None) -> dict:
+    """K3's backward: each level's gradient R_l^T . g . C_l as its own
+    product on g (M1 = R_l^T, taps in g's rows; M2 = C_l, taps in its
+    columns), rows and columns paired (i, n_l + i) as K1 pairs them, so a
+    pair's four outputs are the same element of aa, V, H and D. The strip
+    groups its columns by the level's tap step (`_tap_step`). Each level
+    takes its own row tiles: all start at 16 pairs, and the level whose
+    stage and strip are largest halves its tiles until the block fits
+    ``smem_target`` bytes (else the whole of a block's shared memory).
+    ``stages`` None picks one or two by `PAIR_ONE_STAGE_GAIN`."""
+    Rb, Cb = _level_blocks(rsizes, rec_lo, rec_hi), _level_blocks(csizes, rec_lo, rec_hi)
+    s = Cb[0].shape[0]
+    taps = []
+    for R, C in zip(Rb, Cb):
+        row_pairs, col_pairs = _pairs(R.shape[1], "halves"), _pairs(C.shape[1], "halves")
+        cols = _pair_taps(band_form(C, "cols"), col_pairs)
+        taps.append((_pair_taps(band_form(R.T, "rows"), row_pairs), row_pairs, cols, col_pairs,
+                     _tap_step(cols)))
+
+    def plan(i, rt):
+        rows, row_pairs, cols, col_pairs, fold = taps[i]
+        return _level_plan(rows, row_pairs, cols, col_pairs, rt, s, fold)
+
+    def fit(stages):
+        for budget in (smem_target, kernels.MAX_SMEM):
+            rts = [16] * len(taps)
+            levels = [plan(i, rt) for i, rt in enumerate(rts)]
+            while True:
+                stage, strip = _pair_words(levels)
+                if kernels.pair_smem_bytes(stages, stage, strip) <= budget:
+                    return dict(levels=levels, threads=kernels.PAIR_BWD_THREADS, stages=stages,
+                                stage_words=stage, strip_words=strip, p=Rb[0].shape[0], t=s)
+                sizes = [(lv["sm"] * s + 2 * lv["rt"] * lv["ts_stride"], i)
+                         for i, lv in enumerate(levels) if lv["rt"] > 1]
+                if not sizes:
+                    break
+                i = max(sizes)[1]
+                rts[i] //= 2
+                levels[i] = plan(i, rts[i])
+        return None
+
+    def staged(p):  # rows of g an image stages
+        return sum(lv["ntiles"] * lv["sm"] for lv in p["levels"])
+
+    if stages is None:
+        two, one = fit(2), fit(1)
+        best = one if two is None or (one and staged(two) > PAIR_ONE_STAGE_GAIN * staged(one)) \
+            else two
+    else:
+        best = fit(stages)
+    if best is None:
+        raise ValueError(f"collapsed synthesis backward of sides {rsizes} x {csizes} does not "
+                         f"fit {kernels.MAX_SMEM} bytes of shared memory")
+    return best
+
+
+@functools.lru_cache(maxsize=64)
+def _pair_plans_np(rsizes: tuple, csizes: tuple, rec_lo: tuple, rec_hi: tuple,
+                   smem_target: int = SMEM_TARGET,
+                   stages: tuple = (2, None)) -> tuple[dict, dict]:
+    """(forward, backward) plans of K3 for levels of ``rsizes`` x
+    ``csizes`` coefficients, coarsest first, with ``stages`` stages a block
+    (forward, backward; None: the backward chooses)."""
+    if len(rsizes) > kernels.MAX_LEVELS:
+        raise ValueError(f"collapsed synthesis of {len(rsizes)} levels: at most "
+                         f"{kernels.MAX_LEVELS}")
+    return (_pair_fwd_plan_np(rsizes, csizes, rec_lo, rec_hi, smem_target, stages[0]),
+            _pair_bwd_plan_np(rsizes, csizes, rec_lo, rec_hi, smem_target, stages[1]))
+
+
+@functools.lru_cache(maxsize=64)
+def pair_band(rsizes: tuple, csizes: tuple, rec_lo: tuple, rec_hi: tuple,
+              device: torch.device, smem_target: int = SMEM_TARGET,
+              stages: tuple = (2, None)) -> tuple[kernels.PairPlan, kernels.PairPlan]:
+    """(forward, backward) `kernels.PairPlan` of K3 on ``device``: the level
+    plans' blobs end to end; cached so the hot path copies nothing to the
+    device."""
+    out = []
+    for plan in _pair_plans_np(rsizes, csizes, rec_lo, rec_hi, smem_target, stages):
+        blobs, levels, at = [], [], 0
+        for lv in plan["levels"]:
+            blob = _plan_blob(lv)
+            tdat = at + lv["ntiles"] * lv["sm"]
+            ccols = tdat + lv["ntiles"] * (2 * lv["rt"] + 3 * lv["rt"] * lv["k"])
+            levels.append(kernels.PairLevel(tsrc=at, tdat=tdat, ccols=ccols,
+                                            **{f: lv[f] for f in kernels.PairLevel._fields[3:]}))
+            blobs.append(blob)
+            at += blob.size
+        out.append(kernels.pair_plan(
+            torch.from_numpy(np.concatenate(blobs)).to(device), levels, plan["threads"],
+            plan["stages"], plan["stage_words"], plan["strip_words"], rsizes, csizes, plan["p"],
+            plan["t"]))
+    return tuple(out)
 
 
 def _split_quadrants(y: torch.Tensor, h_out: int, w_out: int) -> torch.Tensor:
@@ -458,12 +669,6 @@ def _idwt2_forward(sub3, Sr, Sct, plan) -> torch.Tensor:
     return kernels.synth2(sub3, plan)
 
 
-def _pair_forward(y3, m1t, m2) -> torch.Tensor:
-    if on_cpu(y3):
-        return pair_plain(y3, m1t, m2)
-    return kernels.pair(y3, m1t, m2)
-
-
 class _Dwt2Core(torch.autograd.Function):
     """x3 (N, H, W) -> (N, 4, h', w') float32; backward ``_core_bwd``.
     ``plan`` is K1's band plan (None on the CPU, which takes At, Bt)."""
@@ -501,21 +706,21 @@ class _Idwt2Core(torch.autograd.Function):
         return dsub.to(ctx.sub_dtype), None, None, None, None
 
 
-class _PairCore(torch.autograd.Function):
-    """y3 (N, 2Σr, 2Σc) -> (N, F_r, F_c) = R y C^T; backward ``_pair_bwd``
-    (R^T g C) on the same kernel."""
+class _CollapsedCore(torch.autograd.Function):
+    """The collapsed levels' leaves -> (N, F_r, F_c) = sum_l R_l Y_l C_l^T
+    on K3, which reads the leaves where they lie; backward ``_pair_bwd``
+    followed by the leaves' slices of dY, one K3 launch that writes each
+    leaf's gradient. Y and dY never exist. ``leaves`` as `kernels.pair`
+    takes them; ``plans`` are `pair_band`'s (forward, backward)."""
 
     @staticmethod
-    def forward(ctx, y3, R, Rt, C, Ct):
-        ctx.save_for_backward(R, C)
-        ctx.y_dtype = y3.dtype
-        return _pair_forward(y3, Rt, Ct)
+    def forward(ctx, plans, *leaves):
+        ctx.bwd_plan = plans[1]
+        return kernels.pair(leaves, plans[0])
 
     @staticmethod
     def backward(ctx, g):
-        R, C = ctx.saved_tensors
-        dy = _pair_forward(g.contiguous(), R, C)
-        return dy.to(ctx.y_dtype), None, None, None, None
+        return (None, *kernels.pair_bwd(g.contiguous(), ctx.bwd_plan))
 
 
 def dwt2_kernel(x: torch.Tensor, wavelet, mode: str) -> torch.Tensor:
@@ -575,12 +780,32 @@ def waverec2_collapsed(cA: torch.Tensor, details, wavelet) -> torch.Tensor:
 
     ``details`` are Detail2D levels COARSEST FIRST. Returns the FULL
     reconstruction of the finest given level (2n - L + 2 per side); the
-    caller trims. Leaves of any dtype are assembled in float32 (f32
-    accumulate)."""
-    Y = assemble_collapsed(cA, details)
-    out = _PairCore.apply(Y.reshape((-1,) + Y.shape[-2:]),
-                          *collapsed_operators(details, wavelet, cA.device))
-    return out.reshape(cA.shape[:-2] + out.shape[1:])
+    caller trims. Leaves of any dtype are computed in float32 (f32
+    accumulate). CPU tensors take the plain version (`assemble_collapsed`,
+    then `pair_plain`); on CUDA tensors K3 sums R_l Y_l C_l^T level by
+    level from the leaves themselves (views such as K1's subbands are read
+    in place), so neither Y nor its gradient is ever allocated."""
+    batch_shape = cA.shape[:-2]
+    if on_cpu(cA):
+        Y = assemble_collapsed(cA, details)
+        _, Rt, _, Ct = collapsed_operators(details, wavelet, cA.device)
+        out = pair_plain(Y.reshape((-1,) + Y.shape[-2:]), Rt, Ct)
+        return out.reshape(batch_shape + out.shape[1:])
+    w = _wav(wavelet)
+    rsizes = tuple(int(d.horizontal.shape[-2]) for d in details)
+    csizes = tuple(int(d.horizontal.shape[-1]) for d in details)
+    plans = pair_band(rsizes, csizes, tuple(w.rec_lo), tuple(w.rec_hi), cA.device)
+    leaves = [cA[..., :rsizes[0], :csizes[0]]] + [t for d in details for t in d]
+    out = _CollapsedCore.apply(plans, *(_leaf3(t) for t in leaves))
+    return out.reshape(batch_shape + out.shape[1:])
+
+
+def _leaf3(t: torch.Tensor) -> torch.Tensor:
+    """A leaf as K3 reads it: (N, r, c) float32 with contiguous columns, a
+    view wherever the leaf's strides allow (K1's subbands are), else a
+    copy. bf16 and other dtypes are upcast here (differentiably)."""
+    t = t.float().reshape((-1,) + t.shape[-2:])
+    return t if t.stride(-1) == 1 or t.shape[-1] == 1 else t.contiguous()
 
 
 def collapsed_operators(details, wavelet, device) -> tuple[torch.Tensor, ...]:
