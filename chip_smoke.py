@@ -28,9 +28,24 @@ sm_90a). Phases, each fatal on failure:
    and every ReLU through K4/K5 (all five kernels must have run, at least as
    often as the path needs); the same call with ``fused_relu_vjp=False``,
    timed; and the reduced check at 288², kernel path with the fused ReLU
-   against plain path without it.
+   against plain path without it;
+6. audio:  the audio path, `WaveletAttribution1D` SmoothGrad on the ESC-50
+   AudioCNN (50 classes, seeded random weights and BatchNorm statistics)
+   at 8 waveforms of 220,500 samples (5 s at 44.1 kHz), db6, J=5, reflect,
+   n_samples=50, stdev_spread=0.001, sample_batch_size=16 (128 model rows
+   a step), mel front end at n_fft 1024, hop 512, 128 mels, in dB: one warm
+   call, then CUDA-event times of a few calls (median, spread, waveforms/s,
+   peak memory); no port kernel may launch on this path (its transform,
+   STFT and model are cuDNN, cuFFT and cuBLAS calls). Beside it, timed and
+   printed only: the same call with ``stream_noise=True`` and with the
+   model in bfloat16 (its mel-attribution cosine to float32). Then the
+   reduced check: the port on the card against the port on the CPU (2
+   waveforms of 65,536 samples, 2 samples, noise handed over, TF32 off),
+   cosine and max abs error on the mel attribution and every coefficient
+   level, in float32 through `WaveletAttribution1D` and in float64 through
+   its engine.
 
-Prints the kernels' JSON line, the nvidia-smi line, and as its last line
+Prints a summary JSON line, the kernels' JSON line, the nvidia-smi line, and as its last line
 ``{"ok": true, "device": {...}}``. Exits nonzero, printing no result, when
 there is no CUDA device or the port is not beside this script.
 """
@@ -58,6 +73,19 @@ F32_FLOPS_PER_S = 67e12    # H100 SXM f32 outside the tensor cores
 # kernel vs plain: both accumulate float32 in another order; 1e-5 of the
 # largest reference value is ~100 float32 ulps of headroom
 KERNEL_RTOL = 1e-5
+
+# the audio path: BASELINE.json's config #3, as bench_workloads.py defines it
+AUDIO_BATCH, AUDIO_LEN = 8, 220500      # 5 s at 44.1 kHz
+AUDIO_WAVELET, AUDIO_LEVELS = "db6", 5
+AUDIO_SAMPLES, AUDIO_SPREAD = 50, 0.001
+AUDIO_CHUNK = 16                        # samples per model call: 16 x 8 = 128 rows
+AUDIO_CLASSES, N_MELS, N_FFT, SAMPLE_RATE = 50, 128, 1024, 44100
+AUDIO_CALLS = 5                         # timed calls after the warm one (arms: 3)
+# reduced check: waveforms, samples (the shortest length whose 129 frames
+# survive the AudioCNN's six pools), n_samples; (cosine, max abs / max)
+# bounds in float32 (measured, see _audio_reduced_check) and in float64
+AUDIO_REDUCED = (2, 65536, 2)
+AUDIO_TOL = {"float32": (0.999, 1e-1), "float64": (0.9999999, 1e-9)}
 
 
 def _log(*args):
@@ -649,6 +677,213 @@ def phase_slice2(torch, wtt, kernels, smi: str, n_sites: int) -> dict:
             **_reduced_check(torch, wtt, fn, fn_plain, x, y, g)}
 
 
+def build_audio(torch, wtt, compute_dtype=None):
+    """The audio path's set-up, shared with scripts/torch_slice_profile.py:
+    cuDNN convolutions in TF32 and matmuls in float32 (as the image paths
+    run); AudioCNN with 50 classes, its conv weights He-normal and biases
+    N(0, 0.01^2) from torch's generator seeded SEED, BatchNorm affines drawn
+    from SEED + 2 and running statistics of the model's own inputs (one
+    train-mode pass over the mel spectrograms of two waveforms, cumulative
+    averages), so activations stay O(1) through the twelve blocks as in a
+    trained model; bound in float32 (or ``compute_dtype``). Waveforms are
+    0.1 x standard normal from numpy seeded SEED + 1 (the calibration pair
+    from SEED + 4), labels arange(8) % 50. Returns (model, model_fn, x, y)."""
+    import numpy as np
+
+    dev = torch.device(DEVICE)
+    torch.backends.cudnn.allow_tf32 = True
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.manual_seed(SEED)
+    model = wtt.AudioCNN(num_classes=AUDIO_CLASSES)
+    g = torch.Generator().manual_seed(SEED + 2)
+    with torch.no_grad():
+        for m in model.modules():
+            if isinstance(m, torch.nn.Conv2d):
+                torch.nn.init.kaiming_normal_(m.weight, nonlinearity="relu")
+                m.bias.normal_(0.0, 0.01)
+            elif isinstance(m, torch.nn.BatchNorm2d):
+                m.weight.uniform_(0.8, 1.2, generator=g)
+                m.bias.normal_(0.0, 0.1, generator=g)
+                m.momentum = None  # cumulative running averages
+        model.to(dev).train()
+        calib = 0.1 * np.random.default_rng(SEED + 4).standard_normal((2, AUDIO_LEN))
+        calib = torch.from_numpy(calib.astype(np.float32)).to(dev)
+        model(wtt.melspectrogram(calib, sample_rate=SAMPLE_RATE, n_fft=N_FFT,
+                                 n_mels=N_MELS)[:, None])
+    fn = wtt.bind_audio_inference(model, compute_dtype=compute_dtype, device=dev)
+    x = 0.1 * np.random.default_rng(SEED + 1).standard_normal((AUDIO_BATCH, AUDIO_LEN))
+    x = torch.from_numpy(x.astype(np.float32)).to(dev)
+    y = torch.arange(AUDIO_BATCH, device=dev) % AUDIO_CLASSES
+    return model, fn, x, y
+
+
+def audio_wam(wtt, fn, device, n_samples: int = AUDIO_SAMPLES, **kw):
+    """The audio path's `WaveletAttribution1D` SmoothGrad object."""
+    return wtt.WaveletAttribution1D(
+        fn, wavelet=AUDIO_WAVELET, J=AUDIO_LEVELS, method="smooth", n_samples=n_samples,
+        stdev_spread=AUDIO_SPREAD, n_mels=N_MELS, n_fft=N_FFT, sample_rate=SAMPLE_RATE,
+        sample_batch_size=AUDIO_CHUNK, device=device, **kw)
+
+
+def _time_calls(torch, kernels, wam, x, y, calls: int) -> dict:
+    """Launch counts set to 0, one warm call (cuDNN and cuFFT plans, the
+    allocator), then ``calls`` calls each timed by CUDA events, the peak
+    memory over them, and the launch counts read just after."""
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    wam(x, y)
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t0
+    torch.cuda.reset_peak_memory_stats()
+    times = []
+    for _ in range(calls):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = wam(x, y)
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end))
+    med = sorted(times)[len(times) // 2]
+    return {"out": out, "launches": kernels.launch_counts(), "first_call_s": warm_s,
+            "calls_ms": times, "median_ms": med, "spread_ms": [min(times), max(times)],
+            "waveforms_per_s": AUDIO_BATCH / (med / 1e3),
+            "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9}
+
+
+def _check_audio_result(torch, run: dict) -> None:
+    """The mel attribution is (8, 431, 128), the coefficient levels have
+    wavedec's lengths, all finite and nonzero, and no port kernel ran."""
+    mel, coeffs = run["out"]
+    frames = 1 + AUDIO_LEN // (N_FFT // 2)
+    if tuple(mel.shape) != (AUDIO_BATCH, frames, N_MELS):
+        raise AssertionError(f"mel attribution shape {tuple(mel.shape)}")
+    lens, n = [], AUDIO_LEN
+    for _ in range(AUDIO_LEVELS):
+        n = (n + 12 - 1) // 2  # db6 has 12 taps
+        lens.append(n)
+    want = [(AUDIO_BATCH, m) for m in [lens[-1]] + lens[::-1]]
+    if [tuple(c.shape) for c in coeffs] != want:
+        raise AssertionError(f"coefficient shapes {[tuple(c.shape) for c in coeffs]} != {want}")
+    for t in (mel, *coeffs):
+        if not bool(torch.isfinite(t).all()) or float(t.abs().sum()) == 0.0:
+            raise AssertionError("audio attribution is not finite and nonzero")
+    if any(run["launches"].values()):
+        raise AssertionError(f"a port kernel launched on the audio path: {run['launches']}")
+
+
+def _cosine(torch, a, b) -> float:
+    return float(torch.nn.functional.cosine_similarity(
+        a.double().flatten(), b.double().flatten(), dim=0))
+
+
+def _compare_taps(torch, tag: str, got: list, want: list, dtype: str) -> dict:
+    """Cosine and max abs error of each tap (mel, then cA5, cD5 ... cD1),
+    held to AUDIO_TOL[dtype]."""
+    cos_tol, rel_tol = AUDIO_TOL[dtype]
+    names = ["mel", f"cA{AUDIO_LEVELS}"] + [f"cD{AUDIO_LEVELS - i}" for i in range(AUDIO_LEVELS)]
+    out = {}
+    for name, a, b in zip(names, got, want):
+        a, b = a.detach().cpu().double(), b.detach().cpu().double()
+        err, tol, cos = float((a - b).abs().max()), rel_tol * float(b.abs().max()), _cosine(torch, a, b)
+        _log(f"  reduced check {tag} {name}: cosine={cos:.10f} (tol >= {cos_tol}) "
+             f"max_abs_err={err:.3e} (tol {tol:.3e}, {err / float(b.abs().max()):.2e} of the max)")
+        if not (math.isfinite(err) and err <= tol and cos >= cos_tol):
+            raise AssertionError(f"audio reduced check ({tag}): {name} on the card disagrees "
+                                 "with the CPU")
+        out[name] = {"cosine": cos, "max_abs_err": err, "tol": tol}
+    return out
+
+
+def _audio_reduced_check(torch, wtt, model, fn) -> dict:
+    """The port on the card (``fn``, bound from ``model``) against the port
+    on the CPU, the same weights, waveforms and handed-over noise, TF32 off,
+    twice:
+
+    - float32 through `WaveletAttribution1D`, the path as it runs. An
+      AudioCNN ReLU gate or max-pool flips where an activation lies within
+      rounding of zero or of its neighbour, and one flip moves a few percent
+      of the largest gradient: on these inputs a ReLU gate flips, which
+      moves the mel attribution by 2.6% of its max at cosine 0.99994, and
+      cD4 to cosine 0.99990 (measured on an H100 80GB HBM3). The bound is
+      cosine >= 0.999 and max abs <= 0.1 x the largest CPU value.
+    - float64 through the same object's engine (the same transform, mel
+      front end and model, on the stacked noisy batch): no gate lies within
+      rounding there, and the two devices agree to ~1e-13 of the max
+      (measured on the same card), so cosine >= 0.9999999 and max abs
+      <= 1e-9 x the max."""
+    import numpy as np
+
+    n_wave, length, n_smp = AUDIO_REDUCED
+    torch.backends.cudnn.allow_tf32 = False
+    state = {k: v.detach().cpu() for k, v in model.state_dict().items()}
+    rng = np.random.default_rng(SEED + 3)
+    x = torch.from_numpy((0.1 * rng.standard_normal((n_wave, length))).astype(np.float32))
+    z = torch.from_numpy(rng.standard_normal((n_smp, n_wave, length)).astype(np.float32))
+    y = torch.arange(n_wave) % AUDIO_CLASSES
+    f32, f64 = {}, {}
+    for dev in (DEVICE, "cpu"):
+        f = fn if dev == DEVICE else wtt.bind_audio_inference(
+            wtt.AudioCNN(num_classes=AUDIO_CLASSES), state, device="cpu")
+        mel, coeffs = audio_wam(wtt, f, dev, n_samples=n_smp)(x.to(dev), y.to(dev),
+                                                              noise=z.to(dev))
+        f32[dev] = [mel, *coeffs]
+        f = wtt.bind_audio_inference(wtt.AudioCNN(num_classes=AUDIO_CLASSES).double(), state,
+                                     device=dev)
+        x64, z64 = x.to(dev, torch.float64), z.to(dev, torch.float64)
+        noisy = x64 + z64 * wtt.noise_sigma(x64, AUDIO_SPREAD).reshape(-1, 1)
+        _, grads, g_mel = audio_wam(wtt, f, dev, n_samples=n_smp).engine.attribute_with_front_grads(
+            noisy.reshape(-1, length), y.to(dev).repeat(n_smp), samples=n_smp)
+        f64[dev] = [g_mel[:, 0], *grads]
+    return {"float32": _compare_taps(torch, "float32, WaveletAttribution1D", f32[DEVICE],
+                                     f32["cpu"], "float32"),
+            "float64": _compare_taps(torch, "float64, engine", f64[DEVICE], f64["cpu"],
+                                     "float64")}
+
+
+def phase_audio(torch, wtt, kernels, smi: str) -> dict:
+    """The audio path at full width and depth, its stream-noise and bf16
+    arms, and the reduced card-against-CPU check."""
+    model, fn, x, y = build_audio(torch, wtt)
+    dev = torch.device(DEVICE)
+    _log(f"phase audio: AudioCNN({AUDIO_CLASSES}) x ({AUDIO_BATCH},{AUDIO_LEN}) {AUDIO_WAVELET} "
+         f"J={AUDIO_LEVELS} reflect n_samples={AUDIO_SAMPLES} stdev_spread={AUDIO_SPREAD} "
+         f"sample_batch_size={AUDIO_CHUNK} mel n_fft={N_FFT} hop={N_FFT // 2} n_mels={N_MELS} "
+         f"sr={SAMPLE_RATE} cudnn.allow_tf32=True matmul.allow_tf32=False")
+    run = _time_calls(torch, kernels, audio_wam(wtt, fn, dev), x, y, AUDIO_CALLS)
+    _check_audio_result(torch, run)
+    mel, coeffs = run["out"]
+    _log(f"  launches on the audio path: {run['launches']} (all must be 0)")
+    _log(f"  outputs: mel {tuple(mel.shape)}, coefficients {[tuple(c.shape) for c in coeffs]}")
+    _log(f"  first call {run['first_call_s']:.3f} s; {AUDIO_CALLS} calls (CUDA events) "
+         f"{[round(t, 3) for t in run['calls_ms']]} ms, median {run['median_ms']:.3f} ms = "
+         f"{run['waveforms_per_s']:.2f} waveforms/s; peak memory {run['peak_memory_gb']:.2f} GB "
+         f"on {smi}")
+    summary = {k: v for k, v in run.items() if k != "out"}
+
+    stream = _time_calls(torch, kernels, audio_wam(wtt, fn, dev, stream_noise=True), x, y, 3)
+    _check_audio_result(torch, stream)
+    _log(f"  stream_noise=True: median {stream['median_ms']:.3f} ms "
+         f"(spread {stream['spread_ms'][0]:.3f}-{stream['spread_ms'][1]:.3f}) = "
+         f"{stream['waveforms_per_s']:.2f} waveforms/s; peak memory "
+         f"{stream['peak_memory_gb']:.2f} GB")
+    summary["stream_noise"] = {k: v for k, v in stream.items() if k not in ("out", "launches")}
+    del stream
+
+    _, fn16, _, _ = build_audio(torch, wtt, compute_dtype=torch.bfloat16)
+    bf16 = _time_calls(torch, kernels, audio_wam(wtt, fn16, dev), x, y, 3)
+    _check_audio_result(torch, bf16)
+    cos = _cosine(torch, bf16["out"][0], mel)
+    _log(f"  model in bfloat16: median {bf16['median_ms']:.3f} ms (spread "
+         f"{bf16['spread_ms'][0]:.3f}-{bf16['spread_ms'][1]:.3f}) = "
+         f"{bf16['waveforms_per_s']:.2f} waveforms/s; peak memory {bf16['peak_memory_gb']:.2f} GB; "
+         f"mel-attribution cosine to float32 {cos:.6f}")
+    summary["bf16_model"] = {**{k: v for k, v in bf16.items() if k not in ("out", "launches")},
+                             "mel_cosine_to_f32": cos}
+    del bf16, fn16, run, mel, coeffs
+    summary["reduced_check"] = _audio_reduced_check(torch, wtt, model, fn)
+    return summary
+
+
 def main() -> int:
     import torch
 
@@ -684,13 +919,15 @@ def main() -> int:
     rows = phase_kernels(torch, tmm, kernels, sites)
     slice_ = phase_slice(torch, wtt, kernels, smi)
     slice2 = phase_slice2(torch, wtt, kernels, smi, len(sites))
+    audio = phase_audio(torch, wtt, kernels, smi)
     launches = {"flagship": slice_["launches"], "path 2": slice2["launches"]}
     for row in rows:
         row["launches"] = launches[row["path"]][row["kernel"]]
+        row["audio_launches"] = audio["launches"][row["kernel"]]
 
     print(json.dumps({"slice": {k: v for k, v in slice_.items() if k != "launches"},
                       "slice2": {k: v for k, v in slice2.items() if k != "launches"},
-                      "gpu": smi}), flush=True)
+                      "audio": audio, "gpu": smi}), flush=True)
     print(json.dumps({"kernels": rows}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -1,17 +1,23 @@
 #!/usr/bin/env python3
-"""Where the time of the port's flagship slice goes on the card.
+"""Where the time of one of the port's paths goes on the card.
 
-    python3 scripts/torch_slice_profile.py [--path2]
+    python3 scripts/torch_slice_profile.py [--path2 | --audio]
 
-Runs `wam_tpu_torch.WaveletAttribution2D` SmoothGrad on ResNet-50, set up by
-`chip_smoke.build_slice` (the paths of chip_smoke.py, one definition for
-both: batch 32, db4, J=3, n_samples=25, sample_batch_size=4, cuDNN TF32 on;
-3x224x224 for the flagship, or with ``--path2`` 3x288x288 with
-``fused_relu_vjp=True``) once to warm up, then once under `torch.profiler`,
-and prints one JSON line: the call's wall time, the summed device time of
-its kernels by group (K1-K5, convolutions, matmuls, other), and the
-device's idle share (1 - summed kernel time / wall time; one stream, so
-kernels do not overlap). Needs one CUDA card.
+Runs a path of chip_smoke.py, set up by its own code (one definition for
+both): by default the flagship, `wam_tpu_torch.WaveletAttribution2D`
+SmoothGrad on ResNet-50 (`chip_smoke.build_slice`: batch 32, 3x224x224, db4,
+J=3, n_samples=25, sample_batch_size=4, cuDNN TF32 on); with ``--path2`` the
+same at 3x288x288 with ``fused_relu_vjp=True``; with ``--audio`` the audio
+path, `WaveletAttribution1D` SmoothGrad on the AudioCNN
+(`chip_smoke.build_audio`: 8 x 220,500 samples, db6, J=5, n_samples=50,
+sample_batch_size=16). One call to warm up, then one under `torch.profiler`;
+prints one JSON line: the call's wall time, the summed device time of its
+kernels by group (K1-K5, the 1D transform, FFT, convolutions, matmuls,
+batchnorm, pooling, other), and the device's idle share (1 - summed kernel
+time / wall time; one stream, so kernels do not overlap). The 1D
+transform's kernels are those launched inside its ``wam_dwt1`` profiler
+spans (`wavelets.transform.SPAN_1D`), taken out of the group their names
+fall in. Needs one CUDA card.
 """
 
 from __future__ import annotations
@@ -30,6 +36,7 @@ GROUPS = (  # first match wins, on the lower-cased kernel name
     ("K3 waverec2_collapsed", ("collapsed::",)),  # collapsed::forward_kernel, backward_kernel
     ("K4 fused_relu forward", ("relu_fwd_kernel",)),
     ("K5 fused_relu backward", ("relu_bwd_kernel",)),
+    ("FFT (cuFFT)", ("fft", "radix")),
     ("convolution (cuDNN)", ("conv", "cudnn", "xmma", "implicit", "wgrad", "dgrad",
                              "fprop", "winograd", "cutlass")),
     ("matmul (cuBLAS)", ("gemm", "gemv")),
@@ -46,6 +53,29 @@ def _group(name: str) -> str:
     return "other (elementwise, reductions, copies)"
 
 
+DWT1 = "1D DWT (transform spans: convolutions, padding gathers)"
+
+
+def _span_kernels(prof, span: str) -> list[tuple[str, float]]:
+    """(kernel name, device ms) of every kernel launched inside an outermost
+    ``span`` profiler range, from the CPU op tree."""
+    out = []
+
+    def walk(ev):
+        out.extend((k.name, k.duration / 1e3) for k in ev.kernels)
+        for child in ev.cpu_children:
+            walk(child)
+
+    for ev in prof.events():
+        parent, nested = ev.cpu_parent, False
+        while parent is not None:
+            nested |= parent.name == span
+            parent = parent.cpu_parent
+        if ev.name == span and not nested:
+            walk(ev)
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -57,10 +87,20 @@ def main() -> int:
     import wam_tpu_torch as wtt
     from wam_tpu_torch import kernels
 
+    from wam_tpu_torch.wavelets.transform import SPAN_1D
+
     kernels.build_all()
-    path2 = "--path2" in sys.argv[1:]
-    side = chip_smoke.SIDE2 if path2 else chip_smoke.SIDE
-    _, wam, x, y, _ = chip_smoke.build_slice(torch, wtt, side=side, fused_relu_vjp=path2)
+    path2, audio = "--path2" in sys.argv[1:], "--audio" in sys.argv[1:]
+    if audio:
+        _, fn, x, y = chip_smoke.build_audio(torch, wtt)
+        wam = chip_smoke.audio_wam(wtt, fn, torch.device(chip_smoke.DEVICE))
+        path = (f"audio ({chip_smoke.AUDIO_BATCH}x{chip_smoke.AUDIO_LEN}, AudioCNN, "
+                f"{chip_smoke.AUDIO_WAVELET} J={chip_smoke.AUDIO_LEVELS}, "
+                f"n={chip_smoke.AUDIO_SAMPLES}, chunk {chip_smoke.AUDIO_CHUNK})")
+    else:
+        side = chip_smoke.SIDE2 if path2 else chip_smoke.SIDE
+        _, wam, x, y, _ = chip_smoke.build_slice(torch, wtt, side=side, fused_relu_vjp=path2)
+        path = "path2 (288^2, fused_relu_vjp)" if path2 else "flagship (224^2)"
     wam(x, y)
     torch.cuda.synchronize()
 
@@ -76,16 +116,22 @@ def main() -> int:
     launches: dict[str, int] = {}
     for ev in prof.key_averages():
         dt = getattr(ev, "self_device_time_total", 0.0) or 0.0
-        if dt <= 0 or ev.device_type != torch.autograd.DeviceType.CUDA:
-            continue
+        if dt <= 0 or ev.device_type != torch.autograd.DeviceType.CUDA or ev.key == SPAN_1D:
+            continue  # (a span's own device-side range is not a kernel)
         label = _group(ev.key)
         groups[label] = groups.get(label, 0.0) + dt / 1e3
         launches[label] = launches.get(label, 0) + ev.count
+    for name, ms in _span_kernels(prof, SPAN_1D):
+        label = _group(name)
+        groups[label] -= ms
+        launches[label] -= 1
+        groups[DWT1] = groups.get(DWT1, 0.0) + ms
+        launches[DWT1] = launches.get(DWT1, 0) + 1
     busy_ms = sum(groups.values())
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip()
     print(json.dumps({
-        "path": "path2 (288^2, fused_relu_vjp)" if path2 else "flagship (224^2)",
+        "path": path,
         "gpu": smi, "wall_ms": wall_ms, "device_busy_ms": busy_ms,
         "device_idle_share": 1.0 - busy_ms / wall_ms if busy_ms else None,
         "groups_ms": dict(sorted(groups.items(), key=lambda kv: -kv[1])),

@@ -16,12 +16,16 @@ import numpy as np
 import pytest
 import torch
 
+from wam_tpu.models.audio import AudioCNN as JAudioCNN
+from wam_tpu.models.audio import bind_audio_inference as jbind_audio
+from wam_tpu.models.audio import toy_wave_model as jtoy_wave
 from wam_tpu.models import bind_inference as jbind
 from wam_tpu.models import resnet18 as jresnet18
 from wam_tpu.models import resnet50 as jresnet50
 from wam_tpu.models.toy import toy_conv_model as jtoy
+from wam_tpu_torch.models import audio as taudio
 from wam_tpu_torch.models import resnet as tres
-from wam_tpu_torch.models.ingest import flax_resnet_to_torch
+from wam_tpu_torch.models.ingest import flax_audio_to_torch, flax_resnet_to_torch
 from wam_tpu_torch.models.toy import toy_conv_model as ttoy
 from wam_tpu_torch.tune.fused_relu import fused_relu
 
@@ -215,4 +219,102 @@ def test_toy_model_matches_jax():
     x = _x((3, 20, 24), seed=7)
     want = np.asarray(jtoy(key, ndim=2)(jnp.asarray(x)))
     got = ttoy(kern, ndim=2, device="cpu")(torch.from_numpy(x)).numpy()
+    np.testing.assert_allclose(got, want, atol=1e-6, rtol=1e-5)
+
+
+# -- the audio CNN ---------------------------------------------------------------
+
+AUDIO_IN = (2, 1, 129, 128)  # the shortest mel input that survives the six pools
+
+
+@pytest.fixture(scope="module")
+def audio():
+    model = JAudioCNN(num_classes=50)
+    init = jax.jit(model.init)  # one compile, not one per op
+    variables = _perturbed(init(jax.random.PRNGKey(0), jnp.zeros((1,) + AUDIO_IN[1:])))
+    x = _x(AUDIO_IN, seed=5) * 10.0  # dB-scale inputs
+    return model, variables, flax_audio_to_torch(variables), x
+
+
+@pytest.mark.parametrize("fold_bn", [False, True])
+def test_audiocnn_scores_match_jax(audio, fold_bn):
+    """Scores of the JAX AudioCNN and the port's on the same weights, with
+    and without the BatchNorm fold (biased convs)."""
+    model, variables, state, x = audio
+    want = np.asarray(jax.jit(jbind_audio(model, variables, fold_bn=fold_bn))(jnp.asarray(x)))
+    fn = taudio.bind_audio_inference(taudio.AudioCNN(num_classes=50), state, fold_bn=fold_bn,
+                                     device="cpu")
+    got = fn(torch.from_numpy(x)).numpy()
+    assert got.shape == want.shape == (2, 50)
+    np.testing.assert_allclose(got, want, atol=TOL, rtol=0)
+
+
+def test_audiocnn_mean_pool_and_input_gradient_match_jax(audio):
+    model, variables, state, x = audio
+    jm = JAudioCNN(num_classes=50, pool="mean")
+    out, vjp = jax.vjp(jax.jit(lambda v: jm.apply(variables, v)), jnp.asarray(x))
+    want = np.asarray(out)
+    (want_g,) = vjp(jnp.zeros_like(out).at[:, 3].set(1.0))
+    want_g = np.asarray(want_g)
+    tm = taudio.AudioCNN(num_classes=50, pool="mean")
+    fn = taudio.bind_audio_inference(tm, state, device="cpu")
+    xt = torch.from_numpy(x).requires_grad_(True)
+    out = fn(xt)
+    out[:, 3].sum().backward()
+    np.testing.assert_allclose(out.detach().numpy(), want, atol=TOL, rtol=0)
+    np.testing.assert_allclose(xt.grad.numpy(), want_g, atol=TOL * np.abs(want_g).max(), rtol=0)
+    with pytest.raises(ValueError, match="pool"):
+        taudio.AudioCNN(pool="sum")
+
+
+def test_audio_ingest_covers_every_state_key(audio):
+    _, _, state, _ = audio
+    assert set(state) == set(taudio.AudioCNN(num_classes=50).state_dict())
+    with pytest.raises(KeyError, match="unexpected"):
+        flax_audio_to_torch({"params": {"dense": {}}, "batch_stats": {}})
+
+
+def test_audio_fold_bn_scales_the_conv_bias(audio):
+    """The fold pairs every bN_bn with its biased bN_conv: each BatchNorm
+    becomes a pure shift and each conv bias takes the per-channel scale."""
+    _, _, state, x = audio
+    plain = taudio.AudioCNN(num_classes=50)
+    folded = taudio.AudioCNN(num_classes=50)
+    f_plain = taudio.bind_audio_inference(plain, state, device="cpu")
+    f_fold = taudio.bind_audio_inference(folded, state, fold_bn=True, device="cpu")
+    for n in range(1, 13):
+        bn, conv = getattr(folded, f"b{n}_bn"), getattr(folded, f"b{n}_conv")
+        assert torch.equal(bn.weight, torch.ones_like(bn.weight))
+        a = state[f"b{n}_bn.weight"] / torch.sqrt(state[f"b{n}_bn.running_var"] + 1e-5)
+        torch.testing.assert_close(conv.bias, state[f"b{n}_conv.bias"] * a)
+    torch.testing.assert_close(f_fold(torch.from_numpy(x)), f_plain(torch.from_numpy(x)),
+                               atol=TOL, rtol=0)
+
+
+def test_bind_audio_inference_freezes_weights(audio):
+    _, _, state, _ = audio
+    model = taudio.AudioCNN(num_classes=50)
+    taudio.bind_audio_inference(model, state, device="cpu")
+    assert not model.training
+    assert not any(p.requires_grad for p in model.parameters())
+
+
+def test_audio_bf16_close_to_f32(audio):
+    """compute_dtype=bfloat16: float32 scores, cosine >= 0.99 to float32."""
+    _, _, state, x = audio
+    f32 = taudio.bind_audio_inference(taudio.AudioCNN(num_classes=50), state, device="cpu")
+    bf = taudio.bind_audio_inference(taudio.AudioCNN(num_classes=50), state,
+                                     compute_dtype=torch.bfloat16, device="cpu")
+    a, b = f32(torch.from_numpy(x)), bf(torch.from_numpy(x))
+    assert b.dtype == torch.float32
+    cos = torch.nn.functional.cosine_similarity(a.flatten().double(), b.flatten().double(), dim=0)
+    assert float(cos) >= 0.99
+
+
+def test_toy_wave_model_matches_jax():
+    key = jax.random.PRNGKey(4)
+    kern = np.asarray(jax.random.normal(key, (4, 1, 9), jnp.float32) * 0.3)
+    x = _x((3, 200), seed=8)
+    want = np.asarray(jtoy_wave(key)(jnp.asarray(x)))
+    got = taudio.toy_wave_model(kern, device="cpu")(torch.from_numpy(x)).numpy()
     np.testing.assert_allclose(got, want, atol=1e-6, rtol=1e-5)

@@ -165,8 +165,9 @@ def test_engine_grads_match_jax_on_toy_model(impl):
 
 
 def test_engine_rejects_unported_modes():
-    for kw in ({"ndim": 1}, {"ndim": 3}, {"ndim": 2, "channel_last": True}):
+    for kw in ({"ndim": 3}, {"ndim": 2, "channel_last": True}):
         with pytest.raises(NotImplementedError):
             tengine.WamEngine(lambda v: v, **kw)
+    assert tengine.WamEngine(lambda v: v, ndim=1).ndim == 1  # ported with the audio slice
 
 

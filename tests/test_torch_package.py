@@ -17,6 +17,8 @@ import torch
 import wam_tpu_torch
 from wam_tpu_torch import kernels
 from wam_tpu_torch.device import resolve_device
+from wam_tpu_torch import wam1d as tw1
+from wam_tpu_torch.models import audio as taudio
 from wam_tpu_torch.models import resnet as tres
 from wam_tpu_torch.models.toy import toy_conv_model
 from wam_tpu_torch.tune import fused_relu as tfr
@@ -118,6 +120,43 @@ def test_cpu_tensors_never_reach_the_kernels(monkeypatch, crossover):
     fn = tres.bind_inference(tres.resnet18(num_classes=2), fused_relu_vjp=True, device="cpu")
     WaveletAttribution2D(fn, wavelet="db4", n_samples=2, device="cpu",
                          impl="kernel")(x.expand(2, 3, 24, 24), torch.tensor([0, 1]))
+    assert kernels.launch_counts() == before
+
+
+def test_audio_entry_points_raise_without_a_card(monkeypatch):
+    """The audio slice's entry points run on CUDA unless asked: with no
+    device and no card each raises, naming device='cpu'."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    fn = taudio.toy_wave_model(device="cpu")
+    x = np.zeros((1, 4096), np.float32)
+    for make in (lambda: tw1.BaseWAM1D(fn), lambda: tw1.WaveletAttribution1D(fn),
+                 lambda: tw1.VisualizerWAM1D(fn, x), lambda: tw1.normalize_waveforms(x),
+                 lambda: taudio.bind_audio_inference(taudio.AudioCNN()),
+                 lambda: taudio.toy_wave_model()):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            make()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        tw1.WaveletAttribution1D(fn, device="cuda")
+
+
+def test_audio_path_launches_no_kernel(monkeypatch):
+    """The 1D path (transform, mel front end, AudioCNN) reaches no port
+    kernel: the launchers and the build are never called and no count
+    moves, even with CUDA routes taken wherever the wrappers ask."""
+    def boom(*a, **k):
+        raise AssertionError("a port kernel was reached from the 1D path")
+
+    for name in (*LAUNCHERS, "build_all"):
+        monkeypatch.setattr(kernels, name, boom)
+    monkeypatch.setattr(tmm, "on_cpu", lambda t: False)
+    monkeypatch.setattr(tfr, "on_cpu", lambda t: False)
+    before = kernels.launch_counts()
+    fn = taudio.bind_audio_inference(taudio.AudioCNN(num_classes=5), device="cpu")
+    x = np.random.default_rng(0).standard_normal((1, 65536)).astype(np.float32)
+    for kw in ({"method": "smooth", "stream_noise": True}, {"method": "integratedgrad"}):
+        mel, coeffs = tw1.WaveletAttribution1D(fn, wavelet="db6", J=5, n_samples=2, device="cpu",
+                                               **kw)(x, [3])
+        assert mel.shape == (1, 129, 128) and len(coeffs) == 6
     assert kernels.launch_counts() == before
 
 
@@ -384,6 +423,16 @@ def test_chip_smoke_alone_fails(tmp_path):
                           text=True, timeout=120, env={"PATH": "/usr/bin:/bin"})
     assert proc.returncode != 0
     assert '"ok"' not in proc.stdout
+
+
+def test_audio_public_names_exported():
+    for name in ("WaveletAttribution1D", "BaseWAM1D", "VisualizerWAM1D", "normalize_waveforms",
+                 "scaleogram", "wavedec", "waverec", "dwt", "idwt", "melspectrogram",
+                 "stft_power", "mel_filterbank", "amplitude_to_db", "AudioCNN",
+                 "bind_audio_inference", "toy_wave_model", "flax_audio_to_torch",
+                 "sample_noise"):
+        assert hasattr(wam_tpu_torch, name), name
+        assert name in wam_tpu_torch.__all__, name
 
 
 def test_public_names_exported():

@@ -50,6 +50,24 @@ def _np(t):
 # -- the slice: WaveletAttribution2D on ResNet-18 ----------------------------------
 
 
+@pytest.fixture(scope="module", autouse=True)
+def jax_default_route():
+    """The JAX side on its default route (conv analysis and synthesis, XLA's
+    ReLU on the CPU) for the whole module, its module fixtures included, and
+    the knobs put back after. They are module globals that other test files
+    of the same process may leave changed (tests/test_tune.py leaves the
+    synthesis on "matmul"); a ResNet-18 mosaic moves by ~3e-3 when the
+    synthesis changes its summation order, as ReLU gates near zero flip."""
+    saved = jt.get_dwt2_impl(), jt.get_synth2_impl(), jfr.get_fused_relu_impl()
+    jt.set_dwt2_impl("auto")
+    jt.set_synth2_impl("auto")
+    jfr.set_fused_relu_impl("auto")
+    yield
+    jt.set_dwt2_impl(saved[0])
+    jt.set_synth2_impl(saved[1])
+    jfr.set_fused_relu_impl(saved[2])
+
+
 @pytest.fixture(scope="module")
 def r18():
     model = jresnet18(num_classes=10)

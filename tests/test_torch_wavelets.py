@@ -766,3 +766,116 @@ def test_bad_impl_and_mode_rejected():
         tt.dwt2(x, "haar", impl="pallas")
     with pytest.raises(ValueError, match="mode"):
         tt.dwt2(x, "haar", mode="wrap", impl="conv")
+
+
+# -- the 1D transform -------------------------------------------------------------
+
+
+@pytest.mark.parametrize("n,level", [(7, 1), (37, 2), (101, 3)], ids=["pad-past-signal", "37", "101"])
+@pytest.mark.parametrize("mode", MODES)
+@pytest.mark.parametrize("wavelet", ["haar", "db2", "db6"])
+def test_wavedec_waverec_1d_match_jax(wavelet, mode, n, level):
+    """1D coefficients, the reconstruction of arbitrary coefficients, and
+    both VJPs (analysis: the gradient w.r.t. the signal of a weighted sum of
+    the coefficients; synthesis: the gradient w.r.t. every coefficient of a
+    weighted sum of the reconstruction) against the JAX conv form, odd
+    lengths, every mode; length 7 pads db6 past the signal."""
+    rng = _rng("dec1", wavelet, mode, n)
+    x = rng.standard_normal((2, 3, n)).astype(np.float32)
+    # jitted: one compile a case instead of one per eager op and shape
+    jc, jvjp = jax.vjp(jax.jit(lambda v: jt.wavedec(v, wavelet, level, mode)), jnp.asarray(x))
+    xt = torch.from_numpy(x).requires_grad_(True)
+    tc = tt.wavedec(xt, wavelet, level, mode)
+    assert [tuple(t.shape) for t in tc] == [np.asarray(t).shape for t in jc]
+    for g, w in zip(tc, jc):
+        np.testing.assert_allclose(_np(g), np.asarray(w), atol=TOL, rtol=0)
+    cot = [rng.standard_normal(np.asarray(t).shape).astype(np.float32) for t in jc]
+    (want_dx,) = jvjp([jnp.asarray(c) for c in cot])
+    (got_dx,) = torch.autograd.grad(tc, xt, [torch.from_numpy(c) for c in cot])
+    np.testing.assert_allclose(_np(got_dx), np.asarray(want_dx), atol=TOL, rtol=0)
+
+    leaves = [rng.standard_normal(c.shape).astype(np.float32) for c in cot]
+    jr, rvjp = jax.vjp(jax.jit(lambda cs: jt.waverec(cs, wavelet)), [jnp.asarray(v) for v in leaves])
+    lt = [torch.from_numpy(v).requires_grad_(True) for v in leaves]
+    tr = tt.waverec(lt, wavelet)
+    assert tuple(tr.shape) == np.asarray(jr).shape
+    np.testing.assert_allclose(_np(tr), np.asarray(jr), atol=TOL, rtol=0)
+    r = rng.standard_normal(np.asarray(jr).shape).astype(np.float32)
+    (want_dc,) = rvjp(jnp.asarray(r))
+    got_dc = torch.autograd.grad(tr, lt, torch.from_numpy(r))
+    for g, w in zip(got_dc, want_dc):
+        np.testing.assert_allclose(_np(g), np.asarray(w), atol=TOL, rtol=0)
+
+
+@pytest.mark.parametrize("wavelet", ["haar", "db6"])
+def test_waverec_1d_round_trip_and_idwt_lengths(wavelet):
+    x = torch.from_numpy(_rng("rt1", wavelet).standard_normal((2, 1001)).astype(np.float32))
+    rec = tt.waverec(tt.wavedec(x, wavelet, 4, "reflect"), wavelet)
+    torch.testing.assert_close(rec[..., :1001], x, atol=1e-5, rtol=0)
+    cA, cD = tt.dwt(x, wavelet, "symmetric")
+    L = tfilters.build_wavelet(wavelet).filt_len
+    assert cA.shape[-1] == (1001 + L - 1) // 2
+    assert tt.idwt(cA, cD, wavelet).shape[-1] == 2 * cA.shape[-1] - L + 2
+    assert tt.idwt(cA, cD, wavelet, out_len=1001).shape[-1] == 1001
+
+
+def test_1d_bf16_in_f32_coefficients_out():
+    x = torch.from_numpy(_rng("bf16-1d").standard_normal((2, 300)).astype(np.float32))
+    xb = x.to(torch.bfloat16)
+    got, want = tt.wavedec(xb, "db6", 3), tt.wavedec(xb.float(), "db6", 3)
+    assert all(t.dtype == torch.float32 for t in got)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    rec = tt.waverec([c.to(torch.bfloat16) for c in got], "db6")
+    assert rec.dtype == torch.float32
+
+
+def test_1d_transform_turns_tf32_off_and_restores_it():
+    """The transform's convolutions run with cuDNN's TF32 off (the
+    reference's Precision.HIGHEST), and the caller's setting comes back,
+    also after an error."""
+    prev = torch.backends.cudnn.allow_tf32
+    seen = []
+    try:
+        torch.backends.cudnn.allow_tf32 = True
+        with tt._f32_convs():
+            seen.append(torch.backends.cudnn.allow_tf32)
+        assert torch.backends.cudnn.allow_tf32 is True
+        with pytest.raises(RuntimeError), tt._f32_convs():
+            raise RuntimeError
+        assert torch.backends.cudnn.allow_tf32 is True
+    finally:
+        torch.backends.cudnn.allow_tf32 = prev
+    assert seen == [False]
+
+
+# -- boundary padding: the cached index map ----------------------------------------
+
+
+@pytest.mark.parametrize("mode", ["reflect", "symmetric", "constant", "periodic"])
+@pytest.mark.parametrize("n,pad", [(1, 3), (2, 7), (5, 11), (224, 7), (1000, 11)])
+def test_pad_index_is_the_source_index_map(mode, n, pad):
+    """The vectorized map equals `matmul._source_index` at every padded
+    position, and is built once per (length, pad, mode, device)."""
+    cpu = torch.device("cpu")
+    got = tt._pad_index(n, pad, mode, cpu)
+    want = [tmm._source_index(p, n, mode) for p in range(-pad, n + pad)]
+    assert got.tolist() == want
+    assert tt._pad_index(n, pad, mode, cpu) is got
+
+
+@pytest.mark.parametrize("mode", MODES)
+def test_pad_axes_2d_values_unchanged(mode):
+    """The 2D padding through the cached map is bit for bit the per-call
+    loop it replaced."""
+    x = torch.from_numpy(_rng("pad2", mode).standard_normal((2, 3, 9, 6)).astype(np.float32))
+    pad = 7
+    if mode == "zero":
+        want = torch.nn.functional.pad(x, (pad,) * 4)
+    else:
+        want = x
+        for axis in (-2, -1):
+            n = want.shape[axis]
+            idx = torch.tensor([tmm._source_index(p, n, mode) for p in range(-pad, n + pad)])
+            want = want.index_select(axis % want.ndim, idx)
+    assert torch.equal(tt._pad_axes(x, pad, mode), want)

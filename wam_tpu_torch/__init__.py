@@ -1,23 +1,33 @@
 """wam_tpu_torch: the Wavelet Attribution Method in PyTorch and CUDA.
 
 A port of `wam_tpu` (JAX on the TPU, kept as the reference) to PyTorch on an
-NVIDIA H100. Module paths and names mirror `wam_tpu`; the TPU's Pallas
-kernels become hand-written CUDA kernels (`wam_tpu_torch.kernels`), each
-with its plain PyTorch version beside it for CPU tensors and for tests.
-Entry points run on CUDA unless the caller passes ``device="cpu"``.
+NVIDIA H100: WAM-2D on images (`WaveletAttribution2D`) and WAM-1D on audio
+(`WaveletAttribution1D`, through the mel front end). Module paths and names
+mirror `wam_tpu`; the TPU's Pallas kernels become hand-written CUDA kernels
+(`wam_tpu_torch.kernels`), each with its plain PyTorch version beside it for
+CPU tensors and for tests. Entry points run on CUDA unless the caller passes
+``device="cpu"``.
 """
 
 from wam_tpu_torch.core.engine import WamEngine, target_loss
 from wam_tpu_torch.core.estimators import (
     integrated_path,
     noise_sigma,
+    sample_noise,
     smoothgrad,
     trapezoid,
     validate_sample_batch_size,
 )
 from wam_tpu_torch.device import resolve_device
-from wam_tpu_torch.models.ingest import flax_resnet_to_torch
+from wam_tpu_torch.models.audio import AudioCNN, bind_audio_inference, toy_wave_model
+from wam_tpu_torch.models.ingest import flax_audio_to_torch, flax_resnet_to_torch
 from wam_tpu_torch.models.resnet import bind_inference, resnet18, resnet50
+from wam_tpu_torch.ops.melspec import (
+    amplitude_to_db,
+    mel_filterbank,
+    melspectrogram,
+    stft_power,
+)
 from wam_tpu_torch.ops.packing2d import (
     disentangle_scales,
     mosaic2d,
@@ -25,42 +35,71 @@ from wam_tpu_torch.ops.packing2d import (
     reproject_mosaic,
 )
 from wam_tpu_torch.tune.fused_relu import fused_relu
+from wam_tpu_torch.wam1d import (
+    BaseWAM1D,
+    VisualizerWAM1D,
+    WaveletAttribution1D,
+    normalize_waveforms,
+    scaleogram,
+)
 from wam_tpu_torch.wam2d import BaseWAM2D, WaveletAttribution2D
 from wam_tpu_torch.wavelets.matmul import idwt2_kernel
 from wam_tpu_torch.wavelets.transform import (
     Detail2D,
+    dwt,
     dwt2,
     dwt_max_level,
+    idwt,
     idwt2,
+    wavedec,
     wavedec2,
+    waverec,
     waverec2,
 )
 
 __all__ = [
+    "AudioCNN",
+    "BaseWAM1D",
     "BaseWAM2D",
     "Detail2D",
+    "VisualizerWAM1D",
     "WamEngine",
+    "WaveletAttribution1D",
     "WaveletAttribution2D",
+    "amplitude_to_db",
+    "bind_audio_inference",
     "bind_inference",
     "disentangle_scales",
+    "dwt",
     "dwt2",
     "dwt_max_level",
+    "flax_audio_to_torch",
     "flax_resnet_to_torch",
     "fused_relu",
+    "idwt",
     "idwt2",
     "idwt2_kernel",
     "integrated_path",
+    "mel_filterbank",
+    "melspectrogram",
     "mosaic2d",
     "mosaic_size",
     "noise_sigma",
+    "normalize_waveforms",
     "reproject_mosaic",
     "resnet18",
     "resnet50",
     "resolve_device",
+    "sample_noise",
+    "scaleogram",
     "smoothgrad",
+    "stft_power",
     "target_loss",
+    "toy_wave_model",
     "trapezoid",
     "validate_sample_batch_size",
+    "wavedec",
     "wavedec2",
+    "waverec",
     "waverec2",
 ]

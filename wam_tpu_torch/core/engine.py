@@ -1,9 +1,12 @@
 """Core gradient engine: d logit_y / d wavelet-coefficients (PyTorch).
 
-Counterpart of `wam_tpu.core.engine` for 2D NCHW inputs: the coefficients
-of ``wavedec2`` become detached leaf tensors, the reconstruction feeds the
-model, and `torch.autograd.grad` of the target loss returns one gradient per
-coefficient, in the coefficients' own structure.
+Counterpart of `wam_tpu.core.engine` for 1D signals and 2D NCHW inputs: the
+coefficients of ``wavedec`` / ``wavedec2`` become detached leaf tensors, the
+reconstruction feeds the model (through an optional differentiable
+``front_fn``, the 1D mel front end), and `torch.autograd.grad` of the target
+loss returns one gradient per coefficient, in the coefficients' own
+structure, and with ``front=True`` the gradient at the front end's output
+from the same backward pass.
 """
 
 from __future__ import annotations
@@ -28,34 +31,43 @@ def target_loss(output: torch.Tensor, y: torch.Tensor | None) -> torch.Tensor:
 def _flatten(coeffs) -> list[torch.Tensor]:
     out = [coeffs[0]]
     for det in coeffs[1:]:
-        out.extend(det)
+        if isinstance(det, wt.Detail2D):
+            out.extend(det)
+        else:
+            out.append(det)
     return out
 
 
-def _unflatten(leaves: Sequence[torch.Tensor]) -> list:
+def _unflatten(leaves: Sequence[torch.Tensor], like) -> list:
+    """``leaves`` in the structure of the coefficients ``like``."""
     it = iter(leaves)
     out = [next(it)]
-    for h in it:
-        out.append(wt.Detail2D(h, next(it), next(it)))
+    for det in like[1:]:
+        out.append(wt.Detail2D(next(it), next(it), next(it))
+                   if isinstance(det, wt.Detail2D) else next(it))
     return out
 
 
 def map_coeffs(fn, coeffs) -> list:
     """Apply ``fn`` to every coefficient tensor, keeping the structure."""
-    return _unflatten([fn(c) for c in _flatten(coeffs)])
+    return _unflatten([fn(c) for c in _flatten(coeffs)], coeffs)
 
 
 class WamEngine:
-    """Single-pass wavelet attribution for 2D NCHW inputs.
+    """Single-pass wavelet attribution for 1D signals (..., W) or 2D NCHW
+    inputs.
 
     Parameters
     ----------
-    model_fn : callable mapping the reconstructed (B, C, H, W) batch to
-        logits (B, K).
-    ndim : spatial rank; only 2 is ported.
-    impl : the transform implementation (`wavelets.transform`); ``None``
+    model_fn : callable mapping the reconstructed batch (or the front end's
+        output, when ``front_fn`` is given) to logits (B, K).
+    ndim : spatial rank, 1 or 2.
+    front_fn : optional differentiable map between the reconstruction and
+        the model (the 1D mel front end); ``front=True`` also returns the
+        gradient at its output.
+    impl : the 2D transform implementation (`wavelets.transform`); ``None``
         picks the CUDA kernels for CUDA tensors and the conv form for CPU
-        tensors.
+        tensors. The 1D transform has one implementation.
     """
 
     def __init__(
@@ -66,11 +78,12 @@ class WamEngine:
         wavelet: str = "haar",
         level: int = 3,
         mode: str = "reflect",
+        front_fn: Callable[[torch.Tensor], torch.Tensor] | None = None,
         channel_last: bool = False,
         impl: str | None = None,
     ):
-        if ndim != 2:
-            raise NotImplementedError(f"ndim={ndim}: only the 2D engine is ported")
+        if ndim not in (1, 2):
+            raise NotImplementedError(f"ndim={ndim}: only the 1D and 2D engines are ported")
         if channel_last:
             raise NotImplementedError("channel_last: only the NCHW engine is ported")
         if impl is not None and impl not in wt.IMPLS:
@@ -80,34 +93,48 @@ class WamEngine:
         self.wavelet = wavelet
         self.level = level
         self.mode = mode
+        self.front_fn = front_fn
         self.impl = impl
 
     def decompose(self, x: torch.Tensor):
+        if self.ndim == 1:
+            return wt.wavedec(x, self.wavelet, self.level, self.mode)
         return wt.wavedec2(x, self.wavelet, self.level, self.mode, impl=self.impl)
 
     def reconstruct(self, coeffs, spatial_shape: Sequence[int]) -> torch.Tensor:
-        rec = wt.waverec2(coeffs, self.wavelet, impl=self.impl)
         # the reconstruction is >= the original for non-haar filters / odd
         # sizes; crop to the model's spatial shape
+        if self.ndim == 1:
+            return wt.waverec(coeffs, self.wavelet)[..., : spatial_shape[0]]
+        rec = wt.waverec2(coeffs, self.wavelet, impl=self.impl)
         return rec[..., : spatial_shape[0], : spatial_shape[1]]
 
-    def grads_from_coeffs(self, coeffs, y, spatial_shape, samples: int = 1) -> list:
+    def grads_from_coeffs(self, coeffs, y, spatial_shape, samples: int = 1,
+                          front: bool = False):
         """Gradient of the target loss w.r.t. every coefficient, in the
-        coefficients' structure.
+        coefficients' structure; with ``front=True`` the pair (those
+        gradients, the gradient at the front end's output), both from one
+        backward pass.
 
         ``samples`` > 1 means the rows hold that many stacked copies of one
         batch (sample-major, ``y`` repeated to match): the loss is then the
         SUM over copies of each copy's batch mean, so every coefficient gets
         exactly its own copy's gradient."""
+        if front and self.front_fn is None:
+            raise ValueError("front=True requires front_fn")
         leaves = [c.detach().requires_grad_(True) for c in _flatten(coeffs)]
         with torch.enable_grad():
-            out = self.model_fn(self.reconstruct(_unflatten(leaves), spatial_shape))
-            loss = target_loss(out, y) * samples
-            grads = torch.autograd.grad(loss, leaves)
-        return _unflatten(grads)
+            feats = self.reconstruct(_unflatten(leaves, coeffs), spatial_shape)
+            if self.front_fn is not None:
+                feats = self.front_fn(feats)
+            loss = target_loss(self.model_fn(feats), y) * samples
+            grads = torch.autograd.grad(loss, leaves + [feats] if front else leaves)
+        if front:
+            return _unflatten(grads[:-1], coeffs), grads[-1]
+        return _unflatten(grads, coeffs)
 
     def spatial_shape(self, x_shape) -> tuple:
-        return tuple(x_shape[-2:])
+        return tuple(x_shape[-self.ndim:])
 
     def attribute(self, x: torch.Tensor, y: torch.Tensor | None, samples: int = 1):
         """Full single pass: decompose -> grads. Returns (coeffs, grads)."""
@@ -115,3 +142,15 @@ class WamEngine:
             coeffs = self.decompose(x)
         grads = self.grads_from_coeffs(coeffs, y, self.spatial_shape(x.shape), samples)
         return coeffs, grads
+
+    def attribute_with_front_grads(self, x: torch.Tensor, y: torch.Tensor | None,
+                                   samples: int = 1):
+        """Like `attribute`, also returning the gradient at the front end's
+        output (the reference's mel tap): one backward pass gives both, with
+        the front end's output as one more input of `torch.autograd.grad`.
+        Returns (coeffs, coefficient grads, front grads)."""
+        with torch.no_grad():
+            coeffs = self.decompose(x)
+        grads, g_front = self.grads_from_coeffs(coeffs, y, self.spatial_shape(x.shape),
+                                                samples, front=True)
+        return coeffs, grads, g_front

@@ -3,7 +3,8 @@
 Counterpart of `wam_tpu.core.estimators`. Where the JAX package maps a step
 over samples with ``lax.map(batch_size=)``, the port folds a chunk of ``s``
 samples into the batch dimension and calls the step once per chunk: a step
-takes a stacked (s, ...) input and returns a stacked (s, ...) result.
+takes a stacked (s, ...) input and returns a stacked (s, ...) result, or a
+list of them (one per output, e.g. WAM-1D's mel tap and coefficient levels).
 ``batch_size=None`` runs all samples in one chunk.
 """
 
@@ -11,9 +12,10 @@ from __future__ import annotations
 
 from typing import Callable
 
+import numpy as np
 import torch
 
-__all__ = ["noise_sigma", "smoothgrad", "integrated_path", "trapezoid",
+__all__ = ["noise_sigma", "smoothgrad", "integrated_path", "trapezoid", "sample_noise",
            "resolve_sample_chunk", "validate_sample_batch_size"]
 
 
@@ -38,11 +40,18 @@ def resolve_sample_chunk(sample_batch_size, n_samples: int) -> int | None:
     return None if chunk >= n_samples else chunk
 
 
-def _chunked_map(fn: Callable[[torch.Tensor], torch.Tensor], xs: torch.Tensor,
-                 batch_size: int | None) -> torch.Tensor:
-    """``fn`` over leading-axis chunks of ``xs``, results concatenated."""
+def _chunked_map(fn: Callable, xs: torch.Tensor, batch_size: int | None):
+    """``fn`` over leading-axis chunks of ``xs``, results concatenated (per
+    position when ``fn`` returns a list of tensors)."""
     step = xs.shape[0] if batch_size is None else batch_size
-    return torch.cat([fn(xs[i:i + step]) for i in range(0, xs.shape[0], step)])
+    outs = [fn(xs[i:i + step]) for i in range(0, xs.shape[0], step)]
+    if isinstance(outs[0], torch.Tensor):
+        return torch.cat(outs)
+    return [torch.cat(parts) for parts in zip(*outs)]
+
+
+def _tree_map(fn: Callable, out):
+    return fn(out) if isinstance(out, torch.Tensor) else [fn(t) for t in out]
 
 
 def noise_sigma(x: torch.Tensor, stdev_spread: float) -> torch.Tensor:
@@ -52,8 +61,19 @@ def noise_sigma(x: torch.Tensor, stdev_spread: float) -> torch.Tensor:
     return stdev_spread * (flat.amax(dim=1) - flat.amin(dim=1))
 
 
+def sample_noise(seed: int, index: int, shape, device, dtype=torch.float32) -> torch.Tensor:
+    """Sample ``index``'s standard-normal draw of ``shape``, a function of
+    (seed, index) only: a generator seeded from both (numpy's SeedSequence
+    mixes them), the counterpart of the reference's ``fold_in(key, i)``.
+    One shared generator drawn chunk by chunk would make the draws depend
+    on the chunk size."""
+    state = np.random.SeedSequence([int(seed), int(index)]).generate_state(1, np.uint64)[0]
+    g = torch.Generator(device=device).manual_seed(int(state) & (2**63 - 1))
+    return torch.randn(tuple(shape), generator=g, device=device, dtype=dtype)
+
+
 def smoothgrad(
-    step_fn: Callable[[torch.Tensor], torch.Tensor],
+    step_fn: Callable,
     x: torch.Tensor,
     *,
     n_samples: int,
@@ -61,15 +81,33 @@ def smoothgrad(
     batch_size: int | None = None,
     generator: torch.Generator | None = None,
     noise: torch.Tensor | None = None,
-) -> torch.Tensor:
+    materialize_noise: bool = True,
+    seed: int = 0,
+):
     """Mean of ``step_fn`` over ``n_samples`` noisy copies x + sigma * z_i.
 
     ``step_fn`` maps a stack of noisy batches (s, *x.shape) to a stacked
-    result (s, ...). The standard-normal draws z come from ``noise``
-    (n_samples, *x.shape) when given, else from ``generator``; they are
-    drawn once for all samples, so the result does not depend on
-    ``batch_size``."""
+    result (s, ...) or a list of them. The standard-normal draws z come from
+    ``noise`` (n_samples, *x.shape) when given, else from ``generator``; they
+    are drawn once for all samples, so the result does not depend on
+    ``batch_size``.
+
+    ``materialize_noise=False`` never allocates the (n_samples, *x.shape)
+    buffer: each chunk draws its own samples' noise, sample i's from
+    `sample_noise(seed, i)`, so the result does not depend on ``batch_size``
+    either. Those draws differ from the materialized path's (the reference's
+    streamed draws differ from its materialized ones too)."""
     sigma = noise_sigma(x, stdev_spread).reshape((-1,) + (1,) * (x.ndim - 1))
+    if not materialize_noise:
+        if noise is not None:
+            raise ValueError("noise= is a materialized buffer; it needs materialize_noise=True")
+
+        def streamed(idx: torch.Tensor):
+            z = torch.stack([sample_noise(seed, int(i), x.shape, x.device, x.dtype) for i in idx])
+            return step_fn(x + z * sigma)
+
+        outs = _chunked_map(streamed, torch.arange(n_samples), batch_size)
+        return _tree_map(lambda t: t.mean(dim=0), outs)
     if noise is None:
         noise = torch.randn((n_samples,) + tuple(x.shape), generator=generator,
                             device=x.device, dtype=x.dtype)
@@ -78,7 +116,7 @@ def smoothgrad(
                          f"got {tuple(noise.shape)}")
     outs = _chunked_map(lambda z: step_fn(x + z * sigma), noise.to(x.device, x.dtype),
                         batch_size)
-    return outs.mean(dim=0)
+    return _tree_map(lambda t: t.mean(dim=0), outs)
 
 
 def trapezoid(path: torch.Tensor, dx: float = 1.0) -> torch.Tensor:
@@ -97,7 +135,7 @@ def integrated_path(
 ) -> torch.Tensor:
     """Integrated gradients along the straight path alpha * coeffs,
     alpha in linspace(0, 1, n_steps) (float32): ``grad_fn`` maps a chunk of
-    alphas (s,) to a stacked result (s, ...); returns the trapezoid integral
-    of the result over the path."""
+    alphas (s,) to a stacked result (s, ...) or a list of them; returns the
+    trapezoid integral of each over the path."""
     alphas = torch.linspace(0.0, 1.0, n_steps, dtype=torch.float32, device=device)
-    return trapezoid(_chunked_map(grad_fn, alphas, batch_size), dx=dx)
+    return _tree_map(lambda t: trapezoid(t, dx=dx), _chunked_map(grad_fn, alphas, batch_size))

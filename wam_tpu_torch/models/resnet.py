@@ -110,10 +110,12 @@ resnet50 = partial(ResNet, (3, 4, 6, 3), Bottleneck)
 
 def _conv_of(bn_name: str) -> str | None:
     """The conv a BatchNorm follows, by this package's naming: bnN <-> convN,
-    downsample.1 <-> downsample.0."""
+    downsample.1 <-> downsample.0, and the AudioCNN's bN_bn <-> bN_conv."""
     parent, _, leaf = bn_name.rpartition(".")
     if leaf.startswith("bn"):
         conv = "conv" + leaf[2:]
+    elif leaf.endswith("_bn"):
+        conv = leaf[:-3] + "_conv"
     elif leaf == "1" and parent.endswith("downsample"):
         conv = "0"
     else:
@@ -165,7 +167,8 @@ def bind_inference(
     ``nchw=False`` accepts (B, H, W, C) input. ``compute_dtype`` (e.g.
     ``torch.bfloat16``) casts parameters and buffers once and the input at
     the boundary; logits come back float32. ``fold_bn`` folds BatchNorm
-    multiplies into the conv weights (same function, cheaper backward).
+    multiplies into the conv weights (same function, cheaper backward; a
+    biased conv's bias takes the same per-channel scale).
     ``fused_relu_vjp`` sets ``act = fused_relu`` on every module that has an
     ``act`` (`wam_tpu_torch.tune.fused_relu`: the backward keeps a bit-packed
     sign mask instead of the activation, kernels K4/K5 on CUDA); same values

@@ -110,6 +110,12 @@ class WaveletAttribution2D(BaseWAM2D):
     SmoothGrad noise: standard-normal draws from a ``torch.Generator`` on
     the device seeded with ``random_seed`` (one stream per call), or the
     explicit ``noise`` tensor (n_samples, *x.shape) given to ``__call__``.
+    ``stream_noise=True`` draws each chunk's noise inside the chunk loop,
+    sample i's from (random_seed, i) (`core.estimators.sample_noise`), so
+    the (n_samples, *x.shape) buffer is never allocated and the result does
+    not depend on the chunk (the draws differ from the materialized ones).
+    ``"auto"`` materializes: the reference streams above ~128 MB of noise on
+    the TPU only, and no rule for the card has been measured yet.
     """
 
     def __init__(
@@ -126,6 +132,7 @@ class WaveletAttribution2D(BaseWAM2D):
         random_seed: int = 42,
         sample_batch_size: int | None | str = "auto",
         dwt_bf16: bool = False,
+        stream_noise: bool | str = False,
         model_layout: str = "nchw",
         mesh=None,
         device=None,
@@ -139,12 +146,15 @@ class WaveletAttribution2D(BaseWAM2D):
         if method not in ("smooth", "integratedgrad"):
             raise ValueError(f"Unknown method {method!r}")
         validate_sample_batch_size(sample_batch_size)
+        if stream_noise not in (True, False, "auto"):
+            raise ValueError(f"stream_noise must be a bool or 'auto', got {stream_noise!r}")
         self.method = method
         self.dwt_bf16 = dwt_bf16
         self.n_samples = n_samples
         self.stdev_spread = stdev_spread
         self.random_seed = random_seed
         self.sample_batch_size = sample_batch_size
+        self.stream_noise = stream_noise is True
 
     def _chunk(self) -> int | None:
         return resolve_sample_chunk(self.sample_batch_size, self.n_samples)
@@ -173,10 +183,11 @@ class WaveletAttribution2D(BaseWAM2D):
             return self._mosaic_of_grads(coeffs, y, spatial, s)
 
         generator = None
-        if noise is None:
+        if noise is None and not self.stream_noise:
             generator = torch.Generator(device=self.device).manual_seed(self.random_seed)
         avg = smoothgrad(step, x, n_samples=self.n_samples, stdev_spread=self.stdev_spread,
-                         batch_size=self._chunk(), generator=generator, noise=noise)
+                         batch_size=self._chunk(), generator=generator, noise=noise,
+                         materialize_noise=not self.stream_noise, seed=self.random_seed)
         self.scales = reproject_mosaic(avg, self.J, self.approx_coeffs)
         return avg
 

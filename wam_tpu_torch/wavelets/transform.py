@@ -1,11 +1,23 @@
-"""Differentiable multi-level 2D discrete wavelet transforms (PyTorch).
+"""Differentiable multi-level 1D and 2D discrete wavelet transforms (PyTorch).
 
-Counterpart of the 2D half of `wam_tpu.wavelets.transform`, with the same
-coefficient layouts and pywt boundary semantics: ``wavedec2`` returns
-``[cA_J, Detail2D(H_J, V_J, D_J), ..., Detail2D_1]`` where H = hi-pass along
-rows (axis -2), V = hi-pass along columns (axis -1), D = both.
+Counterpart of the 1D and 2D halves of `wam_tpu.wavelets.transform`, with the
+same coefficient layouts and pywt boundary semantics: ``wavedec`` returns
+``[cA_J, cD_J, ..., cD_1]`` with per-level length floor((n + L - 1)/2), and
+``wavedec2`` returns ``[cA_J, Detail2D(H_J, V_J, D_J), ..., Detail2D_1]``
+where H = hi-pass along rows (axis -2), V = hi-pass along columns (axis -1),
+D = both.
 
-Three implementations of the same linear maps, chosen per call by ``impl``:
+The 1D transform has one implementation on every device: a strided
+``conv1d`` over the fused two-channel (lo, hi) analysis kernel and its
+adjoint ``conv_transpose1d`` for synthesis, both in full float32 (TF32 off
+inside the transform whatever the caller's cuDNN setting, as the reference
+runs its transform convs at ``Precision.HIGHEST``). Each 1D level and each
+backward of one runs inside a ``torch.profiler.record_function`` span named
+``SPAN_1D``, so a profile can tell the transform's convolutions from a
+model's.
+
+The 2D transform has three implementations of the same linear maps, chosen
+per call by ``impl``:
 
 - ``"conv"``: strided conv2d over 4 fused subband channels (plain torch);
 - ``"matmul"``: the banded-matrix form `matmul.analysis2_mm` /
@@ -22,6 +34,8 @@ CPU tensors. bf16 inputs give float32 coefficients on every impl.
 
 from __future__ import annotations
 
+import contextlib
+import functools
 from typing import NamedTuple, Sequence
 
 import numpy as np
@@ -33,6 +47,10 @@ from wam_tpu_torch.wavelets.filters import Wavelet, build_wavelet
 
 __all__ = [
     "Detail2D",
+    "dwt",
+    "idwt",
+    "wavedec",
+    "waverec",
     "dwt2",
     "idwt2",
     "wavedec2",
@@ -42,6 +60,7 @@ __all__ = [
 ]
 
 IMPLS = ("conv", "matmul", "kernel")
+SPAN_1D = "wam_dwt1"
 
 # Level-collapse crossover: the coarsest contiguous levels whose detail sides
 # are all BELOW this run as one K3 operator pair. 128 is the starting value
@@ -89,18 +108,35 @@ def dwt_max_level(data_len: int, filt_len: int) -> int:
     return int(np.floor(np.log2(data_len / (filt_len - 1.0))))
 
 
-def _pad_axes(x: torch.Tensor, pad: int, mode: str) -> torch.Tensor:
-    """Pad the last two axes by ``pad`` on each side in a pywt mode. Any
-    width works (the index map wraps as often as needed)."""
+@functools.lru_cache(maxsize=256)
+def _pad_index(n: int, pad: int, mode: str, device: torch.device) -> torch.Tensor:
+    """Source index of every position of an axis of length ``n`` padded by
+    ``pad`` per side (`matmul._source_index` over range(-pad, n + pad),
+    vectorized), built once per (n, pad, mode, device)."""
+    p = np.arange(-pad, n + pad)
+    if mode == "constant":
+        idx = np.clip(p, 0, n - 1)
+    elif mode == "periodic":
+        idx = p % n
+    elif mode == "reflect":
+        period = max(2 * n - 2, 1)
+        m = p % period
+        idx = np.where(m < n, m, period - m)
+    else:  # symmetric
+        m = p % (2 * n)
+        idx = np.where(m < n, m, 2 * n - 1 - m)
+    return torch.as_tensor(idx, dtype=torch.int64, device=device)
+
+
+def _pad_axes(x: torch.Tensor, pad: int, mode: str, axes: Sequence[int] = (-2, -1)) -> torch.Tensor:
+    """Pad ``axes`` (the last two by default) by ``pad`` on each side in a
+    pywt mode. Any width works (the index map wraps as often as needed)."""
     if mode not in _PAD_MODE:
         raise ValueError(f"Unsupported mode {mode!r}; one of {sorted(_PAD_MODE)}")
     if mode == "zero":
-        return F.pad(x, (pad, pad, pad, pad))
-    for axis in (-2, -1):
-        n = x.shape[axis]
-        idx = torch.tensor([_mm._source_index(p, n, mode) for p in range(-pad, n + pad)],
-                           device=x.device)
-        x = x.index_select(axis % x.ndim, idx)
+        return F.pad(x, (pad, pad) * len(axes))
+    for axis in axes:
+        x = x.index_select(axis % x.ndim, _pad_index(x.shape[axis], pad, mode, x.device))
     return x
 
 
@@ -146,6 +182,133 @@ def _synthesis(subbands: torch.Tensor, wav: Wavelet, out_shape: Sequence[int]) -
     out = F.conv2d(F.pad(up, (1, 1, 1, 1)), _inv_subband_kernel(wav, xb.dtype, xb.device))
     out = out[:, 0, : out_shape[0], : out_shape[1]]
     return out.reshape(batch_shape + tuple(out.shape[-2:]))
+
+
+# -- 1D --------------------------------------------------------------------------
+
+
+@contextlib.contextmanager
+def _f32_convs():
+    """cuDNN convolutions in full float32 inside the block (TF32 off), the
+    caller's setting restored after."""
+    prev = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.allow_tf32 = prev
+
+
+def _bank1(wav: Wavelet, dtype, device, rec: bool) -> torch.Tensor:
+    """(2, 1, L) filter bank, channel 0 lo, 1 hi: the flipped dec filters
+    (analysis correlation) or the rec filters as they are (synthesis as a
+    transposed convolution)."""
+    lo, hi = (wav.rec_lo, wav.rec_hi) if rec else (wav.dec_lo[::-1], wav.dec_hi[::-1])
+    return _bank1_cached(tuple(lo), tuple(hi), dtype, device)
+
+
+@functools.lru_cache(maxsize=64)
+def _bank1_cached(lo: tuple, hi: tuple, dtype, device) -> torch.Tensor:
+    # built once per device: a copy from host memory waits for the queue
+    return torch.as_tensor(np.stack([lo, hi])[:, None], dtype=dtype, device=device)
+
+
+class _Analysis1(torch.autograd.Function):
+    """One 1D analysis level on the padded signal: (B, 1, n) -> (B, 2, m)
+    by a stride-2 correlation; the backward is its adjoint, the transposed
+    convolution. Both directions run in full float32."""
+
+    @staticmethod
+    def forward(ctx, xp, bank):
+        ctx.save_for_backward(bank)
+        ctx.n = xp.shape[-1]
+        with _f32_convs():
+            return F.conv1d(xp, bank, stride=2)
+
+    @staticmethod
+    def backward(ctx, g):
+        (bank,) = ctx.saved_tensors
+        extra = ctx.n - (2 * (g.shape[-1] - 1) + bank.shape[-1])  # 0 or 1 trailing sample
+        with torch.profiler.record_function(SPAN_1D), _f32_convs():
+            return F.conv_transpose1d(g, bank, stride=2, output_padding=extra), None
+
+
+class _Synthesis1(torch.autograd.Function):
+    """One 1D synthesis level: (B, 2, h) -> (B, 1, 2h - L + 2), the true
+    convolution of the zero-stuffed subbands with the rec filters trimmed by
+    L - 2 per side, as one transposed convolution; the backward is the
+    stride-2 correlation. Both directions run in full float32."""
+
+    @staticmethod
+    def forward(ctx, sub, bank):
+        ctx.save_for_backward(bank)
+        with _f32_convs():
+            return F.conv_transpose1d(sub, bank, stride=2, padding=bank.shape[-1] - 2)
+
+    @staticmethod
+    def backward(ctx, g):
+        (bank,) = ctx.saved_tensors
+        with torch.profiler.record_function(SPAN_1D), _f32_convs():
+            return F.conv1d(g, bank, stride=2, padding=bank.shape[-1] - 2), None
+
+
+def dwt(x: torch.Tensor, wavelet, mode: str = "symmetric"):
+    """Single-level 1D DWT along the last axis. Returns (cA, cD), each of
+    length floor((n + L - 1)/2); bf16 inputs give float32 coefficients."""
+    wav = _resolve(wavelet)
+    if x.dtype == torch.bfloat16:
+        x = x.float()
+    batch_shape = x.shape[:-1]
+    with torch.profiler.record_function(SPAN_1D):
+        # offset by one so the stride-2 correlation lands on pywt's positions
+        xp = _pad_axes(x.reshape(-1, 1, x.shape[-1]), wav.filt_len - 1, mode, axes=(-1,))[..., 1:]
+        out = _Analysis1.apply(xp, _bank1(wav, x.dtype, x.device, rec=False))
+    out = out.reshape(batch_shape + out.shape[1:])
+    return out[..., 0, :], out[..., 1, :]
+
+
+def idwt(cA: torch.Tensor, cD: torch.Tensor, wavelet, out_len: int | None = None):
+    """Single-level inverse 1D DWT: length 2n - L + 2, or ``out_len`` when
+    given (a crop); bf16 coefficients give float32 samples."""
+    wav = _resolve(wavelet)
+    sub = torch.stack([cA, cD], dim=-2)
+    if sub.dtype == torch.bfloat16:
+        sub = sub.float()
+    batch_shape = sub.shape[:-2]
+    with torch.profiler.record_function(SPAN_1D):
+        out = _Synthesis1.apply(sub.reshape(-1, 2, sub.shape[-1]),
+                                _bank1(wav, sub.dtype, sub.device, rec=True))[:, 0]
+    if out_len is not None:
+        out = out[:, :out_len]
+    return out.reshape(batch_shape + out.shape[-1:])
+
+
+def wavedec(x: torch.Tensor, wavelet, level: int, mode: str = "symmetric"):
+    """Multi-level 1D DWT: [cA_J, cD_J, ..., cD_1] (coarsest first)."""
+    wav = _resolve(wavelet)
+    coeffs = []
+    a = x
+    for _ in range(level):
+        a, d = dwt(a, wav, mode)
+        coeffs.append(d)
+    coeffs.append(a)
+    return coeffs[::-1]
+
+
+def waverec(coeffs, wavelet):
+    """Inverse of `wavedec`: each level's approximation is trimmed to its
+    detail's length, and each synthesis to the next detail's length."""
+    wav = _resolve(wavelet)
+    a = coeffs[0]
+    for i in range(1, len(coeffs)):
+        d = coeffs[i]
+        a = a[..., : d.shape[-1]]
+        nxt = coeffs[i + 1].shape[-1] if i + 1 < len(coeffs) else None
+        a = idwt(a, d, wav, out_len=nxt)
+    return a
+
+
+# -- 2D --------------------------------------------------------------------------
 
 
 def dwt2(x: torch.Tensor, wavelet, mode: str = "reflect", impl: str | None = None):
