@@ -11,8 +11,9 @@ sm_90a). Phases, each fatal on failure:
    process per source, all at once), with ptxas's report of K1, K2 and K3;
 3. kernels: each kernel against its plain PyTorch version at the shapes
    each path that runs it gives it, TF32 off, and timed with CUDA events:
-   K1 and K3 at the flagship's and at path 2's, K2 (both directions) and
-   K4/K5 at path 2's; one line per kernel and path, each case and line
+   K1 and K3 at the flagship's, at path 2's and at the ViT path's (haar),
+   K2 (both directions) and K4/K5 at path 2's; one line per kernel and
+   path, each case and line
    with its bound and bound_share (bound / kernel time). K1-K3 launch
    with their band plans (K3 on the coefficient leaves, views of K1's
    output, forward and every leaf's gradient checked); the plain versions
@@ -43,7 +44,25 @@ sm_90a). Phases, each fatal on failure:
    waveforms of 65,536 samples, 2 samples, noise handed over, TF32 off),
    cosine and max abs error on the mel attribution and every coefficient
    level, in float32 through `WaveletAttribution1D` and in float64 through
-   its engine.
+   its engine;
+7. vit: the ViT path (`BASELINE.json`'s config #5, as
+   ``bench_workloads.vit_workload`` defines it): `WaveletAttribution2D`
+   Integrated Gradients on ViT-B/16 (1000 classes, seeded weights drawn as
+   the reference's initialisers draw them) bound with ``bind_inference(
+   nchw=True)``, one 3x224x224 image, haar, J=3, reflect, 64 path points,
+   sample_batch_size=16. The matmul and convolution precision is set and
+   printed for each arm: the headline with TF32 on (matmuls and
+   convolutions), a second float32 arm with TF32 off; one call with the
+   launch counts set to 0 just before and read just after (K1 3, K3 8,
+   K2/K4/K5 0, asserted), then CUDA-event times of 5 calls (median, spread,
+   attributions/s, host enqueue time, peak memory). Timed beside it: the
+   model in bfloat16 (its mosaic cosine to the float32 TF32-off result, no
+   gate).
+   Then the reduced check: the kernel path against the plain path on the
+   same model, one image, 4 path points, TF32 off (cosine >= 0.99999, max
+   abs <= 1e-4 x the plain result's max);
+8. convnext: the same call on ConvNeXt-T (1000 classes): launch counts as
+   for the ViT, median of 3 calls, peak memory, and the same reduced check.
 
 Prints a summary JSON line, the kernels' JSON line, the nvidia-smi line, and as its last line
 ``{"ok": true, "device": {...}}``. Exits nonzero, printing no result, when
@@ -81,6 +100,14 @@ AUDIO_SAMPLES, AUDIO_SPREAD = 50, 0.001
 AUDIO_CHUNK = 16                        # samples per model call: 16 x 8 = 128 rows
 AUDIO_CLASSES, N_MELS, N_FFT, SAMPLE_RATE = 50, 128, 1024, 44100
 AUDIO_CALLS = 5                         # timed calls after the warm one (arms: 3)
+# the ViT path: BASELINE.json's config #5, as bench_workloads.py defines it
+VIT_SIDE, VIT_WAVELET, VIT_LEVELS, VIT_MODE = 224, "haar", 3, "reflect"
+VIT_STEPS, VIT_CHUNK = 64, 16           # 64 path points, 16 a model call
+VIT_CALLS, CONVNEXT_CALLS = 5, 3        # timed calls after the counted one
+VIT_REDUCED_STEPS = 4
+# reduced check bound (cosine, max abs / max): only K1's and K3's summation
+# order differs between the two paths, and the models have no ReLU gate
+VIT_TOL = (0.99999, 1e-4)
 # reduced check: waveforms, samples (the shortest length whose 129 frames
 # survive the AudioCNN's six pools), n_samples; (cosine, max abs / max)
 # bounds in float32 (measured, see _audio_reduced_check) and in float64
@@ -228,14 +255,15 @@ def _row(kernel: str, name: str, source: str, replaces: str, path: str, cases: l
             "cases": cases}
 
 
-def _k1_cases(torch, tmm, kernels, g, side: int) -> list[dict]:
-    """K1 at the three analysis levels of a side x side path, float32 and
-    bfloat16 input; level l reads level l-1's float32 approximation."""
+def _k1_cases(torch, tmm, kernels, g, side: int, wavelet: str = WAVELET,
+              n: int = SAMPLE_CHUNK * BATCH * CHANNELS) -> list[dict]:
+    """K1 at the three analysis levels of a side x side path on ``n``
+    images, float32 and bfloat16 input; level l reads level l-1's float32
+    approximation."""
     dev = torch.device(DEVICE)
-    n = SAMPLE_CHUNK * BATCH * CHANNELS
     from wam_tpu_torch.wavelets.filters import build_wavelet
 
-    w = build_wavelet(WAVELET)
+    w = build_wavelet(wavelet)
     taps = (tuple(w.dec_lo), tuple(w.dec_hi), MODE)
     cases = []
     x = torch.randn((n, side, side), generator=g, device=dev)
@@ -250,7 +278,8 @@ def _k1_cases(torch, tmm, kernels, g, side: int) -> list[dict]:
             want = tmm.dwt2_plain(xin, At, Bt)
             f32 = dtype == torch.float32
             cases.append(_case(
-                torch, f"K1 {side}^2 level {level} {str(dtype)[6:]}", kernels.dwt2(xin, plan),
+                torch, f"K1 {wavelet} {side}^2 level {level} {str(dtype)[6:]}",
+                kernels.dwt2(xin, plan),
                 want, lambda: kernels.dwt2(xin, plan), lambda: tmm.dwt2_plain(xin, At, Bt),
                 (At, xin, Bt), (xin, At, Bt), out_bytes, library=f32,
                 extra={"matmul_pair_ms": lambda: tmm.pair_plain(xin, At, Bt)} if f32 else None,
@@ -262,9 +291,11 @@ def _k1_cases(torch, tmm, kernels, g, side: int) -> list[dict]:
     return cases
 
 
-def _k3_cases(torch, tmm, kernels, g, side: int) -> list[dict]:
+def _k3_cases(torch, tmm, kernels, g, side: int, wavelet: str = WAVELET,
+              n: int = SAMPLE_CHUNK * BATCH * CHANNELS) -> list[dict]:
     """K3 forward and backward over the levels that `transform.waverec2`
-    collapses at a side x side path, on leaves made as the engine makes them:
+    collapses at a side x side path, on ``n`` images (CHANNELS a sample),
+    on leaves made as the engine makes them:
     detached views of K1's output for a noisy batch, which the kernel reads
     in place. The output and every leaf's gradient (through autograd of
     `waverec2_collapsed`) are held against the plain version, the assembly
@@ -277,21 +308,20 @@ def _k3_cases(torch, tmm, kernels, g, side: int) -> list[dict]:
     from wam_tpu_torch.wavelets.filters import build_wavelet
 
     dev = torch.device(DEVICE)
-    n = SAMPLE_CHUNK * BATCH * CHANNELS
     imgs = torch.randn((n // CHANNELS, CHANNELS, side, side), generator=g, device=dev)
     with torch.no_grad():
-        coeffs = tt.wavedec2(imgs, WAVELET, LEVELS, MODE, impl="kernel")
+        coeffs = tt.wavedec2(imgs, wavelet, LEVELS, MODE, impl="kernel")
     details = coeffs[1:][:tt._collapse_count(coeffs[1:])]
     flat = [coeffs[0]] + [t for d in details for t in d]
 
     def unflat(ls):
         return ls[0], [tt.Detail2D(*ls[1 + 3 * i:4 + 3 * i]) for i in range(len(details))]
 
-    w = build_wavelet(WAVELET)
+    w = build_wavelet(wavelet)
     rs = tuple(int(d.horizontal.shape[-2]) for d in details)
     cs = tuple(int(d.horizontal.shape[-1]) for d in details)
     fwd, bwd = tmm.pair_band(rs, cs, tuple(w.rec_lo), tuple(w.rec_hi), dev)
-    R, Rt, C, Ct = tmm.collapsed_operators(details, WAVELET, dev)
+    R, Rt, C, Ct = tmm.collapsed_operators(details, wavelet, dev)
     leaves = [tmm._leaf3(t) for t in flat]  # (n, r, c) views of K1's output
     if any(a.data_ptr() != b.data_ptr() for a, b in zip(leaves, flat)):
         raise AssertionError("K3: a leaf view of K1's output was copied")
@@ -306,7 +336,7 @@ def _k3_cases(torch, tmm, kernels, g, side: int) -> list[dict]:
 
     gout = torch.randn((n, fwd.p, fwd.t), generator=g, device=dev)
     kv = [t.detach().requires_grad_(True) for t in flat]
-    out = tmm.waverec2_collapsed(kv[0], unflat(kv)[1], WAVELET)
+    out = tmm.waverec2_collapsed(kv[0], unflat(kv)[1], wavelet)
     kgrads = torch.autograd.grad(out, kv, gout.reshape(out.shape))
     out = out.detach().reshape(n, fwd.p, fwd.t)
     pv = [t.detach().clone().requires_grad_(True) for t in leaves]
@@ -315,7 +345,7 @@ def _k3_cases(torch, tmm, kernels, g, side: int) -> list[dict]:
     want = want.detach()
     names = ["cA"] + [f"{q}{len(rs) - i}" for i in range(len(rs)) for q in "HVD"]
     for name, got_g, want_g in zip(names, kgrads, wgrads):
-        _check(f"K3 {side}^2 gradient of {name}", got_g.reshape(want_g.shape), want_g)
+        _check(f"K3 {wavelet} {side}^2 gradient of {name}", got_g.reshape(want_g.shape), want_g)
     with torch.no_grad():
         y3 = tmm.assemble_collapsed(*unflat(leaves))
         y3 = y3.reshape((n,) + y3.shape[-2:])
@@ -332,11 +362,11 @@ def _k3_cases(torch, tmm, kernels, g, side: int) -> list[dict]:
         off_r, off_c = off_r + 2 * r, off_c + 2 * c
     leaf_bytes = _nbytes(*leaves)
     cases = [
-        _case(torch, f"K3 {side}^2 forward", out, want, lambda: kernels.pair(leaves, fwd),
+        _case(torch, f"K3 {wavelet} {side}^2 forward", out, want, lambda: kernels.pair(leaves, fwd),
               lambda: plain_fwd(leaves), (Rt, y3, Ct), leaves, n * fwd.p * fwd.t * 4,
               extra={"assemble_ms": lambda: tmm.assemble_collapsed(*unflat(leaves))},
               part="forward", shape=[n, fwd.p, fwd.t], **tags),
-        _case(torch, f"K3 {side}^2 backward (autograd)",
+        _case(torch, f"K3 {wavelet} {side}^2 backward (autograd)",
               torch.cat([t.reshape(-1) for t in kgrads]), torch.cat([t.reshape(-1) for t in wgrads]),
               lambda: kernels.pair_bwd(gout, bwd), plain_bwd, (R, gout, C), (gout,), leaf_bytes,
               flops=bwd_flops, part="backward (autograd)", shape=[n, fwd.p, fwd.t], **tags)]
@@ -388,9 +418,11 @@ def _k2_cases(torch, tmm, kernels, g) -> tuple[list[dict], dict]:
 
 def phase_kernels(torch, tmm, kernels, sites) -> list[dict]:
     """Every kernel against its plain version at the launch shapes of each
-    path that runs it (N = SAMPLE_CHUNK * BATCH * CHANNELS images per
-    launch), TF32 off: K1 and K3 at the flagship's and at path 2's, K2 and
-    K4/K5 (at the ReLU ``sites``) at path 2's. One line per kernel and path."""
+    path that runs it, TF32 off: K1 and K3 at the flagship's and at path
+    2's (N = SAMPLE_CHUNK * BATCH * CHANNELS images per launch) and at the
+    ViT path's (haar: K1 on the image's CHANNELS planes, K3 on a chunk's
+    VIT_CHUNK * CHANNELS), K2 and K4/K5 (at the ReLU ``sites``) at path 2's.
+    One line per kernel and path."""
     dev = torch.device(DEVICE)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -404,18 +436,23 @@ def phase_kernels(torch, tmm, kernels, sites) -> list[dict]:
           "wam_tpu/wavelets/matmul.py:439")
     einsum = "torch.einsum (the matmul pair, without the quadrant split)"
     rows = []
-    for path, side in (("flagship", SIDE), ("path 2", SIDE2)):
-        k1_cases = _k1_cases(torch, tmm, kernels, g, side)
-        k1_work = f"3 analysis levels at {side}^2, f32 input, one sample chunk"
+    chunk = SAMPLE_CHUNK * BATCH * CHANNELS
+    for path, side, wavelet, n1, n3, once in (
+            ("flagship", SIDE, WAVELET, chunk, chunk, "one sample chunk"),
+            ("path 2", SIDE2, WAVELET, chunk, chunk, "one sample chunk"),
+            ("vit", VIT_SIDE, VIT_WAVELET, CHANNELS, VIT_CHUNK * CHANNELS, "")):
+        k1_cases = _k1_cases(torch, tmm, kernels, g, side, wavelet, n1)
+        k1_work = (f"3 analysis levels at {side}^2, {wavelet}, f32 input, "
+                   + (once or "the image's 3 planes (once a call)"))
         if path == "path 2":
             k1_cases.append(k2_bwd)
             k1_work += ", and K2's backward at the finest synthesis level"
         rows.append(_row(*k1, path, k1_cases, einsum, k1_work))
-        k3_cases = _k3_cases(torch, tmm, kernels, g, side)
+        k3_cases = _k3_cases(torch, tmm, kernels, g, side, wavelet, n3)
         rows.append(_row(*k3, path, k3_cases,
                          "torch.einsum (the matmul pair on the assembled Y; dense dY)",
-                         f"forward + backward of the collapsed levels at {side}^2, "
-                         "one sample chunk"))
+                         f"forward + backward of the collapsed levels at {side}^2, {wavelet}, "
+                         + (once or f"one chunk of {VIT_CHUNK} path points")))
         rows[-1]["assemble_ms"] = k3_cases[0]["assemble_ms"]
     rows.insert(3, _row("synth2", "idwt2_kernel (K2)", "wam_tpu_torch/csrc/synth2.cu",
                         "wam_tpu/wavelets/matmul.py:313", "path 2", k2_cases,
@@ -725,28 +762,39 @@ def audio_wam(wtt, fn, device, n_samples: int = AUDIO_SAMPLES, **kw):
         sample_batch_size=AUDIO_CHUNK, device=device, **kw)
 
 
-def _time_calls(torch, kernels, wam, x, y, calls: int) -> dict:
+def _time_calls(torch, kernels, wam, x, y, calls: int, items: int = AUDIO_BATCH,
+                unit: str = "waveforms") -> dict:
     """Launch counts set to 0, one warm call (cuDNN and cuFFT plans, the
-    allocator), then ``calls`` calls each timed by CUDA events, the peak
-    memory over them, and the launch counts read just after."""
+    allocator) with the counts read just after it (``call_launches``: one
+    call's launches), then ``calls`` calls each timed by CUDA events, the
+    peak memory over them, and the counts read just after (``launches``: all
+    the calls'); ``items`` inputs a call give the rate ``{unit}_per_s``. Each
+    call's host time until it returns, before the device has finished
+    (``enqueue_ms``; no op of these paths waits for the device), says how
+    far the host holds the device back: near the event time, the call is
+    bound by the host."""
     kernels.reset_launch_counts()
     t0 = time.perf_counter()
     wam(x, y)
     torch.cuda.synchronize()
     warm_s = time.perf_counter() - t0
+    call_launches = kernels.launch_counts()
     torch.cuda.reset_peak_memory_stats()
-    times = []
+    times, enqueue = [], []
     for _ in range(calls):
         start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        t0 = time.perf_counter()
         start.record()
         out = wam(x, y)
         end.record()
+        enqueue.append((time.perf_counter() - t0) * 1e3)
         torch.cuda.synchronize()
         times.append(start.elapsed_time(end))
     med = sorted(times)[len(times) // 2]
-    return {"out": out, "launches": kernels.launch_counts(), "first_call_s": warm_s,
+    return {"out": out, "launches": kernels.launch_counts(), "call_launches": call_launches,
+            "first_call_s": warm_s,
             "calls_ms": times, "median_ms": med, "spread_ms": [min(times), max(times)],
-            "waveforms_per_s": AUDIO_BATCH / (med / 1e3),
+            "enqueue_ms": sorted(enqueue)[len(enqueue) // 2], f"{unit}_per_s": items / (med / 1e3),
             "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9}
 
 
@@ -884,6 +932,156 @@ def phase_audio(torch, wtt, kernels, smi: str) -> dict:
     return summary
 
 
+def _precision(torch, tf32: bool) -> str:
+    """Set TF32 for matmuls and cuDNN convolutions together; the setting
+    as printed."""
+    torch.backends.cuda.matmul.allow_tf32 = tf32
+    torch.backends.cudnn.allow_tf32 = tf32
+    return (f"torch.backends.cuda.matmul.allow_tf32={tf32} "
+            f"torch.backends.cudnn.allow_tf32={tf32}")
+
+
+def build_vit(torch, wtt, arch: str = "vit", compute_dtype=None):
+    """The ViT path's set-up, shared with scripts/torch_slice_profile.py:
+    ViT-B/16 (``arch="vit"``) or ConvNeXt-T (``"convnext"``) with 1000
+    classes, its weights drawn by the port's initialisers (the reference's:
+    lecun_normal kernels, zero biases, ...) from torch's generator seeded
+    SEED, bound with ``bind_inference(nchw=True)`` as
+    ``bench_workloads.vit_workload`` binds it (in ``compute_dtype`` when
+    given); one (1, CHANNELS, VIT_SIDE, VIT_SIDE) image from a generator
+    seeded SEED + 1 and label 0. Returns (model, model_fn, x, y)."""
+    dev = torch.device(DEVICE)
+    torch.manual_seed(SEED)
+    model = wtt.vit_b16(num_classes=1000) if arch == "vit" else wtt.convnext_tiny(num_classes=1000)
+    fn = wtt.bind_inference(model, nchw=True, compute_dtype=compute_dtype, device=dev)
+    g = torch.Generator(device=dev).manual_seed(SEED + 1)
+    x = torch.randn((1, CHANNELS, VIT_SIDE, VIT_SIDE), generator=g, device=dev)
+    return model, fn, x, torch.zeros((1,), dtype=torch.int64, device=dev)
+
+
+def vit_wam(wtt, fn, device, n_samples: int | None = None, impl: str = "kernel"):
+    """The ViT path's `WaveletAttribution2D` Integrated-Gradients object
+    (VIT_STEPS path points unless ``n_samples`` is given)."""
+    return wtt.WaveletAttribution2D(fn, wavelet=VIT_WAVELET, J=VIT_LEVELS, mode=VIT_MODE,
+                                    method="integratedgrad", n_samples=n_samples or VIT_STEPS,
+                                    sample_batch_size=VIT_CHUNK, device=device, impl=impl)
+
+
+VIT_LAUNCHES = {"dwt2": VIT_LEVELS, "synth2": 0, "pair": 2 * (VIT_STEPS // VIT_CHUNK),
+                "relu_fwd": 0, "relu_bwd": 0}
+
+
+def _check_vit_result(torch, wam, run: dict, arch: str) -> None:
+    """The mosaic is (1, 224, 224) (haar keeps the side), finite and
+    nonzero, the scales (1, J, 224, 224), and one call launched exactly
+    K1 3 times (the analysis levels, once a call) and K3 8 times (forward
+    and backward of each of the 4 chunks), no other kernel."""
+    out = run["out"]
+    if tuple(out.shape) != (1, VIT_SIDE, VIT_SIDE):
+        raise AssertionError(f"{arch}: mosaic shape {tuple(out.shape)}")
+    if not bool(torch.isfinite(out).all()) or float(out.abs().sum()) == 0.0:
+        raise AssertionError(f"{arch}: mosaic is not finite and nonzero")
+    if tuple(wam.scales.shape) != (1, VIT_LEVELS, VIT_SIDE, VIT_SIDE):
+        raise AssertionError(f"{arch}: scales shape {tuple(wam.scales.shape)}")
+    if run["call_launches"] != VIT_LAUNCHES:
+        raise AssertionError(f"{arch}: launches of one call {run['call_launches']}, expected "
+                             f"{VIT_LAUNCHES}")
+
+
+def _timed(torch, kernels, wam, x, y, calls: int) -> dict:
+    return _time_calls(torch, kernels, wam, x, y, calls, items=1, unit="attributions")
+
+
+def _log_run(tag: str, run: dict, smi: str) -> None:
+    _log(f"  {tag}: first call {run['first_call_s']:.3f} s; {len(run['calls_ms'])} calls (CUDA "
+         f"events) {[round(t, 3) for t in run['calls_ms']]} ms, median {run['median_ms']:.3f} ms "
+         f"(spread {run['spread_ms'][0]:.3f}-{run['spread_ms'][1]:.3f}) = "
+         f"{run['attributions_per_s']:.2f} attributions/s; host enqueue {run['enqueue_ms']:.3f} ms "
+         f"(median); peak memory {run['peak_memory_gb']:.2f} GB on {smi}")
+
+
+def _reduced_vit_check(torch, wtt, fn, x, y, arch: str) -> dict:
+    """The kernel path against the plain path (impl="matmul") on the same
+    model and image, VIT_REDUCED_STEPS path points, TF32 off; cosine and
+    max abs error of the attribution, held to VIT_TOL."""
+    _precision(torch, False)
+    dev = torch.device(DEVICE)
+    res = {impl: vit_wam(wtt, fn, dev, VIT_REDUCED_STEPS, impl)(x, y)
+           for impl in ("kernel", "matmul")}
+    a, b = res["kernel"].double(), res["matmul"].double()
+    err, peak = float((a - b).abs().max()), float(b.abs().max())
+    cos = _cosine(torch, a, b)
+    cos_tol, rel_tol = VIT_TOL
+    _log(f"  reduced check ({arch}, TF32 off, 1 image x {VIT_REDUCED_STEPS} path points): "
+         f"kernel vs plain cosine={cos:.10f} (tol >= {cos_tol}) max_abs_err={err:.3e} "
+         f"(tol {rel_tol * peak:.3e} = {rel_tol} x max {peak:.3e}; {err / peak:.2e} of the max)")
+    if not (math.isfinite(err) and err <= rel_tol * peak and cos >= cos_tol):
+        raise AssertionError(f"{arch} reduced check: kernel path disagrees with the plain path")
+    return {"cosine": cos, "max_abs_err": err, "max": peak, "rel_err": err / peak}
+
+
+def phase_vit(torch, wtt, kernels, smi: str) -> dict:
+    """The ViT path: the headline arm (TF32 on) with the launch counts
+    checked, the TF32-off arm, the bf16-model arm, and the reduced
+    kernel-vs-plain check."""
+    _, fn, x, y = build_vit(torch, wtt)
+    dev = torch.device(DEVICE)
+    wam = vit_wam(wtt, fn, dev)
+    _log(f"phase vit: ViT-B/16(1000) x (1,{CHANNELS},{VIT_SIDE},{VIT_SIDE}) {VIT_WAVELET} "
+         f"J={VIT_LEVELS} {VIT_MODE} integratedgrad n_samples={VIT_STEPS} "
+         f"sample_batch_size={VIT_CHUNK}")
+    prec = _precision(torch, True)
+    run = _timed(torch, kernels, wam, x, y, VIT_CALLS)
+    _check_vit_result(torch, wam, run, "vit")
+    _log(f"  launches of one call: {run['call_launches']} (asserted == {VIT_LAUNCHES})")
+    _log_run(f"headline, {prec}", run, smi)
+    summary = {k: v for k, v in run.items() if k != "out"}
+    summary["precision"] = prec
+
+    prec_off = _precision(torch, False)
+    exact = _timed(torch, kernels, wam, x, y, VIT_CALLS)
+    _check_vit_result(torch, wam, exact, "vit, TF32 off")
+    cos_tf32 = _cosine(torch, run["out"], exact["out"])
+    _log_run(f"float32, {prec_off}", exact, smi)
+    _log(f"  mosaic cosine, TF32 on to TF32 off: {cos_tf32:.8f}")
+    summary["tf32_off"] = {k: v for k, v in exact.items()
+                           if k not in ("out", "launches", "call_launches")}
+    summary["tf32_cosine_to_f32"] = cos_tf32
+
+    _precision(torch, True)
+    _, fn16, _, _ = build_vit(torch, wtt, compute_dtype=torch.bfloat16)
+    wam16 = vit_wam(wtt, fn16, dev)
+    bf16 = _timed(torch, kernels, wam16, x, y, 3)
+    _check_vit_result(torch, wam16, bf16, "vit, bf16")
+    cos16 = _cosine(torch, bf16["out"], exact["out"])
+    _log_run(f"model in bfloat16, {prec}", bf16, smi)
+    _log(f"  bf16 mosaic cosine to the float32 TF32-off result: {cos16:.6f} (no gate)")
+    summary["bf16_model"] = {**{k: v for k, v in bf16.items() if k != "out"},
+                             "cosine_to_f32": cos16}
+    del fn16, wam16, bf16
+    summary["reduced_check"] = _reduced_vit_check(torch, wtt, fn, x, y, "vit")
+    return summary
+
+
+def phase_convnext(torch, wtt, kernels, smi: str) -> dict:
+    """The same call on ConvNeXt-T: launch counts checked, median of 3
+    calls (TF32 on), and the reduced check."""
+    _, fn, x, y = build_vit(torch, wtt, "convnext")
+    wam = vit_wam(wtt, fn, torch.device(DEVICE))
+    _log(f"phase convnext: ConvNeXt-T(1000) x (1,{CHANNELS},{VIT_SIDE},{VIT_SIDE}) {VIT_WAVELET} "
+         f"J={VIT_LEVELS} {VIT_MODE} integratedgrad n_samples={VIT_STEPS} "
+         f"sample_batch_size={VIT_CHUNK}")
+    prec = _precision(torch, True)
+    run = _timed(torch, kernels, wam, x, y, CONVNEXT_CALLS)
+    _check_vit_result(torch, wam, run, "convnext")
+    _log(f"  launches of one call: {run['call_launches']} (asserted == {VIT_LAUNCHES})")
+    _log_run(f"headline, {prec}", run, smi)
+    summary = {k: v for k, v in run.items() if k != "out"}
+    summary["precision"] = prec
+    summary["reduced_check"] = _reduced_vit_check(torch, wtt, fn, x, y, "convnext")
+    return summary
+
+
 def main() -> int:
     import torch
 
@@ -920,14 +1118,20 @@ def main() -> int:
     slice_ = phase_slice(torch, wtt, kernels, smi)
     slice2 = phase_slice2(torch, wtt, kernels, smi, len(sites))
     audio = phase_audio(torch, wtt, kernels, smi)
-    launches = {"flagship": slice_["launches"], "path 2": slice2["launches"]}
+    vit = phase_vit(torch, wtt, kernels, smi)
+    convnext = phase_convnext(torch, wtt, kernels, smi)
+    launches = {"flagship": slice_["launches"], "path 2": slice2["launches"],
+                "vit": vit["call_launches"]}
     for row in rows:
         row["launches"] = launches[row["path"]][row["kernel"]]
         row["audio_launches"] = audio["launches"][row["kernel"]]
+        row["vit_launches"] = vit["call_launches"][row["kernel"]]
+        row["convnext_launches"] = convnext["call_launches"][row["kernel"]]
 
     print(json.dumps({"slice": {k: v for k, v in slice_.items() if k != "launches"},
                       "slice2": {k: v for k, v in slice2.items() if k != "launches"},
-                      "audio": audio, "gpu": smi}), flush=True)
+                      "audio": audio, "vit": vit, "convnext": convnext, "gpu": smi}),
+          flush=True)
     print(json.dumps({"kernels": rows}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Where the time of one of the port's paths goes on the card.
 
-    python3 scripts/torch_slice_profile.py [--path2 | --audio]
+    python3 scripts/torch_slice_profile.py [--path2 | --audio | --vit | --convnext] [--bf16]
 
 Runs a path of chip_smoke.py, set up by its own code (one definition for
 both): by default the flagship, `wam_tpu_torch.WaveletAttribution2D`
@@ -10,14 +10,24 @@ J=3, n_samples=25, sample_batch_size=4, cuDNN TF32 on); with ``--path2`` the
 same at 3x288x288 with ``fused_relu_vjp=True``; with ``--audio`` the audio
 path, `WaveletAttribution1D` SmoothGrad on the AudioCNN
 (`chip_smoke.build_audio`: 8 x 220,500 samples, db6, J=5, n_samples=50,
-sample_batch_size=16). One call to warm up, then one under `torch.profiler`;
-prints one JSON line: the call's wall time, the summed device time of its
-kernels by group (K1-K5, the 1D transform, FFT, convolutions, matmuls,
-batchnorm, pooling, other), and the device's idle share (1 - summed kernel
-time / wall time; one stream, so kernels do not overlap). The 1D
-transform's kernels are those launched inside its ``wam_dwt1`` profiler
-spans (`wavelets.transform.SPAN_1D`), taken out of the group their names
-fall in. Needs one CUDA card.
+sample_batch_size=16); with ``--vit`` the ViT path, `WaveletAttribution2D`
+Integrated Gradients on ViT-B/16 (`chip_smoke.build_vit`: one 3x224x224
+image, haar, J=3, 64 path points, sample_batch_size=16, TF32 on for
+matmuls and convolutions, chip_smoke's headline arm); with ``--convnext``
+the same call on ConvNeXt-T; ``--bf16`` binds either model in bfloat16
+(chip_smoke's bf16 arm). One call to warm up, then one under
+`torch.profiler`; prints one JSON line: the call's wall time, the summed
+device time of its kernels by group (K1-K5, the 1D transform, FFT,
+convolutions, matmuls, batchnorm, pooling, other), and the device's idle
+share (1 - summed kernel time / wall time; one stream, so kernels do not
+overlap). The 1D transform's kernels are those launched inside its
+``wam_dwt1`` profiler spans (`wavelets.transform.SPAN_1D`), taken out of the
+group their names fall in. On the ViT and ConvNeXt paths every kernel other
+than K1-K5 is grouped by the op that launched it (`OP_GROUPS`: matmul,
+attention, LayerNorm, GELU, convolution forward and backward, copies),
+since cuBLAS's and cuDNN's kernel names do not tell a matmul from a
+convolution. The JSON also lists the kernels that took the most device
+time (``top_kernels``). Needs one CUDA card.
 """
 
 from __future__ import annotations
@@ -43,6 +53,37 @@ GROUPS = (  # first match wins, on the lower-cased kernel name
     ("batchnorm", ("batch_norm", "bn_")),
     ("pooling", ("pool",)),
 )
+
+
+# --vit / --convnext: a kernel's group by the op that launched it, the
+# innermost op first, then its parents; first match wins
+OP_GROUPS = (
+    ("attention (SDPA)", ("attention",)),
+    ("LayerNorm", ("layer_norm",)),
+    ("GELU", ("gelu",)),
+    ("convolution backward (cuDNN: input gradient)", ("convolution_backward",)),
+    ("convolution forward (cuDNN)", ("convolution", "cudnn")),
+    ("matmul (cuBLAS)", ("aten::mm", "aten::addmm", "aten::matmul", "aten::linear")),
+    ("copies (copy_, cat, index_select)", ("copy_", "clone", "aten::cat", "index_select")),
+)
+OP_OTHER = "other (elementwise, reductions)"
+
+
+def _op_group(ev) -> str:
+    chain = []
+    while ev is not None:
+        chain.append(ev.name.lower())
+        ev = ev.cpu_parent
+    for name in chain:
+        for label, keys in OP_GROUPS:
+            if any(k in name for k in keys):
+                return label
+    return OP_OTHER
+
+
+def _op_kernels(prof) -> list[tuple[str, float, str]]:
+    """(kernel name, device ms, op group) of every kernel an op launched."""
+    return [(k.name, k.duration / 1e3, _op_group(ev)) for ev in prof.events() for k in ev.kernels]
 
 
 def _group(name: str) -> str:
@@ -91,7 +132,17 @@ def main() -> int:
 
     kernels.build_all()
     path2, audio = "--path2" in sys.argv[1:], "--audio" in sys.argv[1:]
-    if audio:
+    arch = next((a for a in ("vit", "convnext") if f"--{a}" in sys.argv[1:]), None)
+    if arch:
+        chip_smoke._precision(torch, True)
+        bf16 = "--bf16" in sys.argv[1:]
+        _, fn, x, y = chip_smoke.build_vit(torch, wtt, arch,
+                                           compute_dtype=torch.bfloat16 if bf16 else None)
+        wam = chip_smoke.vit_wam(wtt, fn, torch.device(chip_smoke.DEVICE))
+        path = (f"{arch} (1x3x{chip_smoke.VIT_SIDE}^2, {chip_smoke.VIT_WAVELET} "
+                f"J={chip_smoke.VIT_LEVELS}, IG {chip_smoke.VIT_STEPS} steps, chunk "
+                f"{chip_smoke.VIT_CHUNK}, TF32 on{', model in bfloat16' if bf16 else ''})")
+    elif audio:
         _, fn, x, y = chip_smoke.build_audio(torch, wtt)
         wam = chip_smoke.audio_wam(wtt, fn, torch.device(chip_smoke.DEVICE))
         path = (f"audio ({chip_smoke.AUDIO_BATCH}x{chip_smoke.AUDIO_LEN}, AudioCNN, "
@@ -114,6 +165,7 @@ def main() -> int:
 
     groups: dict[str, float] = {}
     launches: dict[str, int] = {}
+    top = []
     for ev in prof.key_averages():
         dt = getattr(ev, "self_device_time_total", 0.0) or 0.0
         if dt <= 0 or ev.device_type != torch.autograd.DeviceType.CUDA or ev.key == SPAN_1D:
@@ -121,12 +173,17 @@ def main() -> int:
         label = _group(ev.key)
         groups[label] = groups.get(label, 0.0) + dt / 1e3
         launches[label] = launches.get(label, 0) + ev.count
-    for name, ms in _span_kernels(prof, SPAN_1D):
+        top.append((dt / 1e3, ev.count, ev.key[:120]))
+    moves = [(name, ms, DWT1) for name, ms in _span_kernels(prof, SPAN_1D)]
+    if arch:
+        moves += [m for m in _op_kernels(prof) if not _group(m[0]).startswith("K")]
+    for name, ms, new in moves:
         label = _group(name)
         groups[label] -= ms
         launches[label] -= 1
-        groups[DWT1] = groups.get(DWT1, 0.0) + ms
-        launches[DWT1] = launches.get(DWT1, 0) + 1
+        groups[new] = groups.get(new, 0.0) + ms
+        launches[new] = launches.get(new, 0) + 1
+    groups = {k: v for k, v in groups.items() if launches[k]}
     busy_ms = sum(groups.values())
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip()
@@ -135,7 +192,11 @@ def main() -> int:
         "gpu": smi, "wall_ms": wall_ms, "device_busy_ms": busy_ms,
         "device_idle_share": 1.0 - busy_ms / wall_ms if busy_ms else None,
         "groups_ms": dict(sorted(groups.items(), key=lambda kv: -kv[1])),
+        "groups_share": {k: v / busy_ms for k, v in sorted(groups.items(), key=lambda kv: -kv[1])}
+        if busy_ms else None,
         "kernel_launches": launches,
+        "top_kernels": [{"ms": ms, "launches": n, "name": name}
+                        for ms, n, name in sorted(top, reverse=True)[:15]],
     }))
     if busy_ms == 0:
         print("torch_slice_profile: the profiler recorded no device time", file=sys.stderr)

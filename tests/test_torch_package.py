@@ -19,7 +19,9 @@ from wam_tpu_torch import kernels
 from wam_tpu_torch.device import resolve_device
 from wam_tpu_torch import wam1d as tw1
 from wam_tpu_torch.models import audio as taudio
+from wam_tpu_torch.models import convnext as tconvnext
 from wam_tpu_torch.models import resnet as tres
+from wam_tpu_torch.models import vit as tvit
 from wam_tpu_torch.models.toy import toy_conv_model
 from wam_tpu_torch.tune import fused_relu as tfr
 from wam_tpu_torch.wam2d import BaseWAM2D, WaveletAttribution2D
@@ -120,6 +122,35 @@ def test_cpu_tensors_never_reach_the_kernels(monkeypatch, crossover):
     fn = tres.bind_inference(tres.resnet18(num_classes=2), fused_relu_vjp=True, device="cpu")
     WaveletAttribution2D(fn, wavelet="db4", n_samples=2, device="cpu",
                          impl="kernel")(x.expand(2, 3, 24, 24), torch.tensor([0, 1]))
+    assert kernels.launch_counts() == before
+
+
+def test_vit_slice_entry_points_raise_without_a_card(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for make in (lambda: tvit.bind_vit_inference(tvit.vit_tiny_test(image_size=32)),
+                 lambda: tres.bind_inference(tconvnext.convnext_test(), nchw=True)):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            make()
+
+
+def test_vit_on_cpu_tensors_never_reaches_the_kernels(monkeypatch):
+    """IG and SmoothGrad on the tiny ViT and ConvNeXt with the kernel impl on
+    CPU tensors run the plain versions only."""
+    def boom(*a, **k):
+        raise AssertionError("CUDA path reached from CPU tensors")
+
+    for name in (*LAUNCHERS, "build_all"):
+        monkeypatch.setattr(kernels, name, boom)
+    before = kernels.launch_counts()
+    x = torch.from_numpy(np.random.default_rng(0).standard_normal((1, 3, 32, 32))
+                         .astype(np.float32))
+    for model in (tvit.vit_tiny_test(num_classes=3, image_size=32),
+                  tconvnext.convnext_test(num_classes=3)):
+        fn = tvit.bind_vit_inference(model, nchw=True, device="cpu")
+        for method in ("integratedgrad", "smooth"):
+            out = WaveletAttribution2D(fn, wavelet="haar", J=3, method=method, n_samples=2,
+                                       device="cpu", impl="kernel")(x, torch.tensor([1]))
+            assert out.shape == (1, 32, 32)
     assert kernels.launch_counts() == before
 
 
@@ -433,6 +464,17 @@ def test_audio_public_names_exported():
                  "sample_noise"):
         assert hasattr(wam_tpu_torch, name), name
         assert name in wam_tpu_torch.__all__, name
+
+
+def test_vit_slice_public_names_exported():
+    import wam_tpu_torch.models as tmodels
+
+    for name in ("ViT", "vit_b16", "vit_tiny_test", "bind_vit_inference", "ConvNeXt",
+                 "convnext_tiny", "convnext_test", "PatchConv", "flax_vit_to_torch",
+                 "flax_convnext_to_torch"):
+        for pkg in (wam_tpu_torch, tmodels):
+            assert hasattr(pkg, name), (pkg.__name__, name)
+            assert name in pkg.__all__, (pkg.__name__, name)
 
 
 def test_public_names_exported():

@@ -1,8 +1,9 @@
 """wam_tpu_torch: the Wavelet Attribution Method in PyTorch and CUDA.
 
 A port of `wam_tpu` (JAX on the TPU, kept as the reference) to PyTorch on an
-NVIDIA H100: WAM-2D on images (`WaveletAttribution2D`) and WAM-1D on audio
-(`WaveletAttribution1D`, through the mel front end). Module paths and names
+NVIDIA H100: WAM-2D on images (`WaveletAttribution2D`, on ResNets, ViTs and
+ConvNeXts) and WAM-1D on audio (`WaveletAttribution1D`, through the mel front
+end). Module paths and names
 mirror `wam_tpu`; the TPU's Pallas kernels become hand-written CUDA kernels
 (`wam_tpu_torch.kernels`), each with its plain PyTorch version beside it for
 CPU tensors and for tests. Entry points run on CUDA unless the caller passes
@@ -20,8 +21,16 @@ from wam_tpu_torch.core.estimators import (
 )
 from wam_tpu_torch.device import resolve_device
 from wam_tpu_torch.models.audio import AudioCNN, bind_audio_inference, toy_wave_model
-from wam_tpu_torch.models.ingest import flax_audio_to_torch, flax_resnet_to_torch
+from wam_tpu_torch.models.convnext import ConvNeXt, convnext_test, convnext_tiny
+from wam_tpu_torch.models.ingest import (
+    flax_audio_to_torch,
+    flax_convnext_to_torch,
+    flax_resnet_to_torch,
+    flax_vit_to_torch,
+)
+from wam_tpu_torch.models.patchconv import PatchConv
 from wam_tpu_torch.models.resnet import bind_inference, resnet18, resnet50
+from wam_tpu_torch.models.vit import ViT, bind_vit_inference, vit_b16, vit_tiny_test
 from wam_tpu_torch.ops.melspec import (
     amplitude_to_db,
     mel_filterbank,
@@ -61,7 +70,10 @@ __all__ = [
     "AudioCNN",
     "BaseWAM1D",
     "BaseWAM2D",
+    "ConvNeXt",
     "Detail2D",
+    "PatchConv",
+    "ViT",
     "VisualizerWAM1D",
     "WamEngine",
     "WaveletAttribution1D",
@@ -69,12 +81,17 @@ __all__ = [
     "amplitude_to_db",
     "bind_audio_inference",
     "bind_inference",
+    "bind_vit_inference",
+    "convnext_test",
+    "convnext_tiny",
     "disentangle_scales",
     "dwt",
     "dwt2",
     "dwt_max_level",
     "flax_audio_to_torch",
+    "flax_convnext_to_torch",
     "flax_resnet_to_torch",
+    "flax_vit_to_torch",
     "fused_relu",
     "idwt",
     "idwt2",
@@ -98,6 +115,8 @@ __all__ = [
     "toy_wave_model",
     "trapezoid",
     "validate_sample_batch_size",
+    "vit_b16",
+    "vit_tiny_test",
     "wavedec",
     "wavedec2",
     "waverec",

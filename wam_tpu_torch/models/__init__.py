@@ -1,1 +1,34 @@
 """Models and checkpoint ingestion (PyTorch port of `wam_tpu.models`)."""
+
+from wam_tpu_torch.models.audio import AudioCNN, bind_audio_inference
+from wam_tpu_torch.models.convnext import ConvNeXt, convnext_test, convnext_tiny
+from wam_tpu_torch.models.ingest import (
+    flax_audio_to_torch,
+    flax_convnext_to_torch,
+    flax_resnet_to_torch,
+    flax_vit_to_torch,
+)
+from wam_tpu_torch.models.patchconv import PatchConv
+from wam_tpu_torch.models.resnet import ResNet, bind_inference, resnet18, resnet50
+from wam_tpu_torch.models.vit import ViT, bind_vit_inference, vit_b16, vit_tiny_test
+
+__all__ = [
+    "AudioCNN",
+    "ConvNeXt",
+    "PatchConv",
+    "ResNet",
+    "ViT",
+    "bind_audio_inference",
+    "bind_inference",
+    "bind_vit_inference",
+    "convnext_test",
+    "convnext_tiny",
+    "flax_audio_to_torch",
+    "flax_convnext_to_torch",
+    "flax_resnet_to_torch",
+    "flax_vit_to_torch",
+    "resnet18",
+    "resnet50",
+    "vit_b16",
+    "vit_tiny_test",
+]
