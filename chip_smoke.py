@@ -12,7 +12,8 @@ sm_90a). Phases, each fatal on failure:
 3. kernels: each kernel against its plain PyTorch version at the shapes
    each path that runs it gives it, TF32 off, and timed with CUDA events:
    K1 and K3 at the flagship's, at path 2's and at the ViT path's (haar),
-   K2 (both directions) and K4/K5 at path 2's; one line per kernel and
+   K2 (both directions) and K4/K5 at path 2's, K4/K5 also at the vol
+   path's 17 ReLU shapes (128 rows, float32); one line per kernel and
    path, each case and line
    with its bound and bound_share (bound / kernel time). K1-K3 launch
    with their band plans (K3 on the coefficient leaves, views of K1's
@@ -62,7 +63,39 @@ sm_90a). Phases, each fatal on failure:
    same model, one image, 4 path points, TF32 off (cosine >= 0.99999, max
    abs <= 1e-4 x the plain result's max);
 8. convnext: the same call on ConvNeXt-T (1000 classes): launch counts as
-   for the ViT, median of 3 calls, peak memory, and the same reduced check.
+   for the ViT, median of 3 calls, peak memory, and the same reduced check;
+9. vol: the 3D path (`BASELINE.json`'s config #4, as
+   ``bench_workloads.vol_workload`` defines it): `WaveletAttribution3D`
+   SmoothGrad on the 3D ResNet-18 (10 classes, width 16, seeded weights
+   drawn as the reference's initialisers draw them, BatchNorm statistics
+   from one train-mode pass over two seeded volumes) bound with
+   ``bind_inference``, 8 volumes of 1x32^3, haar, J=2, symmetric,
+   n_samples=25, stdev_spread=1e-4, sample_batch_size=16 (128 model rows a
+   step). TF32 on for the model (set and printed); the transform always
+   in full float32. One call with the launch counts set to 0 just before
+   and read just after (all 0, asserted), then CUDA-event times of 5 calls
+   (median, spread, volumes/s, host enqueue time, peak memory). Arms, timed
+   and printed: IG with 25 path points; the synthesis3_mm synthesis
+   (``impl="kernel"``; the default is conv_transpose3d); the model bound
+   with ``fold_bn=True, fused_relu_vjp=True``, where K4 and K5 launch at
+   the 17 ReLU sites once a chunk (34 each a call, asserted), with its cube
+   cosine to the headline. `waverec3` on both synthesis forms at the
+   headline's shapes, forward and backward, timed in turns. Then the
+   checks: the fused model (without fold_bn) against the plain one on the
+   card, cuDNN deterministic (cosine >= 0.999999, max abs <= 1e-6 x max),
+   and the port on the card against the port on the CPU (2 volumes of
+   16^3, 2 samples, noise handed over, TF32 off) in float32 through the
+   class (cosine >= 0.99999, max abs <= 1e-4 x max) and in float64 through
+   its engine (cosine >= 0.9999999, max abs <= 1e-9 x max);
+10. voxel3d: the reference's own 3D models: `VoxelModel` (10 classes) on 32
+   volumes of 16^3 (3D-MNIST), `WaveletAttribution3D` SmoothGrad (haar,
+   J=2, symmetric, n_samples=25, chunk 4) timed over 3 calls, then
+   `visualize`, one pass and `filter_voxels`; `PointNetCls` (k=10) on 32
+   clouds of 2,500 points with `BaseWAM3D(instance="point_clouds")` (haar,
+   J=3, symmetric), 3 timed passes and `filter_point_clouds`; no port
+   kernel may launch (asserted); then card against CPU in float64 (the
+   voxel model's coefficient gradients on 4 volumes of 16^3, PointNet's on
+   2 clouds of 256 points; cosine >= 0.9999999, max abs <= 1e-9 x max).
 
 Prints a summary JSON line, the kernels' JSON line, the nvidia-smi line, and as its last line
 ``{"ok": true, "device": {...}}``. Exits nonzero, printing no result, when
@@ -113,6 +146,30 @@ VIT_TOL = (0.99999, 1e-4)
 # bounds in float32 (measured, see _audio_reduced_check) and in float64
 AUDIO_REDUCED = (2, 65536, 2)
 AUDIO_TOL = {"float32": (0.999, 1e-1), "float64": (0.9999999, 1e-9)}
+# the vol path: BASELINE.json's config #4, as bench_workloads.vol_workload defines it
+VOL_BATCH, VOL_SIDE, VOL_CLASSES, VOL_WIDTH = 8, 32, 10, 16
+VOL_WAVELET, VOL_LEVELS, VOL_MODE = "haar", 2, "symmetric"
+VOL_SAMPLES, VOL_SPREAD = 25, 1e-4
+VOL_CHUNK = 16                          # samples per model call: 16 x 8 = 128 rows
+VOL_CALLS = 5                           # timed calls after the counted one (arms: 3)
+VOL_SITES = 17                          # ReLUs of the 3D ResNet-18: the stem's, 2 a block
+VOL_FUSED_LAUNCHES = {"dwt2": 0, "synth2": 0, "pair": 0,
+                      "relu_fwd": VOL_SITES * -(-VOL_SAMPLES // VOL_CHUNK),
+                      "relu_bwd": VOL_SITES * -(-VOL_SAMPLES // VOL_CHUNK)}
+# reduced checks: volumes, side, samples; (cosine, max abs / max) bounds of
+# the card against the CPU and of the fused arm against the plain model on
+# the card. float32 measured 7.6e-7 and 8.2e-7 of the max at cosine 1 - 1e-10
+# (no ReLU gate flipped; H100 80GB HBM3, 700 W): the bound leaves ~100x of
+# headroom
+VOL_REDUCED = (2, 16, 2)
+VOL_TOL = {"float32": (0.99999, 1e-4), "float64": (0.9999999, 1e-9)}
+VOL_FUSED_TOL = (0.999999, 1e-6)
+# the voxel3d phase: the reference's VoxelModel on 3D-MNIST-sized grids, and
+# PointNetCls on clouds of the PointNet reference's 2,500 points
+VOXEL_BATCH, VOXEL_SIDE, VOXEL_CHUNK, VOXEL_CALLS = 32, 16, 4, 3
+CLOUD_BATCH, CLOUD_POINTS, CLOUD_LEVELS = 32, 2500, 3
+CLOUD_REDUCED = (2, 256)
+ZERO_LAUNCHES = {"dwt2": 0, "synth2": 0, "pair": 0, "relu_fwd": 0, "relu_bwd": 0}
 
 
 def _log(*args):
@@ -416,13 +473,14 @@ def _k2_cases(torch, tmm, kernels, g) -> tuple[list[dict], dict]:
     return cases, bwd
 
 
-def phase_kernels(torch, tmm, kernels, sites) -> list[dict]:
+def phase_kernels(torch, tmm, kernels, sites, vol_sites) -> list[dict]:
     """Every kernel against its plain version at the launch shapes of each
     path that runs it, TF32 off: K1 and K3 at the flagship's and at path
     2's (N = SAMPLE_CHUNK * BATCH * CHANNELS images per launch) and at the
     ViT path's (haar: K1 on the image's CHANNELS planes, K3 on a chunk's
-    VIT_CHUNK * CHANNELS), K2 and K4/K5 (at the ReLU ``sites``) at path 2's.
-    One line per kernel and path."""
+    VIT_CHUNK * CHANNELS), K2 and K4/K5 (at the ReLU ``sites``) at path 2's,
+    and K4/K5 at the vol path's fused arm (its ReLU ``vol_sites``). One
+    line per kernel and path."""
     dev = torch.device(DEVICE)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -459,25 +517,41 @@ def phase_kernels(torch, tmm, kernels, sites) -> list[dict]:
                         "torch.einsum (the matmul pair on the merged matrix, merge not timed)",
                         f"forward, f32 subbands, one sample chunk at {SIDE2}^2 (its backward "
                         "is a K1 launch, timed and counted on K1's path-2 line)"))
-    return rows + _relu_rows(torch, kernels, g, sites)
+    rows += _relu_rows(torch, kernels, g, sites, "path 2", SAMPLE_CHUNK * BATCH,
+                       (torch.float32, torch.bfloat16),
+                       f"one {SAMPLE_CHUNK * BATCH}-row ResNet-50 step at {SIDE2}^2")
+    return rows + _relu_rows(torch, kernels, g, vol_sites, "vol", VOL_CHUNK * VOL_BATCH,
+                             (torch.float32,),
+                             f"one {VOL_CHUNK * VOL_BATCH}-row 3D ResNet-18 step at {VOL_SIDE}^3")
 
 
-def relu_sites(torch, wtt) -> list[tuple[int, ...]]:
-    """(C, H, W) of every ReLU site of ResNet-50 at SIDE2, in call order,
-    recorded through the model's ``act``."""
+def _record_sites(torch, model, shape) -> list[tuple[int, ...]]:
+    """The shape (less the batch axis) of every ReLU site of ``model`` on
+    one input of ``shape``, in call order, recorded through its ``act``."""
     sites = []
 
     def record(t):
         sites.append(tuple(t.shape[1:]))
         return torch.relu(t)
 
-    model = wtt.resnet50(num_classes=1000).to(DEVICE).eval()
+    model = model.to(DEVICE).eval()
     for m in model.modules():
         if hasattr(m, "act"):
             m.act = record
     with torch.no_grad():
-        model(torch.zeros((1, CHANNELS, SIDE2, SIDE2), device=DEVICE))
+        model(torch.zeros((1,) + shape, device=DEVICE))
     return sites
+
+
+def relu_sites(torch, wtt) -> list[tuple[int, ...]]:
+    """(C, H, W) of every ReLU site of ResNet-50 at SIDE2."""
+    return _record_sites(torch, wtt.resnet50(num_classes=1000), (CHANNELS, SIDE2, SIDE2))
+
+
+def vol_relu_sites(torch, wtt) -> list[tuple[int, ...]]:
+    """(C, D, H, W) of every ReLU site of the vol path's 3D ResNet-18."""
+    return _record_sites(torch, wtt.resnet3d_18(num_classes=VOL_CLASSES, width=VOL_WIDTH),
+                         (1, VOL_SIDE, VOL_SIDE, VOL_SIDE))
 
 
 def _equal(name: str, got, want) -> None:
@@ -488,23 +562,22 @@ def _equal(name: str, got, want) -> None:
         raise AssertionError(f"{name}: kernel output is not equal to its plain version")
 
 
-def _relu_rows(torch, kernels, g, sites) -> list[dict]:
-    """K4 and K5 at every ReLU site shape of a path-2 step (SAMPLE_CHUNK *
-    BATCH rows; ``sites`` from `relu_sites`), float32 and bfloat16, the
-    float32 times summed over the sites with their multiplicity (the path
-    runs float32); ragged sizes. Outputs must EQUAL the plain versions (mask
-    bytes, y, dx)."""
+def _relu_rows(torch, kernels, g, sites, path: str, rows: int, dtypes, step: str) -> list[dict]:
+    """K4 and K5 at every ReLU site shape of one step of ``path`` (``rows``
+    rows; ``sites`` from `relu_sites` / `vol_relu_sites`) in ``dtypes``,
+    the float32 times summed over the sites with their multiplicity (the
+    paths run float32); ragged sizes. Outputs must EQUAL the plain versions
+    (mask bytes, y, dx)."""
     from collections import Counter
 
     from wam_tpu_torch.tune import fused_relu as tfr
 
     dev = torch.device(DEVICE)
-    rows = SAMPLE_CHUNK * BATCH
     by_size = sorted(Counter(sites).items(), key=lambda kv: -math.prod(kv[0]))
     total = {k: {"ms": 0.0, "plain_ms": 0.0, "nearest_ms": 0.0, "bytes": 0, "ops": 0}
              for k in ("K4", "K5")}
     cases = {"K4": [], "K5": []}
-    for dtype in (torch.float32, torch.bfloat16):
+    for dtype in dtypes:
         for shape, count in by_size:
             x = torch.randn((rows,) + shape, generator=g, device=dev).to(dtype)
             x.view(-1)[::97] = 0  # exact zeros: gate x > 0
@@ -545,7 +618,7 @@ def _relu_rows(torch, kernels, g, sites) -> list[dict]:
         y, m = kernels.relu_fwd(x)
         _equal(f"K4 ragged {numel}", (y, m), tfr.relu_fwd_plain(x))
         _equal(f"K5 ragged {numel}", (kernels.relu_bwd(m, gout),), (tfr.relu_bwd_plain(m, gout),))
-    _log(f"  K4/K5: {len(sites)} ReLU sites, {len(by_size)} shapes; ragged sizes equal")
+    _log(f"  K4/K5 ({path}): {len(sites)} ReLU sites, {len(by_size)} shapes; ragged sizes equal")
 
     out = []
     for k, line, nearest in (("K4", 110, "torch.relu"),
@@ -553,17 +626,16 @@ def _relu_rows(torch, kernels, g, sites) -> list[dict]:
         t = total[k]
         bound, by = _bound_ms(t["bytes"], t["ops"])
         out.append({
-            "name": f"fused_relu {'forward' if k == 'K4' else 'backward'} ({k}), path 2",
-            "kernel": "relu_fwd" if k == "K4" else "relu_bwd", "path": "path 2", "route": "cuda",
+            "name": f"fused_relu {'forward' if k == 'K4' else 'backward'} ({k}), {path}",
+            "kernel": "relu_fwd" if k == "K4" else "relu_bwd", "path": path, "route": "cuda",
             "source": "wam_tpu_torch/csrc/relu_mask.cu",
             "replaces": f"wam_tpu/tune/fused_relu.py:{line}", "launches": None,
             "max_abs_err": 0.0, "tol": 0.0, "ms": t["ms"], "plain_ms": t["plain_ms"],
             "bound_ms": bound, "bound_by": by, "bound_share": bound / t["ms"],
             "bytes": t["bytes"], "ops": t["ops"],
             "library_ms": None, "nearest_call": nearest, "nearest_call_ms": t["nearest_ms"],
-            "work": f"all {len(sites)} ReLU sites of one {rows}-row ResNet-50 step at "
-                    f"{SIDE2}^2, float32 (the nearest call computes relu or its gate-from-"
-                    "output backward, not the packed mask)",
+            "work": f"all {len(sites)} ReLU sites of {step}, float32 (the nearest call "
+                    "computes relu or its gate-from-output backward, not the packed mask)",
             "cases": cases[k]})
     return out
 
@@ -992,12 +1064,12 @@ def _timed(torch, kernels, wam, x, y, calls: int) -> dict:
     return _time_calls(torch, kernels, wam, x, y, calls, items=1, unit="attributions")
 
 
-def _log_run(tag: str, run: dict, smi: str) -> None:
+def _log_run(tag: str, run: dict, smi: str, unit: str = "attributions") -> None:
     _log(f"  {tag}: first call {run['first_call_s']:.3f} s; {len(run['calls_ms'])} calls (CUDA "
          f"events) {[round(t, 3) for t in run['calls_ms']]} ms, median {run['median_ms']:.3f} ms "
          f"(spread {run['spread_ms'][0]:.3f}-{run['spread_ms'][1]:.3f}) = "
-         f"{run['attributions_per_s']:.2f} attributions/s; host enqueue {run['enqueue_ms']:.3f} ms "
-         f"(median); peak memory {run['peak_memory_gb']:.2f} GB on {smi}")
+         f"{run[f'{unit}_per_s']:.2f} {unit}/s; host enqueue {run['enqueue_ms']:.3f} ms "
+         f"(median); peak memory {run['peak_memory_gb']:.3f} GB on {smi}")
 
 
 def _reduced_vit_check(torch, wtt, fn, x, y, arch: str) -> dict:
@@ -1081,6 +1153,353 @@ def phase_convnext(torch, wtt, kernels, smi: str) -> dict:
     summary["reduced_check"] = _reduced_vit_check(torch, wtt, fn, x, y, "convnext")
     return summary
 
+def _calibrate(torch, model, calib) -> None:
+    """BatchNorm affines drawn from a generator seeded SEED + 2 and running
+    statistics of one train-mode pass of ``model`` over ``calib``
+    (cumulative averages), so no BatchNorm is an identity and activations
+    stay O(1), as in a trained model."""
+    g = torch.Generator().manual_seed(SEED + 2)
+    bns = [m for m in model.modules() if isinstance(m, torch.nn.modules.batchnorm._BatchNorm)]
+    with torch.no_grad():
+        for m in bns:
+            m.weight.copy_(torch.empty_like(m.weight, device="cpu").uniform_(0.8, 1.2, generator=g))
+            m.bias.copy_(torch.empty_like(m.bias, device="cpu").normal_(0.0, 0.1, generator=g))
+            m.momentum = None
+        model.train()
+        model(calib)
+    model.eval()
+
+
+def build_vol(torch, wtt):
+    """The vol path's set-up, shared with scripts/torch_slice_profile.py: the
+    3D ResNet-18 (VOL_CLASSES classes, width VOL_WIDTH), its weights drawn
+    by the port's initialisers (flax's: lecun_normal kernels, zero biases)
+    from torch's generator seeded SEED, calibrated on two volumes from numpy
+    seeded SEED + 4 (`_calibrate`), bound with ``bind_inference`` (its
+    default ``nchw=True``: the model takes (B, 1, D, H, W) as it comes);
+    VOL_BATCH standard-normal volumes (VOL_BATCH, 1, VOL_SIDE^3) from numpy
+    seeded SEED + 1 and labels arange(VOL_BATCH) % VOL_CLASSES. Returns
+    (state dict on the CPU, model_fn, x, y): the arms bind their own
+    models from the state."""
+    import numpy as np
+
+    dev = torch.device(DEVICE)
+    torch.manual_seed(SEED)
+    model = wtt.resnet3d_18(num_classes=VOL_CLASSES, width=VOL_WIDTH).to(dev)
+    calib = np.random.default_rng(SEED + 4).standard_normal((2, 1) + (VOL_SIDE,) * 3)
+    _calibrate(torch, model, torch.from_numpy(calib.astype(np.float32)).to(dev))
+    state = {k: v.detach().cpu() for k, v in model.state_dict().items()}
+    fn = wtt.bind_inference(model, device=dev)
+    x = np.random.default_rng(SEED + 1).standard_normal((VOL_BATCH, 1) + (VOL_SIDE,) * 3)
+    x = torch.from_numpy(x.astype(np.float32)).to(dev)
+    y = torch.arange(VOL_BATCH, device=dev) % VOL_CLASSES
+    return state, fn, x, y
+
+
+def bind_vol(torch, wtt, state, device, dtype=None, **kw):
+    """A fresh 3D ResNet-18 with ``state``, bound on ``device`` (``kw``:
+    ``fold_bn``, ``fused_relu_vjp``); in ``dtype`` (e.g. float64) when given."""
+    model = wtt.resnet3d_18(num_classes=VOL_CLASSES, width=VOL_WIDTH)
+    if dtype is not None:
+        model = model.to(dtype)
+    return wtt.bind_inference(model, state, device=device, **kw)
+
+
+def vol_wam(wtt, fn, device, method: str = "smooth", n_samples: int | None = None,
+            impl: str | None = None):
+    """The vol path's `WaveletAttribution3D` object (SmoothGrad, or IG with
+    ``method="integratedgrad"``; VOL_SAMPLES samples or path points unless
+    ``n_samples`` is given)."""
+    return wtt.WaveletAttribution3D(fn, wavelet=VOL_WAVELET, J=VOL_LEVELS, mode=VOL_MODE,
+                                    method=method, n_samples=n_samples or VOL_SAMPLES,
+                                    stdev_spread=VOL_SPREAD, sample_batch_size=VOL_CHUNK,
+                                    device=device, impl=impl)
+
+
+def _check_cube(torch, run: dict, tag: str, shape: tuple, launches: dict) -> None:
+    """The cube has ``shape`` and is finite and nonzero, and one call
+    launched exactly ``launches``."""
+    out = run["out"]
+    if tuple(out.shape) != shape:
+        raise AssertionError(f"{tag}: cube shape {tuple(out.shape)} != {shape}")
+    if not bool(torch.isfinite(out).all()) or float(out.abs().sum()) == 0.0:
+        raise AssertionError(f"{tag}: cube is not finite and nonzero")
+    if run["call_launches"] != launches:
+        raise AssertionError(f"{tag}: launches of one call {run['call_launches']}, expected "
+                             f"{launches}")
+
+
+def _held(torch, tag: str, got, want, tol: tuple) -> dict:
+    """Cosine and max abs error of ``got`` against ``want``, held to
+    ``tol`` = (cosine, max abs / the largest value of ``want``)."""
+    a, b = got.detach().cpu().double().flatten(), want.detach().cpu().double().flatten()
+    err, peak, cos = float((a - b).abs().max()), float(b.abs().max()), _cosine(torch, a, b)
+    _log(f"  {tag}: cosine={cos:.10f} (tol >= {tol[0]}) max_abs_err={err:.3e} (tol "
+         f"{tol[1] * peak:.3e} = {tol[1]} x max {peak:.3e}; {err / peak:.2e} of the max)")
+    if not (math.isfinite(err) and err <= tol[1] * peak and cos >= tol[0]):
+        raise AssertionError(f"{tag}: outside its bound")
+    return {"cosine": cos, "max_abs_err": err, "max": peak, "rel_err": err / peak}
+
+
+def _flat_grads(coeffs) -> "list":
+    from wam_tpu_torch.core.engine import _flatten
+
+    return [t.reshape(-1) for t in _flatten(coeffs)]
+
+
+def _vol_reduced_check(torch, wtt, state) -> dict:
+    """The port on the card against the port on the CPU: the same weights,
+    VOL_REDUCED volumes and handed-over noise, TF32 off, twice:
+
+    - float32 through `WaveletAttribution3D`, the path as it runs, held to
+      VOL_TOL["float32"], a bound set from the measurement: a ReLU gate
+      within rounding of zero could flip between devices (the audio path's
+      case, ROADMAP queue 3), and on these inputs none does;
+    - float64 through the same object's engine on the stacked noisy batch
+      (every coefficient's gradient), held to VOL_TOL["float64"]."""
+    import numpy as np
+
+    n_vol, side, n_smp = VOL_REDUCED
+    _precision(torch, False)
+    rng = np.random.default_rng(SEED + 3)
+    x = torch.from_numpy(rng.standard_normal((n_vol, 1) + (side,) * 3).astype(np.float32))
+    z = torch.from_numpy(rng.standard_normal((n_smp,) + tuple(x.shape)).astype(np.float32))
+    y = torch.arange(n_vol) % VOL_CLASSES
+    f32, f64 = {}, {}
+    for dev in (DEVICE, "cpu"):
+        wam = vol_wam(wtt, bind_vol(torch, wtt, state, dev), dev, n_samples=n_smp)
+        f32[dev] = wam(x.to(dev), y.to(dev), noise=z.to(dev))
+        wam = vol_wam(wtt, bind_vol(torch, wtt, state, dev, torch.float64), dev, n_samples=n_smp)
+        x64, z64 = x[:, 0].to(dev, torch.float64), z[:, :, 0].to(dev, torch.float64)
+        noisy = x64 + z64 * wtt.noise_sigma(x64, VOL_SPREAD).reshape(-1, 1, 1, 1)
+        _, grads = wam.engine.attribute(noisy.reshape((-1,) + (side,) * 3),
+                                        y.to(dev).repeat(n_smp), samples=n_smp)
+        f64[dev] = torch.cat(_flat_grads(grads))
+    return {"float32": _held(torch, "reduced check vol float32, WaveletAttribution3D cube",
+                             f32[DEVICE], f32["cpu"], VOL_TOL["float32"]),
+            "float64": _held(torch, "reduced check vol float64, engine coefficient gradients",
+                             f64[DEVICE], f64["cpu"], VOL_TOL["float64"])}
+
+
+def _waverec3_forms(torch, wtt, x) -> dict:
+    """`waverec3` on both synthesis forms at the headline's shapes (one
+    128-row chunk of VOL_SIDE^3 volumes), forward and forward + backward,
+    event-timed in turns (conv, matmul, matmul, conv)."""
+    dev = torch.device(DEVICE)
+    vol = x[:, 0].repeat(VOL_CHUNK, 1, 1, 1)
+    from wam_tpu_torch.core.engine import _flatten, _unflatten
+
+    with torch.no_grad():
+        coeffs = wtt.wavedec3(vol, VOL_WAVELET, VOL_LEVELS, VOL_MODE)
+    leaves = [t.detach().requires_grad_(True) for t in _flatten(coeffs)]
+    tree = _unflatten(leaves, coeffs)
+    g = torch.randn(vol.shape, device=dev)
+    out = {}
+    for impl in ("conv", "matmul", "matmul", "conv"):
+        def fwd():
+            with torch.no_grad():
+                return wtt.waverec3(tree, VOL_WAVELET, impl=impl)
+
+        def fwd_bwd():
+            rec = wtt.waverec3(tree, VOL_WAVELET, impl=impl)
+            return torch.autograd.grad(rec, leaves, g)
+
+        out.setdefault(impl, []).append({"forward_ms": _time_ms(fwd),
+                                         "forward_backward_ms": _time_ms(fwd_bwd)})
+    with torch.no_grad():
+        rec = {impl: wtt.waverec3(tree, VOL_WAVELET, impl=impl) for impl in ("conv", "matmul")}
+    out["max_abs_diff"] = float((rec["conv"] - rec["matmul"]).abs().max())
+    _log(f"  waverec3 forms at ({VOL_CHUNK * VOL_BATCH}, {VOL_SIDE}^3), haar J=2, ms in turns: "
+         f"conv {out['conv']}, matmul {out['matmul']}; max abs diff {out['max_abs_diff']:.3e}")
+    return out
+
+
+def phase_vol(torch, wtt, kernels, smi: str) -> dict:
+    """The vol path: the headline (TF32 on for the model) with its launch
+    counts checked, the IG arm, the matmul-synthesis arm, the fold_bn +
+    fused_relu_vjp arm (K4/K5 asserted), both synthesis forms of
+    `waverec3` timed, and the reduced checks."""
+    import numpy as np
+
+    state, fn, x, y = build_vol(torch, wtt)
+    dev = torch.device(DEVICE)
+    _log(f"phase vol: ResNet3D-18({VOL_CLASSES}, width {VOL_WIDTH}) x ({VOL_BATCH},1,{VOL_SIDE},"
+         f"{VOL_SIDE},{VOL_SIDE}) {VOL_WAVELET} J={VOL_LEVELS} {VOL_MODE} smooth "
+         f"n_samples={VOL_SAMPLES} stdev_spread={VOL_SPREAD} sample_batch_size={VOL_CHUNK}")
+    prec = _precision(torch, True)
+    _log(f"  precision: {prec} (the model); the transform in full float32 whatever the "
+         "setting (conv3d / conv_transpose3d with cuDNN TF32 off, synthesis3_mm with cuBLAS "
+         "TF32 off)")
+    cube = (VOL_BATCH,) + (VOL_SIDE,) * 3
+    run = _time_calls(torch, kernels, vol_wam(wtt, fn, dev), x, y, VOL_CALLS, items=VOL_BATCH,
+                      unit="volumes")
+    _check_cube(torch, run, "vol", cube, ZERO_LAUNCHES)
+    _log(f"  launches of one call: {run['call_launches']} (asserted == {ZERO_LAUNCHES})")
+    _log_run(f"headline, {prec}", run, smi, "volumes")
+    summary = {k: v for k, v in run.items() if k != "out"}
+    summary["precision"] = prec
+
+    arms = (("integratedgrad", "IG, 25 path points", dict(method="integratedgrad"), fn,
+             ZERO_LAUNCHES),
+            ("matmul_synthesis", "synthesis3_mm synthesis (impl='kernel')",
+             dict(impl="kernel"), fn, ZERO_LAUNCHES),
+            ("fused", "fold_bn=True, fused_relu_vjp=True",
+             {}, bind_vol(torch, wtt, state, dev, fold_bn=True, fused_relu_vjp=True),
+             VOL_FUSED_LAUNCHES))
+    for key, tag, kw, arm_fn, launches in arms:
+        arm = _time_calls(torch, kernels, vol_wam(wtt, arm_fn, dev, **kw), x, y, 3,
+                          items=VOL_BATCH, unit="volumes")
+        _check_cube(torch, arm, f"vol, {tag}", cube, launches)
+        cos = _cosine(torch, arm["out"], run["out"])
+        _log(f"  {tag}: launches of one call {arm['call_launches']} (asserted == {launches})")
+        _log_run(f"{tag}, {prec}", arm, smi, "volumes")
+        _log(f"  {tag}: cube cosine to the headline {cos:.8f}")
+        summary[key] = {**{k: v for k, v in arm.items() if k not in ("out", "launches")},
+                        "cosine_to_headline": cos}
+        del arm
+    summary["waverec3_forms"] = _waverec3_forms(torch, wtt, x)
+
+    # the fused ReLU against the plain model: TF32 off, and cuDNN on its
+    # deterministic algorithms, whose sums do not vary from call to call
+    # (its split-K input-gradient kernels move a result by ~1e-6 of the max)
+    _precision(torch, False)
+    torch.backends.cudnn.deterministic = True
+    n_smp = VOL_REDUCED[2]
+    z = np.random.default_rng(SEED + 5).standard_normal((n_smp,) + tuple(x.shape))
+    z = torch.from_numpy(z.astype(np.float32)).to(dev)
+    plain = vol_wam(wtt, fn, dev, n_samples=n_smp)(x, y, noise=z)
+    fused = vol_wam(wtt, bind_vol(torch, wtt, state, dev, fused_relu_vjp=True), dev,
+                    n_samples=n_smp)(x, y, noise=z)
+    torch.backends.cudnn.deterministic = False
+    summary["fused_check"] = _held(
+        torch, f"fused check (TF32 off, cudnn.deterministic, {VOL_BATCH} volumes x {n_smp} "
+        "samples): fused_relu_vjp vs plain model", fused, plain, VOL_FUSED_TOL)
+    summary["reduced_check"] = _vol_reduced_check(torch, wtt, state)
+    return summary
+
+
+def build_voxel(torch, wtt):
+    """The voxel3d phase's set-up: `VoxelModel` (10 classes, weights by the
+    port's initialisers from torch's generator seeded SEED) bound on the
+    card, VOXEL_BATCH volumes of VOXEL_SIDE^3 occupancies uniform in [0, 1)
+    from numpy seeded SEED + 5, labels arange % 10; and `PointNetCls` (k=10,
+    seeded the same way, calibrated on 16 clouds from SEED + 7), CLOUD_BATCH
+    standard-normal clouds of CLOUD_POINTS points from SEED + 6. Returns
+    (voxel state, voxel fn, x, y, cloud state, cloud fn, clouds, labels)."""
+    import numpy as np
+
+    dev = torch.device(DEVICE)
+    torch.manual_seed(SEED)
+    voxel = wtt.VoxelModel(num_classes=10)
+    vstate = {k: v.detach().clone() for k, v in voxel.state_dict().items()}
+    vfn = wtt.bind_inference(voxel, device=dev)
+    x = np.random.default_rng(SEED + 5).uniform(size=(VOXEL_BATCH, 1) + (VOXEL_SIDE,) * 3)
+    x = torch.from_numpy(x.astype(np.float32)).to(dev)
+    y = torch.arange(VOXEL_BATCH, device=dev) % 10
+    torch.manual_seed(SEED)
+    cloud = wtt.PointNetCls(k=10).to(dev)
+    calib = np.random.default_rng(SEED + 7).standard_normal((16, 3, CLOUD_POINTS))
+    _calibrate(torch, cloud, torch.from_numpy(calib.astype(np.float32)).to(dev))
+    cstate = {k: v.detach().cpu() for k, v in cloud.state_dict().items()}
+    cfn = wtt.bind_inference(cloud, device=dev)
+    pts = np.random.default_rng(SEED + 6).standard_normal((CLOUD_BATCH, 3, CLOUD_POINTS))
+    pts = torch.from_numpy(pts.astype(np.float32)).to(dev)
+    return vstate, vfn, x, y, cstate, cfn, pts, torch.arange(CLOUD_BATCH, device=dev) % 10
+
+
+def voxel_wam(wtt, fn, device, n_samples: int | None = None):
+    return wtt.WaveletAttribution3D(fn, wavelet=VOL_WAVELET, J=VOL_LEVELS, mode=VOL_MODE,
+                                    n_samples=n_samples or VOL_SAMPLES, stdev_spread=VOL_SPREAD,
+                                    sample_batch_size=VOXEL_CHUNK, device=device)
+
+
+def cloud_wam(wtt, fn, device):
+    return wtt.BaseWAM3D(fn, wavelet=VOL_WAVELET, J=CLOUD_LEVELS, mode=VOL_MODE,
+                         instance="point_clouds", device=device)
+
+
+def _voxel3d_reduced_check(torch, wtt, vstate, cstate) -> dict:
+    """Card against CPU in float64 (TF32 off), held to VOL_TOL["float64"]:
+    the voxel model's coefficient gradients through the engine on
+    VOL_REDUCED[2] noisy copies of VOL_REDUCED[0] volumes of VOXEL_SIDE^3,
+    and PointNetCls's per-axis coefficient gradients on CLOUD_REDUCED
+    clouds."""
+    import numpy as np
+
+    _precision(torch, False)
+    n_vol, _, n_smp = VOL_REDUCED
+    rng = np.random.default_rng(SEED + 8)
+    x = torch.from_numpy(rng.uniform(size=(n_smp * n_vol,) + (VOXEL_SIDE,) * 3))
+    pts = torch.from_numpy(rng.standard_normal((CLOUD_REDUCED[0], 3, CLOUD_REDUCED[1])))
+    yv, yc = torch.arange(n_smp * n_vol) % 10, torch.arange(CLOUD_REDUCED[0]) % 10
+    vox, cloud = {}, {}
+    for dev in (DEVICE, "cpu"):
+        vfn = wtt.bind_inference(wtt.VoxelModel(num_classes=10).double(), vstate, device=dev)
+        _, grads = voxel_wam(wtt, vfn, dev, n_smp).engine.attribute(
+            x.to(dev), yv.to(dev), samples=n_smp)
+        vox[dev] = torch.cat(_flat_grads(grads))
+        cfn = wtt.bind_inference(wtt.PointNetCls(k=10).double(), cstate, device=dev)
+        grads = cloud_wam(wtt, cfn, dev)(pts.to(dev), yc.to(dev))
+        cloud[dev] = torch.cat([g.reshape(-1) for axis in grads for g in axis])
+    return {"voxel": _held(torch, "reduced check voxel float64, engine coefficient gradients",
+                           vox[DEVICE], vox["cpu"], VOL_TOL["float64"]),
+            "point_clouds": _held(torch, "reduced check PointNet float64, per-axis coefficient "
+                                  "gradients", cloud[DEVICE], cloud["cpu"], VOL_TOL["float64"])}
+
+
+def phase_voxel3d(torch, wtt, kernels, smi: str) -> dict:
+    """The reference's own 3D models: `VoxelModel` SmoothGrad timed, then
+    `visualize`, one `BaseWAM3D` pass and `filter_voxels`; `PointNetCls`
+    with `BaseWAM3D(instance="point_clouds")` timed, then
+    `filter_point_clouds`; no port kernel may launch; then the float64
+    card-against-CPU check."""
+    vstate, vfn, x, y, cstate, cfn, pts, yc = build_voxel(torch, wtt)
+    dev = torch.device(DEVICE)
+    prec = _precision(torch, True)
+    _log(f"phase voxel3d: VoxelModel(10) x ({VOXEL_BATCH},1,{VOXEL_SIDE},{VOXEL_SIDE},"
+         f"{VOXEL_SIDE}) {VOL_WAVELET} J={VOL_LEVELS} {VOL_MODE} smooth n_samples={VOL_SAMPLES} "
+         f"sample_batch_size={VOXEL_CHUNK}; {prec}")
+    wam = voxel_wam(wtt, vfn, dev)
+    run = _time_calls(torch, kernels, wam, x, y, VOXEL_CALLS, items=VOXEL_BATCH, unit="volumes")
+    _check_cube(torch, run, "voxel3d", (VOXEL_BATCH,) + (VOXEL_SIDE,) * 3, ZERO_LAUNCHES)
+    _log_run("VoxelModel SmoothGrad", run, smi, "volumes")
+    vis = wam.visualize()
+    wam.evaluate_voxels(x, y)
+    filt = wam.filter_voxels()
+    launches = kernels.launch_counts()
+    for name, t, shape in (("visualize", vis, (VOXEL_BATCH, VOL_LEVELS + 2) + (VOXEL_SIDE,) * 3),
+                           ("filter_voxels", filt, (VOXEL_BATCH, 1) + (VOXEL_SIDE,) * 3)):
+        if tuple(t.shape) != shape or not bool(torch.isfinite(t).all()):
+            raise AssertionError(f"voxel3d {name}: shape {tuple(t.shape)} != {shape} or not finite")
+    _log(f"  visualize {tuple(vis.shape)}, filter_voxels {tuple(filt.shape)}: finite")
+    summary = {"voxel": {k: v for k, v in run.items() if k != "out"}, "precision": prec}
+
+    _log(f"  PointNetCls(10) x ({CLOUD_BATCH},3,{CLOUD_POINTS}) BaseWAM3D point_clouds "
+         f"{VOL_WAVELET} J={CLOUD_LEVELS} {VOL_MODE}")
+    cwam = cloud_wam(wtt, cfn, dev)
+    crun = _time_calls(torch, kernels, cwam, pts, yc, VOXEL_CALLS, items=CLOUD_BATCH,
+                       unit="clouds")
+    grads = crun["out"]
+    if [len(a) for a in grads] != [CLOUD_LEVELS + 1] * 3 or not all(
+            bool(torch.isfinite(g).all()) for a in grads for g in a):
+        raise AssertionError("point clouds: gradients are not 3 x (J + 1) finite levels")
+    kept, norm = cwam.filter_point_clouds()
+    if len(kept) != CLOUD_BATCH or any(k.ndim != 2 or k.shape[1] != 3 for k in kept) \
+            or norm.shape != (CLOUD_BATCH, CLOUD_POINTS):
+        raise AssertionError("filter_point_clouds: not (n_kept, 3) arrays per cloud")
+    for tag, counts in (("voxel", run["call_launches"]), ("visualize and filter", launches),
+                        ("point clouds", crun["launches"])):
+        if counts != ZERO_LAUNCHES:
+            raise AssertionError(f"voxel3d {tag}: a port kernel launched: {counts}")
+    _log(f"  launches: voxel {run['call_launches']}, point clouds {crun['launches']} (all 0, "
+         "asserted)")
+    _log_run("PointNetCls point-cloud pass", crun, smi, "clouds")
+    _log(f"  filter_point_clouds: kept {sum(len(k) for k in kept)} of "
+         f"{CLOUD_BATCH * CLOUD_POINTS} points")
+    summary["point_clouds"] = {k: v for k, v in crun.items() if k != "out"}
+    summary["reduced_check"] = _voxel3d_reduced_check(torch, wtt, vstate, cstate)
+    return summary
+
 
 def main() -> int:
     import torch
@@ -1114,23 +1533,32 @@ def main() -> int:
                 _log(f"  {name}: {line.strip()}")
 
     sites = relu_sites(torch, wtt)
-    rows = phase_kernels(torch, tmm, kernels, sites)
+    vol_sites = vol_relu_sites(torch, wtt)
+    if len(vol_sites) != VOL_SITES:
+        raise AssertionError(f"the 3D ResNet-18 has {len(vol_sites)} ReLU sites, not {VOL_SITES}")
+    rows = phase_kernels(torch, tmm, kernels, sites, vol_sites)
     slice_ = phase_slice(torch, wtt, kernels, smi)
     slice2 = phase_slice2(torch, wtt, kernels, smi, len(sites))
     audio = phase_audio(torch, wtt, kernels, smi)
     vit = phase_vit(torch, wtt, kernels, smi)
     convnext = phase_convnext(torch, wtt, kernels, smi)
+    vol = phase_vol(torch, wtt, kernels, smi)
+    voxel3d = phase_voxel3d(torch, wtt, kernels, smi)
     launches = {"flagship": slice_["launches"], "path 2": slice2["launches"],
-                "vit": vit["call_launches"]}
+                "vit": vit["call_launches"], "vol": vol["fused"]["call_launches"]}
     for row in rows:
         row["launches"] = launches[row["path"]][row["kernel"]]
         row["audio_launches"] = audio["launches"][row["kernel"]]
         row["vit_launches"] = vit["call_launches"][row["kernel"]]
         row["convnext_launches"] = convnext["call_launches"][row["kernel"]]
+        row["vol_launches"] = vol["call_launches"][row["kernel"]]
+        row["vol_fused_launches"] = vol["fused"]["call_launches"][row["kernel"]]
+        row["voxel3d_launches"] = voxel3d["voxel"]["call_launches"][row["kernel"]]
 
     print(json.dumps({"slice": {k: v for k, v in slice_.items() if k != "launches"},
                       "slice2": {k: v for k, v in slice2.items() if k != "launches"},
-                      "audio": audio, "vit": vit, "convnext": convnext, "gpu": smi}),
+                      "audio": audio, "vit": vit, "convnext": convnext, "vol": vol,
+                      "voxel3d": voxel3d, "gpu": smi}),
           flush=True)
     print(json.dumps({"kernels": rows}), flush=True)
     print(smi, flush=True)

@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Where the time of one of the port's paths goes on the card.
 
-    python3 scripts/torch_slice_profile.py [--path2 | --audio | --vit | --convnext] [--bf16]
+    python3 scripts/torch_slice_profile.py [--path2 | --audio | --vit | --convnext | --vol] [--bf16]
 
 Runs a path of chip_smoke.py, set up by its own code (one definition for
 both): by default the flagship, `wam_tpu_torch.WaveletAttribution2D`
@@ -15,14 +15,18 @@ Integrated Gradients on ViT-B/16 (`chip_smoke.build_vit`: one 3x224x224
 image, haar, J=3, 64 path points, sample_batch_size=16, TF32 on for
 matmuls and convolutions, chip_smoke's headline arm); with ``--convnext``
 the same call on ConvNeXt-T; ``--bf16`` binds either model in bfloat16
-(chip_smoke's bf16 arm). One call to warm up, then one under
+(chip_smoke's bf16 arm); with ``--vol`` the 3D path, `WaveletAttribution3D`
+SmoothGrad on the 3D ResNet-18 (`chip_smoke.build_vol`: 8 x 1x32^3, haar,
+J=2, n_samples=25, sample_batch_size=16, TF32 on for the model, chip_smoke's
+headline). One call to warm up, then one under
 `torch.profiler`; prints one JSON line: the call's wall time, the summed
 device time of its kernels by group (K1-K5, the 1D transform, FFT,
 convolutions, matmuls, batchnorm, pooling, other), and the device's idle
 share (1 - summed kernel time / wall time; one stream, so kernels do not
 overlap). The 1D transform's kernels are those launched inside its
-``wam_dwt1`` profiler spans (`wavelets.transform.SPAN_1D`), taken out of the
-group their names fall in. On the ViT and ConvNeXt paths every kernel other
+``wam_dwt1`` profiler spans (`wavelets.transform.SPAN_1D`), and the 3D
+transform's those inside its ``wam_dwt3`` spans (`SPAN_3D`), taken out of
+the group their names fall in. On the ViT and ConvNeXt paths every kernel other
 than K1-K5 is grouped by the op that launched it (`OP_GROUPS`: matmul,
 attention, LayerNorm, GELU, convolution forward and backward, copies),
 since cuBLAS's and cuDNN's kernel names do not tell a matmul from a
@@ -95,6 +99,7 @@ def _group(name: str) -> str:
 
 
 DWT1 = "1D DWT (transform spans: convolutions, padding gathers)"
+DWT3 = "3D DWT (transform spans: conv3d, synthesis products, padding gathers, stacking)"
 
 
 def _span_kernels(prof, span: str) -> list[tuple[str, float]]:
@@ -128,10 +133,11 @@ def main() -> int:
     import wam_tpu_torch as wtt
     from wam_tpu_torch import kernels
 
-    from wam_tpu_torch.wavelets.transform import SPAN_1D
+    from wam_tpu_torch.wavelets.transform import SPAN_1D, SPAN_3D
 
     kernels.build_all()
-    path2, audio = "--path2" in sys.argv[1:], "--audio" in sys.argv[1:]
+    path2, audio, vol = ("--path2" in sys.argv[1:], "--audio" in sys.argv[1:],
+                         "--vol" in sys.argv[1:])
     arch = next((a for a in ("vit", "convnext") if f"--{a}" in sys.argv[1:]), None)
     if arch:
         chip_smoke._precision(torch, True)
@@ -142,6 +148,13 @@ def main() -> int:
         path = (f"{arch} (1x3x{chip_smoke.VIT_SIDE}^2, {chip_smoke.VIT_WAVELET} "
                 f"J={chip_smoke.VIT_LEVELS}, IG {chip_smoke.VIT_STEPS} steps, chunk "
                 f"{chip_smoke.VIT_CHUNK}, TF32 on{', model in bfloat16' if bf16 else ''})")
+    elif vol:
+        chip_smoke._precision(torch, True)
+        _, fn, x, y = chip_smoke.build_vol(torch, wtt)
+        wam = chip_smoke.vol_wam(wtt, fn, torch.device(chip_smoke.DEVICE))
+        path = (f"vol ({chip_smoke.VOL_BATCH}x1x{chip_smoke.VOL_SIDE}^3, 3D ResNet-18 width "
+                f"{chip_smoke.VOL_WIDTH}, {chip_smoke.VOL_WAVELET} J={chip_smoke.VOL_LEVELS}, "
+                f"n={chip_smoke.VOL_SAMPLES}, chunk {chip_smoke.VOL_CHUNK}, TF32 on for the model)")
     elif audio:
         _, fn, x, y = chip_smoke.build_audio(torch, wtt)
         wam = chip_smoke.audio_wam(wtt, fn, torch.device(chip_smoke.DEVICE))
@@ -168,13 +181,15 @@ def main() -> int:
     top = []
     for ev in prof.key_averages():
         dt = getattr(ev, "self_device_time_total", 0.0) or 0.0
-        if dt <= 0 or ev.device_type != torch.autograd.DeviceType.CUDA or ev.key == SPAN_1D:
+        if (dt <= 0 or ev.device_type != torch.autograd.DeviceType.CUDA
+                or ev.key in (SPAN_1D, SPAN_3D)):
             continue  # (a span's own device-side range is not a kernel)
         label = _group(ev.key)
         groups[label] = groups.get(label, 0.0) + dt / 1e3
         launches[label] = launches.get(label, 0) + ev.count
         top.append((dt / 1e3, ev.count, ev.key[:120]))
     moves = [(name, ms, DWT1) for name, ms in _span_kernels(prof, SPAN_1D)]
+    moves += [(name, ms, DWT3) for name, ms in _span_kernels(prof, SPAN_3D)]
     if arch:
         moves += [m for m in _op_kernels(prof) if not _group(m[0]).startswith("K")]
     for name, ms, new in moves:

@@ -165,9 +165,11 @@ def test_engine_grads_match_jax_on_toy_model(impl):
 
 
 def test_engine_rejects_unported_modes():
-    for kw in ({"ndim": 3}, {"ndim": 2, "channel_last": True}):
-        with pytest.raises(NotImplementedError):
-            tengine.WamEngine(lambda v: v, **kw)
-    assert tengine.WamEngine(lambda v: v, ndim=1).ndim == 1  # ported with the audio slice
+    with pytest.raises(NotImplementedError):
+        tengine.WamEngine(lambda v: v, ndim=2, channel_last=True)
+    with pytest.raises(ValueError, match="ndim"):
+        tengine.WamEngine(lambda v: v, ndim=4)
+    # ported with the audio slice (1D) and the 3D slice
+    assert [tengine.WamEngine(lambda v: v, ndim=n).ndim for n in (1, 3)] == [1, 3]
 
 

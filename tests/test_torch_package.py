@@ -18,10 +18,14 @@ import wam_tpu_torch
 from wam_tpu_torch import kernels
 from wam_tpu_torch.device import resolve_device
 from wam_tpu_torch import wam1d as tw1
+from wam_tpu_torch import wam3d as tw3
 from wam_tpu_torch.models import audio as taudio
 from wam_tpu_torch.models import convnext as tconvnext
+from wam_tpu_torch.models import pointnet as tpn
 from wam_tpu_torch.models import resnet as tres
+from wam_tpu_torch.models import resnet3d as tr3
 from wam_tpu_torch.models import vit as tvit
+from wam_tpu_torch.models import voxel as tvoxel
 from wam_tpu_torch.models.toy import toy_conv_model
 from wam_tpu_torch.tune import fused_relu as tfr
 from wam_tpu_torch.wam2d import BaseWAM2D, WaveletAttribution2D
@@ -189,6 +193,66 @@ def test_audio_path_launches_no_kernel(monkeypatch):
                                                **kw)(x, [3])
         assert mel.shape == (1, 129, 128) and len(coeffs) == 6
     assert kernels.launch_counts() == before
+
+
+def test_wam3d_entry_points_raise_without_a_card(monkeypatch):
+    """The 3D slice's entry points run on CUDA unless asked: with no device
+    and no card each raises, naming device='cpu'."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    fn = tres.bind_inference(tr3.resnet3d_10(width=4), device="cpu")
+    for make in (lambda: tw3.WaveletAttribution3D(fn), lambda: tw3.BaseWAM3D(fn),
+                 lambda: tw3.BaseWAM3D(fn, instance="point_clouds"),
+                 lambda: tres.bind_inference(tr3.resnet3d_18()),
+                 lambda: tres.bind_inference(tvoxel.VoxelModel()),
+                 lambda: tres.bind_inference(tpn.PointNetCls(k=4))):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            make()
+
+
+def test_vol_path_launches_k4_k5_on_the_fused_arm_only(monkeypatch):
+    """The vol path as the card runs it (impl="kernel", 25 samples in chunks
+    of 16 and 9), at a tiny size, with the CUDA routes taken wherever the
+    wrappers ask: the plain 3D ResNet-18 and the voxel and point-cloud paths
+    reach no kernel; bound with fold_bn and fused_relu_vjp it launches K4
+    and K5 at each of its 17 ReLU sites once a chunk, 34 times each a
+    call, and nothing else."""
+    def boom(*a, **k):
+        raise AssertionError("a wavelet kernel was reached from the 3D path")
+
+    counts = {"relu_fwd": 0, "relu_bwd": 0}
+
+    def counted(name, plain):
+        def launch(*a):
+            counts[name] += 1
+            return plain(*a)
+        return launch
+
+    for name in ("dwt2", "synth2", "pair", "pair_bwd", "build_all"):
+        monkeypatch.setattr(kernels, name, boom)
+    monkeypatch.setattr(kernels, "relu_fwd", counted("relu_fwd", tfr.relu_fwd_plain))
+    monkeypatch.setattr(kernels, "relu_bwd", counted("relu_bwd", tfr.relu_bwd_plain))
+    monkeypatch.setattr(tmm, "on_cpu", lambda t: False)
+    monkeypatch.setattr(tfr, "on_cpu", lambda t: False)
+    x = np.random.default_rng(0).standard_normal((1, 1, 8, 8, 8)).astype(np.float32)
+    kw = dict(wavelet="haar", J=2, n_samples=25, sample_batch_size=16, device="cpu",
+              impl="kernel")
+    state = tr3.resnet3d_18(num_classes=10, width=4).state_dict()
+    for fused, want in ((False, 0), (True, 34)):
+        fn = tres.bind_inference(tr3.resnet3d_18(num_classes=10, width=4), state, fold_bn=fused,
+                                 fused_relu_vjp=fused, device="cpu")
+        for method in ("smooth", "integratedgrad"):
+            counts.update(relu_fwd=0, relu_bwd=0)
+            out = tw3.WaveletAttribution3D(fn, method=method, **kw)(x, [3])
+            assert out.shape == (1, 8, 8, 8)
+            assert counts == {"relu_fwd": want, "relu_bwd": want}, (fused, method)
+    counts.update(relu_fwd=0, relu_bwd=0)
+    vox = tres.bind_inference(tvoxel.VoxelModel(), device="cpu")
+    tw3.WaveletAttribution3D(vox, **{**kw, "n_samples": 2})(
+        np.zeros((2, 1, 16, 16, 16), np.float32), [0, 1])
+    pn = tres.bind_inference(tpn.PointNetCls(k=4), device="cpu")
+    tw3.BaseWAM3D(pn, J=3, instance="point_clouds", device="cpu")(
+        np.random.default_rng(1).standard_normal((2, 3, 64)).astype(np.float32), [0, 1])
+    assert counts == {"relu_fwd": 0, "relu_bwd": 0}
 
 
 def test_kernel_launchers_refuse_cpu_tensors(monkeypatch):
@@ -475,6 +539,23 @@ def test_vit_slice_public_names_exported():
         for pkg in (wam_tpu_torch, tmodels):
             assert hasattr(pkg, name), (pkg.__name__, name)
             assert name in pkg.__all__, (pkg.__name__, name)
+
+
+def test_wam3d_public_names_exported():
+    import wam_tpu_torch.models as tmodels
+
+    for name in ("WaveletAttribution3D", "BaseWAM3D", "filter_coeffs", "cube3d", "cube_size",
+                 "visualize_cube", "dwt3", "idwt3", "wavedec3", "waverec3", "DETAIL3D_KEYS",
+                 "ResNet3D", "resnet3d_10", "resnet3d_18", "VoxelModel", "PointNetCls",
+                 "PointNetDenseCls", "PointNetFeat", "feature_transform_regularizer",
+                 "flax_resnet3d_to_torch", "flax_voxel_to_torch", "flax_pointnet_to_torch"):
+        assert hasattr(wam_tpu_torch, name), name
+        assert name in wam_tpu_torch.__all__, name
+    for name in ("ResNet3D", "resnet3d_10", "resnet3d_18", "VoxelModel", "STN", "STN3d", "STNkd",
+                 "PointNetFeat", "PointNetfeat", "PointNetCls", "PointNetDenseCls",
+                 "feature_transform_regularizer", "flax_resnet3d_to_torch",
+                 "flax_voxel_to_torch", "flax_pointnet_to_torch"):
+        assert hasattr(tmodels, name) and name in tmodels.__all__, name
 
 
 def test_public_names_exported():

@@ -2,8 +2,9 @@
 
 A port of `wam_tpu` (JAX on the TPU, kept as the reference) to PyTorch on an
 NVIDIA H100: WAM-2D on images (`WaveletAttribution2D`, on ResNets, ViTs and
-ConvNeXts) and WAM-1D on audio (`WaveletAttribution1D`, through the mel front
-end). Module paths and names
+ConvNeXts), WAM-1D on audio (`WaveletAttribution1D`, through the mel front
+end) and WAM-3D on volumes and point clouds (`WaveletAttribution3D`,
+`BaseWAM3D`, on the 3D ResNet, the voxel CNN and PointNet). Module paths and names
 mirror `wam_tpu`; the TPU's Pallas kernels become hand-written CUDA kernels
 (`wam_tpu_torch.kernels`), each with its plain PyTorch version beside it for
 CPU tensors and for tests. Entry points run on CUDA unless the caller passes
@@ -25,11 +26,22 @@ from wam_tpu_torch.models.convnext import ConvNeXt, convnext_test, convnext_tiny
 from wam_tpu_torch.models.ingest import (
     flax_audio_to_torch,
     flax_convnext_to_torch,
+    flax_pointnet_to_torch,
+    flax_resnet3d_to_torch,
     flax_resnet_to_torch,
     flax_vit_to_torch,
+    flax_voxel_to_torch,
 )
 from wam_tpu_torch.models.patchconv import PatchConv
+from wam_tpu_torch.models.pointnet import (
+    PointNetCls,
+    PointNetDenseCls,
+    PointNetFeat,
+    feature_transform_regularizer,
+)
 from wam_tpu_torch.models.resnet import bind_inference, resnet18, resnet50
+from wam_tpu_torch.models.resnet3d import ResNet3D, resnet3d_10, resnet3d_18
+from wam_tpu_torch.models.voxel import VoxelModel
 from wam_tpu_torch.models.vit import ViT, bind_vit_inference, vit_b16, vit_tiny_test
 from wam_tpu_torch.ops.melspec import (
     amplitude_to_db,
@@ -43,6 +55,7 @@ from wam_tpu_torch.ops.packing2d import (
     mosaic_size,
     reproject_mosaic,
 )
+from wam_tpu_torch.ops.packing3d import cube3d, cube_size, visualize_cube
 from wam_tpu_torch.tune.fused_relu import fused_relu
 from wam_tpu_torch.wam1d import (
     BaseWAM1D,
@@ -52,50 +65,73 @@ from wam_tpu_torch.wam1d import (
     scaleogram,
 )
 from wam_tpu_torch.wam2d import BaseWAM2D, WaveletAttribution2D
+from wam_tpu_torch.wam3d import BaseWAM3D, WaveletAttribution3D, filter_coeffs
 from wam_tpu_torch.wavelets.matmul import idwt2_kernel
 from wam_tpu_torch.wavelets.transform import (
+    DETAIL3D_KEYS,
     Detail2D,
     dwt,
     dwt2,
+    dwt3,
     dwt_max_level,
     idwt,
     idwt2,
+    idwt3,
     wavedec,
     wavedec2,
+    wavedec3,
     waverec,
     waverec2,
+    waverec3,
 )
 
 __all__ = [
     "AudioCNN",
     "BaseWAM1D",
     "BaseWAM2D",
+    "BaseWAM3D",
     "ConvNeXt",
+    "DETAIL3D_KEYS",
     "Detail2D",
     "PatchConv",
+    "PointNetCls",
+    "PointNetDenseCls",
+    "PointNetFeat",
+    "ResNet3D",
     "ViT",
     "VisualizerWAM1D",
+    "VoxelModel",
     "WamEngine",
     "WaveletAttribution1D",
     "WaveletAttribution2D",
+    "WaveletAttribution3D",
     "amplitude_to_db",
     "bind_audio_inference",
     "bind_inference",
     "bind_vit_inference",
     "convnext_test",
     "convnext_tiny",
+    "cube3d",
+    "cube_size",
     "disentangle_scales",
     "dwt",
     "dwt2",
+    "dwt3",
     "dwt_max_level",
+    "feature_transform_regularizer",
+    "filter_coeffs",
     "flax_audio_to_torch",
     "flax_convnext_to_torch",
+    "flax_pointnet_to_torch",
+    "flax_resnet3d_to_torch",
     "flax_resnet_to_torch",
     "flax_vit_to_torch",
+    "flax_voxel_to_torch",
     "fused_relu",
     "idwt",
     "idwt2",
     "idwt2_kernel",
+    "idwt3",
     "integrated_path",
     "mel_filterbank",
     "melspectrogram",
@@ -105,6 +141,8 @@ __all__ = [
     "normalize_waveforms",
     "reproject_mosaic",
     "resnet18",
+    "resnet3d_10",
+    "resnet3d_18",
     "resnet50",
     "resolve_device",
     "sample_noise",
@@ -115,10 +153,13 @@ __all__ = [
     "toy_wave_model",
     "trapezoid",
     "validate_sample_batch_size",
+    "visualize_cube",
     "vit_b16",
     "vit_tiny_test",
     "wavedec",
     "wavedec2",
+    "wavedec3",
     "waverec",
     "waverec2",
+    "waverec3",
 ]

@@ -1,7 +1,8 @@
 """Core gradient engine: d logit_y / d wavelet-coefficients (PyTorch).
 
-Counterpart of `wam_tpu.core.engine` for 1D signals and 2D NCHW inputs: the
-coefficients of ``wavedec`` / ``wavedec2`` become detached leaf tensors, the
+Counterpart of `wam_tpu.core.engine` for 1D signals, 2D NCHW inputs and 3D
+volumes: the coefficients of ``wavedec`` / ``wavedec2`` / ``wavedec3``
+become detached leaf tensors, the
 reconstruction feeds the model (through an optional differentiable
 ``front_fn``, the 1D mel front end), and `torch.autograd.grad` of the target
 loss returns one gradient per coefficient, in the coefficients' own
@@ -33,6 +34,8 @@ def _flatten(coeffs) -> list[torch.Tensor]:
     for det in coeffs[1:]:
         if isinstance(det, wt.Detail2D):
             out.extend(det)
+        elif isinstance(det, dict):
+            out.extend(det[k] for k in wt.DETAIL3D_KEYS)
         else:
             out.append(det)
     return out
@@ -43,8 +46,12 @@ def _unflatten(leaves: Sequence[torch.Tensor], like) -> list:
     it = iter(leaves)
     out = [next(it)]
     for det in like[1:]:
-        out.append(wt.Detail2D(next(it), next(it), next(it))
-                   if isinstance(det, wt.Detail2D) else next(it))
+        if isinstance(det, wt.Detail2D):
+            out.append(wt.Detail2D(next(it), next(it), next(it)))
+        elif isinstance(det, dict):
+            out.append({k: next(it) for k in wt.DETAIL3D_KEYS})
+        else:
+            out.append(next(it))
     return out
 
 
@@ -54,20 +61,23 @@ def map_coeffs(fn, coeffs) -> list:
 
 
 class WamEngine:
-    """Single-pass wavelet attribution for 1D signals (..., W) or 2D NCHW
-    inputs.
+    """Single-pass wavelet attribution for 1D signals (..., W), 2D NCHW
+    inputs or 3D volumes (..., D, H, W).
 
     Parameters
     ----------
     model_fn : callable mapping the reconstructed batch (or the front end's
         output, when ``front_fn`` is given) to logits (B, K).
-    ndim : spatial rank, 1 or 2.
+    ndim : spatial rank: 1 (audio), 2 (image) or 3 (volume; the model gets
+        the reconstruction (B, D, H, W) as it is, and adds its own channel
+        axis, as `wam3d` does).
     front_fn : optional differentiable map between the reconstruction and
         the model (the 1D mel front end); ``front=True`` also returns the
         gradient at its output.
-    impl : the 2D transform implementation (`wavelets.transform`); ``None``
-        picks the CUDA kernels for CUDA tensors and the conv form for CPU
-        tensors. The 1D transform has one implementation.
+    impl : the 2D transform implementation, or the 3D synthesis's
+        (`wavelets.transform`); ``None`` picks the CUDA kernels for CUDA
+        tensors and the conv form for CPU tensors (3D: the conv form on
+        every device). The 1D transform has one implementation.
     """
 
     def __init__(
@@ -82,8 +92,8 @@ class WamEngine:
         channel_last: bool = False,
         impl: str | None = None,
     ):
-        if ndim not in (1, 2):
-            raise NotImplementedError(f"ndim={ndim}: only the 1D and 2D engines are ported")
+        if ndim not in (1, 2, 3):
+            raise ValueError(f"ndim must be 1, 2 or 3, got {ndim}")
         if channel_last:
             raise NotImplementedError("channel_last: only the NCHW engine is ported")
         if impl is not None and impl not in wt.IMPLS:
@@ -99,6 +109,8 @@ class WamEngine:
     def decompose(self, x: torch.Tensor):
         if self.ndim == 1:
             return wt.wavedec(x, self.wavelet, self.level, self.mode)
+        if self.ndim == 3:
+            return wt.wavedec3(x, self.wavelet, self.level, self.mode)
         return wt.wavedec2(x, self.wavelet, self.level, self.mode, impl=self.impl)
 
     def reconstruct(self, coeffs, spatial_shape: Sequence[int]) -> torch.Tensor:
@@ -106,6 +118,9 @@ class WamEngine:
         # sizes; crop to the model's spatial shape
         if self.ndim == 1:
             return wt.waverec(coeffs, self.wavelet)[..., : spatial_shape[0]]
+        if self.ndim == 3:
+            rec = wt.waverec3(coeffs, self.wavelet, impl=self.impl)
+            return rec[..., : spatial_shape[0], : spatial_shape[1], : spatial_shape[2]]
         rec = wt.waverec2(coeffs, self.wavelet, impl=self.impl)
         return rec[..., : spatial_shape[0], : spatial_shape[1]]
 

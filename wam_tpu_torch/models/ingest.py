@@ -9,9 +9,15 @@ AudioCNN and `wam_tpu_torch.models.audio.AudioCNN`, `flax_vit_to_torch` for
 `wam_tpu.models.vit` (timm's names) and `flax_convnext_to_torch` for
 `wam_tpu.models.convnext` (torchvision's names); the last two are the
 inverses of the reference's `torch_vit_to_flax` and `torch_convnext_to_flax`.
+`flax_resnet3d_to_torch`, `flax_voxel_to_torch` and `flax_pointnet_to_torch`
+carry the 3D models across by name (`resnet3d`, `voxel`, `pointnet`).
 So both packages can run the same weights:
 
-- conv kernel (kh, kw, I, O) -> weight (O, I, kh, kw); conv bias as is
+- conv kernel (kh, kw, I, O) -> weight (O, I, kh, kw), and (kd, kh, kw, I,
+  O) -> (O, I, kd, kh, kw); conv bias as is
+- the PointNets' point-shared dense kernels (I, O) -> 1x1 Conv1d weights
+  (O, I, 1); the voxel model's ``fc1`` rows, which JAX flattens in NDHWC
+  order, permuted to PyTorch's NCDHW order
 - dense kernel (in, out) -> weight (out, in); bias as is
 - BatchNorm scale/bias + mean/var -> weight/bias + running_mean/running_var
 - LayerNorm scale/bias -> weight/bias
@@ -26,13 +32,15 @@ ignored.
 
 from __future__ import annotations
 
+import re
 from typing import Mapping
 
 import numpy as np
 import torch
 
 __all__ = ["flax_resnet_to_torch", "flax_audio_to_torch", "flax_vit_to_torch",
-           "flax_convnext_to_torch"]
+           "flax_convnext_to_torch", "flax_resnet3d_to_torch", "flax_voxel_to_torch",
+           "flax_pointnet_to_torch"]
 
 
 def _t(v) -> torch.Tensor:
@@ -40,7 +48,9 @@ def _t(v) -> torch.Tensor:
 
 
 def _conv(kernel) -> torch.Tensor:
-    return _t(np.asarray(kernel).transpose(3, 2, 0, 1))
+    """A flax conv kernel (*spatial, I, O) of any rank -> (O, I, *spatial)."""
+    k = np.asarray(kernel)
+    return _t(k.transpose((k.ndim - 1, k.ndim - 2) + tuple(range(k.ndim - 2))))
 
 
 def _take_bn(state: dict, node_p, node_s, prefix: str) -> None:
@@ -173,3 +183,56 @@ def flax_convnext_to_torch(variables: Mapping) -> dict[str, torch.Tensor]:
     _ln(state, params["head_ln"], "classifier.0")
     _dense(state, params["head"], "classifier.2")
     return state
+
+
+def _walk(state: dict, params: Mapping, stats: Mapping, prefix: str = "",
+          point_shared: tuple[str, ...] = ()) -> dict[str, torch.Tensor]:
+    """Every conv, dense and BatchNorm of a flax variable tree under its own
+    name (a block ``layer{s}_{i}`` as torch's ``layer{s}.{i}``); the dense
+    layers named in ``point_shared`` become 1x1 Conv1d weights."""
+    for name, node in params.items():
+        key = prefix + re.sub(r"^(layer\d+)_(\d+)$", r"\1.\2", name)
+        if "kernel" in node:
+            k = np.asarray(node["kernel"])
+            if k.ndim > 2:
+                state[f"{key}.weight"] = _conv(k)
+            else:
+                state[f"{key}.weight"] = _t(k.T[..., None] if name in point_shared else k.T)
+            if "bias" in node:
+                state[f"{key}.bias"] = _t(node["bias"])
+        elif "scale" in node:
+            _take_bn(state, node, stats[name], key)
+        else:
+            _walk(state, node, stats.get(name, {}), key + ".", point_shared)
+    return state
+
+
+def flax_resnet3d_to_torch(variables: Mapping) -> dict[str, torch.Tensor]:
+    """`wam_tpu.models.resnet3d` variables -> the state dict of
+    `wam_tpu_torch.models.resnet3d.ResNet3D` (the same names; a block
+    ``layer{s}_{i}`` is ``layer{s}.{i}``)."""
+    return _walk({}, variables["params"], variables["batch_stats"])
+
+
+def flax_voxel_to_torch(variables: Mapping) -> dict[str, torch.Tensor]:
+    """`wam_tpu.models.voxel.VoxelModel` variables -> the state dict of
+    `wam_tpu_torch.models.voxel.VoxelModel`. JAX flattens the pooled
+    features (B, d, h, w, C) in NDHWC order, the port in NCDHW order:
+    ``fc1``'s input columns are permuted to match."""
+    state = _walk({}, variables["params"], {})
+    ch = state["conv2.weight"].shape[0]
+    w = state["fc1.weight"]
+    side = round((w.shape[1] // ch) ** (1 / 3))
+    state["fc1.weight"] = (w.reshape(w.shape[0], side, side, side, ch)
+                           .permute(0, 4, 1, 2, 3).reshape(w.shape[0], -1).contiguous())
+    return state
+
+
+def flax_pointnet_to_torch(variables: Mapping) -> dict[str, torch.Tensor]:
+    """`wam_tpu.models.pointnet` variables (`PointNetCls`,
+    `PointNetDenseCls`, `PointNetFeat` or `STN`) -> the state dict of the
+    same `wam_tpu_torch.models.pointnet` module: the same names, the
+    point-shared dense layers (``mlp1``-``mlp3``, ``c1``-``c4``) as 1x1
+    Conv1d weights."""
+    return _walk({}, variables["params"], variables["batch_stats"],
+                 point_shared=("mlp1", "mlp2", "mlp3", "c1", "c2", "c3", "c4"))

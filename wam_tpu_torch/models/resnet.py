@@ -126,18 +126,19 @@ def _conv_of(bn_name: str) -> str | None:
 @torch.no_grad()
 def _fold_bn(model: nn.Module, eps: float = 1e-5) -> None:
     """Fold inference-mode BatchNorm affines into the preceding conv weights,
-    in place: BN with running stats is y = x*a + b with a = gamma/sqrt(var+eps),
-    b = beta - mean*a; the conv's output channels are scaled by a and the BN
-    becomes the pure shift (weight 1, bias b, mean 0, var 1-eps)."""
+    in place, for convolutions of any rank (1D, 2D, 3D): BN with running
+    stats is y = x*a + b with a = gamma/sqrt(var+eps), b = beta - mean*a; the
+    conv's output channels are scaled by a and the BN becomes the pure shift
+    (weight 1, bias b, mean 0, var 1-eps)."""
     modules = dict(model.named_modules())
     for name, bn in modules.items():
-        if not isinstance(bn, nn.BatchNorm2d):
+        if not isinstance(bn, nn.modules.batchnorm._BatchNorm):
             continue
         conv = modules.get(_conv_of(name) or "")
-        if not isinstance(conv, nn.Conv2d):
+        if not isinstance(conv, nn.modules.conv._ConvNd) or conv.transposed:
             continue
         a = bn.weight / torch.sqrt(bn.running_var + eps)
-        conv.weight.mul_(a.reshape(-1, 1, 1, 1))
+        conv.weight.mul_(a.reshape((-1,) + (1,) * (conv.weight.ndim - 1)))
         if conv.bias is not None:
             conv.bias.mul_(a)
         bn.bias.copy_(bn.bias - bn.running_mean * a)
@@ -164,7 +165,11 @@ def bind_inference(
     parameter gets ``requires_grad=False`` — attribution differentiates only
     with respect to the input, so no weight gradient is ever computed.
 
-    ``nchw=False`` accepts (B, H, W, C) input. ``compute_dtype`` (e.g.
+    ``nchw=False`` accepts (B, H, W, C) input and permutes it to NCHW; it
+    is for 4-D image input only. A model that takes its input as it comes,
+    such as `resnet3d.ResNet3D` on (B, 1, D, H, W) volumes, is bound with
+    the default ``nchw=True``: on a 5-D input ``nchw=False`` would permute
+    the wrong axes. ``compute_dtype`` (e.g.
     ``torch.bfloat16``) casts parameters and buffers once and the input at
     the boundary; logits come back float32. ``fold_bn`` folds BatchNorm
     multiplies into the conv weights (same function, cheaper backward; a

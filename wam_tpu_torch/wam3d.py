@@ -1,0 +1,322 @@
+"""WAM-3D: volume (voxel) and point-cloud attribution in the wavelet domain
+(PyTorch port).
+
+Counterpart of `wam_tpu.wam3d`: a batched 3D DWT -> coefficient gradients ->
+dyadic cube (`ops.packing3d.cube3d`), with the ``y=None`` representation
+mode (the gradient of the mean of the model's output), voxel filtering,
+SmoothGrad (divided by n_samples once, after the loop) and Integrated
+Gradients, per-level visualization, and the point-cloud path (per-axis 1D
+DWT attribution with threshold filtering).
+
+The model is a function ``x (B, 1, D, H, W) -> logits (B, K)`` already bound
+to its device (e.g. `models.resnet.bind_inference` of a
+`models.resnet3d.ResNet3D` or a `models.voxel.VoxelModel`), or, with
+``instance="point_clouds"``, ``(B, 3, N) -> logits`` or a tuple whose first
+element is the logits (`models.pointnet`). The engine reconstructs
+(B, D, H, W) volumes and the model gets ``rec[:, None]``.
+
+No TPU kernel lies on this path: the analysis is a ``conv3d``, the synthesis
+a ``conv_transpose3d`` (the default) or three banded products
+(`matmul.synthesis3_mm`, ``impl="matmul"`` or ``"kernel"``), the models
+cuDNN's. A model bound with
+``fused_relu_vjp=True`` runs its ReLUs through K4/K5.
+"""
+
+from __future__ import annotations
+
+from typing import Callable
+
+import numpy as np
+import torch
+
+from wam_tpu_torch.core.engine import WamEngine, map_coeffs, target_loss
+from wam_tpu_torch.core.estimators import (
+    integrated_path,
+    resolve_sample_chunk,
+    smoothgrad,
+    validate_sample_batch_size,
+)
+from wam_tpu_torch.device import resolve_device
+from wam_tpu_torch.ops.packing3d import cube3d, visualize_cube
+from wam_tpu_torch.wavelets.transform import wavedec, waverec, waverec3
+
+__all__ = ["filter_coeffs", "BaseWAM3D", "WaveletAttribution3D"]
+
+
+def filter_coeffs(coeffs, EPS: float, normalized: bool = False) -> torch.Tensor:
+    """Binary mask (int32) of the (min-max-normalized) coefficients above EPS."""
+    c = torch.as_tensor(coeffs)
+    if not normalized:
+        lo, hi = c.min(), c.max()
+        c = (c - lo) / torch.where(hi > lo, hi - lo, torch.ones_like(hi))
+        return (c > EPS).to(torch.int32)
+    return (c >= EPS).to(torch.int32)
+
+
+class BaseWAM3D:
+    """Single-pass WAM-3D.
+
+    ``__call__(x, y)`` on volumes (B, 1, D, H, W) (``instance="voxels"``)
+    returns the gradient cube (B, S, S, S) and keeps the coefficients and
+    their gradients for `filter_voxels`; on point clouds (B, 3, N)
+    (``instance="point_clouds"``) it returns the coefficient gradients of
+    each coordinate axis (`evaluate_point_clouds`). ``y=None`` takes the
+    gradient of the mean of the model's output.
+
+    ``device``: where the computation runs; CUDA unless the caller asks
+    otherwise (``"cpu"`` runs the same PyTorch forms there). ``impl``: the
+    3D synthesis (`wavelets.transform.idwt3`; ``None`` = the conv form).
+    """
+
+    def __init__(
+        self,
+        model_fn: Callable[[torch.Tensor], torch.Tensor],
+        wavelet: str = "haar",
+        J: int = 1,
+        approx_coeffs: bool = False,
+        mode: str = "symmetric",
+        instance: str = "voxels",
+        normalize: bool = True,
+        EPS: float = 0.451,
+        device=None,
+        impl: str | None = None,
+    ):
+        if instance not in ("voxels", "point_clouds"):
+            raise ValueError(f"Unknown instance {instance!r}")
+        self.device = resolve_device(device)
+        self.model_fn = model_fn
+        self.wavelet = wavelet
+        self.J = J
+        self.approx_coeffs = approx_coeffs
+        self.mode = mode
+        self.instance = instance
+        self.normalize = normalize
+        self.EPS = EPS
+        self.input_size = None
+        self.engine = WamEngine(lambda rec: model_fn(rec[:, None]), ndim=3, wavelet=wavelet,
+                                level=J, mode=mode, impl=impl)
+
+    def _inputs(self, x, y):
+        x = torch.as_tensor(x, device=self.device)
+        if y is not None:
+            y = torch.as_tensor(y, device=self.device)
+        return x, y
+
+    # -- voxels ------------------------------------------------------------
+
+    def evaluate_voxels(self, x, y=None) -> torch.Tensor:
+        """x: (B, 1, D, H, W). Returns the gradient cube (B, S, S, S); keeps
+        the coefficients and their gradients (``coeffs``, ``grads_pytree``)."""
+        x, y = self._inputs(x, y)
+        self.input_size = x.shape[-1]
+        self.coeffs, self.grads_pytree = self.engine.attribute(x[:, 0], y)
+        self.grads = cube3d(self.grads_pytree)
+        return self.grads
+
+    def filter_voxels(self, EPS: float | None = None) -> torch.Tensor:
+        """Reconstruct filtered shapes (B, 1, D, H, W) from the last
+        `evaluate_voxels`: the approximation modulated by its min-max-
+        normalized gradient, the details hard-thresholded at EPS on their
+        max-normalized |gradient|."""
+        EPS = self.EPS if EPS is None else EPS
+        dims = (-3, -2, -1)
+        ga = self.grads_pytree[0]
+        lo, hi = ga.amin(dim=dims, keepdim=True), ga.amax(dim=dims, keepdim=True)
+        filtered = [self.coeffs[0] * (ga - lo) / torch.where(hi > lo, hi - lo, torch.ones_like(hi))]
+        for det_c, det_g in zip(self.coeffs[1:], self.grads_pytree[1:]):
+            level = {}
+            for key, g in det_g.items():
+                gn = g.abs() / g.abs().amax(dim=dims, keepdim=True).clamp_min(1e-12)
+                level[key] = det_c[key] * (gn >= EPS)
+            filtered.append(level)
+        with torch.no_grad():
+            rec = waverec3(filtered, self.wavelet, impl=self.engine.impl)
+        s = self.input_size
+        return rec[..., :s, :s, :s][:, None]
+
+    # -- point clouds ------------------------------------------------------
+
+    def evaluate_point_clouds(self, x, y=None) -> list[list[torch.Tensor]]:
+        """x: (B, 3, N) point clouds. Each coordinate sequence is
+        decomposed with the 1D DWT, the model reads the reconstruction, and
+        one backward gives the gradient of every (axis, level) coefficient.
+        Returns a list over x, y, z of coefficient-gradient lists
+        [cA_J, cD_J, ..., cD_1]."""
+        x, y = self._inputs(x, y)
+        self.input = x
+        self.batch_size, _, self.shape_size = x.shape
+        with torch.no_grad():
+            coeffs = [wavedec(x[:, d], self.wavelet, self.J, self.mode) for d in range(3)]
+        leaves = [[c.detach().requires_grad_(True) for c in cs] for cs in coeffs]
+        with torch.enable_grad():
+            rec = torch.stack([self.engine_1d_reconstruct(cs, x.shape[-1]) for cs in leaves], dim=1)
+            out = self.model_fn(rec)
+            out = out[0] if isinstance(out, tuple) else out
+            grads = iter(torch.autograd.grad(target_loss(out, y), [c for cs in leaves for c in cs]))
+        self.pc_coeffs = coeffs
+        self.pc_grads = [[next(grads) for _ in cs] for cs in leaves]
+        return self.pc_grads
+
+    def engine_1d_reconstruct(self, coeffs, length: int) -> torch.Tensor:
+        return waverec(coeffs, self.wavelet)[..., :length]
+
+    def filter_point_clouds(self, EPS: float | None = None):
+        """Keep the points whose summed (axis, level) gradient importance,
+        each level linearly interpolated to the N points, exceeds EPS after
+        min-max normalization over the batch. Host-side numpy. Returns (a list
+        of (n_kept_i, 3) arrays, the per-point importance (B, N))."""
+        EPS = self.EPS if EPS is None else EPS
+        n = self.shape_size
+        total = np.zeros((self.batch_size, n))
+        xq = np.linspace(0.0, 1.0, n)
+        for dim_grads in self.pc_grads:
+            for level in dim_grads:
+                g = level.detach().cpu().numpy()
+                xp = np.linspace(0.0, 1.0, g.shape[-1])
+                for b in range(self.batch_size):
+                    total[b] += np.interp(xq, xp, g[b])
+        lo, hi = total.min(), total.max()
+        norm = (total - lo) / (hi - lo if hi > lo else 1.0)
+        points = self.input.detach().cpu().numpy()
+        kept = [points[b, :, np.where(np.abs(norm[b]) > EPS)[0]] for b in range(self.batch_size)]
+        return kept, norm
+
+    def __call__(self, x, y=None):
+        if self.instance == "voxels":
+            return self.evaluate_voxels(x, y)
+        return self.evaluate_point_clouds(x, y)
+
+    def serve_entry(self, *args, **kwargs):
+        raise NotImplementedError("serve_entry is not ported yet (ROADMAP.md, slice F)")
+
+
+class WaveletAttribution3D(BaseWAM3D):
+    """SmoothGrad / Integrated-Gradients WAM-3D on volumes (B, 1, D, H, W).
+
+    method="smooth": the mean gradient cube over ``n_samples`` noisy copies,
+    per-volume sigma = stdev_spread * (max - min). method="integratedgrad":
+    the cube of the input coefficients times the trapezoid (dx = 1) over
+    alpha in linspace(0, 1, n_samples) of the gradient cubes at alpha *
+    coefficients.
+
+    ``sample_batch_size`` samples (or path points) run as one batch of
+    sample_batch_size * B model rows; "auto" and None run them all at once.
+    Each sample keeps its own loss scale, so the result does not depend on
+    the chunk.
+
+    SmoothGrad noise: standard-normal draws from a ``torch.Generator`` on
+    the device seeded with ``random_seed``, or the explicit ``noise``
+    (n_samples, *x.shape) given to ``__call__``; ``stream_noise=True`` draws
+    each chunk's noise inside the chunk loop, sample i's from (random_seed,
+    i) (`core.estimators.sample_noise`).
+
+    ``mesh=`` (and ``seq_axis`` and ``batch_axis``, which go with it) is
+    not ported yet and raises.
+    """
+
+    def __init__(
+        self,
+        model_fn: Callable[[torch.Tensor], torch.Tensor],
+        wavelet: str = "haar",
+        J: int = 3,
+        method: str = "smooth",
+        approx_coeffs: bool = False,
+        mode: str = "symmetric",
+        instance: str = "voxels",
+        normalize: bool = True,
+        EPS: float = 0.451,
+        n_samples: int = 25,
+        stdev_spread: float = 1e-4,
+        random_seed: int = 42,
+        sample_batch_size: int | None | str = "auto",
+        stream_noise: bool = False,
+        mesh=None,
+        seq_axis: str = "data",
+        batch_axis: str | None = None,
+        device=None,
+        impl: str | None = None,
+    ):
+        if (mesh, seq_axis, batch_axis) != (None, "data", None):
+            raise NotImplementedError("mesh=, seq_axis and batch_axis are not ported yet "
+                                      "(ROADMAP.md, slice E)")
+        super().__init__(model_fn, wavelet=wavelet, J=J, approx_coeffs=approx_coeffs,
+                         mode=mode, instance=instance, normalize=normalize, EPS=EPS,
+                         device=device, impl=impl)
+        if method not in ("smooth", "integratedgrad"):
+            raise ValueError(f"Unknown method {method!r}")
+        validate_sample_batch_size(sample_batch_size)
+        self.method = method
+        self.n_samples = n_samples
+        self.stdev_spread = stdev_spread
+        self.random_seed = random_seed
+        self.sample_batch_size = sample_batch_size
+        self.stream_noise = bool(stream_noise)
+
+    def _chunk(self) -> int | None:
+        return resolve_sample_chunk(self.sample_batch_size, self.n_samples)
+
+    def _cubes(self, coeffs, y, spatial, s: int) -> torch.Tensor:
+        """Gradient cubes of ``s`` stacked copies: coefficient leaves are
+        (s*B, d, h, w), sample-major; returns (s, B, S, S, S)."""
+        grads = self.engine.grads_from_coeffs(coeffs, None if y is None else y.repeat(s),
+                                              spatial, samples=s)
+        cube = cube3d(grads)
+        return cube.reshape((s, -1) + tuple(cube.shape[1:]))
+
+    def smooth(self, x, y=None, noise=None) -> torch.Tensor:
+        """The mean gradient cube over the noisy samples (B, S, S, S)."""
+        x, y = self._inputs(x, y)
+        self.input_size = x.shape[-1]
+        vol = x[:, 0]
+        spatial = tuple(vol.shape[-3:])
+
+        def step(noisy: torch.Tensor) -> torch.Tensor:  # (s, B, D, H, W)
+            with torch.no_grad():
+                coeffs = self.engine.decompose(noisy.reshape((-1,) + spatial))
+            return self._cubes(coeffs, y, spatial, noisy.shape[0])
+
+        generator = None
+        if noise is not None:
+            noise = torch.as_tensor(noise, device=self.device)
+            noise = noise.reshape((noise.shape[0],) + tuple(vol.shape))
+        elif not self.stream_noise:
+            generator = torch.Generator(device=self.device).manual_seed(self.random_seed)
+        self.grads = smoothgrad(step, vol, n_samples=self.n_samples,
+                                stdev_spread=self.stdev_spread, batch_size=self._chunk(),
+                                generator=generator, noise=noise,
+                                materialize_noise=not self.stream_noise, seed=self.random_seed)
+        return self.grads
+
+    def integrated_wam(self, x, y=None) -> torch.Tensor:
+        """The input coefficients' cube times the trapezoidal path integral
+        of the gradient cubes (B, S, S, S)."""
+        x, y = self._inputs(x, y)
+        self.input_size = x.shape[-1]
+        vol = x[:, 0]
+        spatial = tuple(vol.shape[-3:])
+        with torch.no_grad():
+            coeffs = self.engine.decompose(vol)
+        baseline = cube3d(coeffs)
+
+        def grad_fn(alphas: torch.Tensor) -> torch.Tensor:  # (s,)
+            scaled = map_coeffs(
+                lambda c: (c[None] * alphas.to(c.dtype).reshape(-1, 1, 1, 1, 1))
+                .reshape((-1,) + tuple(c.shape[1:])), coeffs)
+            return self._cubes(scaled, y, spatial, alphas.shape[0])
+
+        self.grads = baseline * integrated_path(grad_fn, n_steps=self.n_samples,
+                                                batch_size=self._chunk(), device=self.device)
+        return self.grads
+
+    intergrated_wam = integrated_wam  # the reference's spelling
+
+    def __call__(self, x, y=None, noise=None) -> torch.Tensor:
+        if self.method == "smooth":
+            return self.smooth(x, y, noise)
+        if noise is not None:
+            raise ValueError("noise= applies to method='smooth' only")
+        return self.integrated_wam(x, y)
+
+    def visualize(self) -> torch.Tensor:
+        """(B, J+2, S, S, S) per-level upsampled maps of the last cube."""
+        return visualize_cube(self.grads, self.J)

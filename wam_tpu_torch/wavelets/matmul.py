@@ -30,11 +30,14 @@ plain versions stay dense matmul pairs.
 
 A CUDA tensor goes to the kernel, or the call raises; the plain version
 serves CPU tensors only. `analysis2_mm` / `synthesis2_mm` are the plain
-matmul forms, differentiable by construction.
+matmul forms, differentiable by construction. `synthesis3_mm` is the 3D
+synthesis as three banded products (no TPU kernel covers 3D), in full
+float32 forward and backward whatever the caller's TF32 setting.
 """
 
 from __future__ import annotations
 
+import contextlib
 import functools
 
 import numpy as np
@@ -49,6 +52,7 @@ __all__ = [
     "synthesis_matrices",
     "analysis2_mm",
     "synthesis2_mm",
+    "synthesis3_mm",
     "band_form",
     "dwt2_band",
     "idwt2_band",
@@ -634,6 +638,74 @@ def synthesis2_mm(subbands: torch.Tensor, wavelet, out_shape) -> torch.Tensor:
     S_c = synthesis_matrices(w, wavelet, subbands.dtype, subbands.device)
     out = torch.matmul(torch.matmul(S_r, _merge_quadrants(subbands)), S_c.T)
     return out[..., : out_shape[0], : out_shape[1]]
+
+
+SPAN_3D = "wam_dwt3"  # the 3D transform's profiler span (`transform.SPAN_3D`)
+
+
+@functools.lru_cache(maxsize=64)
+def _synthesis_operator(n: int, rec_lo: tuple, rec_hi: tuple, dtype,
+                        device: torch.device) -> torch.Tensor:
+    """`synthesis_matrices` built once per (side, wavelet, dtype, device)."""
+    return torch.as_tensor(_synthesis_np(n, rec_lo, rec_hi), dtype=dtype, device=device)
+
+
+@contextlib.contextmanager
+def _f32_matmuls():
+    """cuBLAS float32 matmuls in full float32 inside the block (TF32 off),
+    the caller's setting restored after."""
+    prev = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        yield
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = prev
+
+
+def _axis_products(y: torch.Tensor, m0, m1, m2) -> torch.Tensor:
+    """m0, m1, m2 applied along axes -3, -2, -1 of y, in full float32."""
+    with _f32_matmuls():
+        y = torch.einsum("ij,...jkl->...ikl", m0, y)
+        y = torch.einsum("ij,...kjl->...kil", m1, y)
+        return torch.einsum("ij,...klj->...kli", m2, y)
+
+
+class _Synthesis3(torch.autograd.Function):
+    """(..., 2 d0, 2 d1, 2 d2) block layout -> S0, S1, S2 along the three
+    axes; the backward applies their transposes, also in full float32 and
+    inside the transform's profiler span."""
+
+    @staticmethod
+    def forward(ctx, y, S0, S1, S2):
+        ctx.save_for_backward(S0, S1, S2)
+        return _axis_products(y, S0, S1, S2)
+
+    @staticmethod
+    def backward(ctx, g):
+        S0, S1, S2 = ctx.saved_tensors
+        with torch.profiler.record_function(SPAN_3D):
+            return _axis_products(g, S0.T, S1.T, S2.T), None, None, None
+
+
+def synthesis3_mm(subbands: torch.Tensor, wavelet, out_shape) -> torch.Tensor:
+    """Inverse of one 3D level as three banded products (counterpart of
+    `wam_tpu.wavelets.matmul.synthesis3_mm`). subbands: (..., 8, d0, d1, d2)
+    in the binary a/d channel order over axes (-3, -2, -1) -> (..., out_shape);
+    bf16 subbands are upcast, float64 stays float64."""
+    d = tuple(int(s) for s in subbands.shape[-3:])
+    batch_shape = subbands.shape[:-4]
+    if subbands.dtype == torch.bfloat16:
+        subbands = subbands.float()
+    w = _wav(wavelet)
+    S = [_synthesis_operator(n, tuple(w.rec_lo), tuple(w.rec_hi), subbands.dtype,
+                             subbands.device) for n in d]
+    # channel (b0, b1, b2) is the (b0 d0.., b1 d1.., b2 d2..) block of the
+    # stacked [lo; hi] coefficients per axis, the layout [S_lo | S_hi] reads
+    y = subbands.reshape(batch_shape + (2, 2, 2) + d)
+    y = torch.movedim(y, (-6, -5, -4), (-6, -4, -2))  # (..., 2, d0, 2, d1, 2, d2)
+    y = y.reshape(batch_shape + tuple(2 * n for n in d))
+    y = _Synthesis3.apply(y, *S)
+    return y[..., : out_shape[0], : out_shape[1], : out_shape[2]]
 
 
 # ---------------------------------------------------------------------------
