@@ -13,8 +13,10 @@ sm_90a). Phases, each fatal on failure:
    each path that runs it gives it, TF32 off, and timed with CUDA events:
    K1 and K3 at the flagship's, at path 2's and at the ViT path's (haar),
    K2 (both directions) and K4/K5 at path 2's, K4/K5 also at the vol
-   path's 17 ReLU shapes (128 rows, float32); one line per kernel and
-   path, each case and line
+   path's 17 ReLU shapes (128 rows, float32), K1 and K3 (forward only, on
+   leaves that are views of the masked packed array of one image's 65 and
+   128 masks) at the eval2d path's; one line per kernel and path, each case
+   and line
    with its bound and bound_share (bound / kernel time). K1-K3 launch
    with their band plans (K3 on the coefficient leaves, views of K1's
    output, forward and every leaf's gradient checked); the plain versions
@@ -95,7 +97,31 @@ sm_90a). Phases, each fatal on failure:
    J=3, symmetric), 3 timed passes and `filter_point_clouds`; no port
    kernel may launch (asserted); then card against CPU in float64 (the
    voxel model's coefficient gradients on 4 volumes of 16^3, PointNet's on
-   2 clouds of 256 points; cosine >= 0.9999999, max abs <= 1e-9 x max).
+   2 clouds of 256 points; cosine >= 0.9999999, max abs <= 1e-9 x max);
+11. eval2d: the evaluation of 2D attributions at scripts/bench_eval.py's
+   full geometry: `Eval2DWAM` (haar, J=3, 128 rows a model call) on
+   ResNet-50 (1000 classes, seeded weights) bound in bfloat16 with fold_bn,
+   8 images of 3x224^2, explanations from `WaveletAttribution2D` (haar,
+   J=3, 8 SmoothGrad samples, streamed noise) computed once; insertion and
+   deletion (n_iter 64: 520 model rows a call) and μ-fidelity (28 x 28
+   grid, 128 subsets of 157 cells: 2,056 rows), each a warm call, a counted
+   call (K1 24 and K3 8, or 16 for μ, the others 0; exactly one result
+   fetch and one host wait on the device, by torch's sync debug mode: all
+   asserted) and 3 CUDA-event-timed calls (median, spread, images/s, rows/s,
+   host enqueue time to the fetch, peak memory); then the reduced check:
+   the kernel path against the plain path (impl="matmul") on 2 images with
+   the mosaics handed to both, ResNet-50 in float32, TF32 off (scores,
+   curves and μ values within EVAL_TOL);
+12. eval1d: `Eval1DWAM` (db6, J=5, 32 rows a model call) on the audio
+   phase's AudioCNN, 4 waveforms of 220,500 samples, explanations from
+   `WaveletAttribution1D` SmoothGrad (8 samples) computed once; insertion
+   on the wavelet target (n_iter 64) and input fidelity, counted (no port
+   kernel, one fetch, one host wait: asserted) and timed as in eval2d; then
+   the port on the card against the port on the CPU (2 waveforms of 65,536
+   samples, seeded explanations handed to both, TF32 off) in float32
+   through the class (probabilities and AUCs within 1e-4, input fidelity's
+   classes equal) and in float64 through one waveform's fan step and the
+   model's scores on it (within 1e-9 x max).
 
 Prints a summary JSON line, the kernels' JSON line, the nvidia-smi line, and as its last line
 ``{"ok": true, "device": {...}}``. Exits nonzero, printing no result, when
@@ -170,6 +196,43 @@ VOXEL_BATCH, VOXEL_SIDE, VOXEL_CHUNK, VOXEL_CALLS = 32, 16, 4, 3
 CLOUD_BATCH, CLOUD_POINTS, CLOUD_LEVELS = 32, 2500, 3
 CLOUD_REDUCED = (2, 256)
 ZERO_LAUNCHES = {"dwt2": 0, "synth2": 0, "pair": 0, "relu_fwd": 0, "relu_bwd": 0}
+# the eval2d phase: scripts/bench_eval.py's full geometry (its lines 58-80, 134-149)
+EVAL_BATCH, EVAL_SIDE, EVAL_CLASSES = 8, 224, 1000
+EVAL_WAVELET, EVAL_LEVELS = "haar", 3
+EVAL_EXPLAIN_SAMPLES = 8                # the explainer's SmoothGrad samples, streamed noise
+EVAL_CAP, EVAL_N_ITER = 128, 64         # model rows a call; insertion/deletion steps
+MU_GRID, MU_SAMPLES, MU_SUBSET = 28, 128, 157
+EVAL_CALLS = 3                          # timed calls per metric after the counted one
+EVAL_METRICS = ("insertion", "deletion", "mu_fidelity")
+# model rows a metric call: the image fans, and μ's baseline forward
+EVAL_ROWS = {"insertion": EVAL_BATCH * (EVAL_N_ITER + 1),
+             "deletion": EVAL_BATCH * (EVAL_N_ITER + 1),
+             "mu_fidelity": EVAL_BATCH * (1 + 2 * MU_SAMPLES)}
+# one metric call's launches: K1 at each image's 3 analysis levels (one
+# decomposition an image), K3 forward once a reconstruction family (one an
+# image for insertion and deletion, two for μ); nothing else
+EVAL_LAUNCHES = {m: {**ZERO_LAUNCHES, "dwt2": EVAL_LEVELS * EVAL_BATCH,
+                     "pair": (2 if m == "mu_fidelity" else 1) * EVAL_BATCH}
+                 for m in EVAL_METRICS}
+# reduced check, kernel path against plain path on EVAL_REDUCED images, a
+# float32 model, TF32 off: max abs error of the AUCs, of the curves (over the
+# largest probability) and of the μ values. The two paths differ only in the
+# summation order of K1 and K3 (~1e-7 relative); a swap of two adjacent
+# ranks of 128 moves a Spearman value by 12 / (128 (128^2 - 1)) = 5.7e-6
+EVAL_REDUCED = 2
+EVAL_TOL = {"auc": 1e-5, "curve": 1e-5, "mu": 1e-4}
+# the eval1d phase: bench_eval.py's lines 204-222
+EVAL1D_BATCH, EVAL1D_SAMPLES, EVAL1D_CHUNK, EVAL1D_CAP = 4, 8, 8, 32
+EVAL1D_METRICS = ("insertion", "input_fidelity")
+EVAL1D_ROWS = {"insertion": EVAL1D_BATCH * (EVAL_N_ITER + 1), "input_fidelity": EVAL1D_BATCH * 3}
+# reduced check, the card against the CPU: waveforms, samples, steps; max abs
+# error of probabilities and AUCs in float32 through `Eval1DWAM`, and of the
+# fan's mel spectrograms and scores in float64 (over their largest value).
+# float32 measured 4.4e-6 on the AUCs and 1.9e-7 on the probabilities (H100
+# 80GB HBM3, 700 W): the AudioCNN's convolutions sum in another order on
+# each device; the bound leaves ~20x of headroom
+EVAL1D_REDUCED = (2, 65536, 8)
+EVAL1D_TOL = {"float32": 1e-4, "float64": 1e-9}
 
 
 def _log(*args):
@@ -473,6 +536,58 @@ def _k2_cases(torch, tmm, kernels, g) -> tuple[list[dict], dict]:
     return cases, bwd
 
 
+def _k3_eval_case(torch, tmm, kernels, g, masks: int) -> dict:
+    """K3 forward as the eval2d path runs it: the collapsed synthesis (all
+    three haar levels at 224^2) of one image's mask family, ``masks`` masks
+    x CHANNELS rows, its leaves views of the masked packed array (the mask
+    family of a random mosaic, `evalsuite.metrics.generate_masks`), read in
+    place; held against the plain version, with the einsum on the assembled
+    Y and the assembly (``assemble_ms``) timed beside it."""
+    from wam_tpu_torch.evalsuite import packing
+    from wam_tpu_torch.evalsuite.metrics import generate_masks
+    from wam_tpu_torch.wavelets import transform as tt
+    from wam_tpu_torch.wavelets.filters import build_wavelet
+
+    dev = torch.device(DEVICE)
+    img = torch.rand((CHANNELS, EVAL_SIDE, EVAL_SIDE), generator=g, device=dev)
+    with torch.no_grad():
+        coeffs = tt.wavedec2(img, EVAL_WAVELET, EVAL_LEVELS, MODE, impl="kernel")
+    family = generate_masks(masks - 1, torch.rand((EVAL_SIDE, EVAL_SIDE), generator=g,
+                                                  device=dev))[0]
+    masked = packing.coeffs_to_array2d(coeffs)[None] * family[:, None]
+    rec = packing.array_to_coeffs2d(masked, packing.coeff_shapes2d(coeffs))
+    details = rec[1:]
+    if tt._collapse_count(details) != EVAL_LEVELS:
+        raise AssertionError("eval2d: not every level collapses into K3")
+    w = build_wavelet(EVAL_WAVELET)
+    rs = tuple(int(d.horizontal.shape[-2]) for d in details)
+    cs = tuple(int(d.horizontal.shape[-1]) for d in details)
+    fwd, _ = tmm.pair_band(rs, cs, tuple(w.rec_lo), tuple(w.rec_hi), dev)
+    _, Rt, _, Ct = tmm.collapsed_operators(details, EVAL_WAVELET, dev)
+    leaves = [tmm._leaf3(t) for t in [rec[0]] + [t for d in details for t in d]]
+    lo, hi = masked.data_ptr(), masked.data_ptr() + masked.numel() * masked.element_size()
+    if not all(lo <= t.data_ptr() < hi for t in leaves):
+        raise AssertionError("K3 eval: a leaf view of the masked packed array was copied")
+    n = leaves[0].shape[0]
+
+    def assemble():
+        y = tmm.assemble_collapsed(leaves[0], [tt.Detail2D(*leaves[1 + 3 * i:4 + 3 * i])
+                                               for i in range(len(details))])
+        return y.reshape((n,) + y.shape[-2:])
+
+    with torch.no_grad():
+        got = tmm.waverec2_collapsed(rec[0], details, EVAL_WAVELET).reshape(n, fwd.p, fwd.t)
+        y3 = assemble()
+        want = tmm.pair_plain(y3, Rt, Ct)
+    return _case(torch, f"K3 {EVAL_WAVELET} {EVAL_SIDE}^2 forward, {masks} masks x {CHANNELS}",
+                 got, want, lambda: kernels.pair(leaves, fwd),
+                 lambda: tmm.pair_plain(assemble(), Rt, Ct), (Rt, y3, Ct), leaves,
+                 n * fwd.p * fwd.t * 4, extra={"assemble_ms": assemble}, part="forward",
+                 dtype="float32", shape=[n, fwd.p, fwd.t], masks=masks,
+                 plan={"threads": fwd.threads, "smem_bytes": fwd.smem_bytes(),
+                       "rt": [lv.rt for lv in fwd.levels]})
+
+
 def phase_kernels(torch, tmm, kernels, sites, vol_sites) -> list[dict]:
     """Every kernel against its plain version at the launch shapes of each
     path that runs it, TF32 off: K1 and K3 at the flagship's and at path
@@ -512,6 +627,18 @@ def phase_kernels(torch, tmm, kernels, sites, vol_sites) -> list[dict]:
                          f"forward + backward of the collapsed levels at {side}^2, {wavelet}, "
                          + (once or f"one chunk of {VIT_CHUNK} path points")))
         rows[-1]["assemble_ms"] = k3_cases[0]["assemble_ms"]
+    # the eval2d path: K1 on one image's planes a metric call (the ViT
+    # path's shape), K3 forward only on a reconstruction family
+    rows.append(_row(*k1, "eval2d", _k1_cases(torch, tmm, kernels, g, EVAL_SIDE, EVAL_WAVELET,
+                                              CHANNELS), einsum,
+                     f"3 analysis levels at {EVAL_SIDE}^2, {EVAL_WAVELET}, f32 input, one "
+                     "image's 3 planes (once an image a metric call)"))
+    for path, masks in (("eval2d insertion", EVAL_N_ITER + 1), ("eval2d mu", MU_SAMPLES)):
+        case = _k3_eval_case(torch, tmm, kernels, g, masks)
+        rows.append(_row(*k3, path, [case], "torch.einsum (the matmul pair on the assembled Y)",
+                         f"forward of the collapsed levels at {EVAL_SIDE}^2, {EVAL_WAVELET}, "
+                         f"one image's {masks} masks x {CHANNELS} planes"))
+        rows[-1]["assemble_ms"] = case["assemble_ms"]
     rows.insert(3, _row("synth2", "idwt2_kernel (K2)", "wam_tpu_torch/csrc/synth2.cu",
                         "wam_tpu/wavelets/matmul.py:313", "path 2", k2_cases,
                         "torch.einsum (the matmul pair on the merged matrix, merge not timed)",
@@ -1501,6 +1628,381 @@ def phase_voxel3d(torch, wtt, kernels, smi: str) -> dict:
     return summary
 
 
+# -- the evaluation phases --------------------------------------------------------
+
+
+def build_eval2d(torch, wtt):
+    """The eval2d phase's set-up, shared with scripts/torch_slice_profile.py,
+    as scripts/bench_eval.py sets it up: ResNet-50 with 1000 classes, weights
+    from torch's generator seeded SEED, bound with ``nchw=True,
+    compute_dtype=torch.bfloat16, fold_bn=True``; EVAL_BATCH standard-normal
+    images of 3 x 224^2 from a generator seeded SEED + 1, labels 0..7 as host
+    ints; `WaveletAttribution2D` (haar, J=3, 8 SmoothGrad samples, streamed
+    noise) as the explainer and `Eval2DWAM` (haar, J=3, 128 rows a model
+    call) on the kernels. Returns (float32 state dict of the model, evaluator,
+    x, y)."""
+    dev = torch.device(DEVICE)
+    torch.manual_seed(SEED)
+    model = wtt.resnet50(num_classes=EVAL_CLASSES)
+    state = {k: v.detach().clone() for k, v in model.state_dict().items()}
+    fn = wtt.bind_inference(model, nchw=True, compute_dtype=torch.bfloat16, fold_bn=True,
+                            device=dev)
+    g = torch.Generator(device=dev).manual_seed(SEED + 1)
+    x = torch.randn((EVAL_BATCH, CHANNELS, EVAL_SIDE, EVAL_SIDE), generator=g, device=dev)
+    explainer = wtt.WaveletAttribution2D(fn, wavelet=EVAL_WAVELET, J=EVAL_LEVELS,
+                                         n_samples=EVAL_EXPLAIN_SAMPLES, stream_noise=True,
+                                         device=dev)
+    ev = wtt.Eval2DWAM(fn, explainer, wavelet=EVAL_WAVELET, J=EVAL_LEVELS, batch_size=EVAL_CAP,
+                       device=dev)
+    return state, ev, x, list(range(EVAL_BATCH))
+
+
+def eval2d_calls(ev, x, y) -> dict:
+    """The eval2d phase's metric calls at the headline geometry; insertion
+    and deletion return (scores, curves)."""
+    return {"insertion": lambda: (ev.insertion(x, y, n_iter=EVAL_N_ITER), ev.insertion_curves),
+            "deletion": lambda: (ev.deletion(x, y, n_iter=EVAL_N_ITER), ev.deletion_curves),
+            "mu_fidelity": lambda: ev.mu_fidelity(x, y, grid_size=MU_GRID,
+                                                  sample_size=MU_SAMPLES,
+                                                  subset_size=MU_SUBSET)}
+
+
+def _counted_call(torch, kernels, fan, call) -> dict:
+    """One metric call with the launch counts set to 0 just before and read
+    just after; its counted result fetches (`fan.fetch_scope`); and its host
+    waits on the device, counted by torch's sync debug mode (each
+    synchronizing CUDA call warns; the result fetch is one), each with the
+    innermost lines of the repository's code on its stack."""
+    import traceback
+    import warnings
+
+    syncs = []
+
+    def record(message, category, filename, lineno, file=None, line=None):
+        # the debug mode's own one-time notice ("... a prototype feature ...
+        # synchronizing operations") is not a wait
+        if "called a synchronizing CUDA operation" in str(message):
+            frames = [f"{Path(f.filename).name}:{f.lineno} {f.name}"
+                      for f in traceback.extract_stack()[:-1] if str(ROOT) in f.filename]
+            syncs.append(frames[-3:] + [f"{Path(filename).name}:{lineno}"])
+
+    kernels.reset_launch_counts()
+    torch.cuda.synchronize()
+    with warnings.catch_warnings():
+        warnings.simplefilter("always")
+        warnings.showwarning = record
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            with fan.fetch_scope() as fs:
+                out = call()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    return {"out": out, "launches": kernels.launch_counts(), "fetches": fs.count,
+            "host_syncs": len(syncs), "sync_sites": syncs}
+
+
+def _time_metric(torch, fan, call, calls: int, items: int, unit: str) -> dict:
+    """``calls`` calls of a metric, each timed by CUDA events around it (it
+    ends in its result fetch, so the events span the whole call) and by the
+    host clock; ``enqueue_ms`` is the host time from the call's start to its
+    fetch, the time the host took to queue the call's device work (near
+    the event time, the call is bound by the host). Peak memory over the
+    calls; ``items`` a call give ``{unit}_per_s``."""
+    real, marks = fan.device_fetch, []
+
+    def marked(out):
+        marks.append(time.perf_counter())
+        return real(out)
+
+    torch.cuda.reset_peak_memory_stats()
+    times, walls, enqueue = [], [], []
+    fan.device_fetch = marked
+    try:
+        for _ in range(calls):
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            start.record()
+            call()
+            end.record()
+            walls.append((time.perf_counter() - t0) * 1e3)
+            enqueue.append((marks[-1] - t0) * 1e3)
+            torch.cuda.synchronize()
+            times.append(start.elapsed_time(end))
+    finally:
+        fan.device_fetch = real
+    med = sorted(times)[len(times) // 2]
+    return {"calls_ms": times, "median_ms": med, "spread_ms": [min(times), max(times)],
+            "wall_ms": walls, "enqueue_ms": sorted(enqueue)[len(enqueue) // 2],
+            f"{unit}_per_s": items / (med / 1e3),
+            "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9}
+
+
+def _run_metrics(torch, kernels, fan, calls: dict, expected: dict, rows: dict, items: int,
+                 unit: str, smi: str) -> dict:
+    """Each metric: a warm call, the counted call (launches == ``expected``,
+    exactly one fetch and one host wait, asserted), then EVAL_CALLS timed
+    calls."""
+    out = {}
+    for name, call in calls.items():
+        t0 = time.perf_counter()
+        call()
+        torch.cuda.synchronize()
+        first_s = time.perf_counter() - t0
+        run = _counted_call(torch, kernels, fan, call)
+        _log(f"  {name}: launches of one call {run['launches']} (asserted == {expected[name]}); "
+             f"result fetches {run['fetches']}, host waits on the device {run['host_syncs']} "
+             f"{run['sync_sites']} (each asserted == 1)")
+        if run["launches"] != expected[name]:
+            raise AssertionError(f"{name}: launches {run['launches']} != {expected[name]}")
+        if run["fetches"] != 1 or run["host_syncs"] != 1:
+            raise AssertionError(f"{name}: {run['fetches']} result fetches and "
+                                 f"{run['host_syncs']} host waits in one call, expected 1 each")
+        timed = _time_metric(torch, fan, call, EVAL_CALLS, items, unit)
+        _log(f"  {name}: first call {first_s:.3f} s; {EVAL_CALLS} calls (CUDA events) "
+             f"{[round(t, 3) for t in timed['calls_ms']]} ms, median {timed['median_ms']:.3f} ms "
+             f"(spread {timed['spread_ms'][0]:.3f}-{timed['spread_ms'][1]:.3f}) = "
+             f"{timed[f'{unit}_per_s']:.2f} {unit}/s, {rows[name]} model rows a call = "
+             f"{rows[name] / (timed['median_ms'] / 1e3):.1f} rows/s; host enqueue "
+             f"{timed['enqueue_ms']:.3f} ms; peak memory {timed['peak_memory_gb']:.3f} GB on {smi}")
+        out[name] = {**{k: v for k, v in run.items() if k != "out"}, **timed,
+                     "first_call_s": first_s, "rows": rows[name], "result": run["out"]}
+    return out
+
+
+def _check_eval2d(np, res: dict) -> None:
+    """Scores in [0, 1], curves (B, 65) of probabilities, μ in [-1, 1], all
+    finite; insertion's last step and deletion's first both run the full
+    reconstruction, so they give the same probability."""
+    for name in ("insertion", "deletion"):
+        scores, curves = res[name]["result"]
+        curves = np.stack(curves)
+        if len(scores) != EVAL_BATCH or curves.shape != (EVAL_BATCH, EVAL_N_ITER + 1):
+            raise AssertionError(f"{name}: {len(scores)} scores, curves {curves.shape}")
+        if not (np.isfinite(scores).all() and np.isfinite(curves).all()
+                and 0 <= min(scores) and max(scores) <= 1 and curves.min() >= 0
+                and curves.max() <= 1):
+            raise AssertionError(f"{name}: scores or curves not finite probabilities")
+    full_ins = np.stack(res["insertion"]["result"][1])[:, -1]
+    full_del = np.stack(res["deletion"]["result"][1])[:, 0]
+    err = float(np.abs(full_ins - full_del).max())
+    _log(f"  insertion's full step against deletion's: max abs diff {err:.3e} (tol "
+         f"{1e-6 * float(full_del.max()):.3e})")
+    if err > 1e-6 * float(full_del.max()):
+        raise AssertionError("the full reconstruction gives two probabilities")
+    mu = np.asarray(res["mu_fidelity"]["result"])
+    if mu.shape != (EVAL_BATCH,) or not np.isfinite(mu).all() or np.abs(mu).max() > 1:
+        raise AssertionError(f"μ-fidelity values {mu}")
+
+
+def _eval2d_reduced_check(torch, wtt, state, x, wams) -> dict:
+    """The kernel path (impl="kernel") against the plain path
+    (impl="matmul") on EVAL_REDUCED images with the headline explainer's
+    mosaics handed to both, ResNet-50 in float32 with the same weights, TF32
+    off: insertion and deletion scores and curves, μ values, held to
+    EVAL_TOL."""
+    import numpy as np
+
+    _precision(torch, False)
+    dev = torch.device(DEVICE)
+    fn = wtt.bind_inference(wtt.resnet50(num_classes=EVAL_CLASSES), state, nchw=True, device=dev)
+    n, res = EVAL_REDUCED, {}
+    for impl in ("kernel", "matmul"):
+        ev = wtt.Eval2DWAM(fn, None, wavelet=EVAL_WAVELET, J=EVAL_LEVELS, batch_size=EVAL_CAP,
+                           device=dev, impl=impl)
+        ev.grad_wams = wams[:n]
+        xs, ys = x[:n], list(range(n))
+        res[impl] = {"insertion": ev.insertion(xs, ys, n_iter=EVAL_N_ITER),
+                     "insertion_curves": np.stack(ev.insertion_curves),
+                     "deletion": ev.deletion(xs, ys, n_iter=EVAL_N_ITER),
+                     "deletion_curves": np.stack(ev.deletion_curves),
+                     "mu_fidelity": ev.mu_fidelity(xs, ys, grid_size=MU_GRID,
+                                                   sample_size=MU_SAMPLES, subset_size=MU_SUBSET)}
+    out = {}
+    for key, tol in (("insertion", "auc"), ("deletion", "auc"), ("insertion_curves", "curve"),
+                     ("deletion_curves", "curve"), ("mu_fidelity", "mu")):
+        a, b = np.asarray(res["kernel"][key], np.float64), np.asarray(res["matmul"][key], np.float64)
+        err = float(np.abs(a - b).max())
+        bound = EVAL_TOL[tol] * (float(np.abs(b).max()) if tol == "curve" else 1.0)
+        _log(f"  reduced check ({n} images, float32 model, TF32 off) {key}: kernel vs plain max "
+             f"abs err {err:.3e} (tol {bound:.3e}); kernel {np.round(a.ravel()[:4], 6).tolist()} "
+             f"plain {np.round(b.ravel()[:4], 6).tolist()}")
+        if not (math.isfinite(err) and err <= bound):
+            raise AssertionError(f"eval2d reduced check: {key} on the kernel path disagrees "
+                                 "with the plain path")
+        out[key] = {"max_abs_err": err, "tol": bound}
+    return out
+
+
+def phase_eval2d(torch, wtt, kernels, smi: str) -> dict:
+    """The evaluation of 2D attributions at bench_eval.py's full geometry:
+    the explainer's mosaics once, then insertion, deletion and μ-fidelity,
+    each counted (K1 and K3 as EVAL_LAUNCHES says, one fetch, one host wait)
+    and timed; then the reduced kernel-vs-plain check."""
+    import numpy as np
+
+    from wam_tpu_torch.evalsuite import fan
+
+    state, ev, x, y = build_eval2d(torch, wtt)
+    prec = _precision(torch, True)
+    _log(f"phase eval2d: Eval2DWAM on ResNet-50({EVAL_CLASSES}, bfloat16, fold_bn) x "
+         f"({EVAL_BATCH},{CHANNELS},{EVAL_SIDE},{EVAL_SIDE}) {EVAL_WAVELET} J={EVAL_LEVELS} "
+         f"batch_size={EVAL_CAP}; insertion/deletion n_iter={EVAL_N_ITER}; μ grid={MU_GRID} "
+         f"samples={MU_SAMPLES} subset={MU_SUBSET}; explainer SmoothGrad "
+         f"n={EVAL_EXPLAIN_SAMPLES} stream_noise; {prec}")
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    ev.precompute(x, y)
+    end.record()
+    torch.cuda.synchronize()
+    explain_ms = start.elapsed_time(end)
+    _log(f"  explainer (first call, cached for the metrics): {explain_ms:.3f} ms, mosaics "
+         f"{tuple(ev.grad_wams.shape)}")
+    res = _run_metrics(torch, kernels, fan, eval2d_calls(ev, x, y), EVAL_LAUNCHES, EVAL_ROWS,
+                       EVAL_BATCH, "images", smi)
+    _check_eval2d(np, res)
+    summary = {name: {k: v for k, v in r.items() if k != "result"} for name, r in res.items()}
+    summary.update(precision=prec, explain_first_call_ms=explain_ms,
+                   insertion_scores=res["insertion"]["result"][0],
+                   deletion_scores=res["deletion"]["result"][0],
+                   mu_values=res["mu_fidelity"]["result"])
+    summary["reduced_check"] = _eval2d_reduced_check(torch, wtt, state, x, ev.grad_wams)
+    return summary
+
+
+def build_eval1d(torch, wtt):
+    """The eval1d phase's set-up, as bench_eval.py sets it up: the audio
+    phase's AudioCNN (`build_audio`: 50 classes, float32) and its first
+    EVAL1D_BATCH waveforms of 220,500 samples, `WaveletAttribution1D`
+    SmoothGrad (db6, J=5, 8 samples, 8 a model call) as the explainer, and
+    `Eval1DWAM` (db6, J=5, 32 rows a model call). Returns (model, evaluator,
+    x, y)."""
+    model, fn, x, y = build_audio(torch, wtt)
+    dev = torch.device(DEVICE)
+    kw = dict(n_mels=N_MELS, n_fft=N_FFT, sample_rate=SAMPLE_RATE, device=dev)
+    explainer = wtt.WaveletAttribution1D(fn, wavelet=AUDIO_WAVELET, J=AUDIO_LEVELS,
+                                         method="smooth", n_samples=EVAL1D_SAMPLES,
+                                         stdev_spread=AUDIO_SPREAD,
+                                         sample_batch_size=EVAL1D_CHUNK, **kw)
+    ev = wtt.Eval1DWAM(fn, explainer, wavelet=AUDIO_WAVELET, J=AUDIO_LEVELS,
+                       batch_size=EVAL1D_CAP, **kw)
+    return model, ev, x[:EVAL1D_BATCH].contiguous(), y[:EVAL1D_BATCH].tolist()
+
+
+def _eval1d_reduced_check(torch, wtt, model) -> dict:
+    """The port on the card against the port on the CPU, the same weights,
+    waveforms and seeded explanations (ties included) handed to both, TF32
+    off, EVAL1D_REDUCED waveforms, samples and steps:
+
+    - float32 through `Eval1DWAM`: insertion on the wavelet target and
+      deletion on the mel target (scores and curves), faithfulness of
+      spectra, and input fidelity (its classes equal);
+    - float64 through one waveform's fan step
+      (`Eval1DWAM.perturbed_from_wavelet`, the mask family, the inverse
+      transform, the peak renormalization and the mel front end) and the
+      model's scores on it."""
+    import numpy as np
+
+    n_wave, length, n_iter = EVAL1D_REDUCED
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    state = {k: v.detach().cpu() for k, v in model.state_dict().items()}
+    rng = np.random.default_rng(SEED + 5)
+    x = (0.1 * rng.standard_normal((n_wave, length))).astype(np.float32)
+    lens, m = [], length
+    for _ in range(AUDIO_LEVELS):
+        m = (m + 12 - 1) // 2  # db6 has 12 taps
+        lens.append(m)
+    mel = np.round(rng.standard_normal((n_wave, 1 + length // (N_FFT // 2), N_MELS)), 1)
+    coeffs = [np.round(rng.standard_normal((n_wave, k)), 2) for k in [lens[-1]] + lens[::-1]]
+    y = list(range(n_wave))
+    kw = dict(wavelet=AUDIO_WAVELET, J=AUDIO_LEVELS, n_mels=N_MELS, n_fft=N_FFT,
+              sample_rate=SAMPLE_RATE, batch_size=EVAL1D_CAP)
+    f32, f64 = {}, {}
+    for dev in (DEVICE, "cpu"):
+        fn = wtt.bind_audio_inference(wtt.AudioCNN(num_classes=AUDIO_CLASSES), state, device=dev)
+        ev = wtt.Eval1DWAM(fn, None, device=dev, **kw)
+        ev.grad_wams = (torch.tensor(mel, dtype=torch.float32, device=dev),
+                        [torch.tensor(c, dtype=torch.float32, device=dev) for c in coeffs])
+        xs = torch.from_numpy(x).to(dev)
+        ins = ev.insertion(xs, y, target="wavelet", n_iter=n_iter)
+        dele = ev.deletion(xs, y, target="melspec", n_iter=n_iter)
+        f32[dev] = {"insertion": ins, "insertion_curves": np.stack(ev.insertion_curves),
+                    "deletion": dele, "deletion_curves": np.stack(ev.deletion_curves),
+                    "faithfulness_of_spectra": ev.faithfulness_of_spectra(xs, y),
+                    "input_fidelity": ev.input_fidelity(xs, y)}
+        fn = wtt.bind_audio_inference(wtt.AudioCNN(num_classes=AUDIO_CLASSES).double(), state,
+                                      device=dev)
+        ev = wtt.Eval1DWAM(fn, None, device=dev, **kw)
+        with torch.no_grad():
+            fan = ev.perturbed_from_wavelet(
+                torch.tensor(x[0], dtype=torch.float64, device=dev),
+                [torch.tensor(c[0], dtype=torch.float64, device=dev) for c in coeffs],
+                "insertion", n_iter)
+            f64[dev] = {"fan_mels": fan.cpu().numpy(), "scores": fn(fan).cpu().numpy()}
+    out = {}
+    if f32[DEVICE]["input_fidelity"] != f32["cpu"]["input_fidelity"]:
+        raise AssertionError(f"eval1d reduced check: input fidelity's classes differ: card "
+                             f"{f32[DEVICE]['input_fidelity']}, CPU {f32['cpu']['input_fidelity']}")
+    for prec, res in (("float32", f32), ("float64", f64)):
+        for key in res["cpu"]:
+            if key == "input_fidelity":
+                continue
+            a, b = np.asarray(res[DEVICE][key], np.float64), np.asarray(res["cpu"][key], np.float64)
+            peak = float(np.abs(b).max()) if prec == "float64" else 1.0
+            err, bound = float(np.abs(a - b).max()), EVAL1D_TOL[prec] * peak
+            _log(f"  reduced check {prec} {key}: card vs CPU max abs err {err:.3e} "
+                 f"(tol {bound:.3e})")
+            if not (math.isfinite(err) and err <= bound):
+                raise AssertionError(f"eval1d reduced check ({prec}): {key} on the card "
+                                     "disagrees with the CPU")
+            out[f"{prec} {key}"] = {"max_abs_err": err, "tol": bound}
+    out["input_fidelity"] = f32[DEVICE]["input_fidelity"]
+    return out
+
+
+def phase_eval1d(torch, wtt, kernels, smi: str) -> dict:
+    """The evaluation of 1D attributions at bench_eval.py's geometry: the
+    explainer once, then wavelet-target insertion (n_iter 64) and input
+    fidelity, each counted (no port kernel launches, one fetch, one host
+    wait) and timed; then the card-against-CPU checks."""
+    import numpy as np
+
+    from wam_tpu_torch.evalsuite import fan
+
+    model, ev, x, y = build_eval1d(torch, wtt)
+    _log(f"phase eval1d: Eval1DWAM on AudioCNN({AUDIO_CLASSES}) x ({EVAL1D_BATCH},{AUDIO_LEN}) "
+         f"{AUDIO_WAVELET} J={AUDIO_LEVELS} batch_size={EVAL1D_CAP}; insertion target=wavelet "
+         f"n_iter={EVAL_N_ITER}; input_fidelity target=wavelet; explainer SmoothGrad "
+         f"n={EVAL1D_SAMPLES} chunk {EVAL1D_CHUNK}; cudnn.allow_tf32=True "
+         "matmul.allow_tf32=False")
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    ev.precompute(x, y)
+    end.record()
+    torch.cuda.synchronize()
+    explain_ms = start.elapsed_time(end)
+    _log(f"  explainer (first call, cached for the metrics): {explain_ms:.3f} ms")
+    calls = {"insertion": lambda: (ev.insertion(x, y, target="wavelet", n_iter=EVAL_N_ITER),
+                                   ev.insertion_curves),
+             "input_fidelity": lambda: ev.input_fidelity(x, y, target="wavelet")}
+    res = _run_metrics(torch, kernels, fan, calls, {m: ZERO_LAUNCHES for m in calls},
+                       EVAL1D_ROWS, EVAL1D_BATCH, "waveforms", smi)
+    scores, curves = res["insertion"]["result"]
+    curves = np.stack(curves)
+    if (curves.shape != (EVAL1D_BATCH, EVAL_N_ITER + 1) or not np.isfinite(curves).all()
+            or not np.isfinite(scores).all()):
+        raise AssertionError(f"eval1d insertion: curves {curves.shape} not finite")
+    preds = res["input_fidelity"]["result"]
+    if [len(p) for p in preds] != [2] * EVAL1D_BATCH:
+        raise AssertionError(f"eval1d input fidelity: {preds}")
+    summary = {name: {k: v for k, v in r.items() if k != "result"} for name, r in res.items()}
+    summary.update(explain_first_call_ms=explain_ms, insertion_scores=scores,
+                   input_fidelity_classes=preds)
+    summary["reduced_check"] = _eval1d_reduced_check(torch, wtt, model)
+    return summary
+
+
 def main() -> int:
     import torch
 
@@ -1544,8 +2046,13 @@ def main() -> int:
     convnext = phase_convnext(torch, wtt, kernels, smi)
     vol = phase_vol(torch, wtt, kernels, smi)
     voxel3d = phase_voxel3d(torch, wtt, kernels, smi)
+    eval2d = phase_eval2d(torch, wtt, kernels, smi)
+    eval1d = phase_eval1d(torch, wtt, kernels, smi)
     launches = {"flagship": slice_["launches"], "path 2": slice2["launches"],
-                "vit": vit["call_launches"], "vol": vol["fused"]["call_launches"]}
+                "vit": vit["call_launches"], "vol": vol["fused"]["call_launches"],
+                "eval2d": eval2d["insertion"]["launches"],
+                "eval2d insertion": eval2d["insertion"]["launches"],
+                "eval2d mu": eval2d["mu_fidelity"]["launches"]}
     for row in rows:
         row["launches"] = launches[row["path"]][row["kernel"]]
         row["audio_launches"] = audio["launches"][row["kernel"]]
@@ -1554,11 +2061,14 @@ def main() -> int:
         row["vol_launches"] = vol["call_launches"][row["kernel"]]
         row["vol_fused_launches"] = vol["fused"]["call_launches"][row["kernel"]]
         row["voxel3d_launches"] = voxel3d["voxel"]["call_launches"][row["kernel"]]
+        row["eval2d_launches"] = {m: eval2d[m]["launches"][row["kernel"]] for m in EVAL_METRICS}
+        row["eval1d_launches"] = {m: eval1d[m]["launches"][row["kernel"]]
+                                  for m in EVAL1D_METRICS}
 
     print(json.dumps({"slice": {k: v for k, v in slice_.items() if k != "launches"},
                       "slice2": {k: v for k, v in slice2.items() if k != "launches"},
                       "audio": audio, "vit": vit, "convnext": convnext, "vol": vol,
-                      "voxel3d": voxel3d, "gpu": smi}),
+                      "voxel3d": voxel3d, "eval2d": eval2d, "eval1d": eval1d, "gpu": smi}),
           flush=True)
     print(json.dumps({"kernels": rows}), flush=True)
     print(smi, flush=True)

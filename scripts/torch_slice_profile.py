@@ -2,6 +2,7 @@
 """Where the time of one of the port's paths goes on the card.
 
     python3 scripts/torch_slice_profile.py [--path2 | --audio | --vit | --convnext | --vol] [--bf16]
+    python3 scripts/torch_slice_profile.py --eval2d [--mu]
 
 Runs a path of chip_smoke.py, set up by its own code (one definition for
 both): by default the flagship, `wam_tpu_torch.WaveletAttribution2D`
@@ -18,7 +19,11 @@ the same call on ConvNeXt-T; ``--bf16`` binds either model in bfloat16
 (chip_smoke's bf16 arm); with ``--vol`` the 3D path, `WaveletAttribution3D`
 SmoothGrad on the 3D ResNet-18 (`chip_smoke.build_vol`: 8 x 1x32^3, haar,
 J=2, n_samples=25, sample_batch_size=16, TF32 on for the model, chip_smoke's
-headline). One call to warm up, then one under
+headline); with ``--eval2d`` one `Eval2DWAM` insertion call
+(`chip_smoke.build_eval2d`: ResNet-50 in bfloat16 with fold_bn, 8 images of
+3x224x224, haar, J=3, n_iter 64, 128 rows a model call, the explainer's
+mosaics computed before), or with ``--mu`` its μ-fidelity call (28 x 28
+grid, 128 subsets of 157 cells). One call to warm up, then one under
 `torch.profiler`; prints one JSON line: the call's wall time, the summed
 device time of its kernels by group (K1-K5, the 1D transform, FFT,
 convolutions, matmuls, batchnorm, pooling, other), and the device's idle
@@ -136,10 +141,19 @@ def main() -> int:
     from wam_tpu_torch.wavelets.transform import SPAN_1D, SPAN_3D
 
     kernels.build_all()
-    path2, audio, vol = ("--path2" in sys.argv[1:], "--audio" in sys.argv[1:],
-                         "--vol" in sys.argv[1:])
+    path2, audio, vol, eval2d = ("--path2" in sys.argv[1:], "--audio" in sys.argv[1:],
+                                 "--vol" in sys.argv[1:], "--eval2d" in sys.argv[1:])
     arch = next((a for a in ("vit", "convnext") if f"--{a}" in sys.argv[1:]), None)
-    if arch:
+    if eval2d:
+        chip_smoke._precision(torch, True)
+        _, ev, x, y = chip_smoke.build_eval2d(torch, wtt)
+        ev.precompute(x, y)
+        metric = "mu_fidelity" if "--mu" in sys.argv[1:] else "insertion"
+        run = chip_smoke.eval2d_calls(ev, x, y)[metric]
+        path = (f"eval2d {metric} ({chip_smoke.EVAL_BATCH}x3x{chip_smoke.EVAL_SIDE}^2, ResNet-50 "
+                f"bfloat16 fold_bn, {chip_smoke.EVAL_WAVELET} J={chip_smoke.EVAL_LEVELS}, "
+                f"{chip_smoke.EVAL_ROWS[metric]} model rows, {chip_smoke.EVAL_CAP} a call)")
+    elif arch:
         chip_smoke._precision(torch, True)
         bf16 = "--bf16" in sys.argv[1:]
         _, fn, x, y = chip_smoke.build_vit(torch, wtt, arch,
@@ -165,14 +179,17 @@ def main() -> int:
         side = chip_smoke.SIDE2 if path2 else chip_smoke.SIDE
         _, wam, x, y, _ = chip_smoke.build_slice(torch, wtt, side=side, fused_relu_vjp=path2)
         path = "path2 (288^2, fused_relu_vjp)" if path2 else "flagship (224^2)"
-    wam(x, y)
+    if not eval2d:
+        def run():
+            return wam(x, y)
+    run()
     torch.cuda.synchronize()
 
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        wam(x, y)
+        run()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
 

@@ -17,6 +17,7 @@ import torch
 import wam_tpu_torch
 from wam_tpu_torch import kernels
 from wam_tpu_torch.device import resolve_device
+from wam_tpu_torch.evalsuite import Eval1DWAM, Eval2DWAM
 from wam_tpu_torch import wam1d as tw1
 from wam_tpu_torch import wam3d as tw3
 from wam_tpu_torch.models import audio as taudio
@@ -46,7 +47,8 @@ def _imports(path: Path):
             yield node.module
 
 
-@pytest.mark.parametrize("path", sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"],
+@pytest.mark.parametrize("path", sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+                         + sorted((ROOT / "scripts").glob("torch_*.py")),
                          ids=lambda p: str(p.relative_to(ROOT)))
 def test_no_jax_or_reference_imports(path):
     for mod in _imports(path):
@@ -73,7 +75,8 @@ def test_pyproject_packages_include_the_port():
 
     found = set(find_packages(where=str(ROOT), include=["wam_tpu*"]))
     assert {"wam_tpu_torch", "wam_tpu_torch.wavelets", "wam_tpu_torch.core",
-            "wam_tpu_torch.ops", "wam_tpu_torch.models", "wam_tpu_torch.tune"} <= found
+            "wam_tpu_torch.ops", "wam_tpu_torch.models", "wam_tpu_torch.tune",
+            "wam_tpu_torch.evalsuite"} <= found
     assert 'include = ["wam_tpu*"]' in (ROOT / "pyproject.toml").read_text()
 
 
@@ -253,6 +256,84 @@ def test_vol_path_launches_k4_k5_on_the_fused_arm_only(monkeypatch):
     tw3.BaseWAM3D(pn, J=3, instance="point_clouds", device="cpu")(
         np.random.default_rng(1).standard_normal((2, 3, 64)).astype(np.float32), [0, 1])
     assert counts == {"relu_fwd": 0, "relu_bwd": 0}
+
+
+def test_evaluators_raise_without_a_card(monkeypatch):
+    """The evaluators run on CUDA unless asked: with no device and no card
+    each raises, naming device='cpu'."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    fn = toy_conv_model(device="cpu")
+    for cls in (Eval2DWAM, Eval1DWAM):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            cls(fn, None)
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            cls(fn, None, device="cuda")
+        assert cls(fn, None, device="cpu").device == torch.device("cpu")
+
+
+def _haar():
+    w = tfilters.build_wavelet("haar")
+    return tuple(w.dec_lo), tuple(w.dec_hi), tuple(w.rec_lo), tuple(w.rec_hi)
+
+
+def test_eval2d_on_cuda_resolves_to_the_kernels(monkeypatch):
+    """`Eval2DWAM` with no ``impl`` on CUDA tensors (a CPU tensor that says
+    it is on CUDA) at the headline's image geometry (haar J=3, 224²): each
+    image decomposes once a metric call through K1 (3 levels), and each
+    reconstruction family is one K3 forward over masks x 3 channels rows
+    (insertion 65 x 3 = 195 rows; μ two families an image), never K3's backward,
+    K2, K4 or K5; followed with stand-ins of the launchers that run the
+    plain versions, and held against the conv route on plain tensors."""
+    dec_lo, dec_hi, rec_lo, rec_hi = _haar()
+    cpu = torch.device("cpu")
+    calls = []
+
+    def dwt2(x3, plan):
+        calls.append(("dwt2", x3.shape[0]))
+        _, At = tmm._kernel_analysis(plan.q, dec_lo, dec_hi, "reflect", cpu)
+        _, Bt = tmm._kernel_analysis(plan.s, dec_lo, dec_hi, "reflect", cpu)
+        return tmm.dwt2_plain(x3, At, Bt)
+
+    def pair(leaves, plan):
+        calls.append(("pair", leaves[0].shape[0]))
+        out = 0
+        for i, (R, C) in enumerate(zip(tmm._level_blocks(plan.rows, rec_lo, rec_hi),
+                                       tmm._level_blocks(plan.cols, rec_lo, rec_hi))):
+            h, v, d = leaves[1 + 3 * i:4 + 3 * i]
+            aa = leaves[0] if i == 0 else torch.zeros_like(h)
+            y = torch.cat([torch.cat([aa, v], -1), torch.cat([h, d], -1)], -2)
+            out = out + torch.from_numpy(R).float() @ y @ torch.from_numpy(C).float().T
+        return out
+
+    for name, fn in (("dwt2", dwt2), ("pair", pair)):
+        monkeypatch.setattr(kernels, name, fn)
+    for name in ("pair_bwd", "synth2", "relu_fwd", "relu_bwd", "build_all"):
+        monkeypatch.setattr(kernels, name, lambda *a: pytest.fail("not on the eval2d path"))
+    rng = np.random.default_rng(11)
+    weights = torch.from_numpy(rng.standard_normal((4, 3 * 224 * 224)).astype(np.float32) / 400)
+
+    def model_fn(v):  # a cheap classifier of (B, 3, 224, 224), every pixel weighed
+        return torch.tanh(v.reshape(v.shape[0], -1) @ weights.T)
+
+    x = torch.from_numpy(rng.standard_normal((2, 3, 224, 224)).astype(np.float32))
+    wams = rng.random((2, 224, 224)).astype(np.float32)
+    out = {}
+    for tag, xin in (("cuda", x.as_subclass(FakeCuda)), ("plain", x)):
+        ev = Eval2DWAM(model_fn, None, wavelet="haar", J=3, batch_size=128, device="cpu")
+        ev.grad_wams = torch.from_numpy(wams)
+        calls.clear()
+        out[tag] = ev.insertion(xin, [0, 3], n_iter=64), ev.insertion_curves
+        want = ([("dwt2", 3)] * 3 + [("pair", 195)]) * 2  # 65-mask fans: an image a chunk
+        assert calls == (want if tag == "cuda" else []), calls
+        calls.clear()
+        out[tag] += (ev.mu_fidelity(xin, [0, 3], grid_size=28, sample_size=16,
+                                    subset_size=157),)
+        # 16-mask fans: both images in one chunk (8 a chunk under the cap)
+        assert calls == ([("dwt2", 3)] * 6 + [("pair", 48)] * 4 if tag == "cuda" else []), calls
+    np.testing.assert_allclose(out["cuda"][0], out["plain"][0], rtol=0, atol=1e-5)
+    np.testing.assert_allclose(np.stack(out["cuda"][1]), np.stack(out["plain"][1]), rtol=0,
+                               atol=1e-5)
+    np.testing.assert_allclose(out["cuda"][2], out["plain"][2], rtol=0, atol=1e-5)
 
 
 def test_kernel_launchers_refuse_cpu_tensors(monkeypatch):
@@ -556,6 +637,21 @@ def test_wam3d_public_names_exported():
                  "feature_transform_regularizer", "flax_resnet3d_to_torch",
                  "flax_voxel_to_torch", "flax_pointnet_to_torch"):
         assert hasattr(tmodels, name) and name in tmodels.__all__, name
+
+
+def test_eval_public_names_exported():
+    import wam_tpu_torch.evalsuite as tev
+
+    for name in ("Eval2DWAM", "Eval1DWAM", "EvalConfig", "PrecisionPolicy",
+                 "resolve_precision"):
+        assert hasattr(wam_tpu_torch, name) and name in wam_tpu_torch.__all__, name
+    for name in ("Eval1DWAM", "Eval2DWAM", "FanPlan", "plan_fan", "fan_runner", "run_fan",
+                 "device_fetch", "fetch_count", "fetch_scope", "reset_fetch_count",
+                 "compute_auc", "generate_masks", "minmax_normalize", "softmax_probs",
+                 "spearman", "coeffs_to_array1d", "array_to_coeffs1d", "coeffs_to_array2d",
+                 "array_to_coeffs2d", "packed2d_shape", "imagenet_preprocess",
+                 "imagenet_denormalize"):
+        assert hasattr(tev, name) and name in tev.__all__, name
 
 
 def test_public_names_exported():

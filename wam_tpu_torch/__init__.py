@@ -3,14 +3,18 @@
 A port of `wam_tpu` (JAX on the TPU, kept as the reference) to PyTorch on an
 NVIDIA H100: WAM-2D on images (`WaveletAttribution2D`, on ResNets, ViTs and
 ConvNeXts), WAM-1D on audio (`WaveletAttribution1D`, through the mel front
-end) and WAM-3D on volumes and point clouds (`WaveletAttribution3D`,
-`BaseWAM3D`, on the 3D ResNet, the voxel CNN and PointNet). Module paths and names
+end), WAM-3D on volumes and point clouds (`WaveletAttribution3D`,
+`BaseWAM3D`, on the 3D ResNet, the voxel CNN and PointNet), and the
+faithfulness metrics of 2D and 1D attributions (`Eval2DWAM`, `Eval1DWAM`:
+insertion and deletion AUC, μ-fidelity, faithfulness of spectra, input
+fidelity; `wam_tpu_torch.evalsuite`). Module paths and names
 mirror `wam_tpu`; the TPU's Pallas kernels become hand-written CUDA kernels
 (`wam_tpu_torch.kernels`), each with its plain PyTorch version beside it for
 CPU tensors and for tests. Entry points run on CUDA unless the caller passes
 ``device="cpu"``.
 """
 
+from wam_tpu_torch.config import EvalConfig, PrecisionPolicy, resolve_precision
 from wam_tpu_torch.core.engine import WamEngine, target_loss
 from wam_tpu_torch.core.estimators import (
     integrated_path,
@@ -21,6 +25,7 @@ from wam_tpu_torch.core.estimators import (
     validate_sample_batch_size,
 )
 from wam_tpu_torch.device import resolve_device
+from wam_tpu_torch.evalsuite import Eval1DWAM, Eval2DWAM
 from wam_tpu_torch.models.audio import AudioCNN, bind_audio_inference, toy_wave_model
 from wam_tpu_torch.models.convnext import ConvNeXt, convnext_test, convnext_tiny
 from wam_tpu_torch.models.ingest import (
@@ -93,10 +98,14 @@ __all__ = [
     "ConvNeXt",
     "DETAIL3D_KEYS",
     "Detail2D",
+    "Eval1DWAM",
+    "Eval2DWAM",
+    "EvalConfig",
     "PatchConv",
     "PointNetCls",
     "PointNetDenseCls",
     "PointNetFeat",
+    "PrecisionPolicy",
     "ResNet3D",
     "ViT",
     "VisualizerWAM1D",
@@ -145,6 +154,7 @@ __all__ = [
     "resnet3d_18",
     "resnet50",
     "resolve_device",
+    "resolve_precision",
     "sample_noise",
     "scaleogram",
     "smoothgrad",
