@@ -121,7 +121,31 @@ sm_90a). Phases, each fatal on failure:
    samples, seeded explanations handed to both, TF32 off) in float32
    through the class (probabilities and AUCs within 1e-4, input fidelity's
    classes equal) and in float64 through one waveform's fan step and the
-   model's scores on it (within 1e-9 x max).
+   model's scores on it (within 1e-9 x max);
+13. baselines: the baseline methods and their evaluators. The image
+   registry at scripts/bench_methods.py's geometry: `EvalImageBaselines`
+   on ResNet-50 (1000 classes, seeded weights) in bfloat16, 64 rows a model
+   call, 8 path points or noisy copies, 4 images of 3x224^2, each of the
+   nine methods (saliency, integratedgrad, smoothgrad, gradcam, gradcampp,
+   layercam, guided_backprop, gradxinput, lrp): one warm explanation, one
+   with its host waits counted, 3 CUDA-event-timed (median, spread, host
+   enqueue, peak memory), then insertion at n_iter 32, counted (no port
+   kernel, one fetch, one host wait: asserted) and timed as in eval2d;
+   rollout and attngrad must raise NotImplementedError (ROADMAP slice D).
+   Saliency against WAM at equal precision (bench_eval.py:185-193):
+   insertion (n_iter 64) and μ-fidelity on the eval2d phase's 8 images.
+   Audio: `EvalAudioBaselines` (saliency, integratedgrad, smoothgrad,
+   gradcam on out3) on the eval1d phase's AudioCNN and the mels of its 4
+   waveforms, each with insertion (n_iter 64), faithfulness of spectra and
+   input fidelity, counted and timed. The stem conv plain and
+   space-to-depth (``stem_s2d``), forward plus input gradient at 32 x 3 x
+   224^2, float32 and bfloat16, timed in turns and not gated. No port
+   kernel launches over the phase (asserted). Then the reduced check: the
+   card against the CPU, TF32 off, on 2 images of 64^2 through a seeded
+   ResNet-18 (saliency, IG, gradcam, gradcampp, guided backprop, LRP) and 2
+   of the audio mels (saliency, IG, gradcam): float64 through
+   the methods within 1e-9 x max, float32 through the evaluators within
+   BASE_F32_TOL, insertion on a handed-over map within 1e-5.
 
 Prints a summary JSON line, the kernels' JSON line, the nvidia-smi line, and as its last line
 ``{"ok": true, "device": {...}}``. Exits nonzero, printing no result, when
@@ -233,6 +257,43 @@ EVAL1D_ROWS = {"insertion": EVAL1D_BATCH * (EVAL_N_ITER + 1), "input_fidelity": 
 # each device; the bound leaves ~20x of headroom
 EVAL1D_REDUCED = (2, 65536, 8)
 EVAL1D_TOL = {"float32": 1e-4, "float64": 1e-9}
+# the baselines phase: the image registry at scripts/bench_methods.py's
+# geometry (lines 31-62), ResNet-50 in bfloat16, b4 x 3 x 224^2
+BASE_BATCH, BASE_CAP, BASE_SAMPLES, BASE_N_ITER, BASE_CALLS = 4, 64, 8, 32, 3
+BASE_METHODS = ("saliency", "integratedgrad", "smoothgrad", "gradcam", "gradcampp", "layercam",
+                "guided_backprop", "gradxinput", "lrp")
+BASE_SLICE_D = ("rollout", "attngrad")
+# saliency against WAM at equal precision (bench_eval.py:185-193): the eval2d
+# phase's 8 images, insertion at n_iter 64 and μ, 128 rows a model call
+BASE_WAM_ROWS = {"insertion": EVAL_BATCH * (EVAL_N_ITER + 1),
+                 "mu_fidelity": EVAL_BATCH * (1 + MU_SAMPLES)}
+# audio: the eval1d phase's AudioCNN on the mels of its 4 waveforms
+BASE_AUDIO_METHODS = ("saliency", "integratedgrad", "smoothgrad", "gradcam")
+BASE_AUDIO_METRICS = ("insertion", "faithfulness_of_spectra", "input_fidelity")
+BASE_STEM_BATCH, BASE_STEM_CALLS = 32, 10
+# reduced check, the card against the CPU, TF32 off: 2 images of 64^2 through a
+# seeded ResNet-18 (10 classes) and 2 of the audio mels; float64 through the
+# methods on float64 models (<= 1e-9 x max), float32 through the evaluators
+# at a bound per method over the largest CPU value, and insertion (the CPU's
+# map handed to both) within 1e-5. Each float32 bound is ~10x the largest of
+# three runs on the card (H100 80GB HBM3, 700 W), measured in the comment
+# beside it; audio IG's 2.5e-3 is an AudioCNN ReLU gate that flips between
+# the devices, and its float64 check (4e-15) holds the method itself
+BASE_REDUCED = (2, 64, 4, 16)  # images, side, IG / SmoothGrad samples, insertion steps
+BASE_REDUCED_FRAMES = 257      # the audio mels cut to 257 frames: out3 is a 3 x 1 grid
+BASE_REDUCED_METHODS = ("saliency", "integratedgrad", "gradcam", "gradcampp",
+                        "guided_backprop", "lrp")
+BASE_REDUCED_AUDIO = ("saliency", "integratedgrad", "gradcam")  # AUDIO_METHODS' but smoothgrad
+BASE_F32_TOL = {"image": {"saliency": 4e-6,          # 3.675e-7
+                          "integratedgrad": 7e-6,    # 7.045e-7
+                          "gradcam": 4e-5,           # 4.120e-6
+                          "gradcampp": 5e-6,         # 4.508e-7
+                          "guided_backprop": 4e-6,   # 3.636e-7
+                          "lrp": 1.2e-5},            # 1.237e-6
+                "audio": {"saliency": 1.4e-5,        # 1.381e-6
+                          "integratedgrad": 2.5e-2,  # 2.457e-3, a gate flip
+                          "gradcam": 3e-4}}          # 2.983e-5
+BASE_TOL = {"float64": 1e-9, "auc": 1e-5}
 
 
 def _log(*args):
@@ -1667,12 +1728,10 @@ def eval2d_calls(ev, x, y) -> dict:
                                                   subset_size=MU_SUBSET)}
 
 
-def _counted_call(torch, kernels, fan, call) -> dict:
-    """One metric call with the launch counts set to 0 just before and read
-    just after; its counted result fetches (`fan.fetch_scope`); and its host
-    waits on the device, counted by torch's sync debug mode (each
-    synchronizing CUDA call warns; the result fetch is one), each with the
-    innermost lines of the repository's code on its stack."""
+def _sync_sites(torch, call) -> tuple:
+    """``call()``'s result and its host waits on the device, counted by
+    torch's sync debug mode (each synchronizing CUDA call warns), each with
+    the innermost lines of the repository's code on its stack."""
     import traceback
     import warnings
 
@@ -1686,26 +1745,36 @@ def _counted_call(torch, kernels, fan, call) -> dict:
                       for f in traceback.extract_stack()[:-1] if str(ROOT) in f.filename]
             syncs.append(frames[-3:] + [f"{Path(filename).name}:{lineno}"])
 
-    kernels.reset_launch_counts()
-    torch.cuda.synchronize()
     with warnings.catch_warnings():
         warnings.simplefilter("always")
         warnings.showwarning = record
         torch.cuda.set_sync_debug_mode("warn")
         try:
-            with fan.fetch_scope() as fs:
-                out = call()
+            out = call()
         finally:
             torch.cuda.set_sync_debug_mode("default")
+    return out, syncs
+
+
+def _counted_call(torch, kernels, fan, call) -> dict:
+    """One metric call with the launch counts set to 0 just before and read
+    just after; its counted result fetches (`fan.fetch_scope`); and its host
+    waits on the device (`_sync_sites`: the result fetch is one)."""
+    kernels.reset_launch_counts()
+    torch.cuda.synchronize()
+    with fan.fetch_scope() as fs:
+        out, syncs = _sync_sites(torch, call)
     return {"out": out, "launches": kernels.launch_counts(), "fetches": fs.count,
             "host_syncs": len(syncs), "sync_sites": syncs}
 
 
-def _time_metric(torch, fan, call, calls: int, items: int, unit: str) -> dict:
+def _time_metric(torch, fan, call, calls: int, items: int, unit: str,
+                 fetched: bool = True) -> dict:
     """``calls`` calls of a metric, each timed by CUDA events around it (it
     ends in its result fetch, so the events span the whole call) and by the
     host clock; ``enqueue_ms`` is the host time from the call's start to its
-    fetch, the time the host took to queue the call's device work (near
+    fetch (to its return where ``fetched`` is false: an explanation fetches
+    nothing), the time the host took to queue the call's device work (near
     the event time, the call is bound by the host). Peak memory over the
     calls; ``items`` a call give ``{unit}_per_s``."""
     real, marks = fan.device_fetch, []
@@ -1724,9 +1793,10 @@ def _time_metric(torch, fan, call, calls: int, items: int, unit: str) -> dict:
             t0 = time.perf_counter()
             start.record()
             call()
+            done = time.perf_counter()
             end.record()
             walls.append((time.perf_counter() - t0) * 1e3)
-            enqueue.append((marks[-1] - t0) * 1e3)
+            enqueue.append(((marks[-1] if fetched else done) - t0) * 1e3)
             torch.cuda.synchronize()
             times.append(start.elapsed_time(end))
     finally:
@@ -2003,6 +2073,318 @@ def phase_eval1d(torch, wtt, kernels, smi: str) -> dict:
     return summary
 
 
+# -- the baselines phase ------------------------------------------------------------
+
+
+def build_baselines(torch, wtt, method: str):
+    """The baselines phase's image registry, shared with
+    scripts/torch_slice_profile.py, at scripts/bench_methods.py's geometry:
+    ResNet-50 with 1000 classes, weights from torch's generator seeded SEED
+    (built on the host and copied by the evaluator), `EvalImageBaselines`
+    (``method``, bfloat16, 64 rows a model call, 8 path points or noisy
+    copies); BASE_BATCH standard-normal images of 3 x
+    224^2 from a generator seeded SEED + 7, labels 0..3 as host ints.
+    Returns (evaluator, x, y)."""
+    dev = torch.device(DEVICE)
+    torch.manual_seed(SEED)
+    model = wtt.resnet50(num_classes=EVAL_CLASSES)
+    ev = wtt.EvalImageBaselines(model, None, method=method, compute_dtype=torch.bfloat16,
+                                batch_size=BASE_CAP, n_samples=BASE_SAMPLES, device=dev)
+    g = torch.Generator(device=dev).manual_seed(SEED + 7)
+    x = torch.randn((BASE_BATCH, CHANNELS, EVAL_SIDE, EVAL_SIDE), generator=g, device=dev)
+    return ev, x, list(range(BASE_BATCH))
+
+
+def _time_explain(torch, kernels, fan, ev, x, y, unit: str) -> dict:
+    """One warm explanation; one counted by `_counted_call` (launches
+    asserted == ZERO_LAUNCHES; its fetches and host waits); then BASE_CALLS
+    timed by `_time_metric`, the enqueue time ending where the call
+    returns. Returns the counted call's explanation under ``out``."""
+    call = lambda: ev.compute_explanations(x, y)  # noqa: E731
+    t0 = time.perf_counter()
+    call()
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    run = _counted_call(torch, kernels, fan, call)
+    if run["launches"] != ZERO_LAUNCHES:
+        raise AssertionError(f"explanation launched port kernels: {run['launches']}")
+    timed = _time_metric(torch, fan, call, BASE_CALLS, x.shape[0], unit, fetched=False)
+    return {"out": run["out"], "first_call_s": first_s, "launches": run["launches"],
+            "fetches": run["fetches"], "host_syncs": run["host_syncs"], **timed}
+
+
+def _check_scores(np, tag: str, scores, n: int) -> None:
+    scores = np.asarray(scores, np.float64)
+    if scores.shape != (n,) or not np.isfinite(scores).all() or scores.min() < 0 \
+            or scores.max() > 1:
+        raise AssertionError(f"{tag}: scores {scores} are not {n} finite values in [0, 1]")
+
+
+def _stem_forms(torch, wtt) -> dict:
+    """The ResNet stem conv, plain 7x7/2 and space-to-depth (``stem_s2d``),
+    forward plus input gradient at BASE_STEM_BATCH x 3 x 224^2 in float32
+    (TF32 on) and bfloat16, timed in turns (plain, s2d, s2d, plain) by CUDA
+    events over BASE_STEM_CALLS calls each; recorded, not gated."""
+    import torch.nn.functional as F
+
+    from wam_tpu_torch.models.resnet import _s2d_stem
+
+    dev = torch.device(DEVICE)
+    g = torch.Generator(device=dev).manual_seed(SEED + 8)
+    out = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        w = (0.05 * torch.randn((64, CHANNELS, 7, 7), generator=g, device=dev)).to(dtype)
+        x = torch.randn((BASE_STEM_BATCH, CHANNELS, EVAL_SIDE, EVAL_SIDE), generator=g,
+                        device=dev).to(dtype)
+        gy = torch.randn((BASE_STEM_BATCH, 64, EVAL_SIDE // 2, EVAL_SIDE // 2), generator=g,
+                         device=dev).to(dtype)
+        forms = {"plain": lambda t: F.conv2d(t, w, stride=2, padding=3),
+                 "s2d": lambda t: _s2d_stem(t, w)}
+
+        def step(form):
+            leaf = x.detach().requires_grad_()
+            y = forms[form](leaf)
+            return y, torch.autograd.grad(y, leaf, gy)[0]
+
+        ys = {f: step(f) for f in forms}
+        err = float((ys["s2d"][0] - ys["plain"][0]).detach().abs().max()
+                    / ys["plain"][0].detach().abs().max())
+        times = {f: [] for f in forms}
+        for form in ("plain", "s2d", "s2d", "plain"):
+            for _ in range(3):
+                step(form)
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            torch.cuda.synchronize()
+            start.record()
+            for _ in range(BASE_STEM_CALLS):
+                step(form)
+            end.record()
+            torch.cuda.synchronize()
+            times[form].append(start.elapsed_time(end) / BASE_STEM_CALLS)
+        name = str(dtype).removeprefix("torch.")
+        out[name] = {f: {"ms": t, "mean_ms": sum(t) / len(t)} for f, t in times.items()}
+        out[name]["max_rel_diff"] = err
+        _log(f"  stem forward + input gradient, {BASE_STEM_BATCH}x3x{EVAL_SIDE}^2 {name}: plain "
+             f"{[round(t, 4) for t in times['plain']]} ms, s2d "
+             f"{[round(t, 4) for t in times['s2d']]} ms (in turns); s2d vs plain max rel diff "
+             f"{err:.2e} (not gated)")
+    return out
+
+
+def _baselines_reduced_check(torch, wtt, audio_state, mels) -> dict:
+    """The port on the card against the port on the CPU, TF32 off: a
+    seeded ResNet-18 (10 classes) on BASE_REDUCED images of 64^2, and the
+    audio phase's AudioCNN on 2 of its mels, their first 257 frames.
+
+    - float32 through the evaluators (`EvalImageBaselines`,
+      `EvalAudioBaselines`): each method's map within BASE_F32_TOL of the
+      CPU's largest value, and insertion with the CPU's map handed to both
+      within 1e-5 (scores and curves);
+    - float64 through the methods on float64 models (`baselines`,
+      `lrp.lrp_resnet`): within 1e-9 x the CPU's largest value."""
+    import numpy as np
+
+    from wam_tpu_torch.evalsuite import baselines as TB
+    from wam_tpu_torch.evalsuite.lrp import lrp_resnet
+
+    _precision(torch, False)
+    n, side, smp, n_iter = BASE_REDUCED
+    torch.manual_seed(SEED + 6)
+    r18_state = {k: v.detach().clone() for k, v in
+                 wtt.resnet18(num_classes=10).state_dict().items()}
+    rng = np.random.default_rng(SEED + 6)
+    x_img = torch.from_numpy(rng.standard_normal((n, CHANNELS, side, side)).astype(np.float32))
+    cases = [("image", BASE_REDUCED_METHODS, x_img, list(range(n)),
+              lambda: wtt.resnet18(num_classes=10), r18_state, wtt.EvalImageBaselines),
+             ("audio", BASE_REDUCED_AUDIO, mels[:2, :, :BASE_REDUCED_FRAMES].detach().cpu(),
+              [0, 1], lambda: wtt.AudioCNN(num_classes=AUDIO_CLASSES), audio_state,
+              wtt.EvalAudioBaselines)]
+    out = {}
+    for kind, methods, x, y, make, state, cls in cases:
+        for method in methods:
+            f32, f64 = {}, {}
+            for dev in ("cpu", DEVICE):
+                ev = cls(make(), state, method=method, n_samples=smp, device=dev)
+                xs = x.to(dev)
+                f32[dev] = ev.compute_explanations(xs, y).cpu().numpy()
+                m64 = make()
+                m64.load_state_dict(state)
+                m64 = m64.double().to(dev).eval().requires_grad_(False)
+                x64, y64 = xs.double(), torch.tensor(y, device=dev)
+
+                def fn(a, m=m64):
+                    return TB.module_forward(m, a)
+
+                f64[dev] = {"saliency": lambda: TB.saliency(fn, x64, y64),
+                            "integratedgrad": lambda: TB.integrated_gradients(
+                                fn, x64, y64, n_steps=smp),
+                            "gradcam": lambda: TB.gradcam(m64, x64, y64, layer=ev.cam_layer),
+                            "gradcampp": lambda: TB.gradcam_pp(m64, x64, y64,
+                                                               layer=ev.cam_layer),
+                            "guided_backprop": lambda: TB.guided_backprop(m64, x64, y64),
+                            "lrp": lambda: lrp_resnet(m64, x64, y64)}[method]().cpu().numpy()
+            if kind == "image" and method == methods[0]:
+                auc = {}
+                for dev in ("cpu", DEVICE):
+                    ev = cls(make(), state, method=method, device=dev)
+                    ev.explanations = torch.from_numpy(f32["cpu"])
+                    auc[dev] = (ev.insertion(x.to(dev), y, n_iter=n_iter),
+                                np.stack(ev.insertion_curves))
+                for i, key in enumerate(("insertion", "insertion curves")):
+                    diff = np.asarray(auc[DEVICE][i]) - np.asarray(auc["cpu"][i])
+                    err = float(np.abs(diff).max())
+                    _log(f"  reduced check {kind} {key} (the CPU's {method} map handed to both): "
+                         f"card vs CPU max abs err {err:.3e} (tol {BASE_TOL['auc']:.0e})")
+                    if not err <= BASE_TOL["auc"]:
+                        raise AssertionError(f"baselines reduced check: {kind} {key} differs")
+                    out[f"{kind} {key}"] = {"max_abs_err": err, "tol": BASE_TOL["auc"]}
+            for prec, res, tol in (("float32", f32, BASE_F32_TOL[kind][method]),
+                                   ("float64", f64, BASE_TOL["float64"])):
+                peak = float(np.abs(res["cpu"]).max())
+                err = float(np.abs(res[DEVICE] - res["cpu"]).max()) / (peak or 1.0)
+                _log(f"  reduced check {kind} {method} {prec}: card vs CPU max abs err "
+                     f"{err:.3e} of the CPU's max {peak:.3e} (tol {tol:g})")
+                if not (math.isfinite(err) and err <= tol and np.isfinite(res[DEVICE]).all()):
+                    raise AssertionError(f"baselines reduced check: {kind} {method} {prec} on "
+                                         "the card disagrees with the CPU")
+                out[f"{kind} {method} {prec}"] = {"max_rel_err": err, "tol": tol}
+    return out
+
+
+def phase_baselines(torch, wtt, kernels, smi: str) -> dict:
+    """The baseline methods and their evaluators: the image registry (every
+    method of `IMAGE_METHODS` but slice D's two, each explained and scored by
+    a counted and timed insertion), saliency against WAM at eval2d's
+    geometry, the audio methods with their three metrics, the stem forms,
+    and the card-against-CPU reduced check. No port kernel launches: every
+    explanation and metric call of the phase is counted with the counts set
+    to 0 just before it and read just after (each asserted 0), and the
+    phase's ``launches`` is their sum."""
+    import numpy as np
+
+    from wam_tpu_torch.evalsuite import fan
+
+    prec = _precision(torch, True)
+    counted = []  # the launch counts of every counted call
+    _log(f"phase baselines: EvalImageBaselines on ResNet-50({EVAL_CLASSES}, bfloat16) x "
+         f"({BASE_BATCH},{CHANNELS},{EVAL_SIDE},{EVAL_SIDE}), batch_size={BASE_CAP}, "
+         f"n_samples={BASE_SAMPLES}; insertion n_iter={BASE_N_ITER}; {prec}")
+    rows = BASE_BATCH * (BASE_N_ITER + 1)
+    image = {}
+    for method in BASE_METHODS:
+        ev, x, y = build_baselines(torch, wtt, method)
+        run = _time_explain(torch, kernels, fan, ev, x, y, "images")
+        expl = run.pop("out")
+        counted.append(run["launches"])
+        if expl.shape != (BASE_BATCH, EVAL_SIDE, EVAL_SIDE) or not bool(
+                torch.isfinite(expl).all()):
+            raise AssertionError(f"{method}: explanation {tuple(expl.shape)} not finite")
+        ev.explanations = expl
+        _log(f"  {method}: explanation first call {run['first_call_s']:.3f} s; one call's "
+             f"launches {run['launches']} (asserted 0), host waits {run['host_syncs']}; {BASE_CALLS} calls (CUDA events) "
+             f"{[round(t, 3) for t in run['calls_ms']]} ms, median {run['median_ms']:.3f} ms "
+             f"(spread {run['spread_ms'][0]:.3f}-{run['spread_ms'][1]:.3f}) = "
+             f"{run['images_per_s']:.2f} images/s; host enqueue {run['enqueue_ms']:.3f} ms; "
+             f"peak memory {run['peak_memory_gb']:.3f} GB on {smi}")
+        res = _run_metrics(torch, kernels, fan,
+                           {"insertion": lambda: ev.insertion(x, y, n_iter=BASE_N_ITER)},
+                           {"insertion": ZERO_LAUNCHES}, {"insertion": rows}, BASE_BATCH,
+                           "images", smi)["insertion"]
+        counted.append(res["launches"])
+        _check_scores(np, f"{method} insertion", res["result"], BASE_BATCH)
+        image[method] = {"explain": run, "insertion": res}
+        del ev, expl
+    for method in BASE_SLICE_D:
+        try:
+            build_baselines(torch, wtt, method)
+        except NotImplementedError as err:
+            _log(f"  {method}: NotImplementedError as expected ({str(err)[:60]}...)")
+        else:
+            raise AssertionError(f"{method} did not raise NotImplementedError")
+
+    # saliency against WAM at equal precision, on the eval2d phase's images
+    state, _, x8, y8 = build_eval2d(torch, wtt)
+    ev = wtt.EvalImageBaselines(wtt.resnet50(num_classes=EVAL_CLASSES), state,
+                                method="saliency", compute_dtype=torch.bfloat16,
+                                batch_size=EVAL_CAP, device=torch.device(DEVICE))
+    pre = _counted_call(torch, kernels, fan, lambda: ev.precompute(x8, y8))
+    counted.append(pre["launches"])
+    _log(f"  saliency vs WAM (eval2d's {EVAL_BATCH} images, bfloat16, batch_size={EVAL_CAP}): "
+         f"insertion n_iter={EVAL_N_ITER}, μ grid={MU_GRID} samples={MU_SAMPLES} "
+         f"subset={MU_SUBSET}")
+    calls = {"insertion": lambda: ev.insertion(x8, y8, n_iter=EVAL_N_ITER),
+             "mu_fidelity": lambda: ev.mu_fidelity(x8, y8, grid_size=MU_GRID,
+                                                   sample_size=MU_SAMPLES, subset_size=MU_SUBSET)}
+    wam_cmp = _run_metrics(torch, kernels, fan, calls, {m: ZERO_LAUNCHES for m in calls},
+                           BASE_WAM_ROWS, EVAL_BATCH, "images", smi)
+    counted += [r["launches"] for r in wam_cmp.values()]
+    _check_scores(np, "saliency insertion (8 images)", wam_cmp["insertion"]["result"], EVAL_BATCH)
+    mu = np.asarray(wam_cmp["mu_fidelity"]["result"])
+    if mu.shape != (EVAL_BATCH,) or not np.isfinite(mu).all() or np.abs(mu).max() > 1:
+        raise AssertionError(f"saliency μ-fidelity values {mu}")
+    del ev, state, x8
+
+    # audio: the eval1d phase's AudioCNN on the mels of its 4 waveforms
+    model, _, xa, ya = build_audio(torch, wtt)
+    _precision(torch, True)
+    with torch.no_grad():
+        mels = wtt.melspectrogram(xa[:EVAL1D_BATCH], sample_rate=SAMPLE_RATE, n_fft=N_FFT,
+                                  n_mels=N_MELS)[:, None]
+    ya = ya[:EVAL1D_BATCH].tolist()
+    audio_rows = {"insertion": EVAL1D_BATCH * (EVAL_N_ITER + 1),
+                  "faithfulness_of_spectra": EVAL1D_BATCH * 3, "input_fidelity": EVAL1D_BATCH * 3}
+    _log(f"  audio: EvalAudioBaselines on AudioCNN({AUDIO_CLASSES}) x {tuple(mels.shape)} mels, "
+         f"n_samples={BASE_SAMPLES}, cam_layer out3; insertion n_iter={EVAL_N_ITER}")
+    audio = {}
+    for method in BASE_AUDIO_METHODS:
+        ev = wtt.EvalAudioBaselines(model, None, method=method, n_samples=BASE_SAMPLES,
+                                    device=torch.device(DEVICE))
+        run = _time_explain(torch, kernels, fan, ev, mels, ya, "inputs")
+        expl = run.pop("out")
+        counted.append(run["launches"])
+        if expl.shape != mels.shape[:1] + mels.shape[2:] or not bool(torch.isfinite(expl).all()):
+            raise AssertionError(f"audio {method}: explanation {tuple(expl.shape)} not finite")
+        ev.explanations = expl
+        _log(f"  audio {method}: explanation median {run['median_ms']:.3f} ms (spread "
+             f"{run['spread_ms'][0]:.3f}-{run['spread_ms'][1]:.3f}), host enqueue "
+             f"{run['enqueue_ms']:.3f} ms, launches {run['launches']} (asserted 0), host waits "
+             f"{run['host_syncs']}, peak "
+             f"{run['peak_memory_gb']:.3f} GB")
+        calls = {"insertion": lambda: ev.insertion(mels, ya, n_iter=EVAL_N_ITER),
+                 "faithfulness_of_spectra": lambda: ev.faithfulness_of_spectra(mels, ya),
+                 "input_fidelity": lambda: ev.input_fidelity(mels, ya)}
+        res = _run_metrics(torch, kernels, fan, calls, {m: ZERO_LAUNCHES for m in calls},
+                           audio_rows, EVAL1D_BATCH, "inputs", smi)
+        counted += [r["launches"] for r in res.values()]
+        _check_scores(np, f"audio {method} insertion", res["insertion"]["result"], EVAL1D_BATCH)
+        preds = res["input_fidelity"]["result"]
+        if [len(p) for p in preds] != [2] * EVAL1D_BATCH:
+            raise AssertionError(f"audio {method} input fidelity: {preds}")
+        audio[method] = {"explain": run, **res}
+        del ev, expl
+
+    stem = _stem_forms(torch, wtt)
+    launches = {k: sum(c[k] for c in counted) for k in ZERO_LAUNCHES}
+    _log(f"  launches over the phase's {len(counted)} counted calls: {launches} "
+         f"(asserted == {ZERO_LAUNCHES})")
+    if launches != ZERO_LAUNCHES:
+        raise AssertionError(f"baselines phase launched port kernels: {launches}")
+    audio_state = {k: v.detach().cpu() for k, v in model.state_dict().items()}
+    reduced = _baselines_reduced_check(torch, wtt, audio_state, mels)
+    strip = lambda d: {k: v for k, v in d.items() if k != "result"}  # noqa: E731
+    return {"precision": prec, "launches": launches,
+            "image": {m: {"explain": r["explain"], "insertion": strip(r["insertion"]),
+                          "insertion_scores": r["insertion"]["result"]}
+                      for m, r in image.items()},
+            "saliency_vs_wam": {m: strip(r) for m, r in wam_cmp.items()},
+            "saliency_vs_wam_scores": {"insertion": wam_cmp["insertion"]["result"],
+                                       "mu_fidelity": wam_cmp["mu_fidelity"]["result"]},
+            "audio": {m: {"explain": r["explain"],
+                          **{k: strip(v) for k, v in r.items() if k != "explain"}}
+                      for m, r in audio.items()},
+            "stem": stem, "reduced_check": reduced}
+
+
 def main() -> int:
     import torch
 
@@ -2048,6 +2430,7 @@ def main() -> int:
     voxel3d = phase_voxel3d(torch, wtt, kernels, smi)
     eval2d = phase_eval2d(torch, wtt, kernels, smi)
     eval1d = phase_eval1d(torch, wtt, kernels, smi)
+    baselines = phase_baselines(torch, wtt, kernels, smi)
     launches = {"flagship": slice_["launches"], "path 2": slice2["launches"],
                 "vit": vit["call_launches"], "vol": vol["fused"]["call_launches"],
                 "eval2d": eval2d["insertion"]["launches"],
@@ -2064,11 +2447,13 @@ def main() -> int:
         row["eval2d_launches"] = {m: eval2d[m]["launches"][row["kernel"]] for m in EVAL_METRICS}
         row["eval1d_launches"] = {m: eval1d[m]["launches"][row["kernel"]]
                                   for m in EVAL1D_METRICS}
+        row["baselines_launches"] = baselines["launches"][row["kernel"]]
 
     print(json.dumps({"slice": {k: v for k, v in slice_.items() if k != "launches"},
                       "slice2": {k: v for k, v in slice2.items() if k != "launches"},
                       "audio": audio, "vit": vit, "convnext": convnext, "vol": vol,
-                      "voxel3d": voxel3d, "eval2d": eval2d, "eval1d": eval1d, "gpu": smi}),
+                      "voxel3d": voxel3d, "eval2d": eval2d, "eval1d": eval1d,
+                      "baselines": baselines, "gpu": smi}),
           flush=True)
     print(json.dumps({"kernels": rows}), flush=True)
     print(smi, flush=True)

@@ -3,6 +3,7 @@
 
     python3 scripts/torch_slice_profile.py [--path2 | --audio | --vit | --convnext | --vol] [--bf16]
     python3 scripts/torch_slice_profile.py --eval2d [--mu]
+    python3 scripts/torch_slice_profile.py --baselines [--lrp | --insertion]
 
 Runs a path of chip_smoke.py, set up by its own code (one definition for
 both): by default the flagship, `wam_tpu_torch.WaveletAttribution2D`
@@ -23,7 +24,12 @@ headline); with ``--eval2d`` one `Eval2DWAM` insertion call
 (`chip_smoke.build_eval2d`: ResNet-50 in bfloat16 with fold_bn, 8 images of
 3x224x224, haar, J=3, n_iter 64, 128 rows a model call, the explainer's
 mosaics computed before), or with ``--mu`` its μ-fidelity call (28 x 28
-grid, 128 subsets of 157 cells). One call to warm up, then one under
+grid, 128 subsets of 157 cells); with ``--baselines`` one saliency
+explanation of the baselines phase's image registry
+(`chip_smoke.build_baselines`: `EvalImageBaselines` on ResNet-50 in
+bfloat16, 4 images of 3x224x224, 64 rows a model call), with ``--lrp`` its
+LRP explanation (the float32 walker), with ``--insertion`` one saliency
+insertion call (n_iter 32). One call to warm up, then one under
 `torch.profiler`; prints one JSON line: the call's wall time, the summed
 device time of its kernels by group (K1-K5, the 1D transform, FFT,
 convolutions, matmuls, batchnorm, pooling, other), and the device's idle
@@ -144,7 +150,26 @@ def main() -> int:
     path2, audio, vol, eval2d = ("--path2" in sys.argv[1:], "--audio" in sys.argv[1:],
                                  "--vol" in sys.argv[1:], "--eval2d" in sys.argv[1:])
     arch = next((a for a in ("vit", "convnext") if f"--{a}" in sys.argv[1:]), None)
-    if eval2d:
+    baselines = "--baselines" in sys.argv[1:]
+    if baselines:
+        chip_smoke._precision(torch, True)
+        method = "lrp" if "--lrp" in sys.argv[1:] else "saliency"
+        ev, x, y = chip_smoke.build_baselines(torch, wtt, method)
+        if "--insertion" in sys.argv[1:]:
+            ev.precompute(x, y)
+
+            def run():
+                return ev.insertion(x, y, n_iter=chip_smoke.BASE_N_ITER)
+
+            what = f"insertion n_iter {chip_smoke.BASE_N_ITER}"
+        else:
+            def run():
+                return ev.compute_explanations(x, y)
+
+            what = "explanation"
+        path = (f"baselines {method} {what} ({chip_smoke.BASE_BATCH}x3x{chip_smoke.EVAL_SIDE}^2, "
+                f"ResNet-50 bfloat16, {chip_smoke.BASE_CAP} rows a model call)")
+    elif eval2d:
         chip_smoke._precision(torch, True)
         _, ev, x, y = chip_smoke.build_eval2d(torch, wtt)
         ev.precompute(x, y)
@@ -179,7 +204,7 @@ def main() -> int:
         side = chip_smoke.SIDE2 if path2 else chip_smoke.SIDE
         _, wam, x, y, _ = chip_smoke.build_slice(torch, wtt, side=side, fused_relu_vjp=path2)
         path = "path2 (288^2, fused_relu_vjp)" if path2 else "flagship (224^2)"
-    if not eval2d:
+    if not (eval2d or baselines):
         def run():
             return wam(x, y)
     run()
@@ -227,6 +252,7 @@ def main() -> int:
         "groups_share": {k: v / busy_ms for k, v in sorted(groups.items(), key=lambda kv: -kv[1])}
         if busy_ms else None,
         "kernel_launches": launches,
+        "kernel_launches_total": sum(launches.values()),
         "top_kernels": [{"ms": ms, "launches": n, "name": name}
                         for ms, n, name in sorted(top, reverse=True)[:15]],
     }))

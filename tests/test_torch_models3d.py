@@ -112,10 +112,15 @@ def test_resnet3d_state_dict_names_and_initialisers():
 
 
 def test_resnet3d_taps_raise():
-    m = tr3.resnet3d_10(width=4)
-    for tap in (m.sow, m.perturb):
-        with pytest.raises(NotImplementedError, match="slice C"):
-            tap("stage1", None)
+    """The stage taps are ported (`models.layers.tap`, the reference's names
+    stage1..stage4); a tap the model does not have raises where a CAM asks
+    for it."""
+    from wam_tpu_torch.evalsuite.baselines import gradcam
+
+    m = tr3.resnet3d_10(width=4).eval()
+    assert m.TAPS == ("stage1", "stage2", "stage3", "stage4")
+    with pytest.raises(ValueError, match="no activation tap 'stage5'"):
+        gradcam(m, torch.zeros(1, 1, 8, 8, 8), [0], layer="stage5")
 
 
 def test_fold_bn_folds_3d_pairs_as_jax_does():

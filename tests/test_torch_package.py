@@ -659,3 +659,52 @@ def test_public_names_exported():
                  "mosaic2d", "reproject_mosaic", "bind_inference", "resnet50",
                  "flax_resnet_to_torch", "smoothgrad", "fused_relu", "idwt2_kernel"):
         assert hasattr(wam_tpu_torch, name), name
+
+
+def test_baselines_path_launches_no_kernel(monkeypatch):
+    """The baseline methods and their evaluators reach no port kernel (their
+    models, gradients and fans are library calls): the launchers and the
+    build are never called and no count moves, even with CUDA routes taken
+    wherever the wrappers ask."""
+    from wam_tpu_torch.evalsuite import (
+        AUDIO_METHODS,
+        IMAGE_METHODS,
+        EvalAudioBaselines,
+        EvalImageBaselines,
+    )
+
+    def boom(*a, **k):
+        raise AssertionError("a port kernel was reached from the baselines path")
+
+    for name in (*LAUNCHERS, "build_all"):
+        monkeypatch.setattr(kernels, name, boom)
+    monkeypatch.setattr(tmm, "on_cpu", lambda t: False)
+    monkeypatch.setattr(tfr, "on_cpu", lambda t: False)
+    before = kernels.launch_counts()
+    rng = np.random.default_rng(0)
+    x = rng.standard_normal((2, 3, 32, 32)).astype(np.float32)
+    for method in IMAGE_METHODS[:9]:
+        ev = EvalImageBaselines(tres.resnet18(num_classes=4), method=method, n_samples=2,
+                                batch_size=16, cam_layer="stage3", device="cpu")
+        assert len(ev.insertion(x, [0, 3], n_iter=4)) == 2
+    mel = rng.standard_normal((1, 1, 129, 128)).astype(np.float32)
+    for method in AUDIO_METHODS:
+        ev = EvalAudioBaselines(taudio.AudioCNN(num_classes=4), method=method, n_samples=2,
+                                device="cpu")
+        assert ev.precompute(mel, [1]).shape == (1, 129, 128)
+    assert kernels.launch_counts() == before
+
+
+def test_baselines_public_names_exported():
+    import wam_tpu_torch.evalsuite as tev
+    import wam_tpu_torch.models as tmodels
+
+    for name in ("EvalImageBaselines", "EvalAudioBaselines", "IMAGE_METHODS", "AUDIO_METHODS",
+                 "ResNet", "resnet34", "resnet101"):
+        assert hasattr(wam_tpu_torch, name) and name in wam_tpu_torch.__all__, name
+    for name in ("EvalImageBaselines", "EvalAudioBaselines", "IMAGE_METHODS", "AUDIO_METHODS",
+                 "saliency", "integrated_gradients", "smoothgrad_pixel", "gradcam",
+                 "gradcam_pp", "layercam"):
+        assert hasattr(tev, name) and name in tev.__all__, name
+    for name in ("resnet34", "resnet101"):
+        assert hasattr(tmodels, name) and name in tmodels.__all__, name

@@ -272,12 +272,17 @@ def test_generic_bind_inference_binds_a_vit(vit):
 
 
 def test_unported_taps_raise():
+    """``capture_attn`` is still slice D's; the token and stage taps are
+    ported (`models.layers.tap`), and a tap a model does not have raises
+    where a CAM asks for it."""
+    from wam_tpu_torch.evalsuite.baselines import gradcam
+
     with pytest.raises(NotImplementedError, match="slice D"):
         tvit.vit_tiny_test(capture_attn=True)
     for model in (tvit.vit_tiny_test(image_size=SIDE), tconvnext.convnext_test()):
-        for tap in (model.sow, model.perturb):
-            with pytest.raises(NotImplementedError, match="slice C"):
-                tap("tokens", None)
+        assert set(model.TAPS) <= {"tokens", "stage1", "stage2", "stage3", "stage4"}
+        with pytest.raises(ValueError, match="no activation tap 'stage9'"):
+            gradcam(model.eval(), torch.zeros(1, 3, SIDE, SIDE), [0], layer="stage9")
 
 
 def test_fresh_weights_follow_the_reference_initialisers():

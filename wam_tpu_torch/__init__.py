@@ -7,7 +7,10 @@ end), WAM-3D on volumes and point clouds (`WaveletAttribution3D`,
 `BaseWAM3D`, on the 3D ResNet, the voxel CNN and PointNet), and the
 faithfulness metrics of 2D and 1D attributions (`Eval2DWAM`, `Eval1DWAM`:
 insertion and deletion AUC, μ-fidelity, faithfulness of spectra, input
-fidelity; `wam_tpu_torch.evalsuite`). Module paths and names
+fidelity), and the baseline methods scored by the same metrics
+(`EvalImageBaselines`, `EvalAudioBaselines`: saliency, integrated
+gradients, SmoothGrad, the GradCAM family, guided backprop, gradient x
+input, LRP; `wam_tpu_torch.evalsuite`). Module paths and names
 mirror `wam_tpu`; the TPU's Pallas kernels become hand-written CUDA kernels
 (`wam_tpu_torch.kernels`), each with its plain PyTorch version beside it for
 CPU tensors and for tests. Entry points run on CUDA unless the caller passes
@@ -25,7 +28,14 @@ from wam_tpu_torch.core.estimators import (
     validate_sample_batch_size,
 )
 from wam_tpu_torch.device import resolve_device
-from wam_tpu_torch.evalsuite import Eval1DWAM, Eval2DWAM
+from wam_tpu_torch.evalsuite import (
+    AUDIO_METHODS,
+    IMAGE_METHODS,
+    Eval1DWAM,
+    Eval2DWAM,
+    EvalAudioBaselines,
+    EvalImageBaselines,
+)
 from wam_tpu_torch.models.audio import AudioCNN, bind_audio_inference, toy_wave_model
 from wam_tpu_torch.models.convnext import ConvNeXt, convnext_test, convnext_tiny
 from wam_tpu_torch.models.ingest import (
@@ -44,7 +54,14 @@ from wam_tpu_torch.models.pointnet import (
     PointNetFeat,
     feature_transform_regularizer,
 )
-from wam_tpu_torch.models.resnet import bind_inference, resnet18, resnet50
+from wam_tpu_torch.models.resnet import (
+    ResNet,
+    bind_inference,
+    resnet18,
+    resnet34,
+    resnet50,
+    resnet101,
+)
 from wam_tpu_torch.models.resnet3d import ResNet3D, resnet3d_10, resnet3d_18
 from wam_tpu_torch.models.voxel import VoxelModel
 from wam_tpu_torch.models.vit import ViT, bind_vit_inference, vit_b16, vit_tiny_test
@@ -91,6 +108,7 @@ from wam_tpu_torch.wavelets.transform import (
 )
 
 __all__ = [
+    "AUDIO_METHODS",
     "AudioCNN",
     "BaseWAM1D",
     "BaseWAM2D",
@@ -100,12 +118,16 @@ __all__ = [
     "Detail2D",
     "Eval1DWAM",
     "Eval2DWAM",
+    "EvalAudioBaselines",
     "EvalConfig",
+    "EvalImageBaselines",
+    "IMAGE_METHODS",
     "PatchConv",
     "PointNetCls",
     "PointNetDenseCls",
     "PointNetFeat",
     "PrecisionPolicy",
+    "ResNet",
     "ResNet3D",
     "ViT",
     "VisualizerWAM1D",
@@ -150,6 +172,8 @@ __all__ = [
     "normalize_waveforms",
     "reproject_mosaic",
     "resnet18",
+    "resnet34",
+    "resnet101",
     "resnet3d_10",
     "resnet3d_18",
     "resnet50",

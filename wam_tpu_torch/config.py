@@ -6,7 +6,9 @@ run ("f32", "bf16" or "fp8") and whether the mel front end's matmuls take
 bf16 inputs; `resolve_precision` resolves it from an explicit argument, then
 the ``WAM_TPU_FAN_DTYPE`` / ``WAM_TPU_MEL_BF16`` environment knobs, then
 float32. (The reference's third layer, a tuned schedule entry, waits for the
-port's tune cache.) `EvalConfig` holds the evaluation suite's defaults.
+port's tune cache.) `resolve_compute_dtype` turns the baseline evaluators'
+``compute_dtype`` / ``precision`` pair into a torch dtype and a fan tag.
+`EvalConfig` holds the evaluation suite's defaults.
 """
 
 from __future__ import annotations
@@ -16,8 +18,8 @@ from dataclasses import dataclass
 
 import torch
 
-__all__ = ["FAN_DTYPES", "PrecisionPolicy", "resolve_precision", "compute_cast",
-           "fp8_supported", "EvalConfig"]
+__all__ = ["FAN_DTYPES", "PrecisionPolicy", "resolve_precision", "resolve_compute_dtype",
+           "compute_cast", "fp8_supported", "EvalConfig"]
 
 FAN_DTYPES = ("f32", "bf16", "fp8")
 FP8 = torch.float8_e4m3fn
@@ -101,6 +103,31 @@ def resolve_precision(*, fan_dtype: str | None = None,
         env = os.environ.get("WAM_TPU_MEL_BF16", "")
         mel_bf16 = env not in ("0", "false", "no") if env else False
     return PrecisionPolicy(fan_dtype=fan_dtype, mel_bf16=bool(mel_bf16))
+
+
+_FAN_TAGS = {torch.bfloat16: "bf16", FP8: "fp8"}
+
+
+def resolve_compute_dtype(compute_dtype=None, precision=None):
+    """The (compute dtype, fan tag) of an evaluator given ``compute_dtype``
+    (a torch dtype, a policy string "f32" / "bf16" / "fp8", or None) and
+    ``precision`` (a `PrecisionPolicy`, a ``fan_dtype`` string, or None),
+    in the reference's order: a string ``compute_dtype`` resolves through
+    `PrecisionPolicy.compute_dtype` ("fp8" is float8_e4m3fn where
+    `fp8_supported`, else bfloat16); without one, ``precision`` supplies
+    it. The tag is the policy's ``fan_dtype`` when ``precision`` is given,
+    else the dtype's ("bf16", "fp8"; None for float32 or no dtype)."""
+    if isinstance(precision, str):
+        precision = PrecisionPolicy(fan_dtype=precision)
+    if isinstance(compute_dtype, str):
+        compute_dtype = PrecisionPolicy(fan_dtype=compute_dtype).compute_dtype()
+    if compute_dtype is None and precision is not None:
+        compute_dtype = precision.compute_dtype()
+    if precision is not None:
+        tag = precision.fan_dtype
+    else:
+        tag = _FAN_TAGS.get(compute_dtype)
+    return compute_dtype, tag
 
 
 def compute_cast(x: torch.Tensor, dtype: torch.dtype | None) -> torch.Tensor:

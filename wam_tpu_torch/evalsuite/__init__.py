@@ -1,10 +1,26 @@
-"""The evaluation suite (PyTorch port of the WAM half of `wam_tpu.evalsuite`):
-`Eval2DWAM` and `Eval1DWAM` faithfulness metrics on the fan engine
-(`evalsuite.fan`: one counted result fetch per metric call), the metric
-machinery and the coefficient packing."""
+"""The evaluation suite (PyTorch port of `wam_tpu.evalsuite`): the
+`Eval2DWAM` and `Eval1DWAM` faithfulness metrics and the baseline methods'
+evaluators `EvalImageBaselines` and `EvalAudioBaselines`, on the fan engine
+(`evalsuite.fan`: one counted result fetch per metric call), the baseline
+methods (`evalsuite.baselines`, `evalsuite.lrp`), the metric machinery and
+the coefficient packing."""
 
+from wam_tpu_torch.evalsuite.baselines import (
+    gradcam,
+    gradcam_pp,
+    integrated_gradients,
+    layercam,
+    saliency,
+    smoothgrad_pixel,
+)
 from wam_tpu_torch.evalsuite.eval1d import Eval1DWAM
 from wam_tpu_torch.evalsuite.eval2d import Eval2DWAM, imagenet_denormalize, imagenet_preprocess
+from wam_tpu_torch.evalsuite.eval_baselines import (
+    AUDIO_METHODS,
+    IMAGE_METHODS,
+    EvalAudioBaselines,
+    EvalImageBaselines,
+)
 from wam_tpu_torch.evalsuite.fan import (
     FanPlan,
     device_fetch,
@@ -41,6 +57,16 @@ __all__ = [
     "fetch_count",
     "fetch_scope",
     "reset_fetch_count",
+    "EvalImageBaselines",
+    "EvalAudioBaselines",
+    "IMAGE_METHODS",
+    "AUDIO_METHODS",
+    "saliency",
+    "integrated_gradients",
+    "smoothgrad_pixel",
+    "gradcam",
+    "gradcam_pp",
+    "layercam",
     "compute_auc",
     "generate_masks",
     "minmax_normalize",

@@ -22,7 +22,14 @@ from wam_tpu_torch.models.pointnet import (
     STNkd,
     feature_transform_regularizer,
 )
-from wam_tpu_torch.models.resnet import ResNet, bind_inference, resnet18, resnet50
+from wam_tpu_torch.models.resnet import (
+    ResNet,
+    bind_inference,
+    resnet18,
+    resnet34,
+    resnet50,
+    resnet101,
+)
 from wam_tpu_torch.models.resnet3d import ResNet3D, resnet3d_10, resnet3d_18
 from wam_tpu_torch.models.voxel import VoxelModel
 from wam_tpu_torch.models.vit import ViT, bind_vit_inference, vit_b16, vit_tiny_test
@@ -56,6 +63,8 @@ __all__ = [
     "flax_vit_to_torch",
     "flax_voxel_to_torch",
     "resnet18",
+    "resnet34",
+    "resnet101",
     "resnet3d_10",
     "resnet3d_18",
     "resnet50",

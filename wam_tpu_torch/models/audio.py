@@ -7,7 +7,9 @@ over (T, n_mels). The input is the mel front end's (B, 1, T, n_mels), which
 is already NCHW. Submodules carry the reference's names (``b1_conv``,
 ``b1_bn``, ..., ``head``), so `ingest.flax_audio_to_torch` maps the JAX
 variables across by name and `bind_audio_inference(fold_bn=True)` pairs each
-``bN_bn`` with its ``bN_conv``.
+``bN_bn`` with its ``bN_conv``. The outputs of blocks 8, 10 and 11 (before
+their pools) and of block 12 pass through the taps ``out0`` .. ``out3``
+(`layers.tap`), the reference's sow/perturb points.
 """
 
 from __future__ import annotations
@@ -18,6 +20,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from wam_tpu_torch.models.layers import tap
 from wam_tpu_torch.models.resnet import bind_inference
 from wam_tpu_torch.models.toy import toy_conv_model
 
@@ -27,10 +30,13 @@ __all__ = ["AudioCNN", "bind_audio_inference", "toy_wave_model"]
 _BLOCKS = ((1, 16, False), (2, 16, True), (3, 32, False), (4, 32, True), (5, 64, False),
            (6, 64, True), (7, 128, False), (8, 128, True), (9, 256, False), (10, 256, True),
            (11, 512, True))
+_TAPPED = {8: "out0", 10: "out1", 11: "out2"}  # block -> tap on its output, before its pool
 
 
 class AudioCNN(nn.Module):
     """(B, 1, T, n_mels) -> (B, num_classes) class scores in (0, 1)."""
+
+    TAPS = ("out0", "out1", "out2", "out3")
 
     def __init__(self, num_classes: int = 50, pool: str = "max"):
         super().__init__()
@@ -49,9 +55,11 @@ class AudioCNN(nn.Module):
     def forward(self, x):
         for n, _, pool in _BLOCKS:
             x = torch.relu(getattr(self, f"b{n}_bn")(getattr(self, f"b{n}_conv")(x)))
+            if n in _TAPPED:
+                x = tap(_TAPPED[n], x)
             if pool:
                 x = F.max_pool2d(x, 2)
-        x = torch.relu(self.b12_bn(self.b12_conv(x)))
+        x = tap("out3", torch.relu(self.b12_bn(self.b12_conv(x))))
         x = torch.sigmoid(self.head(x))
         # amax splits the gradient evenly between tied maxima, as JAX's max does
         return x.amax(dim=(2, 3)) if self.pool == "max" else x.mean(dim=(2, 3))

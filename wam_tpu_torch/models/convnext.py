@@ -30,7 +30,7 @@ from typing import Sequence
 import torch
 import torch.nn as nn
 
-from wam_tpu_torch.models.layers import LN_EPS, TAPS_SLICE, dense, lecun_normal_
+from wam_tpu_torch.models.layers import LN_EPS, dense, lecun_normal_, tap
 from wam_tpu_torch.models.patchconv import PatchConv
 
 __all__ = ["ConvNeXtBlock", "ConvNeXt", "convnext_tiny", "convnext_test"]
@@ -62,7 +62,11 @@ class ConvNeXtBlock(nn.Module):
 
 
 class ConvNeXt(nn.Module):
-    """x: (B, 3, H, W) -> logits (B, num_classes)."""
+    """x: (B, 3, H, W) -> logits (B, num_classes). Each stage's output, (B,
+    H, W, C) channels-last, passes through the tap ``stage{s}``
+    (`layers.tap`)."""
+
+    TAPS = ("stage1", "stage2", "stage3", "stage4")
 
     def __init__(self, num_classes: int = 1000, depths: Sequence[int] = (3, 3, 9, 3),
                  dims: Sequence[int] = (96, 192, 384, 768)):
@@ -78,14 +82,14 @@ class ConvNeXt(nn.Module):
                                         dense(dims[-1], num_classes))
 
     def forward(self, x):
-        x = self.features(x.permute(0, 2, 3, 1))
+        x = x.permute(0, 2, 3, 1)
+        stage = 0
+        for i, layer in enumerate(self.features):
+            x = layer(x)
+            if i % 2 == 1:  # the stem and the downsamplers sit at even indices
+                stage += 1
+                x = tap(f"stage{stage}", x, channels_last=True)
         return self.classifier(x.mean(dim=(1, 2)))
-
-    def sow(self, *args, **kwargs):
-        raise NotImplementedError(TAPS_SLICE)
-
-    def perturb(self, *args, **kwargs):
-        raise NotImplementedError(TAPS_SLICE)
 
 
 convnext_tiny = partial(ConvNeXt, depths=(3, 3, 9, 3), dims=(96, 192, 384, 768))

@@ -8,7 +8,11 @@ JAX package's weights across mechanically. Convolutions are cuDNN's, as the
 JAX package leaves them to XLA. The activation is the ``act`` attribute of
 every block and of the network (``torch.relu`` by default), as the
 reference's ``act`` field is, so `bind_inference` can swap in the fused
-ReLU VJP.
+ReLU VJP and guided backprop its guided ReLU. ``post_linear`` (identity by
+default) is read where the reference applies its hook: after every
+BatchNorm output and after ``fc``; the ε-rule LRP sets it. The stage
+outputs pass through the taps ``stage1`` .. ``stage4`` (`layers.tap`), as
+the reference sows them and routes them through its perturbation.
 """
 
 from __future__ import annotations
@@ -19,10 +23,18 @@ from typing import Callable, Sequence
 import torch
 import torch.nn as nn
 
+import torch.nn.functional as F
+
 from wam_tpu_torch.device import resolve_device
+from wam_tpu_torch.models.layers import tap
 from wam_tpu_torch.tune.fused_relu import fused_relu
 
-__all__ = ["BasicBlock", "Bottleneck", "ResNet", "resnet18", "resnet50", "bind_inference"]
+__all__ = ["BasicBlock", "Bottleneck", "ResNet", "resnet18", "resnet34", "resnet50",
+           "resnet101", "bind_inference"]
+
+
+def _identity(z):
+    return z
 
 
 def _bn(ch: int) -> nn.BatchNorm2d:
@@ -41,6 +53,7 @@ class BasicBlock(nn.Module):
     def __init__(self, in_ch: int, features: int, stride: int = 1):
         super().__init__()
         self.act = torch.relu
+        self.post_linear = _identity
         self.conv1 = nn.Conv2d(in_ch, features, 3, stride, 1, bias=False)
         self.bn1 = _bn(features)
         self.conv2 = nn.Conv2d(features, features, 3, 1, 1, bias=False)
@@ -48,9 +61,10 @@ class BasicBlock(nn.Module):
         self.downsample = _shortcut(in_ch, features, stride)
 
     def forward(self, x):
-        y = self.act(self.bn1(self.conv1(x)))
-        y = self.bn2(self.conv2(y))
-        residual = x if self.downsample is None else self.downsample(x)
+        pl = self.post_linear
+        y = self.act(pl(self.bn1(self.conv1(x))))
+        y = pl(self.bn2(self.conv2(y)))
+        residual = x if self.downsample is None else pl(self.downsample(x))
         return self.act(y + residual)
 
 
@@ -60,6 +74,7 @@ class Bottleneck(nn.Module):
     def __init__(self, in_ch: int, features: int, stride: int = 1):
         super().__init__()
         self.act = torch.relu
+        self.post_linear = _identity
         out_ch = features * self.expansion
         self.conv1 = nn.Conv2d(in_ch, features, 1, bias=False)
         self.bn1 = _bn(features)
@@ -70,19 +85,47 @@ class Bottleneck(nn.Module):
         self.downsample = _shortcut(in_ch, out_ch, stride)
 
     def forward(self, x):
-        y = self.act(self.bn1(self.conv1(x)))
-        y = self.act(self.bn2(self.conv2(y)))
-        y = self.bn3(self.conv3(y))
-        residual = x if self.downsample is None else self.downsample(x)
+        pl = self.post_linear
+        y = self.act(pl(self.bn1(self.conv1(x))))
+        y = self.act(pl(self.bn2(self.conv2(y))))
+        y = pl(self.bn3(self.conv3(y)))
+        residual = x if self.downsample is None else pl(self.downsample(x))
         return self.act(y + residual)
 
 
-class ResNet(nn.Module):
-    """x: (B, 3, H, W) -> logits (B, num_classes)."""
+def _s2d_stem(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """The 7x7/2 pad-3 stem conv in space-to-depth form (the reference's
+    `_StemConv` with ``s2d=True``): the input rearranged to (B, 4C, H/2,
+    W/2), channels ordered (row parity, column parity, channel), convolved
+    at stride 1 with the (64, 4C, 4, 4) kernel built from the 7x7 weight
+    ``w``: out[o] = sum_k w[k] x[2o + k - 3]; with the input index 2u + a
+    the tap is k = 2j + a - 1 for j = u - o + 2 in [0, 4), and k = -1 (j =
+    0, a = 0) is the zero row the pad adds. Same function, for even H and W."""
+    B, C, H, W = x.shape
+    xs = x.reshape(B, C, H // 2, 2, W // 2, 2).permute(0, 3, 5, 1, 2, 4)
+    xs = xs.reshape(B, 4 * C, H // 2, W // 2)
+    wp = F.pad(w, (1, 0, 1, 0))  # (O, C, 8, 8)
+    k2 = wp.reshape(w.shape[0], C, 4, 2, 4, 2).permute(0, 3, 5, 1, 2, 4)
+    k2 = k2.reshape(w.shape[0], 4 * C, 4, 4)
+    return F.conv2d(F.pad(xs, (2, 1, 2, 1)), k2)
 
-    def __init__(self, stage_sizes: Sequence[int], block_cls, num_classes: int = 1000):
+
+class ResNet(nn.Module):
+    """x: (B, 3, H, W) -> logits (B, num_classes). ``stem_s2d=True`` runs
+    the stem conv in its space-to-depth form (same weight, same function;
+    the reference's TPU-shaped rewrite, here for API parity: chip_smoke.py
+    times both forms)."""
+
+    TAPS = ("stage1", "stage2", "stage3", "stage4")
+
+    def __init__(self, stage_sizes: Sequence[int], block_cls, num_classes: int = 1000,
+                 stem_s2d: bool = False):
         super().__init__()
         self.act = torch.relu
+        self.post_linear = _identity
+        self.stem_s2d = stem_s2d
+        self.stage_sizes = tuple(stage_sizes)
+        self.block_cls = block_cls
         self.conv1 = nn.Conv2d(3, 64, 7, 2, 3, bias=False)
         self.bn1 = _bn(64)
         self.maxpool = nn.MaxPool2d(3, 2, 1)
@@ -97,15 +140,24 @@ class ResNet(nn.Module):
         self.n_stages = len(stage_sizes)
         self.fc = nn.Linear(in_ch, num_classes)
 
+    def stem(self, x):
+        """The stem conv, in the form ``stem_s2d`` asks for."""
+        if self.stem_s2d and x.shape[-2] % 2 == 0 and x.shape[-1] % 2 == 0:
+            return _s2d_stem(x, self.conv1.weight)
+        return self.conv1(x)
+
     def forward(self, x):
-        x = self.maxpool(self.act(self.bn1(self.conv1(x))))
+        pl = self.post_linear
+        x = self.maxpool(self.act(pl(self.bn1(self.stem(x)))))
         for stage in range(self.n_stages):
-            x = getattr(self, f"layer{stage + 1}")(x)
-        return self.fc(x.mean(dim=(2, 3)))
+            x = tap(f"stage{stage + 1}", getattr(self, f"layer{stage + 1}")(x))
+        return pl(self.fc(x.mean(dim=(2, 3))))
 
 
 resnet18 = partial(ResNet, (2, 2, 2, 2), BasicBlock)
+resnet34 = partial(ResNet, (3, 4, 6, 3), BasicBlock)
 resnet50 = partial(ResNet, (3, 4, 6, 3), Bottleneck)
+resnet101 = partial(ResNet, (3, 4, 23, 3), Bottleneck)
 
 
 def _conv_of(bn_name: str) -> str | None:
@@ -129,7 +181,8 @@ def _fold_bn(model: nn.Module, eps: float = 1e-5) -> None:
     in place, for convolutions of any rank (1D, 2D, 3D): BN with running
     stats is y = x*a + b with a = gamma/sqrt(var+eps), b = beta - mean*a; the
     conv's output channels are scaled by a and the BN becomes the pure shift
-    (weight 1, bias b, mean 0, var 1-eps)."""
+    (weight 1, bias b, mean 0, var 1-eps, the float32 value of 1 - eps as
+    the reference writes it, whatever the tensor's dtype)."""
     modules = dict(model.named_modules())
     for name, bn in modules.items():
         if not isinstance(bn, nn.modules.batchnorm._BatchNorm):
@@ -144,7 +197,7 @@ def _fold_bn(model: nn.Module, eps: float = 1e-5) -> None:
         bn.bias.copy_(bn.bias - bn.running_mean * a)
         bn.weight.fill_(1.0)
         bn.running_mean.zero_()
-        bn.running_var.fill_(1.0 - eps)
+        bn.running_var.fill_(torch.tensor(1.0 - eps, dtype=torch.float32).item())
 
 
 def bind_inference(

@@ -25,7 +25,7 @@ from typing import Sequence
 import torch
 import torch.nn as nn
 
-from wam_tpu_torch.models.layers import TAPS_SLICE, lecun_normal_
+from wam_tpu_torch.models.layers import lecun_normal_, tap
 
 __all__ = ["BasicBlock3D", "ResNet3D", "resnet3d_10", "resnet3d_18"]
 
@@ -61,7 +61,10 @@ class BasicBlock3D(nn.Module):
 
 
 class ResNet3D(nn.Module):
-    """x: (B, 1, D, H, W) -> logits (B, num_classes)."""
+    """x: (B, 1, D, H, W) -> logits (B, num_classes). Each stage's output
+    passes through the tap ``stage{s}`` (`layers.tap`)."""
+
+    TAPS = ("stage1", "stage2", "stage3", "stage4")
 
     def __init__(self, stage_sizes: Sequence[int], num_classes: int = 10, width: int = 16):
         super().__init__()
@@ -84,14 +87,8 @@ class ResNet3D(nn.Module):
     def forward(self, x):
         x = self.act(self.bn1(self.conv1(x)))
         for stage in range(self.n_stages):
-            x = getattr(self, f"layer{stage + 1}")(x)
+            x = tap(f"stage{stage + 1}", getattr(self, f"layer{stage + 1}")(x))
         return self.fc(x.mean(dim=(2, 3, 4)))
-
-    def sow(self, *args, **kwargs):
-        raise NotImplementedError(TAPS_SLICE)
-
-    def perturb(self, *args, **kwargs):
-        raise NotImplementedError(TAPS_SLICE)
 
 
 resnet3d_10 = partial(ResNet3D, (1, 1, 1, 1))

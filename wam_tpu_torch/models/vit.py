@@ -32,7 +32,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from wam_tpu_torch.models.layers import LN_EPS, TAPS_SLICE, dense
+from wam_tpu_torch.models.layers import LN_EPS, dense, tap
 from wam_tpu_torch.models.patchconv import PatchConv
 from wam_tpu_torch.models.resnet import bind_inference
 
@@ -89,7 +89,11 @@ class ViT(nn.Module):
     """x: (B, 3, image_size, image_size) -> logits (B, num_classes).
     ``image_size`` sets the length of ``pos_embed`` (the reference reads it
     from the input at init). ``capture_attn=True`` (the attention-capturing
-    variant of the transformer baselines) is not ported yet."""
+    variant of the transformer baselines) is not ported yet. The token
+    sequence (B, 1 + N, D) after the last block passes through the tap
+    ``tokens`` (`layers.tap`)."""
+
+    TAPS = ("tokens",)
 
     def __init__(self, num_classes: int = 1000, patch: int = 16, dim: int = 768,
                  depth: int = 12, heads: int = 12, mlp_hidden: int = 3072,
@@ -115,13 +119,8 @@ class ViT(nn.Module):
         x = torch.cat([self.cls_token.expand(B, -1, -1), x], dim=1) + self.pos_embed
         for block in self.blocks:
             x = block(x)
-        return self.head(self.norm(x)[:, 0])
-
-    def sow(self, *args, **kwargs):
-        raise NotImplementedError(TAPS_SLICE)
-
-    def perturb(self, *args, **kwargs):
-        raise NotImplementedError(TAPS_SLICE)
+        # the token tap, after the last block and before the final LayerNorm
+        return self.head(self.norm(tap("tokens", x))[:, 0])
 
 
 vit_b16 = partial(ViT, patch=16, dim=768, depth=12, heads=12, mlp_hidden=3072)
