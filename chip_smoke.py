@@ -15,12 +15,20 @@ sm_90a). Phases, each fatal on failure:
    K2 (both directions) and K4/K5 at path 2's, K4/K5 also at the vol
    path's 17 ReLU shapes (128 rows, float32), K1 and K3 (forward only, on
    leaves that are views of the masked packed array of one image's 65 and
-   128 masks) at the eval2d path's; one line per kernel and path, each case
+   128 masks) at the eval2d path's, K1 and K3 (forward, 4 and 20 masks) at
+   the analyzers path's, K1 and K3 (forward and backward, 25 path points)
+   at the iou path's under each of its four wavelets; one line per kernel
+   and path, each case
    and line
    with its bound and bound_share (bound / kernel time). K1-K3 launch
    with their band plans (K3 on the coefficient leaves, views of K1's
    output, forward and every leaf's gradient checked); the plain versions
-   and the einsum yardstick use the dense operators;
+   and the einsum yardstick use the dense operators. Then the periodized
+   transforms (no kernel: a strided conv1d and its transpose): wavedec2_per
+   and waverec2_per (db4, J=3) on 32 images of 3x224^2, the card against
+   the CPU in float64 (coefficients, gradient, round trip within 1e-9 x
+   max), no port kernel launched (asserted), and a float32 forward and
+   backward timed;
 4. slice:  the flagship path, `WaveletAttribution2D` SmoothGrad on
    ResNet-50 (1000 classes, seeded random weights) at batch 32, 3x224x224,
    db4, J=3, reflect, n_samples=25, stdev_spread=0.25, sample_batch_size=4,
@@ -145,7 +153,43 @@ sm_90a). Phases, each fatal on failure:
    ResNet-18 (saliency, IG, gradcam, gradcampp, guided backprop, LRP) and 2
    of the audio mels (saliency, IG, gradcam): float64 through
    the methods within 1e-9 x max, float32 through the evaluators within
-   BASE_F32_TOL, insertion on a handed-over map within 1e-5.
+   BASE_F32_TOL, insertion on a handed-over map within 1e-5;
+14. nhwc: the flagship's call (phase slice's model weights, batch, labels
+   and precision) with ``WaveletAttribution2D(model_layout="nhwc")`` on the
+   same ResNet-50 bound with ``bind_inference(nchw=False)``, bench.py's
+   layout: the NCHW and NHWC arms in turns (nchw, nhwc, nhwc, nchw), each a
+   counted call (NHWC: K1-K5 0; NCHW: K1 21, K3 14; asserted) and 5
+   CUDA-event-timed calls (median, spread, attributions/s, host enqueue,
+   peak memory); one chunk's transforms in both layouts and the input's
+   layout copy, timed; then the reduced check (2 images x 2 samples, noise
+   handed over, TF32 off): the two layouts' transforms (leaves,
+   reconstruction, leaf gradients; NCHW on K1/K3) within 1e-5 x max, the
+   whole call in float64 (NCHW on the plain transforms) within 1e-9 x max,
+   and in float32 against the NCHW kernel path at cosine >= 0.99999 and max
+   abs <= 2e-2 x max (ReLU gates at zero flip between the layouts, as
+   between phase slice's kernel and plain paths);
+15. analyzers: `WAMAnalyzer2D` (haar, J=3) on the flagship's ResNet-50 in
+   float32 (TF32 on), 8 images of 3x224^2 labelled with the model's own
+   classes, explainer `WaveletAttribution2D` SmoothGrad (n=25) computed once
+   by ``precompute`` (counted and event-timed); `isolate_scales` (EPS 0.1)
+   and `isolate_necessary_components` (20 quantiles 0.95..0 for insertion,
+   reversed for deletion), each a warm call, a counted call (K1 24, K3 8,
+   the others 0; host waits 0 for isolate_scales, one an image for the
+   sweeps, by torch's sync debug mode; all asserted) and 3 event-timed
+   calls; then the reduced check: kernel path against impl="matmul" on 2
+   images with the mosaics handed to both, TF32 off (partial images and kept
+   reconstructions within 1e-5 x max; masks, kept masks, indices and
+   recorded quantiles equal);
+16. iou: the fork's cross-wavelet IoU experiment at
+   examples/iou_experiment.py's defaults: ConvNeXt-T (1000 classes) from
+   `data.build_vision_model`, the script's 5 synthetic 224^2 images (its
+   own copy), WAM-IG (J=3, 25 path points) under haar, db4, sym4 and sym8:
+   one explanation per wavelet counted (K1 3, K3 2; asserted) and 3
+   event-timed; the whole experiment on the host clock (its launches
+   asserted), peak memory, the 10 mean IoUs over p = 0.05..0.50 and the
+   provenance "synthetic-sines+random-init"; then the reduced check: image
+   0's maps on the kernel path against impl="matmul", TF32 off (each map
+   within 1e-5 x max, the IoUs equal).
 
 Prints a summary JSON line, the kernels' JSON line, the nvidia-smi line, and as its last line
 ``{"ok": true, "device": {...}}``. Exits nonzero, printing no result, when
@@ -294,6 +338,39 @@ BASE_F32_TOL = {"image": {"saliency": 4e-6,          # 3.675e-7
                           "integratedgrad": 2.5e-2,  # 2.457e-3, a gate flip
                           "gradcam": 3e-4}}          # 2.983e-5
 BASE_TOL = {"float64": 1e-9, "auc": 1e-5}
+# the periodized check (in phase kernels): wavedec2_per / waverec2_per on
+# PER_BATCH images of 3 x 224^2, the card against the CPU in float64
+PER_BATCH, PER_WAVELET, PER_LEVELS, PER_TOL = 32, "db4", 3, 1e-9
+# the nhwc phase: the flagship's call with model_layout="nhwc" on ResNet-50
+# bound with bind_inference(nchw=False), bench.py's layout (its lines 184-198)
+NHWC_CALLS = 5                          # timed calls after the counted one, each arm
+NHWC_REDUCED = (2, 2)                   # images, samples
+# reduced check bounds: the transforms of the two layouts (the same operators
+# contracted in another order) within 1e-5 x max; the whole call in float64
+# (cosine, max abs / max) to 1e-9; in float32 the two layouts' convolutions
+# and transforms round differently and flip ReLU gates that sit at zero:
+# measured 1.395e-3 at a max of 0.785 (1.8e-3 of the max) at cosine
+# 0.99999997 (H100 80GB HBM3, 700 W), so the float32 bound is ~10x that
+NHWC_TOL = {"transforms": 1e-5, "float64": (0.9999999, 1e-9), "float32": (0.99999, 2e-2)}
+# the analyzers phase: WAMAnalyzer2D on the flagship's ResNet-50 (float32)
+AN_BATCH, AN_WAVELET, AN_LEVELS, AN_SAMPLES = 8, "haar", 3, 25
+AN_EPS, AN_QUANTILES, AN_CALLS = 0.1, 20, 3  # EPS; np.linspace(0.95, 0, 20) and reversed
+# one analyzer call's launches: K1 at each image's 3 analysis levels, K3
+# forward once an image (its mask family: J + 1 masks, or the quantiles)
+AN_LAUNCHES = {**ZERO_LAUNCHES, "dwt2": AN_LEVELS * AN_BATCH, "pair": AN_BATCH}
+# host waits of one call: none for isolate_scales, one an image (its class
+# probabilities) for the quantile sweeps
+AN_SYNCS = {"isolate_scales": 0, "insertion": AN_BATCH, "deletion": AN_BATCH}
+AN_REDUCED, AN_TOL = 2, 1e-5
+# the iou phase: examples/iou_experiment.py's defaults (its lines 47-58, 107-125)
+IOU_IMAGES, IOU_SIDE, IOU_LEVELS, IOU_STEPS = 5, 224, 3, 25
+IOU_WAVELETS = ("haar", "db4", "sym4", "sym8")
+IOU_PS = (0.05, 0.1, 0.15, 0.2, 0.25, 0.3, 0.35, 0.4, 0.45, 0.5)
+IOU_CALLS = 3                           # timed explanations per wavelet
+# one explanation: K1 at its 3 analysis levels, K3 forward and backward
+# (all 25 path points in one chunk; every detail side at 224^2 is < 128)
+IOU_LAUNCHES = {**ZERO_LAUNCHES, "dwt2": IOU_LEVELS, "pair": 2}
+IOU_TOL = 1e-5
 
 
 def _log(*args):
@@ -700,6 +777,32 @@ def phase_kernels(torch, tmm, kernels, sites, vol_sites) -> list[dict]:
                          f"forward of the collapsed levels at {EVAL_SIDE}^2, {EVAL_WAVELET}, "
                          f"one image's {masks} masks x {CHANNELS} planes"))
         rows[-1]["assemble_ms"] = case["assemble_ms"]
+    # the analyzers path: K1 on one image's planes a call (haar, 224^2), K3
+    # forward on an image's mask family (J + 1 masks, or the quantiles)
+    rows.append(_row(*k1, "analyzers", _k1_cases(torch, tmm, kernels, g, SIDE, AN_WAVELET,
+                                                 CHANNELS), einsum,
+                     f"3 analysis levels at {SIDE}^2, {AN_WAVELET}, f32 input, one image's "
+                     f"{CHANNELS} planes (once an image a call)"))
+    for path, masks in (("analyzers scales", AN_LEVELS + 1),
+                        ("analyzers components", AN_QUANTILES)):
+        case = _k3_eval_case(torch, tmm, kernels, g, masks)
+        rows.append(_row(*k3, path, [case], "torch.einsum (the matmul pair on the assembled Y)",
+                         f"forward of the collapsed levels at {SIDE}^2, {AN_WAVELET}, one "
+                         f"image's {masks} masks x {CHANNELS} planes"))
+        rows[-1]["assemble_ms"] = case["assemble_ms"]
+    # the iou path, per wavelet: K1 on the image's planes, K3 forward and
+    # backward on one IG call's 25 path points x 3 planes
+    for wavelet in IOU_WAVELETS:
+        rows.append(_row(*k1, f"iou {wavelet}", _k1_cases(torch, tmm, kernels, g, IOU_SIDE,
+                                                          wavelet, CHANNELS), einsum,
+                         f"3 analysis levels at {IOU_SIDE}^2, {wavelet}, f32 input, the image's "
+                         f"{CHANNELS} planes (once an explanation)"))
+        k3_cases = _k3_cases(torch, tmm, kernels, g, IOU_SIDE, wavelet, IOU_STEPS * CHANNELS)
+        rows.append(_row(*k3, f"iou {wavelet}", k3_cases,
+                         "torch.einsum (the matmul pair on the assembled Y; dense dY)",
+                         f"forward + backward of the collapsed levels at {IOU_SIDE}^2, "
+                         f"{wavelet}, one explanation's {IOU_STEPS} path points"))
+        rows[-1]["assemble_ms"] = k3_cases[0]["assemble_ms"]
     rows.insert(3, _row("synth2", "idwt2_kernel (K2)", "wam_tpu_torch/csrc/synth2.cu",
                         "wam_tpu/wavelets/matmul.py:313", "path 2", k2_cases,
                         "torch.einsum (the matmul pair on the merged matrix, merge not timed)",
@@ -2385,6 +2488,489 @@ def phase_baselines(torch, wtt, kernels, smi: str) -> dict:
             "stem": stem, "reduced_check": reduced}
 
 
+# -- the periodized transforms (checked in phase kernels) --------------------------------
+
+
+def check_periodized(torch, wtt, kernels) -> dict:
+    """`wavedec2_per` / `waverec2_per` (db4, J=3) on PER_BATCH images of
+    3 x 224^2 in float64, the card against the CPU: the coefficients, the
+    round trip and the gradient of the decomposition on a seeded cotangent,
+    each within PER_TOL x max; no port kernel launches (a strided conv1d and
+    its transpose); then a float32 forward and backward timed on the card."""
+    from wam_tpu_torch.core.engine import _flatten
+    from wam_tpu_torch.wavelets import periodized as per
+
+    dev = torch.device(DEVICE)
+    g = torch.Generator().manual_seed(SEED + 3)
+    x = torch.randn((PER_BATCH, CHANNELS, SIDE, SIDE), generator=g, dtype=torch.float64)
+    cots = [torch.randn(t.shape, generator=g, dtype=torch.float64)
+            for t in _flatten(per.wavedec2_per(x, PER_WAVELET, PER_LEVELS))]
+
+    def run(where, dtype=torch.float64):
+        xin = x.to(where, dtype).requires_grad_(True)
+        leaves = _flatten(per.wavedec2_per(xin, PER_WAVELET, PER_LEVELS))
+        (grad,) = torch.autograd.grad(leaves, xin, [c.to(where, dtype) for c in cots])
+        coeffs = per.wavedec2_per(xin.detach(), PER_WAVELET, PER_LEVELS)
+        return leaves, grad, per.waverec2_per(coeffs, PER_WAVELET)
+
+    kernels.reset_launch_counts()
+    card = run(dev)
+    torch.cuda.synchronize()
+    launches = kernels.launch_counts()
+    if launches != ZERO_LAUNCHES:
+        raise AssertionError(f"periodized transforms launched port kernels: {launches}")
+    cpu = run("cpu")
+    out = {}
+    for name, a, b in (("coefficients", torch.cat([t.reshape(-1) for t in card[0]]),
+                        torch.cat([t.reshape(-1) for t in cpu[0]])),
+                       ("gradient", card[1], cpu[1]), ("round trip", card[2], cpu[2]),
+                       ("round trip against the input", card[2], x)):
+        a, b = a.detach().cpu(), b.detach()
+        err, peak = float((a - b).abs().max()), float(b.abs().max())
+        _log(f"  periodized {PER_WAVELET} J={PER_LEVELS} ({PER_BATCH},{CHANNELS},{SIDE},{SIDE}) "
+             f"float64 {name}: card vs CPU max abs err {err:.3e} (tol {PER_TOL * peak:.3e})")
+        if not (math.isfinite(err) and err <= PER_TOL * peak):
+            raise AssertionError(f"periodized {name}: the card disagrees with the CPU")
+        out[name] = {"max_abs_err": err, "max": peak}
+    x32 = x.to(dev, torch.float32).requires_grad_(True)
+    cots32 = [c.to(dev, torch.float32) for c in cots]
+    ms = _time_ms(lambda: torch.autograd.grad(
+        _flatten(per.wavedec2_per(x32, PER_WAVELET, PER_LEVELS)), x32, cots32), iters=10)
+    _log(f"  periodized float32 forward + backward on the card: {ms:.3f} ms")
+    return {**out, "launches": launches, "f32_fwd_bwd_ms": ms}
+
+
+# -- nhwc: the flagship in bench.py's layout -----------------------------------------------
+
+
+def build_nhwc(torch, wtt):
+    """The nhwc phase's set-up, shared with scripts/torch_slice_profile.py:
+    `build_slice`'s flagship (precision, ResNet-50 weights from SEED, batch,
+    labels, SmoothGrad on the kernels) and the same weights bound with
+    ``bind_inference(nchw=False)`` under ``WaveletAttribution2D(
+    model_layout="nhwc")``. Returns (fn, fn_nhwc, the weights as a state
+    dict, wam, wam_nhwc, x, y, g)."""
+    dev = torch.device(DEVICE)
+    fn, wam, x, y, g = build_slice(torch, wtt)
+    torch.manual_seed(SEED)
+    model = wtt.resnet50(num_classes=1000)
+    state = {k: v.detach().clone() for k, v in model.state_dict().items()}
+    fn_nhwc = wtt.bind_inference(model, nchw=False, device=dev)
+    wam_nhwc = wtt.WaveletAttribution2D(fn_nhwc, wavelet=WAVELET, J=LEVELS, mode=MODE,
+                                        method="smooth", n_samples=N_SAMPLES,
+                                        stdev_spread=SPREAD, sample_batch_size=SAMPLE_CHUNK,
+                                        model_layout="nhwc", device=dev)
+    return fn, fn_nhwc, state, wam, wam_nhwc, x, y, g
+
+
+def _transform_chain(torch, dec, rec, xin, gout) -> None:
+    """One engine step's transforms: decompose, then reconstruct from the
+    coefficient leaves and take every leaf's gradient."""
+    from wam_tpu_torch.core.engine import _flatten, _unflatten
+
+    with torch.no_grad():
+        coeffs = dec(xin)
+    leaves = [t.detach().requires_grad_(True) for t in _flatten(coeffs)]
+    out = rec(_unflatten(leaves, coeffs))
+    torch.autograd.grad(out, leaves, gout[tuple(slice(0, s) for s in out.shape)])
+
+
+def _nhwc_reduced_check(torch, wtt, fn, fn_nhwc, state, x, y, g) -> dict:
+    """The NHWC path against the NCHW path on NHWC_REDUCED images x samples,
+    noise handed over, TF32 off: the transforms of the two layouts (leaves,
+    reconstruction and every leaf's gradient; NCHW on the kernels); the
+    whole call in float64 (ResNet-50 bound in float64 on both sides, NCHW
+    on the plain transforms, which take float64); and the whole call in
+    float32 (NCHW on the kernels). Each held to NHWC_TOL."""
+    from wam_tpu_torch.core.engine import _flatten, _unflatten
+    from wam_tpu_torch.wavelets import nhwc
+    from wam_tpu_torch.wavelets import transform as tt
+
+    _precision(torch, False)
+    dev = torch.device(DEVICE)
+    n_img, n_smp = NHWC_REDUCED
+    z = torch.randn((n_smp, n_img) + tuple(x.shape[1:]), generator=g, device=dev)
+    xs, ys = x[:n_img], y[:n_img]
+    out = {}
+
+    def leaves_and_grads(dec, rec, xin, gout, perm):
+        with torch.no_grad():
+            coeffs = dec(xin)
+        leaves = [t.detach().requires_grad_(True) for t in _flatten(coeffs)]
+        r = rec(_unflatten(leaves, coeffs))
+        grads = torch.autograd.grad(r, leaves, gout)
+        return [perm(t.detach()) for t in [*leaves, r, *grads]]
+
+    gout = torch.randn(xs.shape, generator=g, device=dev)
+    nchw = leaves_and_grads(lambda v: tt.wavedec2(v, WAVELET, LEVELS, MODE, impl="kernel"),
+                            lambda c: tt.waverec2(c, WAVELET, impl="kernel")[..., :SIDE, :SIDE],
+                            xs, gout, lambda t: t)
+    nhwc_ = leaves_and_grads(lambda v: nhwc.wavedec2_nhwc(v, WAVELET, LEVELS, MODE),
+                             lambda c: nhwc.waverec2_nhwc(c, WAVELET)[..., :SIDE, :SIDE, :],
+                             xs.permute(0, 2, 3, 1).contiguous(), gout.permute(0, 2, 3, 1),
+                             lambda t: t.movedim(-1, -3))
+    err = max(float((a - b).abs().max() / b.abs().max()) for a, b in zip(nhwc_, nchw))
+    _log(f"  reduced check, transforms ({n_img} images, TF32 off): NHWC contractions vs NCHW "
+         f"K1/K3 leaves, reconstruction and leaf gradients max abs err {err:.3e} of the max "
+         f"(tol {NHWC_TOL['transforms']})")
+    if not (math.isfinite(err) and err <= NHWC_TOL["transforms"]):
+        raise AssertionError("nhwc reduced check: the NHWC transforms disagree with K1/K3")
+    out["transforms"] = {"rel_err": err}
+
+    kw = dict(wavelet=WAVELET, J=LEVELS, mode=MODE, n_samples=n_smp, stdev_spread=SPREAD,
+              device=dev)
+    fn64 = wtt.bind_inference(wtt.resnet50(num_classes=1000), state, device=dev,
+                              compute_dtype=torch.float64)
+    fn64_nhwc = wtt.bind_inference(wtt.resnet50(num_classes=1000), state, nchw=False,
+                                   device=dev, compute_dtype=torch.float64)
+    arms = {"float64": (fn64, fn64_nhwc, "matmul", torch.float64),
+            "float32": (fn, fn_nhwc, "kernel", torch.float32)}
+    for tag, (f_nchw, f_nhwc, impl, dtype) in arms.items():
+        xin, zin = xs.to(dtype), z.to(dtype)
+        want = wtt.WaveletAttribution2D(f_nchw, impl=impl, **kw)(xin, ys, noise=zin)
+        got = wtt.WaveletAttribution2D(f_nhwc, model_layout="nhwc", **kw)(xin, ys, noise=zin)
+        a, b = got.double(), want.double()
+        err, peak = float((a - b).abs().max()), float(b.abs().max())
+        cos = _cosine(torch, a, b)
+        cos_tol, rel_tol = NHWC_TOL[tag]
+        _log(f"  reduced check, {tag} ({n_img} images x {n_smp} samples, noise handed over): "
+             f"NHWC vs NCHW ({impl}) cosine={cos:.10f} (tol >= {cos_tol}) max_abs_err={err:.3e} "
+             f"(tol {rel_tol * peak:.3e} = {rel_tol} x max {peak:.3e}) mean_abs_err="
+             f"{float((a - b).abs().mean()):.3e}")
+        if not (math.isfinite(err) and err <= rel_tol * peak and cos >= cos_tol):
+            raise AssertionError(f"nhwc reduced check ({tag}): the NHWC path disagrees with the "
+                                 "NCHW path")
+        out[tag] = {"cosine": cos, "max_abs_err": err, "max": peak, "rel_err": err / peak}
+    return out
+
+
+def phase_nhwc(torch, wtt, kernels, smi: str) -> dict:
+    """The flagship's call with model_layout="nhwc": the NCHW and NHWC arms
+    timed in turns (nchw, nhwc, nhwc, nchw), each a counted call (NHWC: no
+    port kernel, asserted; NCHW: the flagship's K1 / K3) and NHWC_CALLS
+    event-timed calls; the transforms of one chunk in both layouts and the
+    input's one layout copy, timed; then the reduced check."""
+    from wam_tpu_torch.wavelets import nhwc
+    from wam_tpu_torch.wavelets import transform as tt
+
+    fn, fn_nhwc, state, wam, wam_nhwc, x, y, g = build_nhwc(torch, wtt)
+    prec = ("torch.backends.cudnn.allow_tf32=True torch.backends.cuda.matmul.allow_tf32=False "
+            "(the NHWC contractions in full float32 whatever the setting)")
+    _log(f"phase nhwc: ResNet-50(1000) x ({BATCH},{CHANNELS},{SIDE},{SIDE}) {WAVELET} J={LEVELS} "
+         f"{MODE} n_samples={N_SAMPLES} sample_batch_size={SAMPLE_CHUNK}, NCHW (kernels) against "
+         f"model_layout='nhwc' on bind_inference(nchw=False); {prec}")
+    chunks = -(-N_SAMPLES // SAMPLE_CHUNK)
+    expected = {"nchw": {**ZERO_LAUNCHES, "dwt2": LEVELS * chunks, "pair": 2 * chunks},
+                "nhwc": ZERO_LAUNCHES}
+    mosaic = 2 * ((SIDE + wtt.build_wavelet(WAVELET).filt_len - 1) // 2)
+    runs, outs = {"nchw": [], "nhwc": []}, {}
+    for arm in ("nchw", "nhwc", "nhwc", "nchw"):
+        run = _time_calls(torch, kernels, wam if arm == "nchw" else wam_nhwc, x, y, NHWC_CALLS,
+                          items=BATCH, unit="attributions")
+        out = run.pop("out")
+        if tuple(out.shape) != (BATCH, mosaic, mosaic) or not bool(torch.isfinite(out).all()):
+            raise AssertionError(f"nhwc phase, {arm}: mosaic {tuple(out.shape)} not finite")
+        if run["call_launches"] != expected[arm]:
+            raise AssertionError(f"nhwc phase, {arm}: one call launched {run['call_launches']}, "
+                                 f"expected {expected[arm]}")
+        _log_run(f"{arm}, one call's launches {run['call_launches']} (asserted)", run, smi)
+        runs[arm].append({k: v for k, v in run.items() if k != "launches"})
+        outs[arm] = out
+    cos = _cosine(torch, outs["nhwc"].double(), outs["nchw"].double())
+    _log(f"  NHWC mosaic cosine to NCHW (TF32 convolutions): {cos:.8f} (no gate)")
+
+    gen = torch.Generator(device=torch.device(DEVICE)).manual_seed(SEED + 4)
+    xc = torch.randn((SAMPLE_CHUNK * BATCH, CHANNELS, SIDE, SIDE), generator=gen,
+                     device=torch.device(DEVICE))
+    xh = xc.permute(0, 2, 3, 1).contiguous()
+    gout = torch.randn((SAMPLE_CHUNK * BATCH, CHANNELS, SIDE + 8, SIDE + 8), generator=gen,
+                       device=torch.device(DEVICE))
+    gout_h = gout.permute(0, 2, 3, 1).contiguous()
+    layer = {
+        "nchw_kernels_ms": _time_ms(lambda: _transform_chain(
+            torch, lambda v: tt.wavedec2(v, WAVELET, LEVELS, MODE, impl="kernel"),
+            lambda c: tt.waverec2(c, WAVELET, impl="kernel"), xc, gout), iters=10),
+        "nhwc_contractions_ms": _time_ms(lambda: _transform_chain(
+            torch, lambda v: nhwc.wavedec2_nhwc(v, WAVELET, LEVELS, MODE),
+            lambda c: nhwc.waverec2_nhwc(c, WAVELET), xh, gout_h), iters=10),
+        "layout_copy_ms": _time_ms(lambda: x.permute(0, 2, 3, 1).contiguous()),
+    }
+    _log(f"  transforms of one chunk ({SAMPLE_CHUNK * BATCH} x {CHANNELS} x {SIDE}^2: decompose, "
+         f"reconstruct, every leaf's gradient): NCHW on K1/K3 {layer['nchw_kernels_ms']:.3f} ms, "
+         f"NHWC contractions {layer['nhwc_contractions_ms']:.3f} ms; the input's layout copy "
+         f"({BATCH} images, once a call) {layer['layout_copy_ms']:.4f} ms")
+    reduced = _nhwc_reduced_check(torch, wtt, fn, fn_nhwc, state, x, y, g)
+    return {"precision": prec, "launches": runs["nhwc"][0]["call_launches"], "runs": runs,
+            "nhwc_cosine_to_nchw": cos, "transform_layer": layer, "reduced_check": reduced}
+
+
+# -- analyzers: the paper's scale analyzers on ResNet-50 --------------------------------------
+
+
+def build_analyzers(torch, wtt):
+    """The analyzers phase's set-up: the flagship's ResNet-50 (1000 classes,
+    weights from SEED, float32), AN_BATCH standard-normal images of
+    3 x 224^2 from a generator seeded SEED + 1 with the model's own classes
+    as labels (host ints), `WaveletAttribution2D` (haar, J=3, SmoothGrad,
+    AN_SAMPLES samples) as the explainer, and `WAMAnalyzer2D` (haar, J=3) on
+    the kernels. Returns (model_fn, analyzer, x, y)."""
+    dev = torch.device(DEVICE)
+    torch.manual_seed(SEED)
+    fn = wtt.bind_inference(wtt.resnet50(num_classes=1000), device=dev)
+    g = torch.Generator(device=dev).manual_seed(SEED + 1)
+    x = torch.randn((AN_BATCH, CHANNELS, SIDE, SIDE), generator=g, device=dev)
+    with torch.no_grad():
+        y = fn(x).argmax(dim=1).tolist()
+    explainer = wtt.WaveletAttribution2D(fn, wavelet=AN_WAVELET, J=AN_LEVELS, method="smooth",
+                                         n_samples=AN_SAMPLES, device=dev)
+    return fn, wtt.WAMAnalyzer2D(fn, explainer, wavelet=AN_WAVELET, J=AN_LEVELS, device=dev), x, y
+
+
+def _check_analyzers(torch, name: str, out) -> None:
+    """Each image's result has the call's shapes and finite values."""
+    if len(out) != AN_BATCH:
+        raise AssertionError(f"analyzers {name}: {len(out)} results")
+    for res in out:
+        if name == "isolate_scales":
+            partial, masks = res
+            ok = (tuple(partial.shape) == (AN_LEVELS + 1, CHANNELS, SIDE, SIDE)
+                  and tuple(masks.shape) == (AN_LEVELS + 1, SIDE, SIDE)
+                  and bool(torch.isfinite(partial).all()))
+        else:
+            recs, kept, wam, (probs, idx) = res
+            ok = tuple(wam.shape) == (SIDE, SIDE) and (kept is None or (
+                all(tuple(r.shape) == (CHANNELS, SIDE, SIDE) for r in recs)
+                and probs.shape == (AN_QUANTILES, 1000) and 0 <= idx < AN_QUANTILES))
+        if not ok:
+            raise AssertionError(f"analyzers {name}: a result of the wrong shape")
+
+
+def _analyzers_reduced_check(torch, wtt, fn, x, y, wams, qs) -> dict:
+    """The kernel path against the plain path (impl="matmul") on AN_REDUCED
+    images with the headline mosaics handed to both, TF32 off: partial
+    images and kept reconstructions within AN_TOL x max, masks, kept masks,
+    kept indices and recorded quantiles equal."""
+    _precision(torch, False)
+    dev = torch.device(DEVICE)
+    n, res = AN_REDUCED, {}
+    for impl in ("kernel", "matmul"):
+        an = wtt.WAMAnalyzer2D(fn, None, wavelet=AN_WAVELET, J=AN_LEVELS, device=dev, impl=impl)
+        an.grad_wams = wams[:n]
+        res[impl] = (an.isolate_scales(x[:n], y[:n], EPS=AN_EPS),
+                     an.isolate_necessary_components(x[:n], y[:n], qs, "insertion"),
+                     an.insertion_quantile)
+    (ks, kc, kq), (ps, pc, pq) = res["kernel"], res["matmul"]
+    err = peak = 0.0
+    equal = kq == pq
+    for (a, ma), (b, mb) in zip(ks, ps):
+        err, peak = max(err, float((a - b).abs().max())), max(peak, float(b.abs().max()))
+        equal &= bool(torch.equal(ma, mb))
+    for a, b in zip(kc, pc):
+        equal &= a[3][1] == b[3][1] or (a[1] is None and b[1] is None)
+        if a[1] is not None and b[1] is not None:
+            equal &= bool(torch.equal(a[1], b[1]))
+            for ra, rb in zip(a[0], b[0]):
+                err, peak = max(err, float((ra - rb).abs().max())), max(peak, float(rb.abs().max()))
+    _log(f"  reduced check ({n} images, mosaics handed over, TF32 off): kernel vs plain partial "
+         f"images and kept reconstructions max abs err {err:.3e} (tol {AN_TOL * peak:.3e}); "
+         f"masks, kept masks, indices and quantiles {kq} equal: {equal}")
+    if not (math.isfinite(err) and err <= AN_TOL * peak and equal):
+        raise AssertionError("analyzers reduced check: the kernel path disagrees with the plain "
+                             "path")
+    return {"max_abs_err": err, "max": peak, "quantiles": kq, "equal": equal}
+
+
+def phase_analyzers(torch, wtt, kernels, smi: str) -> dict:
+    """`WAMAnalyzer2D` on ResNet-50: the explainer's mosaics once
+    (`precompute`, counted and event-timed), then `isolate_scales` and
+    `isolate_necessary_components` (insertion and deletion), each a warm
+    call, a counted call (launches == AN_LAUNCHES, host waits == AN_SYNCS,
+    asserted) and AN_CALLS event-timed calls; then the reduced check."""
+    import numpy as np
+
+    from wam_tpu_torch.evalsuite import fan
+
+    prec = _precision(torch, True)
+    fn, an, x, y = build_analyzers(torch, wtt)
+    qs = {"insertion": [float(q) for q in np.linspace(0.95, 0.0, AN_QUANTILES)]}
+    qs["deletion"] = qs["insertion"][::-1]
+    _log(f"phase analyzers: WAMAnalyzer2D on ResNet-50(1000, float32) x ({AN_BATCH},{CHANNELS},"
+         f"{SIDE},{SIDE}) {AN_WAVELET} J={AN_LEVELS} reflect; explainer SmoothGrad "
+         f"n={AN_SAMPLES}; isolate_scales EPS={AN_EPS}; isolate_necessary_components "
+         f"{AN_QUANTILES} quantiles 0.95..0 (deletion reversed); {prec}")
+    an.explainer(x, y)  # warm: cuDNN plans and the allocator at 200 rows
+    kernels.reset_launch_counts()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.reset_peak_memory_stats()
+    start.record()
+    wams = an.precompute(x, y)
+    end.record()
+    torch.cuda.synchronize()
+    explain = {"ms": start.elapsed_time(end), "launches": kernels.launch_counts(),
+               "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9}
+    if tuple(wams.shape) != (AN_BATCH, SIDE, SIDE) or not bool(torch.isfinite(wams).all()):
+        raise AssertionError(f"analyzers: mosaics {tuple(wams.shape)} not finite")
+    _log(f"  explainer (precompute, after a warm call): {explain['ms']:.3f} ms, launches "
+         f"{explain['launches']}, peak memory {explain['peak_memory_gb']:.3f} GB on {smi}")
+    calls = {"isolate_scales": lambda: an.isolate_scales(x, y, EPS=AN_EPS),
+             "insertion": lambda: an.isolate_necessary_components(x, y, qs["insertion"],
+                                                                  "insertion"),
+             "deletion": lambda: an.isolate_necessary_components(x, y, qs["deletion"],
+                                                                 "deletion")}
+    out = {}
+    for name, call in calls.items():
+        t0 = time.perf_counter()
+        call()
+        torch.cuda.synchronize()
+        first_s = time.perf_counter() - t0
+        run = _counted_call(torch, kernels, fan, call)
+        _check_analyzers(torch, name, run["out"])
+        _log(f"  {name}: launches of one call {run['launches']} (asserted == {AN_LAUNCHES}); "
+             f"host waits {run['host_syncs']} (asserted == {AN_SYNCS[name]})")
+        if run["launches"] != AN_LAUNCHES or run["host_syncs"] != AN_SYNCS[name]:
+            raise AssertionError(f"analyzers {name}: launches {run['launches']}, host waits "
+                                 f"{run['host_syncs']}")
+        timed = _time_metric(torch, fan, call, AN_CALLS, AN_BATCH, "images", fetched=False)
+        kept = ([] if name == "isolate_scales" else
+                [None if r[1] is None else qs[name][r[3][1]] for r in run["out"]])
+        _log(f"  {name}: first call {first_s:.3f} s; {AN_CALLS} calls (CUDA events) "
+             f"{[round(t, 3) for t in timed['calls_ms']]} ms, median {timed['median_ms']:.3f} ms "
+             f"(spread {timed['spread_ms'][0]:.3f}-{timed['spread_ms'][1]:.3f}) = "
+             f"{timed['images_per_s']:.2f} images/s; host enqueue {timed['enqueue_ms']:.3f} ms; "
+             f"peak memory {timed['peak_memory_gb']:.3f} GB on {smi}"
+             + (f"; kept quantile an image {kept}" if kept else ""))
+        out[name] = {**{k: v for k, v in run.items() if k != "out"}, **timed,
+                     "first_call_s": first_s, "kept_quantiles": kept}
+    out["reduced_check"] = _analyzers_reduced_check(torch, wtt, fn, x, y, wams,
+                                                    qs["insertion"])
+    return {"precision": prec, "explain": explain, **out}
+
+
+# -- iou: the fork's cross-wavelet IoU experiment ---------------------------------------------
+
+
+def synthetic_images(n: int, size: int) -> list:
+    """examples/iou_experiment.py's synthetic images (its own copy: the
+    script imports nothing of the examples): sines and cosines of rising
+    frequency per image, the same on the three channels, plus N(0, 0.1^2)
+    noise from numpy's generator seeded 0."""
+    import numpy as np
+
+    rng = np.random.default_rng(0)
+    out = []
+    for i in range(n):
+        yy, xx = np.mgrid[0:size, 0:size] / size
+        base = np.sin((8 + i) * xx) * np.cos((5 + i) * yy)
+        img = np.stack([base] * 3) + 0.1 * rng.standard_normal((3, size, size))
+        out.append(img.astype(np.float32))
+    return out
+
+
+def build_iou(torch, wtt):
+    """The iou phase's set-up, as the example sets it up by default:
+    ConvNeXt-T (1000 classes) from `data.build_vision_model` (the port's
+    initialisers, seeded 0), IOU_IMAGES synthetic images of 224^2, and a
+    factory of WAM-IG explainers (J=3, IOU_STEPS path points) per wavelet.
+    Returns (model_fn, images, make_explainer, preprocess)."""
+    from wam_tpu_torch.data import build_vision_model
+
+    dev = torch.device(DEVICE)
+    _, _, fn = build_vision_model("convnext_tiny", num_classes=1000, image_size=IOU_SIDE,
+                                  device=dev)
+
+    def make_explainer(wavelet: str, impl: str | None = None):
+        return wtt.WaveletAttribution2D(fn, wavelet=wavelet, J=IOU_LEVELS,
+                                        method="integratedgrad", n_samples=IOU_STEPS,
+                                        device=dev, impl=impl)
+
+    def preprocess(image):
+        return torch.as_tensor(image, device=dev)[None]
+
+    return fn, synthetic_images(IOU_IMAGES, IOU_SIDE), make_explainer, preprocess
+
+
+def _iou_reduced_check(torch, fn, images, make_explainer, preprocess) -> dict:
+    """The kernel path against the plain path (impl="matmul") on the first
+    image, TF32 off: each wavelet's reprojection map within IOU_TOL x max,
+    and the IoUs at every p equal."""
+    from wam_tpu_torch import analysis
+
+    _precision(torch, False)
+    maps = {impl: analysis.cross_wavelet_reprojection_maps(
+        images[0], lambda w, i=impl: make_explainer(w, i), IOU_WAVELETS, fn, preprocess,
+        IOU_LEVELS, device=torch.device(DEVICE)) for impl in ("kernel", "matmul")}
+    errs = [float(abs(a - b).max() / abs(b).max()) for a, b in zip(maps["kernel"], maps["matmul"])]
+    ious = {impl: [analysis.iou_from_reprojection_maps(m, p) for p in IOU_PS]
+            for impl, m in maps.items()}
+    _log(f"  reduced check (image 0, TF32 off): kernel vs plain reprojection maps max abs err "
+         f"over max {['%.2e' % e for e in errs]} (tol {IOU_TOL}); IoUs equal: "
+         f"{ious['kernel'] == ious['matmul']}")
+    if not (all(math.isfinite(e) and e <= IOU_TOL for e in errs)
+            and ious["kernel"] == ious["matmul"]):
+        raise AssertionError("iou reduced check: the kernel path disagrees with the plain path")
+    return {"rel_err": errs, "ious": ious["kernel"]}
+
+
+def phase_iou(torch, wtt, kernels, smi: str) -> dict:
+    """The cross-wavelet IoU experiment at the example's defaults: per
+    wavelet, one explanation counted (launches == IOU_LAUNCHES, asserted)
+    and IOU_CALLS event-timed; then the whole experiment (every image's
+    reprojection maps under every wavelet, the mean pairwise IoU at each p)
+    on the host clock, its launches asserted; then the reduced check."""
+    import numpy as np
+
+    from wam_tpu_torch import analysis
+
+    prec = _precision(torch, True)
+    fn, images, make_explainer, preprocess = build_iou(torch, wtt)
+    _log(f"phase iou: ConvNeXt-T(1000, data.build_vision_model, seeded 0) x {IOU_IMAGES} "
+         f"synthetic images (1,{CHANNELS},{IOU_SIDE},{IOU_SIDE}); WAM-IG J={IOU_LEVELS} "
+         f"{IOU_STEPS} path points under {list(IOU_WAVELETS)}; p {list(IOU_PS)}; {prec}")
+    x0 = preprocess(images[0])
+    with torch.no_grad():
+        y0 = [int(fn(x0).argmax())]
+    per_wavelet = {}
+    for wavelet in IOU_WAVELETS:
+        run = _time_calls(torch, kernels, make_explainer(wavelet), x0, y0, IOU_CALLS, items=1,
+                          unit="attributions")
+        out = run.pop("out")
+        if run["call_launches"] != IOU_LAUNCHES or not bool(torch.isfinite(out).all()):
+            raise AssertionError(f"iou {wavelet}: launches {run['call_launches']} (expected "
+                                 f"{IOU_LAUNCHES}), or a mosaic not finite")
+        _log_run(f"{wavelet}: one explanation's launches {run['call_launches']} (asserted), "
+                 f"mosaic {tuple(out.shape)}", run, smi)
+        per_wavelet[wavelet] = {k: v for k, v in run.items() if k != "launches"}
+
+    kernels.reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    map_sets = [analysis.cross_wavelet_reprojection_maps(
+        img, make_explainer, IOU_WAVELETS, fn, preprocess, IOU_LEVELS,
+        device=torch.device(DEVICE)) for img in images]
+    ious = [float(np.mean([analysis.iou_from_reprojection_maps(m, p) for m in map_sets]))
+            for p in IOU_PS]
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    launches = kernels.launch_counts()
+    want = {k: v * IOU_IMAGES * len(IOU_WAVELETS) for k, v in IOU_LAUNCHES.items()}
+    if launches != want:
+        raise AssertionError(f"iou experiment launched {launches}, expected {want}")
+    if not all(m.shape == (IOU_SIDE, IOU_SIDE) and np.isfinite(m).all()
+               for maps in map_sets for m in maps) or not all(0 <= v <= 1 for v in ious):
+        raise AssertionError(f"iou experiment: maps not finite, or IoUs {ious}")
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    _log(f"  the whole experiment ({IOU_IMAGES} images x {len(IOU_WAVELETS)} wavelets, "
+         f"{len(IOU_PS)} p): {wall_s:.3f} s (host clock), launches {launches} (asserted), peak "
+         f"memory {peak:.3f} GB on {smi}")
+    _log(f"  mean IoU by p: {dict(zip(IOU_PS, [round(v, 4) for v in ious]))} "
+         f"provenance=synthetic-sines+random-init")
+    reduced = _iou_reduced_check(torch, fn, images, make_explainer, preprocess)
+    return {"precision": prec, "per_wavelet": per_wavelet, "experiment_s": wall_s,
+            "launches": launches, "peak_memory_gb": peak, "ious": dict(zip(IOU_PS, ious)),
+            "provenance": "synthetic-sines+random-init", "reduced_check": reduced}
+
+
 def main() -> int:
     import torch
 
@@ -2421,6 +3007,7 @@ def main() -> int:
     if len(vol_sites) != VOL_SITES:
         raise AssertionError(f"the 3D ResNet-18 has {len(vol_sites)} ReLU sites, not {VOL_SITES}")
     rows = phase_kernels(torch, tmm, kernels, sites, vol_sites)
+    periodized = check_periodized(torch, wtt, kernels)
     slice_ = phase_slice(torch, wtt, kernels, smi)
     slice2 = phase_slice2(torch, wtt, kernels, smi, len(sites))
     audio = phase_audio(torch, wtt, kernels, smi)
@@ -2431,11 +3018,19 @@ def main() -> int:
     eval2d = phase_eval2d(torch, wtt, kernels, smi)
     eval1d = phase_eval1d(torch, wtt, kernels, smi)
     baselines = phase_baselines(torch, wtt, kernels, smi)
+    nhwc = phase_nhwc(torch, wtt, kernels, smi)
+    analyzers = phase_analyzers(torch, wtt, kernels, smi)
+    iou = phase_iou(torch, wtt, kernels, smi)
+    an_calls = ("isolate_scales", "insertion", "deletion")
     launches = {"flagship": slice_["launches"], "path 2": slice2["launches"],
                 "vit": vit["call_launches"], "vol": vol["fused"]["call_launches"],
                 "eval2d": eval2d["insertion"]["launches"],
                 "eval2d insertion": eval2d["insertion"]["launches"],
-                "eval2d mu": eval2d["mu_fidelity"]["launches"]}
+                "eval2d mu": eval2d["mu_fidelity"]["launches"],
+                "analyzers": analyzers["isolate_scales"]["launches"],
+                "analyzers scales": analyzers["isolate_scales"]["launches"],
+                "analyzers components": analyzers["insertion"]["launches"],
+                **{f"iou {w}": iou["per_wavelet"][w]["call_launches"] for w in IOU_WAVELETS}}
     for row in rows:
         row["launches"] = launches[row["path"]][row["kernel"]]
         row["audio_launches"] = audio["launches"][row["kernel"]]
@@ -2448,12 +3043,17 @@ def main() -> int:
         row["eval1d_launches"] = {m: eval1d[m]["launches"][row["kernel"]]
                                   for m in EVAL1D_METRICS}
         row["baselines_launches"] = baselines["launches"][row["kernel"]]
+        row["nhwc_launches"] = nhwc["launches"][row["kernel"]]
+        row["analyzers_launches"] = {c: analyzers[c]["launches"][row["kernel"]] for c in an_calls}
+        row["iou_launches"] = {w: iou["per_wavelet"][w]["call_launches"][row["kernel"]]
+                               for w in IOU_WAVELETS}
 
     print(json.dumps({"slice": {k: v for k, v in slice_.items() if k != "launches"},
                       "slice2": {k: v for k, v in slice2.items() if k != "launches"},
                       "audio": audio, "vit": vit, "convnext": convnext, "vol": vol,
                       "voxel3d": voxel3d, "eval2d": eval2d, "eval1d": eval1d,
-                      "baselines": baselines, "gpu": smi}),
+                      "baselines": baselines, "periodized": periodized, "nhwc": nhwc,
+                      "analyzers": analyzers, "iou": iou, "gpu": smi}),
           flush=True)
     print(json.dumps({"kernels": rows}), flush=True)
     print(smi, flush=True)

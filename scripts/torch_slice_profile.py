@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Where the time of one of the port's paths goes on the card.
 
-    python3 scripts/torch_slice_profile.py [--path2 | --audio | --vit | --convnext | --vol] [--bf16]
+    python3 scripts/torch_slice_profile.py [--path2 | --nhwc | --audio | --vit | --convnext | --vol] [--bf16]
     python3 scripts/torch_slice_profile.py --eval2d [--mu]
     python3 scripts/torch_slice_profile.py --baselines [--lrp | --insertion]
 
@@ -9,7 +9,9 @@ Runs a path of chip_smoke.py, set up by its own code (one definition for
 both): by default the flagship, `wam_tpu_torch.WaveletAttribution2D`
 SmoothGrad on ResNet-50 (`chip_smoke.build_slice`: batch 32, 3x224x224, db4,
 J=3, n_samples=25, sample_batch_size=4, cuDNN TF32 on); with ``--path2`` the
-same at 3x288x288 with ``fused_relu_vjp=True``; with ``--audio`` the audio
+same at 3x288x288 with ``fused_relu_vjp=True``; with ``--nhwc`` the
+flagship's call with ``model_layout="nhwc"`` on the same ResNet-50 bound
+with ``bind_inference(nchw=False)`` (`chip_smoke.build_nhwc`); with ``--audio`` the audio
 path, `WaveletAttribution1D` SmoothGrad on the AudioCNN
 (`chip_smoke.build_audio`: 8 x 220,500 samples, db6, J=5, n_samples=50,
 sample_batch_size=16); with ``--vit`` the ViT path, `WaveletAttribution2D`
@@ -62,6 +64,10 @@ GROUPS = (  # first match wins, on the lower-cased kernel name
     ("K4 fused_relu forward", ("relu_fwd_kernel",)),
     ("K5 fused_relu backward", ("relu_bwd_kernel",)),
     ("FFT (cuFFT)", ("fft", "radix")),
+    ("layout conversion (NCHW <-> NHWC)", ("nchwtonhwc", "nhwctonchw")),
+    # cuBLAS's full-float32 (FFMA) GEMMs: the NHWC transforms' contractions
+    # (TF32 off); cuDNN's convolutions run TF32 on every path profiled here
+    ("matmul (cuBLAS, full float32)", ("xmma_gemm_f32f32_f32f32",)),
     ("convolution (cuDNN)", ("conv", "cudnn", "xmma", "implicit", "wgrad", "dgrad",
                              "fprop", "winograd", "cutlass")),
     ("matmul (cuBLAS)", ("gemm", "gemv")),
@@ -200,6 +206,9 @@ def main() -> int:
         path = (f"audio ({chip_smoke.AUDIO_BATCH}x{chip_smoke.AUDIO_LEN}, AudioCNN, "
                 f"{chip_smoke.AUDIO_WAVELET} J={chip_smoke.AUDIO_LEVELS}, "
                 f"n={chip_smoke.AUDIO_SAMPLES}, chunk {chip_smoke.AUDIO_CHUNK})")
+    elif "--nhwc" in sys.argv[1:]:
+        _, _, _, _, wam, x, y, _ = chip_smoke.build_nhwc(torch, wtt)
+        path = "flagship (224^2) with model_layout='nhwc'"
     else:
         side = chip_smoke.SIDE2 if path2 else chip_smoke.SIDE
         _, wam, x, y, _ = chip_smoke.build_slice(torch, wtt, side=side, fused_relu_vjp=path2)

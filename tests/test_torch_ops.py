@@ -165,8 +165,11 @@ def test_engine_grads_match_jax_on_toy_model(impl):
 
 
 def test_engine_rejects_unported_modes():
-    with pytest.raises(NotImplementedError):
-        tengine.WamEngine(lambda v: v, ndim=2, channel_last=True)
+    # channel_last is ported for ndim=2 (tests/test_torch_nhwc.py) and
+    # raises the reference's ValueError for any other rank
+    assert tengine.WamEngine(lambda v: v, ndim=2, channel_last=True).channel_last
+    with pytest.raises(ValueError, match="channel_last"):
+        tengine.WamEngine(lambda v: v, ndim=1, channel_last=True)
     with pytest.raises(ValueError, match="ndim"):
         tengine.WamEngine(lambda v: v, ndim=4)
     # ported with the audio slice (1D) and the 3D slice

@@ -227,8 +227,10 @@ def test_wam2d_rejects_unported_options(r18):
     _, tfn, *_ = r18
     with pytest.raises(NotImplementedError):
         twam.WaveletAttribution2D(tfn, mesh=object(), device="cpu")
-    with pytest.raises(NotImplementedError):
-        twam.BaseWAM2D(tfn, model_layout="nhwc", device="cpu")
+    # model_layout="nhwc" is ported (tests/test_torch_nhwc.py); an unknown
+    # layout raises the reference's ValueError
+    with pytest.raises(ValueError, match="model_layout"):
+        twam.BaseWAM2D(tfn, model_layout="hwcn", device="cpu")
     m = twam.WaveletAttribution2D(tfn, device="cpu")
     for entry in (m.serve_entry, m.anytime_serve_entry):
         with pytest.raises(NotImplementedError):

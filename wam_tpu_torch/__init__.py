@@ -10,13 +10,18 @@ insertion and deletion AUC, μ-fidelity, faithfulness of spectra, input
 fidelity), and the baseline methods scored by the same metrics
 (`EvalImageBaselines`, `EvalAudioBaselines`: saliency, integrated
 gradients, SmoothGrad, the GradCAM family, guided backprop, gradient x
-input, LRP; `wam_tpu_torch.evalsuite`). Module paths and names
-mirror `wam_tpu`; the TPU's Pallas kernels become hand-written CUDA kernels
+input, LRP; `wam_tpu_torch.evalsuite`), the scale analyzers
+(`WAMAnalyzer2D`) and the fork's analytics (`wam_tpu_torch.analysis`:
+per-level statistics, cross-wavelet IoU), the periodized and channel-last
+transforms (`wam_tpu_torch.wavelets`; ``model_layout="nhwc"``), and the
+data, checkpoint and viewer helpers (`wam_tpu_torch.data`,
+`wam_tpu_torch.viz`). Module paths and names mirror `wam_tpu`; the TPU's Pallas kernels become hand-written CUDA kernels
 (`wam_tpu_torch.kernels`), each with its plain PyTorch version beside it for
 CPU tensors and for tests. Entry points run on CUDA unless the caller passes
 ``device="cpu"``.
 """
 
+from wam_tpu_torch.analyzers import WAMAnalyzer2D, WAMAnalyzerViT
 from wam_tpu_torch.config import EvalConfig, PrecisionPolicy, resolve_precision
 from wam_tpu_torch.core.engine import WamEngine, target_loss
 from wam_tpu_torch.core.estimators import (
@@ -88,6 +93,7 @@ from wam_tpu_torch.wam1d import (
 )
 from wam_tpu_torch.wam2d import BaseWAM2D, WaveletAttribution2D
 from wam_tpu_torch.wam3d import BaseWAM3D, WaveletAttribution3D, filter_coeffs
+from wam_tpu_torch.wavelets.filters import Wavelet, build_wavelet
 from wam_tpu_torch.wavelets.matmul import idwt2_kernel
 from wam_tpu_torch.wavelets.transform import (
     DETAIL3D_KEYS,
@@ -132,7 +138,10 @@ __all__ = [
     "ViT",
     "VisualizerWAM1D",
     "VoxelModel",
+    "WAMAnalyzer2D",
+    "WAMAnalyzerViT",
     "WamEngine",
+    "Wavelet",
     "WaveletAttribution1D",
     "WaveletAttribution2D",
     "WaveletAttribution3D",
@@ -140,6 +149,7 @@ __all__ = [
     "bind_audio_inference",
     "bind_inference",
     "bind_vit_inference",
+    "build_wavelet",
     "convnext_test",
     "convnext_tiny",
     "cube3d",

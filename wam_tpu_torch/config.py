@@ -1,5 +1,11 @@
-"""Precision policy and evaluation configuration (PyTorch port, part of
-`wam_tpu.config`).
+"""Typed configuration (PyTorch port of `wam_tpu.config`, less the serving
+and observability configs of slice F and the JAX backend glue, whose
+counterpart is `device.resolve_device`).
+
+`WAM2DConfig`, `WAM1DConfig`, `WAM3DConfig` and `EvalConfig` keep the
+reference's defaults; ``device="auto"`` is `resolve_device(None)`: the card,
+or RuntimeError. `add_config_args` / `config_from_args` are the thin CLI
+over any of them.
 
 `PrecisionPolicy` says in which dtype the evaluation fans' model forwards
 run ("f32", "bf16" or "fp8") and whether the mel front end's matmuls take
@@ -13,13 +19,16 @@ port's tune cache.) `resolve_compute_dtype` turns the baseline evaluators'
 
 from __future__ import annotations
 
+import argparse
+import dataclasses
 import os
-from dataclasses import dataclass
+from dataclasses import dataclass, fields
 
 import torch
 
 __all__ = ["FAN_DTYPES", "PrecisionPolicy", "resolve_precision", "resolve_compute_dtype",
-           "compute_cast", "fp8_supported", "EvalConfig"]
+           "precision_tag", "compute_cast", "fp8_supported", "WAM2DConfig", "WAM1DConfig",
+           "WAM3DConfig", "EvalConfig", "add_config_args", "config_from_args"]
 
 FAN_DTYPES = ("f32", "bf16", "fp8")
 FP8 = torch.float8_e4m3fn
@@ -105,6 +114,12 @@ def resolve_precision(*, fan_dtype: str | None = None,
     return PrecisionPolicy(fan_dtype=fan_dtype, mel_bf16=bool(mel_bf16))
 
 
+def precision_tag() -> str:
+    """The live process-level precision tag (the environment knobs only),
+    read per call."""
+    return resolve_precision().tag()
+
+
 _FAN_TAGS = {torch.bfloat16: "bf16", FP8: "fp8"}
 
 
@@ -137,6 +152,55 @@ def compute_cast(x: torch.Tensor, dtype: torch.dtype | None) -> torch.Tensor:
 
 
 @dataclass
+class WAM2DConfig:
+    wavelet: str = "haar"
+    method: str = "smooth"
+    J: int = 3
+    mode: str = "reflect"
+    approx_coeffs: bool = False
+    normalize_coeffs: bool = True
+    n_samples: int = 25
+    stdev_spread: float = 0.25
+    random_seed: int = 42
+    # "auto" = all samples in one model call (`core.estimators.resolve_sample_chunk`)
+    sample_batch_size: int | None | str = "auto"
+    device: str = "auto"
+
+
+@dataclass
+class WAM1DConfig:
+    wavelet: str = "haar"
+    method: str = "smooth"
+    J: int = 3
+    mode: str = "reflect"
+    approx_coeffs: bool = False
+    n_mels: int = 128
+    n_fft: int = 1024
+    sample_rate: int = 44100
+    n_samples: int = 25
+    stdev_spread: float = 0.001
+    random_seed: int = 42
+    sample_batch_size: int | None | str = "auto"
+    device: str = "auto"
+
+
+@dataclass
+class WAM3DConfig:
+    wavelet: str = "haar"
+    method: str = "smooth"
+    J: int = 3
+    mode: str = "symmetric"
+    instance: str = "voxels"
+    normalize: bool = True
+    EPS: float = 0.451
+    n_samples: int = 25
+    stdev_spread: float = 1e-4
+    random_seed: int = 42
+    sample_batch_size: int | None | str = "auto"
+    device: str = "auto"
+
+
+@dataclass
 class EvalConfig:
     n_iter: int = 64
     baseline_n_iter: int = 128
@@ -147,3 +211,50 @@ class EvalConfig:
     # no tuned cap yet)
     batch_size: int | str = 128
     device: str = "auto"
+
+
+def _int_or_str(s: str):
+    """Converter for ``int | None | str`` fields (``sample_batch_size``: 4
+    or "auto"): argparse applies ``type`` to string defaults too, so a plain
+    int converter would fail on the "auto" default."""
+    try:
+        return int(s)
+    except ValueError:
+        return s
+
+
+def add_config_args(parser: argparse.ArgumentParser, cfg_cls, prefix: str = "") -> None:
+    """Register every dataclass field as a ``--prefix-field-name`` flag;
+    booleans read "1", "true" or "yes" (any case) as True and anything else
+    as False."""
+    for f in fields(cfg_cls):
+        name = f"--{prefix}{f.name.replace('_', '-')}"
+        if f.type in ("bool", bool):
+            parser.add_argument(name, type=lambda s: s.lower() in ("1", "true", "yes"),
+                                default=f.default)
+        else:
+            typ = {int: int, float: float}.get(f.type, str)
+            if isinstance(f.type, str):
+                parts = {p.strip() for p in f.type.replace("|", " ").split()}
+                if "int" in parts and "str" in parts:
+                    typ = _int_or_str
+                elif "int" in parts:
+                    typ = int
+                elif "float" in parts:
+                    typ = float
+                else:
+                    typ = str
+            default = f.default if f.default is not dataclasses.MISSING else None
+            parser.add_argument(name, type=typ, default=default)
+
+
+def config_from_args(args: argparse.Namespace, cfg_cls, prefix: str = ""):
+    """The dataclass from parsed flags (fields left None keep their default)."""
+    kwargs = {}
+    for f in fields(cfg_cls):
+        key = f"{prefix}{f.name}"
+        if hasattr(args, key):
+            v = getattr(args, key)
+            if v is not None:
+                kwargs[f.name] = v
+    return cfg_cls(**kwargs)

@@ -1,7 +1,8 @@
 """Core gradient engine: d logit_y / d wavelet-coefficients (PyTorch).
 
-Counterpart of `wam_tpu.core.engine` for 1D signals, 2D NCHW inputs and 3D
-volumes: the coefficients of ``wavedec`` / ``wavedec2`` / ``wavedec3``
+Counterpart of `wam_tpu.core.engine` for 1D signals, 2D inputs (NCHW, or
+NHWC with ``channel_last=True``) and 3D volumes: the coefficients of
+``wavedec`` / ``wavedec2`` (``wavelets.nhwc.wavedec2_nhwc``) / ``wavedec3``
 become detached leaf tensors, the
 reconstruction feeds the model (through an optional differentiable
 ``front_fn``, the 1D mel front end), and `torch.autograd.grad` of the target
@@ -16,6 +17,7 @@ from typing import Callable, Sequence
 
 import torch
 
+from wam_tpu_torch.wavelets import nhwc
 from wam_tpu_torch.wavelets import transform as wt
 
 __all__ = ["WamEngine", "target_loss"]
@@ -61,8 +63,9 @@ def map_coeffs(fn, coeffs) -> list:
 
 
 class WamEngine:
-    """Single-pass wavelet attribution for 1D signals (..., W), 2D NCHW
-    inputs or 3D volumes (..., D, H, W).
+    """Single-pass wavelet attribution for 1D signals (..., W), 2D inputs
+    (..., H, W), or (B, H, W, C) with ``channel_last``, or 3D volumes (...,
+    D, H, W).
 
     Parameters
     ----------
@@ -74,6 +77,10 @@ class WamEngine:
     front_fn : optional differentiable map between the reconstruction and
         the model (the 1D mel front end); ``front=True`` also returns the
         gradient at its output.
+    channel_last : 2D only: inputs and reconstructions are NHWC (B, H, W, C)
+        and ``model_fn`` takes NHWC (``bind_inference(nchw=False)``); the
+        transforms are the contractions of `wavelets.nhwc`, the one
+        implementation of that layout, so ``impl`` does not apply.
     impl : the 2D transform implementation, or the 3D synthesis's
         (`wavelets.transform`); ``None`` picks the CUDA kernels for CUDA
         tensors and the conv form for CPU tensors (3D: the conv form on
@@ -94,8 +101,8 @@ class WamEngine:
     ):
         if ndim not in (1, 2, 3):
             raise ValueError(f"ndim must be 1, 2 or 3, got {ndim}")
-        if channel_last:
-            raise NotImplementedError("channel_last: only the NCHW engine is ported")
+        if channel_last and ndim != 2:
+            raise ValueError("channel_last is only supported for ndim=2")
         if impl is not None and impl not in wt.IMPLS:
             raise ValueError(f"impl {impl!r} not one of {wt.IMPLS}")
         self.model_fn = model_fn
@@ -104,9 +111,12 @@ class WamEngine:
         self.level = level
         self.mode = mode
         self.front_fn = front_fn
+        self.channel_last = channel_last
         self.impl = impl
 
     def decompose(self, x: torch.Tensor):
+        if self.channel_last:
+            return nhwc.wavedec2_nhwc(x, self.wavelet, self.level, self.mode)
         if self.ndim == 1:
             return wt.wavedec(x, self.wavelet, self.level, self.mode)
         if self.ndim == 3:
@@ -116,6 +126,9 @@ class WamEngine:
     def reconstruct(self, coeffs, spatial_shape: Sequence[int]) -> torch.Tensor:
         # the reconstruction is >= the original for non-haar filters / odd
         # sizes; crop to the model's spatial shape
+        if self.channel_last:
+            rec = nhwc.waverec2_nhwc(coeffs, self.wavelet)
+            return rec[..., : spatial_shape[0], : spatial_shape[1], :]
         if self.ndim == 1:
             return wt.waverec(coeffs, self.wavelet)[..., : spatial_shape[0]]
         if self.ndim == 3:
@@ -149,6 +162,9 @@ class WamEngine:
         return _unflatten(grads, coeffs)
 
     def spatial_shape(self, x_shape) -> tuple:
+        """The transform's spatial dims of an input shape (layout-aware)."""
+        if self.channel_last:
+            return tuple(x_shape[-3:-1])
         return tuple(x_shape[-self.ndim:])
 
     def attribute(self, x: torch.Tensor, y: torch.Tensor | None, samples: int = 1):

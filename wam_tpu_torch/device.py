@@ -9,10 +9,10 @@ __all__ = ["resolve_device", "on_cpu"]
 
 
 def resolve_device(device=None) -> torch.device:
-    """``None`` -> the current CUDA device, or RuntimeError when there is
-    none. An explicit device is returned as given (``"cpu"`` is how tests and
-    CPU users ask for the plain versions)."""
-    if device is None:
+    """``None`` (or a config's ``"auto"``) -> the current CUDA device, or
+    RuntimeError when there is none. An explicit device is returned as given
+    (``"cpu"`` is how tests and CPU users ask for the plain versions)."""
+    if device is None or device == "auto":
         if not torch.cuda.is_available():
             raise RuntimeError(
                 "wam_tpu_torch runs on CUDA by default and no CUDA device is available; "

@@ -11,7 +11,9 @@ AudioCNN and `wam_tpu_torch.models.audio.AudioCNN`, `flax_vit_to_torch` for
 inverses of the reference's `torch_vit_to_flax` and `torch_convnext_to_flax`.
 `flax_resnet3d_to_torch`, `flax_voxel_to_torch` and `flax_pointnet_to_torch`
 carry the 3D models across by name (`resnet3d`, `voxel`, `pointnet`).
-So both packages can run the same weights:
+So both packages can run the same weights. `strip_module_prefix` drops the
+``module.`` prefix that DataParallel training leaves on a PyTorch
+checkpoint's keys (`data.checkpoints` loads such files as they are):
 
 - conv kernel (kh, kw, I, O) -> weight (O, I, kh, kw), and (kd, kh, kw, I,
   O) -> (O, I, kd, kh, kw); conv bias as is
@@ -38,9 +40,15 @@ from typing import Mapping
 import numpy as np
 import torch
 
-__all__ = ["flax_resnet_to_torch", "flax_audio_to_torch", "flax_vit_to_torch",
+__all__ = ["strip_module_prefix", "flax_resnet_to_torch", "flax_audio_to_torch", "flax_vit_to_torch",
            "flax_convnext_to_torch", "flax_resnet3d_to_torch", "flax_voxel_to_torch",
            "flax_pointnet_to_torch"]
+
+
+def strip_module_prefix(state: Mapping) -> dict:
+    """The state dict with DataParallel's 'module.' prefix removed from its
+    keys; values (tensors or arrays) pass through as they are."""
+    return {k.removeprefix("module."): v for k, v in state.items()}
 
 
 def _t(v) -> torch.Tensor:

@@ -1,9 +1,10 @@
 """2D dyadic-mosaic packing and per-scale reprojection (PyTorch).
 
 Counterpart of `wam_tpu.ops.packing2d` for NCHW coefficient leaves
-(..., B, C, h, w). Any leading axes before the batch axis are stacked
-samples: each one is normalized on its own, exactly as the JAX package
-normalizes the one sample its mapped step sees.
+(..., B, C, h, w), or NHWC leaves (..., B, h, w, C) with ``channel_axis=-1``
+(the channel-last engine, `wavelets.nhwc`). Any leading axes before the
+batch axis are stacked samples: each one is normalized on its own, exactly
+as the JAX package normalizes the one sample its mapped step sees.
 
 Mosaic layout: approximation in the top-left corner; for each level with
 block span [s, e) (s = S/2^{i+1}, e = S/2^i, i = 0 for the finest level):
@@ -26,24 +27,34 @@ def _norm(a: torch.Tensor, enabled: bool) -> torch.Tensor:
     return a / torch.where(m == 0, torch.ones_like(m), m)
 
 
-def _prep(block: torch.Tensor, normalize: bool) -> torch.Tensor:
+def _channel_dim(channel_axis: int) -> int:
+    """The reference's ``channel_axis`` (1: NCHW, -1: NHWC) as a dim
+    counted from the end, so leading sample axes pass through."""
+    if channel_axis not in (1, -1):
+        raise ValueError(f"channel_axis must be 1 (NCHW) or -1 (NHWC), got {channel_axis}")
+    return -3 if channel_axis == 1 else -1
+
+
+def _prep(block: torch.Tensor, normalize: bool, channel_axis: int = 1) -> torch.Tensor:
     """channel-mean -> abs -> optional max normalization (the reference
     order; abs of the mean is not the mean of abs)."""
-    return _norm(block.mean(dim=-3).abs(), normalize)
+    return _norm(block.mean(dim=_channel_dim(channel_axis)).abs(), normalize)
 
 
-def mosaic_size(coeffs) -> int:
+def mosaic_size(coeffs, channel_axis: int = 1) -> int:
     """Mosaic side = 2 x finest-level detail size."""
-    return int(2 * coeffs[-1].horizontal.shape[-1])
+    axis = -1 if _channel_dim(channel_axis) == -3 else -2
+    return int(2 * coeffs[-1].horizontal.shape[axis])
 
 
-def mosaic2d(coeffs, normalize: bool = True) -> torch.Tensor:
+def mosaic2d(coeffs, normalize: bool = True, channel_axis: int = 1) -> torch.Tensor:
     """Pack per-coefficient values [cA, Detail2D_J..Detail2D_1] (each
-    (..., B, C, h, w)) into the dyadic mosaic (..., B, S, S)."""
-    size = mosaic_size(coeffs)
+    (..., B, C, h, w), or (..., B, h, w, C) with ``channel_axis=-1``) into
+    the dyadic mosaic (..., B, S, S)."""
+    size = mosaic_size(coeffs, channel_axis)
     out = coeffs[0].new_zeros(coeffs[0].shape[:-3] + (size, size))
 
-    approx = _prep(coeffs[0], normalize)
+    approx = _prep(coeffs[0], normalize, channel_axis)
     ha = min(approx.shape[-2], size)
     wa = min(approx.shape[-1], size)
     out[..., :ha, :wa] = approx[..., :ha, :wa]
@@ -55,9 +66,10 @@ def mosaic2d(coeffs, normalize: bool = True) -> torch.Tensor:
         b = end - start
         # off-diagonal blocks are (b, start)/(start, b): for non-dyadic
         # mosaic sizes (long filters) start != b
-        out[..., start:end, start:end] = _prep(det.diagonal, normalize)[..., :b, :b]
-        out[..., start:end, :start] = _prep(det.vertical, normalize)[..., :b, :start]
-        out[..., :start, start:end] = _prep(det.horizontal, normalize)[..., :start, :b]
+        out[..., start:end, start:end] = _prep(det.diagonal, normalize, channel_axis)[..., :b, :b]
+        out[..., start:end, :start] = _prep(det.vertical, normalize, channel_axis)[..., :b, :start]
+        out[..., :start, start:end] = _prep(det.horizontal, normalize,
+                                            channel_axis)[..., :start, :b]
     return out
 
 
@@ -89,16 +101,18 @@ def reproject_mosaic(avg: torch.Tensor, levels: int, approx_coeffs: bool = False
     return torch.stack(maps, dim=1)
 
 
-def disentangle_scales(coeffs, approx_coeffs: bool = False, size: int | None = None) -> torch.Tensor:
+def disentangle_scales(coeffs, approx_coeffs: bool = False, size: int | None = None,
+                       channel_axis: int = 1) -> torch.Tensor:
     """Per-level pixel-domain importance maps straight from coefficient
-    grads: (B, J(+1), S, S), finest level first."""
+    grads: (B, J(+1), S, S), finest level first. ``channel_axis=-1`` for
+    NHWC coefficient leaves."""
     if size is None:
-        size = mosaic_size(coeffs)
+        size = mosaic_size(coeffs, channel_axis)
     maps = []
     for det in coeffs[1:][::-1]:
-        maps.append(_resize_bilinear(_prep(det.horizontal, True), size)
-                    + _resize_bilinear(_prep(det.vertical, True), size)
-                    + _resize_bilinear(_prep(det.diagonal, True), size))
+        maps.append(_resize_bilinear(_prep(det.horizontal, True, channel_axis), size)
+                    + _resize_bilinear(_prep(det.vertical, True, channel_axis), size)
+                    + _resize_bilinear(_prep(det.diagonal, True, channel_axis), size))
     if approx_coeffs:
-        maps.append(_resize_bilinear(_prep(coeffs[0], True), size))
+        maps.append(_resize_bilinear(_prep(coeffs[0], True, channel_axis), size))
     return torch.stack(maps, dim=1)

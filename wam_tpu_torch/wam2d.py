@@ -8,6 +8,12 @@ already bound to its device (e.g. `models.resnet.bind_inference`).
 On CUDA tensors the transforms run through the port's CUDA kernels (K1 for
 every analysis level, K3 for the collapsed synthesis and its adjoint); see
 `wam_tpu_torch.wavelets.transform` for the ``impl`` switch.
+
+``model_layout="nhwc"``: the model takes (B, H, W, C)
+(``bind_inference(nchw=False)``) and the engine runs channel-last through
+the contractions of `wavelets.nhwc` (no port kernel; the reference runs
+them as XLA einsums too). The input is transposed once, outside the sample
+loop; ``__call__`` takes (B, C, H, W) either way, and so does ``noise=``.
 """
 
 from __future__ import annotations
@@ -39,7 +45,8 @@ class BaseWAM2D:
 
     ``device``: where the computation runs; CUDA unless the caller asks
     otherwise (``"cpu"`` runs the plain PyTorch versions). ``impl``: the
-    transform implementation (``None`` = kernels on CUDA, conv on CPU).
+    transform implementation (``None`` = kernels on CUDA, conv on CPU;
+    ``model_layout="nhwc"`` has one implementation and ignores it).
     """
 
     def __init__(
@@ -54,9 +61,8 @@ class BaseWAM2D:
         device=None,
         impl: str | None = None,
     ):
-        if model_layout != "nchw":
-            raise NotImplementedError(
-                f"model_layout={model_layout!r}: only the NCHW path is ported")
+        if model_layout not in ("nchw", "nhwc"):
+            raise ValueError(f"model_layout must be 'nchw' or 'nhwc', got {model_layout!r}")
         self.device = resolve_device(device)
         self.wavelet = wavelet
         self.J = J
@@ -64,8 +70,9 @@ class BaseWAM2D:
         self.approx_coeffs = approx_coeffs
         self.normalize_coeffs = normalize_coeffs
         self.model_layout = model_layout
+        self._caxis = -1 if model_layout == "nhwc" else 1
         self.engine = WamEngine(model_fn, ndim=2, wavelet=wavelet, level=J, mode=mode,
-                                impl=impl)
+                                channel_last=model_layout == "nhwc", impl=impl)
 
     def _inputs(self, x, y):
         x = torch.as_tensor(x, device=self.device)
@@ -73,22 +80,28 @@ class BaseWAM2D:
             y = torch.as_tensor(y, device=self.device)
         return x, y
 
+    def _to_internal(self, x: torch.Tensor) -> torch.Tensor:
+        """NCHW caller layout -> the engine's layout (one contiguous copy for
+        NHWC)."""
+        return x.permute(0, 2, 3, 1).contiguous() if self.model_layout == "nhwc" else x
+
     def __call__(self, x, y=None) -> torch.Tensor:
         x, y = self._inputs(x, y)
-        coeffs, grads = self.engine.attribute(x, y)
+        coeffs, grads = self.engine.attribute(self._to_internal(x), y)
         self.wavelet_coeffs = coeffs
         self.gradient_coeffs = grads
-        self.scales = disentangle_scales(grads, approx_coeffs=self.approx_coeffs)
-        return mosaic2d(grads, self.normalize_coeffs)
+        self.scales = disentangle_scales(grads, approx_coeffs=self.approx_coeffs,
+                                         channel_axis=self._caxis)
+        return mosaic2d(grads, self.normalize_coeffs, self._caxis)
 
     def serve_entry(self, *args, **kwargs):
         raise NotImplementedError("serve_entry is not ported yet (ROADMAP.md, slice F)")
 
     def disentangle_scales(self, grads, approx_coeffs: bool = False):
-        return disentangle_scales(grads, approx_coeffs=approx_coeffs)
+        return disentangle_scales(grads, approx_coeffs=approx_coeffs, channel_axis=self._caxis)
 
     def visualize_grad_wam(self, grads):
-        return mosaic2d(grads, self.normalize_coeffs)
+        return mosaic2d(grads, self.normalize_coeffs, self._caxis)
 
 
 class WaveletAttribution2D(BaseWAM2D):
@@ -108,8 +121,9 @@ class WaveletAttribution2D(BaseWAM2D):
     (after the float32 noise is added); the coefficients stay float32.
 
     SmoothGrad noise: standard-normal draws from a ``torch.Generator`` on
-    the device seeded with ``random_seed`` (one stream per call), or the
-    explicit ``noise`` tensor (n_samples, *x.shape) given to ``__call__``.
+    the device seeded with ``random_seed`` (one stream per call, drawn in
+    the engine's layout), or the explicit ``noise`` tensor (n_samples,
+    *x.shape), in the caller's NCHW layout, given to ``__call__``.
     ``stream_noise=True`` draws each chunk's noise inside the chunk loop,
     sample i's from (random_seed, i) (`core.estimators.sample_noise`), so
     the (n_samples, *x.shape) buffer is never allocated and the result does
@@ -165,12 +179,15 @@ class WaveletAttribution2D(BaseWAM2D):
         grads = self.engine.grads_from_coeffs(coeffs, y.repeat(s) if y is not None else None,
                                               spatial, samples=s)
         grads = map_coeffs(lambda g: g.reshape((s, -1) + tuple(g.shape[1:])), grads)
-        return mosaic2d(grads, self.normalize_coeffs)
+        return mosaic2d(grads, self.normalize_coeffs, self._caxis)
 
     # -- SmoothGrad --------------------------------------------------------
 
     def smooth_wam(self, x, y, noise=None) -> torch.Tensor:
         x, y = self._inputs(x, y)
+        x = self._to_internal(x)  # once, outside the sample loop
+        if noise is not None and self.model_layout == "nhwc":
+            noise = torch.as_tensor(noise).permute(0, 1, 3, 4, 2)
         spatial = self.engine.spatial_shape(x.shape)
 
         def step(noisy: torch.Tensor) -> torch.Tensor:  # (s, B, C, H, W)
@@ -195,11 +212,12 @@ class WaveletAttribution2D(BaseWAM2D):
 
     def integrated_wam(self, x, y) -> torch.Tensor:
         x, y = self._inputs(x, y)
+        x = self._to_internal(x)
         if self.dwt_bf16:
             x = x.to(torch.bfloat16)
         with torch.no_grad():
             coeffs = self.engine.decompose(x)
-        baseline = mosaic2d(coeffs, normalize=True)
+        baseline = mosaic2d(coeffs, normalize=True, channel_axis=self._caxis)
         spatial = self.engine.spatial_shape(x.shape)
 
         def grad_fn(alphas: torch.Tensor) -> torch.Tensor:  # (s,)

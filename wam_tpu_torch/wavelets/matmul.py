@@ -650,6 +650,13 @@ def _synthesis_operator(n: int, rec_lo: tuple, rec_hi: tuple, dtype,
     return torch.as_tensor(_synthesis_np(n, rec_lo, rec_hi), dtype=dtype, device=device)
 
 
+@functools.lru_cache(maxsize=64)
+def _analysis_operator(n: int, dec_lo: tuple, dec_hi: tuple, mode: str, dtype,
+                       device: torch.device) -> torch.Tensor:
+    """`analysis_matrices` built once per (side, wavelet, mode, dtype, device)."""
+    return torch.as_tensor(_analysis_np(n, dec_lo, dec_hi, mode), dtype=dtype, device=device)
+
+
 @contextlib.contextmanager
 def _f32_matmuls():
     """cuBLAS float32 matmuls in full float32 inside the block (TF32 off),
