@@ -139,7 +139,8 @@ sm_90a). Phases, each fatal on failure:
    with its host waits counted, 3 CUDA-event-timed (median, spread, host
    enqueue, peak memory), then insertion at n_iter 32, counted (no port
    kernel, one fetch, one host wait: asserted) and timed as in eval2d;
-   rollout and attngrad must raise NotImplementedError (ROADMAP slice D).
+   rollout and attngrad must raise ValueError on ResNet-50 (they need a ViT
+   built with capture_attn=True: phase attention).
    Saliency against WAM at equal precision (bench_eval.py:185-193):
    insertion (n_iter 64) and μ-fidelity on the eval2d phase's 8 images.
    Audio: `EvalAudioBaselines` (saliency, integratedgrad, smoothgrad,
@@ -189,9 +190,43 @@ sm_90a). Phases, each fatal on failure:
    asserted), peak memory, the 10 mean IoUs over p = 0.05..0.50 and the
    provenance "synthetic-sines+random-init"; then the reduced check: image
    0's maps on the kernel path against impl="matmul", TF32 off (each map
-   within 1e-5 x max, the IoUs equal).
+   within 1e-5 x max, the IoUs equal);
+17. patch: bench_workloads.vit_patch_workload's geometry: the vit phase's
+   call with ``level_plan="patch", patch=16, image_size=224`` (J=4): the
+   TF32 headline with one call's launches asserted (K1 4, K3 8, the rest
+   0) and 5 event-timed calls, the TF32-off arm, `WAMAnalyzerViT.token_maps`
+   ((1, 4, 14, 14), asserted), and the reduced check (kernel vs
+   impl="matmul", 4 path points, TF32 off, the vit phase's bounds);
+18. attention: `EvalImageBaselines` rollout and attngrad on ViT-B/16 built
+   with ``capture_attn=True`` (the vit phase's weights), 4 x 3x224^2, 64
+   rows a model call: each explanation counted and 3 event-timed, insertion
+   and deletion (n_iter 32) counted (no port kernel, one fetch, one host
+   wait: asserted) and timed as in eval2d; then the logits of the capture
+   form against the SDPA form (TF32 off, within 1e-5 x max) and both maps
+   of one image on the card against the CPU in float64 (within 1e-9 x max);
+19. video: bench_workloads.video_workload's full row: `WaveletAttributionVideo`
+   SmoothGrad on the 3D ResNet-18 (10 classes, seeded, calibrated) at 4
+   clips of 1x16x32^2, haar, levels (2, 1), symmetric, n=25 in one chunk
+   ("auto"): one call's launches asserted (K1 2, K2 1) and 5 event-timed
+   calls, the IG arm (25 points, the same launches, 3 calls); `EvalVideoWAM`
+   insertion and deletion (n_iter 16) on the headline's frame scores,
+   counted (launches 0, one fetch, one host wait: asserted) and timed; the
+   reduced check, the card against the CPU (2 clips x 2 samples, noise
+   handed over, TF32 off): float32 through the kernels (cosine >= 0.99999,
+   max abs <= 1e-2 x max: a gate flip), float64 on the conv route (<= 1e-9
+   x max);
+20. anytime: the flagship's explainer through ``anytime_serve_entry(
+   stride=5)`` and `anytime.run_anytime`: a counted full run (5 strides,
+   complete, one fetch, K1 75 and K3 50: asserted), 3 runs timed by CUDA
+   events with each stride's host time and its wait on the confidence
+   vector, peak memory; the full map against the streamed smooth_wam on
+   the same draws (one sample a chunk: cosine >= 0.999999, max abs <= 1e-5
+   x max); a deadline run at 2.5 strides (deadline hit, fewer than 25
+   samples: asserted), its confidence vector printed per row. The kernels
+   phase holds K1/K3 at the patch plan's and the anytime step's shapes and
+   K1/K2 at the video's; each ``kernels`` row carries every path's launches.
 
-Prints a summary JSON line, the kernels' JSON line, the nvidia-smi line, and as its last line
+Prints a summary JSON line (with the script's wall time), the kernels' JSON line, the nvidia-smi line, and as its last line
 ``{"ok": true, "device": {...}}``. Exits nonzero, printing no result, when
 there is no CUDA device or the port is not beside this script.
 """
@@ -306,7 +341,7 @@ EVAL1D_TOL = {"float32": 1e-4, "float64": 1e-9}
 BASE_BATCH, BASE_CAP, BASE_SAMPLES, BASE_N_ITER, BASE_CALLS = 4, 64, 8, 32, 3
 BASE_METHODS = ("saliency", "integratedgrad", "smoothgrad", "gradcam", "gradcampp", "layercam",
                 "guided_backprop", "gradxinput", "lrp")
-BASE_SLICE_D = ("rollout", "attngrad")
+BASE_ATTENTION = ("rollout", "attngrad")  # on a ViT built with capture_attn: phase attention
 # saliency against WAM at equal precision (bench_eval.py:185-193): the eval2d
 # phase's 8 images, insertion at n_iter 64 and μ, 128 rows a model call
 BASE_WAM_ROWS = {"insertion": EVAL_BATCH * (EVAL_N_ITER + 1),
@@ -371,6 +406,44 @@ IOU_CALLS = 3                           # timed explanations per wavelet
 # (all 25 path points in one chunk; every detail side at 224^2 is < 128)
 IOU_LAUNCHES = {**ZERO_LAUNCHES, "dwt2": IOU_LEVELS, "pair": 2}
 IOU_TOL = 1e-5
+# the patch phase: bench_workloads.vit_patch_workload's geometry (its lines 68-89):
+# the vit phase's call with level_plan="patch", patch 16 at 224^2 -> J = 4
+PATCH, PATCH_LEVELS = 16, 4
+PATCH_TOKENS = VIT_SIDE // PATCH
+# one call: K1 at the 4 analysis levels (once a call), K3 forward and backward
+# a chunk of VIT_CHUNK path points (every detail side, 112 to 14, is < 128)
+PATCH_LAUNCHES = {**ZERO_LAUNCHES, "dwt2": PATCH_LEVELS, "pair": 2 * (VIT_STEPS // VIT_CHUNK)}
+# the attention phase: rollout and attngrad of EvalImageBaselines on ViT-B/16
+# (capture_attn=True, the vit phase's weights) at the baselines phase's geometry
+ATTN_METHODS = ("rollout", "attngrad")
+ATTN_BATCH, ATTN_CAP, ATTN_N_ITER = 4, 64, 32
+# logits with capture_attn=True against False (TF32 off), and the card against
+# the CPU in float64 for both maps of one image, each over the largest value
+ATTN_TOL = {"capture": 1e-5, "float64": 1e-9}
+# the video phase: bench_workloads.video_workload's full row (its lines 92-112)
+VID_BATCH, VID_FRAMES, VID_SIDE, VID_CLASSES = 4, 16, 32, 10
+VID_WAVELET, VID_LEVELS, VID_SAMPLES, VID_CALLS = "haar", (2, 1), 25, 5
+VID_N_ITER, VID_CAP = 16, 64            # temporal insertion/deletion steps; rows a call
+# one call ("auto": all 25 samples, or IG points, in one chunk): K1 at the
+# spatial-only level 2 (8 frames of 16^2 -> 8^2) and as K2's backward, K2 at
+# its synthesis; level 1 is 3D (conv3d / conv_transpose3d)
+VID_LAUNCHES = {**ZERO_LAUNCHES, "dwt2": 2, "synth2": 1}
+VID_PLANES = VID_BATCH * VID_SAMPLES * VID_FRAMES // 2  # level-2 planes of one chunk
+# reduced check, the card against the CPU: clips, samples (noise handed over,
+# TF32 off); float32 through the kernels, float64 on the conv route (a kernel
+# computes float64 input in float32). float32 measured 1.07e-3 of the max at
+# cosine 0.99999999 (H100 80GB HBM3, 700 W): a ReLU gate of the 3D ResNet
+# within rounding of zero flips between the devices, as the audio path's
+# do, so its max abs bound is ~10x that; the float64 check holds the path
+VID_REDUCED = (2, 2)
+VID_TOL = {"float32": (0.99999, 1e-2), "float64": (0.9999999, 1e-9)}
+# the anytime phase: the flagship's explainer through anytime_serve_entry
+ANY_STRIDE, ANY_CALLS, ANY_DEADLINE = 5, 3, 2.5  # samples a stride; timed runs; strides
+# one run: every sample decomposes (3 K1) and reconstructs (K3 forward and backward)
+ANY_LAUNCHES = {**ZERO_LAUNCHES, "dwt2": LEVELS * N_SAMPLES, "pair": 2 * N_SAMPLES}
+# against the streamed smooth_wam (one sample a chunk, the same draws): only
+# the order of the sample sum differs
+ANY_TOL = (0.999999, 1e-5)
 
 
 def _log(*args):
@@ -514,18 +587,19 @@ def _row(kernel: str, name: str, source: str, replaces: str, path: str, cases: l
 
 
 def _k1_cases(torch, tmm, kernels, g, side: int, wavelet: str = WAVELET,
-              n: int = SAMPLE_CHUNK * BATCH * CHANNELS) -> list[dict]:
-    """K1 at the three analysis levels of a side x side path on ``n``
+              n: int = SAMPLE_CHUNK * BATCH * CHANNELS, levels: int = LEVELS,
+              mode: str = MODE) -> list[dict]:
+    """K1 at the ``levels`` analysis levels of a side x side path on ``n``
     images, float32 and bfloat16 input; level l reads level l-1's float32
     approximation."""
     dev = torch.device(DEVICE)
     from wam_tpu_torch.wavelets.filters import build_wavelet
 
     w = build_wavelet(wavelet)
-    taps = (tuple(w.dec_lo), tuple(w.dec_hi), MODE)
+    taps = (tuple(w.dec_lo), tuple(w.dec_hi), mode)
     cases = []
     x = torch.randn((n, side, side), generator=g, device=dev)
-    for level in range(1, LEVELS + 1):
+    for level in range(1, levels + 1):
         q = x.shape[-1]
         _, At = tmm._kernel_analysis(q, *taps, dev)  # dense: the plain version and einsum
         Bt = At
@@ -550,7 +624,7 @@ def _k1_cases(torch, tmm, kernels, g, side: int, wavelet: str = WAVELET,
 
 
 def _k3_cases(torch, tmm, kernels, g, side: int, wavelet: str = WAVELET,
-              n: int = SAMPLE_CHUNK * BATCH * CHANNELS) -> list[dict]:
+              n: int = SAMPLE_CHUNK * BATCH * CHANNELS, levels: int = LEVELS) -> list[dict]:
     """K3 forward and backward over the levels that `transform.waverec2`
     collapses at a side x side path, on ``n`` images (CHANNELS a sample),
     on leaves made as the engine makes them:
@@ -568,7 +642,7 @@ def _k3_cases(torch, tmm, kernels, g, side: int, wavelet: str = WAVELET,
     dev = torch.device(DEVICE)
     imgs = torch.randn((n // CHANNELS, CHANNELS, side, side), generator=g, device=dev)
     with torch.no_grad():
-        coeffs = tt.wavedec2(imgs, wavelet, LEVELS, MODE, impl="kernel")
+        coeffs = tt.wavedec2(imgs, wavelet, levels, MODE, impl="kernel")
     details = coeffs[1:][:tt._collapse_count(coeffs[1:])]
     flat = [coeffs[0]] + [t for d in details for t in d]
 
@@ -632,17 +706,17 @@ def _k3_cases(torch, tmm, kernels, g, side: int, wavelet: str = WAVELET,
     return cases
 
 
-def _k2_cases(torch, tmm, kernels, g) -> tuple[list[dict], dict]:
-    """K2 forward (float32 and bfloat16 subbands) at path 2's finest
-    synthesis level, N = SAMPLE_CHUNK * BATCH * CHANNELS images of (4, 147,
-    147) -> 288 x 288; and its backward through autograd, which is a K1
-    launch (returned apart: it is one of K1's launches on path 2)."""
+def _k2_cases(torch, tmm, kernels, g, side: int = SIDE2, wavelet: str = WAVELET,
+              n: int = SAMPLE_CHUNK * BATCH * CHANNELS) -> tuple[list[dict], dict]:
+    """K2 forward (float32 and bfloat16 subbands) at a synthesis level whose
+    output is side x side, on ``n`` images: path 2's finest level (4, 147,
+    147) -> 288 x 288 by default; and its backward through autograd, which
+    is a K1 launch (returned apart: it is one of K1's launches)."""
     dev = torch.device(DEVICE)
-    n = SAMPLE_CHUNK * BATCH * CHANNELS
     from wam_tpu_torch.wavelets.filters import build_wavelet
 
-    w = build_wavelet(WAVELET)
-    h = (SIDE2 + w.filt_len - 1) // 2
+    w = build_wavelet(wavelet)
+    h = (side + w.filt_len - 1) // 2
     rec = (tuple(w.rec_lo), tuple(w.rec_hi))
     Sr, Srt = tmm._kernel_synthesis(h, *rec, dev)  # dense: the plain version and einsum
     Sc, Sct = Sr, Srt
@@ -654,7 +728,8 @@ def _k2_cases(torch, tmm, kernels, g) -> tuple[list[dict], dict]:
         sin = sub.to(dtype).contiguous()
         merged = tmm._merge_quadrants(sin.float())  # the product as the einsum sees it
         cases.append(_case(
-            torch, f"K2 forward {str(dtype)[6:]}", kernels.synth2(sin, plans[0]),
+            torch, f"K2 {wavelet} -> {side}^2 forward {str(dtype)[6:]}",
+            kernels.synth2(sin, plans[0]),
             tmm.idwt2_plain(sin, Sr, Sct), lambda: kernels.synth2(sin, plans[0]),
             lambda: tmm.idwt2_plain(sin, Sr, Sct), (Srt, merged, Sct), (sin, Srt, Sct),
             n * full * full * 4, part="forward", dtype=str(dtype)[6:], shape=[n, 4, h, h],
@@ -665,7 +740,8 @@ def _k2_cases(torch, tmm, kernels, g) -> tuple[list[dict], dict]:
     gout = torch.randn((n, full, full), generator=g, device=dev)
     sv = sub.clone().requires_grad_(True)
     (dsub,) = torch.autograd.grad(tmm._Idwt2Core.apply(sv, Sr, Sc, Sct, plans), sv, gout)
-    bwd = _case(torch, "K2 backward (autograd, a K1 launch)", dsub, tmm.dwt2_plain(gout, Sr, Sc),
+    bwd = _case(torch, f"K2 {wavelet} -> {side}^2 backward (autograd, a K1 launch)", dsub,
+                tmm.dwt2_plain(gout, Sr, Sc),
                 lambda: kernels.dwt2(gout, plans[1]), lambda: tmm.dwt2_plain(gout, Sr, Sc),
                 (Sr, gout, Sc), (gout, Sr, Sc), n * 4 * h * h * 4,
                 extra={"matmul_pair_ms": lambda: tmm.pair_plain(gout, Sr, Sc)},
@@ -732,8 +808,10 @@ def phase_kernels(torch, tmm, kernels, sites, vol_sites) -> list[dict]:
     2's (N = SAMPLE_CHUNK * BATCH * CHANNELS images per launch) and at the
     ViT path's (haar: K1 on the image's CHANNELS planes, K3 on a chunk's
     VIT_CHUNK * CHANNELS), K2 and K4/K5 (at the ReLU ``sites``) at path 2's,
-    and K4/K5 at the vol path's fused arm (its ReLU ``vol_sites``). One
-    line per kernel and path."""
+    and K4/K5 at the vol path's fused arm (its ReLU ``vol_sites``); K1 and
+    K3 at the eval2d, analyzers and iou paths', at the patch path's (4
+    levels) and at the anytime step's (one sample of BATCH images), K1 and
+    K2 at the video path's. One line per kernel and path."""
     dev = torch.device(DEVICE)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -803,6 +881,45 @@ def phase_kernels(torch, tmm, kernels, sites, vol_sites) -> list[dict]:
                          f"forward + backward of the collapsed levels at {IOU_SIDE}^2, "
                          f"{wavelet}, one explanation's {IOU_STEPS} path points"))
         rows[-1]["assemble_ms"] = k3_cases[0]["assemble_ms"]
+    # the patch path: K1 at the plan's 4 levels on the image's planes, K3
+    # forward and backward over 4 collapsed levels, one chunk of path points
+    rows.append(_row(*k1, "patch", _k1_cases(torch, tmm, kernels, g, VIT_SIDE, VIT_WAVELET,
+                                             CHANNELS, PATCH_LEVELS), einsum,
+                     f"{PATCH_LEVELS} analysis levels at {VIT_SIDE}^2, {VIT_WAVELET}, f32 input, "
+                     f"the image's {CHANNELS} planes (once a call)"))
+    k3_cases = _k3_cases(torch, tmm, kernels, g, VIT_SIDE, VIT_WAVELET, VIT_CHUNK * CHANNELS,
+                         PATCH_LEVELS)
+    rows.append(_row(*k3, "patch", k3_cases,
+                     "torch.einsum (the matmul pair on the assembled Y; dense dY)",
+                     f"forward + backward of {PATCH_LEVELS} collapsed levels at {VIT_SIDE}^2, "
+                     f"{VIT_WAVELET}, one chunk of {VIT_CHUNK} path points"))
+    rows[-1]["assemble_ms"] = k3_cases[0]["assemble_ms"]
+    # the video path: K1 and K2 at the spatial-only level 2, one chunk's
+    # planes (clips x samples x 8 decimated frames) of 16^2, symmetric
+    vid_k1 = _k1_cases(torch, tmm, kernels, g, VID_SIDE // 2, VID_WAVELET, VID_PLANES, 1,
+                       "symmetric")
+    vid_k2, vid_k2_bwd = _k2_cases(torch, tmm, kernels, g, VID_SIDE // 2, VID_WAVELET,
+                                   VID_PLANES)
+    rows.append(_row(*k1, "video", vid_k1 + [vid_k2_bwd], einsum,
+                     f"the spatial-only level 2 on {VID_PLANES} planes of {VID_SIDE // 2}^2 "
+                     "(one chunk), forward and as K2's backward"))
+    rows.append(_row("synth2", "idwt2_kernel (K2)", "wam_tpu_torch/csrc/synth2.cu",
+                     "wam_tpu/wavelets/matmul.py:313", "video", vid_k2,
+                     "torch.einsum (the matmul pair on the merged matrix, merge not timed)",
+                     f"forward, f32 subbands, {VID_PLANES} planes to {VID_SIDE // 2}^2 (one "
+                     "chunk; its backward is on K1's video line)"))
+    # the anytime path: K1 and K3 of one sample's step (the flagship's 32
+    # images x 3 planes, db4)
+    rows.append(_row(*k1, "anytime", _k1_cases(torch, tmm, kernels, g, SIDE, WAVELET,
+                                               BATCH * CHANNELS), einsum,
+                     f"3 analysis levels at {SIDE}^2, {WAVELET}, f32 input, one sample's "
+                     f"{BATCH} images x {CHANNELS} planes"))
+    k3_cases = _k3_cases(torch, tmm, kernels, g, SIDE, WAVELET, BATCH * CHANNELS)
+    rows.append(_row(*k3, "anytime", k3_cases,
+                     "torch.einsum (the matmul pair on the assembled Y; dense dY)",
+                     f"forward + backward of the collapsed levels at {SIDE}^2, {WAVELET}, one "
+                     f"sample's {BATCH} images"))
+    rows[-1]["assemble_ms"] = k3_cases[0]["assemble_ms"]
     rows.insert(3, _row("synth2", "idwt2_kernel (K2)", "wam_tpu_torch/csrc/synth2.cu",
                         "wam_tpu/wavelets/matmul.py:313", "path 2", k2_cases,
                         "torch.einsum (the matmul pair on the merged matrix, merge not timed)",
@@ -2397,13 +2514,13 @@ def phase_baselines(torch, wtt, kernels, smi: str) -> dict:
         _check_scores(np, f"{method} insertion", res["result"], BASE_BATCH)
         image[method] = {"explain": run, "insertion": res}
         del ev, expl
-    for method in BASE_SLICE_D:
+    for method in BASE_ATTENTION:  # ResNet-50 captures no attention (phase attention)
         try:
             build_baselines(torch, wtt, method)
-        except NotImplementedError as err:
-            _log(f"  {method}: NotImplementedError as expected ({str(err)[:60]}...)")
+        except ValueError as err:
+            _log(f"  {method}: ValueError as expected ({str(err)[:60]}...)")
         else:
-            raise AssertionError(f"{method} did not raise NotImplementedError")
+            raise AssertionError(f"{method} did not raise ValueError on ResNet-50")
 
     # saliency against WAM at equal precision, on the eval2d phase's images
     state, _, x8, y8 = build_eval2d(torch, wtt)
@@ -2971,6 +3088,364 @@ def phase_iou(torch, wtt, kernels, smi: str) -> dict:
             "provenance": "synthetic-sines+random-init", "reduced_check": reduced}
 
 
+# -- slice D: patch-aligned ViT WAM, attention baselines, video WAM, anytime ----------
+
+
+def patch_wam(wtt, fn, device, n_samples: int | None = None, impl: str = "kernel"):
+    """The patch path's `WaveletAttribution2D`: the vit phase's IG call with
+    ``level_plan="patch"`` (patch PATCH at VIT_SIDE: J = PATCH_LEVELS)."""
+    return wtt.WaveletAttribution2D(fn, wavelet=VIT_WAVELET, mode=VIT_MODE,
+                                    method="integratedgrad", n_samples=n_samples or VIT_STEPS,
+                                    sample_batch_size=VIT_CHUNK, level_plan="patch", patch=PATCH,
+                                    image_size=VIT_SIDE, device=device, impl=impl)
+
+
+def _check_patch_result(torch, wam, run: dict) -> None:
+    """The mosaic is (1, 224, 224), finite and nonzero, the scales (1, 4,
+    224, 224), and one call launched exactly PATCH_LAUNCHES."""
+    out = run["out"]
+    if wam.J != PATCH_LEVELS or tuple(out.shape) != (1, VIT_SIDE, VIT_SIDE):
+        raise AssertionError(f"patch: J={wam.J}, mosaic shape {tuple(out.shape)}")
+    if not bool(torch.isfinite(out).all()) or float(out.abs().sum()) == 0.0:
+        raise AssertionError("patch: mosaic is not finite and nonzero")
+    if tuple(wam.scales.shape) != (1, PATCH_LEVELS, VIT_SIDE, VIT_SIDE):
+        raise AssertionError(f"patch: scales shape {tuple(wam.scales.shape)}")
+    if run["call_launches"] != PATCH_LAUNCHES:
+        raise AssertionError(f"patch: launches of one call {run['call_launches']}, expected "
+                             f"{PATCH_LAUNCHES}")
+
+
+def phase_patch(torch, wtt, kernels, smi: str) -> dict:
+    """The patch path: the headline (TF32 on) with its launch counts checked,
+    the TF32-off arm, `WAMAnalyzerViT.token_maps`, and the reduced
+    kernel-vs-plain check."""
+    _, fn, x, y = build_vit(torch, wtt)
+    dev = torch.device(DEVICE)
+    wam = patch_wam(wtt, fn, dev)
+    _log(f"phase patch: ViT-B/16(1000) x (1,{CHANNELS},{VIT_SIDE},{VIT_SIDE}) {VIT_WAVELET} "
+         f"level_plan='patch' patch={PATCH} (J={wam.J}) {VIT_MODE} integratedgrad "
+         f"n_samples={VIT_STEPS} sample_batch_size={VIT_CHUNK}")
+    prec = _precision(torch, True)
+    run = _timed(torch, kernels, wam, x, y, VIT_CALLS)
+    _check_patch_result(torch, wam, run)
+    _log(f"  launches of one call: {run['call_launches']} (asserted == {PATCH_LAUNCHES})")
+    _log_run(f"headline, {prec}", run, smi)
+    summary = {k: v for k, v in run.items() if k != "out"}
+    summary["precision"] = prec
+
+    prec_off = _precision(torch, False)
+    exact = _timed(torch, kernels, wam, x, y, VIT_CALLS)
+    _check_patch_result(torch, wam, exact)
+    _log_run(f"float32, {prec_off}", exact, smi)
+    summary["tf32_off"] = {k: v for k, v in exact.items()
+                           if k not in ("out", "launches", "call_launches")}
+    summary["tf32_cosine_to_f32"] = _cosine(torch, run["out"], exact["out"])
+
+    _precision(torch, True)
+    kernels.reset_launch_counts()
+    maps = wtt.WAMAnalyzerViT(wam).token_maps(x, y)
+    torch.cuda.synchronize()
+    want = (1, PATCH_LEVELS, PATCH_TOKENS, PATCH_TOKENS)
+    if tuple(maps.shape) != want or not bool(torch.isfinite(maps).all()):
+        raise AssertionError(f"patch: token maps {tuple(maps.shape)}, expected {want}, finite")
+    _log(f"  WAMAnalyzerViT.token_maps: {tuple(maps.shape)} (asserted == {want}), launches "
+         f"{kernels.launch_counts()}; token importance per level "
+         f"{[round(float(v), 6) for v in maps.sum(dim=(0, 2, 3))]}")
+    summary["token_maps_shape"] = list(maps.shape)
+    _precision(torch, False)
+    res = {impl: patch_wam(wtt, fn, dev, VIT_REDUCED_STEPS, impl)(x, y)
+           for impl in ("kernel", "matmul")}
+    summary["reduced_check"] = _held(
+        torch, f"reduced check (patch, TF32 off, 1 image x {VIT_REDUCED_STEPS} path points): "
+        "kernel vs plain", res["kernel"], res["matmul"], VIT_TOL)
+    return summary
+
+
+def build_attention(torch, wtt):
+    """The attention phase's model: ViT-B/16 (1000 classes) with
+    ``capture_attn=True`` and the vit phase's weights (`build_vit`'s
+    model, loaded strictly), on the host (the evaluators copy it); ATTN_BATCH
+    standard-normal images from a generator seeded SEED + 8, labels 0..3
+    as host ints. Returns (capture model, plain model, x, y)."""
+    dev = torch.device(DEVICE)
+    plain, _, _, _ = build_vit(torch, wtt)
+    model = wtt.vit_b16(num_classes=1000, capture_attn=True)
+    model.load_state_dict(plain.state_dict(), strict=True)
+    g = torch.Generator(device=dev).manual_seed(SEED + 8)
+    x = torch.randn((ATTN_BATCH, CHANNELS, VIT_SIDE, VIT_SIDE), generator=g, device=dev)
+    return model.eval(), plain.eval(), x, list(range(ATTN_BATCH))
+
+
+def _attention_reduced_check(torch, wtt, model, plain, x, y) -> dict:
+    """TF32 off: the logits of the capture form against the SDPA form on the
+    card (ATTN_TOL["capture"] x max); then both maps of one image on the
+    card against the CPU, the models in float64 (ATTN_TOL["float64"] x max)."""
+    _precision(torch, False)
+    dev = torch.device(DEVICE)
+    on, off = model.to(dev).requires_grad_(False), plain.to(dev).requires_grad_(False)
+    with torch.no_grad():
+        lon, loff = on(x), off(x)
+    out = {"capture": _held(torch, "reduced check attention: logits, capture_attn=True vs "
+                            "False (TF32 off)", lon, loff, (0.99999, ATTN_TOL["capture"]))}
+    maps = {}
+    for d in (DEVICE, "cpu"):
+        m64 = model.to(d, torch.float64)
+        x64 = x[:1].to(d, torch.float64)
+        maps[d] = (wtt.attention_rollout(m64, x64), wtt.attention_gradient(m64, x64, y[:1]))
+    for i, name in enumerate(ATTN_METHODS):
+        out[f"{name}_float64"] = _held(
+            torch, f"reduced check attention {name}: card vs CPU, float64, one image",
+            maps[DEVICE][i], maps["cpu"][i], (0.9999999, ATTN_TOL["float64"]))
+    model.float()
+    return out
+
+
+def phase_attention(torch, wtt, kernels, smi: str) -> dict:
+    """The transformer baselines: `EvalImageBaselines` rollout and attngrad
+    on ViT-B/16 with captured attention, each explanation counted and timed,
+    then insertion and deletion counted (no port kernel, one fetch, one
+    host wait: asserted) and timed; the reduced checks."""
+    import numpy as np
+
+    from wam_tpu_torch.evalsuite import fan
+
+    model, plain, x, y = build_attention(torch, wtt)
+    prec = _precision(torch, True)
+    _log(f"phase attention: EvalImageBaselines on ViT-B/16(1000, capture_attn=True) x "
+         f"({ATTN_BATCH},{CHANNELS},{VIT_SIDE},{VIT_SIDE}), batch_size={ATTN_CAP}; insertion "
+         f"and deletion n_iter={ATTN_N_ITER}; {prec}")
+    rows = ATTN_BATCH * (ATTN_N_ITER + 1)
+    out, counted = {}, []
+    for method in ATTN_METHODS:
+        ev = wtt.EvalImageBaselines(model, None, method=method, batch_size=ATTN_CAP,
+                                    device=torch.device(DEVICE))
+        run = _time_explain(torch, kernels, fan, ev, x, y, "images")
+        expl = run.pop("out")
+        counted.append(run["launches"])
+        if expl.shape != (ATTN_BATCH, VIT_SIDE, VIT_SIDE) or not bool(torch.isfinite(expl).all()):
+            raise AssertionError(f"{method}: explanation {tuple(expl.shape)} not finite")
+        ev.explanations = expl
+        _log(f"  {method}: explanation first call {run['first_call_s']:.3f} s; one call's "
+             f"launches {run['launches']} (asserted 0), host waits {run['host_syncs']}; "
+             f"{BASE_CALLS} calls (CUDA events) {[round(t, 3) for t in run['calls_ms']]} ms, "
+             f"median {run['median_ms']:.3f} ms (spread {run['spread_ms'][0]:.3f}-"
+             f"{run['spread_ms'][1]:.3f}) = {run['images_per_s']:.2f} images/s; host enqueue "
+             f"{run['enqueue_ms']:.3f} ms; peak memory {run['peak_memory_gb']:.3f} GB on {smi}")
+        calls = {"insertion": lambda: ev.insertion(x, y, n_iter=ATTN_N_ITER),
+                 "deletion": lambda: ev.deletion(x, y, n_iter=ATTN_N_ITER)}
+        res = _run_metrics(torch, kernels, fan, calls, {m: ZERO_LAUNCHES for m in calls},
+                           {m: rows for m in calls}, ATTN_BATCH, "images", smi)
+        for name, r in res.items():
+            counted.append(r["launches"])
+            _check_scores(np, f"{method} {name}", r["result"], ATTN_BATCH)
+        out[method] = {"explain": run, **{k: {kk: vv for kk, vv in r.items() if kk != "result"}
+                                          for k, r in res.items()},
+                       "scores": {k: r["result"] for k, r in res.items()}}
+        del ev, expl
+    launches = {k: sum(c[k] for c in counted) for k in ZERO_LAUNCHES}
+    if launches != ZERO_LAUNCHES:
+        raise AssertionError(f"attention phase launched port kernels: {launches}")
+    _log(f"  launches over the phase's {len(counted)} counted calls: {launches} (asserted 0)")
+    return {"precision": prec, "launches": launches, **out,
+            "reduced_check": _attention_reduced_check(torch, wtt, model, plain, x, y)}
+
+
+def build_video(torch, wtt):
+    """The video phase's set-up (bench_workloads.video_workload): the 3D
+    ResNet-18 (VID_CLASSES classes, width 16) drawn by the port's
+    initialisers from torch's generator seeded SEED, calibrated on two clips
+    from numpy seeded SEED + 4 (`_calibrate`), bound with ``bind_inference``
+    (the model takes the clip (B, 1, T, H, W) as it comes); VID_BATCH
+    standard-normal clips from numpy seeded SEED + 6, labels arange % 10.
+    Returns (state dict on the CPU, model_fn, x, y)."""
+    import numpy as np
+
+    dev = torch.device(DEVICE)
+    torch.manual_seed(SEED)
+    model = wtt.resnet3d_18(num_classes=VID_CLASSES).to(dev)
+    shape = (1, VID_FRAMES, VID_SIDE, VID_SIDE)
+    calib = np.random.default_rng(SEED + 4).standard_normal((2,) + shape)
+    _calibrate(torch, model, torch.from_numpy(calib.astype(np.float32)).to(dev))
+    state = {k: v.detach().cpu() for k, v in model.state_dict().items()}
+    fn = wtt.bind_inference(model, device=dev)
+    x = np.random.default_rng(SEED + 6).standard_normal((VID_BATCH,) + shape)
+    x = torch.from_numpy(x.astype(np.float32)).to(dev)
+    return state, fn, x, torch.arange(VID_BATCH, device=dev) % VID_CLASSES
+
+
+def video_wam(wtt, fn, device, method: str = "smooth", n_samples: int | None = None,
+              impl: str | None = None):
+    """The video path's `WaveletAttributionVideo` (haar, levels (2, 1),
+    symmetric, every sample in one chunk: sample_batch_size="auto")."""
+    return wtt.WaveletAttributionVideo(fn, wavelet=VID_WAVELET, levels=VID_LEVELS, method=method,
+                                       n_samples=n_samples or VID_SAMPLES,
+                                       sample_batch_size="auto", device=device, impl=impl)
+
+
+def _check_box(torch, run: dict, tag: str) -> None:
+    out = run["out"]
+    if tuple(out.shape) != (VID_BATCH, VID_FRAMES, VID_SIDE, VID_SIDE):
+        raise AssertionError(f"{tag}: box shape {tuple(out.shape)}")
+    if not bool(torch.isfinite(out).all()) or float(out.abs().sum()) == 0.0:
+        raise AssertionError(f"{tag}: box is not finite and nonzero")
+    if run["call_launches"] != VID_LAUNCHES:
+        raise AssertionError(f"{tag}: launches of one call {run['call_launches']}, expected "
+                             f"{VID_LAUNCHES}")
+
+
+def _video_reduced_check(torch, wtt, state) -> dict:
+    """The port on the card against the port on the CPU, the same weights,
+    VID_REDUCED clips and handed-over noise, TF32 off: float32 through
+    `WaveletAttributionVideo` on its default route (K1/K2 on the card),
+    held to VID_TOL["float32"]; float64 through the same class on the conv
+    route, held to VID_TOL["float64"]."""
+    import numpy as np
+
+    n_clip, n_smp = VID_REDUCED
+    _precision(torch, False)
+    rng = np.random.default_rng(SEED + 9)
+    shape = (n_clip, 1, VID_FRAMES, VID_SIDE, VID_SIDE)
+    x = torch.from_numpy(rng.standard_normal(shape).astype(np.float32))
+    z = torch.from_numpy(rng.standard_normal((n_smp,) + shape).astype(np.float32))
+    y = torch.arange(n_clip) % VID_CLASSES
+    res = {}
+    for dtype, impl in ((torch.float32, None), (torch.float64, "conv")):
+        for d in (DEVICE, "cpu"):
+            model = wtt.resnet3d_18(num_classes=VID_CLASSES).to(dtype)
+            fn = wtt.bind_inference(model, state, device=d)
+            wam = video_wam(wtt, fn, d, n_samples=n_smp, impl=impl)
+            res[(dtype, d)] = wam(x.to(d, dtype), y.to(d), noise=z.to(d, dtype))
+    return {name: _held(torch, f"reduced check video {name}, card vs CPU ({n_clip} clips x "
+                        f"{n_smp} samples, {'kernels' if dt == torch.float32 else 'conv'})",
+                        res[(dt, DEVICE)], res[(dt, "cpu")], VID_TOL[name])
+            for name, dt in (("float32", torch.float32), ("float64", torch.float64))}
+
+
+def phase_video(torch, wtt, kernels, smi: str) -> dict:
+    """The video path: SmoothGrad (the headline) and IG, each with one
+    call's launches asserted (K1 2, K2 1) and CUDA-event timed calls; the
+    temporal insertion and deletion of `EvalVideoWAM` on the headline's
+    frame scores (no port kernel, one fetch, one host wait: asserted); the
+    reduced check."""
+    import numpy as np
+
+    from wam_tpu_torch.evalsuite import fan
+
+    state, fn, x, y = build_video(torch, wtt)
+    dev = torch.device(DEVICE)
+    prec = _precision(torch, True)
+    _log(f"phase video: ResNet3D-18({VID_CLASSES}) x ({VID_BATCH},1,{VID_FRAMES},{VID_SIDE},"
+         f"{VID_SIDE}) {VID_WAVELET} levels={VID_LEVELS} symmetric smooth n_samples="
+         f"{VID_SAMPLES} sample_batch_size='auto'; {prec} (the model; the transforms in full "
+         "float32)")
+    run = _time_calls(torch, kernels, video_wam(wtt, fn, dev), x, y, VID_CALLS, items=VID_BATCH,
+                      unit="clips")
+    _check_box(torch, run, "video")
+    _log(f"  launches of one call: {run['call_launches']} (asserted == {VID_LAUNCHES})")
+    _log_run(f"headline, {prec}", run, smi, "clips")
+    summary = {k: v for k, v in run.items() if k != "out"}
+    summary["precision"] = prec
+    ig = _time_calls(torch, kernels, video_wam(wtt, fn, dev, "integratedgrad"), x, y, 3,
+                     items=VID_BATCH, unit="clips")
+    _check_box(torch, ig, "video IG")
+    _log(f"  IG, {VID_SAMPLES} path points: launches of one call {ig['call_launches']} "
+         f"(asserted == {VID_LAUNCHES})")
+    _log_run(f"IG, {prec}", ig, smi, "clips")
+    summary["integratedgrad"] = {k: v for k, v in ig.items() if k not in ("out", "launches")}
+
+    ev = wtt.EvalVideoWAM(fn, None, batch_size=VID_CAP, device=dev)
+    ev.explanations = wtt.xattr.frame_importance(run["out"])
+    labels = y.tolist()  # host ints: a metric call waits for nothing but its fetch
+    calls = {"insertion": lambda: ev.insertion(x, labels, n_iter=VID_N_ITER),
+             "deletion": lambda: ev.deletion(x, labels, n_iter=VID_N_ITER)}
+    rows = VID_BATCH * (VID_N_ITER + 1)
+    _log(f"  EvalVideoWAM (batch_size={VID_CAP}) on the headline's frame scores: insertion and "
+         f"deletion n_iter={VID_N_ITER}, {rows} model rows a call")
+    res = _run_metrics(torch, kernels, fan, calls, {m: ZERO_LAUNCHES for m in calls},
+                       {m: rows for m in calls}, VID_BATCH, "clips", smi)
+    for name, r in res.items():
+        _check_scores(np, f"video {name}", r["result"], VID_BATCH)
+    summary["eval"] = {k: {kk: vv for kk, vv in r.items() if kk != "result"}
+                       for k, r in res.items()}
+    summary["eval_scores"] = {k: r["result"] for k, r in res.items()}
+    summary["eval_launches"] = {k: sum(r["launches"][k] for r in res.values())
+                                for k in ZERO_LAUNCHES}
+    summary["reduced_check"] = _video_reduced_check(torch, wtt, state)
+    return summary
+
+
+def phase_anytime(torch, wtt, kernels, smi: str) -> dict:
+    """Anytime SmoothGrad on the flagship's explainer: a counted full run
+    (every stride, one fetch, K1 75 and K3 50: asserted), ANY_CALLS runs
+    timed by CUDA events with each stride's host time and its wait on the
+    confidence vector, the full map against the streamed smooth_wam on the
+    same draws, and a deadline run at ANY_DEADLINE strides."""
+    from wam_tpu_torch import anytime
+    from wam_tpu_torch.evalsuite import fan
+
+    fn, wam, x, y, _ = build_slice(torch, wtt)
+    dev = torch.device(DEVICE)
+    ent = wam.anytime_serve_entry(stride=ANY_STRIDE)
+    _log(f"phase anytime: the flagship's explainer (ResNet-50 x ({BATCH},{CHANNELS},{SIDE},"
+         f"{SIDE}) {WAVELET} J={LEVELS} n_samples={N_SAMPLES}) through anytime_serve_entry("
+         f"stride={ANY_STRIDE}) and run_anytime; cudnn.allow_tf32=True matmul.allow_tf32=False")
+    anytime.run_anytime(ent, x, y)  # warm
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    with fan.fetch_scope() as fs:
+        full = anytime.run_anytime(ent, x, y)
+    launches = kernels.launch_counts()
+    _log(f"  counted run: launches {launches} (asserted == {ANY_LAUNCHES}), fetches {fs.count} "
+         f"(asserted 1), n_used {full.n_used}, strides {full.strides}, complete {full.complete}")
+    if launches != ANY_LAUNCHES or fs.count != 1:
+        raise AssertionError(f"anytime: launches {launches}, fetches {fs.count}")
+    if not (full.complete and full.n_used == N_SAMPLES and full.strides == N_SAMPLES // ANY_STRIDE):
+        raise AssertionError(f"anytime: n_used {full.n_used}, strides {full.strides}")
+    torch.cuda.reset_peak_memory_stats()
+    times, strides, syncs = [], [], []
+    for _ in range(ANY_CALLS):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        res = anytime.run_anytime(ent, x, y)
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end))
+        strides += [t * 1e3 for t in res.stride_s]
+        syncs += [t * 1e3 for t in res.sync_s]
+    med = sorted(times)[len(times) // 2]
+    stride_ms = sorted(strides)[len(strides) // 2]
+    sync_ms = sorted(syncs)[len(syncs) // 2]
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    _log(f"  {ANY_CALLS} full runs (CUDA events) {[round(t, 3) for t in times]} ms, median "
+         f"{med:.3f} ms = {BATCH / (med / 1e3):.2f} attributions/s; a stride (host clock, "
+         f"median of {len(strides)}) {stride_ms:.3f} ms, of it waiting on the confidence vector "
+         f"{sync_ms:.3f} ms ({sync_ms / stride_ms:.1%}); peak memory {peak:.3f} GB on {smi}")
+    streamed = wtt.WaveletAttribution2D(fn, wavelet=WAVELET, J=LEVELS, mode=MODE,
+                                        n_samples=N_SAMPLES, stdev_spread=SPREAD,
+                                        random_seed=wam.random_seed, stream_noise=True,
+                                        sample_batch_size=1, device=dev, impl="kernel")
+    check = _held(torch, "anytime full run vs streamed smooth_wam (one sample a chunk, the "
+                  "same draws)", torch.from_numpy(full.out), streamed(x, y), ANY_TOL)
+    deadline_ms = ANY_DEADLINE * stride_ms
+    dl = anytime.run_anytime(ent, x, y, deadline_ms=deadline_ms)
+    conf = dl.conf
+    _log(f"  deadline run ({deadline_ms:.3f} ms = {ANY_DEADLINE} strides): deadline_hit "
+         f"{dl.deadline_hit}, n_used {dl.n_used} (expected 10 or 15), strides {dl.strides}, "
+         f"complete {dl.complete}, converged {dl.converged}")
+    _log("  confidence vector per row (count, rel_sem, delta, confidence): "
+         + "; ".join(",".join(f"{v:.4g}" for v in row) for row in conf.tolist()))
+    if not dl.deadline_hit or dl.n_used >= N_SAMPLES or dl.n_used % ANY_STRIDE:
+        raise AssertionError(f"anytime deadline run: hit {dl.deadline_hit}, n_used {dl.n_used}")
+    return {"launches": launches, "fetches": fs.count, "calls_ms": times, "median_ms": med,
+            "spread_ms": [min(times), max(times)], "attributions_per_s": BATCH / (med / 1e3),
+            "stride_ms": stride_ms, "sync_ms": sync_ms, "peak_memory_gb": peak,
+            "check": check,
+            "deadline": {"deadline_ms": deadline_ms, "deadline_hit": dl.deadline_hit,
+                         "n_used": dl.n_used, "strides": dl.strides,
+                         "stride_ms": [t * 1e3 for t in dl.stride_s],
+                         "conf": conf.tolist()}}
+
+
 def main() -> int:
     import torch
 
@@ -2987,6 +3462,7 @@ def main() -> int:
     from wam_tpu_torch import kernels
     from wam_tpu_torch.wavelets import matmul as tmm
 
+    t_start = time.perf_counter()
     smi = _nvidia_smi()
     kind = torch.cuda.get_device_name(0)
     _log(f"phase device: {smi} | torch {torch.__version__} cuda {torch.version.cuda} | {kind}")
@@ -3021,6 +3497,10 @@ def main() -> int:
     nhwc = phase_nhwc(torch, wtt, kernels, smi)
     analyzers = phase_analyzers(torch, wtt, kernels, smi)
     iou = phase_iou(torch, wtt, kernels, smi)
+    patch = phase_patch(torch, wtt, kernels, smi)
+    attention = phase_attention(torch, wtt, kernels, smi)
+    video = phase_video(torch, wtt, kernels, smi)
+    anytime_ = phase_anytime(torch, wtt, kernels, smi)
     an_calls = ("isolate_scales", "insertion", "deletion")
     launches = {"flagship": slice_["launches"], "path 2": slice2["launches"],
                 "vit": vit["call_launches"], "vol": vol["fused"]["call_launches"],
@@ -3030,7 +3510,9 @@ def main() -> int:
                 "analyzers": analyzers["isolate_scales"]["launches"],
                 "analyzers scales": analyzers["isolate_scales"]["launches"],
                 "analyzers components": analyzers["insertion"]["launches"],
-                **{f"iou {w}": iou["per_wavelet"][w]["call_launches"] for w in IOU_WAVELETS}}
+                **{f"iou {w}": iou["per_wavelet"][w]["call_launches"] for w in IOU_WAVELETS},
+                "patch": patch["call_launches"], "video": video["call_launches"],
+                "anytime": anytime_["launches"]}
     for row in rows:
         row["launches"] = launches[row["path"]][row["kernel"]]
         row["audio_launches"] = audio["launches"][row["kernel"]]
@@ -3047,14 +3529,22 @@ def main() -> int:
         row["analyzers_launches"] = {c: analyzers[c]["launches"][row["kernel"]] for c in an_calls}
         row["iou_launches"] = {w: iou["per_wavelet"][w]["call_launches"][row["kernel"]]
                                for w in IOU_WAVELETS}
+        row["patch_launches"] = patch["call_launches"][row["kernel"]]
+        row["attention_launches"] = attention["launches"][row["kernel"]]
+        row["video_launches"] = video["call_launches"][row["kernel"]]
+        row["video_eval_launches"] = video["eval_launches"][row["kernel"]]
+        row["anytime_launches"] = anytime_["launches"][row["kernel"]]
 
     print(json.dumps({"slice": {k: v for k, v in slice_.items() if k != "launches"},
                       "slice2": {k: v for k, v in slice2.items() if k != "launches"},
                       "audio": audio, "vit": vit, "convnext": convnext, "vol": vol,
                       "voxel3d": voxel3d, "eval2d": eval2d, "eval1d": eval1d,
                       "baselines": baselines, "periodized": periodized, "nhwc": nhwc,
-                      "analyzers": analyzers, "iou": iou, "gpu": smi}),
+                      "analyzers": analyzers, "iou": iou, "patch": patch,
+                      "attention": attention, "video": video, "anytime": anytime_,
+                      "wall_s": time.perf_counter() - t_start, "gpu": smi}),
           flush=True)
+    _log(f"chip_smoke: {time.perf_counter() - t_start:.1f} s wall, the kernels' build included")
     print(json.dumps({"kernels": rows}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

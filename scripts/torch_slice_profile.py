@@ -4,6 +4,7 @@
     python3 scripts/torch_slice_profile.py [--path2 | --nhwc | --audio | --vit | --convnext | --vol] [--bf16]
     python3 scripts/torch_slice_profile.py --eval2d [--mu]
     python3 scripts/torch_slice_profile.py --baselines [--lrp | --insertion]
+    python3 scripts/torch_slice_profile.py [--patch | --video | --anytime | --attention [--attngrad]]
 
 Runs a path of chip_smoke.py, set up by its own code (one definition for
 both): by default the flagship, `wam_tpu_torch.WaveletAttribution2D`
@@ -31,7 +32,14 @@ explanation of the baselines phase's image registry
 (`chip_smoke.build_baselines`: `EvalImageBaselines` on ResNet-50 in
 bfloat16, 4 images of 3x224x224, 64 rows a model call), with ``--lrp`` its
 LRP explanation (the float32 walker), with ``--insertion`` one saliency
-insertion call (n_iter 32). One call to warm up, then one under
+insertion call (n_iter 32); with ``--patch`` the patch path (`chip_smoke.
+patch_wam`: the ViT call with ``level_plan="patch"``, J=4, TF32 on), with
+``--video`` the video path (`chip_smoke.build_video`, `video_wam`: 4 clips of
+1x16x32^2, levels (2, 1), n=25 in one chunk), with ``--anytime`` one full
+`anytime.run_anytime` of the flagship's explainer (stride 5), with
+``--attention`` one rollout explanation of the attention phase
+(`chip_smoke.build_attention`: ViT-B/16 with ``capture_attn=True``, 4 images,
+TF32 on) or with ``--attngrad`` its attngrad explanation. One call to warm up, then one under
 `torch.profiler`; prints one JSON line: the call's wall time, the summed
 device time of its kernels by group (K1-K5, the 1D transform, FFT,
 convolutions, matmuls, batchnorm, pooling, other), and the device's idle
@@ -39,7 +47,7 @@ share (1 - summed kernel time / wall time; one stream, so kernels do not
 overlap). The 1D transform's kernels are those launched inside its
 ``wam_dwt1`` profiler spans (`wavelets.transform.SPAN_1D`), and the 3D
 transform's those inside its ``wam_dwt3`` spans (`SPAN_3D`), taken out of
-the group their names fall in. On the ViT and ConvNeXt paths every kernel other
+the group their names fall in. On the ViT, ConvNeXt, patch and attention paths every kernel other
 than K1-K5 is grouped by the op that launched it (`OP_GROUPS`: matmul,
 attention, LayerNorm, GELU, convolution forward and backward, copies),
 since cuBLAS's and cuDNN's kernel names do not tell a matmul from a
@@ -157,7 +165,49 @@ def main() -> int:
                                  "--vol" in sys.argv[1:], "--eval2d" in sys.argv[1:])
     arch = next((a for a in ("vit", "convnext") if f"--{a}" in sys.argv[1:]), None)
     baselines = "--baselines" in sys.argv[1:]
-    if baselines:
+    dev = torch.device(chip_smoke.DEVICE)
+    custom = next((a for a in ("patch", "video", "anytime", "attention")
+                   if f"--{a}" in sys.argv[1:]), None)
+    if custom == "patch":
+        chip_smoke._precision(torch, True)
+        _, fn, x, y = chip_smoke.build_vit(torch, wtt)
+        wam = chip_smoke.patch_wam(wtt, fn, dev)
+        arch = "patch"
+        path = (f"patch (1x3x{chip_smoke.VIT_SIDE}^2, haar, patch {chip_smoke.PATCH}: "
+                f"J={chip_smoke.PATCH_LEVELS}, IG {chip_smoke.VIT_STEPS} steps, chunk "
+                f"{chip_smoke.VIT_CHUNK}, TF32 on)")
+    elif custom == "video":
+        chip_smoke._precision(torch, True)
+        _, fn, x, y = chip_smoke.build_video(torch, wtt)
+        wam = chip_smoke.video_wam(wtt, fn, dev)
+        path = (f"video ({chip_smoke.VID_BATCH}x1x{chip_smoke.VID_FRAMES}x{chip_smoke.VID_SIDE}^2, "
+                f"3D ResNet-18, haar levels {chip_smoke.VID_LEVELS}, n={chip_smoke.VID_SAMPLES} "
+                "in one chunk, TF32 on for the model)")
+    elif custom == "anytime":
+        from wam_tpu_torch import anytime
+
+        _, flagship, x, y, _ = chip_smoke.build_slice(torch, wtt)
+        entry = flagship.anytime_serve_entry(stride=chip_smoke.ANY_STRIDE)
+
+        def run():
+            return anytime.run_anytime(entry, x, y)
+
+        path = (f"anytime (the flagship's explainer, {chip_smoke.N_SAMPLES} samples, stride "
+                f"{chip_smoke.ANY_STRIDE}, one sample of {chip_smoke.BATCH} images a step)")
+    elif custom == "attention":
+        chip_smoke._precision(torch, True)
+        model, _, x, y = chip_smoke.build_attention(torch, wtt)
+        method = "attngrad" if "--attngrad" in sys.argv[1:] else "rollout"
+        ev = wtt.EvalImageBaselines(model, None, method=method, batch_size=chip_smoke.ATTN_CAP,
+                                    device=dev)
+
+        def run():
+            return ev.compute_explanations(x, y)
+
+        arch = "attention"
+        path = (f"attention {method} explanation ({chip_smoke.ATTN_BATCH}x3x"
+                f"{chip_smoke.VIT_SIDE}^2, ViT-B/16 capture_attn=True, TF32 on)")
+    elif baselines:
         chip_smoke._precision(torch, True)
         method = "lrp" if "--lrp" in sys.argv[1:] else "saliency"
         ev, x, y = chip_smoke.build_baselines(torch, wtt, method)
@@ -184,7 +234,7 @@ def main() -> int:
         path = (f"eval2d {metric} ({chip_smoke.EVAL_BATCH}x3x{chip_smoke.EVAL_SIDE}^2, ResNet-50 "
                 f"bfloat16 fold_bn, {chip_smoke.EVAL_WAVELET} J={chip_smoke.EVAL_LEVELS}, "
                 f"{chip_smoke.EVAL_ROWS[metric]} model rows, {chip_smoke.EVAL_CAP} a call)")
-    elif arch:
+    elif arch in ("vit", "convnext"):
         chip_smoke._precision(torch, True)
         bf16 = "--bf16" in sys.argv[1:]
         _, fn, x, y = chip_smoke.build_vit(torch, wtt, arch,
@@ -213,7 +263,7 @@ def main() -> int:
         side = chip_smoke.SIDE2 if path2 else chip_smoke.SIDE
         _, wam, x, y, _ = chip_smoke.build_slice(torch, wtt, side=side, fused_relu_vjp=path2)
         path = "path2 (288^2, fused_relu_vjp)" if path2 else "flagship (224^2)"
-    if not (eval2d or baselines):
+    if not (eval2d or baselines or custom in ("anytime", "attention")):
         def run():
             return wam(x, y)
     run()

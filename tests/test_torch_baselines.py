@@ -670,6 +670,6 @@ def test_cam_errors():
         TB.guided_backprop(model, torch.randn(1, 3, 32, 32), y[:1])
     with pytest.raises(ValueError, match="post_linear"):
         TB.lrp_eps(model, torch.randn(1, 3, 32, 32), y[:1])
-    for fn in (TB.attention_rollout, TB.attention_gradient):
-        with pytest.raises(NotImplementedError, match="slice D"):
+    for fn in (TB.attention_rollout, TB.attention_gradient):  # no captured attention
+        with pytest.raises(ValueError, match="capture_attn=True"):
             fn(model, torch.randn(1, 3, 32, 32), y[:1])

@@ -394,8 +394,8 @@ def test_evaluators_refuse_what_is_not_there(image, monkeypatch):
         EvalImageBaselines(net, state, method="occlusion", device="cpu")
     with pytest.raises(ValueError, match="Unknown method"):
         EvalAudioBaselines(taudio.AudioCNN(), None, method="lrp", device="cpu")
-    for method in ("rollout", "attngrad"):
-        with pytest.raises(NotImplementedError, match="slice D"):
+    for method in ("rollout", "attngrad"):  # a model without captured attention
+        with pytest.raises(ValueError, match="capture_attn=True"):
             EvalImageBaselines(net, state, method=method, device="cpu")
     for kw in ({"mesh": object()}, {"aot_key": "k"}, {"donate_inputs": True}):
         for cls in (EvalImageBaselines, EvalAudioBaselines):

@@ -17,21 +17,20 @@ import wam_tpu
 import wam_tpu_torch
 
 ROOT = Path(__file__).resolve().parent.parent
-SLICE_D = "ROADMAP.md queue 1 item 4 (slice D)"
 SLICE_E = "ROADMAP.md queue 1 item 5 (slice E)"
 SLICE_F = "ROADMAP.md queue 1 item 6 (slice F)"
 VIZ3D = "ROADMAP.md queue 1 item 3 (viz/viz3d.py)"
 
 # name -> the ROADMAP item that brings it, per package
 PENDING = {
-    "": {name: SLICE_D for name in ("attention_rollout", "attention_gradient",
-                                    "plan_patch_levels", "token_grid_map", "VideoLevels",
-                                    "WaveletAttributionVideo", "EvalVideoWAM")},
+    "": {},
     "wavelets": {name: SLICE_E for name in ("set_dwt2_impl", "get_dwt2_impl", "set_synth2_impl",
                                             "get_synth2_impl", "resolved_synth2_impl")},
     "core": {},
     "ops": {},
     "data": {"ESC50": SLICE_F, "load_sound": SLICE_F},
+    "xattr": {},
+    "anytime": {},
     "viz": {name: VIZ3D for name in ("scatter3d", "scatter3d_batch", "scatter3d_superpose",
                                      "scatter3d_colors", "scatter3d_explanation_batch",
                                      "voxel_figure", "voxel_superpose", "voxel_surface_mesh",
@@ -46,7 +45,7 @@ def _pkgs(sub: str):
             importlib.import_module(f"wam_tpu_torch{suffix}"))
 
 
-@pytest.mark.parametrize("sub", ["wavelets", "core", "ops", "data", "viz"])
+@pytest.mark.parametrize("sub", ["wavelets", "core", "ops", "data", "viz", "xattr", "anytime"])
 def test_subpackage_all_equals_the_reference_less_pending(sub):
     ref, port = _pkgs(sub)
     want = [n for n in ref.__all__ if n not in PENDING[sub]]

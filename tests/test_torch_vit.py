@@ -272,13 +272,16 @@ def test_generic_bind_inference_binds_a_vit(vit):
 
 
 def test_unported_taps_raise():
-    """``capture_attn`` is still slice D's; the token and stage taps are
-    ported (`models.layers.tap`), and a tap a model does not have raises
-    where a CAM asks for it."""
+    """``capture_attn`` adds the attention taps and no CAM tap
+    (tests/test_torch_xattr.py holds what they capture); the token and stage
+    taps are ported (`models.layers.tap`), and a tap a model does not have
+    raises where a CAM asks for it."""
     from wam_tpu_torch.evalsuite.baselines import gradcam
 
-    with pytest.raises(NotImplementedError, match="slice D"):
-        tvit.vit_tiny_test(capture_attn=True)
+    capture = tvit.vit_tiny_test(capture_attn=True)
+    assert capture.TAPS == ("tokens",) and capture.attention_taps == (
+        "block0/attn/attention_weights", "block1/attn/attention_weights")
+    assert tvit.vit_tiny_test().attention_taps == ()
     for model in (tvit.vit_tiny_test(image_size=SIDE), tconvnext.convnext_test()):
         assert set(model.TAPS) <= {"tokens", "stage1", "stage2", "stage3", "stage4"}
         with pytest.raises(ValueError, match="no activation tap 'stage9'"):

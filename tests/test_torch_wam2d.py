@@ -232,8 +232,10 @@ def test_wam2d_rejects_unported_options(r18):
     with pytest.raises(ValueError, match="model_layout"):
         twam.BaseWAM2D(tfn, model_layout="hwcn", device="cpu")
     m = twam.WaveletAttribution2D(tfn, device="cpu")
-    for entry in (m.serve_entry, m.anytime_serve_entry):
-        with pytest.raises(NotImplementedError):
-            entry()
+    with pytest.raises(NotImplementedError):
+        m.serve_entry()
+    # anytime_serve_entry is ported (tests/test_torch_anytime.py): SmoothGrad only
+    with pytest.raises(ValueError, match="smooth"):
+        twam.WaveletAttribution2D(tfn, method="integratedgrad", device="cpu").anytime_serve_entry()
     with pytest.raises(ValueError):
         twam.WaveletAttribution2D(tfn, method="gradcam", device="cpu")

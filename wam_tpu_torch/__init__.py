@@ -15,7 +15,10 @@ input, LRP; `wam_tpu_torch.evalsuite`), the scale analyzers
 per-level statistics, cross-wavelet IoU), the periodized and channel-last
 transforms (`wam_tpu_torch.wavelets`; ``model_layout="nhwc"``), and the
 data, checkpoint and viewer helpers (`wam_tpu_torch.data`,
-`wam_tpu_torch.viz`). Module paths and names mirror `wam_tpu`; the TPU's Pallas kernels become hand-written CUDA kernels
+`wam_tpu_torch.viz`), the transformer and temporal attributions
+(`wam_tpu_torch.xattr`: attention rollout and grad x attention on a ViT,
+patch-aligned level plans, video WAM and its temporal evaluation) and
+anytime SmoothGrad (`wam_tpu_torch.anytime`). Module paths and names mirror `wam_tpu`; the TPU's Pallas kernels become hand-written CUDA kernels
 (`wam_tpu_torch.kernels`), each with its plain PyTorch version beside it for
 CPU tensors and for tests. Entry points run on CUDA unless the caller passes
 ``device="cpu"``.
@@ -112,6 +115,15 @@ from wam_tpu_torch.wavelets.transform import (
     waverec2,
     waverec3,
 )
+from wam_tpu_torch.xattr import (
+    EvalVideoWAM,
+    VideoLevels,
+    WaveletAttributionVideo,
+    attention_gradient,
+    attention_rollout,
+    plan_patch_levels,
+    token_grid_map,
+)
 
 __all__ = [
     "AUDIO_METHODS",
@@ -127,6 +139,7 @@ __all__ = [
     "EvalAudioBaselines",
     "EvalConfig",
     "EvalImageBaselines",
+    "EvalVideoWAM",
     "IMAGE_METHODS",
     "PatchConv",
     "PointNetCls",
@@ -136,6 +149,7 @@ __all__ = [
     "ResNet",
     "ResNet3D",
     "ViT",
+    "VideoLevels",
     "VisualizerWAM1D",
     "VoxelModel",
     "WAMAnalyzer2D",
@@ -145,7 +159,10 @@ __all__ = [
     "WaveletAttribution1D",
     "WaveletAttribution2D",
     "WaveletAttribution3D",
+    "WaveletAttributionVideo",
     "amplitude_to_db",
+    "attention_gradient",
+    "attention_rollout",
     "bind_audio_inference",
     "bind_inference",
     "bind_vit_inference",
@@ -180,6 +197,7 @@ __all__ = [
     "mosaic_size",
     "noise_sigma",
     "normalize_waveforms",
+    "plan_patch_levels",
     "reproject_mosaic",
     "resnet18",
     "resnet34",
@@ -194,6 +212,7 @@ __all__ = [
     "smoothgrad",
     "stft_power",
     "target_loss",
+    "token_grid_map",
     "toy_wave_model",
     "trapezoid",
     "validate_sample_batch_size",

@@ -35,6 +35,7 @@ from wam_tpu_torch.evalsuite.fan import upload
 from wam_tpu_torch.evalsuite.metrics import host_labels, softmax_probs
 from wam_tpu_torch.evalsuite.packing import array_to_coeffs2d, coeff_shapes2d, coeffs_to_array2d
 from wam_tpu_torch.ops.filters import upsample_nearest
+from wam_tpu_torch.ops.packing2d import reproject_mosaic
 from wam_tpu_torch.wavelets.transform import wavedec2, waverec2
 
 __all__ = [
@@ -124,10 +125,12 @@ def generate_disentangled_images(grad_wam: torch.Tensor, image: torch.Tensor, J:
 
 
 class WAMAnalyzerViT:
-    """Token-grid aggregation of patch-aligned WAM mosaics. ``explainer`` must
-    be a `WaveletAttribution2D` built with ``level_plan="patch"``, which
-    waits for slice D (ROADMAP.md); any other explainer raises the
-    reference's ValueError."""
+    """Token-grid aggregation of patch-aligned WAM mosaics, the transformer
+    sibling of the CAM path's token-tap fold. ``explainer`` is a
+    `WaveletAttribution2D` built with ``level_plan="patch"``: its plan fixes
+    the token grid, and every per-level pixel map pools exactly onto it, so
+    the maps say which tokens matter and at which dyadic scale. Any other
+    explainer raises the reference's ValueError."""
 
     def __init__(self, explainer):
         plan = getattr(explainer, "patch_plan", None)
@@ -140,10 +143,18 @@ class WAMAnalyzerViT:
         self.explainer = explainer
         self.plan = plan
 
-    def token_maps(self, x, y=None):
-        raise NotImplementedError("token_maps needs level_plan='patch' (ROADMAP.md, slice D)")
+    def token_maps(self, x, y=None) -> torch.Tensor:
+        """(B, J(+1), t, t): per-level token importance: |mosaic| reprojected
+        to per-level pixel maps and pooled onto the plan's token grid (the
+        approximation band joins per the explainer's ``approx_coeffs``)."""
+        from wam_tpu_torch.xattr.planner import token_grid_map
 
-    def token_importance(self, x, y=None):
+        mosaic = self.explainer(x, y)
+        scales = reproject_mosaic(mosaic.abs(), self.plan.J, self.explainer.approx_coeffs)
+        return token_grid_map(scales, self.plan.tokens)
+
+    def token_importance(self, x, y=None) -> torch.Tensor:
+        """(B, t, t): the level-summed token importance."""
         return self.token_maps(x, y).sum(dim=1)
 
 

@@ -16,7 +16,7 @@ import numpy as np
 import torch
 
 __all__ = ["noise_sigma", "smoothgrad", "integrated_path", "trapezoid", "sample_noise",
-           "resolve_sample_chunk", "validate_sample_batch_size"]
+           "resolve_sample_chunk", "resolve_checkpoint_stride", "validate_sample_batch_size"]
 
 
 def validate_sample_batch_size(value) -> None:
@@ -38,6 +38,26 @@ def resolve_sample_chunk(sample_batch_size, n_samples: int) -> int | None:
     if chunk < 1:
         raise ValueError(f"sample_batch_size must be >= 1, got {chunk}")
     return None if chunk >= n_samples else chunk
+
+
+def resolve_checkpoint_stride(stride, n_samples: int, *, workload: str | None = None,
+                              shape=None, batch: int | None = None, dtype: str = "f32",
+                              default: int = 5) -> int:
+    """The anytime checkpoint stride k (`wam_tpu_torch.anytime`): an explicit
+    int (or numeric string) is clamped to [1, n_samples], below 1 raises;
+    ``"auto"`` is ``default``, clamped the same way. ``workload``, ``shape``,
+    ``batch`` and ``dtype`` identify the call as the reference's tuned
+    ``anytime_stride`` lookup keys it; the port has no schedule cache yet
+    (ROADMAP.md slice E, ``tune``), so they are accepted and do not change
+    the result."""
+    del workload, shape, batch, dtype
+    n = max(1, int(n_samples))
+    if stride != "auto":
+        stride = int(stride)
+        if stride < 1:
+            raise ValueError(f"checkpoint stride must be >= 1, got {stride}")
+        return min(stride, n)
+    return min(int(default), n)
 
 
 def _chunked_map(fn: Callable, xs: torch.Tensor, batch_size: int | None):

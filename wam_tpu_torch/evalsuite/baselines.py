@@ -11,7 +11,9 @@ Every method maps (x, y) to a (B, H, W) map in the input's own domain:
 - `guided_backprop` (`guided_relu` in place of every ``act``),
   `gradient_x_input`;
 - `lrp_eps` (the ε-rule through ``post_linear``, `make_eps_tap`) and `lrp`
-  (the EpsilonPlusFlat walker of `evalsuite.lrp` on ResNets).
+  (the EpsilonPlusFlat walker of `evalsuite.lrp` on ResNets);
+- `attention_rollout`, `attention_gradient` on a ViT built with
+  ``capture_attn=True`` (`xattr.attention`).
 
 Gradients are of `core.engine.target_loss` (the batch mean of the picked
 logits), as the reference's are. The functions on a model function take
@@ -56,10 +58,6 @@ __all__ = [
     "swapped",
     "resize_bilinear",
 ]
-
-SLICE_D = ("needs a ViT that captures its attention weights (capture_attn=True), which is "
-           "not ported yet (ROADMAP.md, slice D: xattr/attention.py)")
-
 
 # -- forwards and gradients ---------------------------------------------------------
 
@@ -341,10 +339,16 @@ def lrp(model, x: torch.Tensor, y, eps: float = 1e-6, nchw: bool = True) -> torc
 
 
 def attention_rollout(model, x: torch.Tensor, y=None, nchw: bool = True) -> torch.Tensor:
-    """Attention rollout (Abnar & Zuidema 2020): not ported yet."""
-    raise NotImplementedError(f"attention_rollout {SLICE_D}")
+    """Attention rollout (Abnar & Zuidema 2020) of a ViT built with
+    ``capture_attn=True``: `xattr.attention.attention_rollout`."""
+    from wam_tpu_torch.xattr.attention import attention_rollout as impl
+
+    return impl(model, x, y, nchw=nchw)
 
 
 def attention_gradient(model, x: torch.Tensor, y, nchw: bool = True) -> torch.Tensor:
-    """grad x attention relevance (Chefer et al. 2021): not ported yet."""
-    raise NotImplementedError(f"attention_gradient {SLICE_D}")
+    """grad x attention relevance (Chefer et al. 2021) of a ViT built with
+    ``capture_attn=True``: `xattr.attention.attention_gradient`."""
+    from wam_tpu_torch.xattr.attention import attention_gradient as impl
+
+    return impl(model, x, y, nchw=nchw)

@@ -55,8 +55,8 @@ IMAGE_METHODS = (
     "guided_backprop",
     "gradxinput",
     "lrp",
-    # transformer-native; they need a ViT that captures its attention
-    # (ROADMAP.md slice D) and raise NotImplementedError until then
+    # transformer-native (xattr.attention): they need a ViT built with
+    # capture_attn=True, whose softmax weights pass through taps
     "rollout",
     "attngrad",
 )
@@ -96,8 +96,12 @@ class _BaseEvalBaselines:
                 "'guided_backprop' or 'lrp' instead.")
         if method not in methods:
             raise ValueError(f"Unknown method {method!r}; expected one of {methods}")
-        if method in ("rollout", "attngrad"):
-            raise NotImplementedError(f"method {method!r} {B.SLICE_D}")
+        if method in ("rollout", "attngrad") and not getattr(model, "capture_attn", False):
+            raise ValueError(
+                f"method {method!r} reads per-block attention weights — build "
+                "the ViT with capture_attn=True (models/vit.py); the stock "
+                "attention body never materializes them"
+            )
         check_ported(mesh=mesh, donate=donate_inputs, aot_key=aot_key)
         self.device = resolve_device(device)
         self.compute_dtype, self._fan_dtype = resolve_compute_dtype(compute_dtype, precision)
@@ -187,6 +191,10 @@ class _BaseEvalBaselines:
             return B.layercam(self.model, x, yt, layer=self.cam_layer, nchw=self.nchw)
         if m == "guided_backprop":
             return B.guided_backprop(self.model, x, yt, nchw=self.nchw)
+        if m == "rollout":
+            return B.attention_rollout(self.model, x, yt, nchw=self.nchw)
+        if m == "attngrad":
+            return B.attention_gradient(self.model, x, yt, nchw=self.nchw)
         raise AssertionError(m)
 
     def precompute(self, x, y):

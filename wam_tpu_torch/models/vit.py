@@ -22,10 +22,20 @@ time, while the explicit product, softmax and product needed 1.6 ms less
 device time; PERF.md §6 has both (`scripts/torch_vit_forms.py`), and §7
 asks for the choice to be measured again once the host no longer binds
 the call.
+
+``capture_attn=True`` (the transformer baselines, `xattr.attention`) runs
+the same parameters through the explicit form, q / sqrt(head_dim) · kᵀ →
+softmax → · v, so each block's softmax weights A (B, heads, N, N) exist as
+a tensor, and passes them through the tap ``block{i}/attn/attention_weights``
+(`layers.tap`; the names are ``attention_taps``): a `tap_scope` reads them
+back after a forward (the reference's ``sow``) and gives ∂logit/∂A (the
+gradient at the reference's zero ``perturb``). With ``capture_attn=False``
+the forward is the SDPA path alone, no added operation.
 """
 
 from __future__ import annotations
 
+import math
 from functools import partial
 
 import torch
@@ -55,28 +65,36 @@ class MlpBlock(nn.Module):
 class Attention(nn.Module):
     """Multi-head self-attention with a fused qkv projection (timm's
     layout: rows of ``qkv.weight`` are q, k, v, each heads x head_dim);
-    queries scaled by 1/sqrt(head_dim) inside SDPA."""
+    queries scaled by 1/sqrt(head_dim) inside SDPA, or, with a
+    ``capture`` tap name, divided by sqrt(head_dim) before the explicit
+    q kᵀ, softmax and product with v, the softmax weights passing through
+    that tap."""
 
-    def __init__(self, dim: int, heads: int):
+    def __init__(self, dim: int, heads: int, capture: str | None = None):
         super().__init__()
         if dim % heads:
             raise ValueError(f"dim {dim} is not a multiple of heads {heads}")
         self.heads = heads
+        self.capture = capture
         self.qkv = dense(dim, 3 * dim)
         self.proj = dense(dim, dim)
 
     def forward(self, x):
         B, N, D = x.shape
         q, k, v = self.qkv(x).reshape(B, N, 3, self.heads, D // self.heads).permute(2, 0, 3, 1, 4)
-        y = F.scaled_dot_product_attention(q, k, v)  # (B, heads, N, head_dim)
+        if self.capture is None:
+            y = F.scaled_dot_product_attention(q, k, v)  # (B, heads, N, head_dim)
+        else:
+            scores = (q / math.sqrt(q.shape[-1])) @ k.transpose(-2, -1)
+            y = tap(self.capture, torch.softmax(scores, dim=-1)) @ v
         return self.proj(y.transpose(1, 2).reshape(B, N, D))
 
 
 class EncoderBlock(nn.Module):
-    def __init__(self, dim: int, heads: int, mlp_hidden: int):
+    def __init__(self, dim: int, heads: int, mlp_hidden: int, capture: str | None = None):
         super().__init__()
         self.norm1 = nn.LayerNorm(dim, eps=LN_EPS)
-        self.attn = Attention(dim, heads)
+        self.attn = Attention(dim, heads, capture)
         self.norm2 = nn.LayerNorm(dim, eps=LN_EPS)
         self.mlp = MlpBlock(dim, mlp_hidden)
 
@@ -88,10 +106,10 @@ class EncoderBlock(nn.Module):
 class ViT(nn.Module):
     """x: (B, 3, image_size, image_size) -> logits (B, num_classes).
     ``image_size`` sets the length of ``pos_embed`` (the reference reads it
-    from the input at init). ``capture_attn=True`` (the attention-capturing
-    variant of the transformer baselines) is not ported yet. The token
-    sequence (B, 1 + N, D) after the last block passes through the tap
-    ``tokens`` (`layers.tap`)."""
+    from the input at init). ``capture_attn=True`` exposes every block's
+    softmax weights through the taps named in ``attention_taps`` (module
+    docstring); it changes no parameter. The token sequence (B, 1 + N, D)
+    after the last block passes through the tap ``tokens`` (`layers.tap`)."""
 
     TAPS = ("tokens",)
 
@@ -99,9 +117,10 @@ class ViT(nn.Module):
                  depth: int = 12, heads: int = 12, mlp_hidden: int = 3072,
                  image_size: int = 224, capture_attn: bool = False):
         super().__init__()
-        if capture_attn:
-            raise NotImplementedError("capture_attn=True is not ported yet (ROADMAP.md, slice "
-                                      "D: xattr's attention rollout and grad x attention)")
+        self.capture_attn = bool(capture_attn)
+        captures = [f"block{i}/attn/attention_weights" if capture_attn else None
+                    for i in range(depth)]
+        self.attention_taps = tuple(c for c in captures if c)
         n_tokens = (image_size // patch) ** 2 + 1
         self.dim = dim
         self.patch_embed = nn.ModuleDict({"proj": PatchConv(3, dim, patch)})
@@ -109,7 +128,7 @@ class ViT(nn.Module):
         self.pos_embed = nn.Parameter(torch.empty(1, n_tokens, dim))
         with torch.no_grad():
             self.pos_embed.normal_(0.0, 0.02)
-        self.blocks = nn.ModuleList(EncoderBlock(dim, heads, mlp_hidden) for _ in range(depth))
+        self.blocks = nn.ModuleList(EncoderBlock(dim, heads, mlp_hidden, c) for c in captures)
         self.norm = nn.LayerNorm(dim, eps=LN_EPS)
         self.head = dense(dim, num_classes)
 

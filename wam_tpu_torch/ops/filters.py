@@ -1,6 +1,6 @@
 """Small image ops of the evaluation suite (PyTorch port of
 `wam_tpu.ops.filters`): a separable Gaussian blur, superpixel sums and the
-nearest-neighbour resize.
+nearest-neighbour resize (over two axes, or three for video).
 
 The nearest resize follows ``jax.image.resize(..., "nearest")``: output
 pixel i reads source pixel floor((i + 1/2) * n_in / n_out), the half-pixel
@@ -81,9 +81,11 @@ def superpixel_sum(img: torch.Tensor, grid: int) -> torch.Tensor:
     return out.index_add_(img.ndim - 1, _nearest_index(grid, w, img.device), rows)
 
 
-def upsample_nearest(a: torch.Tensor, hw) -> torch.Tensor:
-    """Nearest-neighbour resize of the last two axes to ``hw`` (up or down),
-    the half-pixel rule of ``jax.image.resize(..., "nearest")``."""
-    h, w = a.shape[-2:]
-    rows = a.index_select(a.ndim - 2, _nearest_index(h, int(hw[0]), a.device))
-    return rows.index_select(a.ndim - 1, _nearest_index(w, int(hw[1]), a.device))
+def upsample_nearest(a: torch.Tensor, shape) -> torch.Tensor:
+    """Nearest-neighbour resize of the last ``len(shape)`` axes to ``shape``
+    (up or down; (H, W) for images, (T, H, W) for clips), the half-pixel
+    rule of ``jax.image.resize(..., "nearest")`` on each axis."""
+    for k, n_out in enumerate(shape):
+        axis = a.ndim - len(shape) + k
+        a = a.index_select(axis, _nearest_index(a.shape[axis], int(n_out), a.device))
+    return a

@@ -9,6 +9,11 @@ On CUDA tensors the transforms run through the port's CUDA kernels (K1 for
 every analysis level, K3 for the collapsed synthesis and its adjoint); see
 `wam_tpu_torch.wavelets.transform` for the ``impl`` switch.
 
+``level_plan="patch"`` (with ``patch=`` and ``image_size=``) takes J from the
+ViT patch grid (`xattr.planner.plan_patch_levels`: 224 px, patch 16 -> J=4,
+the level-4 cells one token each) instead of ``J``, and keeps the plan as
+``patch_plan`` for `analyzers.WAMAnalyzerViT`.
+
 ``model_layout="nhwc"``: the model takes (B, H, W, C)
 (``bind_inference(nchw=False)``) and the engine runs channel-last through
 the contractions of `wavelets.nhwc` (no port kernel; the reference runs
@@ -25,7 +30,10 @@ import torch
 from wam_tpu_torch.core.engine import WamEngine, map_coeffs
 from wam_tpu_torch.core.estimators import (
     integrated_path,
+    noise_sigma,
+    resolve_checkpoint_stride,
     resolve_sample_chunk,
+    sample_noise,
     smoothgrad,
     validate_sample_batch_size,
 )
@@ -47,6 +55,8 @@ class BaseWAM2D:
     otherwise (``"cpu"`` runs the plain PyTorch versions). ``impl``: the
     transform implementation (``None`` = kernels on CUDA, conv on CPU;
     ``model_layout="nhwc"`` has one implementation and ignores it).
+    ``level_plan``: ``"explicit"`` (J as given) or ``"patch"`` (J planned
+    from ``patch`` and ``image_size``, validated here, before any call).
     """
 
     def __init__(
@@ -60,9 +70,23 @@ class BaseWAM2D:
         model_layout: str = "nchw",
         device=None,
         impl: str | None = None,
+        level_plan: str = "explicit",
+        patch: int = 16,
+        image_size: int | None = None,
     ):
         if model_layout not in ("nchw", "nhwc"):
             raise ValueError(f"model_layout must be 'nchw' or 'nhwc', got {model_layout!r}")
+        if level_plan not in ("explicit", "patch"):
+            raise ValueError(f"level_plan must be 'explicit' or 'patch', got {level_plan!r}")
+        self.level_plan = level_plan
+        self.patch_plan = None
+        if level_plan == "patch":
+            from wam_tpu_torch.xattr.planner import plan_patch_levels
+
+            if image_size is None:
+                raise ValueError("level_plan='patch' requires image_size=")
+            self.patch_plan = plan_patch_levels(image_size, patch, wavelet)
+            J = self.patch_plan.J
         self.device = resolve_device(device)
         self.wavelet = wavelet
         self.J = J
@@ -151,12 +175,17 @@ class WaveletAttribution2D(BaseWAM2D):
         mesh=None,
         device=None,
         impl: str | None = None,
+        level_plan: str = "explicit",
+        patch: int = 16,
+        image_size: int | None = None,
     ):
         if mesh is not None:
             raise NotImplementedError("mesh= is not ported yet (ROADMAP.md, slice E)")
         super().__init__(model_fn, wavelet=wavelet, J=J, mode=mode,
                          approx_coeffs=approx_coeffs, normalize_coeffs=normalize_coeffs,
-                         model_layout=model_layout, device=device, impl=impl)
+                         model_layout=model_layout, device=device, impl=impl,
+                         level_plan=level_plan, patch=patch, image_size=image_size)
+        self.mesh = mesh
         if method not in ("smooth", "integratedgrad"):
             raise ValueError(f"Unknown method {method!r}")
         validate_sample_batch_size(sample_batch_size)
@@ -240,5 +269,45 @@ class WaveletAttribution2D(BaseWAM2D):
             raise ValueError("noise= applies to method='smooth' only")
         return self.integrated_wam(x, y)
 
-    def anytime_serve_entry(self, *args, **kwargs):
-        raise NotImplementedError("anytime_serve_entry is not ported yet (ROADMAP.md, slice D)")
+    def anytime_serve_entry(self, stride: int | str = "auto", on_trace=None,
+                            plateau_tol: float | None = None, noise=None):
+        """The SmoothGrad mosaic as an anytime entry (`anytime.make_anytime_entry`):
+        sample i's mosaic, one sample of the whole batch a step, its noise
+        `core.estimators.sample_noise(random_seed, i)` (the streamed path's
+        draws) or ``noise[i]`` from a handed-over (n_samples, *x.shape)
+        tensor. At full n it equals `smooth_wam` with ``stream_noise=True``
+        (or with the same ``noise``) up to the order of the sample sum.
+        ``stride`` is the checkpoint cadence ("auto": 5, clamped;
+        `core.estimators.resolve_checkpoint_stride`). SmoothGrad only; the
+        anytime server itself waits for ROADMAP.md slice F."""
+        if self.mesh is not None:
+            raise ValueError(
+                "anytime_serve_entry() does not support mesh=; the serve "
+                "worker owns a single device — drive "
+                "SeqShardedWam.smoothgrad_checkpointed directly")
+        if self.method != "smooth":
+            raise ValueError(
+                "anytime_serve_entry() needs method='smooth': IG's trapezoid "
+                "path weights are not an exchangeable sample mean")
+        from wam_tpu_torch.anytime.entry import DEFAULT_PLATEAU_TOL, make_anytime_entry
+
+        def sample_fn(x, y, i: int) -> torch.Tensor:
+            x, y = self._inputs(x, y)
+            xi = self._to_internal(x)
+            if noise is None:
+                z = sample_noise(self.random_seed, i, xi.shape, xi.device, xi.dtype)
+            else:
+                z = self._to_internal(torch.as_tensor(noise[i], device=self.device)).to(xi.dtype)
+            sigma = noise_sigma(xi, self.stdev_spread).reshape((-1,) + (1,) * (xi.ndim - 1))
+            noisy = xi + sigma * z
+            if self.dwt_bf16:
+                noisy = noisy.to(torch.bfloat16)
+            _, grads = self.engine.attribute(noisy, y)
+            return mosaic2d(grads, self.normalize_coeffs, self._caxis)
+
+        return make_anytime_entry(
+            sample_fn, n_total=self.n_samples,
+            stride=resolve_checkpoint_stride(stride, self.n_samples, workload="wam2d",
+                                             dtype="bf16" if self.dwt_bf16 else "f32"),
+            plateau_tol=DEFAULT_PLATEAU_TOL if plateau_tol is None else plateau_tol,
+            on_trace=on_trace, name="wam2d_anytime")

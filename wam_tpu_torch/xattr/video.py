@@ -1,0 +1,313 @@
+"""Video WAM: wavelet attribution over 2D space and time (PyTorch port of
+`wam_tpu.xattr.video`).
+
+Clips are (B, C, T, H, W). Video is anisotropic (far more structure in
+space than from frame to frame), so `VideoLevels(spatial=J_s,
+temporal=J_t)` decomposes the finest ``J_t`` levels with the separable 3D
+DWT (space and time, `transform.dwt3`) and the remaining ``J_s - J_t`` with
+the 2D DWT alone, the decimated time riding as a batch axis
+(`transform.dwt2` / `idwt2`). ``VideoLevels(J, J)`` is the uniform
+`wavedec3` cube; ``VideoLevels(J, 0)`` is per-frame 2D WAM.
+
+The spatial-only levels go through the 2D transform's ``impl`` (None: the
+CUDA kernels on CUDA tensors, K1 for analysis and K2 for each synthesis
+level, whose backward is K1 again; the conv form on CPU tensors); the 3D
+levels through ``conv3d`` / ``conv_transpose3d``, as `wam3d`.
+
+Attribution follows `WaveletAttribution3D`: decompose, take the gradient of
+the target logit with respect to every coefficient through the
+reconstruction, aggregate. The aggregate is `spacetime_map`: each level's
+|gradient| nearest-resized to the clip's (T, H, W) box (the reference's
+float32 index arithmetic, `ops.filters.upsample_nearest`) and summed.
+`frame_importance` reduces a box to (B, T) per-frame scores, which the
+temporal insertion/deletion fan ranks (`xattr.video_eval`).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Callable
+
+import torch
+
+from wam_tpu_torch.core.engine import _flatten, _unflatten, map_coeffs, target_loss
+from wam_tpu_torch.core.estimators import (
+    integrated_path,
+    resolve_sample_chunk,
+    smoothgrad,
+    validate_sample_batch_size,
+)
+from wam_tpu_torch.device import resolve_device
+from wam_tpu_torch.ops.filters import upsample_nearest
+from wam_tpu_torch.wavelets.filters import build_wavelet
+from wam_tpu_torch.wavelets.transform import DETAIL3D_KEYS, dwt2, dwt3, idwt2, idwt3
+
+__all__ = [
+    "VideoLevels",
+    "wavedec_video",
+    "waverec_video",
+    "spacetime_map",
+    "frame_importance",
+    "WaveletAttributionVideo",
+]
+
+
+@dataclasses.dataclass(frozen=True)
+class VideoLevels:
+    """Anisotropic depth: ``spatial`` levels in all, of which the finest
+    ``temporal`` also decimate time."""
+
+    spatial: int
+    temporal: int
+
+    def __post_init__(self):
+        if self.spatial < 1:
+            raise ValueError(f"spatial={self.spatial} must be >= 1")
+        if not 0 <= self.temporal <= self.spatial:
+            raise ValueError(f"temporal={self.temporal} must satisfy "
+                             f"0 <= temporal <= spatial (={self.spatial})")
+
+    @property
+    def uniform(self) -> bool:
+        return self.temporal == self.spatial
+
+
+def _as_levels(levels) -> VideoLevels:
+    if isinstance(levels, VideoLevels):
+        return levels
+    s, t = levels
+    return VideoLevels(spatial=int(s), temporal=int(t))
+
+
+def wavedec_video(x: torch.Tensor, wavelet, levels, mode: str = "symmetric",
+                  impl: str | None = None):
+    """Anisotropic multi-level DWT over the last three axes (T, H, W):
+    ``[cA, det_J, ..., det_1]``, coarsest first like `wavedec3`; a 3D
+    level's detail is a dict of `DETAIL3D_KEYS`, a spatial-only level's a
+    `Detail2D` (``impl``: the 2D transform's, `transform.dwt2`)."""
+    lv = _as_levels(levels)
+    coeffs = []
+    a = x
+    for j in range(lv.spatial):
+        if j < lv.temporal:
+            a, det = dwt3(a, wavelet, mode)
+        else:
+            a, det = dwt2(a, wavelet, mode, impl)
+        coeffs.append(det)
+    coeffs.append(a)
+    return coeffs[::-1]
+
+
+def waverec_video(coeffs, wavelet, impl: str | None = None) -> torch.Tensor:
+    """Inverse of `wavedec_video`, each level's approximation trimmed to
+    its details' shape as `waverec3` / `waverec2` do. The result may exceed
+    the original (T, H, W) by the boundary pads; callers crop."""
+    L = build_wavelet(wavelet).filt_len if isinstance(wavelet, str) else wavelet.filt_len
+    a = coeffs[0]
+    for det in coeffs[1:]:
+        if isinstance(det, dict):
+            tgt = det["ddd"].shape[-3:]
+            a = a[..., : tgt[0], : tgt[1], : tgt[2]]
+            a = idwt3(a, det, wavelet, out_shape=tuple(2 * s - L + 2 for s in tgt))
+        else:
+            tgt = det.horizontal.shape[-2:]
+            a = a[..., : tgt[0], : tgt[1]]
+            a = idwt2(a, det, wavelet, out_shape=(2 * tgt[0] - L + 2, 2 * tgt[1] - L + 2),
+                      impl=impl)
+    return a
+
+
+def coeff_leaves(coeffs, include_approx: bool = True):
+    """Every (..., t, h, w) leaf of a video coefficient list: the
+    approximation (when ``include_approx``), then each level's Detail2D
+    fields or 3D values."""
+    if include_approx:
+        yield coeffs[0]
+    for det in coeffs[1:]:
+        if isinstance(det, dict):
+            yield from (det[k] for k in DETAIL3D_KEYS)
+        else:
+            yield from det
+
+
+def spacetime_map(grads, shape, approx_coeffs: bool = False) -> torch.Tensor:
+    """A `wavedec_video` gradient list collapsed to one (..., T, H, W) box:
+    each leaf's |gradient| nearest-resized to ``shape`` and summed (the
+    approximation joins only with ``approx_coeffs``, as in the 2D and 3D
+    engines)."""
+    shape = tuple(int(s) for s in shape)
+    total = None
+    for g in coeff_leaves(grads, approx_coeffs):
+        up = upsample_nearest(g.abs(), shape)
+        total = up if total is None else total + up
+    return total
+
+
+def frame_importance(box: torch.Tensor) -> torch.Tensor:
+    """(..., T, H, W) box -> (..., T) per-frame scores (the spatial mean)."""
+    return box.mean(dim=(-2, -1))
+
+
+class WaveletAttributionVideo:
+    """SmoothGrad / IG WAM over clips (B, C, T, H, W).
+
+    ``__call__(x, y=None, noise=None)`` returns the (B, T, H, W) spacetime
+    box, averaged over channels; `frame_scores` its (B, T) frame scores.
+    ``model_fn`` maps clips (B, C, T, H, W) to logits (B, K) (the 3D ResNet
+    takes (B, 1, T, H, W) as it is). SmoothGrad averages the boxes of
+    ``n_samples`` noisy clips, per-clip sigma = stdev_spread * (max - min);
+    IG is in the coefficient domain as in `WaveletAttribution3D`: the
+    coefficients times the trapezoid of their gradients along alpha *
+    coefficients, then aggregated.
+
+    ``sample_batch_size`` samples (path points) run as one batch of
+    sample_batch_size * B model rows ("auto" and None: all at once), each
+    keeping its own loss scale. SmoothGrad noise: standard-normal draws from
+    a ``torch.Generator`` on the device seeded with ``random_seed``, the
+    explicit ``noise`` (n_samples, *x.shape) given to ``__call__``, or with
+    ``stream_noise=True`` sample i's from (random_seed, i)
+    (`core.estimators.sample_noise`).
+
+    ``device``: CUDA unless the caller asks otherwise; ``impl``: the
+    spatial-only levels' 2D transform (None: the kernels on CUDA).
+    ``mesh=`` (time sharding, with ``seq_axis``, ``batch_axis`` and
+    ``seq_fused``; the reference's ValueErrors are kept) waits for
+    ROADMAP.md slice E, `serve_entry` for slice F.
+    """
+
+    def __init__(
+        self,
+        model_fn: Callable[[torch.Tensor], torch.Tensor],
+        wavelet: str = "haar",
+        levels=(3, 1),
+        method: str = "smooth",
+        mode: str = "symmetric",
+        approx_coeffs: bool = False,
+        n_samples: int = 25,
+        stdev_spread: float = 1e-4,
+        random_seed: int = 42,
+        sample_batch_size: int | None | str = "auto",
+        stream_noise: bool = False,
+        mesh=None,
+        seq_axis: str = "data",
+        batch_axis: str | None = None,
+        seq_fused: bool | str = "auto",
+        device=None,
+        impl: str | None = None,
+    ):
+        if method not in ("smooth", "integratedgrad"):
+            raise ValueError(f"Unknown method {method!r}")
+        validate_sample_batch_size(sample_batch_size)
+        self.levels = _as_levels(levels)
+        if mesh is not None and not self.levels.uniform:
+            raise ValueError(
+                "mesh= (long-clip time sharding) requires uniform levels "
+                f"(spatial == temporal); got {self.levels} — the halo layer "
+                "shards the axis every level decimates")
+        if mesh is None and batch_axis is not None:
+            raise ValueError("batch_axis= requires mesh=")
+        if mesh is not None:
+            raise NotImplementedError("mesh= is not ported yet (ROADMAP.md, slice E)")
+        self.device = resolve_device(device)
+        self.model_fn = model_fn
+        self.wavelet = wavelet
+        self.method = method
+        self.mode = mode
+        self.approx_coeffs = approx_coeffs
+        self.n_samples = n_samples
+        self.stdev_spread = stdev_spread
+        self.random_seed = random_seed
+        self.sample_batch_size = sample_batch_size
+        self.stream_noise = bool(stream_noise)
+        self.impl = impl
+        self.grads = None
+
+    def _inputs(self, x, y):
+        x = torch.as_tensor(x, device=self.device)
+        if y is not None:
+            y = torch.as_tensor(y, device=self.device)
+        return x, y
+
+    def _chunk(self) -> int | None:
+        return resolve_sample_chunk(self.sample_batch_size, self.n_samples)
+
+    def _decompose(self, clip: torch.Tensor):
+        with torch.no_grad():
+            return wavedec_video(clip, self.wavelet, self.levels, self.mode, self.impl)
+
+    def _coeff_grads(self, coeffs, y, shape, s: int):
+        """Gradient of the target loss w.r.t. every coefficient of ``s``
+        stacked copies of the batch (rows sample-major): the loss is the sum
+        over copies of each copy's batch mean."""
+        leaves = [c.detach().requires_grad_(True) for c in _flatten(coeffs)]
+        t, h, w = shape
+        with torch.enable_grad():
+            rec = waverec_video(_unflatten(leaves, coeffs), self.wavelet, self.impl)
+            out = self.model_fn(rec[..., :t, :h, :w])
+            loss = target_loss(out, None if y is None else y.repeat(s)) * s
+            grads = torch.autograd.grad(loss, leaves)
+        return _unflatten(grads, coeffs)
+
+    def _boxes(self, grads, shape, s: int) -> torch.Tensor:
+        """(s*B, C, ...) gradient list -> (s, B, T, H, W) channel-mean boxes."""
+        box = spacetime_map(grads, shape, self.approx_coeffs).mean(dim=1)
+        return box.reshape((s, -1) + tuple(box.shape[1:]))
+
+    # -- SmoothGrad --------------------------------------------------------
+
+    def smooth(self, x, y=None, noise=None) -> torch.Tensor:
+        clip, y = self._inputs(x, y)
+        shape = tuple(clip.shape[-3:])
+
+        def step(noisy: torch.Tensor) -> torch.Tensor:  # (s, B, C, T, H, W)
+            s = noisy.shape[0]
+            coeffs = self._decompose(noisy.reshape((-1,) + tuple(noisy.shape[2:])))
+            return self._boxes(self._coeff_grads(coeffs, y, shape, s), shape, s)
+
+        generator = None
+        if noise is not None:
+            noise = torch.as_tensor(noise, device=self.device)
+        elif not self.stream_noise:
+            generator = torch.Generator(device=self.device).manual_seed(self.random_seed)
+        self.grads = smoothgrad(step, clip, n_samples=self.n_samples,
+                                stdev_spread=self.stdev_spread, batch_size=self._chunk(),
+                                generator=generator, noise=noise,
+                                materialize_noise=not self.stream_noise, seed=self.random_seed)
+        return self.grads
+
+    # -- Integrated Gradients ----------------------------------------------
+
+    def integrated_wam(self, x, y=None) -> torch.Tensor:
+        clip, y = self._inputs(x, y)
+        shape = tuple(clip.shape[-3:])
+        coeffs = self._decompose(clip)
+
+        def grad_fn(alphas: torch.Tensor) -> list:  # (s,) -> per leaf (s, B, ...)
+            s = alphas.shape[0]
+
+            def scale(c):
+                a = alphas.to(c.dtype).reshape((-1,) + (1,) * c.ndim)
+                return (c[None] * a).reshape((-1,) + tuple(c.shape[1:]))
+
+            grads = self._coeff_grads(map_coeffs(scale, coeffs), y, shape, s)
+            return [g.reshape((s, -1) + tuple(g.shape[1:])) for g in _flatten(grads)]
+
+        integral = integrated_path(grad_fn, n_steps=self.n_samples, batch_size=self._chunk(),
+                                   device=self.device)
+        attr = _unflatten([c * g for c, g in zip(_flatten(coeffs), integral)], coeffs)
+        self.grads = spacetime_map(attr, shape, self.approx_coeffs).mean(dim=1)
+        return self.grads
+
+    def __call__(self, x, y=None, noise=None) -> torch.Tensor:
+        if self.method == "smooth":
+            return self.smooth(x, y, noise)
+        if noise is not None:
+            raise ValueError("noise= applies to method='smooth' only")
+        return self.integrated_wam(x, y)
+
+    def frame_scores(self, x, y=None, noise=None) -> torch.Tensor:
+        """(B, T) per-frame importance: `frame_importance` of the box."""
+        return frame_importance(self(x, y, noise))
+
+    def serve_entry(self, *args, **kwargs):
+        raise NotImplementedError("serve_entry is not ported yet (ROADMAP.md, slice F)")
