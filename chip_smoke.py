@@ -224,7 +224,30 @@ sm_90a). Phases, each fatal on failure:
    x max); a deadline run at 2.5 strides (deadline hit, fewer than 25
    samples: asserted), its confidence vector printed per row. The kernels
    phase holds K1/K3 at the patch plan's and the anytime step's shapes and
-   K1/K2 at the video's; each ``kernels`` row carries every path's launches.
+   K1/K2 at the video's; each ``kernels`` row carries every path's launches;
+21. serve: README.md's server, ``AttributionServer(wam.serve_entry(),
+   [(3, 224, 224), (3, 256, 256)], max_batch=8)``, over the flagship's
+   explainer (ResNet-50, db4, J=3, n=25 in one call: 200 model rows a
+   batch): both buckets warmed (one first call each, asserted, none after:
+   `obs.assert_no_retrace`), then 64 seeded requests (shapes round-robin
+   over 224², 256², 220², 250², one in four interactive) from 4 client
+   threads with 4 requests in flight each, through the pipelined and the
+   unpipelined arm: launch counts set to 0 just before the stream and read
+   just after, every batch's launches asserted (224²: K1 3, K3 2; 256²: K1
+   4, K2 1, K3 2), zero lost requests, ``degraded`` false, every served
+   mosaic against its batch's output (exact) and against the entry run
+   again on the same assembled batch (<= 1e-5 x max); requests/s, p50/p99,
+   EMA batch service per bucket, host assemble + stage, the device's idle
+   share between batches (CUDA events around each batch) and peak memory
+   printed. Then a QueueFullError with its retry_after_s, a
+   DeadlineExceededError, an InvalidDeadlineError and a result-cache hit
+   with no kernel launched; the ``with_health=True`` entry's vector against
+   `health_stats` of the fetched mosaic; the anytime server on the 224²
+   bucket (a full batch against the streamed serve_entry on the same batch
+   within 1e-5 x max, a deadline at half its time: n_used < 25); and the
+   served path in float64 (ResNet-18, 32², IG) against the CPU within 1e-9
+   x max. The kernels phase holds K1/K3 (and K2 at 256²) at a served
+   batch's 600 planes.
 
 Prints a summary JSON line (with the script's wall time), the kernels' JSON line, the nvidia-smi line, and as its last line
 ``{"ok": true, "device": {...}}``. Exits nonzero, printing no result, when
@@ -444,6 +467,30 @@ ANY_LAUNCHES = {**ZERO_LAUNCHES, "dwt2": LEVELS * N_SAMPLES, "pair": 2 * N_SAMPL
 # against the streamed smooth_wam (one sample a chunk, the same draws): only
 # the order of the sample sum differs
 ANY_TOL = (0.999999, 1e-5)
+
+# the serve phase: README.md's server (`AttributionServer(wam.serve_entry(),
+# [(3, 224, 224), (3, 256, 256)], max_batch=8)`) over the flagship's explainer,
+# all 25 samples of a batch in one call (8 x 25 = 200 ResNet-50 rows)
+SERVE_BUCKETS = ((CHANNELS, 224, 224), (CHANNELS, 256, 256))
+SERVE_MAX_BATCH = 8
+SERVE_SHAPES = ((CHANNELS, 224, 224), (CHANNELS, 256, 256), (CHANNELS, 220, 220),
+                (CHANNELS, 250, 250))                # request shapes, round-robin
+# an arm's requests (two full batches of each bucket); client threads;
+# requests each keeps in flight (16 in all: a batch waits behind the one in
+# flight and the pipelined worker has the next one to stage)
+SERVE_REQUESTS, SERVE_CLIENTS, SERVE_WINDOW = 32, 4, 4
+SERVE_ARMS = (True, False)  # pipelined, then not
+SERVE_ROWS = SERVE_MAX_BATCH * N_SAMPLES * CHANNELS  # K1 planes / K3 rows of a batch
+# a dispatched batch: 224² collapses all three synthesis levels (detail sides
+# 115/61/34 < SYNTH_COLLAPSE); 256²'s finest level (131) runs through K2,
+# whose backward is one more K1 launch
+SERVE_LAUNCHES = {224: {**ZERO_LAUNCHES, "dwt2": LEVELS, "pair": 2},
+                  256: {**ZERO_LAUNCHES, "dwt2": LEVELS + 1, "synth2": 1, "pair": 2}}
+SERVE_TOL = 1e-5         # a served row against the entry's own output, x max
+SERVE_TIMEOUT_S = 300.0  # every future is waited on at most this long
+SERVE_ANY_STRIDE = 5
+SERVE_REDUCED = (2, 32, 2)  # images, side, IG path points (ResNet-18, J=2, float64)
+SERVE_F64_TOL = 1e-9
 
 
 def _log(*args):
@@ -920,6 +967,30 @@ def phase_kernels(torch, tmm, kernels, sites, vol_sites) -> list[dict]:
                      f"forward + backward of the collapsed levels at {SIDE}^2, {WAVELET}, one "
                      f"sample's {BATCH} images"))
     rows[-1]["assemble_ms"] = k3_cases[0]["assemble_ms"]
+    # the serve path: one dispatched batch of each bucket, 8 requests x 25
+    # samples x 3 planes; 256²'s finest level runs through K2 (its backward
+    # a K1 launch), its two coarser levels through K3
+    for side in (224, 256):
+        k1_cases = _k1_cases(torch, tmm, kernels, g, side, WAVELET, SERVE_ROWS)
+        work = (f"3 analysis levels at {side}^2, {WAVELET}, f32 input, one served batch "
+                f"({SERVE_MAX_BATCH} requests x {N_SAMPLES} samples x {CHANNELS} planes)")
+        if side == 256:
+            k2_serve, k2_serve_bwd = _k2_cases(torch, tmm, kernels, g, side, WAVELET, SERVE_ROWS)
+            k1_cases.append(k2_serve_bwd)
+            work += ", and K2's backward at the finest synthesis level"
+        rows.append(_row(*k1, f"serve {side}", k1_cases, einsum, work))
+        k3_cases = _k3_cases(torch, tmm, kernels, g, side, WAVELET, SERVE_ROWS)
+        rows.append(_row(*k3, f"serve {side}", k3_cases,
+                         "torch.einsum (the matmul pair on the assembled Y; dense dY)",
+                         f"forward + backward of the collapsed levels at {side}^2, {WAVELET}, "
+                         f"one served batch ({SERVE_ROWS} rows)"))
+        rows[-1]["assemble_ms"] = k3_cases[0]["assemble_ms"]
+        if side == 256:
+            rows.append(_row("synth2", "idwt2_kernel (K2)", "wam_tpu_torch/csrc/synth2.cu",
+                             "wam_tpu/wavelets/matmul.py:313", "serve 256", k2_serve,
+                             "torch.einsum (the matmul pair on the merged matrix, merge not "
+                             "timed)", f"forward, f32 subbands, one served batch at {side}^2 "
+                             "(its backward is on K1's serve 256 line)"))
     rows.insert(3, _row("synth2", "idwt2_kernel (K2)", "wam_tpu_torch/csrc/synth2.cu",
                         "wam_tpu/wavelets/matmul.py:313", "path 2", k2_cases,
                         "torch.einsum (the matmul pair on the merged matrix, merge not timed)",
@@ -3446,6 +3517,445 @@ def phase_anytime(torch, wtt, kernels, smi: str) -> dict:
                          "conf": conf.tolist()}}
 
 
+class _ServeRecorder:
+    """The served entry behind a recorder: each dispatched batch's inputs
+    (copies: the entry releases its input on the card), its output, the
+    kernels launched while the entry enqueued it (host-side counts: one
+    worker thread calls the entry), and CUDA events on the compute stream
+    just before and after it (the device's gap between two batches is its
+    idle time there)."""
+
+    def __init__(self, torch, kernels, entry):
+        self.torch, self.kernels, self.entry = torch, kernels, entry
+        self.batches = []
+
+    def __call__(self, xs, ys):
+        torch = self.torch
+        before = self.kernels.launch_counts()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        keep = (xs.clone(), ys.clone())
+        t0 = time.perf_counter()
+        start.record()
+        out = self.entry(xs, ys)
+        end.record()
+        host_ms = (time.perf_counter() - t0) * 1e3
+        after = self.kernels.launch_counts()
+        self.batches.append({"x": keep[0], "y": keep[1], "out": out, "start": start, "end": end,
+                             "side": int(keep[0].shape[-1]), "host_ms": host_ms,
+                             "launches": {k: after[k] - before[k] for k in after}})
+        return out
+
+    def idle_share(self) -> tuple[float, float]:
+        """(device idle ms between consecutive batches, its share of the span
+        from the first batch's start to the last one's end)."""
+        self.torch.cuda.synchronize()
+        bs = self.batches
+        gaps = [max(0.0, bs[i - 1]["end"].elapsed_time(bs[i]["start"])) for i in range(1, len(bs))]
+        span = bs[0]["start"].elapsed_time(bs[-1]["end"])
+        return sum(gaps), sum(gaps) / span if span > 0 else 0.0
+
+    def per_batch(self) -> list:
+        """(side, device ms, host enqueue ms) of each batch in dispatch order."""
+        self.torch.cuda.synchronize()
+        return [(b["side"], b["start"].elapsed_time(b["end"]), b["host_ms"]) for b in self.batches]
+
+    def device_ms(self) -> dict:
+        """Median device ms a batch, per bucket side: from the event before
+        its first kernel to the one after its last (the batch's own work:
+        the event before it fires once the stream reaches it)."""
+        self.torch.cuda.synchronize()
+        by = {}
+        for b in self.batches:
+            by.setdefault(b["side"], []).append(b["start"].elapsed_time(b["end"]))
+        return {s: sorted(v)[len(v) // 2] for s, v in sorted(by.items())}
+
+
+def _serve_requests(np, n: int, seed: int):
+    """n seeded requests: (image, label, qos); shapes round-robin over
+    SERVE_SHAPES, one in four interactive."""
+    rng = np.random.default_rng(seed)
+    reqs = []
+    for i in range(n):
+        shape = SERVE_SHAPES[i % len(SERVE_SHAPES)]
+        reqs.append((rng.standard_normal(shape).astype(np.float32),
+                     int(rng.integers(0, 1000)), "interactive" if i % 4 == 0 else "batch"))
+    return reqs
+
+
+def _drive_clients(server, reqs):
+    """SERVE_CLIENTS closed-loop client threads, each keeping SERVE_WINDOW
+    requests in flight; every future waited on with a timeout. Returns the
+    results by request index, the lost indices and the wall seconds."""
+    import threading
+
+    results, lost = {}, []
+    lock = threading.Lock()
+
+    def client(j):
+        pending = []
+        for i in range(j, len(reqs), SERVE_CLIENTS):
+            x, y, qos = reqs[i]
+            pending.append((i, server.submit(x, y, qos=qos)))
+            while len(pending) >= SERVE_WINDOW or (pending and i + SERVE_CLIENTS >= len(reqs)):
+                k, fut = pending.pop(0)
+                try:
+                    out = fut.result(timeout=SERVE_TIMEOUT_S)
+                    with lock:
+                        results[k] = out
+                except Exception as e:  # noqa: BLE001 - a lost request is the finding
+                    with lock:
+                        lost.append((k, repr(e)))
+
+    t0 = time.perf_counter()
+    threads = [threading.Thread(target=client, args=(j,)) for j in range(SERVE_CLIENTS)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=SERVE_TIMEOUT_S)
+    wall = time.perf_counter() - t0
+    lost += [(i, "no result") for i in range(len(reqs)) if i not in results
+             and i not in {k for k, _ in lost}]
+    return results, lost, wall
+
+
+def _check_served_rows(torch, np, rec, reqs, results, tag: str) -> dict:
+    """Every served mosaic against the entry's output for the batch it was
+    served from: the recorded output (exactly: the server's row
+    distribution) and the entry run again on a copy of the same assembled
+    batch (<= SERVE_TOL x max: the entry itself), row for row. Requests are
+    found in their batch by the bytes of their padded image."""
+    from wam_tpu_torch.serve import BucketTable, pad_item
+
+    table = BucketTable(SERVE_BUCKETS)
+    where = {}
+    for b, batch in enumerate(rec.batches):
+        rows = batch["x"].cpu().numpy()
+        for i in range(rows.shape[0]):
+            where.setdefault(rows[i].tobytes(), (b, i))
+    rerun = {}
+    worst_exact, worst = 0.0, 0.0
+    for k, (x, y, _) in enumerate(reqs):
+        b, i = where[pad_item(x, table.select(x.shape)).tobytes()]
+        batch = rec.batches[b]
+        if int(batch["y"][i]) != y:
+            raise AssertionError(f"serve {tag}: request {k} found in a row with another label")
+        if b not in rerun:
+            rerun[b] = rec.entry(batch["x"].clone(), batch["y"].clone()).detach().cpu().numpy()
+        got = results[k]
+        worst_exact = max(worst_exact, float(np.abs(got - batch["out"][i].cpu().numpy()).max()))
+        want = rerun[b][i]
+        worst = max(worst, float(np.abs(got - want).max()) / float(np.abs(want).max()))
+    _log(f"  {tag}: {len(reqs)} served mosaics against their batches' outputs: dispatched "
+         f"output max abs diff {worst_exact:.3e} (must be 0), the entry run again on the "
+         f"same batch {worst:.3e} of the max (tol {SERVE_TOL})")
+    if worst_exact != 0.0 or not worst <= SERVE_TOL:
+        raise AssertionError(f"serve {tag}: a served row disagrees with its batch")
+    return {"rows_exact_max_abs": worst_exact, "rows_rerun_rel_err": worst}
+
+
+def _serve_arm(torch, np, wtt, kernels, entry, reqs, pipelined: bool, smi: str) -> dict:
+    """One server arm over the request stream: launches counted from 0 just
+    before the stream and read just after; every batch's launches against
+    SERVE_LAUNCHES; the rates, latency, EMA service, assembly, the device's
+    idle share between batches and the peak memory printed."""
+    from wam_tpu_torch import obs
+    from wam_tpu_torch.serve import AttributionServer, ServeMetrics
+
+    metrics = ServeMetrics()
+    rec = _ServeRecorder(torch, kernels, entry)
+    server = AttributionServer(rec, list(SERVE_BUCKETS), max_batch=SERVE_MAX_BATCH,
+                               pipelined=pipelined, metrics=metrics, device=DEVICE)
+    warm = len(rec.batches)
+    try:
+        rec.batches.clear()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        kernels.reset_launch_counts()
+        with obs.assert_no_retrace():
+            results, lost, wall = _drive_clients(server, reqs)
+        launches = kernels.launch_counts()
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated() / 1e9
+    finally:
+        server.close()
+    tag = "pipelined" if pipelined else "unpipelined"
+    if lost:
+        raise AssertionError(f"serve {tag}: {len(lost)} requests lost: {lost[:4]}")
+    for b in rec.batches:
+        if b["launches"] != SERVE_LAUNCHES[b["side"]]:
+            raise AssertionError(f"serve {tag}: a {b['side']}^2 batch launched {b['launches']}, "
+                                 f"expected {SERVE_LAUNCHES[b['side']]}")
+    total = {k: sum(b["launches"][k] for b in rec.batches) for k in ZERO_LAUNCHES}
+    if launches != total:
+        raise AssertionError(f"serve {tag}: launches {launches} != the batches' sum {total}")
+    idle_ms, idle = rec.idle_share()
+    device_ms = rec.device_ms()
+    per_batch = rec.per_batch()
+    snap = metrics.snapshot()
+    stages = snap["stages"]
+    sides = sorted({b["side"] for b in rec.batches})
+    per_side = {s: sum(1 for b in rec.batches if b["side"] == s) for s in sides}
+    ema = {k: v * 1e3 for k, v in snap["ema_service_s"].items()}
+    rate = len(reqs) / wall
+    _log(f"  {tag}: {len(reqs)} requests ({SERVE_CLIENTS} clients x {SERVE_WINDOW} in flight) in "
+         f"{wall:.3f} s = {rate:.2f} requests/s; {snap['batches']} batches {per_side} (fill "
+         f"{snap['fill_ratio_mean']:.3f}); latency p50 {snap['latency_p50_ms']:.1f} ms, p99 "
+         f"{snap['latency_p99_ms']:.1f} ms; EMA batch service ms "
+         + ", ".join(f"{k}: {v:.2f}" for k, v in sorted(ema.items()))
+         + "; device ms a batch (median, events) "
+         + ", ".join(f"{s}^2: {v:.2f}" for s, v in device_ms.items())
+         + f"; host assemble + stage {stages['assemble']['mean_s'] * 1e3:.3f} ms a batch, "
+         f"dispatch (enqueue) {stages['dispatch']['mean_s'] * 1e3:.3f} ms; device idle between "
+         f"batches {idle_ms:.3f} ms = {idle:.2%}; peak memory {peak:.2f} GB; launches {launches} "
+         f"(per batch as expected); degraded {server.degraded} on {smi}")
+    _log(f"  {tag}: each batch in dispatch order (side, device ms, host enqueue ms): "
+         + ", ".join(f"({s}, {d:.2f}, {h:.2f})" for s, d, h in per_batch))
+    if server.degraded or snap["completed"] != len(reqs):
+        raise AssertionError(f"serve {tag}: degraded {server.degraded}, completed "
+                             f"{snap['completed']} of {len(reqs)}")
+    check = _check_served_rows(torch, np, rec, reqs, results, tag)
+    first = {}
+    for b in rec.batches:
+        first.setdefault(b["side"], b["launches"])
+    return {"requests": len(reqs), "wall_s": wall, "requests_per_s": rate,
+            "batches": snap["batches"], "batches_by_side": per_side,
+            "fill_ratio_mean": snap["fill_ratio_mean"],
+            "latency_p50_ms": snap["latency_p50_ms"], "latency_p99_ms": snap["latency_p99_ms"],
+            "latency_by_qos": snap["latency_by_qos"], "ema_service_ms": ema,
+            "device_ms_by_side": device_ms, "per_batch": per_batch,
+            "assemble_ms": stages["assemble"]["mean_s"] * 1e3,
+            "dispatch_ms": stages["dispatch"]["mean_s"] * 1e3,
+            "harvest_ms": stages["harvest"]["mean_s"] * 1e3,
+            "device_idle_ms": idle_ms, "device_idle_share": idle, "peak_memory_gb": peak,
+            "launches": launches, "batch_launches": first, "warmup_calls": warm,
+            "degraded": server.degraded,
+            "warmup_s": snap["warmup_s"], **check}
+
+
+def _serve_admission(torch, np, kernels, entry, reqs) -> dict:
+    """One server with a small queue, a long fill window and a result cache:
+    a QueueFullError with its retry_after_s, a DeadlineExceededError (the
+    deadline lapses inside the window), an InvalidDeadlineError, and a cache
+    hit that resolves with no kernel launched."""
+    from wam_tpu_torch.serve import (AttributionServer, DeadlineExceededError,
+                                     InvalidDeadlineError, QueueFullError)
+
+    server = AttributionServer(entry, [SERVE_BUCKETS[0]], max_batch=SERVE_MAX_BATCH,
+                               max_wait_ms=400.0, queue_depth=2, result_cache=1 << 30,
+                               cache_id="flagship", device=DEVICE)
+    x, y, _ = reqs[0]
+    try:
+        first = server.submit(x, y)
+        doomed = server.submit(reqs[4][0], reqs[4][1], deadline_ms=5.0)
+        try:
+            server.submit(reqs[8][0], reqs[8][1])
+        except QueueFullError as e:
+            retry = e.retry_after_s
+        else:
+            raise AssertionError("serve: a full queue admitted a request")
+        out = first.result(timeout=SERVE_TIMEOUT_S)
+        try:
+            doomed.result(timeout=SERVE_TIMEOUT_S)
+        except DeadlineExceededError:
+            expired = True
+        else:
+            expired = False
+        try:
+            server.submit(x, y, deadline_ms=0)
+        except InvalidDeadlineError as e:
+            invalid = e.deadline_ms
+        else:
+            raise AssertionError("serve: deadline_ms=0 was admitted")
+        torch.cuda.synchronize()
+        kernels.reset_launch_counts()
+        again = server.submit(x, y).result(timeout=SERVE_TIMEOUT_S)
+        hit_launches = kernels.launch_counts()
+        hits = server.metrics.cache_hits
+    finally:
+        server.close()
+    _log(f"  admission: QueueFullError retry_after_s={retry:.4f} (queue_depth 2); "
+         f"DeadlineExceededError {expired} (5 ms deadline in a 400 ms window); "
+         f"InvalidDeadlineError for deadline_ms={invalid}; resubmitted item: cache hits {hits}, "
+         f"launches {hit_launches}, equal {bool(np.array_equal(out, again))}")
+    if not (retry > 0 and expired and hits == 1 and np.array_equal(out, again)
+            and all(v == 0 for v in hit_launches.values())):
+        raise AssertionError("serve: admission checks failed")
+    return {"retry_after_s": retry, "deadline_exceeded": expired, "invalid_deadline": invalid,
+            "cache_hits": hits, "cache_hit_launches": hit_launches}
+
+
+def _serve_health(torch, np, wam, reqs) -> dict:
+    """The with_health=True entry: its health vector against `health_stats`
+    recomputed from the fetched mosaic, and a health-monitored server."""
+    from wam_tpu_torch import obs
+    from wam_tpu_torch.evalsuite.fan import device_fetch
+    from wam_tpu_torch.serve import AttributionServer
+
+    ent = wam.serve_entry(with_health=True, donate=False)
+    dev = torch.device(DEVICE)
+    xs = torch.from_numpy(np.stack([r[0] for r in reqs[:SERVE_MAX_BATCH * 4:4]])).to(dev)
+    ys = torch.tensor([r[1] for r in reqs[:SERVE_MAX_BATCH * 4:4]], device=dev)
+    out, hvec = device_fetch(ent(xs, ys))
+    want = obs.health.health_stats(torch.from_numpy(out)).numpy()
+    err = float(np.abs(hvec[:5] - want[:5]).max())
+    rel = abs(float(hvec[5]) - float(want[5])) / float(want[5])
+    server = AttributionServer(ent, [SERVE_BUCKETS[0]], max_batch=SERVE_MAX_BATCH, health=True,
+                               device=DEVICE)
+    try:
+        server.submit(reqs[0][0], reqs[0][1]).result(timeout=SERVE_TIMEOUT_S)
+        monitor = server.describe()["health"]
+    finally:
+        server.close()
+    _log(f"  with_health=True: vector {[round(float(v), 6) for v in hvec]} against health_stats "
+         f"of the fetched mosaic: counts and max abs diff {err:.3e}, sum of squares rel "
+         f"{rel:.2e}; monitored server: {monitor}")
+    if err != 0.0 or rel > 1e-5 or monitor["checks"] < 1 or monitor["quarantined"]:
+        raise AssertionError("serve: health vector disagrees with the fetched mosaic")
+    return {"health_vector": [float(v) for v in hvec], "counts_max_abs_diff": err,
+            "sumsq_rel_err": rel, "monitor": monitor}
+
+
+def _serve_anytime(torch, np, wtt, fn, reqs, smi: str) -> dict:
+    """The anytime server on the 224² bucket: a full batch (every sample,
+    against the streamed serve_entry on the same assembled batch within
+    ANY_TOL: one sample a model call, as the anytime step runs them, so the
+    convolutions see the same batch shape and only the order of the sample
+    sum differs), then a deadline at half the full batch's time (n_used <
+    25, confidence in (0, 1])."""
+    from wam_tpu_torch.anytime import AnytimeResult
+    from wam_tpu_torch.serve import AttributionServer
+
+    dev = torch.device(DEVICE)
+    kw = dict(wavelet=WAVELET, J=LEVELS, mode=MODE, n_samples=N_SAMPLES, stdev_spread=SPREAD,
+              device=dev)
+    wam = wtt.WaveletAttribution2D(fn, **kw)
+    streamed = wtt.WaveletAttribution2D(fn, stream_noise=True, sample_batch_size=1, **kw)
+    exact = [r for r in reqs if r[0].shape == SERVE_BUCKETS[0]][:SERVE_MAX_BATCH]
+    server = AttributionServer(wam.anytime_serve_entry(stride=SERVE_ANY_STRIDE),
+                               [SERVE_BUCKETS[0]], max_batch=SERVE_MAX_BATCH,
+                               coalesce_ms=5000.0, device=DEVICE)
+    try:
+        t0 = time.perf_counter()
+        full = [f.result(timeout=SERVE_TIMEOUT_S)
+                for f in [server.submit(x, y) for x, y, _ in exact]]
+        full_ms = (time.perf_counter() - t0) * 1e3
+        deadline_ms = 0.5 * full_ms
+        part = [f.result(timeout=SERVE_TIMEOUT_S)
+                for f in [server.submit(x, y, deadline_ms=deadline_ms) for x, y, _ in exact]]
+    finally:
+        server.close()
+    if not all(isinstance(r, AnytimeResult) and r.complete and r.n_used == N_SAMPLES
+               for r in full):
+        raise AssertionError("serve anytime: a request with no deadline did not complete")
+    pad = SERVE_MAX_BATCH - len(exact)  # the server pads a batch with copies of row 0
+    xs = torch.from_numpy(np.stack([x for x, _, _ in exact] + [exact[0][0]] * pad)).to(dev)
+    ys = torch.tensor([y for _, y, _ in exact] + [exact[0][1]] * pad, device=dev)
+    want = streamed.serve_entry(donate=False)(xs, ys)[:len(exact)]
+    check = _held(torch, "anytime server's full maps vs the streamed serve_entry on the same "
+                  "batch", torch.from_numpy(np.stack([r.attribution for r in full])), want,
+                  ANY_TOL)
+    conf = [r.confidence for r in part]
+    _log(f"  anytime server (stride {SERVE_ANY_STRIDE}): full batch {full_ms:.1f} ms (host "
+         f"clock, submit to the last result); deadline {deadline_ms:.1f} ms: n_used "
+         f"{part[0].n_used} of {part[0].n_total}, deadline partial {not part[0].complete}, "
+         f"confidence {min(conf):.4f}-{max(conf):.4f} on {smi}")
+    if not (part[0].n_used < N_SAMPLES and all(0.0 < c <= 1.0 for c in conf)):
+        raise AssertionError(f"serve anytime: deadline run n_used {part[0].n_used}, conf {conf}")
+    return {"full_batch_ms": full_ms, "deadline_ms": deadline_ms, "n_used": part[0].n_used,
+            "n_total": part[0].n_total, "confidence": conf, "check": check}
+
+
+def _serve_reduced_check(torch, np, wtt) -> dict:
+    """The served path on the card against the CPU plain path: a seeded
+    ResNet-18 in float64, SERVE_REDUCED images of 32², db4 J=2, IG with 2
+    path points (no noise to match across devices), the plain transforms
+    (impl="matmul"; the kernels are float32), through an AttributionServer
+    staging float64 batches on the card; <= SERVE_F64_TOL x max."""
+    from wam_tpu_torch.serve import AttributionServer
+
+    n, side, steps = SERVE_REDUCED
+    torch.manual_seed(SEED)
+    model = wtt.resnet18(num_classes=10).double()
+    state = {k: v.clone() for k, v in model.state_dict().items()}
+    rng = np.random.default_rng(SEED + 7)
+    x = rng.standard_normal((n, CHANNELS, side, side))
+    y = [1, 7][:n]
+    kw = dict(wavelet=WAVELET, J=2, method="integratedgrad", n_samples=steps, impl="matmul")
+    outs = {}
+    for dev in ("card", "cpu"):
+        m = wtt.resnet18(num_classes=10).double()
+        m.load_state_dict(state)
+        where = DEVICE if dev == "card" else "cpu"
+        ent = wtt.WaveletAttribution2D(wtt.bind_inference(m, device=where), device=where,
+                                       **kw).serve_entry(donate=False)
+        if dev == "card":
+            server = AttributionServer(ent, [(CHANNELS, side, side)], max_batch=n,
+                                       dtype=np.float64, device=DEVICE)
+            try:
+                outs[dev] = np.stack([f.result(timeout=SERVE_TIMEOUT_S) for f in
+                                      [server.submit(x[i], y[i]) for i in range(n)]])
+            finally:
+                server.close()
+        else:
+            outs[dev] = ent(torch.from_numpy(x), torch.tensor(y)).numpy()
+    err = float(np.abs(outs["card"] - outs["cpu"]).max())
+    peak = float(np.abs(outs["cpu"]).max())
+    _log(f"  reduced check: served on the card vs the CPU plain path (float64 ResNet-18, {n} x "
+         f"{side}^2, IG {steps} points, J=2): max abs {err:.3e} = {err / peak:.2e} of the max "
+         f"(tol {SERVE_F64_TOL})")
+    if not (outs["card"].dtype == np.float64 and err <= SERVE_F64_TOL * peak):
+        raise AssertionError("serve reduced check: the card's served path disagrees with the CPU")
+    return {"max_abs_err": err, "max": peak, "rel_err": err / peak}
+
+
+def phase_serve(torch, wtt, kernels, smi: str) -> dict:
+    """The serving runtime at the README's server over the flagship's
+    explainer: both buckets warmed (one first call each, none after), the
+    request stream through the pipelined and the unpipelined arm, the
+    admission, health and anytime checks and the reduced check."""
+    import numpy as np
+
+    from wam_tpu_torch import obs
+    from wam_tpu_torch.serve import ServeMetrics
+
+    fn, _, _, _, _ = build_slice(torch, wtt)
+    dev = torch.device(DEVICE)
+    wam = wtt.WaveletAttribution2D(fn, wavelet=WAVELET, J=LEVELS, mode=MODE, n_samples=N_SAMPLES,
+                                   stdev_spread=SPREAD, device=dev)
+    _log(f"phase serve: AttributionServer(WaveletAttribution2D(ResNet-50, {WAVELET}, J={LEVELS}, "
+         f"n={N_SAMPLES}).serve_entry(), {list(SERVE_BUCKETS)}, max_batch={SERVE_MAX_BATCH}): "
+         f"{SERVE_MAX_BATCH * N_SAMPLES} model rows a batch; cudnn.allow_tf32=True "
+         "matmul.allow_tf32=False")
+    obs.reset()
+    counter = ServeMetrics()
+    entry = wam.serve_entry(on_trace=counter.note_compile)
+    reqs = _serve_requests(np, SERVE_REQUESTS, SEED + 11)
+    t0 = time.perf_counter()
+    arms = {}
+    for i, pipelined in enumerate(SERVE_ARMS):
+        arms[f"{i + 1}: {'pipelined' if pipelined else 'unpipelined'}"] = _serve_arm(
+            torch, np, wtt, kernels, entry, reqs, pipelined, smi)
+    events = obs.sentinel.compile_events()
+    _log(f"  first calls (sentinel): {[(e['bucket'], e['phase']) for e in events]}")
+    if (counter.compile_count != len(SERVE_BUCKETS) or len(events) != len(SERVE_BUCKETS)
+            or any(e["phase"] != "warmup" for e in events)):
+        raise AssertionError(f"serve: first calls {events}, expected one per bucket at warmup")
+    first = next(iter(arms.values()))
+    out = {"arms": arms, "first_calls": [e["bucket"] for e in events],
+           "launches": first["launches"], "batch_launches": first["batch_launches"]}
+    part_s = {"arms": time.perf_counter() - t0}
+    for name, fn_, args in (("admission", _serve_admission, (torch, np, kernels, entry, reqs)),
+                            ("health", _serve_health, (torch, np, wam, reqs)),
+                            ("anytime", _serve_anytime, (torch, np, wtt, fn, reqs, smi)),
+                            ("reduced_check", _serve_reduced_check, (torch, np, wtt))):
+        t = time.perf_counter()
+        out[name] = fn_(*args)
+        part_s[name] = time.perf_counter() - t
+    _log("  serve parts (s): " + ", ".join(f"{k} {v:.1f}" for k, v in part_s.items()))
+    out["part_s"] = part_s
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -3482,25 +3992,35 @@ def main() -> int:
     vol_sites = vol_relu_sites(torch, wtt)
     if len(vol_sites) != VOL_SITES:
         raise AssertionError(f"the 3D ResNet-18 has {len(vol_sites)} ReLU sites, not {VOL_SITES}")
-    rows = phase_kernels(torch, tmm, kernels, sites, vol_sites)
-    periodized = check_periodized(torch, wtt, kernels)
-    slice_ = phase_slice(torch, wtt, kernels, smi)
-    slice2 = phase_slice2(torch, wtt, kernels, smi, len(sites))
-    audio = phase_audio(torch, wtt, kernels, smi)
-    vit = phase_vit(torch, wtt, kernels, smi)
-    convnext = phase_convnext(torch, wtt, kernels, smi)
-    vol = phase_vol(torch, wtt, kernels, smi)
-    voxel3d = phase_voxel3d(torch, wtt, kernels, smi)
-    eval2d = phase_eval2d(torch, wtt, kernels, smi)
-    eval1d = phase_eval1d(torch, wtt, kernels, smi)
-    baselines = phase_baselines(torch, wtt, kernels, smi)
-    nhwc = phase_nhwc(torch, wtt, kernels, smi)
-    analyzers = phase_analyzers(torch, wtt, kernels, smi)
-    iou = phase_iou(torch, wtt, kernels, smi)
-    patch = phase_patch(torch, wtt, kernels, smi)
-    attention = phase_attention(torch, wtt, kernels, smi)
-    video = phase_video(torch, wtt, kernels, smi)
-    anytime_ = phase_anytime(torch, wtt, kernels, smi)
+    seconds = {}
+
+    def timed(name, fn, *args):
+        t = time.perf_counter()
+        out = fn(*args)
+        seconds[name] = time.perf_counter() - t
+        _log(f"  phase {name}: {seconds[name]:.1f} s")
+        return out
+
+    rows = timed("kernels", phase_kernels, torch, tmm, kernels, sites, vol_sites)
+    periodized = timed("periodized", check_periodized, torch, wtt, kernels)
+    slice_ = timed("slice", phase_slice, torch, wtt, kernels, smi)
+    slice2 = timed("slice2", phase_slice2, torch, wtt, kernels, smi, len(sites))
+    audio = timed("audio", phase_audio, torch, wtt, kernels, smi)
+    vit = timed("vit", phase_vit, torch, wtt, kernels, smi)
+    convnext = timed("convnext", phase_convnext, torch, wtt, kernels, smi)
+    vol = timed("vol", phase_vol, torch, wtt, kernels, smi)
+    voxel3d = timed("voxel3d", phase_voxel3d, torch, wtt, kernels, smi)
+    eval2d = timed("eval2d", phase_eval2d, torch, wtt, kernels, smi)
+    eval1d = timed("eval1d", phase_eval1d, torch, wtt, kernels, smi)
+    baselines = timed("baselines", phase_baselines, torch, wtt, kernels, smi)
+    nhwc = timed("nhwc", phase_nhwc, torch, wtt, kernels, smi)
+    analyzers = timed("analyzers", phase_analyzers, torch, wtt, kernels, smi)
+    iou = timed("iou", phase_iou, torch, wtt, kernels, smi)
+    patch = timed("patch", phase_patch, torch, wtt, kernels, smi)
+    attention = timed("attention", phase_attention, torch, wtt, kernels, smi)
+    video = timed("video", phase_video, torch, wtt, kernels, smi)
+    anytime_ = timed("anytime", phase_anytime, torch, wtt, kernels, smi)
+    serve_ = timed("serve", phase_serve, torch, wtt, kernels, smi)
     an_calls = ("isolate_scales", "insertion", "deletion")
     launches = {"flagship": slice_["launches"], "path 2": slice2["launches"],
                 "vit": vit["call_launches"], "vol": vol["fused"]["call_launches"],
@@ -3512,7 +4032,8 @@ def main() -> int:
                 "analyzers components": analyzers["insertion"]["launches"],
                 **{f"iou {w}": iou["per_wavelet"][w]["call_launches"] for w in IOU_WAVELETS},
                 "patch": patch["call_launches"], "video": video["call_launches"],
-                "anytime": anytime_["launches"]}
+                "anytime": anytime_["launches"],
+                **{f"serve {s}": serve_["batch_launches"][s] for s in SERVE_LAUNCHES}}
     for row in rows:
         row["launches"] = launches[row["path"]][row["kernel"]]
         row["audio_launches"] = audio["launches"][row["kernel"]]
@@ -3534,6 +4055,7 @@ def main() -> int:
         row["video_launches"] = video["call_launches"][row["kernel"]]
         row["video_eval_launches"] = video["eval_launches"][row["kernel"]]
         row["anytime_launches"] = anytime_["launches"][row["kernel"]]
+        row["serve_launches"] = serve_["launches"][row["kernel"]]
 
     print(json.dumps({"slice": {k: v for k, v in slice_.items() if k != "launches"},
                       "slice2": {k: v for k, v in slice2.items() if k != "launches"},
@@ -3542,6 +4064,7 @@ def main() -> int:
                       "baselines": baselines, "periodized": periodized, "nhwc": nhwc,
                       "analyzers": analyzers, "iou": iou, "patch": patch,
                       "attention": attention, "video": video, "anytime": anytime_,
+                      "serve": serve_, "phase_s": seconds,
                       "wall_s": time.perf_counter() - t_start, "gpu": smi}),
           flush=True)
     _log(f"chip_smoke: {time.perf_counter() - t_start:.1f} s wall, the kernels' build included")

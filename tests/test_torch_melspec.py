@@ -134,13 +134,35 @@ def test_bf16_flag_per_call_beats_global():
     assert torch.equal(tm.melspectrogram(x, bf16=True, **kw), bf)
 
 
+def test_dft_matrices_cached_and_bf16_matmul_keeps_no_inputs():
+    """The matmul STFT reuses one pair of DFT matrices per (n_fft, dtype,
+    device), and the bf16 matmul holds no reference to its operands once it
+    returns (a memoized matmul would keep each call's frames alive)."""
+    import gc
+    import weakref
+    x = torch.from_numpy(_rng("dftcache").standard_normal((1, 2048)).astype(np.float32))
+    tm.stft_power(x, n_fft=256, impl="matmul")
+    C, S = tm._dft_matrices(256, torch.float32, x.device)
+    tm.stft_power(x, n_fft=256, impl="matmul", bf16=True)
+    C2, S2 = tm._dft_matrices(256, torch.float32, x.device)
+    assert C2 is C and S2 is S
+    a = torch.from_numpy(_rng("bf16mm").standard_normal((8, 256)).astype(np.float32))
+    out = tm._bf16_matmul(a, C, torch.float32)
+    assert out.shape == (8, 129) and out.dtype == torch.float32
+    ref = weakref.ref(a)
+    del a
+    gc.collect()
+    assert ref() is None
+
+
 @pytest.mark.parametrize("impl", IMPLS)
 def test_bf16_mel_chain_attribution_cosine(impl):
     """The reference's gate for the bf16 mel chain (tests/test_precision.py):
     WAM-1D mel attribution through a NONLINEAR head, bf16 against float32,
     cosine >= 0.99, here against the port's float32 and the JAX package's.
-    The port's bf16 matmuls round their outputs to bf16 (the reference's
-    accumulate to float32 out), one rounding more, inside the same gate."""
+    The port's bf16 matmuls give float32 out of bf16 operands, as the
+    reference's do (tests/test_torch_wam1d.py holds the two packages' bf16
+    arms to each other on the AudioCNN)."""
     rng = _rng("bf16gate")
     wave = rng.standard_normal((2, 4096)).astype(np.float32)
     head = rng.standard_normal((16, 4)).astype(np.float32)

@@ -76,7 +76,8 @@ def test_pyproject_packages_include_the_port():
     found = set(find_packages(where=str(ROOT), include=["wam_tpu*"]))
     assert {"wam_tpu_torch", "wam_tpu_torch.wavelets", "wam_tpu_torch.core",
             "wam_tpu_torch.ops", "wam_tpu_torch.models", "wam_tpu_torch.tune",
-            "wam_tpu_torch.evalsuite"} <= found
+            "wam_tpu_torch.evalsuite", "wam_tpu_torch.serve", "wam_tpu_torch.obs",
+            "wam_tpu_torch.pipeline"} <= found
     assert 'include = ["wam_tpu*"]' in (ROOT / "pyproject.toml").read_text()
 
 
@@ -334,6 +335,51 @@ def test_eval2d_on_cuda_resolves_to_the_kernels(monkeypatch):
     np.testing.assert_allclose(np.stack(out["cuda"][1]), np.stack(out["plain"][1]), rtol=0,
                                atol=1e-5)
     np.testing.assert_allclose(out["cuda"][2], out["plain"][2], rtol=0, atol=1e-5)
+
+
+@pytest.mark.parametrize("side, k2", [(224, 0), (256, 1)], ids=["224", "256"])
+def test_serve_buckets_route_through_the_kernels(monkeypatch, side, k2):
+    """The flagship's served entry (db4, J=3, SmoothGrad) on each bucket of
+    the README's server, one dispatched batch on the kernel route (the
+    kernels' plain versions behind counted wrappers of the route
+    functions): 224² collapses every synthesis level (detail sides
+    115/61/34: K1 3, K3 forward and backward), 256² runs its finest level
+    (131 >= SYNTH_COLLAPSE) through K2, whose backward is one more K1
+    launch, and K3 the two coarser ones. The counts do not depend on the
+    batch's rows (one launch a level for the whole batch)."""
+    counts = dict.fromkeys(("dwt2", "synth2", "pair"), 0)
+
+    def counted(name, fn, backward=None):
+        def wrapped(*a, **k):
+            counts[name] += 1
+            out = fn(*a, **k)
+            if backward is not None and out.requires_grad:
+                out.register_hook(lambda g: counts.__setitem__(backward, counts[backward] + 1))
+            return out
+        return wrapped
+
+    monkeypatch.setattr(tmm, "dwt2_kernel", counted("dwt2", tmm.dwt2_kernel))
+    monkeypatch.setattr(tmm, "idwt2_kernel", counted("synth2", tmm.idwt2_kernel, "dwt2"))
+    monkeypatch.setattr(tmm, "waverec2_collapsed", counted("pair", tmm.waverec2_collapsed,
+                                                           "pair"))
+    coeffs = tt.wavedec2(torch.zeros(1, 3, side, side), "db4", 3, impl="kernel")
+    sides = [d.horizontal.shape[-1] for d in coeffs[1:]]
+    assert sides == ([34, 61, 115] if side == 224 else [38, 69, 131])
+    assert tt._collapse_count(coeffs[1:]) == 3 - k2
+    for k in counts:
+        counts[k] = 0
+    rng = np.random.default_rng(side)
+    weights = torch.from_numpy(rng.standard_normal((5, 3 * side * side)).astype(np.float32))
+
+    def model_fn(v):
+        return v.reshape(v.shape[0], -1) @ weights.T
+
+    wam = WaveletAttribution2D(model_fn, wavelet="db4", J=3, n_samples=2, device="cpu",
+                               impl="kernel")
+    out = wam.serve_entry()(torch.from_numpy(rng.standard_normal(
+        (2, 3, side, side)).astype(np.float32)), torch.tensor([0, 4]))
+    assert out.shape[0] == 2 and bool(torch.isfinite(out).all())
+    assert counts == {"dwt2": 3 + k2, "synth2": k2, "pair": 2}, counts
 
 
 def test_kernel_launchers_refuse_cpu_tensors(monkeypatch):

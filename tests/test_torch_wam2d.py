@@ -232,8 +232,9 @@ def test_wam2d_rejects_unported_options(r18):
     with pytest.raises(ValueError, match="model_layout"):
         twam.BaseWAM2D(tfn, model_layout="hwcn", device="cpu")
     m = twam.WaveletAttribution2D(tfn, device="cpu")
-    with pytest.raises(NotImplementedError):
-        m.serve_entry()
+    assert callable(m.serve_entry())  # ported (tests/test_torch_serve.py); the AOT key is not
+    with pytest.raises(NotImplementedError, match="slice E"):
+        m.serve_entry(aot_key="k")
     # anytime_serve_entry is ported (tests/test_torch_anytime.py): SmoothGrad only
     with pytest.raises(ValueError, match="smooth"):
         twam.WaveletAttribution2D(tfn, method="integratedgrad", device="cpu").anytime_serve_entry()

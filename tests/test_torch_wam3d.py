@@ -493,8 +493,9 @@ def test_wam3d_rejects_unported_options(r3d):
     for kw in ({"mesh": object()}, {"batch_axis": "batch"}, {"seq_axis": "model"}):
         with pytest.raises(NotImplementedError, match="slice E"):
             tw3.WaveletAttribution3D(tfn, device="cpu", **kw)
-    with pytest.raises(NotImplementedError, match="slice F"):
-        tw3.WaveletAttribution3D(tfn, device="cpu").serve_entry()
+    assert callable(tw3.WaveletAttribution3D(tfn, device="cpu").serve_entry())
+    with pytest.raises(NotImplementedError, match="slice E"):
+        tw3.WaveletAttribution3D(tfn, device="cpu").serve_entry(aot_key="vol")
     with pytest.raises(ValueError):
         tw3.WaveletAttribution3D(tfn, method="gradcam", device="cpu")
     with pytest.raises(ValueError):

@@ -10,9 +10,11 @@ still get a best-so-far map.
   `run_anytime`, one result fetch a call;
 - `anytime.result.AnytimeResult`: a best-so-far map and its confidence.
 
-`WaveletAttribution2D.anytime_serve_entry` builds the single-device entry.
-The anytime server, its kill switch and its SLO objectives wait for
-ROADMAP.md slice F; the tuned stride for slice E.
+`WaveletAttribution2D.anytime_serve_entry` builds the single-device entry,
+and `serve.AttributionServer` serves it: a deadline delivers the
+best-so-far map as an `AnytimeResult`, ``WAM_TPU_NO_ANYTIME=1`` turns
+the anytime semantics off, and `obs.slo` carries the confidence
+objective. The tuned stride waits for ROADMAP.md slice E.
 """
 
 from wam_tpu_torch.anytime.driver import AnytimeOutcome, drive_anytime, run_anytime

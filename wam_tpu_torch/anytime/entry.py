@@ -26,9 +26,12 @@ it instead of computing it and multiplying by 0. The zero accumulator trees
 are made by the first sample (the reference sizes them with ``eval_shape``,
 which costs a trace; here it would cost a sample).
 
-``on_trace`` and ``obs_kind`` are accepted for the reference's signature and
-report nothing: an eager entry has no trace to report until the compile
-pipeline (ROADMAP.md slice E) and the compile sentinel (slice F) land.
+``on_trace`` and ``obs_kind``: each of begin / step / finalize reports its
+first call at a new input signature (`serve.entry.signature` of ``(x, y)``;
+finalize: of the confidence vector) to the first-call sentinel
+(`wam_tpu_torch.obs.sentinel`) under ``obs_kind`` and fires ``on_trace`` —
+the port's counterpart of the reference's three jit traces, so an anytime
+bucket warms at 3 first calls, not 1.
 """
 
 from __future__ import annotations
@@ -39,6 +42,7 @@ import numpy as np
 import torch
 
 from wam_tpu_torch.anytime.state import ANYTIME_VEC_SIZE, conf_stats, m2_update, tree_map
+from wam_tpu_torch.obs import sentinel as obs_sentinel
 
 __all__ = ["AnytimeEntry", "make_anytime_entry", "DEFAULT_PLATEAU_TOL"]
 
@@ -104,14 +108,27 @@ def make_anytime_entry(
         raise ValueError(f"stride must be in [1, n_total={n_total}], got {stride}")
     if finalize_fn is None:
         finalize_fn = lambda mean: mean  # noqa: E731
-    del on_trace, obs_kind  # nothing to report without a trace (module docstring)
+    from wam_tpu_torch.serve.entry import signature
+
+    seen: set = set()
+
+    def _first_call(detail: str, *args) -> None:
+        key = (detail, signature(*args))
+        if key in seen:
+            return
+        seen.add(key)
+        obs_sentinel.record_trace(obs_kind, detail=f"{name}:{detail}")
+        if on_trace is not None:
+            on_trace()
 
     def begin(x, y):
+        _first_call("begin", x, y)
         b, dev = x.shape[0], torch.as_tensor(x).device
         return (None, torch.zeros((b,), dtype=torch.float32, device=dev), 0, None, 0,
                 torch.zeros((b, ANYTIME_VEC_SIZE), dtype=torch.float32, device=dev))
 
     def step(state, x, y):
+        _first_call("step", x, y)
         acc, m2, count, prev_acc, prev_count, _ = state
         for _ in range(stride):
             if count >= n_total:  # weight 0 past n_total: inert
@@ -128,6 +145,7 @@ def make_anytime_entry(
 
     def finalize(state):
         acc, _m2, count, _pa, _pc, conf = state
+        _first_call("finalize", conf)
         # the reference's float32 reciprocal, exact as a Python float
         scale = float(np.float32(1.0) / np.float32(max(count, 1)))
         mean = tree_map(lambda a: (a.float() * scale).to(a.dtype), acc)

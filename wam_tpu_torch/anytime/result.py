@@ -16,7 +16,8 @@ class AnytimeResult:
     false) instead of an error, and a converged input stops early
     (``converged``) with fewer than ``n_total`` samples. ``confidence`` is
     the `anytime.state` scalar in (0, 1]; ``rel_sem`` and ``delta`` are the
-    two signals it folds. The server that returns it is ROADMAP.md slice F's."""
+    two signals it folds. `serve.AttributionServer` returns it from an
+    anytime entry."""
 
     attribution: Any
     confidence: float

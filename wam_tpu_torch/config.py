@@ -1,6 +1,7 @@
-"""Typed configuration (PyTorch port of `wam_tpu.config`, less the serving
-and observability configs of slice F and the JAX backend glue, whose
-counterpart is `device.resolve_device`).
+"""Typed configuration (PyTorch port of `wam_tpu.config`, less the JAX
+backend glue: ``select_backend`` / ``ensure_usable_backend``, whose
+counterpart is `device.resolve_device`, and ``enable_compilation_cache``,
+which waits for the port's AOT cache, ROADMAP.md slice E).
 
 `WAM2DConfig`, `WAM1DConfig`, `WAM3DConfig` and `EvalConfig` keep the
 reference's defaults; ``device="auto"`` is `resolve_device(None)`: the card,
@@ -15,6 +16,11 @@ float32. (The reference's third layer, a tuned schedule entry, waits for the
 port's tune cache.) `resolve_compute_dtype` turns the baseline evaluators'
 ``compute_dtype`` / ``precision`` pair into a torch dtype and a fan tag.
 `EvalConfig` holds the evaluation suite's defaults.
+
+`ServeConfig` and `ObsConfig` are the knobs of `wam_tpu_torch.serve` and
+`wam_tpu_torch.obs`; `probe_accelerator` asks a throwaway subprocess, under
+a timeout, whether the card still works (the serving runtime's degradation
+check).
 """
 
 from __future__ import annotations
@@ -27,8 +33,9 @@ from dataclasses import dataclass, fields
 import torch
 
 __all__ = ["FAN_DTYPES", "PrecisionPolicy", "resolve_precision", "resolve_compute_dtype",
-           "precision_tag", "compute_cast", "fp8_supported", "WAM2DConfig", "WAM1DConfig",
-           "WAM3DConfig", "EvalConfig", "add_config_args", "config_from_args"]
+           "precision_tag", "compute_cast", "fp8_supported", "probe_accelerator",
+           "WAM2DConfig", "WAM1DConfig", "WAM3DConfig", "EvalConfig", "ServeConfig",
+           "ObsConfig", "add_config_args", "config_from_args"]
 
 FAN_DTYPES = ("f32", "bf16", "fp8")
 FP8 = torch.float8_e4m3fn
@@ -151,6 +158,27 @@ def compute_cast(x: torch.Tensor, dtype: torch.dtype | None) -> torch.Tensor:
     return x if dtype is None else x.to(dtype)
 
 
+def probe_accelerator(timeout_s: float = 180.0) -> bool:
+    """Check in a SUBPROCESS whether a CUDA card can be initialized and run
+    one small computation. A card lost mid-run can leave CUDA calls in this
+    process failing or hanging; a throwaway subprocess with a hard timeout
+    is the safe probe. Every call probes anew: the serving runtime calls it
+    after an entry failure to tell a device loss from an in-process bug
+    before it degrades to its fallback entry."""
+    import subprocess
+    import sys
+
+    code = ("import sys, torch\n"
+            "ok = torch.cuda.is_available() and float(torch.ones(8, device='cuda').sum()) == 8.0\n"
+            "sys.exit(0 if ok else 1)")
+    try:
+        proc = subprocess.run([sys.executable, "-c", code], timeout=timeout_s,
+                              capture_output=True)
+    except subprocess.TimeoutExpired:
+        return False
+    return proc.returncode == 0
+
+
 @dataclass
 class WAM2DConfig:
     wavelet: str = "haar"
@@ -211,6 +239,76 @@ class EvalConfig:
     # no tuned cap yet)
     batch_size: int | str = 128
     device: str = "auto"
+
+
+@dataclass
+class ServeConfig:
+    """Knobs of `wam_tpu_torch.serve.AttributionServer`. ``buckets`` is the
+    admitted item-shape set as a CLI-friendly string: comma-separated, dims
+    joined by 'x' — e.g. "3x224x224,3x256x256" for images, "32768,65536"
+    for waveforms; "" lets the caller pick programmatically. ``max_batch``
+    accepts "auto", which is 8 until the port's tuned per-bucket cap lands
+    (ROADMAP.md slice E).
+
+    The reference's fleet, supervisor and registry knobs (``fleet``,
+    ``oversize``, ``supervise``, ``restart_*``, ``registry``) wait for
+    those modules (ROADMAP.md slice E). ``compilation_cache`` defaults off
+    here: the server raises NotImplementedError when it is on, until the
+    port's AOT cache (``pipeline/aot.py``, slice E) lands."""
+
+    max_batch: int | str = 8  # rows per dispatched batch, or "auto"
+    max_wait_ms: float = 5.0
+    # cross-request admission window (serve/runtime "Coalescing"): hold a
+    # bucket's dispatch up to this long for batch fill, with deadline-
+    # pressure early release. 0 = max_wait-only behavior. ON by default for
+    # config-built servers, as in the reference.
+    coalesce_ms: float = 3.0
+    # content-addressed result cache budget (serve/result_cache), MB per
+    # server. 0 = off.
+    result_cache_mb: float = 64.0
+    queue_depth: int = 64
+    deadline_ms: float = 0.0  # 0 = no per-request deadline
+    buckets: str = ""
+    warmup: bool = True
+    pipelined: bool = True  # one-in-flight overlapped dispatch (serve/runtime)
+    compilation_cache: bool = False
+    metrics_path: str = ""
+    device: str = "auto"
+    # -- health plane (obs.health / obs.memory / obs.slo) -------------------
+    health: bool = True  # numeric-health monitors + quarantine
+    health_quarantine_n: int = 3  # consecutive non-finite batches -> degraded
+    health_recovery_s: float = 30.0  # quarantine probation window
+    hbm_budget_mb: float = 0.0  # device memory budget (MiB); 0 = no limit
+    # per-tenant admission quota as a fraction of queue_depth: one tenant may
+    # hold at most max(1, queue_depth * tenant_quota) queued requests
+    tenant_quota: float = 0.0
+    # per-bucket SLOs, e.g. "p99_ms=50,error_rate=0.01,health_rate=0.999"
+    # optionally bucket-prefixed: "3x224x224: p99_ms=30; *: p99_ms=80"
+    slo: str = ""
+    retry_attempts: int = 4  # client-side submit attempts (serve.retry)
+    retry_budget_s: float = 30.0  # total per-request retry budget; 0 = none
+
+    def bucket_shapes(self) -> list[tuple[int, ...]]:
+        if not self.buckets:
+            return []
+        return [
+            tuple(int(d) for d in part.strip().split("x"))
+            for part in self.buckets.split(",")
+            if part.strip()
+        ]
+
+
+@dataclass
+class ObsConfig:
+    """Knobs of the unified observability layer (`wam_tpu_torch.obs`).
+    Apply with ``wam_tpu_torch.obs.configure(cfg)``. ``enabled=False`` turns
+    every span/counter call into a near-zero-overhead no-op (the first-call
+    sentinel keeps counting). ``prom_port``: the port of
+    `obs.start_metrics_server`; 0 = no endpoint."""
+
+    enabled: bool = True
+    ring_size: int = 4096  # span ring capacity (oldest spans drop first)
+    prom_port: int = 0  # /metrics HTTP port; 0 = disabled
 
 
 def _int_or_str(s: str):

@@ -174,6 +174,19 @@ class WamEngine:
         grads = self.grads_from_coeffs(coeffs, y, self.spatial_shape(x.shape), samples)
         return coeffs, grads
 
+    def attribute_with_health(self, x: torch.Tensor, y: torch.Tensor | None,
+                              samples: int = 1):
+        """`attribute` plus the gradient tree's numeric-health vector
+        (`wam_tpu_torch.obs.health.health_stats` over the coefficient
+        gradients: the per-call grad-norm / NaN-Inf summary), computed on
+        the device behind the gradients so health-fused serving entries
+        carry it in the result fetch they already make. Returns
+        ``(coeffs, grads, health_vec)``."""
+        from wam_tpu_torch.obs.health import health_stats
+
+        coeffs, grads = self.attribute(x, y, samples)
+        return coeffs, grads, health_stats(grads)
+
     def attribute_with_front_grads(self, x: torch.Tensor, y: torch.Tensor | None,
                                    samples: int = 1):
         """Like `attribute`, also returning the gradient at the front end's

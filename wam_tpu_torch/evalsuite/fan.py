@@ -52,12 +52,14 @@ def _to_host(out):
         return out.detach().cpu().numpy()
     if isinstance(out, (tuple, list)):
         return type(out)(_to_host(o) for o in out)
+    if isinstance(out, dict):
+        return {k: _to_host(v) for k, v in out.items()}
     return out
 
 
 def device_fetch(out):
-    """THE result fetch: the whole result (a tensor, or a tuple or list of
-    them) copied to the host as numpy. Every fan metric's device-to-host
+    """THE result fetch: the whole result (a tensor, or a tuple, list or
+    dict of them) copied to the host as numpy. Every fan metric's device-to-host
     transfer goes through here, counted by `fetch_scope` and `fetch_count`."""
     global _FETCH_COUNT
     _FETCH_COUNT += 1

@@ -1,0 +1,145 @@
+"""Serving entries — the glue between an engine and the runtime (PyTorch
+port of `wam_tpu.serve.entry`).
+
+A serving entry is a callable ``entry(x, y) -> attribution tree`` with a
+leading batch axis on every input and output leaf and no instance-attribute
+stashing (the worker loop is a thread; the engines' ``__call__``
+convenience surface sets ``self.scales`` etc. and is NOT thread-safe).
+`jit_entry` keeps the reference's name and contract; there is no jit in
+eager PyTorch, and what the reference does at trace time happens at the
+FIRST call at a new input signature (the shape, dtype and device of every
+tensor argument, `signature`) — where cuDNN picks its algorithms, the
+port's kernels are built and their band plans made:
+
+- **first-call counting** via ``on_trace``: it runs once per new
+  signature, so it counts what the reference's hook counts (the serve
+  ledger's ``compile_count`` and the one-per-bucket assertion), and every
+  such call is reported to the sentinel (`wam_tpu_torch.obs.sentinel`)
+  under ``obs_kind``;
+- **donation** (``donate``, `pipeline.donation`): the staged input batch
+  is released to the caching allocator once the entry has enqueued its
+  work on it;
+- **health** (``with_health``): the numeric-health vector computed inside
+  the same call.
+
+``aot_key=`` (the reference's AOT executable cache) raises
+NotImplementedError until the port's ``pipeline/aot.py`` lands
+(ROADMAP.md slice E); `fleet_aot_key` is a string function and is here.
+"""
+
+from __future__ import annotations
+
+import threading
+from typing import Callable
+
+from wam_tpu_torch.obs import sentinel
+from wam_tpu_torch.pipeline.donation import release, resolve_donate
+
+__all__ = ["jit_entry", "fleet_aot_key", "signature"]
+
+
+def fleet_aot_key(aot_key: str | None, n_replicas: int | None,
+                  precision: str | None = None) -> str | None:
+    """Replica-count (and precision) tag for fleet AOT keys, as in the
+    reference: an export built for an N-card fleet must be a cache MISS on
+    another N, and a non-default ``precision`` tag (`config.precision_tag`,
+    e.g. "bf16" or "bf16+mel") is appended so a bf16 export never hits the
+    f32 one. Single-card keys (``n_replicas`` in {None, 1}) and the default
+    policy ("f32"/None/"") pass through unchanged."""
+    if aot_key is None:
+        return None
+    if n_replicas not in (None, 1):
+        aot_key = f"{aot_key}|fleet{int(n_replicas)}"
+    if precision not in (None, "", "f32"):
+        aot_key = f"{aot_key}|{precision}"
+    return aot_key
+
+
+def signature(*args) -> tuple:
+    """The input signature a first call is keyed on: (shape, dtype, device)
+    of each tensor or array argument, the value's type otherwise (a None
+    label is its own signature)."""
+    sig = []
+    for a in args:
+        shape = getattr(a, "shape", None)
+        if shape is None:
+            sig.append(type(a).__name__)
+        else:
+            sig.append((tuple(int(d) for d in shape), str(getattr(a, "dtype", "")),
+                        str(getattr(a, "device", "cpu"))))
+    return tuple(sig)
+
+
+def _bucket_of(x):
+    """Bucket label for a first-call event: the input's shape."""
+    try:
+        return "x".join(str(int(d)) for d in x.shape)
+    except Exception:
+        return None
+
+
+def jit_entry(
+    impl: Callable,
+    *,
+    donate: bool | None = None,
+    on_trace: Callable[[], None] | None = None,
+    aot_key: str | None = None,
+    obs_kind: str = "serve",
+    with_health: bool | str = False,
+):
+    """Wrap ``impl(x, y)`` as a serving entry (see module docstring).
+
+    ``donate=None`` resolves to "donate on the card only"
+    (`pipeline.donation.resolve_donate`). Every first call at a new input
+    signature fires ``on_trace`` and is reported to the sentinel under
+    ``obs_kind``, tagged with whatever bucket/replica/phase labels the
+    caller's thread holds.
+
+    ``with_health=True`` computes the numeric-health reduction over the
+    output in the SAME call: the entry returns ``(out, health_vec)`` where
+    the vector is `wam_tpu_torch.obs.health.health_stats` over the output —
+    one more small tensor of the result already being fetched, never a
+    second fetch. ``with_health="fused"`` declares that ``impl`` ALREADY
+    returns that tuple (`WamEngine.attribute_with_health` folds the
+    gradient statistics in). Either way the entry carries
+    ``entry.wam_health = True`` so the serve worker knows to unpack."""
+    if aot_key is not None:
+        raise NotImplementedError(
+            "aot_key= needs the AOT executable cache, pipeline/aot.py, which is not "
+            "ported yet (ROADMAP.md, slice E)")
+    fused = with_health == "fused"
+    if with_health and not fused:
+        from wam_tpu_torch.obs.health import health_stats
+
+        base_impl = impl
+
+        def impl(x, y):  # noqa: F811 - deliberate health-wrapped rebind
+            out = base_impl(x, y)
+            return out, health_stats(out)
+
+        impl.__name__ = getattr(base_impl, "__name__", "entry") + "+health"
+
+    donating = resolve_donate(donate)
+    seen: set = set()
+    lock = threading.Lock()
+    detail = getattr(impl, "__name__", "")
+
+    def entry(x, y):
+        sig = signature(x, y)
+        with lock:
+            first = sig not in seen
+            seen.add(sig)
+        if first:
+            sentinel.record_trace(obs_kind, detail=detail, bucket=_bucket_of(x))
+            if on_trace is not None:
+                on_trace()
+        out = impl(x, y)
+        if donating:
+            release(x)
+        return out
+
+    entry.__name__ = detail or "entry"
+    entry.wam_donate = donating
+    if with_health:
+        entry.wam_health = True
+    return entry

@@ -213,6 +213,14 @@ class WaveletAttribution1D(BaseWAM1D):
     # -- SmoothGrad --------------------------------------------------------
 
     def smooth_wam(self, x, y, noise=None):
+        mel_avg, grad_avg = self._smooth(x, y, noise)
+        self.melspecs = mel_avg
+        self.grad_coeffs = grad_avg
+        return mel_avg, grad_avg
+
+    def _smooth(self, x, y, noise=None):
+        """``(mel_avg, [coefficient averages])``, with no instance attribute
+        set."""
         x, y = self._inputs(x, y)
         length = x.shape[-1]
 
@@ -230,13 +238,19 @@ class WaveletAttribution1D(BaseWAM1D):
             step, x, n_samples=self.n_samples, stdev_spread=self.stdev_spread,
             batch_size=self._chunk(), generator=generator, noise=noise,
             materialize_noise=not self.stream_noise, seed=self.random_seed)
-        self.melspecs = mel_avg
-        self.grad_coeffs = grad_avg
         return mel_avg, grad_avg
 
     # -- Integrated gradients ---------------------------------------------
 
     def integrated_wam(self, x, y):
+        mel_attr, coeff_attr = self._integrated(x, y)
+        self.melspecs = mel_attr
+        self.grad_coeffs = coeff_attr
+        return mel_attr, coeff_attr
+
+    def _integrated(self, x, y):
+        """``(mel_attr, [coefficient attributions])``, with no instance
+        attribute set."""
         x, y = self._inputs(x, y)
         length = x.shape[-1]
         with torch.no_grad():
@@ -253,8 +267,6 @@ class WaveletAttribution1D(BaseWAM1D):
             grad_fn, n_steps=self.n_samples, batch_size=self._chunk(), device=self.device)
         mel_attr = baseline_mel * mel_integ
         coeff_attr = [c * g for c, g in zip(coeffs, coeff_integ)]
-        self.melspecs = mel_attr
-        self.grad_coeffs = coeff_attr
         return mel_attr, coeff_attr
 
     def __call__(self, x, y, noise=None):
@@ -264,8 +276,25 @@ class WaveletAttribution1D(BaseWAM1D):
             raise ValueError("noise= applies to method='smooth' only")
         return self.integrated_wam(x, y)
 
-    def serve_entry(self, *args, **kwargs):
-        raise NotImplementedError("serve_entry is not ported yet (ROADMAP.md, slice F)")
+    def serve_entry(self, donate: bool | None = None, on_trace=None,
+                    aot_key: str | None = None, with_health: bool = False):
+        """Batched serving entry ``(x, y) -> (mel_attr, coeff_attr)`` for the
+        `wam_tpu_torch.serve` worker: x is (B, W) float32 waveforms (already
+        peak-normalized — the list form of `normalize_waveforms` is a host
+        step), y is (B,) int labels. Returns what ``__call__`` returns minus
+        the instance-attribute stashing (``self.melspecs`` /
+        ``self.grad_coeffs``) that makes it thread-unsafe; the serve runtime
+        distributes rows of every leaf. SmoothGrad seeds its generator with
+        the instance seed on every call (one noise stream for every batch).
+        (``mesh=``, which the reference rejects here, is rejected by the
+        constructor until slice E.) ``with_health=True`` computes the
+        numeric-health vector over the result tree in the same call
+        (`serve.entry.jit_entry`)."""
+        from wam_tpu_torch.serve.entry import jit_entry
+
+        impl = self._smooth if self.method == "smooth" else self._integrated
+        return jit_entry(lambda x, y: impl(torch.as_tensor(x).float(), y), donate=donate,
+                         on_trace=on_trace, aot_key=aot_key, with_health=with_health)
 
 
 def _minmax_normalize(a):

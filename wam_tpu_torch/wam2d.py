@@ -118,8 +118,37 @@ class BaseWAM2D:
                                          channel_axis=self._caxis)
         return mosaic2d(grads, self.normalize_coeffs, self._caxis)
 
-    def serve_entry(self, *args, **kwargs):
-        raise NotImplementedError("serve_entry is not ported yet (ROADMAP.md, slice F)")
+    def serve_entry(self, donate: bool | None = None, on_trace=None,
+                    aot_key: str | None = None, with_health: bool = False):
+        """Batched serving entry ``(x, y) -> mosaic (B, S, S)`` for the
+        `wam_tpu_torch.serve` worker: no instance-attribute stashing (unlike
+        ``__call__``), so it is safe to call from the worker thread.
+        ``donate`` / ``on_trace`` / ``aot_key`` go to `serve.entry.jit_entry`
+        (the staged batch released on the card, first-call counting; an AOT
+        key raises until slice E). ``with_health=True`` computes the
+        numeric-health vector in the same call — mosaic saturation/max plus
+        the coefficient-gradient norm and pooled NaN/Inf counts
+        (`WamEngine.attribute_with_health`), zero extra fetches."""
+        from wam_tpu_torch.serve.entry import jit_entry
+
+        if with_health:
+            from wam_tpu_torch.obs.health import combine_output_grads, health_stats
+
+            def impl(x, y):
+                x, y = self._inputs(x, y)
+                _, grads, gvec = self.engine.attribute_with_health(self._to_internal(x), y)
+                m = mosaic2d(grads, self.normalize_coeffs, self._caxis)
+                return m, combine_output_grads(health_stats(m), gvec)
+
+            return jit_entry(impl, donate=donate, on_trace=on_trace, aot_key=aot_key,
+                             with_health="fused")
+
+        def impl(x, y):
+            x, y = self._inputs(x, y)
+            _, grads = self.engine.attribute(self._to_internal(x), y)
+            return mosaic2d(grads, self.normalize_coeffs, self._caxis)
+
+        return jit_entry(impl, donate=donate, on_trace=on_trace, aot_key=aot_key)
 
     def disentangle_scales(self, grads, approx_coeffs: bool = False):
         return disentangle_scales(grads, approx_coeffs=approx_coeffs, channel_axis=self._caxis)
@@ -213,6 +242,12 @@ class WaveletAttribution2D(BaseWAM2D):
     # -- SmoothGrad --------------------------------------------------------
 
     def smooth_wam(self, x, y, noise=None) -> torch.Tensor:
+        avg = self._smooth(x, y, noise)
+        self.scales = reproject_mosaic(avg, self.J, self.approx_coeffs)
+        return avg
+
+    def _smooth(self, x, y, noise=None) -> torch.Tensor:
+        """The SmoothGrad mosaic, with no instance attribute set."""
         x, y = self._inputs(x, y)
         x = self._to_internal(x)  # once, outside the sample loop
         if noise is not None and self.model_layout == "nhwc":
@@ -231,15 +266,20 @@ class WaveletAttribution2D(BaseWAM2D):
         generator = None
         if noise is None and not self.stream_noise:
             generator = torch.Generator(device=self.device).manual_seed(self.random_seed)
-        avg = smoothgrad(step, x, n_samples=self.n_samples, stdev_spread=self.stdev_spread,
-                         batch_size=self._chunk(), generator=generator, noise=noise,
-                         materialize_noise=not self.stream_noise, seed=self.random_seed)
-        self.scales = reproject_mosaic(avg, self.J, self.approx_coeffs)
-        return avg
+        return smoothgrad(step, x, n_samples=self.n_samples, stdev_spread=self.stdev_spread,
+                          batch_size=self._chunk(), generator=generator, noise=noise,
+                          materialize_noise=not self.stream_noise, seed=self.random_seed)
 
     # -- Integrated gradients ---------------------------------------------
 
     def integrated_wam(self, x, y) -> torch.Tensor:
+        attr = self._integrated(x, y)
+        self.scales = reproject_mosaic(attr, self.J, self.approx_coeffs)
+        return attr
+
+    def _integrated(self, x, y) -> torch.Tensor:
+        """The Integrated-Gradients attribution, with no instance attribute
+        set."""
         x, y = self._inputs(x, y)
         x = self._to_internal(x)
         if self.dwt_bf16:
@@ -258,9 +298,7 @@ class WaveletAttribution2D(BaseWAM2D):
 
         integral = integrated_path(grad_fn, n_steps=self.n_samples,
                                    batch_size=self._chunk(), device=self.device)
-        attr = baseline * integral
-        self.scales = reproject_mosaic(attr, self.J, self.approx_coeffs)
-        return attr
+        return baseline * integral
 
     def __call__(self, x, y, noise=None) -> torch.Tensor:
         if self.method == "smooth":
@@ -268,6 +306,27 @@ class WaveletAttribution2D(BaseWAM2D):
         if noise is not None:
             raise ValueError("noise= applies to method='smooth' only")
         return self.integrated_wam(x, y)
+
+    def serve_entry(self, donate: bool | None = None, on_trace=None,
+                    aot_key: str | None = None, with_health: bool = False):
+        """Batched serving entry ``(x, y) -> mosaic (B, S, S)`` for the
+        `wam_tpu_torch.serve` worker: the estimator body without the
+        instance-attribute stashing (``self.scales``) that makes ``__call__``
+        thread-unsafe. SmoothGrad seeds its generator with the instance seed
+        on every call, so every batch reuses one noise stream — what repeat
+        ``__call__`` invocations do (the reference folds the seed in at
+        build time). ``mesh=`` is rejected: the serving worker owns one
+        device. ``with_health=True`` computes the numeric-health vector over
+        the mosaic in the same call (`serve.entry.jit_entry`)."""
+        if self.mesh is not None:
+            raise ValueError(
+                "serve_entry() does not support mesh=; the serve worker owns "
+                "a single device — drive the sharded estimator directly")
+        from wam_tpu_torch.serve.entry import jit_entry
+
+        impl = self._smooth if self.method == "smooth" else self._integrated
+        return jit_entry(lambda x, y: impl(x, y), donate=donate, on_trace=on_trace,
+                         aot_key=aot_key, with_health=with_health)
 
     def anytime_serve_entry(self, stride: int | str = "auto", on_trace=None,
                             plateau_tol: float | None = None, noise=None):
@@ -278,8 +337,10 @@ class WaveletAttribution2D(BaseWAM2D):
         tensor. At full n it equals `smooth_wam` with ``stream_noise=True``
         (or with the same ``noise``) up to the order of the sample sum.
         ``stride`` is the checkpoint cadence ("auto": 5, clamped;
-        `core.estimators.resolve_checkpoint_stride`). SmoothGrad only; the
-        anytime server itself waits for ROADMAP.md slice F."""
+        `core.estimators.resolve_checkpoint_stride`). SmoothGrad only;
+        `serve.AttributionServer` serves it with deadlines. ``on_trace``
+        fires at each of the entry's first calls at a new input signature
+        (`anytime.entry.make_anytime_entry`)."""
         if self.mesh is not None:
             raise ValueError(
                 "anytime_serve_entry() does not support mesh=; the serve "

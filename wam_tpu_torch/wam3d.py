@@ -186,9 +186,6 @@ class BaseWAM3D:
             return self.evaluate_voxels(x, y)
         return self.evaluate_point_clouds(x, y)
 
-    def serve_entry(self, *args, **kwargs):
-        raise NotImplementedError("serve_entry is not ported yet (ROADMAP.md, slice F)")
-
 
 class WaveletAttribution3D(BaseWAM3D):
     """SmoothGrad / Integrated-Gradients WAM-3D on volumes (B, 1, D, H, W).
@@ -265,8 +262,13 @@ class WaveletAttribution3D(BaseWAM3D):
 
     def smooth(self, x, y=None, noise=None) -> torch.Tensor:
         """The mean gradient cube over the noisy samples (B, S, S, S)."""
-        x, y = self._inputs(x, y)
         self.input_size = x.shape[-1]
+        self.grads = self._smooth(x, y, noise)
+        return self.grads
+
+    def _smooth(self, x, y=None, noise=None) -> torch.Tensor:
+        """`smooth`'s cube, with no instance attribute set."""
+        x, y = self._inputs(x, y)
         vol = x[:, 0]
         spatial = tuple(vol.shape[-3:])
 
@@ -281,17 +283,20 @@ class WaveletAttribution3D(BaseWAM3D):
             noise = noise.reshape((noise.shape[0],) + tuple(vol.shape))
         elif not self.stream_noise:
             generator = torch.Generator(device=self.device).manual_seed(self.random_seed)
-        self.grads = smoothgrad(step, vol, n_samples=self.n_samples,
-                                stdev_spread=self.stdev_spread, batch_size=self._chunk(),
-                                generator=generator, noise=noise,
-                                materialize_noise=not self.stream_noise, seed=self.random_seed)
-        return self.grads
+        return smoothgrad(step, vol, n_samples=self.n_samples, stdev_spread=self.stdev_spread,
+                          batch_size=self._chunk(), generator=generator, noise=noise,
+                          materialize_noise=not self.stream_noise, seed=self.random_seed)
 
     def integrated_wam(self, x, y=None) -> torch.Tensor:
         """The input coefficients' cube times the trapezoidal path integral
         of the gradient cubes (B, S, S, S)."""
-        x, y = self._inputs(x, y)
         self.input_size = x.shape[-1]
+        self.grads = self._integrated(x, y)
+        return self.grads
+
+    def _integrated(self, x, y=None) -> torch.Tensor:
+        """`integrated_wam`'s cube, with no instance attribute set."""
+        x, y = self._inputs(x, y)
         vol = x[:, 0]
         spatial = tuple(vol.shape[-3:])
         with torch.no_grad():
@@ -304,9 +309,8 @@ class WaveletAttribution3D(BaseWAM3D):
                 .reshape((-1,) + tuple(c.shape[1:])), coeffs)
             return self._cubes(scaled, y, spatial, alphas.shape[0])
 
-        self.grads = baseline * integrated_path(grad_fn, n_steps=self.n_samples,
-                                                batch_size=self._chunk(), device=self.device)
-        return self.grads
+        return baseline * integrated_path(grad_fn, n_steps=self.n_samples,
+                                          batch_size=self._chunk(), device=self.device)
 
     intergrated_wam = integrated_wam  # the reference's spelling
 
@@ -316,6 +320,23 @@ class WaveletAttribution3D(BaseWAM3D):
         if noise is not None:
             raise ValueError("noise= applies to method='smooth' only")
         return self.integrated_wam(x, y)
+
+    def serve_entry(self, donate: bool | None = None, on_trace=None,
+                    aot_key: str | None = None, with_health: bool = False):
+        """Batched serving entry ``(x, y) -> cube (B, S, S, S)`` for the
+        `wam_tpu_torch.serve` worker: x is (B, 1, D, H, W) volumes as fed to
+        ``__call__``, y is (B,) int labels (the serve path is labeled-only).
+        The estimator body without the ``self.grads`` / ``self.input_size``
+        stashing that makes ``__call__`` thread-unsafe. SmoothGrad seeds its
+        generator with the instance seed on every call. (``mesh=`` is
+        rejected by the constructor until slice E.) ``with_health=True``
+        computes the numeric-health vector over the cube in the same call
+        (`serve.entry.jit_entry`)."""
+        from wam_tpu_torch.serve.entry import jit_entry
+
+        impl = self._smooth if self.method == "smooth" else self._integrated
+        return jit_entry(lambda x, y: impl(x, y), donate=donate, on_trace=on_trace,
+                         aot_key=aot_key, with_health=with_health)
 
     def visualize(self) -> torch.Tensor:
         """(B, J+2, S, S, S) per-level upsampled maps of the last cube."""

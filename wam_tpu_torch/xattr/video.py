@@ -172,7 +172,7 @@ class WaveletAttributionVideo:
     spatial-only levels' 2D transform (None: the kernels on CUDA).
     ``mesh=`` (time sharding, with ``seq_axis``, ``batch_axis`` and
     ``seq_fused``; the reference's ValueErrors are kept) waits for
-    ROADMAP.md slice E, `serve_entry` for slice F.
+    ROADMAP.md slice E.
     """
 
     def __init__(
@@ -256,6 +256,11 @@ class WaveletAttributionVideo:
     # -- SmoothGrad --------------------------------------------------------
 
     def smooth(self, x, y=None, noise=None) -> torch.Tensor:
+        self.grads = self._smooth(x, y, noise)
+        return self.grads
+
+    def _smooth(self, x, y=None, noise=None) -> torch.Tensor:
+        """`smooth`'s box, with no instance attribute set."""
         clip, y = self._inputs(x, y)
         shape = tuple(clip.shape[-3:])
 
@@ -269,15 +274,18 @@ class WaveletAttributionVideo:
             noise = torch.as_tensor(noise, device=self.device)
         elif not self.stream_noise:
             generator = torch.Generator(device=self.device).manual_seed(self.random_seed)
-        self.grads = smoothgrad(step, clip, n_samples=self.n_samples,
-                                stdev_spread=self.stdev_spread, batch_size=self._chunk(),
-                                generator=generator, noise=noise,
-                                materialize_noise=not self.stream_noise, seed=self.random_seed)
-        return self.grads
+        return smoothgrad(step, clip, n_samples=self.n_samples, stdev_spread=self.stdev_spread,
+                          batch_size=self._chunk(), generator=generator, noise=noise,
+                          materialize_noise=not self.stream_noise, seed=self.random_seed)
 
     # -- Integrated Gradients ----------------------------------------------
 
     def integrated_wam(self, x, y=None) -> torch.Tensor:
+        self.grads = self._integrated(x, y)
+        return self.grads
+
+    def _integrated(self, x, y=None) -> torch.Tensor:
+        """`integrated_wam`'s box, with no instance attribute set."""
         clip, y = self._inputs(x, y)
         shape = tuple(clip.shape[-3:])
         coeffs = self._decompose(clip)
@@ -295,8 +303,7 @@ class WaveletAttributionVideo:
         integral = integrated_path(grad_fn, n_steps=self.n_samples, batch_size=self._chunk(),
                                    device=self.device)
         attr = _unflatten([c * g for c, g in zip(_flatten(coeffs), integral)], coeffs)
-        self.grads = spacetime_map(attr, shape, self.approx_coeffs).mean(dim=1)
-        return self.grads
+        return spacetime_map(attr, shape, self.approx_coeffs).mean(dim=1)
 
     def __call__(self, x, y=None, noise=None) -> torch.Tensor:
         if self.method == "smooth":
@@ -309,5 +316,13 @@ class WaveletAttributionVideo:
         """(B, T) per-frame importance: `frame_importance` of the box."""
         return frame_importance(self(x, y, noise))
 
-    def serve_entry(self, *args, **kwargs):
-        raise NotImplementedError("serve_entry is not ported yet (ROADMAP.md, slice F)")
+    def serve_entry(self, donate: bool | None = None, on_trace=None,
+                    aot_key: str | None = None, with_health: bool = False):
+        """Batched serving entry ``(x, y) → (B, T, H, W)`` for the serve
+        worker (labeled-only, one device — the contract of
+        `WaveletAttribution3D.serve_entry`)."""
+        from wam_tpu_torch.serve.entry import jit_entry
+
+        impl = self._smooth if self.method == "smooth" else self._integrated
+        return jit_entry(lambda x, y: impl(x, y), donate=donate, on_trace=on_trace,
+                         aot_key=aot_key, with_health=with_health)
