@@ -247,9 +247,52 @@ sm_90a). Phases, each fatal on failure:
    within 1e-5 x max, a deadline at half its time: n_used < 25); and the
    served path in float64 (ResNet-18, 32², IG) against the CPU within 1e-9
    x max. The kernels phase holds K1/K3 (and K2 at 256²) at a served
-   batch's 600 planes.
+   batch's 600 planes;
+22. parallel: the flagship (TF32 off, normalize=False) through
+   `parallel.sharded_smoothgrad_spmd` over ``make_mesh({"data": 2,
+   "sample": 5}, ["cuda"] * 10)``: ten blocks of 5 samples x 16 images (80
+   model rows), run one after another on the one card; a warm call, a
+   counted one (K1 30, K3 20: asserted) and 3 event-timed (median, host
+   enqueue, peak memory), then with TF32 convolutions in turns with the
+   flagship's single-device call (the same 800 rows), held to the single-device `smoothgrad` on the
+   same noise at the blocks' model-call shapes (each data half alone, 5
+   samples a call) within 1e-5 x max; `sharded_smoothgrad` (the step on
+   the whole batch, one block a sample shard: K1 15, K3 10) against
+   `smoothgrad` at its shapes; `sharded_integrated_path` with 16 path
+   points over {data 2, sample 4} (K1 6, K3 16) against `integrated_path`
+   at the blocks' shapes; a one-rank NCCL group (`init_distributed`): the
+   spmd runner on ``hybrid_mesh({"data": 2, "sample": 5}, ["cuda"] * 10)``
+   through its all_reduce branch equal to the one-process mesh (the
+   flagship's 32 images and 25 samples, cuDNN deterministic); `Eval2DWAM(mesh=make_mesh({"data": 2}, ...))`
+   insertion at the eval2d phase's geometry (launches as there, one fetch,
+   AUCs and curves within EVAL_TOL of the mesh-less call, both timed in
+   turns); and the float64 check, the spmd runner on the card against the
+   CPU (ResNet-18, 2 x 32², db4 J=2, plain transforms) within 1e-9 x max.
+   The kernels phase holds K1/K3 at a block's 240 planes and at the IG
+   block's shapes;
+23. fleet: the serve phase's server as `FleetServer(devices=["cuda"] * 2,
+   supervise=True)` over the flagship's explainer, each replica's entry
+   from ``lambda rid, m, dev: wam_on(dev).serve_entry(on_trace=m.note_compile)``
+   (the explainer of the replica's device) behind
+   a recorder and a `testing.faults` injector: one first call a bucket a
+   replica at warmup (asserted), the serve phase's 32 requests from 4
+   clients (zero lost, both replicas serving, launches the sum of the
+   batches' SERVE_LAUNCHES, served rows against the entry on the same batch
+   within 1e-5 x max; requests/s, batch fill, p50/p99, peak memory of two
+   replicas on one card), and a second fleet under 8 clients x 4 in flight
+   (64 requests: full batches); an oversize `attribute_batch` of 16 images through "pjit"
+   (8 rows a replica, each replica's oversize entry on its own device; the
+   entry's `RowBlocks` draw each block's rows of the 16-row batch's noise,
+   scale its loss to 16 rows and normalize over all 16, so the whole batch
+   is held to the entry on all 16 within 1e-5 x max with cuDNN off, whose
+   algorithm otherwise changes with a call's row count; a row-wise entry on
+   the same route gathers each replica's rows exactly); one `ChaosFault` on
+   replica 1: zero lost, ``replica_restart`` rows restarting -> alive, the
+   rebuilt replica serves again, its first calls at its warmup; and
+   `NoLiveReplicaError` from an unsupervised fleet whose replicas all die.
 
-Prints a summary JSON line (with the script's wall time), the kernels' JSON line, the nvidia-smi line, and as its last line
+Prints a summary JSON line (with the script's wall time), the kernels' JSON
+line, the nvidia-smi line, and as its last line
 ``{"ok": true, "device": {...}}``. Exits nonzero, printing no result, when
 there is no CUDA device or the port is not beside this script.
 """
@@ -491,6 +534,25 @@ SERVE_TIMEOUT_S = 300.0  # every future is waited on at most this long
 SERVE_ANY_STRIDE = 5
 SERVE_REDUCED = (2, 32, 2)  # images, side, IG path points (ResNet-18, J=2, float64)
 SERVE_F64_TOL = 1e-9
+# the parallel phase: the flagship over a (data, sample) mesh of blocks on the
+# one card (no speed-up: the blocks run one after another); each block is one
+# decomposition and one backward, K1 LEVELS and K3 2
+PAR_MESH = {"data": 2, "sample": 5}       # 10 blocks of 5 samples x 16 images = 80 rows
+PAR_BLOCK_PLANES = (N_SAMPLES // 5) * (BATCH // 2) * CHANNELS   # K1 planes / K3 rows a block
+PAR_LAUNCHES = {**ZERO_LAUNCHES, "dwt2": LEVELS * 10, "pair": 2 * 10}
+PAR_PROP_LAUNCHES = {**ZERO_LAUNCHES, "dwt2": LEVELS * 5, "pair": 2 * 5}  # a block a sample shard
+PAR_IG_MESH, PAR_IG_STEPS = {"data": 2, "sample": 4}, 16  # blocks of 4 points x 16 images
+PAR_IG_PLANES = (PAR_IG_STEPS // 4) * (BATCH // 2) * CHANNELS
+PAR_IG_LAUNCHES = {**ZERO_LAUNCHES, "dwt2": LEVELS * 2, "pair": 2 * 8}  # K1 once a data shard
+PAR_CALLS = 3            # event-timed spmd calls after the counted one
+PAR_TOL = (0.999999, 1e-5)  # against the single-device estimator: the sample sum's order
+PAR_REDUCED = (2, 32, 4)  # images, side, samples (ResNet-18, float64, card against CPU)
+PAR_F64_TOL = 1e-9
+# the fleet phase: the serve phase's server as a supervised fleet of two
+# replicas on the one card
+FLEET_REPLICAS = 2
+FLEET_OVERSIZE = 16      # an oversize batch: max_batch rows a replica
+FLEET_RESTART_TIMEOUT_S = 120.0
 
 
 def _log(*args):
@@ -991,6 +1053,29 @@ def phase_kernels(torch, tmm, kernels, sites, vol_sites) -> list[dict]:
                              "torch.einsum (the matmul pair on the merged matrix, merge not "
                              "timed)", f"forward, f32 subbands, one served batch at {side}^2 "
                              "(its backward is on K1's serve 256 line)"))
+    # the parallel path: one block of the spmd mesh (5 samples x 16 images x
+    # 3 planes); the IG mesh's block (4 path points x 16 images), whose K1
+    # runs once a data shard on its 16 images
+    rows.append(_row(*k1, "parallel", _k1_cases(torch, tmm, kernels, g, SIDE, WAVELET,
+                                                PAR_BLOCK_PLANES), einsum,
+                     f"3 analysis levels at {SIDE}^2, {WAVELET}, f32 input, one spmd block "
+                     f"({PAR_BLOCK_PLANES} planes)"))
+    k3_cases = _k3_cases(torch, tmm, kernels, g, SIDE, WAVELET, PAR_BLOCK_PLANES)
+    rows.append(_row(*k3, "parallel", k3_cases,
+                     "torch.einsum (the matmul pair on the assembled Y; dense dY)",
+                     f"forward + backward of the collapsed levels at {SIDE}^2, {WAVELET}, one "
+                     f"spmd block ({PAR_BLOCK_PLANES} rows)"))
+    rows[-1]["assemble_ms"] = k3_cases[0]["assemble_ms"]
+    rows.append(_row(*k1, "parallel ig", _k1_cases(torch, tmm, kernels, g, SIDE, WAVELET,
+                                                   (BATCH // 2) * CHANNELS), einsum,
+                     f"3 analysis levels at {SIDE}^2, {WAVELET}, f32 input, one data shard's "
+                     f"{BATCH // 2} images x {CHANNELS} planes"))
+    k3_cases = _k3_cases(torch, tmm, kernels, g, SIDE, WAVELET, PAR_IG_PLANES)
+    rows.append(_row(*k3, "parallel ig", k3_cases,
+                     "torch.einsum (the matmul pair on the assembled Y; dense dY)",
+                     f"forward + backward of the collapsed levels at {SIDE}^2, {WAVELET}, one IG "
+                     f"block ({PAR_IG_PLANES} rows)"))
+    rows[-1]["assemble_ms"] = k3_cases[0]["assemble_ms"]
     rows.insert(3, _row("synth2", "idwt2_kernel (K2)", "wam_tpu_torch/csrc/synth2.cu",
                         "wam_tpu/wavelets/matmul.py:313", "path 2", k2_cases,
                         "torch.einsum (the matmul pair on the merged matrix, merge not timed)",
@@ -3582,8 +3667,8 @@ def _serve_requests(np, n: int, seed: int):
     return reqs
 
 
-def _drive_clients(server, reqs):
-    """SERVE_CLIENTS closed-loop client threads, each keeping SERVE_WINDOW
+def _drive_clients(server, reqs, clients: int = SERVE_CLIENTS, window: int = SERVE_WINDOW):
+    """``clients`` closed-loop client threads, each keeping ``window``
     requests in flight; every future waited on with a timeout. Returns the
     results by request index, the lost indices and the wall seconds."""
     import threading
@@ -3593,10 +3678,10 @@ def _drive_clients(server, reqs):
 
     def client(j):
         pending = []
-        for i in range(j, len(reqs), SERVE_CLIENTS):
+        for i in range(j, len(reqs), clients):
             x, y, qos = reqs[i]
             pending.append((i, server.submit(x, y, qos=qos)))
-            while len(pending) >= SERVE_WINDOW or (pending and i + SERVE_CLIENTS >= len(reqs)):
+            while len(pending) >= window or (pending and i + clients >= len(reqs)):
                 k, fut = pending.pop(0)
                 try:
                     out = fut.result(timeout=SERVE_TIMEOUT_S)
@@ -3607,7 +3692,7 @@ def _drive_clients(server, reqs):
                         lost.append((k, repr(e)))
 
     t0 = time.perf_counter()
-    threads = [threading.Thread(target=client, args=(j,)) for j in range(SERVE_CLIENTS)]
+    threads = [threading.Thread(target=client, args=(j,)) for j in range(clients)]
     for t in threads:
         t.start()
     for t in threads:
@@ -3956,6 +4041,611 @@ def phase_serve(torch, wtt, kernels, smi: str) -> dict:
     return out
 
 
+# -- phase parallel: the sharded estimators on the flagship ---------------------------
+
+
+def _spmd_step(torch, wam):
+    """The spmd step contract (`parallel.sharded_smoothgrad_spmd`) on the
+    flagship explainer's engine: a block's (s, b, C, H, W) noisy rows, its
+    labels and the loss-mean rescale -> (s, b, S, S) mosaics, normalize=False
+    (one decomposition and one backward a block: K1 LEVELS, K3 2)."""
+    from wam_tpu_torch.core.engine import map_coeffs
+    from wam_tpu_torch.ops.packing2d import mosaic2d
+
+    def step(noisy, y_local, grad_scale):
+        s = noisy.shape[0]
+        spatial = tuple(noisy.shape[-2:])
+        flat = noisy.reshape((-1,) + tuple(noisy.shape[2:]))
+        with torch.no_grad():
+            coeffs = wam.engine.decompose(flat)
+        grads = wam.engine.grads_from_coeffs(coeffs, y_local.repeat(s), spatial, samples=s)
+        grads = map_coeffs(lambda t: (t * grad_scale).reshape((s, -1) + tuple(t.shape[1:])),
+                           grads)
+        return mosaic2d(grads, normalize=False)
+
+    return step
+
+
+def _ig_grad_fn(torch, wam):
+    """`parallel.sharded_integrated_path`'s grad_fn on the flagship's engine:
+    a block's coefficients scaled by its path points, stacked into one model
+    call, their rescaled gradients as (s, b, S, S) mosaics (K3 2 a block)."""
+    from wam_tpu_torch.core.engine import map_coeffs
+    from wam_tpu_torch.ops.packing2d import mosaic2d
+
+    def grad_fn(coeffs, y_local, alphas, grad_scale):
+        s = alphas.shape[0]
+        scaled = map_coeffs(lambda c: (c[None] * alphas.to(c.dtype).reshape(-1, 1, 1, 1, 1))
+                            .reshape((-1,) + tuple(c.shape[1:])), coeffs)
+        grads = wam.engine.grads_from_coeffs(scaled, y_local.repeat(s), (SIDE, SIDE), samples=s)
+        grads = map_coeffs(lambda g: (g * grad_scale).reshape((s, -1) + tuple(g.shape[1:])),
+                           grads)
+        return mosaic2d(grads, normalize=False)
+
+    return grad_fn
+
+
+def _timed_runs(torch, kernels, run, launches: dict, calls: int, tag: str, smi: str) -> dict:
+    """One warm call, one with the launch counts set to 0 just before and
+    read just after (asserted == ``launches``), then ``calls`` CUDA-event-
+    timed calls with the host's enqueue time beside each; peak memory."""
+    run()
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    out = run()
+    torch.cuda.synchronize()
+    got = kernels.launch_counts()
+    if got != launches:
+        raise AssertionError(f"{tag}: launches {got}, expected {launches}")
+    torch.cuda.reset_peak_memory_stats()
+    times, enqueue = [], []
+    for _ in range(calls):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        t0 = time.perf_counter()
+        start.record()
+        run()
+        end.record()
+        enqueue.append((time.perf_counter() - t0) * 1e3)
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end))
+    med = sorted(times)[len(times) // 2]
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    _log(f"  {tag}: launches {got} (asserted); {calls} calls (CUDA events) "
+         f"{[round(t, 3) for t in times]} ms, median {med:.3f} ms = "
+         f"{BATCH / (med / 1e3):.2f} attributions/s; host enqueue "
+         f"{[round(t, 3) for t in enqueue]} ms; peak memory {peak:.3f} GB on {smi}")
+    return {"out": out, "launches": got, "calls_ms": times, "median_ms": med,
+            "spread_ms": [min(times), max(times)], "enqueue_ms": enqueue,
+            "attributions_per_s": BATCH / (med / 1e3), "peak_memory_gb": peak}
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def _par_turns(torch, wam, spmd_call, x, y, smi: str) -> dict:
+    """The spmd call against the flagship's single-device call (the same
+    800 rows in chunks of SAMPLE_CHUNK x BATCH) at the flagship's headline
+    precision (TF32 convolutions), CUDA events, in turns (flagship, spmd,
+    spmd, flagship) after a warm call of each; TF32 goes back off."""
+    torch.backends.cudnn.allow_tf32 = True
+    try:
+        calls = {"flagship": lambda: wam(x, y), "spmd": spmd_call}
+        for fn in calls.values():
+            fn()
+        times, enqueue = {k: [] for k in calls}, {k: [] for k in calls}
+        for arm in ("flagship", "spmd", "spmd", "flagship"):
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            start.record()
+            calls[arm]()
+            end.record()
+            enqueue[arm].append((time.perf_counter() - t0) * 1e3)
+            torch.cuda.synchronize()
+            times[arm].append(start.elapsed_time(end))
+    finally:
+        torch.backends.cudnn.allow_tf32 = False
+    ms = {k: [round(t, 2) for t in v] for k, v in times.items()}
+    host = {k: [round(t, 1) for t in v] for k, v in enqueue.items()}
+    _log("  TF32 convolutions, in turns (flagship, spmd, spmd, flagship; CUDA events): flagship "
+         f"{ms['flagship']} ms (host enqueue {host['flagship']}), spmd {ms['spmd']} ms (host "
+         f"enqueue {host['spmd']}) on {smi}")
+    return {"ms": times, "enqueue_ms": enqueue}
+
+
+def _par_nccl_check(torch, wtt, wam, x, y, z) -> dict:
+    """A process group of one rank on NCCL (`parallel.init_distributed`):
+    the spmd runner on ``hybrid_mesh(PAR_MESH, [DEVICE] * 10)`` (every block
+    owned by rank 0) takes its all_reduce branch at the flagship's shapes
+    (blocks of 5 samples x 16 images) and must equal the same runner on the
+    one-process mesh exactly (cuDNN deterministic for both)."""
+    import os
+
+    import torch.distributed as dist
+
+    from wam_tpu_torch import parallel
+
+    step = _spmd_step(torch, wam)
+    n_blocks = math.prod(PAR_MESH.values())
+    os.environ.setdefault("NCCL_SOCKET_IFNAME", "lo")  # one rank: its bootstrap on loopback
+    info = parallel.init_distributed(f"127.0.0.1:{_free_port()}", 1, 0,
+                                     initialization_timeout=120)
+    torch.backends.cudnn.deterministic = True
+    try:
+        mesh = parallel.hybrid_mesh(PAR_MESH, devices=[DEVICE] * n_blocks)
+        kw = dict(n_samples=N_SAMPLES, stdev_spread=SPREAD)
+        got = parallel.sharded_smoothgrad_spmd(step, mesh, **kw)(x, y, noise=z)
+        want = parallel.sharded_smoothgrad_spmd(
+            step, parallel.make_mesh(PAR_MESH, [DEVICE] * n_blocks), **kw)(x, y, noise=z)
+        backend = dist.get_backend()
+    finally:
+        torch.backends.cudnn.deterministic = False
+        dist.destroy_process_group()
+    err = float((got - want).abs().max())
+    _log(f"  NCCL group of one ({info}, backend {backend}): hybrid_mesh "
+         f"{mesh.shape} (every block on rank {sorted(set(mesh.process_ids.ravel().tolist()))}) "
+         f"through the all_reduce branch against the one-process mesh, {BATCH} images x "
+         f"{N_SAMPLES} samples: max abs diff {err:.3e} (must be 0)")
+    if backend != "nccl" or mesh.process_ids is None or err != 0.0:
+        raise AssertionError("parallel: the all_reduce branch changed the map")
+    return {"info": info, "backend": backend, "max_abs_diff": err}
+
+
+def _par_eval2d(torch, wtt, kernels, smi: str) -> dict:
+    """`Eval2DWAM(mesh=)` insertion at the eval2d phase's geometry over a
+    {data: 2} mesh on the one card: the mosaics handed to it from the
+    mesh-less evaluator, one counted call (launches EVAL_LAUNCHES, one
+    fetch), AUCs and curves against the mesh-less call within EVAL_TOL,
+    and event times of both in turns."""
+    from wam_tpu_torch import parallel
+    from wam_tpu_torch.evalsuite import fan
+
+    _, ev, x, y = build_eval2d(torch, wtt)
+    prec = _precision(torch, True)
+    ev.precompute(x, y)
+    mesh = parallel.make_mesh({"data": 2}, [DEVICE] * 2)
+    sharded = wtt.Eval2DWAM(ev.model_fn, ev.explainer, wavelet=EVAL_WAVELET, J=EVAL_LEVELS,
+                            batch_size=EVAL_CAP, mesh=mesh, device=DEVICE)
+    sharded.grad_wams = ev.grad_wams
+    want = (ev.insertion(x, y, n_iter=EVAL_N_ITER), ev.insertion_curves)
+    sharded.insertion(x, y, n_iter=EVAL_N_ITER)  # warm
+    counted = _counted_call(torch, kernels, fan, lambda: (
+        sharded.insertion(x, y, n_iter=EVAL_N_ITER), sharded.insertion_curves))
+    got = counted["out"]
+    err_auc = max(abs(a - b) for a, b in zip(got[0], want[0]))
+    err_curve = max(float(abs(a - b).max()) for a, b in zip(got[1], want[1]))
+    times = {"mesh": [], "single": []}
+    for arm in ("mesh", "single", "single", "mesh"):
+        e = sharded if arm == "mesh" else ev
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        e.insertion(x, y, n_iter=EVAL_N_ITER)
+        end.record()
+        torch.cuda.synchronize()
+        times[arm].append(start.elapsed_time(end))
+    _log(f"  Eval2DWAM(mesh={mesh.shape}) insertion ({EVAL_BATCH} images, n_iter {EVAL_N_ITER}, "
+         f"{prec}): launches {counted['launches']} (asserted {EVAL_LAUNCHES['insertion']}), "
+         f"fetches {counted['fetches']} (asserted 1); against the mesh-less call: AUC max abs "
+         f"{err_auc:.3e} (tol {EVAL_TOL['auc']}), curves {err_curve:.3e} (tol "
+         f"{EVAL_TOL['curve']}); ms in turns mesh {[round(t, 2) for t in times['mesh']]}, "
+         f"single {[round(t, 2) for t in times['single']]} on {smi}")
+    if (counted["launches"] != EVAL_LAUNCHES["insertion"] or counted["fetches"] != 1
+            or err_auc > EVAL_TOL["auc"] or err_curve > EVAL_TOL["curve"]):
+        raise AssertionError("parallel: the evaluator on a mesh disagrees with its mesh-less call")
+    return {"launches": counted["launches"], "fetches": counted["fetches"],
+            "auc_max_abs_err": err_auc, "curve_max_abs_err": err_curve, "ms": times,
+            "scores": got[0]}
+
+
+def _par_f64_check(torch, wtt) -> dict:
+    """The spmd runner on the card against the same runner on the CPU in
+    float64: a seeded ResNet-18 (10 classes), PAR_REDUCED images of 32²,
+    db4 J=2 on the plain transforms (the kernels are float32), noise handed
+    over, {data: 2, sample: 2} over the card and over the CPU."""
+    from wam_tpu_torch import parallel
+
+    n_img, side, n_smp = PAR_REDUCED
+    torch.manual_seed(SEED)
+    state = {k: v.clone() for k, v in wtt.resnet18(num_classes=10).double().state_dict().items()}
+    g = torch.Generator().manual_seed(SEED + 9)
+    x = torch.randn((n_img, CHANNELS, side, side), generator=g, dtype=torch.float64)
+    z = torch.randn((n_smp,) + tuple(x.shape), generator=g, dtype=torch.float64)
+    y = torch.tensor([1, 7][:n_img])
+    outs = {}
+    for where in ("card", "cpu"):
+        dev = DEVICE if where == "card" else "cpu"
+        m = wtt.resnet18(num_classes=10).double()
+        m.load_state_dict(state)
+        wam = wtt.WaveletAttribution2D(wtt.bind_inference(m, device=dev), wavelet=WAVELET, J=2,
+                                       mode=MODE, device=dev, impl="matmul")
+        mesh = parallel.make_mesh({"data": 2, "sample": 2}, [dev] * 4)
+        run = parallel.sharded_smoothgrad_spmd(_spmd_step(torch, wam), mesh, n_samples=n_smp,
+                                               stdev_spread=SPREAD)
+        outs[where] = run(x.to(dev), y.to(dev), noise=z.to(dev)).cpu()
+    err = float((outs["card"] - outs["cpu"]).abs().max())
+    peak = float(outs["cpu"].abs().max())
+    _log(f"  reduced check: spmd SmoothGrad on the card vs the CPU (float64 ResNet-18, {n_img} x "
+         f"{side}^2, {n_smp} samples, db4 J=2, plain transforms): max abs {err:.3e} = "
+         f"{err / peak:.2e} of the max (tol {PAR_F64_TOL})")
+    if not (outs["card"].dtype == torch.float64 and err <= PAR_F64_TOL * peak):
+        raise AssertionError("parallel reduced check: the card disagrees with the CPU")
+    return {"max_abs_err": err, "max": peak, "rel_err": err / peak}
+
+
+def phase_parallel(torch, wtt, kernels, smi: str) -> dict:
+    """The sharded estimators on the flagship (module docstring, phase 22):
+    spmd SmoothGrad over {data 2, sample 5} and the propagation runner over
+    the same mesh, IG over {data 2, sample 4}, each counted and timed and
+    held to the single-device estimator at the blocks' model-call shapes;
+    the NCCL group of one, the evaluator on a mesh, the float64 check."""
+    from wam_tpu_torch import parallel
+    from wam_tpu_torch.core.estimators import integrated_path, smoothgrad
+
+    fn, wam, x, y, g = build_slice(torch, wtt)
+    prec = _precision(torch, False)
+    dev = torch.device(DEVICE)
+    z = torch.randn((N_SAMPLES,) + tuple(x.shape), generator=g, device=dev)
+    step = _spmd_step(torch, wam)
+    mesh = parallel.make_mesh(PAR_MESH, [DEVICE] * math.prod(PAR_MESH.values()))
+    ns, nb = N_SAMPLES // PAR_MESH["sample"], BATCH // PAR_MESH["data"]
+    _log(f"phase parallel: the flagship (ResNet-50 x ({BATCH},{CHANNELS},{SIDE},{SIDE}) {WAVELET} "
+         f"J={LEVELS} n={N_SAMPLES} spread={SPREAD}, normalize=False) over make_mesh({PAR_MESH}, "
+         f"[{DEVICE}] * {mesh.size}): blocks of {ns} samples x {nb} images = {ns * nb} model "
+         f"rows; {prec}")
+    out = {"precision": prec}
+    spmd = parallel.sharded_smoothgrad_spmd(step, mesh, n_samples=N_SAMPLES, stdev_spread=SPREAD)
+    run = _timed_runs(torch, kernels, lambda: spmd(x, y, noise=z), PAR_LAUNCHES, PAR_CALLS,
+                      "sharded_smoothgrad_spmd", smi)
+    # the single-device smoothgrad at the blocks' model-call shapes: each
+    # data half on its own, ns samples a model call, the same rescale
+    halves = [slice(d * nb, (d + 1) * nb) for d in range(PAR_MESH["data"])]
+    ref = torch.cat([smoothgrad(lambda n, h=h: step(n, y[h], nb / BATCH), x[h],
+                                n_samples=N_SAMPLES, stdev_spread=SPREAD, batch_size=ns,
+                                noise=z[:, h]) for h in halves])
+    out["spmd"] = {**_summary(run), "check": _held(
+        torch, "spmd vs single-device smoothgrad (same noise, the blocks' shapes)", run["out"],
+        ref, PAR_TOL)}
+    out["spmd"]["tf32_turns"] = _par_turns(torch, wam, lambda: spmd(x, y, noise=z), x, y, smi)
+    # the propagation runner: the step sees the whole batch; one block a
+    # sample shard (ns samples x BATCH images)
+    full_step = lambda n: step(n, y, 1.0)  # noqa: E731
+    prop = parallel.sharded_smoothgrad(full_step, mesh, n_samples=N_SAMPLES, stdev_spread=SPREAD)
+    run = _timed_runs(torch, kernels, lambda: prop(x, noise=z), PAR_PROP_LAUNCHES, 1,
+                      "sharded_smoothgrad", smi)
+    ref = smoothgrad(full_step, x, n_samples=N_SAMPLES, stdev_spread=SPREAD, batch_size=ns,
+                     noise=z)
+    out["propagation"] = {**_summary(run), "check": _held(
+        torch, "sharded_smoothgrad vs single-device smoothgrad (same noise, same shapes)",
+        run["out"], ref, PAR_TOL)}
+    # IG: the α-path over the sample axis, the batch over the data axis
+    ig_mesh = parallel.make_mesh(PAR_IG_MESH, [DEVICE] * math.prod(PAR_IG_MESH.values()))
+    grad_fn = _ig_grad_fn(torch, wam)
+    ig = parallel.sharded_integrated_path(grad_fn, wam.engine.decompose, ig_mesh,
+                                          n_steps=PAR_IG_STEPS)
+    run = _timed_runs(torch, kernels, lambda: ig(x, y), PAR_IG_LAUNCHES, 1,
+                      "sharded_integrated_path", smi)
+    chunk = PAR_IG_STEPS // PAR_IG_MESH["sample"]
+    ref = []
+    for h in halves:
+        with torch.no_grad():
+            coeffs = wam.engine.decompose(x[h])
+        ref.append(integrated_path(lambda a, c=coeffs, h=h: grad_fn(c, y[h], a, nb / BATCH),
+                                   n_steps=PAR_IG_STEPS, batch_size=chunk, device=dev))
+    out["ig"] = {**_summary(run), "check": _held(
+        torch, f"sharded IG ({PAR_IG_STEPS} points over {PAR_IG_MESH}) vs single-device "
+        "integrated_path (the blocks' shapes)", run["out"], torch.cat(ref), PAR_TOL)}
+    out["nccl"] = _par_nccl_check(torch, wtt, wam, x, y, z)
+    out["eval2d"] = _par_eval2d(torch, wtt, kernels, smi)
+    out["reduced_check"] = _par_f64_check(torch, wtt)
+    _precision(torch, False)
+    return out
+
+
+# -- phase fleet: the flagship's server as a supervised fleet ---------------------------
+
+
+class _FleetRecorder:
+    """A replica's served entry behind a recorder shared by the fleet: each
+    dispatched batch's inputs (copies: the entry releases its input), its
+    output, its side and the replica that ran it."""
+
+    def __init__(self, log, lock, rid, entry):
+        self.log, self.lock, self.rid, self.entry = log, lock, rid, entry
+        self.wam_blocks = entry.wam_blocks  # the oversize route's split (not recorded)
+
+    def __call__(self, xs, ys):
+        keep = (xs.clone(), ys.clone())
+        out = self.entry(xs, ys)
+        with self.lock:
+            self.log.append({"rid": self.rid, "x": keep[0], "y": keep[1], "out": out,
+                             "side": int(keep[0].shape[-1]), "t": time.perf_counter()})
+        return out
+
+
+def _fleet_stream(torch, np, kernels, fleet, batches, reqs, smi: str,
+                  clients: int = SERVE_CLIENTS, window: int = SERVE_WINDOW) -> dict:
+    """The request stream through the fleet: launches counted from 0 just
+    before and read just after (the sum of SERVE_LAUNCHES over the batches
+    served: each batch's launches as in phase serve), zero lost, both
+    replicas serving, the rate and the peak memory."""
+    from wam_tpu_torch import obs
+
+    batches.clear()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    with obs.assert_no_retrace():
+        results, lost, wall = _drive_clients(fleet, reqs, clients, window)
+    torch.cuda.synchronize()
+    launches = kernels.launch_counts()
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    expect = {k: sum(SERVE_LAUNCHES[b["side"]][k] for b in batches) for k in ZERO_LAUNCHES}
+    by_rid = {rid: sum(1 for b in batches if b["rid"] == rid) for rid in range(FLEET_REPLICAS)}
+    fill = len(reqs) / (len(batches) * SERVE_MAX_BATCH)
+    summary = fleet.metrics.fleet_summary()
+    _log(f"  fleet stream: {len(reqs)} requests ({clients} clients x {window} in flight) in "
+         f"{wall:.3f} s = "
+         f"{len(reqs) / wall:.2f} requests/s; batches by replica {by_rid} (fill {fill:.3f}); "
+         f"launches {launches} (the batches' sum {expect}); p50 "
+         f"{summary['latency_p50_ms']:.1f} ms, p99 {summary['latency_p99_ms']:.1f} ms; peak "
+         f"memory {peak:.2f} GB (two replicas on one card) on {smi}")
+    if lost:
+        raise AssertionError(f"fleet: {len(lost)} requests lost: {lost[:4]}")
+    if launches != expect or min(by_rid.values()) == 0:
+        raise AssertionError(f"fleet: launches {launches} != {expect}, or a replica idle "
+                             f"({by_rid})")
+    return {"results": results, "wall_s": wall, "requests_per_s": len(reqs) / wall,
+            "batches_by_replica": by_rid, "fill": fill, "launches": launches,
+            "peak_memory_gb": peak,
+            "latency_p50_ms": summary["latency_p50_ms"],
+            "latency_p99_ms": summary["latency_p99_ms"]}
+
+
+def _fleet_oversize(torch, np, fleet, entry, reqs) -> dict:
+    """An oversize `attribute_batch` of FLEET_OVERSIZE images at 224²
+    through the "pjit" route: max_batch rows a replica, each run by the
+    replica's own oversize entry on its device and thread. The flagship's
+    entry reduces over its batch (noise drawn at the batch's shape, a
+    batch-mean loss, a mosaic normalized over the batch's rows), so the
+    route runs its `RowBlocks`. Timed at the served precision; then held,
+    with cuDNN off, to the entry on all FLEET_OVERSIZE rows within 1e-5 x
+    max: cuDNN picks its convolution algorithm by a call's row count (200
+    rows a block, 400 for the entry), and the ResNet's ReLU gates turn the
+    difference into ~1e-2 of the max of a gradient, where PyTorch's own
+    convolutions give each row the same result at any row count. A row-wise
+    entry on a second fleet holds the gather: each replica's rows in place,
+    exactly."""
+    from wam_tpu_torch.serve import FleetServer
+
+    dev = torch.device(DEVICE)
+    imgs = [r for r in reqs if r[0].shape == SERVE_BUCKETS[0]]
+    imgs = (imgs * (-(-FLEET_OVERSIZE // len(imgs))))[:FLEET_OVERSIZE]
+    xs = np.stack([r[0] for r in imgs])
+    ys = np.array([r[1] for r in imgs], np.int32)
+
+    xt, yt = torch.from_numpy(xs).to(dev), torch.from_numpy(ys).to(dev)
+    t0 = time.perf_counter()
+    served = fleet.attribute_batch(xs, ys)
+    wall = time.perf_counter() - t0
+    one_call = entry(xt, yt).detach().cpu().numpy()
+    cudnn_err = float(np.abs(served - one_call).max() / np.abs(one_call).max())
+    torch.backends.cudnn.enabled = False
+    try:
+        t0 = time.perf_counter()
+        got = fleet.attribute_batch(xs, ys)
+        wall_native = time.perf_counter() - t0
+        want = entry(xt, yt).detach().cpu().numpy()
+    finally:
+        torch.backends.cudnn.enabled = True
+    whole_err = float(np.abs(got - want).max())
+    whole_bound = 1e-5 * float(np.abs(want).max())
+
+    def per_row(a, b):
+        return a.mean(dim=1) * 2.0 + b.to(a.dtype)[:, None, None]
+
+    per_row.wam_row_wise = True
+    rows = FleetServer(lambda rid, m, d: per_row, list(SERVE_BUCKETS),
+                       devices=[DEVICE] * FLEET_REPLICAS, max_batch=SERVE_MAX_BATCH, warmup=False)
+    try:
+        gathered = rows.attribute_batch(xs, ys)
+    finally:
+        rows.close()
+    want_rows = per_row(torch.from_numpy(xs).to(dev), torch.from_numpy(ys).to(dev)).cpu().numpy()
+    halves = [float(np.abs(gathered[lo:lo + SERVE_MAX_BATCH]
+                           - want_rows[lo:lo + SERVE_MAX_BATCH]).max())
+              for lo in range(0, FLEET_OVERSIZE, SERVE_MAX_BATCH)]
+    _log(f"  oversize attribute_batch ({FLEET_OVERSIZE} x 224², \"pjit\", "
+         f"{SERVE_MAX_BATCH} rows a replica, RowBlocks): {wall * 1e3:.1f} ms host clock, "
+         f"{cudnn_err:.3e} of the max from the entry on all {FLEET_OVERSIZE} rows (cuDNN's "
+         f"algorithms for 200 and 400 rows; not held); with cuDNN off ({wall_native * 1e3:.1f} "
+         f"ms) against the entry on all {FLEET_OVERSIZE} rows: max abs {whole_err:.3e} (bound "
+         f"{whole_bound:.3e} = 1e-5 x max); a row-wise entry's rows gathered per replica: "
+         f"max abs {halves} (must be 0)")
+    if not whole_err <= whole_bound or any(h != 0.0 for h in halves):
+        raise AssertionError("fleet: the oversize route disagrees with the entry")
+    return {"wall_ms": wall * 1e3, "wall_ms_cudnn_off": wall_native * 1e3,
+            "max_abs": whole_err, "bound": whole_bound, "cudnn_rel": cudnn_err,
+            "row_wise_halves_max_abs": halves}
+
+
+def _fleet_fault(torch, np, fleet, injector, batches, reqs, smi: str) -> dict:
+    """A `testing.faults` fault on replica 1 (its injector armed for one
+    `ChaosFault`): the fleet re-routes (zero lost), the supervisor rebuilds
+    replica 1 (``replica_restart`` rows restarting -> alive), and replica 1
+    serves again after it rejoins."""
+    from wam_tpu_torch.testing import FaultSpec
+
+    injector.spec = FaultSpec(exc_p=1.0)
+    t0 = time.perf_counter()
+    lost, served = [], 0
+    while injector.total() == 0:
+        _, lost_k, _ = _drive_clients(fleet, reqs[:SERVE_MAX_BATCH * FLEET_REPLICAS])
+        lost += lost_k
+        served += SERVE_MAX_BATCH * FLEET_REPLICAS
+        if time.perf_counter() - t0 > FLEET_RESTART_TIMEOUT_S:
+            raise AssertionError("fleet: replica 1 never took its fault")
+    while not fleet._replicas[1].alive:
+        if time.perf_counter() - t0 > FLEET_RESTART_TIMEOUT_S:
+            raise AssertionError("fleet: replica 1 never restarted")
+        time.sleep(0.01)
+    rejoin_s = time.perf_counter() - t0
+    t_alive = time.perf_counter()
+    while not any(b["rid"] == 1 and b["t"] > t_alive for b in batches):
+        _, lost_k, _ = _drive_clients(fleet, reqs[:SERVE_MAX_BATCH * FLEET_REPLICAS])
+        lost += lost_k
+        served += SERVE_MAX_BATCH * FLEET_REPLICAS
+        if time.perf_counter() - t0 > FLEET_RESTART_TIMEOUT_S:
+            raise AssertionError("fleet: the rebuilt replica 1 never served")
+    transitions = [r["transition"] for r in fleet.metrics.restarts if r["replica_id"] == 1]
+    deaths = fleet.metrics.fleet_summary()["deaths"]
+    _log(f"  fault on replica 1 (ChaosFault, injected {injector.counts}): deaths "
+         f"{[d['replica_id'] for d in deaths]}, {served} requests served around it, lost "
+         f"{len(lost)}; replica_restart rows {transitions}; rejoined after {rejoin_s:.2f} s "
+         f"and served again on {smi}")
+    if lost or transitions != ["restarting", "alive"] or [d["replica_id"] for d in deaths] != [1]:
+        raise AssertionError(f"fleet: lost {lost[:4]}, transitions {transitions}")
+    return {"injected": dict(injector.counts), "lost": len(lost), "served": served,
+            "transitions": transitions, "rejoin_s": rejoin_s}
+
+
+def _fleet_no_live(np, wam) -> dict:
+    """An unsupervised fleet whose replicas all die: NoLiveReplicaError."""
+    from wam_tpu_torch.serve import FleetServer, NoLiveReplicaError
+    from wam_tpu_torch.testing import FaultInjector, FaultSpec
+    from wam_tpu_torch.testing.faults import ChaosEntry
+
+    fleet = FleetServer(lambda rid, m, dev: ChaosEntry(wam.serve_entry(), FaultInjector(
+        FaultSpec(exc_p=1.0), SEED, rid)), list(SERVE_BUCKETS), devices=[DEVICE] * FLEET_REPLICAS,
+        max_batch=SERVE_MAX_BATCH, warmup=False, supervise=False)
+    x = np.zeros(SERVE_BUCKETS[0], np.float32)
+    try:
+        fleet.submit(x, 0).result(timeout=SERVE_TIMEOUT_S)
+    except NoLiveReplicaError as e:
+        err = repr(e)
+    else:
+        raise AssertionError("fleet: a request succeeded with every replica dead")
+    finally:
+        fleet.close()
+    dead = fleet.describe()["dead"]
+    _log(f"  every replica killed, supervise=False: {err}; dead {dead}")
+    if dead != list(range(FLEET_REPLICAS)):
+        raise AssertionError(f"fleet: dead replicas {dead}")
+    return {"error": err, "dead": dead}
+
+
+def phase_fleet(torch, wtt, kernels, smi: str) -> dict:
+    """The serve phase's server over the flagship's explainer as a
+    supervised FleetServer of FLEET_REPLICAS replicas on the one card:
+    warmup (one first call a bucket a replica), the request stream, the
+    served rows against the entry, the oversize route, a fault on replica 1
+    and its restart, and NoLiveReplicaError without supervision."""
+    import threading
+
+    import numpy as np
+
+    from wam_tpu_torch import obs
+    from wam_tpu_torch.serve import FleetMetrics, FleetServer, SupervisorConfig
+    from wam_tpu_torch.testing import FaultInjector, FaultSpec
+    from wam_tpu_torch.testing.faults import ChaosEntry
+
+    class _OnceInjector(FaultInjector):
+        """Fires at most one fault: its spec goes back to none after it."""
+
+        def draw(self):
+            kind = super().draw()
+            if kind is not None:
+                self.spec = FaultSpec()
+            return kind
+
+    fn, _, _, _, _ = build_slice(torch, wtt)  # the serve phase's precision, as build_slice sets it
+    prec = "torch.backends.cuda.matmul.allow_tf32=False torch.backends.cudnn.allow_tf32=True"
+    card = torch.device("cuda", torch.cuda.current_device())  # the fleet's device entries
+    wams = {card: wtt.WaveletAttribution2D(fn, wavelet=WAVELET, J=LEVELS, mode=MODE,
+                                           n_samples=N_SAMPLES, stdev_spread=SPREAD, device=card)}
+
+    def wam_on(d):
+        """The explainer of device ``d``: every replica here is on the one
+        card, so one explainer serves them all; a replica on another card
+        would need the model bound there."""
+        if d not in wams:
+            raise AssertionError(f"fleet: no model bound on {d}")
+        return wams[d]
+
+    wam = wams[card]
+    batches, lock = [], threading.Lock()
+    injectors = {rid: _OnceInjector(FaultSpec(), SEED, rid) for rid in range(FLEET_REPLICAS)}
+
+    def factory(rid, m, d):
+        inner = _FleetRecorder(batches, lock, rid, wam_on(d).serve_entry(on_trace=m.note_compile))
+        return ChaosEntry(inner, injectors[rid]) if rid in injectors else inner
+
+    obs.reset()
+    metrics = FleetMetrics()
+    t0 = time.perf_counter()
+    fleet = FleetServer(factory, list(SERVE_BUCKETS), devices=[DEVICE] * FLEET_REPLICAS,
+                        max_batch=SERVE_MAX_BATCH, metrics=metrics, oversize="pjit",
+                        supervise=SupervisorConfig(seed=SEED))
+    start_s = time.perf_counter() - t0
+    _log(f"phase fleet: FleetServer(WaveletAttribution2D(ResNet-50, {WAVELET}, J={LEVELS}, "
+         f"n={N_SAMPLES}).serve_entry(), {list(SERVE_BUCKETS)}, devices=[{DEVICE}] * "
+         f"{FLEET_REPLICAS}, max_batch={SERVE_MAX_BATCH}, supervise=True): started (both "
+         f"replicas warmed) in {start_s:.2f} s; {prec}")
+    reqs = _serve_requests(np, SERVE_REQUESTS, SEED + 11)
+    out = {"precision": prec, "start_s": start_s}
+    try:
+        warm = obs.sentinel.compile_events()
+        per = [metrics.replica(rid).compile_count for rid in range(FLEET_REPLICAS)]
+        if per != [len(SERVE_BUCKETS)] * FLEET_REPLICAS or any(
+                e["phase"] != "warmup" for e in warm):
+            raise AssertionError(f"fleet: first calls at warmup {per}, {warm}")
+        stream = _fleet_stream(torch, np, kernels, fleet, batches, reqs, smi)
+        results = stream.pop("results")
+        rec = type("Rec", (), {"batches": list(batches), "entry": wam.serve_entry(donate=False)})
+        stream["rows"] = _check_served_rows(torch, np, rec, reqs, results, "fleet")
+        out["stream"] = stream
+        out["oversize"] = _fleet_oversize(torch, np, fleet, rec.entry, reqs)
+        out["fault"] = _fleet_fault(torch, np, fleet, injectors[1], batches, reqs, smi)
+        # the fleet's entries' first calls (the checks' own entry carries
+        # no replica label)
+        events = [e for e in obs.sentinel.compile_events() if e["replica"] is not None]
+        phases = sorted({e["phase"] for e in events})
+        per = [metrics.replica(rid).compile_count for rid in range(FLEET_REPLICAS)]
+        _log(f"  first calls (sentinel): "
+             f"{[(e['replica'], e['bucket'], e['phase']) for e in events]}; per replica {per} "
+             "(replica 1 rebuilt: its new entry's at its warmup)")
+        if (phases != ["oversize", "warmup"]
+                or per != [len(SERVE_BUCKETS), 2 * len(SERVE_BUCKETS)]):
+            raise AssertionError(f"fleet: first calls outside warmup: {events}")
+        out["first_calls"] = {"per_replica": per, "phases": phases, "events": len(events)}
+        out["summary"] = {k: v for k, v in metrics.fleet_summary().items()
+                          if k not in ("per_replica",)}
+    finally:
+        fleet.close()
+    out["no_live"] = _fleet_no_live(np, wam)
+    # the serve phase's 16 requests in flight split over two replicas fill
+    # half of each batch (4 a bucket a replica, padded to 8 rows); a fresh
+    # fleet under twice the clients (32 in flight) fills them
+    wide = FleetServer(lambda rid, m, d: _FleetRecorder(batches, lock, rid, wam_on(d).serve_entry(
+        on_trace=m.note_compile)), list(SERVE_BUCKETS), devices=[DEVICE] * FLEET_REPLICAS,
+        max_batch=SERVE_MAX_BATCH, oversize="fanout")
+    reqs = _serve_requests(np, 2 * SERVE_REQUESTS, SEED + 12)
+    try:
+        stream = _fleet_stream(torch, np, kernels, wide, batches, reqs, smi,
+                               clients=2 * SERVE_CLIENTS)
+        rec = type("Rec", (), {"batches": list(batches), "entry": wam.serve_entry(donate=False)})
+        stream["rows"] = _check_served_rows(torch, np, rec, reqs, stream.pop("results"),
+                                            "fleet, 32 in flight")
+        out["stream_wide"] = stream
+    finally:
+        wide.close()
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -4021,6 +4711,8 @@ def main() -> int:
     video = timed("video", phase_video, torch, wtt, kernels, smi)
     anytime_ = timed("anytime", phase_anytime, torch, wtt, kernels, smi)
     serve_ = timed("serve", phase_serve, torch, wtt, kernels, smi)
+    par = timed("parallel", phase_parallel, torch, wtt, kernels, smi)
+    fleet = timed("fleet", phase_fleet, torch, wtt, kernels, smi)
     an_calls = ("isolate_scales", "insertion", "deletion")
     launches = {"flagship": slice_["launches"], "path 2": slice2["launches"],
                 "vit": vit["call_launches"], "vol": vol["fused"]["call_launches"],
@@ -4033,7 +4725,8 @@ def main() -> int:
                 **{f"iou {w}": iou["per_wavelet"][w]["call_launches"] for w in IOU_WAVELETS},
                 "patch": patch["call_launches"], "video": video["call_launches"],
                 "anytime": anytime_["launches"],
-                **{f"serve {s}": serve_["batch_launches"][s] for s in SERVE_LAUNCHES}}
+                **{f"serve {s}": serve_["batch_launches"][s] for s in SERVE_LAUNCHES},
+                "parallel": par["spmd"]["launches"], "parallel ig": par["ig"]["launches"]}
     for row in rows:
         row["launches"] = launches[row["path"]][row["kernel"]]
         row["audio_launches"] = audio["launches"][row["kernel"]]
@@ -4056,6 +4749,9 @@ def main() -> int:
         row["video_eval_launches"] = video["eval_launches"][row["kernel"]]
         row["anytime_launches"] = anytime_["launches"][row["kernel"]]
         row["serve_launches"] = serve_["launches"][row["kernel"]]
+        row["parallel_launches"] = {k: par[k]["launches"][row["kernel"]]
+                                    for k in ("spmd", "propagation", "ig")}
+        row["fleet_launches"] = fleet["stream"]["launches"][row["kernel"]]
 
     print(json.dumps({"slice": {k: v for k, v in slice_.items() if k != "launches"},
                       "slice2": {k: v for k, v in slice2.items() if k != "launches"},
@@ -4064,7 +4760,7 @@ def main() -> int:
                       "baselines": baselines, "periodized": periodized, "nhwc": nhwc,
                       "analyzers": analyzers, "iou": iou, "patch": patch,
                       "attention": attention, "video": video, "anytime": anytime_,
-                      "serve": serve_, "phase_s": seconds,
+                      "serve": serve_, "parallel": par, "fleet": fleet, "phase_s": seconds,
                       "wall_s": time.perf_counter() - t_start, "gpu": smi}),
           flush=True)
     _log(f"chip_smoke: {time.perf_counter() - t_start:.1f} s wall, the kernels' build included")

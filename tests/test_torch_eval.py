@@ -363,10 +363,13 @@ def test_one_fetch_per_metric_call_eval1d(audio, host_reads):
 
 def test_evaluators_refuse_unported_options(tiny):
     _, tfn = tiny
-    for kw in ({"mesh": object()}, {"aot_key": "k"}, {"donate_inputs": True}):
+    for kw in ({"aot_key": "k"}, {"donate_inputs": True}):
         for cls in (Eval2DWAM, Eval1DWAM):
             with pytest.raises(NotImplementedError, match="slice E"):
                 cls(tfn, None, device="cpu", **kw)
+    mesh = object()  # mesh= is ported (tests/test_torch_parallel.py): kept as given
+    for cls in (Eval2DWAM, Eval1DWAM):
+        assert cls(tfn, None, device="cpu", mesh=mesh).mesh is mesh
     with pytest.raises(ValueError, match="Unknown target"):
         Eval1DWAM(tfn, lambda x, y: (torch.zeros(1, 1, 1), []), device="cpu").insertion(
             np.zeros((1, 4096), np.float32), [0], target="stft")

@@ -397,10 +397,12 @@ def test_evaluators_refuse_what_is_not_there(image, monkeypatch):
     for method in ("rollout", "attngrad"):  # a model without captured attention
         with pytest.raises(ValueError, match="capture_attn=True"):
             EvalImageBaselines(net, state, method=method, device="cpu")
-    for kw in ({"mesh": object()}, {"aot_key": "k"}, {"donate_inputs": True}):
+    for kw in ({"aot_key": "k"}, {"donate_inputs": True}):
         for cls in (EvalImageBaselines, EvalAudioBaselines):
             with pytest.raises(NotImplementedError, match="slice E"):
                 cls(net, None, device="cpu", **kw)
+    mesh = object()  # mesh= is ported (tests/test_torch_parallel.py): kept as given
+    assert EvalImageBaselines(net, None, device="cpu", mesh=mesh).mesh is mesh
     with pytest.raises(ValueError, match="swappable `act`"):  # the AudioCNN has no `act`
         EvalImageBaselines(taudio.AudioCNN(), None, method="guided_backprop", nchw=True,
                            device="cpu").precompute(torch.zeros(1, 1, 257, 128), [0])

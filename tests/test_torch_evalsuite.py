@@ -269,10 +269,17 @@ def test_fan_runner_builds_no_graph_and_refuses_unported_options():
     w = torch.ones(3, requires_grad=True)
     out = tfan.fan_runner(lambda x: x * w)(torch.ones(3))
     assert not out.requires_grad
-    for kw in ({"mesh": object()}, {"aot_key": "k"}, {"donate": True}):
+    for kw in ({"aot_key": "k"}, {"donate": True}):
         with pytest.raises(NotImplementedError, match="slice E"):
             tfan.fan_runner(lambda x: x, **kw)
     tfan.fan_runner(lambda x: x, donate=False)
+    # mesh= is ported (tests/test_torch_parallel.py): the sharded runner,
+    # no graph there either
+    from wam_tpu_torch.parallel import make_mesh
+
+    sharded = tfan.fan_runner(lambda x: x * w, mesh=make_mesh({"data": 2}, ["cpu"] * 2))(
+        torch.ones(3, 3))
+    assert not sharded.requires_grad and torch.equal(sharded, torch.ones(3, 3))
 
 
 # -- config: the precision policy -------------------------------------------------

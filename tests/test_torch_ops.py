@@ -85,6 +85,22 @@ def test_mosaic_normalizes_each_stacked_sample_alone():
     torch.testing.assert_close(out[1], out[0])
 
 
+@pytest.mark.parametrize("wavelet,side", [("haar", 64), ("db4", 45), ("db4", 224)])
+def test_deferred_normalization_equals_the_mosaic_over_the_whole_batch(wavelet, side):
+    """`normalize_mosaic` of blocks of rows, with `leaf_maxima` reduced by
+    max over the blocks, gives `mosaic2d(normalize=True)` of the whole
+    batch, overlapping regions (long filters) included: equal."""
+    _, t = _coeff_pair((4, 3, side, side), wavelet, 3, 2)
+    want = tpack.mosaic2d(t, True)
+    halves = [[c[lo:lo + 2] for c in t[:1]] + [tt.Detail2D(*(c[lo:lo + 2] for c in d))
+                                                for d in t[1:]] for lo in (0, 2)]
+    maxima = torch.maximum(*(tpack.leaf_maxima(h) for h in halves))
+    assert maxima.shape == (1 + 3 * 3,)
+    got = torch.cat([tpack.normalize_mosaic(tpack.mosaic2d(h, False), maxima,
+                                            tpack.mosaic_regions(h)) for h in halves])
+    torch.testing.assert_close(got, want, rtol=0, atol=0)
+
+
 @pytest.mark.parametrize("src,size", [((3, 3), 10), ((5, 7), 230), ((17, 34), 64), ((1, 4), 8)])
 def test_resize_bilinear_matches_jax_at_borders(src, size):
     a = _rng("resize", src, size).standard_normal((2,) + src).astype(np.float32)

@@ -449,8 +449,16 @@ def test_eval_video_matches_jax(video, explained):
     with tfan.fetch_scope() as fs:
         ins = ev.insertion(torch.from_numpy(clip), y, n_iter=4)
     assert fs.count == 1 and len(ins) == 2 and ev.explanations.shape == (2, 8)
-    with pytest.raises(NotImplementedError, match="slice E"):
-        tx.EvalVideoWAM(tfn, wam, mesh=object(), device="cpu")
+    # mesh= is ported (tests/test_torch_parallel.py): the clips split over it
+    from wam_tpu_torch.parallel import make_mesh
+
+    sharded = tx.EvalVideoWAM(tfn, wam, batch_size=32, mesh=make_mesh({"data": 2}, ["cpu"] * 2),
+                              device="cpu")
+    sharded.explanations, sharded._expl_key = ev.explanations, None
+    with tfan.fetch_scope() as fs:
+        np.testing.assert_allclose(sharded.insertion(torch.from_numpy(clip), y, n_iter=4), ins,
+                                   rtol=0, atol=1e-6)
+    assert fs.count == 1
 
 
 # -- the CUDA route's launches, through stand-ins of the launchers ------------------------

@@ -17,8 +17,10 @@ transforms (`wam_tpu_torch.wavelets`; ``model_layout="nhwc"``), and the
 data, checkpoint and viewer helpers (`wam_tpu_torch.data`,
 `wam_tpu_torch.viz`), the transformer and temporal attributions
 (`wam_tpu_torch.xattr`: attention rollout and grad x attention on a ViT,
-patch-aligned level plans, video WAM and its temporal evaluation) and
-anytime SmoothGrad (`wam_tpu_torch.anytime`). Module paths and names mirror `wam_tpu`; the TPU's Pallas kernels become hand-written CUDA kernels
+patch-aligned level plans, video WAM and its temporal evaluation),
+anytime SmoothGrad (`wam_tpu_torch.anytime`), the serving runtime and its
+multi-device fleet (`wam_tpu_torch.serve`) and data parallelism over
+device meshes (`wam_tpu_torch.parallel`). Module paths and names mirror `wam_tpu`; the TPU's Pallas kernels become hand-written CUDA kernels
 (`wam_tpu_torch.kernels`), each with its plain PyTorch version beside it for
 CPU tensors and for tests. Entry points run on CUDA unless the caller passes
 ``device="cpu"``.

@@ -243,18 +243,24 @@ class EvalConfig:
 
 @dataclass
 class ServeConfig:
-    """Knobs of `wam_tpu_torch.serve.AttributionServer`. ``buckets`` is the
-    admitted item-shape set as a CLI-friendly string: comma-separated, dims
-    joined by 'x' — e.g. "3x224x224,3x256x256" for images, "32768,65536"
-    for waveforms; "" lets the caller pick programmatically. ``max_batch``
-    accepts "auto", which is 8 until the port's tuned per-bucket cap lands
-    (ROADMAP.md slice E).
+    """Knobs of `wam_tpu_torch.serve.AttributionServer` /
+    `serve.FleetServer`. ``buckets`` is the admitted item-shape set as a
+    CLI-friendly string: comma-separated, dims joined by 'x' — e.g.
+    "3x224x224,3x256x256" for images, "32768,65536" for waveforms; "" lets
+    the caller pick programmatically. ``fleet`` > 1 serves with one replica
+    worker per device; ``oversize`` picks what happens to a whole batch
+    larger than one replica's bucket cap ("pjit" = data-parallel over the
+    fleet mesh, "fanout" = per-item routing); ``supervise`` and
+    ``restart_*`` are the replicas' restart policy. `serve.FleetServer.from_config`
+    reads these knobs; the single-device server has no reader yet (the
+    serving benchmark's port, ROADMAP.md queue 1 item 6). ``max_batch`` accepts "auto",
+    which is 8 until the port's tuned per-bucket cap lands (ROADMAP.md
+    slice E2).
 
-    The reference's fleet, supervisor and registry knobs (``fleet``,
-    ``oversize``, ``supervise``, ``restart_*``, ``registry``) wait for
-    those modules (ROADMAP.md slice E). ``compilation_cache`` defaults off
-    here: the server raises NotImplementedError when it is on, until the
-    port's AOT cache (``pipeline/aot.py``, slice E) lands."""
+    The reference's ``registry`` knob waits for the port's artifact
+    registry (ROADMAP.md slice F). ``compilation_cache`` defaults off here:
+    the server raises NotImplementedError when it is on, until the port's
+    AOT cache (``pipeline/aot.py``, slice E2) lands."""
 
     max_batch: int | str = 8  # rows per dispatched batch, or "auto"
     max_wait_ms: float = 5.0
@@ -274,6 +280,8 @@ class ServeConfig:
     compilation_cache: bool = False
     metrics_path: str = ""
     device: str = "auto"
+    fleet: int = 1  # replica workers (one per device); 1 = single-device server
+    oversize: str = "pjit"  # "pjit" | "fanout" (serve/fleet oversize path)
     # -- health plane (obs.health / obs.memory / obs.slo) -------------------
     health: bool = True  # numeric-health monitors + quarantine
     health_quarantine_n: int = 3  # consecutive non-finite batches -> degraded
@@ -285,6 +293,11 @@ class ServeConfig:
     # per-bucket SLOs, e.g. "p99_ms=50,error_rate=0.01,health_rate=0.999"
     # optionally bucket-prefixed: "3x224x224: p99_ms=30; *: p99_ms=80"
     slo: str = ""
+    # -- resilience (serve.supervisor / serve.retry) ------------------------
+    supervise: bool = True  # restart dead replicas (fleets only)
+    restart_max: int = 3  # completed restarts in restart_window_s -> permanent
+    restart_window_s: float = 60.0
+    restart_backoff_ms: float = 50.0  # base restart backoff (exp, jittered)
     retry_attempts: int = 4  # client-side submit attempts (serve.retry)
     retry_budget_s: float = 30.0  # total per-request retry budget; 0 = none
 

@@ -37,10 +37,10 @@ class Eval1DWAM:
     """``explainer``: (x, y) -> (mel gradients (B, T, M), coefficient
     gradient list), e.g. `WaveletAttribution1D`; ``model_fn``: mel batches
     (B, 1, T, M) -> logits. Constructor arguments are frozen configuration;
-    ``batch_size``, ``precision``, ``device``, ``mesh``, ``aot_key`` and
-    ``donate_inputs`` as for `Eval2DWAM`. Without ``precision`` the mel
-    front end follows the melspec module's default (`ops.melspec.set_mel_bf16`)
-    at each call."""
+    ``batch_size``, ``precision``, ``device``, ``mesh`` (with
+    ``data_axis``), ``aot_key`` and ``donate_inputs`` as for `Eval2DWAM`.
+    Without ``precision`` the mel front end follows the melspec module's
+    default (`ops.melspec.set_mel_bf16`) at each call."""
 
     def __init__(
         self,
@@ -54,12 +54,15 @@ class Eval1DWAM:
         sample_rate: int = 44100,
         batch_size: int | str = 128,
         mesh=None,
+        data_axis: str = "data",
         donate_inputs: bool | None = None,
         aot_key: str | None = None,
         precision=None,
         device=None,
     ):
-        check_ported(mesh=mesh, donate=donate_inputs, aot_key=aot_key)
+        check_ported(donate=donate_inputs, aot_key=aot_key)
+        self.mesh = mesh
+        self.data_axis = data_axis
         self.device = resolve_device(device)
         self.model_fn = model_fn
         self.explainer = explainer
@@ -156,7 +159,7 @@ class Eval1DWAM:
         mel_bf16 = get_mel_bf16() if self._mel_bf16 is None else self._mel_bf16
         return run_cached_auc(self._auc_runners, (mode, target, mel_bf16), inputs_fn,
                               self.model_fn, self._fan_plan(n_iter + 1), n_iter, x, expl, y,
-                              return_logits=argmax)
+                              return_logits=argmax, mesh=self.mesh, data_axis=self.data_axis)
 
     def insertion(self, x, y, target: str = "wavelet", n_iter: int = 64):
         scores, curves = self.evaluate_auc(x, y, "insertion", target, n_iter)

@@ -101,7 +101,9 @@ class Eval2DWAM:
     None (``WAM_TPU_FAN_DTYPE``, then float32). ``device``: where the
     metrics run, CUDA unless the caller asks otherwise. ``impl``: the
     transforms' implementation (`wavelets.transform`; None is the kernels
-    on CUDA). ``mesh``, ``aot_key`` and ``donate_inputs=True`` are not
+    on CUDA). ``mesh``: a `parallel.Mesh`; every metric's fan splits its
+    images over ``data_axis`` (`fan.make_sharded_runner`), still one
+    result fetch a call. ``aot_key`` and ``donate_inputs=True`` are not
     ported yet and raise.
     """
 
@@ -117,13 +119,16 @@ class Eval2DWAM:
         preprocess_fn: Callable = imagenet_preprocess,
         random_seed: int = 42,
         mesh=None,
+        data_axis: str = "data",
         donate_inputs: bool | None = None,
         aot_key: str | None = None,
         precision=None,
         device=None,
         impl: str | None = None,
     ):
-        check_ported(mesh=mesh, donate=donate_inputs, aot_key=aot_key)
+        check_ported(donate=donate_inputs, aot_key=aot_key)
+        self.mesh = mesh
+        self.data_axis = data_axis
         self.device = resolve_device(device)
         self.model_fn = model_fn
         self.explainer = explainer
@@ -212,7 +217,8 @@ class Eval2DWAM:
         return run_cached_auc(
             self._auc_runners, (mode, tuple(wams.shape[1:])),
             lambda img, wam: self._perturb_for_auc(img, wam, mode, n_iter),
-            self.model_fn, self._fan_plan(n_iter + 1), n_iter, x, wams, y)
+            self.model_fn, self._fan_plan(n_iter + 1), n_iter, x, wams, y, mesh=self.mesh,
+            data_axis=self.data_axis)
 
     def insertion(self, x, y, n_iter: int = 64):
         scores, curves = self.evaluate_auc(x, y, "insertion", n_iter)
@@ -274,7 +280,7 @@ class Eval2DWAM:
                     out.append(spearman(deltas[j], (onehotb[i] * cells).sum(dim=1)))
             return torch.stack(out)
 
-        return fan_runner(run)
+        return fan_runner(run, mesh=self.mesh, data_axis=self.data_axis)
 
     def mu_fidelity(self, x, y, grid_size: int = 28, sample_size: int = 128,
                     subset_size: int = 157):

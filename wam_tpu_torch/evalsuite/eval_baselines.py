@@ -79,8 +79,9 @@ class _BaseEvalBaselines:
     (float8_e4m3fn, where `config.fp8_supported`) rounds the weights and
     the inputs through e4m3 and computes in bfloat16: cuDNN has no float8
     convolution; the input rounding passes gradients straight through.
-    ``mesh=``, ``aot_key=`` and ``donate_inputs=True`` are not ported yet
-    and raise (``data_axis`` names the mesh's axis and waits with it).
+    ``mesh``: a `parallel.Mesh`; every metric's fan splits its inputs over
+    ``data_axis`` (`fan.make_sharded_runner`), one result fetch a call.
+    ``aot_key=`` and ``donate_inputs=True`` are not ported yet and raise.
     Constructor arguments are frozen configuration."""
 
     def __init__(self, model, variables, method: str, batch_size: int | str,
@@ -102,7 +103,9 @@ class _BaseEvalBaselines:
                 "the ViT with capture_attn=True (models/vit.py); the stock "
                 "attention body never materializes them"
             )
-        check_ported(mesh=mesh, donate=donate_inputs, aot_key=aot_key)
+        check_ported(donate=donate_inputs, aot_key=aot_key)
+        self.mesh = mesh
+        self.data_axis = data_axis
         self.device = resolve_device(device)
         self.compute_dtype, self._fan_dtype = resolve_compute_dtype(compute_dtype, precision)
         self.model = self._own_copy(model, variables)
@@ -237,7 +240,7 @@ class _BaseEvalBaselines:
 
         return run_cached_auc(self._auc_runners, (mode, tuple(expl.shape[1:])), inputs_fn,
                               self.model_fn, self._fan_plan(n_iter + 1), n_iter, x, expl, y,
-                              return_logits=argmax)
+                              return_logits=argmax, mesh=self.mesh, data_axis=self.data_axis)
 
     def insertion(self, x, y, n_iter: int = 128):
         scores, curves = self.evaluate_auc(x, y, "insertion", n_iter)
@@ -305,7 +308,7 @@ class EvalImageBaselines(_BaseEvalBaselines):
                     out.append(spearman(deltas[j], onehotb[i] @ cells))
             return torch.stack(out)
 
-        return fan_runner(run)
+        return fan_runner(run, mesh=self.mesh, data_axis=self.data_axis)
 
     def mu_fidelity(self, x, y, grid_size: int = 28, sample_size: int = 128,
                     subset_size: int = 157):

@@ -31,9 +31,12 @@ import numpy as np
 import torch
 
 from wam_tpu_torch.config import PrecisionPolicy, compute_cast, resolve_precision
+from wam_tpu_torch.parallel.mesh import P
+from wam_tpu_torch.parallel.tree import cyclic_pad_index, tree_leaves, tree_map, tree_zip_map
 
 __all__ = ["FanPlan", "plan_fan", "fan_chunk_geometry", "cast_model_fn",
-           "make_chunked_forward", "check_ported", "fan_runner", "run_fan", "device_fetch",
+           "make_chunked_forward", "check_ported", "make_sharded_runner", "fan_runner",
+           "run_fan", "device_fetch",
            "fetch_count", "reset_fetch_count", "fetch_scope", "upload", "AUTO_CAP"]
 
 # rows a model call when batch_size="auto": the reference's own fallback
@@ -47,25 +50,15 @@ _FETCH_COUNT = 0
 _fetch_tls = threading.local()  # per-thread stack of live fetch_scopes
 
 
-def _to_host(out):
-    if isinstance(out, torch.Tensor):
-        return out.detach().cpu().numpy()
-    if isinstance(out, (tuple, list)):
-        return type(out)(_to_host(o) for o in out)
-    if isinstance(out, dict):
-        return {k: _to_host(v) for k, v in out.items()}
-    return out
-
-
 def device_fetch(out):
     """THE result fetch: the whole result (a tensor, or a tuple, list or
-    dict of them) copied to the host as numpy. Every fan metric's device-to-host
+    dict of them) copied to the host as numpy, in the same structure. Every fan metric's device-to-host
     transfer goes through here, counted by `fetch_scope` and `fetch_count`."""
     global _FETCH_COUNT
     _FETCH_COUNT += 1
     for scope in getattr(_fetch_tls, "scopes", ()):
         scope._count += 1
-    return _to_host(out)
+    return tree_map(lambda t: t.detach().cpu().numpy(), out)
 
 
 def fetch_count() -> int:
@@ -177,23 +170,53 @@ def make_chunked_forward(model_fn, fan_chunk: int | None):
 # -- dispatch --------------------------------------------------------------------
 
 
-def check_ported(*, mesh=None, donate: bool | None = None, aot_key: str | None = None) -> None:
+def check_ported(*, donate: bool | None = None, aot_key: str | None = None) -> None:
     """Raise NotImplementedError for the reference's dispatch options that
-    are not ported yet: ``mesh=`` (its shard_map path), ``aot_key=`` (its
-    executable cache) and ``donate=True`` (it donates on the TPU only, so
-    None and False mean the same here)."""
-    if mesh is not None:
-        raise NotImplementedError("mesh= is not ported yet (ROADMAP.md, slice E)")
+    are not ported yet: ``aot_key=`` (its executable cache) and
+    ``donate=True`` (it donates on the TPU only, so None and False mean the
+    same here)."""
     if aot_key is not None:
-        raise NotImplementedError("aot_key= is not ported yet (ROADMAP.md, slice E)")
+        raise NotImplementedError("aot_key= is not ported yet (ROADMAP.md, slice E2)")
     if donate:
-        raise NotImplementedError("donate_inputs=True is not ported yet (ROADMAP.md, slice E)")
+        raise NotImplementedError("donate_inputs=True is not ported yet (ROADMAP.md, slice E2)")
 
 
-def fan_runner(body, *, mesh=None, donate: bool | None = None, aot_key: str | None = None):
+def make_sharded_runner(body, mesh, data_axis: str = "data"):
+    """The on-mesh fan: axis 0 of every positional argument split over
+    ``data_axis`` (cyclically padded to its size), one block a data index
+    run on that block's device under ``torch.no_grad()`` (the mesh's other
+    axes do not split the fan: their blocks would repeat it), each block's
+    outputs moved to the first argument's device, concatenated and sliced
+    back to the batch. The blocks are enqueued in turn from this thread and
+    nothing waits for the device, so the metric's single `device_fetch`
+    stays its only host copy."""
+
+    def run(*args):
+        lead = tree_leaves(args)[0].shape[0]
+        idx, _ = cyclic_pad_index(lead, mesh.shape[data_axis])
+        if idx is not None:
+            args = tree_map(lambda a: a[idx.to(a.device)], args)
+        out_dev = args[0].device
+        outs = []
+        with torch.no_grad():
+            for d in range(mesh.shape[data_axis]):
+                dev = mesh.device(**{data_axis: d})
+                block = tree_map(lambda a: mesh.block(a, P(data_axis), **{data_axis: d})
+                                 .to(dev), args)
+                outs.append(tree_map(lambda t: t.to(out_dev), body(*block)))
+        return tree_map(lambda t: t[:lead], tree_zip_map(lambda *p: torch.cat(p), outs))
+
+    return run
+
+
+def fan_runner(body, *, mesh=None, data_axis: str = "data", donate: bool | None = None,
+               aot_key: str | None = None):
     """The dispatch every fan step goes through: ``body`` run under
-    ``torch.no_grad()`` (`check_ported` for the options)."""
-    check_ported(mesh=mesh, donate=donate, aot_key=aot_key)
+    ``torch.no_grad()``, or over ``mesh`` by `make_sharded_runner`
+    (`check_ported` for the other options)."""
+    check_ported(donate=donate, aot_key=aot_key)
+    if mesh is not None:
+        return make_sharded_runner(body, mesh, data_axis)
 
     def run(*args):
         with torch.no_grad():

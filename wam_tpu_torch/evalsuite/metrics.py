@@ -143,7 +143,8 @@ def _image_expl(expl, i: int):
 
 
 def batched_auc_runner(inputs_fn, model_fn, images_per_chunk: int, return_logits: bool = False,
-                       fan_chunk: int | None = None, fan_dtype: str = "f32"):
+                       fan_chunk: int | None = None, fan_dtype: str = "f32", mesh=None,
+                       data_axis: str = "data"):
     """Insertion/deletion over an image batch in one fan step.
 
     ``inputs_fn(x_s, expl_s) -> (M, ...)`` builds one image's perturbation
@@ -153,7 +154,8 @@ def batched_auc_runner(inputs_fn, model_fn, images_per_chunk: int, return_logits
     step returns ONE (B, 1 + M) tensor, column 0 the AUC and columns 1: the
     curve, or with ``return_logits`` the (B, M, K) logits. ``fan_dtype``
     wraps the forward in the precision boundary (`fan.cast_model_fn`), so
-    softmax and AUC run in float32."""
+    softmax and AUC run in float32. ``mesh`` splits the images over
+    ``data_axis`` (`fan.make_sharded_runner`)."""
     forward = cast_model_fn(make_chunked_forward(model_fn, fan_chunk), fan_dtype)
 
     def body(xb, explb, yb):
@@ -174,17 +176,18 @@ def batched_auc_runner(inputs_fn, model_fn, images_per_chunk: int, return_logits
             return out
         return torch.cat([compute_auc(out)[:, None], out], dim=1)
 
-    return fan_runner(body)
+    return fan_runner(body, mesh=mesh, data_axis=data_axis)
 
 
 def run_cached_auc(cache: dict, key_extra, inputs_fn, model_fn, batch_size, n_iter: int,
-                   x, expl, y, return_logits: bool = False):
+                   x, expl, y, return_logits: bool = False, mesh=None, data_axis: str = "data"):
     """Memoized `batched_auc_runner` call shared by the evaluators.
 
     ``batch_size`` is a `FanPlan` or an int cap (geometry by the cap // fan
     law). The call ends in EXACTLY ONE `fan.device_fetch`: the [score |
     curve] array, or the logits on the ``return_logits`` path. Returns
-    (scores, curves) as host lists, or the list of per-image logits."""
+    (scores, curves) as host lists, or the list of per-image logits.
+    ``mesh`` / ``data_axis``: the evaluator's, for `batched_auc_runner`."""
     if isinstance(batch_size, FanPlan):
         plan = batch_size
     else:
@@ -194,7 +197,7 @@ def run_cached_auc(cache: dict, key_extra, inputs_fn, model_fn, batch_size, n_it
     runner = cache.get(key)
     if runner is None:
         runner = batched_auc_runner(inputs_fn, model_fn, plan.images_per_chunk, return_logits,
-                                    plan.fan_chunk, plan.fan_dtype)
+                                    plan.fan_chunk, plan.fan_dtype, mesh, data_axis)
         cache[key] = runner
     out = run_fan(runner, (x, expl, upload(y, x.device).long()))
     if return_logits:

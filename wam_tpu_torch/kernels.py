@@ -20,7 +20,8 @@ K3 runs the per-level banded products of ``csrc/collapsed.cuh`` on a
 library. The launch wrappers take CUDA tensors only: they check device, dtype,
 shape and layout, allocate the outputs with ``torch.empty``,
 launch on the current stream and raise when the launch fails. Each counts
-its launches in ``KERNELS[name].launches`` (one per launch, nowhere else).
+its launches in ``KERNELS[name].launches`` (one per launch, nowhere else;
+under a lock, since a fleet's replicas launch from several threads).
 Nothing here runs on the CPU: the plain PyTorch versions live beside their
 callers in `wam_tpu_torch.wavelets.matmul` and `wam_tpu_torch.tune.fused_relu`.
 """
@@ -32,6 +33,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 import time
 from pathlib import Path
 from typing import NamedTuple
@@ -112,6 +114,9 @@ KERNELS = {
     "relu_bwd": Kernel("relu_bwd", "relu_mask.cu", ("wam_relu_bwd_f32", "wam_relu_bwd_bf16"),
                        _RELU_ARGS),
 }
+
+
+_COUNT_LOCK = threading.Lock()
 
 
 def launch_counts() -> dict[str, int]:
@@ -195,7 +200,8 @@ def _call(kernel: Kernel, symbol: str, dev, *args) -> None:
         err = launcher(*args, torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError(f"{kernel.name} kernel launch failed: cudaError_t {err}")
-    kernel.launches += 1
+    with _COUNT_LOCK:
+        kernel.launches += 1
 
 
 def _suffix(t: torch.Tensor) -> str:

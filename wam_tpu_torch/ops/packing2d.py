@@ -16,7 +16,8 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-__all__ = ["mosaic2d", "reproject_mosaic", "disentangle_scales", "mosaic_size"]
+__all__ = ["mosaic2d", "reproject_mosaic", "disentangle_scales", "mosaic_size",
+           "mosaic_regions", "leaf_maxima", "normalize_mosaic"]
 
 
 def _norm(a: torch.Tensor, enabled: bool) -> torch.Tensor:
@@ -47,30 +48,67 @@ def mosaic_size(coeffs, channel_axis: int = 1) -> int:
     return int(2 * coeffs[-1].horizontal.shape[axis])
 
 
+def mosaic_regions(coeffs, channel_axis: int = 1) -> list[tuple[int, int, int, int]]:
+    """Where each leaf lands in the mosaic, in `mosaic2d`'s write order
+    (approximation, then each level's diagonal, vertical and horizontal,
+    finest level first): ``(row0, col0, rows, cols)``, the leaf's top-left
+    ``rows x cols`` corner written at ``[row0:row0+rows, col0:col0+cols]``.
+    A later region overwrites an earlier one where they overlap (long
+    filters)."""
+    size = mosaic_size(coeffs, channel_axis)
+    hdim = -2 if _channel_dim(channel_axis) == -3 else -3
+    approx = coeffs[0]
+    regions = [(0, 0, min(approx.shape[hdim], size), min(approx.shape[hdim + 1], size))]
+    for i in range(len(coeffs) - 1):
+        end = size // (2**i)
+        start = size // (2 ** (i + 1))
+        b = end - start
+        # off-diagonal blocks are (b, start)/(start, b): for non-dyadic
+        # mosaic sizes (long filters) start != b
+        regions += [(start, start, b, b), (start, 0, b, start), (0, start, start, b)]
+    return regions
+
+
+def _region_leaves(coeffs) -> list:
+    """The leaves in `mosaic_regions` order."""
+    leaves = [coeffs[0]]
+    for det in coeffs[1:][::-1]:  # coeffs[1:] is coarsest -> finest
+        leaves += [det.diagonal, det.vertical, det.horizontal]
+    return leaves
+
+
 def mosaic2d(coeffs, normalize: bool = True, channel_axis: int = 1) -> torch.Tensor:
     """Pack per-coefficient values [cA, Detail2D_J..Detail2D_1] (each
     (..., B, C, h, w), or (..., B, h, w, C) with ``channel_axis=-1``) into
     the dyadic mosaic (..., B, S, S)."""
     size = mosaic_size(coeffs, channel_axis)
     out = coeffs[0].new_zeros(coeffs[0].shape[:-3] + (size, size))
-
-    approx = _prep(coeffs[0], normalize, channel_axis)
-    ha = min(approx.shape[-2], size)
-    wa = min(approx.shape[-1], size)
-    out[..., :ha, :wa] = approx[..., :ha, :wa]
-
-    # coeffs[1:] is coarsest -> finest; enumerate finest-first
-    for i, det in enumerate(coeffs[1:][::-1]):
-        end = size // (2**i)
-        start = size // (2 ** (i + 1))
-        b = end - start
-        # off-diagonal blocks are (b, start)/(start, b): for non-dyadic
-        # mosaic sizes (long filters) start != b
-        out[..., start:end, start:end] = _prep(det.diagonal, normalize, channel_axis)[..., :b, :b]
-        out[..., start:end, :start] = _prep(det.vertical, normalize, channel_axis)[..., :b, :start]
-        out[..., :start, start:end] = _prep(det.horizontal, normalize,
-                                            channel_axis)[..., :start, :b]
+    for leaf, (r0, c0, nr, nc) in zip(_region_leaves(coeffs), mosaic_regions(coeffs, channel_axis)):
+        out[..., r0:r0 + nr, c0:c0 + nc] = _prep(leaf, normalize, channel_axis)[..., :nr, :nc]
     return out
+
+
+def leaf_maxima(coeffs, channel_axis: int = 1) -> torch.Tensor:
+    """The divisors `mosaic2d(normalize=True)` takes, one a leaf in
+    `mosaic_regions` order: the max of each leaf's |channel mean| over the
+    last three axes (one sample's B, h, w), stacked on a last axis
+    (..., n_regions)."""
+    return torch.stack([_prep(leaf, False, channel_axis).amax(dim=(-3, -2, -1))
+                        for leaf in _region_leaves(coeffs)], dim=-1)
+
+
+def normalize_mosaic(mosaic: torch.Tensor, maxima: torch.Tensor, regions) -> torch.Tensor:
+    """An unnormalized mosaic (..., B, S, S) (`mosaic2d(normalize=False)`)
+    divided region by region by ``maxima`` (..., n_regions), as
+    `mosaic2d(normalize=True)` divides each leaf by its max (a zero max by
+    1): the two agree wherever the maxima do. Taking the maxima over more
+    rows than one call saw (`leaf_maxima` of each block of a batch, reduced
+    by max) normalizes the blocks as one batch."""
+    div = torch.ones_like(mosaic[..., :1, :, :])
+    m = torch.where(maxima == 0, torch.ones_like(maxima), maxima).to(mosaic.dtype)
+    for k, (r0, c0, nr, nc) in enumerate(regions):
+        div[..., r0:r0 + nr, c0:c0 + nc] = m[..., k, None, None, None]
+    return mosaic / div
 
 
 def _resize_bilinear(a: torch.Tensor, size: int) -> torch.Tensor:

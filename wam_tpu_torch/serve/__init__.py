@@ -1,5 +1,5 @@
-"""`wam_tpu_torch.serve` — the batched attribution serving runtime (PyTorch
-port of `wam_tpu.serve`, less the fleet).
+"""`wam_tpu_torch.serve` — the batched attribution serving runtime and its
+multi-device fleet (PyTorch port of `wam_tpu.serve`).
 
 A stream of independent attribution requests (mixed shapes, mixed arrival
 times) in; a small fixed set of warm bucket shapes and a single
@@ -12,14 +12,15 @@ and the video explainer) — thread-safe batched callables
 (`serve.entry.jit_entry`) that count their first call at each input
 signature and release their donated input batch on the card.
 
-Waiting for ROADMAP.md slice E: the multi-card fleet and its supervisor
-(``FleetServer``, ``FleetMetrics``, ``NoLiveReplicaError``,
-``OVERSIZE_ENTRY_ID``, ``ReplicaSupervisor``, ``SupervisorConfig``).
+`serve.fleet.FleetServer` runs one server replica per device behind shared
+admission and load-aware routing (oversize batches data-parallel over the
+replicas), `serve.supervisor.ReplicaSupervisor` restarts dead replicas.
 """
 
 from wam_tpu_torch.serve.buckets import Bucket, BucketTable, NoBucketError, bucket_key, pad_item
 from wam_tpu_torch.serve.entry import fleet_aot_key, jit_entry
-from wam_tpu_torch.serve.metrics import SCHEMA_VERSION, ServeMetrics, percentile_ms
+from wam_tpu_torch.serve.fleet import OVERSIZE_ENTRY_ID, FleetServer, NoLiveReplicaError
+from wam_tpu_torch.serve.metrics import SCHEMA_VERSION, FleetMetrics, ServeMetrics, percentile_ms
 from wam_tpu_torch.serve.models import ModelPager, ModelSpec, model_paging_disabled
 from wam_tpu_torch.serve.result_cache import ResultCache, result_cache_key
 from wam_tpu_torch.serve.retry import RetryBudgetExceededError, RetryPolicy, RetryStats
@@ -34,12 +35,15 @@ from wam_tpu_torch.serve.runtime import (
     ServerClosedError,
     WorkerCrashedError,
 )
+from wam_tpu_torch.serve.supervisor import ReplicaSupervisor, SupervisorConfig
 
 __all__ = [
     "AttributionServer",
+    "FleetServer",
     "Bucket",
     "BucketTable",
     "NoBucketError",
+    "NoLiveReplicaError",
     "ServeError",
     "QueueFullError",
     "MemoryAdmissionError",
@@ -50,8 +54,12 @@ __all__ = [
     "RetryBudgetExceededError",
     "RetryPolicy",
     "RetryStats",
+    "ReplicaSupervisor",
+    "SupervisorConfig",
     "ServeMetrics",
+    "FleetMetrics",
     "SCHEMA_VERSION",
+    "OVERSIZE_ENTRY_ID",
     "percentile_ms",
     "ResultCache",
     "result_cache_key",

@@ -20,7 +20,13 @@ port's kernels are built and their band plans made:
   is released to the caching allocator once the entry has enqueued its
   work on it;
 - **health** (``with_health``): the numeric-health vector computed inside
-  the same call.
+  the same call;
+- **row blocks** (``blocks``): what the fleet's data-parallel oversize
+  route (`serve.fleet`) needs to run an entry with a batch-global
+  reduction on blocks of a batch's rows, on several devices: `RowBlocks`,
+  the block's share of the work and the finish that takes the reduction
+  over every block. (An entry whose rows depend on their own input alone
+  says so with ``entry.wam_row_wise = True`` instead.)
 
 ``aot_key=`` (the reference's AOT executable cache) raises
 NotImplementedError until the port's ``pipeline/aot.py`` lands
@@ -30,12 +36,31 @@ NotImplementedError until the port's ``pipeline/aot.py`` lands
 from __future__ import annotations
 
 import threading
+from dataclasses import dataclass
 from typing import Callable
 
 from wam_tpu_torch.obs import sentinel
 from wam_tpu_torch.pipeline.donation import release, resolve_donate
 
-__all__ = ["jit_entry", "fleet_aot_key", "signature"]
+__all__ = ["jit_entry", "fleet_aot_key", "signature", "RowBlocks"]
+
+
+@dataclass(frozen=True)
+class RowBlocks:
+    """An entry ``(x, y) -> out`` over B rows, computed on blocks of them:
+
+    - ``partial(x_block, y_block, lo, total) -> (state, maxima)`` runs on
+      the block's device with the rows ``[lo, lo + len(x_block))`` of a
+      ``total``-row batch, and returns what the block keeps (``state``, on
+      its device) and a tensor, or tuple of tensors, of the maxima its
+      batch-global reduction takes over its own rows;
+    - ``finish(state, maxima) -> out`` gives the block's rows of the entry's
+      result on the whole batch, once ``maxima`` are the elementwise max of
+      every block's (host numpy arrays, the shapes ``partial`` returned).
+    """
+
+    partial: Callable
+    finish: Callable
 
 
 def fleet_aot_key(aot_key: str | None, n_replicas: int | None,
@@ -86,6 +111,7 @@ def jit_entry(
     aot_key: str | None = None,
     obs_kind: str = "serve",
     with_health: bool | str = False,
+    blocks: RowBlocks | None = None,
 ):
     """Wrap ``impl(x, y)`` as a serving entry (see module docstring).
 
@@ -102,7 +128,11 @@ def jit_entry(
     second fetch. ``with_health="fused"`` declares that ``impl`` ALREADY
     returns that tuple (`WamEngine.attribute_with_health` folds the
     gradient statistics in). Either way the entry carries
-    ``entry.wam_health = True`` so the serve worker knows to unpack."""
+    ``entry.wam_health = True`` so the serve worker knows to unpack.
+
+    ``blocks`` becomes ``entry.wam_blocks`` (module docstring); a block's
+    ``partial`` counts its first calls and releases its donated input as
+    the entry does."""
     if aot_key is not None:
         raise NotImplementedError(
             "aot_key= needs the AOT executable cache, pipeline/aot.py, which is not "
@@ -124,7 +154,7 @@ def jit_entry(
     lock = threading.Lock()
     detail = getattr(impl, "__name__", "")
 
-    def entry(x, y):
+    def first_call(x, y):
         sig = signature(x, y)
         with lock:
             first = sig not in seen
@@ -133,6 +163,9 @@ def jit_entry(
             sentinel.record_trace(obs_kind, detail=detail, bucket=_bucket_of(x))
             if on_trace is not None:
                 on_trace()
+
+    def entry(x, y):
+        first_call(x, y)
         out = impl(x, y)
         if donating:
             release(x)
@@ -140,6 +173,16 @@ def jit_entry(
 
     entry.__name__ = detail or "entry"
     entry.wam_donate = donating
+    entry.wam_blocks = None
+    if blocks is not None:
+        def partial(x, y, lo, total):
+            first_call(x, y)
+            out = blocks.partial(x, y, lo, total)
+            if donating:
+                release(x)
+            return out
+
+        entry.wam_blocks = RowBlocks(partial, blocks.finish)
     if with_health:
         entry.wam_health = True
     return entry

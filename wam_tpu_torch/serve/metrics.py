@@ -18,8 +18,11 @@ true duty cycle — it is a routing/idleness signal, not a device
 measurement). ``compile_count`` counts first calls at a new signature (the
 reference counts jit traces). ``serve_batch`` rows carry the schedule
 fingerprint (`result_cache.schedule_fingerprint`: the no-table constant
-until the port's tuned schedules land). The fleet's aggregate,
-``FleetMetrics``, waits for ``serve/fleet.py`` (ROADMAP.md slice E).
+until the port's tuned schedules land). `FleetMetrics` aggregates a
+fleet's replica ledgers (`serve.fleet`) into one ``fleet_summary`` row
+(aggregate attributions/s, pooled latency percentiles, per-replica
+utilization, replica deaths and restarts, oversize counters), with one
+``replica_restart`` row per supervisor transition.
 """
 
 from __future__ import annotations
@@ -34,7 +37,7 @@ from wam_tpu_torch.profiling import StageTimer
 from wam_tpu_torch.results import JsonlWriter
 from wam_tpu_torch.serve.buckets import bucket_key
 
-__all__ = ["ServeMetrics", "percentile_ms", "SCHEMA_VERSION",
+__all__ = ["ServeMetrics", "FleetMetrics", "percentile_ms", "SCHEMA_VERSION",
            "write_obs_snapshot", "write_slo_status", "write_result_cache"]
 
 SCHEMA_VERSION = 2
@@ -93,6 +96,16 @@ _h_service = _obs_registry.histogram(
 _g_warmup = _obs_registry.gauge(
     "wam_tpu_fleet_warmup_seconds", "per-bucket warmup wall time",
     labels=("replica", "bucket"))
+_c_deaths = _obs_registry.counter(
+    "wam_tpu_fleet_replica_deaths_total", "replicas marked dead fleet-wide")
+_c_restarts = _obs_registry.counter(
+    "wam_tpu_serve_restarts_total",
+    "completed replica restarts (supervisor 'alive' transitions)",
+    labels=("replica",))
+_g_fleet_compiles = _obs_registry.gauge(
+    "wam_tpu_fleet_compile_count",
+    "compile_count per replica as of the last fleet_summary()",
+    labels=("replica",))
 _c_any_batches = _obs_registry.counter(
     "wam_tpu_anytime_batches_total",
     "batches driven through the anytime stride loop",
@@ -541,3 +554,177 @@ def write_obs_snapshot(writer: JsonlWriter, models=None) -> dict:
         row["models_resident"] = models
     writer.write(row)
     return row
+
+
+class FleetMetrics:
+    """Fleet-wide aggregator (`serve.fleet.FleetServer`): one `ServeMetrics`
+    per replica worker, one for the fleet-wide oversize entry, and the
+    ``fleet_summary`` ledger row — aggregate attributions/sec across the
+    whole fleet, pooled latency percentiles, per-replica utilization, and
+    the replica-death trail."""
+
+    def __init__(self):
+        self._lock = threading.Lock()
+        self._replicas: dict = {}  # replica_id -> ServeMetrics
+        self.deaths: list[dict] = []
+        self.restarts: list[dict] = []  # replica_restart transition rows
+        self.oversize = ServeMetrics(replica_id="fleet")
+        # the fleet attaches its SHARED admission-tier ResultCache here
+        # (replica servers carry none — fleet.py owns consult/populate)
+        self.result_cache = None
+        self.cache_hits = 0  # fleet-tier submits answered from the cache
+        self._t0 = time.perf_counter()
+
+    def replica(self, replica_id) -> ServeMetrics:
+        """Get-or-create the per-replica accumulator."""
+        with self._lock:
+            if replica_id not in self._replicas:
+                self._replicas[replica_id] = ServeMetrics(replica_id=replica_id)
+            return self._replicas[replica_id]
+
+    def note_cache_hit(self, n: int = 1) -> None:
+        """A fleet-tier submit answered from the shared result cache
+        (never routed to a replica)."""
+        with self._lock:
+            self.cache_hits += n
+
+    def note_replica_death(self, replica_id, reason: str = "") -> None:
+        with self._lock:
+            self.deaths.append(
+                {"replica_id": replica_id, "reason": reason, "timestamp": time.time()}
+            )
+        _c_deaths.inc()
+
+    def note_restart(self, replica_id, transition: str, *, attempt: int = 0,
+                     backoff_s: float = 0.0, reason: str = "") -> dict:
+        """One supervisor lifecycle transition (``restarting`` → ``alive`` /
+        ``restart_failed`` / ``permanent_dead``) as a v2 ``replica_restart``
+        ledger row. Completed restarts (``alive``) also count into
+        ``wam_tpu_serve_restarts_total`` so ledger and registry round-trip."""
+        row = {
+            "metric": "replica_restart",
+            "schema_version": SCHEMA_VERSION,
+            "replica_id": replica_id,
+            "transition": transition,
+            "attempt": attempt,
+            "backoff_s": backoff_s,
+            "reason": reason,
+            "timestamp": time.time(),
+        }
+        with self._lock:
+            self.restarts.append(row)
+        if transition == "alive":
+            _c_restarts.inc(replica=_rlabel(replica_id))
+        return row
+
+    @staticmethod
+    def load_ledger(path: str) -> list[dict]:
+        """Tolerant ledger merge-read: every parseable row, corrupt lines
+        skipped with a counted warning (`results.read_jsonl`)."""
+        from wam_tpu_torch.results import read_jsonl
+
+        return read_jsonl(path)
+
+    def fleet_summary(self) -> dict:
+        """The aggregate row: fleet throughput is completed requests (replica
+        + oversize) over the fleet's window; latencies pool every replica's
+        sample so p99 reflects the slowest routing decisions, not the best
+        replica."""
+        with self._lock:
+            replicas = dict(self._replicas)
+            deaths = list(self.deaths)
+            restarts = list(self.restarts)
+            t0 = self._t0
+        window_s = time.perf_counter() - t0
+        per_replica = []
+        latencies: list[float] = []
+        completed = submitted = rejected = expired = failed = compile_count = 0
+        for rid in sorted(replicas, key=str):
+            m = replicas[rid]
+            s = m.snapshot()
+            completed += s["completed"]
+            submitted += s["submitted"]
+            rejected += s["rejected"]
+            expired += s["expired"]
+            failed += s["failed"]
+            compile_count += s["compile_count"]
+            latencies.extend(m.latency_sample())
+            # registry publication: first-call/warmup state as of this
+            # summary (idempotent gauge sets)
+            _g_fleet_compiles.set(s["compile_count"], replica=_rlabel(rid))
+            for bucket, secs in s["warmup_s"].items():
+                _g_warmup.set(secs, replica=_rlabel(rid), bucket=bucket)
+            per_replica.append(
+                {
+                    "replica_id": rid,
+                    "completed": s["completed"],
+                    "batches": s["batches"],
+                    "compile_count": s["compile_count"],
+                    "attributions_per_s": s["completed"] / window_s if window_s > 0 else 0.0,
+                    "utilization": s["busy_s"] / window_s if window_s > 0 else 0.0,
+                    "ema_service_s": s["ema_service_s"],
+                }
+            )
+        os_snap = self.oversize.snapshot()
+        completed += os_snap["completed"]
+        submitted += os_snap["submitted"]
+        latencies.extend(self.oversize.latency_sample())
+        with self._lock:
+            cache_hits = self.cache_hits
+            cache_stats = (self.result_cache.stats()
+                           if self.result_cache is not None else None)
+        return {
+            "metric": "fleet_summary",
+            "schema_version": SCHEMA_VERSION,
+            "replicas": len(per_replica),
+            "deaths": deaths,
+            "restarts": sum(1 for r in restarts if r["transition"] == "alive"),
+            "permanent_dead": sorted(
+                {str(r["replica_id"]) for r in restarts
+                 if r["transition"] == "permanent_dead"}),
+            "window_s": window_s,
+            "submitted": submitted,
+            "completed": completed,
+            "rejected": rejected,
+            "expired": expired,
+            "failed": failed,
+            "compile_count": compile_count,
+            "attributions_per_s": completed / window_s if window_s > 0 else 0.0,
+            "latency_p50_ms": percentile_ms(latencies, 50),
+            "latency_p99_ms": percentile_ms(latencies, 99),
+            "oversize_batches": os_snap["batches"],
+            "oversize_completed": os_snap["completed"],
+            "cache_hits": cache_hits,
+            "result_cache": cache_stats,
+            "per_replica": per_replica,
+        }
+
+    def emit(
+        self,
+        writer: JsonlWriter,
+        config: dict | None = None,
+        replica_configs: dict | None = None,
+    ) -> dict:
+        """Flush every replica ledger (batch rows + per-replica summary),
+        the oversize ledger when it dispatched anything, the restart rows,
+        then the ``fleet_summary`` row; returns the fleet summary."""
+        with self._lock:
+            replicas = dict(self._replicas)
+        for rid in sorted(replicas, key=str):
+            cfg = (replica_configs or {}).get(rid)
+            replicas[rid].emit(writer, config=cfg, obs_snapshot=False)
+        if self.oversize.batch_rows:
+            self.oversize.emit(writer, config={"oversize": True},
+                               obs_snapshot=False)
+        with self._lock:
+            restart_rows = list(self.restarts)
+        for row in restart_rows:
+            writer.write(row)
+        summary = self.fleet_summary()
+        if config is not None:
+            summary["config"] = config
+        writer.write(summary)
+        if self.result_cache is not None:
+            write_result_cache(writer, self.result_cache)
+        write_obs_snapshot(writer)
+        return summary

@@ -1,6 +1,6 @@
 """Client-side retry and hedging discipline (PyTorch port of
-`wam_tpu.serve.retry`; pure Python, for one server: the fleet's
-``submit_with_retry`` waits for ``serve/fleet.py``, ROADMAP.md slice E).
+`wam_tpu.serve.retry`; pure Python). `FleetServer.submit_with_retry`
+exposes the policy on the fleet surface.
 
 The serve runtime's backpressure contract is reject-with-retry-after —
 `QueueFullError.retry_after_s` is the server's own projected-drain

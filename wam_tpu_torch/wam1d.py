@@ -186,7 +186,8 @@ class WaveletAttribution1D(BaseWAM1D):
         device=None,
     ):
         if mesh is not None:
-            raise NotImplementedError("mesh= is not ported yet (ROADMAP.md, slice E)")
+            raise NotImplementedError("mesh= (sequence sharding) is not ported yet "
+                                      "(ROADMAP.md, slice E1b)")
         super().__init__(model_fn, wavelet=wavelet, J=J, mode=mode, approx_coeffs=approx_coeffs,
                          n_mels=n_mels, n_fft=n_fft, sample_rate=sample_rate, device=device)
         if method not in ("smooth", "integratedgrad"):
@@ -287,7 +288,7 @@ class WaveletAttribution1D(BaseWAM1D):
         distributes rows of every leaf. SmoothGrad seeds its generator with
         the instance seed on every call (one noise stream for every batch).
         (``mesh=``, which the reference rejects here, is rejected by the
-        constructor until slice E.) ``with_health=True`` computes the
+        constructor until slice E1b.) ``with_health=True`` computes the
         numeric-health vector over the result tree in the same call
         (`serve.entry.jit_entry`)."""
         from wam_tpu_torch.serve.entry import jit_entry

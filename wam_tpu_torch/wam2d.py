@@ -35,10 +35,18 @@ from wam_tpu_torch.core.estimators import (
     resolve_sample_chunk,
     sample_noise,
     smoothgrad,
+    trapezoid,
     validate_sample_batch_size,
 )
 from wam_tpu_torch.device import resolve_device
-from wam_tpu_torch.ops.packing2d import disentangle_scales, mosaic2d, reproject_mosaic
+from wam_tpu_torch.ops.packing2d import (
+    disentangle_scales,
+    leaf_maxima,
+    mosaic2d,
+    mosaic_regions,
+    normalize_mosaic,
+    reproject_mosaic,
+)
 
 __all__ = ["BaseWAM2D", "WaveletAttribution2D"]
 
@@ -209,7 +217,8 @@ class WaveletAttribution2D(BaseWAM2D):
         image_size: int | None = None,
     ):
         if mesh is not None:
-            raise NotImplementedError("mesh= is not ported yet (ROADMAP.md, slice E)")
+            raise NotImplementedError("mesh= (sequence sharding) is not ported yet "
+                                      "(ROADMAP.md, slice E1b)")
         super().__init__(model_fn, wavelet=wavelet, J=J, mode=mode,
                          approx_coeffs=approx_coeffs, normalize_coeffs=normalize_coeffs,
                          model_layout=model_layout, device=device, impl=impl,
@@ -300,6 +309,99 @@ class WaveletAttribution2D(BaseWAM2D):
                                    batch_size=self._chunk(), device=self.device)
         return baseline * integral
 
+    # -- Blocks of a batch's rows (the fleet's oversize route) -------------
+
+    def _block_grads(self, coeffs, y, spatial, s: int, scale: float):
+        """`_mosaic_of_grads` of a block of rows of a larger batch, before
+        its normalization: the unnormalized mosaics (s, b, S, S), their
+        `leaf_maxima` (s, n_regions) over the block's rows and the mosaic's
+        regions. The gradients are multiplied by ``scale`` (block rows /
+        batch rows), so a row's gradient is the one the batch-mean loss of
+        the whole batch gives it."""
+        grads = self.engine.grads_from_coeffs(coeffs, y.repeat(s) if y is not None else None,
+                                              spatial, samples=s)
+        grads = map_coeffs(lambda g: (g * scale).reshape((s, -1) + tuple(g.shape[1:])), grads)
+        return (mosaic2d(grads, False, self._caxis), leaf_maxima(grads, self._caxis),
+                mosaic_regions(grads, self._caxis))
+
+    def _normalized(self, mosaics, maxima, regions):
+        if not self.normalize_coeffs:
+            return mosaics
+        return normalize_mosaic(mosaics, torch.as_tensor(maxima, device=mosaics.device), regions)
+
+    def _smooth_partial(self, x, y, lo: int, total: int):
+        """`RowBlocks.partial` of the SmoothGrad mosaic: this block's rows
+        of the noise the entry draws for the whole ``total``-row batch, and
+        its per-sample mosaics kept unnormalized until `_smooth_finish`."""
+        x, y = self._inputs(x, y)
+        x = self._to_internal(x)
+        b = x.shape[0]
+        full = (total,) + tuple(x.shape[1:])
+        spatial = self.engine.spatial_shape(x.shape)
+        sigma = noise_sigma(x, self.stdev_spread).reshape((-1,) + (1,) * (x.ndim - 1))
+        if self.stream_noise:
+            def draw(i0, i1):
+                return torch.stack([sample_noise(self.random_seed, i, full, x.device,
+                                                 x.dtype)[lo:lo + b] for i in range(i0, i1)])
+        else:
+            g = torch.Generator(device=self.device).manual_seed(self.random_seed)
+            z = torch.randn((self.n_samples,) + full, generator=g, device=x.device,
+                            dtype=x.dtype)[:, lo:lo + b]
+
+            def draw(i0, i1):
+                return z[i0:i1]
+
+        step = self._chunk() or self.n_samples
+        parts = []
+        for i in range(0, self.n_samples, step):
+            noisy = x + draw(i, min(i + step, self.n_samples)) * sigma
+            flat = noisy.reshape((-1,) + tuple(noisy.shape[2:]))
+            if self.dwt_bf16:
+                flat = flat.to(torch.bfloat16)
+            with torch.no_grad():
+                coeffs = self.engine.decompose(flat)
+            parts.append(self._block_grads(coeffs, y, spatial, noisy.shape[0], b / total))
+        mosaics = torch.cat([p[0] for p in parts])
+        return (mosaics, parts[0][2]), torch.cat([p[1] for p in parts])
+
+    def _smooth_finish(self, state, maxima):
+        mosaics, regions = state
+        return self._normalized(mosaics, maxima, regions).mean(dim=0)
+
+    def _integrated_partial(self, x, y, lo: int, total: int):
+        """`RowBlocks.partial` of the IG attribution: the baseline mosaic and
+        the path's per-step mosaics of this block's rows, unnormalized until
+        `_integrated_finish`."""
+        del lo  # IG draws nothing: a row's path depends on the row alone
+        x, y = self._inputs(x, y)
+        x = self._to_internal(x)
+        if self.dwt_bf16:
+            x = x.to(torch.bfloat16)
+        with torch.no_grad():
+            coeffs = self.engine.decompose(x)
+        spatial = self.engine.spatial_shape(x.shape)
+        alphas = torch.linspace(0.0, 1.0, self.n_samples, dtype=torch.float32, device=self.device)
+        step = self._chunk() or self.n_samples
+        parts = []
+        for i in range(0, self.n_samples, step):
+            a = alphas[i:i + step]
+            scaled = map_coeffs(
+                lambda c: (c[None] * a.to(c.dtype).reshape(-1, 1, 1, 1, 1))
+                .reshape((-1,) + tuple(c.shape[1:])), coeffs)
+            parts.append(self._block_grads(scaled, y, spatial, a.shape[0], x.shape[0] / total))
+        base = (mosaic2d(coeffs, False, self._caxis), leaf_maxima(coeffs, self._caxis),
+                mosaic_regions(coeffs, self._caxis))
+        state = (torch.cat([p[0] for p in parts]), parts[0][2], base[0], base[2])
+        return state, (torch.cat([p[1] for p in parts]), base[1])
+
+    def _integrated_finish(self, state, maxima):
+        path, regions, base, base_regions = state
+        path_max, base_max = maxima
+        integral = trapezoid(self._normalized(path, path_max, regions))
+        # the baseline is normalized whatever normalize_coeffs says, as in _integrated
+        return normalize_mosaic(base, torch.as_tensor(base_max, device=base.device),
+                                base_regions) * integral
+
     def __call__(self, x, y, noise=None) -> torch.Tensor:
         if self.method == "smooth":
             return self.smooth_wam(x, y, noise)
@@ -317,16 +419,32 @@ class WaveletAttribution2D(BaseWAM2D):
         ``__call__`` invocations do (the reference folds the seed in at
         build time). ``mesh=`` is rejected: the serving worker owns one
         device. ``with_health=True`` computes the numeric-health vector over
-        the mosaic in the same call (`serve.entry.jit_entry`)."""
+        the mosaic in the same call (`serve.entry.jit_entry`).
+
+        The mosaic is normalized over the batch and SmoothGrad's noise drawn
+        at its shape, so a row depends on the rows beside it. Without
+        health, the entry carries the `serve.entry.RowBlocks` that compute a
+        batch on blocks of its rows, on several devices, with the result of
+        the entry on the whole batch: a block draws its rows of the
+        whole batch's noise, scales its loss to the whole batch, and keeps
+        its per-sample mosaics unnormalized until every block's maxima are
+        known (the fleet's "pjit" oversize route)."""
         if self.mesh is not None:
             raise ValueError(
                 "serve_entry() does not support mesh=; the serve worker owns "
                 "a single device — drive the sharded estimator directly")
         from wam_tpu_torch.serve.entry import jit_entry
 
-        impl = self._smooth if self.method == "smooth" else self._integrated
+        from wam_tpu_torch.serve.entry import RowBlocks
+
+        if self.method == "smooth":
+            impl, blocks = self._smooth, RowBlocks(self._smooth_partial, self._smooth_finish)
+        else:
+            impl = self._integrated
+            blocks = RowBlocks(self._integrated_partial, self._integrated_finish)
         return jit_entry(lambda x, y: impl(x, y), donate=donate, on_trace=on_trace,
-                         aot_key=aot_key, with_health=with_health)
+                         aot_key=aot_key, with_health=with_health,
+                         blocks=None if with_health else blocks)
 
     def anytime_serve_entry(self, stride: int | str = "auto", on_trace=None,
                             plateau_tol: float | None = None, noise=None):

@@ -208,7 +208,7 @@ class WaveletAttribution3D(BaseWAM3D):
     i) (`core.estimators.sample_noise`).
 
     ``mesh=`` (and ``seq_axis`` and ``batch_axis``, which go with it) is
-    not ported yet and raises.
+    not ported yet and raises (ROADMAP.md slice E1b).
     """
 
     def __init__(
@@ -235,7 +235,7 @@ class WaveletAttribution3D(BaseWAM3D):
     ):
         if (mesh, seq_axis, batch_axis) != (None, "data", None):
             raise NotImplementedError("mesh=, seq_axis and batch_axis are not ported yet "
-                                      "(ROADMAP.md, slice E)")
+                                      "(ROADMAP.md, slice E1b)")
         super().__init__(model_fn, wavelet=wavelet, J=J, approx_coeffs=approx_coeffs,
                          mode=mode, instance=instance, normalize=normalize, EPS=EPS,
                          device=device, impl=impl)
@@ -329,7 +329,7 @@ class WaveletAttribution3D(BaseWAM3D):
         The estimator body without the ``self.grads`` / ``self.input_size``
         stashing that makes ``__call__`` thread-unsafe. SmoothGrad seeds its
         generator with the instance seed on every call. (``mesh=`` is
-        rejected by the constructor until slice E.) ``with_health=True``
+        rejected by the constructor until slice E1b.) ``with_health=True``
         computes the numeric-health vector over the cube in the same call
         (`serve.entry.jit_entry`)."""
         from wam_tpu_torch.serve.entry import jit_entry

@@ -172,7 +172,7 @@ class WaveletAttributionVideo:
     spatial-only levels' 2D transform (None: the kernels on CUDA).
     ``mesh=`` (time sharding, with ``seq_axis``, ``batch_axis`` and
     ``seq_fused``; the reference's ValueErrors are kept) waits for
-    ROADMAP.md slice E.
+    ROADMAP.md slice E1b.
     """
 
     def __init__(
@@ -207,7 +207,8 @@ class WaveletAttributionVideo:
         if mesh is None and batch_axis is not None:
             raise ValueError("batch_axis= requires mesh=")
         if mesh is not None:
-            raise NotImplementedError("mesh= is not ported yet (ROADMAP.md, slice E)")
+            raise NotImplementedError("mesh= (time sharding) is not ported yet "
+                                      "(ROADMAP.md, slice E1b)")
         self.device = resolve_device(device)
         self.model_fn = model_fn
         self.wavelet = wavelet

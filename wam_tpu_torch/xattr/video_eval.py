@@ -39,15 +39,18 @@ class EvalVideoWAM:
     or to (B, T) frame scores; both reduce to (B, T) through
     `frame_importance`. ``model_fn`` maps clips (B, C, T, H, W) to logits.
     ``batch_size`` caps the model rows a call (`fan.plan_fan`). ``device``:
-    CUDA unless the caller asks otherwise. ``mesh=`` (and its
-    ``data_axis``), ``aot_key=`` and ``donate_inputs=True`` wait for
-    ROADMAP.md slice E and raise.
+    CUDA unless the caller asks otherwise. ``mesh``: a `parallel.Mesh`;
+    the fan splits its clips over ``data_axis`` (`fan.make_sharded_runner`),
+    one result fetch a call. ``aot_key=`` and ``donate_inputs=True`` wait
+    for ROADMAP.md slice E2 and raise.
     Constructor arguments are frozen configuration."""
 
     def __init__(self, model_fn: Callable[[torch.Tensor], torch.Tensor], explainer: Callable,
                  batch_size: int | str = 64, mesh=None, data_axis: str = "data",
                  donate_inputs: bool | None = None, aot_key: str | None = None, device=None):
-        check_ported(mesh=mesh, donate=donate_inputs, aot_key=aot_key)
+        check_ported(donate=donate_inputs, aot_key=aot_key)
+        self.mesh = mesh
+        self.data_axis = data_axis
         self.device = resolve_device(device)
         self.model_fn = model_fn
         self.explainer = explainer
@@ -97,7 +100,8 @@ class EvalVideoWAM:
         scores = self.precompute(x, y)
         return run_cached_auc(self._auc_runners, (mode, tuple(scores.shape[1:])),
                               lambda clip, s: self._perturb(clip, s, mode, n_iter),
-                              self.model_fn, self._fan_plan(n_iter + 1), n_iter, x, scores, y)
+                              self.model_fn, self._fan_plan(n_iter + 1), n_iter, x, scores, y,
+                              mesh=self.mesh, data_axis=self.data_axis)
 
     def insertion(self, x, y, n_iter: int = 16):
         scores, curves = self.evaluate_auc(x, y, "insertion", n_iter)
