@@ -289,7 +289,25 @@ sm_90a). Phases, each fatal on failure:
    the same route gathers each replica's rows exactly); one `ChaosFault` on
    replica 1: zero lost, ``replica_restart`` rows restarting -> alive, the
    rebuilt replica serves again, its first calls at its warmup; and
-   `NoLiveReplicaError` from an unsupervised fleet whose replicas all die.
+   `NoLiveReplicaError` from an unsupervised fleet whose replicas all die;
+24. seq: sequence-sharded attribution (`parallel.SeqShardedWam` under the
+   explainers' ``mesh=``) on meshes that name the card once a block, no
+   port kernel (K1-K5 0 on every counted call: the sharded transforms are
+   cuDNN convolutions), each arm one counted call (its halo elements
+   printed) and 3 CUDA-event-timed calls (median, host enqueue, peak
+   memory), then held to the single-device explainer on the same noise at
+   equal model-call shapes (2 samples, one a call, TF32 off) within
+   SEQ_TOL, and in float64 at a reduced size (the card against the CPU,
+   seq against single, within 1e-9 x max): seq1d, the audio phase's
+   AudioCNN at 8 x 220,160 samples (every level's core divides 2 x 4), db6
+   J=5, n=50 over {data: 4}; seq2d, the flagship's rows over {data: 4} (n=25
+   chunk 4, IG 16 points, ``smoothgrad_checkpointed`` at stride 5 bit-equal
+   to one sample a step), the one-rank NCCL group (no distributed call,
+   equal to the one-process mesh) and a two-replica `FleetServer` serving
+   224² items above its one bucket through ``seq_factory`` (equal to the
+   entry); seq3d, the vol phase's volumes, depth over {data: 4}, haar n=25
+   (no halo) and db2 n=5; video, the video phase's clips, time over {data:
+   2}, haar levels (2, 2), n=25.
 
 Prints a summary JSON line (with the script's wall time), the kernels' JSON
 line, the nvidia-smi line, and as its last line
@@ -553,6 +571,27 @@ PAR_F64_TOL = 1e-9
 FLEET_REPLICAS = 2
 FLEET_OVERSIZE = 16      # an oversize batch: max_batch rows a replica
 FLEET_RESTART_TIMEOUT_S = 120.0
+# the seq phase: sequence-sharded attribution (parallel.SeqShardedWam) at the
+# widths of the audio, flagship, vol and video phases, on a mesh that names
+# the one card once a block
+SEQ_SHARDS = 4                          # {data: 4}
+SEQ_LEN = 220160    # the 5 s clip's 220,500 less 340: each of db6's 5 levels' cores divides 2 x 4
+SEQ_CALLS = 3                           # event-timed calls after the counted one
+SEQ_IG_STEPS, SEQ_STRIDE = 16, 5        # seq2d's IG path points; its checkpoint stride
+SEQ_DB2_SAMPLES = 5                     # seq3d's db2 arm, whose depth exchange haar does not need
+SEQ_VID_LEVELS, SEQ_VID_SHARDS = (2, 2), 2  # uniform levels only under mesh=
+SEQ_CHECK_SAMPLES = 2   # seq against single at full width: samples, one a model call on both
+# float32 bounds (cosine, max abs / max) of seq against single on the same
+# noise at equal model-call shapes, TF32 off, ~10x the distance measured on
+# an H100 80GB HBM3 (700 W) before they were set: seq1d 1.27e-2 at cosine
+# 0.99998372, seq2d 3.58e-3 at 0.99999992, seq3d 1.18e-2 / 1.27e-2 (haar /
+# db2) at 0.99999794 / 0.99999829, video 4.71e-3 at 0.99999989. The transforms
+# alone differ by ~1e-7 (float64: ~1e-15); a ReLU gate of the model within
+# rounding of zero flips between the two routes and moves a few coefficients
+# by percents of the max, as between the card and the CPU (audio, video).
+SEQ_TOL = {"seq1d": (0.9998, 1.3e-1), "seq2d": (0.999999, 3.6e-2),
+           "seq3d": (0.99998, 1.3e-1), "video": (0.999999, 4.7e-2),
+           "float64": (0.9999999, 1e-9)}
 
 
 def _log(*args):
@@ -4646,6 +4685,461 @@ def phase_fleet(torch, wtt, kernels, smi: str) -> dict:
     return out
 
 
+# -- phase seq: sequence-sharded attribution on the one card -----------------------------
+
+
+def _seq_mesh(wtt, k: int = SEQ_SHARDS, device: str | None = None):
+    """The seq arms' mesh: {data: k}, one block an entry, every entry the card
+    (or ``device``)."""
+    return wtt.parallel.make_mesh({"data": k}, [device or DEVICE] * k)
+
+
+def _flat_out(torch, out):
+    """An explainer's result (a map, or the 1D (mel, coefficients) pair) as
+    one float64 vector on the CPU."""
+    from wam_tpu_torch.parallel.tree import tree_leaves
+
+    return torch.cat([t.detach().double().cpu().flatten() for t in tree_leaves(out)])
+
+
+def _seq_timed(torch, kernels, call, tag: str, items: int, unit: str, smi: str) -> dict:
+    """One counted call (first at its shapes: cuDNN plans, the allocator),
+    with the launch counts and the halo counter set to 0 just before and read
+    just after (K1-K5 must read 0: the sharded transforms are cuDNN
+    convolutions), then SEQ_CALLS CUDA-event-timed calls with each call's
+    host enqueue time; the peak memory over them."""
+    from wam_tpu_torch.parallel import halo
+
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    halo.reset_halo_elements()
+    t0 = time.perf_counter()
+    out = call()
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    launches, moved = kernels.launch_counts(), halo.halo_elements()
+    if launches != ZERO_LAUNCHES:
+        raise AssertionError(f"seq {tag}: launches {launches}, expected none")
+    torch.cuda.reset_peak_memory_stats()
+    times, enqueue = [], []
+    for _ in range(SEQ_CALLS):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        t0 = time.perf_counter()
+        start.record()
+        call()
+        end.record()
+        enqueue.append((time.perf_counter() - t0) * 1e3)
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end))
+    med = sorted(times)[len(times) // 2]
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    _log(f"  {tag}: launches {launches} (asserted 0); halo elements moved a call {moved:,} "
+         f"(forward transforms); first call {first_s:.2f} s; {SEQ_CALLS} calls (CUDA events) "
+         f"{[round(t, 2) for t in times]} ms, median {med:.2f} ms = "
+         f"{items / (med / 1e3):.2f} {unit}/s; host enqueue {[round(t, 1) for t in enqueue]} "
+         f"ms; peak memory {peak:.3f} GB on {smi}")
+    if not bool(torch.isfinite(_flat_out(torch, out)).all()):
+        raise AssertionError(f"seq {tag}: the result is not finite")
+    return {"out": out, "launches": launches, "halo_elements": moved, "first_call_s": first_s,
+            "calls_ms": times, "median_ms": med, "spread_ms": [min(times), max(times)],
+            "enqueue_ms": enqueue, f"{unit}_per_s": items / (med / 1e3),
+            "peak_memory_gb": peak}
+
+
+def _seq_summary(run: dict) -> dict:
+    return {k: v for k, v in run.items() if k != "out"}
+
+
+def _seq_check(torch, tag: str, got, want, tol: tuple) -> dict:
+    """A seq result against its reference: `_held` over the whole result."""
+    return _held(torch, tag, _flat_out(torch, got), _flat_out(torch, want), tol)
+
+
+def _seq_noise(torch, shape, n: int, seed: int):
+    g = torch.Generator(device=DEVICE).manual_seed(seed)
+    return torch.randn((n,) + tuple(shape), generator=g, device=DEVICE)
+
+
+def _seq1d(torch, wtt, kernels, smi: str) -> dict:
+    """The audio phase's configuration over {data: 4}: the headline (n=50,
+    chunk 16, TF32 convolutions as the audio phase runs), seq against the
+    single-device explainer (SEQ_CHECK_SAMPLES samples, one a model call,
+    the same noise, TF32 off), and float64 at 2 x 65,536: seq on the card
+    against seq on the CPU and against the single-device engine."""
+    import numpy as np
+
+    model, fn, _, y = build_audio(torch, wtt)
+    dev = torch.device(DEVICE)
+    x = 0.1 * np.random.default_rng(SEED + 1).standard_normal((AUDIO_BATCH, SEQ_LEN))
+    x = torch.from_numpy(x.astype(np.float32)).to(dev)
+    mesh = _seq_mesh(wtt)
+    _log(f"  seq1d: AudioCNN({AUDIO_CLASSES}) x ({AUDIO_BATCH}, {SEQ_LEN}) {AUDIO_WAVELET} "
+         f"J={AUDIO_LEVELS} reflect n={AUDIO_SAMPLES} chunk {AUDIO_CHUNK} over {mesh.shape} "
+         f"on {DEVICE} x {mesh.size}; cudnn TF32 on, matmuls float32 (the audio phase's)")
+    wam = audio_wam(wtt, fn, dev, mesh=mesh)
+    run = _seq_timed(torch, kernels, lambda: wam(x, y), "seq1d SmoothGrad", AUDIO_BATCH,
+                     "waveforms", smi)
+    mel, coeffs = run["out"]
+    from wam_tpu_torch.wavelets.transform import wavedec
+
+    lengths = [c.shape[-1] for c in wavedec(x[:1], AUDIO_WAVELET, AUDIO_LEVELS, "reflect")]
+    if [c.shape[-1] for c in coeffs] != lengths or mel.shape[0] != AUDIO_BATCH:
+        raise AssertionError("seq1d: result shapes")
+    _precision(torch, False)
+    z = _seq_noise(torch, x.shape, SEQ_CHECK_SAMPLES, SEED + 20)
+    kw = dict(wavelet=AUDIO_WAVELET, J=AUDIO_LEVELS, n_samples=SEQ_CHECK_SAMPLES,
+              stdev_spread=AUDIO_SPREAD, n_mels=N_MELS, n_fft=N_FFT, sample_rate=SAMPLE_RATE,
+              sample_batch_size=1, device=dev)
+    got = wtt.WaveletAttribution1D(fn, mesh=mesh, **kw)(x, y, noise=z)
+    want = wtt.WaveletAttribution1D(fn, **kw)(x, y, noise=z)
+    out = {**_seq_summary(run), "check": _seq_check(
+        torch, f"seq1d vs single-device WaveletAttribution1D (float32, {SEQ_CHECK_SAMPLES} "
+        "samples, one a model call, the same noise, TF32 off)", got, want, SEQ_TOL["seq1d"])}
+    # float64 at a reduced size, through SeqShardedWam and the engine
+    n_wave, length, n_smp = AUDIO_REDUCED
+    state = {k: v.detach().cpu() for k, v in model.state_dict().items()}
+    rng = np.random.default_rng(SEED + 21)
+    x64 = torch.from_numpy(0.1 * rng.standard_normal((n_wave, length)))
+    z64 = torch.from_numpy(rng.standard_normal((n_smp, n_wave, length)))
+    y64 = torch.arange(n_wave) % AUDIO_CLASSES
+    res = {}
+    for d in (DEVICE, "cpu"):
+        f = wtt.bind_audio_inference(wtt.AudioCNN(num_classes=AUDIO_CLASSES).double(), state,
+                                     device=d)
+        w = wtt.WaveletAttribution1D(f, mesh=_seq_mesh(wtt, device=d), **{**kw, "device": d})
+        grads, tap = w._seq.smoothgrad(x64.to(d), y64.to(d), n_samples=n_smp,
+                                       stdev_spread=AUDIO_SPREAD, sample_chunk=1,
+                                       noise=z64.to(d))
+        res[d] = [tap[:, 0], *grads]
+        if d == DEVICE:
+            sigma = wtt.noise_sigma(x64.to(d), AUDIO_SPREAD).reshape(-1, 1)
+            noisy = (x64.to(d) + z64.to(d) * sigma).reshape(-1, length)
+            w.engine.front_fn = w._seq_front
+            _, g, g_mel = w.engine.attribute_with_front_grads(noisy, y64.to(d).repeat(n_smp),
+                                                             samples=n_smp)
+            res["single"] = [t.reshape((n_smp, n_wave) + tuple(t.shape[1:])).mean(dim=0)
+                             for t in [g_mel[:, 0], *g]]
+    tol = SEQ_TOL["float64"]
+    out["float64"] = {
+        "card_vs_cpu": _seq_check(torch, "seq1d float64 (2 x 65,536, 2 samples): seq on the card "
+                                  "vs seq on the CPU", res[DEVICE], res["cpu"], tol),
+        "seq_vs_single": _seq_check(torch, "seq1d float64: seq vs the single-device engine on "
+                                    "the card", res[DEVICE], res["single"], tol)}
+    return out
+
+
+def _seq2d_f64(torch, wtt) -> dict:
+    """Float64 at a reduced size: a seeded ResNet-18 (10 classes), 2 x 3x64²,
+    db4 J=2 reflect, 2 samples, rows over {data: 4}: seq on the card against
+    seq on the CPU and against the single-device explainer (plain conv
+    transforms) on the card."""
+    torch.manual_seed(SEED)
+    state = {k: v.clone() for k, v in wtt.resnet18(num_classes=10).double().state_dict().items()}
+    g = torch.Generator().manual_seed(SEED + 22)
+    x = torch.randn((2, CHANNELS, 64, 64), generator=g, dtype=torch.float64)
+    z = torch.randn((2,) + tuple(x.shape), generator=g, dtype=torch.float64)
+    y = torch.tensor([1, 7])
+    kw = dict(wavelet=WAVELET, J=2, mode=MODE, n_samples=2, stdev_spread=SPREAD,
+              sample_batch_size=1)
+    res = {}
+    for d in (DEVICE, "cpu"):
+        m = wtt.resnet18(num_classes=10).double()
+        m.load_state_dict(state)
+        f = wtt.bind_inference(m, device=d)
+        res[d] = wtt.WaveletAttribution2D(f, mesh=_seq_mesh(wtt, device=d), device=d, **kw)(
+            x.to(d), y.to(d), noise=z.to(d))
+        if d == DEVICE:
+            res["single"] = wtt.WaveletAttribution2D(f, device=d, impl="conv", **kw)(
+                x.to(d), y.to(d), noise=z.to(d))
+    tol = SEQ_TOL["float64"]
+    return {"card_vs_cpu": _seq_check(torch, "seq2d float64 (ResNet-18, 2 x 64², db4 J=2): seq on "
+                                      "the card vs seq on the CPU", res[DEVICE], res["cpu"], tol),
+            "seq_vs_single": _seq_check(torch, "seq2d float64: seq vs the single-device explainer "
+                                        "on the card", res[DEVICE], res["single"], tol)}
+
+
+def _seq_nccl(torch, wtt, fn, x, y, z, kw: dict) -> dict:
+    """The seq2d arm's blocks under a process group of one rank on NCCL
+    (`parallel.init_distributed`): ``hybrid_mesh({data: 4})`` records every
+    block as rank 0's, so the ring makes no distributed call (send, recv and
+    broadcast counted) and the result equals the one-process mesh's exactly
+    (cuDNN deterministic for both)."""
+    import os
+
+    import torch.distributed as dist
+
+    from wam_tpu_torch import parallel
+
+    os.environ.setdefault("NCCL_SOCKET_IFNAME", "lo")  # one rank: its bootstrap on loopback
+    info = parallel.init_distributed(f"127.0.0.1:{_free_port()}", 1, 0,
+                                     initialization_timeout=120)
+    names = ("batch_isend_irecv", "isend", "irecv", "send", "recv", "broadcast", "all_gather",
+             "all_reduce")
+    saved = {n: getattr(dist, n) for n in names}
+    calls = []
+
+    def counted(n):
+        def call(*a, **k):
+            calls.append(n)
+            return saved[n](*a, **k)
+
+        return call
+
+    torch.backends.cudnn.deterministic = True
+    try:
+        for n in names:
+            setattr(dist, n, counted(n))
+        mesh = parallel.hybrid_mesh({"data": SEQ_SHARDS}, devices=[DEVICE] * SEQ_SHARDS)
+        got = wtt.WaveletAttribution2D(fn, mesh=mesh, **kw)(x, y, noise=z)
+        n_calls = len(calls)
+        want = wtt.WaveletAttribution2D(fn, mesh=_seq_mesh(wtt), **kw)(x, y, noise=z)
+        backend = dist.get_backend()
+    finally:
+        for n, f in saved.items():
+            setattr(dist, n, f)
+        torch.backends.cudnn.deterministic = False
+        dist.destroy_process_group()
+    err = float((got - want).abs().max())
+    _log(f"  NCCL group of one ({info}, backend {backend}): hybrid_mesh {mesh.shape} (every "
+         f"block rank {sorted(set(mesh.process_ids.ravel().tolist()))}'s), {BATCH} images x "
+         f"{kw['n_samples']} samples: distributed calls {n_calls} (must be 0), max abs diff "
+         f"against the one-process mesh {err:.3e} (must be 0)")
+    if backend != "nccl" or mesh.process_ids is None or err != 0.0 or n_calls:
+        raise AssertionError("seq: the one-rank group changed the map or called the group")
+    return {"info": info, "backend": backend, "distributed_calls": n_calls, "max_abs_diff": err}
+
+
+def _seq_fleet(torch, wtt, kernels, fn, x, y) -> dict:
+    """A two-replica FleetServer whose one bucket (3x32²) admits no 224²
+    item, with ``seq_factory``: a batch of 2 flagship images goes through
+    the sequence-sharded route (the factory builds its explainer on the
+    fleet mesh {data: 2}, once) and equals that entry called directly on
+    the same batch (cuDNN deterministic); K1-K5 0; one oversize ledger row,
+    fill 1.0."""
+    from wam_tpu_torch.serve import FleetServer
+
+    dev = torch.device(DEVICE)
+    built = {}
+    kw = dict(wavelet=WAVELET, J=LEVELS, mode=MODE, n_samples=2, stdev_spread=SPREAD,
+              sample_batch_size=1, device=dev)
+
+    def seq_factory(mesh):
+        built["mesh"] = mesh
+        built["wam"] = wtt.WaveletAttribution2D(fn, mesh=mesh, **kw)
+        return lambda xs, ys: built["wam"](xs.to(dev), ys.to(dev))
+
+    fleet = FleetServer(lambda rid, m, d: (lambda xs, ys: xs), [(CHANNELS, 32, 32)],
+                        devices=[DEVICE] * FLEET_REPLICAS, warmup=False, oversize="fanout",
+                        max_batch=2, seq_factory=seq_factory)
+    xs, ys = x[:2].cpu().numpy(), y[:2].cpu().numpy().astype("int32")
+    torch.backends.cudnn.deterministic = True
+    try:
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        got = fleet.attribute_batch(xs, ys)
+        host_s = time.perf_counter() - t0
+        launches = kernels.launch_counts()
+        rows = list(fleet.metrics.oversize.batch_rows)
+        want = built["wam"](torch.from_numpy(xs).to(dev), torch.from_numpy(ys).to(dev))
+        want = want.cpu().numpy()
+    finally:
+        torch.backends.cudnn.deterministic = False
+        fleet.close()
+    err = float(abs(got - want).max())
+    _log(f"  fleet: FleetServer({FLEET_REPLICAS} replicas, bucket {CHANNELS}x32², seq_factory) "
+         f"served 2 x {CHANNELS}x{SIDE}² through the route on mesh {built['mesh'].shape}: "
+         f"{host_s * 1e3:.1f} ms host, launches {launches} (asserted 0), ledger rows "
+         f"{len(rows)} fill {[r['fill_ratio'] for r in rows]}; max abs diff against the entry "
+         f"called directly {err:.3e} (must be 0)")
+    if (err != 0.0 or launches != ZERO_LAUNCHES or len(rows) != 1 or rows[0]["fill_ratio"] != 1.0
+            or built["mesh"].shape != {"data": FLEET_REPLICAS}):
+        raise AssertionError("seq: the fleet's route disagrees with its entry")
+    return {"host_ms": host_s * 1e3, "launches": launches, "max_abs_diff": err}
+
+
+def _seq2d(torch, wtt, kernels, smi: str) -> dict:
+    """The flagship over {data: 4} (rows): SmoothGrad (n=25, chunk 4) and IG
+    (16 points) at TF32 convolutions as the flagship runs; the checkpointed
+    estimator at stride 5 bit-equal to one sample a step; seq against the
+    single-device explainer (conv transforms, SEQ_CHECK_SAMPLES samples one a
+    call, the same noise, TF32 off); the one-rank NCCL group; the fleet's
+    route; float64 at a reduced size."""
+    fn, _, x, y, _ = build_slice(torch, wtt)  # cuDNN TF32 on, matmuls off
+    dev = torch.device(DEVICE)
+    mesh = _seq_mesh(wtt)
+    kw = dict(wavelet=WAVELET, J=LEVELS, mode=MODE, stdev_spread=SPREAD, device=dev)
+    _log(f"  seq2d: ResNet-50 x ({BATCH},{CHANNELS},{SIDE},{SIDE}) {WAVELET} J={LEVELS} {MODE} "
+         f"n={N_SAMPLES} chunk {SAMPLE_CHUNK}, rows over {mesh.shape} on {DEVICE} x {mesh.size}; "
+         "cudnn TF32 on")
+    wam = wtt.WaveletAttribution2D(fn, n_samples=N_SAMPLES, sample_batch_size=SAMPLE_CHUNK,
+                                   mesh=mesh, **kw)
+    run = _seq_timed(torch, kernels, lambda: wam(x, y), "seq2d SmoothGrad", BATCH,
+                     "attributions", smi)
+    side = 2 * ((SIDE + wtt.wavelets.filters.build_wavelet(WAVELET).filt_len - 1) // 2)
+    if tuple(run["out"].shape) != (BATCH, side, side):
+        raise AssertionError(f"seq2d: mosaic shape {tuple(run['out'].shape)}")
+    ig = wtt.WaveletAttribution2D(fn, method="integratedgrad", n_samples=SEQ_IG_STEPS,
+                                  sample_batch_size=SAMPLE_CHUNK, mesh=mesh, **kw)
+    run_ig = _seq_timed(torch, kernels, lambda: ig(x, y), f"seq2d IG ({SEQ_IG_STEPS} points)",
+                        BATCH, "attributions", smi)
+    out = {**_seq_summary(run), "ig": _seq_summary(run_ig)}
+    _precision(torch, False)
+    sw = wam._seq
+    torch.backends.cudnn.deterministic = True  # bit-equality needs run-to-run equal backwards
+    try:
+        t0 = time.perf_counter()
+        plain = sw.smoothgrad(x, y, SEED, n_samples=N_SAMPLES, stdev_spread=SPREAD,
+                              sample_chunk=1)
+        torch.cuda.synchronize()
+        plain_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        ckpt, info = sw.smoothgrad_checkpointed(x, y, SEED, n_samples=N_SAMPLES,
+                                                stdev_spread=SPREAD, stride=SEQ_STRIDE)
+        torch.cuda.synchronize()
+        ckpt_s = time.perf_counter() - t0
+    finally:
+        torch.backends.cudnn.deterministic = False
+    equal = bool(torch.equal(ckpt, plain))
+    _log(f"  seq2d smoothgrad_checkpointed (stride {SEQ_STRIDE}, TF32 off, cuDNN "
+         f"deterministic): n_used {info['n_used']}, complete {info['complete']}, row 0 conf "
+         f"{[round(float(v), 4) for v in info['conf'][0]]}; bit-equal to smoothgrad one sample "
+         f"a step: {equal}; host s {ckpt_s:.2f} / {plain_s:.2f}")
+    if not (equal and info["n_used"] == N_SAMPLES and info["complete"]):
+        raise AssertionError("seq2d: the checkpointed estimator differs from smoothgrad")
+    out["checkpointed"] = {"bit_equal": equal, "n_used": info["n_used"], "host_s": ckpt_s,
+                           "plain_host_s": plain_s}
+    z = _seq_noise(torch, x.shape, SEQ_CHECK_SAMPLES, SEED + 23)
+    kw1 = dict(kw, n_samples=SEQ_CHECK_SAMPLES, sample_batch_size=1)
+    got = wtt.WaveletAttribution2D(fn, mesh=mesh, **kw1)(x, y, noise=z)
+    want = wtt.WaveletAttribution2D(fn, impl="conv", **kw1)(x, y, noise=z)
+    out["check"] = _seq_check(
+        torch, f"seq2d vs single-device WaveletAttribution2D (float32, conv transforms, "
+        f"{SEQ_CHECK_SAMPLES} samples, one a model call, the same noise, TF32 off)", got, want,
+        SEQ_TOL["seq2d"])
+    out["nccl"] = _seq_nccl(torch, wtt, fn, x, y, z, kw1)
+    out["fleet"] = _seq_fleet(torch, wtt, kernels, fn, x, y)
+    out["float64"] = _seq2d_f64(torch, wtt)
+    return out
+
+
+def _seq3d(torch, wtt, kernels, smi: str) -> dict:
+    """The vol phase's configuration, depth over {data: 4}: haar (no halo:
+    asserted 0 elements moved) and a db2 arm at n=SEQ_DB2_SAMPLES that
+    exchanges; each held against the single-device explainer (the same
+    noise, SEQ_CHECK_SAMPLES samples one a call, TF32 off); float64 on 2 x
+    16³ over {data: 2}: seq on the card against the CPU and against single."""
+    state, fn, x, y = build_vol(torch, wtt)
+    dev = torch.device(DEVICE)
+    prec = _precision(torch, True)
+    mesh = _seq_mesh(wtt)
+    _log(f"  seq3d: ResNet3D-18 x ({VOL_BATCH},1,{VOL_SIDE},{VOL_SIDE},{VOL_SIDE}) depth over "
+         f"{mesh.shape}; {prec} (the model)")
+    kw = dict(J=VOL_LEVELS, mode=VOL_MODE, stdev_spread=VOL_SPREAD, device=dev)
+    out = {}
+    for wavelet, n in ((VOL_WAVELET, VOL_SAMPLES), ("db2", SEQ_DB2_SAMPLES)):
+        _precision(torch, True)
+        wam = wtt.WaveletAttribution3D(fn, wavelet=wavelet, n_samples=n,
+                                       sample_batch_size=VOL_CHUNK, mesh=mesh, **kw)
+        run = _seq_timed(torch, kernels, lambda: wam(x, y), f"seq3d SmoothGrad {wavelet} n={n}",
+                         VOL_BATCH, "volumes", smi)
+        if (run["halo_elements"] == 0) != (wavelet == "haar"):
+            raise AssertionError(f"seq3d {wavelet}: halo elements {run['halo_elements']}")
+        _precision(torch, False)
+        z = _seq_noise(torch, x.shape, SEQ_CHECK_SAMPLES, SEED + 24)
+        kw1 = dict(kw, wavelet=wavelet, n_samples=SEQ_CHECK_SAMPLES, sample_batch_size=1)
+        got = wtt.WaveletAttribution3D(fn, mesh=mesh, **kw1)(x, y, noise=z)
+        want = wtt.WaveletAttribution3D(fn, **kw1)(x, y, noise=z)
+        out[wavelet] = {**_seq_summary(run), "check": _seq_check(
+            torch, f"seq3d {wavelet} vs single-device WaveletAttribution3D (float32, "
+            f"{SEQ_CHECK_SAMPLES} samples, the same noise, TF32 off)", got, want,
+            SEQ_TOL["seq3d"])}
+    out["launches"] = out[VOL_WAVELET]["launches"]
+    g = torch.Generator().manual_seed(SEED + 25)
+    x64 = torch.randn((2, 1, 16, 16, 16), generator=g, dtype=torch.float64)
+    z64 = torch.randn((2,) + tuple(x64.shape), generator=g, dtype=torch.float64)
+    y64 = torch.tensor([1, 7])
+    kw64 = dict(wavelet="db2", J=VOL_LEVELS, mode=VOL_MODE, n_samples=2, stdev_spread=VOL_SPREAD,
+                sample_batch_size=1)
+    res = {}
+    for d in (DEVICE, "cpu"):
+        f = bind_vol(torch, wtt, state, d, torch.float64)
+        res[d] = wtt.WaveletAttribution3D(f, mesh=_seq_mesh(wtt, 2, d), device=d, **kw64)(
+            x64.to(d), y64.to(d), noise=z64.to(d))
+        if d == DEVICE:
+            res["single"] = wtt.WaveletAttribution3D(f, device=d, **kw64)(
+                x64.to(d), y64.to(d), noise=z64.to(d))
+    tol = SEQ_TOL["float64"]
+    out["float64"] = {
+        "card_vs_cpu": _seq_check(torch, "seq3d float64 (2 x 16³, db2, over {data: 2}): seq on "
+                                  "the card vs seq on the CPU", res[DEVICE], res["cpu"], tol),
+        "seq_vs_single": _seq_check(torch, "seq3d float64: seq vs the single-device explainer on "
+                                    "the card", res[DEVICE], res["single"], tol)}
+    return out
+
+
+def _seq_video(torch, wtt, kernels, smi: str) -> dict:
+    """The video phase's clips, time over {data: 2}, uniform haar levels (2,
+    2) (the reference refuses (2, 1) under mesh=), n=25 in one chunk; held
+    against the single-device explainer at the same levels (the same noise,
+    SEQ_CHECK_SAMPLES samples one a call, TF32 off); float64 on 2 x 1x16x16²:
+    the card against the CPU and seq against single."""
+    state, fn, x, y = build_video(torch, wtt)
+    dev = torch.device(DEVICE)
+    prec = _precision(torch, True)
+    mesh = _seq_mesh(wtt, SEQ_VID_SHARDS)
+    _log(f"  video: ResNet3D-18({VID_CLASSES}) x ({VID_BATCH},1,{VID_FRAMES},{VID_SIDE},"
+         f"{VID_SIDE}) {VID_WAVELET} levels {SEQ_VID_LEVELS}, time over {mesh.shape}; {prec}")
+    kw = dict(wavelet=VID_WAVELET, levels=SEQ_VID_LEVELS, device=dev)
+    wam = wtt.WaveletAttributionVideo(fn, n_samples=VID_SAMPLES, sample_batch_size="auto",
+                                      mesh=mesh, **kw)
+    run = _seq_timed(torch, kernels, lambda: wam(x, y), "video SmoothGrad", VID_BATCH, "clips",
+                     smi)
+    _precision(torch, False)
+    z = _seq_noise(torch, x.shape, SEQ_CHECK_SAMPLES, SEED + 26)
+    kw1 = dict(kw, n_samples=SEQ_CHECK_SAMPLES, sample_batch_size=1)
+    got = wtt.WaveletAttributionVideo(fn, mesh=mesh, **kw1)(x, y, noise=z)
+    want = wtt.WaveletAttributionVideo(fn, **kw1)(x, y, noise=z)
+    out = {**_seq_summary(run), "check": _seq_check(
+        torch, f"video vs single-device WaveletAttributionVideo (float32, {SEQ_CHECK_SAMPLES} "
+        "samples, the same noise, TF32 off)", got, want, SEQ_TOL["video"])}
+    g = torch.Generator().manual_seed(SEED + 27)
+    x64 = torch.randn((2, 1, VID_FRAMES, 16, 16), generator=g, dtype=torch.float64)
+    z64 = torch.randn((2,) + tuple(x64.shape), generator=g, dtype=torch.float64)
+    y64 = torch.tensor([1, 7])
+    kw64 = dict(wavelet=VID_WAVELET, levels=SEQ_VID_LEVELS, n_samples=2, sample_batch_size=1)
+    res = {}
+    for d in (DEVICE, "cpu"):
+        f = wtt.bind_inference(wtt.resnet3d_18(num_classes=VID_CLASSES).double(), state, device=d)
+        res[d] = wtt.WaveletAttributionVideo(f, mesh=_seq_mesh(wtt, SEQ_VID_SHARDS, d), device=d,
+                                             **kw64)(x64.to(d), y64.to(d), noise=z64.to(d))
+        if d == DEVICE:
+            res["single"] = wtt.WaveletAttributionVideo(f, device=d, **kw64)(
+                x64.to(d), y64.to(d), noise=z64.to(d))
+    tol = SEQ_TOL["float64"]
+    out["float64"] = {
+        "card_vs_cpu": _seq_check(torch, "video float64 (2 x 1x16x16²): seq on the card vs seq on "
+                                  "the CPU", res[DEVICE], res["cpu"], tol),
+        "seq_vs_single": _seq_check(torch, "video float64: seq vs the single-device explainer on "
+                                    "the card", res[DEVICE], res["single"], tol)}
+    return out
+
+
+SEQ_ARMS = ("seq1d", "seq2d", "seq3d", "video")
+
+
+def phase_seq(torch, wtt, kernels, smi: str) -> dict:
+    """Sequence-sharded attribution (module docstring, phase 24): the four
+    arms at full width, each counted (K1-K5 0), timed and held against the
+    single-device explainer; the one-rank NCCL group and the fleet's route
+    inside seq2d; float64 checks at reduced sizes."""
+    _log("phase seq: parallel.SeqShardedWam through the explainers' mesh= on one card")
+    out = {"seq1d": _seq1d(torch, wtt, kernels, smi), "seq2d": _seq2d(torch, wtt, kernels, smi),
+           "seq3d": _seq3d(torch, wtt, kernels, smi),
+           "video": _seq_video(torch, wtt, kernels, smi)}
+    _precision(torch, False)
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -4713,6 +5207,7 @@ def main() -> int:
     serve_ = timed("serve", phase_serve, torch, wtt, kernels, smi)
     par = timed("parallel", phase_parallel, torch, wtt, kernels, smi)
     fleet = timed("fleet", phase_fleet, torch, wtt, kernels, smi)
+    seq = timed("seq", phase_seq, torch, wtt, kernels, smi)
     an_calls = ("isolate_scales", "insertion", "deletion")
     launches = {"flagship": slice_["launches"], "path 2": slice2["launches"],
                 "vit": vit["call_launches"], "vol": vol["fused"]["call_launches"],
@@ -4752,6 +5247,7 @@ def main() -> int:
         row["parallel_launches"] = {k: par[k]["launches"][row["kernel"]]
                                     for k in ("spmd", "propagation", "ig")}
         row["fleet_launches"] = fleet["stream"]["launches"][row["kernel"]]
+        row["seq_launches"] = {arm: seq[arm]["launches"][row["kernel"]] for arm in SEQ_ARMS}
 
     print(json.dumps({"slice": {k: v for k, v in slice_.items() if k != "launches"},
                       "slice2": {k: v for k, v in slice2.items() if k != "launches"},
@@ -4760,7 +5256,8 @@ def main() -> int:
                       "baselines": baselines, "periodized": periodized, "nhwc": nhwc,
                       "analyzers": analyzers, "iou": iou, "patch": patch,
                       "attention": attention, "video": video, "anytime": anytime_,
-                      "serve": serve_, "parallel": par, "fleet": fleet, "phase_s": seconds,
+                      "serve": serve_, "parallel": par, "fleet": fleet, "seq": seq,
+                      "phase_s": seconds,
                       "wall_s": time.perf_counter() - t_start, "gpu": smi}),
           flush=True)
     _log(f"chip_smoke: {time.perf_counter() - t_start:.1f} s wall, the kernels' build included")

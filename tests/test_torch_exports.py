@@ -18,7 +18,6 @@ import wam_tpu_torch
 
 ROOT = Path(__file__).resolve().parent.parent
 SLICE_E = "ROADMAP.md queue 1 item 5 (slice E)"
-SLICE_E1B = "ROADMAP.md queue 1 item 5 (slice E1b: the sequence-sharded half)"
 SLICE_F = "ROADMAP.md queue 1 item 6 (slice F)"
 VIZ3D = "ROADMAP.md queue 1 item 3 (viz/viz3d.py)"
 
@@ -33,13 +32,7 @@ PENDING = {
     "xattr": {},
     "anytime": {},
     "serve": {},
-    "parallel": {name: SLICE_E1B for name in (
-        "sharded_dwt_per", "sharded_wavedec_per", "sharded_wavedec2_per", "sharded_wavedec3_per",
-        "sharded_waverec_per", "sharded_waverec2_per", "sharded_waverec3_per",
-        "sharded_coeff_grads_per", "TailedLeaf", "gather_leaf", "gather_coeffs",
-        "sharded_wavedec_mode", "sharded_wavedec2_mode", "sharded_wavedec3_mode",
-        "sharded_waverec_mode", "sharded_waverec2_mode", "sharded_waverec3_mode",
-        "sharded_coeff_grads_mode", "SeqShardedWam", "seq_sharded_wam")},
+    "parallel": {},
     "testing": {"PodChaosKiller": SLICE_F},  # the pod tier's process-kill chaos
     "obs": {"record_aot": SLICE_E},  # the AOT cache's events (pipeline/aot.py)
     "pipeline": {name: SLICE_E for name in ("AOT_CACHE_VERSION", "aot_entry_path",

@@ -156,8 +156,20 @@ def test_fleet_submit_validation_and_unported_options(monkeypatch):
     finally:
         _release(gates)
         fleet.close()
-    with pytest.raises(NotImplementedError, match="slice E1b"):
-        _fleet(_double, seq_factory=lambda mesh: None)
+    # seq_factory= is the sequence-sharded route: an item above every bucket
+    # runs through the entry it builds on the fleet mesh, once, lazily
+    meshes = []
+    seq = _fleet(lambda rid, m, dev: _double,
+                 seq_factory=lambda mesh: meshes.append(mesh) or _double)
+    try:
+        assert seq.describe()["seq_route"] is True and not meshes
+        xs = np.arange(2 * 4096, dtype=np.float32).reshape(2, 4096)
+        for _ in range(2):
+            np.testing.assert_array_equal(seq.attribute_batch(xs, np.zeros((2,), np.int32)),
+                                          xs * 2.0)
+        assert len(meshes) == 1 and meshes[0].shape == {"data": 2}
+    finally:
+        seq.close()
     with pytest.raises(NotImplementedError, match="slice F"):
         _fleet(_double, registry="bundle.tar")
     with pytest.raises(ValueError, match="oversize"):

@@ -336,8 +336,15 @@ def test_visualizer_mel_filters_match_jax(visualizers, method):
 
 def test_wam1d_rejects_unported_options(tiny):
     _, tfn = tiny
-    with pytest.raises(NotImplementedError):
-        tw.WaveletAttribution1D(tfn, mesh=object(), device="cpu")
+    # mesh= is ported (tests/test_torch_seq_estimators.py): a meshed explainer
+    # refuses serve_entry, batch_axis needs a mesh
+    from wam_tpu_torch.parallel import make_mesh
+
+    meshed = tw.WaveletAttribution1D(tfn, mesh=make_mesh({"data": 2}, ["cpu"] * 2), device="cpu")
+    with pytest.raises(ValueError, match="serve_entry"):
+        meshed.serve_entry()
+    with pytest.raises(ValueError, match="batch_axis= requires mesh="):
+        tw.WaveletAttribution1D(tfn, batch_axis="data", device="cpu")
     m = tw.WaveletAttribution1D(tfn, device="cpu", **KW)
     assert callable(m.serve_entry())  # ported (tests/test_torch_serve.py); the AOT key is not
     with pytest.raises(NotImplementedError, match="slice E"):

@@ -225,8 +225,18 @@ def test_smooth_wam_with_k2_and_fused_relu_matches_jax(r18, k2_route):
 
 def test_wam2d_rejects_unported_options(r18):
     _, tfn, *_ = r18
-    with pytest.raises(NotImplementedError):
-        twam.WaveletAttribution2D(tfn, mesh=object(), device="cpu")
+    # mesh= is ported (tests/test_torch_seq_estimators.py): a meshed explainer
+    # refuses both serving entries, batch_axis needs a mesh
+    from wam_tpu_torch.parallel import make_mesh
+
+    meshed = twam.WaveletAttribution2D(tfn, mesh=make_mesh({"data": 2}, ["cpu"] * 2),
+                                       device="cpu")
+    with pytest.raises(ValueError, match="serve_entry"):
+        meshed.serve_entry()
+    with pytest.raises(ValueError, match="anytime_serve_entry"):
+        meshed.anytime_serve_entry()
+    with pytest.raises(ValueError, match="batch_axis= requires mesh="):
+        twam.WaveletAttribution2D(tfn, batch_axis="data", device="cpu")
     # model_layout="nhwc" is ported (tests/test_torch_nhwc.py); an unknown
     # layout raises the reference's ValueError
     with pytest.raises(ValueError, match="model_layout"):

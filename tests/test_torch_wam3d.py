@@ -490,9 +490,16 @@ def test_point_clouds_match_jax(labeled):
 
 def test_wam3d_rejects_unported_options(r3d):
     _, tfn, *_ = r3d
-    for kw in ({"mesh": object()}, {"batch_axis": "batch"}, {"seq_axis": "model"}):
-        with pytest.raises(NotImplementedError, match="slice E"):
-            tw3.WaveletAttribution3D(tfn, device="cpu", **kw)
+    # mesh= is ported (tests/test_torch_seq_estimators.py): batch_axis needs a
+    # mesh, seq_axis alone is inert, a meshed explainer refuses serve_entry
+    from wam_tpu_torch.parallel import make_mesh
+
+    with pytest.raises(ValueError, match="batch_axis= requires mesh="):
+        tw3.WaveletAttribution3D(tfn, device="cpu", batch_axis="batch")
+    tw3.WaveletAttribution3D(tfn, device="cpu", seq_axis="model")
+    meshed = tw3.WaveletAttribution3D(tfn, device="cpu", mesh=make_mesh({"data": 2}, ["cpu"] * 2))
+    with pytest.raises(ValueError, match="serve_entry"):
+        meshed.serve_entry()
     assert callable(tw3.WaveletAttribution3D(tfn, device="cpu").serve_entry())
     with pytest.raises(NotImplementedError, match="slice E"):
         tw3.WaveletAttribution3D(tfn, device="cpu").serve_entry(aot_key="vol")

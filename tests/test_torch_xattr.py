@@ -413,8 +413,14 @@ def test_video_wam_rejects_as_jax(video):
         with pytest.raises(ValueError) as got:
             tx.WaveletAttributionVideo(tfn, device="cpu", **kw)
         assert str(got.value) == str(want.value)
-    with pytest.raises(NotImplementedError, match="slice E"):
-        tx.WaveletAttributionVideo(tfn, levels=(2, 2), mesh=object(), device="cpu")
+    # mesh= is ported (tests/test_torch_seq_estimators.py): the constructor
+    # takes a mesh, IG and the serving entry refuse it as the reference does
+    from wam_tpu_torch.parallel import make_mesh
+
+    meshed = tx.WaveletAttributionVideo(tfn, levels=(2, 2), device="cpu",
+                                        mesh=make_mesh({"data": 2}, ["cpu"] * 2))
+    with pytest.raises(ValueError, match="serve_entry"):
+        meshed.serve_entry()
     tw = tx.WaveletAttributionVideo(tfn, method="integratedgrad", device="cpu")
     assert callable(tw.serve_entry())
     with pytest.raises(NotImplementedError, match="slice E"):

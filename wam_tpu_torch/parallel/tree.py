@@ -2,8 +2,9 @@
 `parallel.sharded` and `evalsuite.fan`.
 
 A tree is a tensor, or a list, tuple, namedtuple or dict of trees (a step's
-result, a coefficient tree, a metric's arguments); anything else is a leaf
-that passes through unchanged.
+result, a coefficient tree, a metric's arguments), or an object with a
+``map_blocks`` method (`halo.Sharded`: its blocks are its tensors); anything
+else is a leaf that passes through unchanged.
 """
 
 from __future__ import annotations
@@ -17,6 +18,8 @@ def tree_map(fn, tree):
     """``fn`` over every tensor of ``tree``, keeping the structure."""
     if isinstance(tree, torch.Tensor):
         return fn(tree)
+    if hasattr(tree, "map_blocks"):
+        return tree.map_blocks(fn)
     if isinstance(tree, dict):
         return {k: tree_map(fn, v) for k, v in tree.items()}
     if isinstance(tree, tuple) and hasattr(tree, "_fields"):

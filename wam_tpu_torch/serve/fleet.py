@@ -71,9 +71,18 @@ thread). A device list may name one device several times: each entry is
 one replica, so two replicas share one card (their batches interleave on
 it; no speed-up).
 
-Not ported yet, and NotImplementedError naming its slice: ``seq_factory=``
-(the sequence-sharded route for items no bucket admits, ROADMAP.md slice
-E1b) and ``registry=`` (the compile-artifact bundle, slice F).
+With a ``seq_factory``, a batch whose ITEM shape exceeds every bucket
+takes the sequence-sharded route instead of raising `NoBucketError`:
+``seq_factory(mesh)`` builds the entry once, on first use, over the fleet
+mesh (`parallel.replica_mesh` of the replicas' devices), typically an
+explainer with ``mesh=`` (`parallel.SeqShardedWam` underneath), and the
+whole batch runs through it in one call, serialized with the oversize
+path, under the ``seq_sharded_batch`` span and the sentinel label
+``phase="seq_sharded"``, with one oversize ledger row (fill 1.0, the item
+shape as its bucket).
+
+Not ported yet, and NotImplementedError naming its slice: ``registry=``
+(the compile-artifact bundle, slice F).
 """
 
 from __future__ import annotations
@@ -91,7 +100,7 @@ from wam_tpu_torch.obs import sentinel as obs_sentinel
 from wam_tpu_torch.obs import tracing as obs_tracing
 from wam_tpu_torch.parallel.mesh import P, replica_mesh, visible_devices
 from wam_tpu_torch.pipeline.stager import put_committed
-from wam_tpu_torch.serve.buckets import Bucket, BucketTable, bucket_key, pad_item
+from wam_tpu_torch.serve.buckets import Bucket, BucketTable, NoBucketError, bucket_key, pad_item
 from wam_tpu_torch.serve.metrics import EMA_SEED_S, FleetMetrics, ServeMetrics
 from wam_tpu_torch.serve.models import ModelSpec
 from wam_tpu_torch.serve.result_cache import ResultCache
@@ -225,8 +234,9 @@ class FleetServer:
         whole batch; the entry must be ``wam_row_wise`` or carry
         ``wam_blocks``, else ValueError); "fanout" always splits them into
         routed per-item submits (no oversize entry).
-    seq_factory : must stay None: the sequence-sharded route waits for
-        ROADMAP.md slice E1b (NotImplementedError).
+    seq_factory : optional ``seq_factory(mesh) -> entry`` building the
+        sequence-sharded entry ``(xs, ys) -> result`` for items above every
+        bucket (module docstring); built lazily, under the oversize lock.
     queue_depth : per-replica bound — total fleet admission capacity is
         ``replicas × queue_depth``.
     metrics : a shared `FleetMetrics` (fresh when None); per-replica
@@ -278,6 +288,7 @@ class FleetServer:
         "_canary_fp": "_lock",
         "_canary_t0": "_lock",
         "_os_pools": "_os_lock",
+        "_seq_entry": "_os_lock",
     }
 
     def __init__(
@@ -317,10 +328,6 @@ class FleetServer:
             raise TypeError("entry_factory must be callable(replica_id, metrics, device)")
         if oversize not in ("pjit", "fanout"):
             raise ValueError(f"oversize must be 'pjit' or 'fanout', got {oversize!r}")
-        if seq_factory is not None:
-            raise NotImplementedError(
-                "seq_factory= needs the sequence-sharded estimators, parallel/seq_estimators.py, "
-                "which are not ported yet (ROADMAP.md, slice E1b)")
         _check_registry(registry)
         devices = visible_devices(devices)
         n = len(devices) if replicas is None else int(replicas)
@@ -398,6 +405,8 @@ class FleetServer:
         if self._cache is not None:
             self.metrics.result_cache = self._cache
 
+        self._seq_factory = seq_factory
+        self._seq_entry = None  # built lazily on the first oversize-item batch
         self._os_entries = None  # one oversize entry a replica, on its device
         self._mesh = None
         self._os_lock = threading.Lock()
@@ -616,7 +625,7 @@ class FleetServer:
             "max_batch": self.max_batch,
             "labeled": self.labeled,
             "oversize": self.oversize,
-            "seq_route": False,
+            "seq_route": self._seq_factory is not None,
             "canary": self._canary,
             "supervised": self._supervisor is not None,
             "supervision": (
@@ -925,8 +934,8 @@ class FleetServer:
         device batches); anything larger takes the oversize data-parallel
         path over the fleet mesh (module docstring). Blocking; returns the
         stacked host result. Fanned-out items default to the ``batch`` QoS
-        lane. An item shape no bucket admits raises `NoBucketError` (the
-        sequence-sharded route waits for slice E1b)."""
+        lane. An item shape no bucket admits takes the sequence-sharded
+        route with a ``seq_factory`` and raises `NoBucketError` without one."""
         xs = np.asarray(xs, self.dtype)
         if xs.ndim < 2:
             raise ValueError("attribute_batch needs a leading batch axis")
@@ -936,7 +945,12 @@ class FleetServer:
                 raise ValueError(f"{len(xs)} items but {len(ys)} labels")
         elif ys is not None:
             raise ValueError("unlabeled fleet: attribute_batch() must not carry labels")
-        bucket = self.table.select(xs.shape[1:])
+        try:
+            bucket = self.table.select(xs.shape[1:])
+        except NoBucketError:
+            if self._seq_factory is None:
+                raise
+            return self._dispatch_seq_sharded(xs, ys)
         with self._lock:
             fleet_whole = self._os_entries is not None and all(r.alive for r in self._replicas)
         if len(xs) <= self.max_batch or not fleet_whole:
@@ -1115,6 +1129,47 @@ class FleetServer:
     def _replica_finish(self, rid: int, state, maxima):
         with _grad_on(self.devices[rid]):
             return device_fetch(self._os_entries[rid].wam_blocks.finish(state, maxima))
+
+    def _dispatch_seq_sharded(self, xs: np.ndarray, ys):
+        """A batch whose item shape no bucket admits, through the
+        sequence-sharded entry over the fleet mesh (module docstring), whole
+        and synchronous: deadlines do not preempt it. Serialized on the
+        oversize lock (the dispatch owns every device); its ledger row lands
+        on the oversize `ServeMetrics` keyed by the item shape."""
+        metrics = self.metrics.oversize
+        metrics.note_submit(len(xs))
+        item_shape = tuple(xs.shape[1:])
+        skey = bucket_key(item_shape)
+        with self._os_lock:
+            entry = self._seq_entry
+            if entry is None:
+                mesh = self._mesh
+                if mesh is None:  # fanout / one-replica fleets build no mesh up front
+                    mesh = replica_mesh(self.n_replicas, self.devices)
+                entry = self._seq_entry = self._seq_factory(mesh)
+            t0 = time.perf_counter()
+            with obs_tracing.span("seq_sharded_batch", cat="fleet", bucket=skey,
+                                  n_real=len(xs)), obs_sentinel.label(
+                    replica=OVERSIZE_ENTRY_ID, bucket=skey, phase="seq_sharded"):
+                with metrics.stages.stage("dispatch"), _grad_on(self.devices[0]):
+                    xt = torch.from_numpy(np.ascontiguousarray(xs))
+                    yt = (torch.from_numpy(np.ascontiguousarray(ys)) if self.labeled
+                          else None)
+                    out = entry(xt, yt)
+                with metrics.stages.stage("harvest"):
+                    out = device_fetch(out)
+            service_s = time.perf_counter() - t0
+            metrics.note_batch(
+                bucket_shape=item_shape,
+                n_real=len(xs),
+                max_batch=len(xs),  # the whole batch in one call: fill 1.0
+                pad_waste=0.0,  # no bucket pad: the entry takes the exact shape
+                queue_depth=0,
+                service_s=service_s,
+                queue_waits_s=[0.0] * len(xs),
+                latencies_s=[service_s] * len(xs),
+            )
+        return out
 
     def _dispatch_oversize(self, xs: np.ndarray, ys, bucket: Bucket):
         """Data-parallel dispatch over the fleet mesh: chunk to the fleet-

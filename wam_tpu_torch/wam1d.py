@@ -164,6 +164,15 @@ class WaveletAttribution1D(BaseWAM1D):
     (n_samples, N, W) buffer is never allocated and the result does not
     depend on the chunk (the draws differ from the materialized ones); or
     the explicit ``noise`` tensor (n_samples, *x.shape) given to ``__call__``.
+
+    ``mesh=`` runs the estimator sequence-sharded over the mesh's
+    ``seq_axis`` (`parallel.SeqShardedWam`; ``batch_axis`` splits the batch
+    too, ``seq_fused`` is its ``fused``): the transforms, coefficient blocks
+    and accumulators stay in blocks; the mel front end (the matmul STFT,
+    pinned as the reference pins it) and the model run on the gathered
+    reconstruction. SmoothGrad noise there is sample i's ``sample_noise(
+    random_seed, i)`` (the ``stream_noise=True`` stream) or the handed
+    ``noise``.
     """
 
     def __init__(
@@ -183,13 +192,32 @@ class WaveletAttribution1D(BaseWAM1D):
         sample_batch_size: int | None | str = "auto",
         stream_noise: bool = False,
         mesh=None,
+        seq_axis: str = "data",
+        batch_axis: str | None = None,
+        seq_fused: bool | str = "auto",
         device=None,
     ):
-        if mesh is not None:
-            raise NotImplementedError("mesh= (sequence sharding) is not ported yet "
-                                      "(ROADMAP.md, slice E1b)")
         super().__init__(model_fn, wavelet=wavelet, J=J, mode=mode, approx_coeffs=approx_coeffs,
                          n_mels=n_mels, n_fft=n_fft, sample_rate=sample_rate, device=device)
+        if mesh is None and batch_axis is not None:
+            raise ValueError("batch_axis= requires mesh=")
+        self.mesh = mesh
+        self.seq_axis = seq_axis
+        self.batch_axis = batch_axis
+        if mesh is not None:
+            from wam_tpu_torch.parallel.seq_estimators import SeqShardedWam
+
+            # the mesh path pins the matmul STFT, as the reference does
+            def seq_front(wave):
+                mel = melspectrogram(wave, sample_rate=sample_rate, n_fft=n_fft, n_mels=n_mels,
+                                     impl="matmul")
+                return mel[:, None, :, :]
+
+            self._seq_front = seq_front
+            self._seq = SeqShardedWam(
+                mesh, self.engine.model_fn, ndim=1, wavelet=wavelet, level=J, mode=mode,
+                seq_axis=seq_axis, front_fn=seq_front, front_grads=True,
+                batch_axis=batch_axis, fused=seq_fused)
         if method not in ("smooth", "integratedgrad"):
             raise ValueError(f"Unknown method {method!r}")
         validate_sample_batch_size(sample_batch_size)
@@ -223,6 +251,12 @@ class WaveletAttribution1D(BaseWAM1D):
         """``(mel_avg, [coefficient averages])``, with no instance attribute
         set."""
         x, y = self._inputs(x, y)
+        if self.mesh is not None:
+            grad_avg, mel_tap = self._seq.smoothgrad(
+                x, y, self.random_seed, n_samples=self.n_samples,
+                stdev_spread=self.stdev_spread, sample_chunk=self._chunk(),
+                noise=None if noise is None else torch.as_tensor(noise, device=x.device))
+            return mel_tap[:, 0], grad_avg
         length = x.shape[-1]
 
         def step(noisy: torch.Tensor) -> list[torch.Tensor]:  # (s, N, W)
@@ -253,6 +287,13 @@ class WaveletAttribution1D(BaseWAM1D):
         """``(mel_attr, [coefficient attributions])``, with no instance
         attribute set."""
         x, y = self._inputs(x, y)
+        if self.mesh is not None:
+            coeffs, (coeff_integ, mel_integ) = self._seq.integrated(
+                x, y, n_steps=self.n_samples, sample_chunk=self._chunk())
+            with torch.no_grad():
+                baseline_mel = self._seq_front(x)[:, 0]
+            return (baseline_mel * mel_integ[:, 0],
+                    [c * g for c, g in zip(coeffs, coeff_integ)])
         length = x.shape[-1]
         with torch.no_grad():
             coeffs = self.engine.decompose(x)
@@ -287,10 +328,13 @@ class WaveletAttribution1D(BaseWAM1D):
         ``self.grad_coeffs``) that makes it thread-unsafe; the serve runtime
         distributes rows of every leaf. SmoothGrad seeds its generator with
         the instance seed on every call (one noise stream for every batch).
-        (``mesh=``, which the reference rejects here, is rejected by the
-        constructor until slice E1b.) ``with_health=True`` computes the
-        numeric-health vector over the result tree in the same call
-        (`serve.entry.jit_entry`)."""
+        ``mesh=`` is rejected: the serving worker owns one device.
+        ``with_health=True`` computes the numeric-health vector over the
+        result tree in the same call (`serve.entry.jit_entry`)."""
+        if self.mesh is not None:
+            raise ValueError(
+                "serve_entry() does not support mesh=; the serve worker owns "
+                "a single device — drive the sharded estimator directly")
         from wam_tpu_torch.serve.entry import jit_entry
 
         impl = self._smooth if self.method == "smooth" else self._integrated

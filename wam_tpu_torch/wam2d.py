@@ -191,6 +191,15 @@ class WaveletAttribution2D(BaseWAM2D):
     not depend on the chunk (the draws differ from the materialized ones).
     ``"auto"`` materializes: the reference streams above ~128 MB of noise on
     the TPU only, and no rule for the card has been measured yet.
+
+    ``mesh=`` shards the image ROW axis over the mesh's ``seq_axis``
+    (`parallel.SeqShardedWam`; ``batch_axis`` splits the batch too,
+    ``seq_fused`` is its ``fused``): the transforms, the coefficient blocks
+    and their gradients stay in blocks, the model runs on the gathered
+    reconstruction, and each sample's mosaic is packed from the gathered
+    gradients. SmoothGrad noise there is sample i's ``sample_noise(
+    random_seed, i)`` (the ``stream_noise=True`` stream) or the handed
+    ``noise``.
     """
 
     def __init__(
@@ -210,20 +219,36 @@ class WaveletAttribution2D(BaseWAM2D):
         stream_noise: bool | str = False,
         model_layout: str = "nchw",
         mesh=None,
+        seq_axis: str = "data",
+        batch_axis: str | None = None,
+        seq_fused: bool | str = "auto",
         device=None,
         impl: str | None = None,
         level_plan: str = "explicit",
         patch: int = 16,
         image_size: int | None = None,
     ):
-        if mesh is not None:
-            raise NotImplementedError("mesh= (sequence sharding) is not ported yet "
-                                      "(ROADMAP.md, slice E1b)")
         super().__init__(model_fn, wavelet=wavelet, J=J, mode=mode,
                          approx_coeffs=approx_coeffs, normalize_coeffs=normalize_coeffs,
                          model_layout=model_layout, device=device, impl=impl,
                          level_plan=level_plan, patch=patch, image_size=image_size)
+        if mesh is not None:
+            from wam_tpu_torch.parallel.seq_estimators import SeqShardedWam
+
+            # the sharded pipeline is NCHW (the rows are the sharded axis); an
+            # NHWC model gets the transpose in front of it
+            seq_model = model_fn
+            if model_layout == "nhwc":
+                seq_model = lambda sig: model_fn(sig.permute(0, 2, 3, 1))  # noqa: E731
+            self._seq = SeqShardedWam(
+                mesh, seq_model, ndim=2, wavelet=wavelet, level=self.J, mode=mode,
+                seq_axis=seq_axis, post_fn=lambda g: mosaic2d(g, normalize_coeffs, 1),
+                batch_axis=batch_axis, fused=seq_fused, dwt_bf16=dwt_bf16)
+        if mesh is None and batch_axis is not None:
+            raise ValueError("batch_axis= requires mesh=")
         self.mesh = mesh
+        self.seq_axis = seq_axis
+        self.batch_axis = batch_axis
         if method not in ("smooth", "integratedgrad"):
             raise ValueError(f"Unknown method {method!r}")
         validate_sample_batch_size(sample_batch_size)
@@ -258,6 +283,11 @@ class WaveletAttribution2D(BaseWAM2D):
     def _smooth(self, x, y, noise=None) -> torch.Tensor:
         """The SmoothGrad mosaic, with no instance attribute set."""
         x, y = self._inputs(x, y)
+        if self.mesh is not None:
+            return self._seq.smoothgrad(
+                x, y, self.random_seed, n_samples=self.n_samples,
+                stdev_spread=self.stdev_spread, sample_chunk=self._chunk(),
+                noise=None if noise is None else torch.as_tensor(noise, device=x.device))
         x = self._to_internal(x)  # once, outside the sample loop
         if noise is not None and self.model_layout == "nhwc":
             noise = torch.as_tensor(noise).permute(0, 1, 3, 4, 2)
@@ -290,6 +320,10 @@ class WaveletAttribution2D(BaseWAM2D):
         """The Integrated-Gradients attribution, with no instance attribute
         set."""
         x, y = self._inputs(x, y)
+        if self.mesh is not None:
+            coeffs, integral = self._seq.integrated(x, y, n_steps=self.n_samples,
+                                                    sample_chunk=self._chunk())
+            return mosaic2d(coeffs, normalize=True, channel_axis=1) * integral
         x = self._to_internal(x)
         if self.dwt_bf16:
             x = x.to(torch.bfloat16)

@@ -207,8 +207,13 @@ class WaveletAttribution3D(BaseWAM3D):
     each chunk's noise inside the chunk loop, sample i's from (random_seed,
     i) (`core.estimators.sample_noise`).
 
-    ``mesh=`` (and ``seq_axis`` and ``batch_axis``, which go with it) is
-    not ported yet and raises (ROADMAP.md slice E1b).
+    ``mesh=`` shards the volume DEPTH axis over the mesh's ``seq_axis``
+    (`parallel.SeqShardedWam`, voxels only; ``batch_axis`` splits the batch
+    too, ``seq_fused`` is its ``fused``): transforms and coefficient blocks
+    stay in blocks, the model runs on the gathered reconstruction, each
+    sample's cube is packed from the gathered gradients. SmoothGrad noise
+    there is sample i's ``sample_noise(random_seed, i)`` or the handed
+    ``noise``.
     """
 
     def __init__(
@@ -230,15 +235,27 @@ class WaveletAttribution3D(BaseWAM3D):
         mesh=None,
         seq_axis: str = "data",
         batch_axis: str | None = None,
+        seq_fused: bool | str = "auto",
         device=None,
         impl: str | None = None,
     ):
-        if (mesh, seq_axis, batch_axis) != (None, "data", None):
-            raise NotImplementedError("mesh=, seq_axis and batch_axis are not ported yet "
-                                      "(ROADMAP.md, slice E1b)")
         super().__init__(model_fn, wavelet=wavelet, J=J, approx_coeffs=approx_coeffs,
                          mode=mode, instance=instance, normalize=normalize, EPS=EPS,
                          device=device, impl=impl)
+        if mesh is not None and instance != "voxels":
+            raise ValueError("mesh= supports instance='voxels' only")
+        if mesh is not None:
+            from wam_tpu_torch.parallel.seq_estimators import SeqShardedWam
+
+            self._seq = SeqShardedWam(
+                mesh, lambda rec: model_fn(rec[:, None]), ndim=3, wavelet=wavelet, level=J,
+                mode=mode, seq_axis=seq_axis, post_fn=cube3d, batch_axis=batch_axis,
+                fused=seq_fused)
+        if mesh is None and batch_axis is not None:
+            raise ValueError("batch_axis= requires mesh=")
+        self.mesh = mesh
+        self.seq_axis = seq_axis
+        self.batch_axis = batch_axis
         if method not in ("smooth", "integratedgrad"):
             raise ValueError(f"Unknown method {method!r}")
         validate_sample_batch_size(sample_batch_size)
@@ -271,6 +288,13 @@ class WaveletAttribution3D(BaseWAM3D):
         x, y = self._inputs(x, y)
         vol = x[:, 0]
         spatial = tuple(vol.shape[-3:])
+        if self.mesh is not None:
+            if noise is not None:
+                noise = torch.as_tensor(noise, device=self.device)
+                noise = noise.reshape((noise.shape[0],) + tuple(vol.shape))
+            return self._seq.smoothgrad(vol, y, self.random_seed, n_samples=self.n_samples,
+                                        stdev_spread=self.stdev_spread,
+                                        sample_chunk=self._chunk(), noise=noise)
 
         def step(noisy: torch.Tensor) -> torch.Tensor:  # (s, B, D, H, W)
             with torch.no_grad():
@@ -299,6 +323,10 @@ class WaveletAttribution3D(BaseWAM3D):
         x, y = self._inputs(x, y)
         vol = x[:, 0]
         spatial = tuple(vol.shape[-3:])
+        if self.mesh is not None:
+            coeffs, integral = self._seq.integrated(vol, y, n_steps=self.n_samples,
+                                                    sample_chunk=self._chunk())
+            return cube3d(coeffs) * integral
         with torch.no_grad():
             coeffs = self.engine.decompose(vol)
         baseline = cube3d(coeffs)
@@ -328,10 +356,14 @@ class WaveletAttribution3D(BaseWAM3D):
         ``__call__``, y is (B,) int labels (the serve path is labeled-only).
         The estimator body without the ``self.grads`` / ``self.input_size``
         stashing that makes ``__call__`` thread-unsafe. SmoothGrad seeds its
-        generator with the instance seed on every call. (``mesh=`` is
-        rejected by the constructor until slice E1b.) ``with_health=True``
+        generator with the instance seed on every call. ``mesh=`` is
+        rejected: the serving worker owns one device. ``with_health=True``
         computes the numeric-health vector over the cube in the same call
         (`serve.entry.jit_entry`)."""
+        if self.mesh is not None:
+            raise ValueError(
+                "serve_entry() does not support mesh=; the serve worker owns "
+                "a single device — drive the sharded estimator directly")
         from wam_tpu_torch.serve.entry import jit_entry
 
         impl = self._smooth if self.method == "smooth" else self._integrated

@@ -234,8 +234,11 @@ def _bank_cached(lo: tuple, hi: tuple, ndim: int, dtype, device) -> torch.Tensor
     return torch.as_tensor(np.stack(banks)[:, None], dtype=dtype, device=device)
 
 
-# spatial rank -> (convolution, its transpose, the transform's profiler span)
-_CONVS = {1: (F.conv1d, F.conv_transpose1d, SPAN_1D), 3: (F.conv3d, F.conv_transpose3d, SPAN_3D)}
+# spatial rank -> (convolution, its transpose, the transform's profiler span); the 2D
+# entry serves the unsharded (H, W) axes of the sequence-sharded 3D transform
+# (`parallel.halo_modes`), whose 2D levels must stay full float32 both ways
+_CONVS = {1: (F.conv1d, F.conv_transpose1d, SPAN_1D), 2: (F.conv2d, F.conv_transpose2d, SPAN_1D),
+          3: (F.conv3d, F.conv_transpose3d, SPAN_3D)}
 
 
 class _Analysis(torch.autograd.Function):

@@ -170,9 +170,13 @@ class WaveletAttributionVideo:
 
     ``device``: CUDA unless the caller asks otherwise; ``impl``: the
     spatial-only levels' 2D transform (None: the kernels on CUDA).
-    ``mesh=`` (time sharding, with ``seq_axis``, ``batch_axis`` and
-    ``seq_fused``; the reference's ValueErrors are kept) waits for
-    ROADMAP.md slice E1b.
+    ``mesh=`` shards the TIME axis over the mesh's ``seq_axis`` like the 3D
+    depth (`parallel.SeqShardedWam`, one built lazily per (T, H, W) since
+    the box's geometry is its ``post_fn``; ``batch_axis`` splits the batch,
+    ``seq_fused`` is its ``fused``): uniform levels, single-channel clips
+    and SmoothGrad only, with the reference's ValueErrors. Its noise is
+    sample i's ``sample_noise(random_seed, i)`` on the (B, T, H, W) clip or
+    the handed ``noise``.
     """
 
     def __init__(
@@ -206,9 +210,11 @@ class WaveletAttributionVideo:
                 "shards the axis every level decimates")
         if mesh is None and batch_axis is not None:
             raise ValueError("batch_axis= requires mesh=")
-        if mesh is not None:
-            raise NotImplementedError("mesh= (time sharding) is not ported yet "
-                                      "(ROADMAP.md, slice E1b)")
+        self.mesh = mesh
+        self.seq_axis = seq_axis
+        self.batch_axis = batch_axis
+        self.seq_fused = seq_fused
+        self._seq_cache: dict = {}
         self.device = resolve_device(device)
         self.model_fn = model_fn
         self.wavelet = wavelet
@@ -260,10 +266,35 @@ class WaveletAttributionVideo:
         self.grads = self._smooth(x, y, noise)
         return self.grads
 
+    def _get_seq(self, clip_shape):
+        """The lazy per-(T, H, W) `SeqShardedWam`: its post_fn bakes in the
+        clip geometry, which the constructor does not know."""
+        key = tuple(int(s) for s in clip_shape[-3:])
+        if key not in self._seq_cache:
+            from wam_tpu_torch.parallel.seq_estimators import SeqShardedWam
+
+            self._seq_cache[key] = SeqShardedWam(
+                self.mesh, lambda rec: self.model_fn(rec[:, None]), ndim=3,
+                wavelet=self.wavelet, level=self.levels.spatial, mode=self.mode,
+                seq_axis=self.seq_axis,
+                post_fn=lambda g: spacetime_map(g, key, self.approx_coeffs),
+                batch_axis=self.batch_axis, fused=self.seq_fused)
+        return self._seq_cache[key]
+
     def _smooth(self, x, y=None, noise=None) -> torch.Tensor:
         """`smooth`'s box, with no instance attribute set."""
         clip, y = self._inputs(x, y)
         shape = tuple(clip.shape[-3:])
+        if self.mesh is not None:
+            if clip.shape[1] != 1:
+                raise ValueError(
+                    "mesh= long-clip dispatch supports single-channel clips "
+                    f"(C=1); got C={clip.shape[1]}")
+            if noise is not None:
+                noise = torch.as_tensor(noise, device=self.device)[:, :, 0]
+            return self._get_seq(clip.shape).smoothgrad(
+                clip[:, 0], y, self.random_seed, n_samples=self.n_samples,
+                stdev_spread=self.stdev_spread, sample_chunk=self._chunk(), noise=noise)
 
         def step(noisy: torch.Tensor) -> torch.Tensor:  # (s, B, C, T, H, W)
             s = noisy.shape[0]
@@ -287,6 +318,11 @@ class WaveletAttributionVideo:
 
     def _integrated(self, x, y=None) -> torch.Tensor:
         """`integrated_wam`'s box, with no instance attribute set."""
+        if self.mesh is not None:
+            raise ValueError(
+                "mesh= supports method='smooth' only for video — the IG "
+                "path's coefficient-domain multiply needs the gathered "
+                "pytree; run IG unsharded or via chunked batches")
         clip, y = self._inputs(x, y)
         shape = tuple(clip.shape[-3:])
         coeffs = self._decompose(clip)
@@ -322,6 +358,10 @@ class WaveletAttributionVideo:
         """Batched serving entry ``(x, y) → (B, T, H, W)`` for the serve
         worker (labeled-only, one device — the contract of
         `WaveletAttribution3D.serve_entry`)."""
+        if self.mesh is not None:
+            raise ValueError(
+                "serve_entry() does not support mesh=; the serve worker owns "
+                "a single device — drive the sharded estimator directly")
         from wam_tpu_torch.serve.entry import jit_entry
 
         impl = self._smooth if self.method == "smooth" else self._integrated
