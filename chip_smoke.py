@@ -9,6 +9,8 @@ sm_90a). Phases, each fatal on failure:
 1. device: the card's name and power limit (nvidia-smi);
 2. build:  every kernel, compiled from ``wam_tpu_torch/csrc`` by nvcc (one
    process per source, all at once), with ptxas's report of K1, K2 and K3;
+   then the preflight, `wam_tpu_torch.env_check`'s checks once (the core
+   packages, the device line, a 32^2 db2 J=2 attribution through K1/K3);
 3. kernels: each kernel against its plain PyTorch version at the shapes
    each path that runs it gives it, TF32 off, and timed with CUDA events:
    K1 and K3 at the flagship's, at path 2's and at the ViT path's (haar),
@@ -308,6 +310,19 @@ sm_90a). Phases, each fatal on failure:
    entry); seq3d, the vol phase's volumes, depth over {data: 4}, haar n=25
    (no halo) and db2 n=5; video, the video phase's clips, time over {data:
    2}, haar levels (2, 2), n=25.
+25. tune: the autotuner (`wam_tpu_torch.tune`) on the flagship preset:
+   ResNet-50 bound in bfloat16 with fold_bn, 32 x 3x224^2, db4 J=3, n=25,
+   the input rounded to bfloat16 at the transform; its eight candidates
+   (chunks of 128/256/512 rows and all 800, stream_noise off, an nchw
+   probe, the synthesis A/B), each measured by CUDA events (TUNE_K regions
+   of TUNE_LAPS calls) with its peak memory, the device plane and its
+   K1/K3 launches a call asserted (3 and 2 a sample chunk on the nchw
+   probe, 0 channel-last); ``python -m wam_tpu_torch.tune --workload toy
+   --dry-run --device cuda``; the winner recorded into a cache file of the
+   phase's own and an explainer with ``sample_batch_size="auto"`` resolving
+   to its chunk, bit-equal to the explicit call (cuDNN deterministic);
+   the phase within TUNE_BUDGET_S. The kernels phase holds K1 (first level
+   on bfloat16 input) and K3 at its nchw probe's shapes.
 
 Prints a summary JSON line (with the script's wall time), the kernels' JSON
 line, the nvidia-smi line, and as its last line
@@ -317,10 +332,14 @@ there is no CUDA device or the port is not beside this script.
 
 from __future__ import annotations
 
+import atexit
 import json
 import math
+import os
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -592,6 +611,9 @@ SEQ_CHECK_SAMPLES = 2   # seq against single at full width: samples, one a model
 SEQ_TOL = {"seq1d": (0.9998, 1.3e-1), "seq2d": (0.999999, 3.6e-2),
            "seq3d": (0.99998, 1.3e-1), "video": (0.999999, 4.7e-2),
            "float64": (0.9999999, 1e-9)}
+# the tune phase: the autotuner on the flagship preset (wam_tpu_torch.tune)
+TUNE_K, TUNE_LAPS = 3, 1                # timed regions a candidate, calls a region
+TUNE_BUDGET_S = 45.0
 
 
 def _log(*args):
@@ -606,18 +628,12 @@ def _nvidia_smi() -> str:
 
 
 def _time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
-    import torch
+    """Milliseconds a call of ``fn()``: CUDA events around ``iters`` warm
+    calls after ``warmup`` (`wam_tpu_torch.profiling.device_time_samples`,
+    one region of ``iters`` laps)."""
+    from wam_tpu_torch.profiling import device_time_samples
 
-    for _ in range(warmup):
-        fn()
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    torch.cuda.synchronize()
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / iters
+    return device_time_samples(fn, k=1, laps=iters, warmup=warmup, device=DEVICE)[0] * 1e3
 
 
 def _bound_ms(bytes_moved: float, flops: float) -> tuple[float, str]:
@@ -690,7 +706,8 @@ def _case(torch, label: str, got, want, kernel_fn, plain_fn, product, reads, out
     case = {**tags, "max_abs_err": err, "tol": tol, "ms": _time_ms(kernel_fn),
             "plain_ms": _time_ms(plain_fn), "library_ms": None}
     if library:
-        case["library_ms"] = _time_ms(lambda: torch.einsum("qp,nqs,st->npt", m1t, x, m2))
+        lm1t, lm2 = m1t.to(x.dtype), m2.to(x.dtype)  # a bf16 x: bf16 operands, bf16 out
+        case["library_ms"] = _time_ms(lambda: torch.einsum("qp,nqs,st->npt", lm1t, x, lm2))
     for key, fn in (extra or {}).items():
         case[key] = _time_ms(fn)
     nbytes = _nbytes(*reads) + out_bytes
@@ -712,11 +729,13 @@ def _plan_tags(kernels, plan) -> dict:
 
 
 def _row(kernel: str, name: str, source: str, replaces: str, path: str, cases: list,
-         library: str, work: str) -> dict:
+         library: str, work: str, main: list | None = None) -> dict:
     """A kernel's line for one path: its cases, and ms / plain_ms /
-    library_ms / bound summed over the float32 cases (the path runs float32:
-    one sample chunk's launches of this kernel)."""
-    main = [c for c in cases if c["dtype"] == "float32"]
+    library_ms / bound summed over the cases the path launches (``main``;
+    by default the float32 ones): one sample chunk's launches of this
+    kernel."""
+    if main is None:
+        main = [c for c in cases if c["dtype"] == "float32"]
 
     def total(key):
         return sum(c[key] for c in main)
@@ -761,7 +780,7 @@ def _k1_cases(torch, tmm, kernels, g, side: int, wavelet: str = WAVELET,
                 torch, f"K1 {wavelet} {side}^2 level {level} {str(dtype)[6:]}",
                 kernels.dwt2(xin, plan),
                 want, lambda: kernels.dwt2(xin, plan), lambda: tmm.dwt2_plain(xin, At, Bt),
-                (At, xin, Bt), (xin, At, Bt), out_bytes, library=f32,
+                (At, xin, Bt), (xin, At, Bt), out_bytes,
                 extra={"matmul_pair_ms": lambda: tmm.pair_plain(xin, At, Bt)} if f32 else None,
                 part=f"analysis level {level}", dtype=str(dtype)[6:], shape=[n, q, q],
                 **_plan_tags(kernels, plan)))
@@ -986,11 +1005,27 @@ def phase_kernels(torch, tmm, kernels, sites, vol_sites) -> list[dict]:
             k1_work += ", and K2's backward at the finest synthesis level"
         rows.append(_row(*k1, path, k1_cases, einsum, k1_work))
         k3_cases = _k3_cases(torch, tmm, kernels, g, side, wavelet, n3)
+        if path == "flagship":  # the tune path's nchw probe runs these shapes
+            tune_k1, tune_k3 = k1_cases, k3_cases
         rows.append(_row(*k3, path, k3_cases,
                          "torch.einsum (the matmul pair on the assembled Y; dense dY)",
                          f"forward + backward of the collapsed levels at {side}^2, {wavelet}, "
                          + (once or f"one chunk of {VIT_CHUNK} path points")))
         rows[-1]["assemble_ms"] = k3_cases[0]["assemble_ms"]
+    # the tune path's nchw probe (the flagship preset, chunk 4): K1's first
+    # level on the preset's bfloat16 input (dwt_bf16), the next two on its
+    # own float32 approximations; K3 on K1's float32 leaves
+    tune_main = [c for c in tune_k1 if (c["dtype"] == "bfloat16")
+                 == (c["part"] == "analysis level 1")]
+    rows.append(_row(*k1, "tune", tune_k1, einsum + " (bfloat16 x: bf16 operands, bf16 out)",
+                     f"3 analysis levels at {SIDE}^2, {WAVELET}, the first on bfloat16 input "
+                     "(dwt_bf16), one sample chunk of the tune phase's nchw candidate",
+                     main=tune_main))
+    rows.append(_row(*k3, "tune", tune_k3,
+                     "torch.einsum (the matmul pair on the assembled Y; dense dY)",
+                     f"forward + backward of the collapsed levels at {SIDE}^2, {WAVELET}, one "
+                     "sample chunk of the tune phase's nchw candidate"))
+    rows[-1]["assemble_ms"] = tune_k3[0]["assemble_ms"]
     # the eval2d path: K1 on one image's planes a metric call (the ViT
     # path's shape), K3 forward only on a reconstruction family
     rows.append(_row(*k1, "eval2d", _k1_cases(torch, tmm, kernels, g, EVAL_SIDE, EVAL_WAVELET,
@@ -5140,6 +5175,133 @@ def phase_seq(torch, wtt, kernels, smi: str) -> dict:
     return out
 
 
+def preflight(torch) -> None:
+    """`wam_tpu_torch.env_check`'s checks, once, before the phases: the core
+    packages, the device line, the kernels' build and a 32^2 db2 J=2
+    attribution through K1/K3 (fatal on failure)."""
+    from wam_tpu_torch import env_check
+
+    t0 = time.perf_counter()
+    core, optional = env_check.check_imports()
+    if core:
+        raise AssertionError(f"preflight: missing packages {core}")
+    line = env_check.device_line("cuda")
+    counts = env_check.check_wam("cuda")
+    _log(f"phase preflight: {line}; K1/K3 launches {counts['dwt2']}/{counts['pair']}; "
+         f"optional packages absent: {optional}; {time.perf_counter() - t0:.1f} s")
+
+
+def _tune_launches(cand) -> dict:
+    """K1/K3 launches of one call of a flagship-preset candidate: at NCHW
+    the three analysis levels and the collapsed synthesis (forward and
+    backward) once a sample chunk; channel-last runs the NHWC einsums."""
+    chunks = math.ceil(N_SAMPLES / (cand.sample_chunk or N_SAMPLES))
+    if cand.layout != "nchw":
+        return dict(ZERO_LAUNCHES)
+    return {**ZERO_LAUNCHES, "dwt2": LEVELS * chunks, "pair": 2 * chunks}
+
+
+def phase_tune(torch, wtt, kernels, smi: str) -> dict:
+    """The autotuner on the card: `autotune(get_workload("flagship"))`
+    (TUNE_K regions of TUNE_LAPS calls a candidate, not persisted), every
+    candidate on the device plane with its peak memory and its K1/K3
+    launches a call asserted; ``python -m wam_tpu_torch.tune --workload toy
+    --dry-run --device cuda`` as a subprocess; then the winner recorded into
+    a schedule cache of the phase's own (``WAM_TORCH_SCHEDULE_CACHE`` set
+    for the phase only, inside the script's own empty table), and a `WaveletAttribution2D` built like the winner
+    with ``sample_batch_size="auto"`` resolving to the winner's chunk and
+    computing the explicit-chunk call's map bit for bit (cuDNN
+    deterministic)."""
+    from wam_tpu_torch.tune import cache as tcache
+    from wam_tpu_torch.tune.autotuner import autotune
+    from wam_tpu_torch.tune.workloads import _resnet50_fn, get_workload
+
+    t_phase = time.perf_counter()
+    dev = torch.device(DEVICE)
+    torch.backends.cudnn.allow_tf32 = True
+    torch.backends.cuda.matmul.allow_tf32 = False
+    wl = get_workload("flagship", device=dev)
+    res = autotune(wl, k=TUNE_K, laps=TUNE_LAPS, persist=False, log=_log)
+    cands = []
+    for r in res["results"]:
+        cand = r["candidate"]
+        want = _tune_launches(cand)
+        if r["plane"] != "device" or r["peak_gb"] is None:
+            raise AssertionError(f"tune: {r['label']} measured on plane {r['plane']}, "
+                                 f"peak {r['peak_gb']}")
+        if r["launches"] != want:
+            raise AssertionError(f"tune: {r['label']} launched {r['launches']} a call, "
+                                 f"expected {want}")
+        cands.append({k: r[k] for k in ("label", "median_s", "q1_s", "q3_s", "items_per_s",
+                                        "plane", "peak_gb", "launches", "calls")})
+    winner = res["winner"]["candidate"]
+    _log(f"  tune: winner {res['winner']['label']} ({res['winner']['items_per_s']:.2f} "
+         f"attributions/s) on {smi}")
+
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "wam_tpu_torch.tune", "--workload", "toy",
+                           "--dry-run", "--device", "cuda"], cwd=ROOT, capture_output=True,
+                          text=True, timeout=300)
+    if proc.returncode != 0:
+        raise AssertionError(f"tune CLI failed: {proc.stderr[-2000:]}")
+    cli = json.loads(proc.stdout.strip().splitlines()[-1])
+    if cli["persisted"] or len(cli["candidates"]) < 2 or any(
+            c["plane"] != "device" for c in cli["candidates"]):
+        raise AssertionError(f"tune CLI: {cli}")
+    cli_s = time.perf_counter() - t0
+
+    saved = os.environ.get(tcache.CACHE_ENV)
+    det = (torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark)
+    with tempfile.TemporaryDirectory() as tmp:
+        os.environ[tcache.CACHE_ENV] = os.path.join(tmp, "schedules.json")
+        tcache.invalidate_process_cache()
+        try:
+            key = tcache.record_schedule(wl.workload, wl.shape, wl.batch, res["entry"],
+                                         dtype=wl.dtype, backend=dev.type)
+            nchw = winner.layout == "nchw"
+            fn = _resnet50_fn(dev, nchw=nchw, compute_dtype=torch.bfloat16)
+            g = torch.Generator().manual_seed(1)
+            x = torch.randn((BATCH, CHANNELS, SIDE, SIDE), generator=g).to(dev)
+            y = (torch.arange(BATCH) % 1000).to(dev)
+
+            def explainer(chunk):
+                return wtt.WaveletAttribution2D(
+                    fn, wavelet=WAVELET, J=LEVELS, mode=MODE, n_samples=N_SAMPLES,
+                    stdev_spread=SPREAD, sample_batch_size=chunk, dwt_bf16=True,
+                    stream_noise=winner.stream_noise is not False,
+                    model_layout="nchw" if nchw else "nhwc", device=dev)
+
+            auto, explicit = explainer("auto"), explainer(winner.sample_chunk)
+            resolved = auto._chunk(x)
+            if resolved != winner.sample_chunk:
+                raise AssertionError(f"tune: 'auto' resolved to {resolved}, the winner's chunk "
+                                     f"is {winner.sample_chunk} ({key})")
+            torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+            a, b = auto(x, y), explicit(x, y)
+            if not torch.equal(a, b):
+                raise AssertionError("tune: the resolved 'auto' call differs from the "
+                                     f"explicit chunk's (max {float((a - b).abs().max()):.3e})")
+        finally:
+            torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = det
+            if saved is None:
+                os.environ.pop(tcache.CACHE_ENV, None)
+            else:
+                os.environ[tcache.CACHE_ENV] = saved
+            tcache.invalidate_process_cache()
+    phase_s = time.perf_counter() - t_phase
+    _log(f"  tune: 'auto' -> chunk {resolved}, bit-equal to the explicit call; "
+         f"phase {phase_s:.1f} s (CLI {cli_s:.1f} s)")
+    if phase_s > TUNE_BUDGET_S:
+        raise AssertionError(f"tune: the phase took {phase_s:.1f} s > {TUNE_BUDGET_S} s")
+    nchw_row = next(r for r in res["results"] if r["candidate"].layout == "nchw")
+    return {"gpu": smi, "winner": res["winner"]["label"], "entry": res["entry"], "key": key,
+            "candidates": cands, "nchw_launches": nchw_row["launches"],
+            "cli": {"winner": cli["winner"], "candidates": cli["candidates"],
+                    "device_name": cli.get("device_name"),
+                    "power_limit": cli.get("power_limit"), "seconds": cli_s},
+            "resolved_chunk": resolved, "bit_equal": True, "phase_s": phase_s}
+
+
 def main() -> int:
     import torch
 
@@ -5151,6 +5313,12 @@ def main() -> int:
         print(f"chip_smoke: wam_tpu_torch not found beside {Path(__file__).name}",
               file=sys.stderr)
         return 1
+    # every "auto" of the script reads an empty schedule table of its own, so
+    # a table persisted under the machine's HOME cannot move a phase's chunks
+    table = tempfile.mkdtemp(prefix="wam_schedules_")
+    atexit.register(shutil.rmtree, table, ignore_errors=True)
+    os.environ["WAM_TORCH_SCHEDULE_CACHE"] = os.path.join(table, "schedules.json")
+    os.environ.pop("WAM_TPU_NO_SCHEDULE_CACHE", None)
     sys.path.insert(0, str(ROOT))
     import wam_tpu_torch as wtt
     from wam_tpu_torch import kernels
@@ -5172,6 +5340,7 @@ def main() -> int:
             if any(k in line for k in keys):
                 _log(f"  {name}: {line.strip()}")
 
+    preflight(torch)
     sites = relu_sites(torch, wtt)
     vol_sites = vol_relu_sites(torch, wtt)
     if len(vol_sites) != VOL_SITES:
@@ -5208,6 +5377,7 @@ def main() -> int:
     par = timed("parallel", phase_parallel, torch, wtt, kernels, smi)
     fleet = timed("fleet", phase_fleet, torch, wtt, kernels, smi)
     seq = timed("seq", phase_seq, torch, wtt, kernels, smi)
+    tune = timed("tune", phase_tune, torch, wtt, kernels, smi)
     an_calls = ("isolate_scales", "insertion", "deletion")
     launches = {"flagship": slice_["launches"], "path 2": slice2["launches"],
                 "vit": vit["call_launches"], "vol": vol["fused"]["call_launches"],
@@ -5221,7 +5391,8 @@ def main() -> int:
                 "patch": patch["call_launches"], "video": video["call_launches"],
                 "anytime": anytime_["launches"],
                 **{f"serve {s}": serve_["batch_launches"][s] for s in SERVE_LAUNCHES},
-                "parallel": par["spmd"]["launches"], "parallel ig": par["ig"]["launches"]}
+                "parallel": par["spmd"]["launches"], "parallel ig": par["ig"]["launches"],
+                "tune": tune["nchw_launches"]}
     for row in rows:
         row["launches"] = launches[row["path"]][row["kernel"]]
         row["audio_launches"] = audio["launches"][row["kernel"]]
@@ -5248,6 +5419,8 @@ def main() -> int:
                                     for k in ("spmd", "propagation", "ig")}
         row["fleet_launches"] = fleet["stream"]["launches"][row["kernel"]]
         row["seq_launches"] = {arm: seq[arm]["launches"][row["kernel"]] for arm in SEQ_ARMS}
+        row["tune_launches"] = {c["label"]: c["launches"][row["kernel"]]
+                                for c in tune["candidates"]}
 
     print(json.dumps({"slice": {k: v for k, v in slice_.items() if k != "launches"},
                       "slice2": {k: v for k, v in slice2.items() if k != "launches"},
@@ -5257,6 +5430,7 @@ def main() -> int:
                       "analyzers": analyzers, "iou": iou, "patch": patch,
                       "attention": attention, "video": video, "anytime": anytime_,
                       "serve": serve_, "parallel": par, "fleet": fleet, "seq": seq,
+                      "tune": {k: v for k, v in tune.items() if k != "entry"},
                       "phase_s": seconds,
                       "wall_s": time.perf_counter() - t_start, "gpu": smi}),
           flush=True)

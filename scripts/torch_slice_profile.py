@@ -40,7 +40,8 @@ patch_wam`: the ViT call with ``level_plan="patch"``, J=4, TF32 on), with
 ``--attention`` one rollout explanation of the attention phase
 (`chip_smoke.build_attention`: ViT-B/16 with ``capture_attn=True``, 4 images,
 TF32 on) or with ``--attngrad`` its attngrad explanation. One call to warm up, then one under
-`torch.profiler`; prints one JSON line: the call's wall time, the summed
+`torch.profiler` (`wam_tpu_torch.profiling.profile_to`), read back through
+`profiling.named_op_split` with this script's grouping; prints one JSON line: the call's wall time, the summed
 device time of its kernels by group (K1-K5, the 1D transform, FFT,
 convolutions, matmuls, batchnorm, pooling, other), and the device's idle
 share (1 - summed kernel time / wall time; one stream, so kernels do not
@@ -98,21 +99,13 @@ OP_GROUPS = (
 OP_OTHER = "other (elementwise, reductions)"
 
 
-def _op_group(ev) -> str:
-    chain = []
-    while ev is not None:
-        chain.append(ev.name.lower())
-        ev = ev.cpu_parent
-    for name in chain:
+def _op_group(ops) -> str:
+    """A kernel's group by the ops that launched it, innermost first."""
+    for name in ops:
         for label, keys in OP_GROUPS:
-            if any(k in name for k in keys):
+            if any(k in name.lower() for k in keys):
                 return label
     return OP_OTHER
-
-
-def _op_kernels(prof) -> list[tuple[str, float, str]]:
-    """(kernel name, device ms, op group) of every kernel an op launched."""
-    return [(k.name, k.duration / 1e3, _op_group(ev)) for ev in prof.events() for k in ev.kernels]
 
 
 def _group(name: str) -> str:
@@ -127,24 +120,22 @@ DWT1 = "1D DWT (transform spans: convolutions, padding gathers)"
 DWT3 = "3D DWT (transform spans: conv3d, synthesis products, padding gathers, stacking)"
 
 
-def _span_kernels(prof, span: str) -> list[tuple[str, float]]:
-    """(kernel name, device ms) of every kernel launched inside an outermost
-    ``span`` profiler range, from the CPU op tree."""
-    out = []
+def _classifier(by_op: bool, span_1d: str, span_3d: str):
+    """A device event's group (`profiling.named_op_split`'s ``classify``):
+    inside a 1D or 3D transform span, that transform's group; on the
+    ``by_op`` paths every kernel other than K1-K5 by the op that launched
+    it; else by its kernel name (`GROUPS`)."""
+    def classify(ev) -> str:
+        if span_1d in ev.ops:
+            return DWT1
+        if span_3d in ev.ops:
+            return DWT3
+        label = _group(ev.name)
+        if by_op and not label.startswith("K"):
+            return _op_group(ev.ops)
+        return label
 
-    def walk(ev):
-        out.extend((k.name, k.duration / 1e3) for k in ev.kernels)
-        for child in ev.cpu_children:
-            walk(child)
-
-    for ev in prof.events():
-        parent, nested = ev.cpu_parent, False
-        while parent is not None:
-            nested |= parent.name == span
-            parent = parent.cpu_parent
-        if ev.name == span and not nested:
-            walk(ev)
-    return out
+    return classify
 
 
 def main() -> int:
@@ -269,37 +260,26 @@ def main() -> int:
     run()
     torch.cuda.synchronize()
 
-    from torch.profiler import ProfilerActivity, profile
+    import tempfile
 
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        run()
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
+    from wam_tpu_torch.profiling import kernel_events, named_op_split, profile_to
 
-    groups: dict[str, float] = {}
-    launches: dict[str, int] = {}
-    top = []
-    for ev in prof.key_averages():
-        dt = getattr(ev, "self_device_time_total", 0.0) or 0.0
-        if (dt <= 0 or ev.device_type != torch.autograd.DeviceType.CUDA
-                or ev.key in (SPAN_1D, SPAN_3D)):
-            continue  # (a span's own device-side range is not a kernel)
-        label = _group(ev.key)
-        groups[label] = groups.get(label, 0.0) + dt / 1e3
-        launches[label] = launches.get(label, 0) + ev.count
-        top.append((dt / 1e3, ev.count, ev.key[:120]))
-    moves = [(name, ms, DWT1) for name, ms in _span_kernels(prof, SPAN_1D)]
-    moves += [(name, ms, DWT3) for name, ms in _span_kernels(prof, SPAN_3D)]
-    if arch:
-        moves += [m for m in _op_kernels(prof) if not _group(m[0]).startswith("K")]
-    for name, ms, new in moves:
-        label = _group(name)
-        groups[label] -= ms
-        launches[label] -= 1
-        groups[new] = groups.get(new, 0.0) + ms
-        launches[new] = launches.get(new, 0) + 1
-    groups = {k: v for k, v in groups.items() if launches[k]}
+    with tempfile.TemporaryDirectory() as logdir:
+        with profile_to(logdir):
+            t0 = time.perf_counter()
+            run()
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+        split = named_op_split(logdir, classify=_classifier(bool(arch), SPAN_1D, SPAN_3D),
+                               launches=True)
+        top = {}
+        for ev in kernel_events(logdir) or []:
+            ms, n = top.get(ev.name, (0.0, 0))
+            top[ev.name] = (ms + ev.dur / 1e3, n + 1)
+    seconds, launches = split if split is not None else ({"total": 0.0}, {})
+    seconds.pop("total")
+    groups = {k: v * 1e3 for k, v in seconds.items() if launches.get(k)}
+    top = [(ms, n, name[:120]) for name, (ms, n) in top.items()]
     busy_ms = sum(groups.values())
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip()

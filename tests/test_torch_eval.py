@@ -168,6 +168,24 @@ def test_eval2d_mu_fidelity_matches_jax(tiny, impl):
     assert all(-1.0 <= v <= 1.0 for v in got)
 
 
+@pytest.mark.parametrize("side,grid,sample,subset", [(16, 8, 32, 12), (224, 28, 32, 157)])
+def test_constant_map_mu_fidelity_reads_zero_in_both_packages(tiny, side, grid, sample, subset):
+    """A constant explanation gives every superpixel the same mass, so the
+    Spearman correlation has no ranks to order and reads 0.0, in the port
+    as in the reference: the port's blur returns a constant map bit for bit
+    (a float32 convolution of ones read 1.0000001 a pixel, 4.0000005 a
+    2 x 2 cell, and the subsets' sums broke the ties: ±0.09–0.14 here)."""
+    jfn, tfn = tiny
+    x, y = _images("const", n=2, side=side), [1, 3]
+    jev, tev = _pair(jfn, tfn, np.ones((2, side, side), np.float32), "kernel",
+                     wavelet="haar", J=2, batch_size=64)
+    kw = dict(grid_size=grid, sample_size=sample, subset_size=subset)
+    want = jev.mu_fidelity(jnp.asarray(x), y, **kw)
+    got = tev.mu_fidelity(torch.from_numpy(x), y, **kw)
+    np.testing.assert_array_equal(np.asarray(want, np.float64), 0.0)
+    np.testing.assert_array_equal(np.asarray(got, np.float64), 0.0)
+
+
 def test_eval2d_resized_mosaic_matches_jax(tiny):
     """A db2 decomposition packs to a larger array than the image: the mosaic
     is resized to it by the nearest rule before the masks."""

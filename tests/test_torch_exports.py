@@ -17,15 +17,14 @@ import wam_tpu
 import wam_tpu_torch
 
 ROOT = Path(__file__).resolve().parent.parent
-SLICE_E = "ROADMAP.md queue 1 item 5 (slice E)"
-SLICE_F = "ROADMAP.md queue 1 item 6 (slice F)"
+SLICE_E = "ROADMAP.md queue 1 item 1 (slice E)"
+SLICE_F = "ROADMAP.md queue 1 item 2 (slice F)"
 VIZ3D = "ROADMAP.md queue 1 item 3 (viz/viz3d.py)"
 
 # name -> the ROADMAP item that brings it, per package
 PENDING = {
     "": {},
-    "wavelets": {name: SLICE_E for name in ("set_dwt2_impl", "get_dwt2_impl", "set_synth2_impl",
-                                            "get_synth2_impl", "resolved_synth2_impl")},
+    "wavelets": {},
     "core": {},
     "ops": {},
     "data": {"ESC50": SLICE_F, "load_sound": SLICE_F},
@@ -38,6 +37,9 @@ PENDING = {
     "pipeline": {name: SLICE_E for name in ("AOT_CACHE_VERSION", "aot_entry_path",
                                             "aval_signature", "cached_entry", "cached_jit",
                                             "default_aot_dir", "load_aot", "save_aot")},
+    # the port's fused ReLU picks the kernel or its plain version by the
+    # tensor's device: no process-wide impl knob (wam_tpu_torch/tune/__init__.py)
+    "tune": {"set_fused_relu_impl": "no counterpart", "get_fused_relu_impl": "no counterpart"},
     "viz": {name: VIZ3D for name in ("scatter3d", "scatter3d_batch", "scatter3d_superpose",
                                      "scatter3d_colors", "scatter3d_explanation_batch",
                                      "voxel_figure", "voxel_superpose", "voxel_surface_mesh",
@@ -53,7 +55,7 @@ def _pkgs(sub: str):
 
 
 @pytest.mark.parametrize("sub", ["wavelets", "core", "ops", "data", "viz", "xattr", "anytime",
-                                 "serve", "obs", "pipeline", "parallel", "testing"])
+                                 "serve", "obs", "pipeline", "parallel", "testing", "tune"])
 def test_subpackage_all_equals_the_reference_less_pending(sub):
     ref, port = _pkgs(sub)
     want = [n for n in ref.__all__ if n not in PENDING[sub]]

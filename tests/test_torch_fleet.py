@@ -860,3 +860,92 @@ def test_two_replica_resnet_fleet_serves_the_entry():
     for lo in (0, 4):  # a fleet-wide chunk is 4 rows: 2 a replica
         want = ref(torch.from_numpy(big[lo:lo + 4]), ys[lo:lo + 4]).detach().numpy()
         assert np.abs(over[lo:lo + 4] - want).max() <= 1e-5 * np.abs(want).max()
+
+
+def _blocks_entry(kind: str, method: str = "smooth"):
+    """(serve entry, item shape) of each explainer whose rows the "pjit"
+    route splits, on a tiny seeded model."""
+    import wam_tpu_torch as wtt
+
+    torch.manual_seed(1)
+    nn = torch.nn
+    kw = dict(method=method, n_samples=3, sample_batch_size=2, device="cpu")
+    if kind == "1d":
+        net = nn.Sequential(nn.Conv2d(1, 2, 3), nn.ReLU(), nn.AdaptiveAvgPool2d(1), nn.Flatten(),
+                            nn.Linear(2, 5))
+        wam = wtt.WaveletAttribution1D(net, wavelet="db2", J=2, n_fft=128, n_mels=8,
+                                       sample_rate=8000, stdev_spread=0.1, **kw)
+        return wam.serve_entry(), (512,)
+    if kind == "3d":
+        net = nn.Sequential(nn.Conv3d(1, 2, 3), nn.ReLU(), nn.AdaptiveAvgPool3d(1), nn.Flatten(),
+                            nn.Linear(2, 5))
+        wam = wtt.WaveletAttribution3D(net, wavelet="haar", J=2, stdev_spread=0.1, **kw)
+        return wam.serve_entry(), (1, 8, 8, 8)
+    if kind == "video":
+        net = nn.Sequential(nn.Conv3d(1, 2, 3), nn.ReLU(), nn.AdaptiveAvgPool3d(1), nn.Flatten(),
+                            nn.Linear(2, 5))
+        wam = wtt.WaveletAttributionVideo(net, wavelet="haar", levels=(2, 1), stdev_spread=0.1,
+                                          **kw)
+        return wam.serve_entry(), (1, 4, 8, 8)
+    net = nn.Sequential(nn.Conv2d(3, 4, 3), nn.ReLU(), nn.AdaptiveAvgPool2d(1), nn.Flatten(),
+                        nn.Linear(4, 5))
+    if kind.startswith("base2d"):
+        wam = wtt.BaseWAM2D(net, wavelet="db2", J=2, device="cpu")
+    else:
+        wam = wtt.WaveletAttribution2D(net, wavelet="db2", J=2, **kw)
+    return wam.serve_entry(with_health=kind.endswith("+health")), (3, 16, 16)
+
+
+def _np_leaves(t):
+    if isinstance(t, (tuple, list)):
+        return [leaf for v in t for leaf in _np_leaves(v)]
+    return [np.asarray(t.detach().numpy() if isinstance(t, torch.Tensor) else t)]
+
+
+def _rel_close(got, want, tol=1e-5):
+    got, want = _np_leaves(got), _np_leaves(want)
+    assert len(got) == len(want)
+    for g, w in zip(got, want):
+        assert g.shape == w.shape
+        assert np.abs(g - w).max() <= tol * np.abs(w).max(), np.abs(g - w).max()
+
+
+@pytest.mark.parametrize("kind,method", [("1d", "smooth"), ("1d", "integratedgrad"),
+                                         ("3d", "smooth"), ("video", "integratedgrad"),
+                                         ("video", "smooth"), ("base2d", None),
+                                         ("base2d+health", None), ("wam2d+health", "smooth")])
+def test_every_entry_carries_blocks_equal_to_the_whole_batch(kind, method):
+    """The 1D, 3D, video, `BaseWAM2D` and health entries carry RowBlocks:
+    through the fleet's "pjit" route on three replicas (two rows each, the
+    chunk replicate-padded), and block by block, they give the entry's
+    result on the whole padded batch within 1e-5 of its max; a health
+    entry's merged vector equals the whole batch's at the same bound."""
+    from wam_tpu_torch.serve.entry import join_blocks
+
+    entry, shape = _blocks_entry(kind, method or "smooth")
+    assert entry.wam_blocks is not None
+    rng = np.random.default_rng(5)
+    xs = rng.standard_normal((5,) + shape).astype(np.float32)
+    ys = np.array([0, 1, 2, 3, 4], np.int64)
+    pad_x, pad_y = np.concatenate([xs, xs[:1]]), np.append(ys, ys[0])
+    whole = entry(torch.from_numpy(pad_x), torch.from_numpy(pad_y))
+    parts = []
+    states = []
+    for rid in range(3):
+        sl = slice(2 * rid, 2 * rid + 2)
+        states.append(entry.wam_blocks.partial(torch.from_numpy(pad_x[sl]),
+                                               torch.from_numpy(pad_y[sl]), 2 * rid, 6))
+    from wam_tpu_torch.evalsuite.fan import device_fetch
+    from wam_tpu_torch.serve.fleet import _tree_max
+
+    maxima = _tree_max([device_fetch(m) for _, m in states])
+    parts = [device_fetch(entry.wam_blocks.finish(st, maxima)) for st, _ in states]
+    health = getattr(entry, "wam_health", False)
+    _rel_close(join_blocks(parts, health=health), whole)
+    fleet = FleetServer(lambda rid, m, dev: _blocks_entry(kind, method or "smooth")[0], [shape],
+                        devices=["cpu"] * 3, max_batch=2, warmup=False, oversize="pjit")
+    try:
+        got = fleet.attribute_batch(xs, ys)
+    finally:
+        fleet.close()
+    _rel_close(got, [w[:5] for w in _np_leaves(whole[0] if health else whole)])

@@ -32,6 +32,7 @@ import torch
 
 import wam_tpu.serve as jserve
 import wam_tpu_torch.serve as tserve
+import wam_tpu_torch.tune as ttune
 from wam_tpu_torch import obs
 from wam_tpu_torch.serve import (
     AttributionServer,
@@ -400,7 +401,7 @@ def test_metrics_ledger_schema(tmp_path):
     for r in batches:
         assert 0.0 < r["fill_ratio"] <= 1.0 and 0.0 <= r["pad_waste"] < 1.0
         assert r["service_s"] >= 0.0 and r["queue_depth"] >= 0
-        assert r["schedule_fingerprint"] == tserve.result_cache.NO_SCHEDULE
+        assert r["schedule_fingerprint"] == ttune.schedule_fingerprint()
     s = summaries[0]
     assert s["completed"] == 5 and s["submitted"] == 5
     assert s["latency_p50_ms"] > 0.0 and s["latency_p99_ms"] >= s["latency_p50_ms"]
@@ -512,7 +513,7 @@ def test_repeat_submit_hits_cache_bit_identically():
 def test_result_cache_key_tracks_precision_and_the_schedule_slot(monkeypatch):
     x = np.ones((4,), np.float32)
     k = tserve.result_cache_key(x, 1, "id")
-    assert k.split("|")[3] == tserve.result_cache.NO_SCHEDULE and k.endswith("|f32")
+    assert k.split("|")[3] == ttune.schedule_fingerprint() and k.endswith("|f32")
     assert k != tserve.result_cache_key(x.astype(np.float64), 1, "id")
     assert k != tserve.result_cache_key(x, 2, "id") != tserve.result_cache_key(x, 1, "other")
     monkeypatch.setenv("WAM_TPU_FAN_DTYPE", "bf16")

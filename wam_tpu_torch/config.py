@@ -105,19 +105,37 @@ def _validate_fan_dtype(value: str, source: str) -> str:
     return value
 
 
-def resolve_precision(*, fan_dtype: str | None = None,
-                      mel_bf16: bool | None = None) -> PrecisionPolicy:
+def resolve_precision(workload: str | None = None, shape: tuple | None = None,
+                      batch: int | None = None, *, fan_dtype: str | None = None,
+                      mel_bf16: bool | None = None, backend: str | None = None) -> PrecisionPolicy:
     """Explicit arguments win; then the ``WAM_TPU_FAN_DTYPE`` /
-    ``WAM_TPU_MEL_BF16`` environment knobs (validated when read); then
-    float32 and no bf16 mel."""
+    ``WAM_TPU_MEL_BF16`` environment knobs (validated when read); then, only
+    when a (``workload``, ``batch``) key is given, the tuned schedule
+    entry's ``fan_dtype`` / ``mel_bf16`` (`wam_tpu_torch.tune`); then float32
+    and no bf16 mel."""
+    ent = None
+    if workload is not None and batch is not None:
+        from wam_tpu_torch.tune.cache import lookup_schedule
+
+        ent = lookup_schedule(workload, shape or (batch,), batch, backend=backend)
     if fan_dtype is None:
         env = os.environ.get("WAM_TPU_FAN_DTYPE", "")
-        fan_dtype = _validate_fan_dtype(env, "WAM_TPU_FAN_DTYPE") if env else "f32"
+        if env:
+            fan_dtype = _validate_fan_dtype(env, "WAM_TPU_FAN_DTYPE")
+        elif ent and ent.get("fan_dtype"):
+            fan_dtype = _validate_fan_dtype(str(ent["fan_dtype"]), "tuned fan_dtype")
+        else:
+            fan_dtype = "f32"
     else:
         fan_dtype = _validate_fan_dtype(fan_dtype, "fan_dtype")
     if mel_bf16 is None:
         env = os.environ.get("WAM_TPU_MEL_BF16", "")
-        mel_bf16 = env not in ("0", "false", "no") if env else False
+        if env:
+            mel_bf16 = env not in ("0", "false", "no")
+        elif ent is not None:
+            mel_bf16 = bool(ent.get("mel_bf16", False))
+        else:
+            mel_bf16 = False
     return PrecisionPolicy(fan_dtype=fan_dtype, mel_bf16=bool(mel_bf16))
 
 
@@ -253,9 +271,9 @@ class ServeConfig:
     fleet mesh, "fanout" = per-item routing); ``supervise`` and
     ``restart_*`` are the replicas' restart policy. `serve.FleetServer.from_config`
     reads these knobs; the single-device server has no reader yet (the
-    serving benchmark's port, ROADMAP.md queue 1 item 6). ``max_batch`` accepts "auto",
-    which is 8 until the port's tuned per-bucket cap lands (ROADMAP.md
-    slice E2).
+    serving benchmark's port, ROADMAP.md queue 1 item 2). ``max_batch`` accepts "auto":
+    the tuned per-bucket cap from the schedule cache
+    (`tune.resolve_bucket_cap`, keyed by the fleet's replica count), else 8.
 
     The reference's ``registry`` knob waits for the port's artifact
     registry (ROADMAP.md slice F). ``compilation_cache`` defaults off here:

@@ -123,22 +123,26 @@ class WamEngine:
             return wt.wavedec3(x, self.wavelet, self.level, self.mode)
         return wt.wavedec2(x, self.wavelet, self.level, self.mode, impl=self.impl)
 
-    def reconstruct(self, coeffs, spatial_shape: Sequence[int]) -> torch.Tensor:
+    def reconstruct(self, coeffs, spatial_shape: Sequence[int],
+                    synth_impl: str | None = None) -> torch.Tensor:
+        """The inverse transform cropped to ``spatial_shape``; ``synth_impl``
+        (2D and 3D) is this call's synthesis impl in place of ``impl``."""
         # the reconstruction is >= the original for non-haar filters / odd
         # sizes; crop to the model's spatial shape
+        synth = self.impl if synth_impl is None else synth_impl
         if self.channel_last:
             rec = nhwc.waverec2_nhwc(coeffs, self.wavelet)
             return rec[..., : spatial_shape[0], : spatial_shape[1], :]
         if self.ndim == 1:
             return wt.waverec(coeffs, self.wavelet)[..., : spatial_shape[0]]
         if self.ndim == 3:
-            rec = wt.waverec3(coeffs, self.wavelet, impl=self.impl)
+            rec = wt.waverec3(coeffs, self.wavelet, impl=synth)
             return rec[..., : spatial_shape[0], : spatial_shape[1], : spatial_shape[2]]
-        rec = wt.waverec2(coeffs, self.wavelet, impl=self.impl)
+        rec = wt.waverec2(coeffs, self.wavelet, impl=synth)
         return rec[..., : spatial_shape[0], : spatial_shape[1]]
 
     def grads_from_coeffs(self, coeffs, y, spatial_shape, samples: int = 1,
-                          front: bool = False):
+                          front: bool = False, synth_impl: str | None = None):
         """Gradient of the target loss w.r.t. every coefficient, in the
         coefficients' structure; with ``front=True`` the pair (those
         gradients, the gradient at the front end's output), both from one
@@ -147,12 +151,12 @@ class WamEngine:
         ``samples`` > 1 means the rows hold that many stacked copies of one
         batch (sample-major, ``y`` repeated to match): the loss is then the
         SUM over copies of each copy's batch mean, so every coefficient gets
-        exactly its own copy's gradient."""
+        exactly its own copy's gradient. ``synth_impl``: `reconstruct`'s."""
         if front and self.front_fn is None:
             raise ValueError("front=True requires front_fn")
         leaves = [c.detach().requires_grad_(True) for c in _flatten(coeffs)]
         with torch.enable_grad():
-            feats = self.reconstruct(_unflatten(leaves, coeffs), spatial_shape)
+            feats = self.reconstruct(_unflatten(leaves, coeffs), spatial_shape, synth_impl)
             if self.front_fn is not None:
                 feats = self.front_fn(feats)
             loss = target_loss(self.model_fn(feats), y) * samples

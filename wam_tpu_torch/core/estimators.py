@@ -16,6 +16,7 @@ import numpy as np
 import torch
 
 __all__ = ["noise_sigma", "smoothgrad", "integrated_path", "trapezoid", "sample_noise",
+           "block_draws",
            "resolve_sample_chunk", "resolve_checkpoint_stride", "validate_sample_batch_size"]
 
 
@@ -27,12 +28,32 @@ def validate_sample_batch_size(value) -> None:
         )
 
 
-def resolve_sample_chunk(sample_batch_size, n_samples: int) -> int | None:
+def _clamp_chunk(chunk, n_samples: int):
+    if chunk is None or int(chunk) >= n_samples:
+        return None
+    return max(1, int(chunk))
+
+
+def resolve_sample_chunk(sample_batch_size, n_samples: int, *, batch: int | None = None,
+                         workload: str | None = None, shape=None, dtype: str = "f32",
+                         dwt_impl: str | None = None, backend: str | None = None) -> int | None:
     """Explicit ints pass through (clamped to n_samples; >= n means one
-    chunk). "auto" is all samples at once, as the JAX package does off the
-    TPU; a default chunk for the card is for a sweep to set."""
+    chunk). For "auto", a tuned entry of the schedule cache
+    (`wam_tpu_torch.tune.lookup_schedule`, keyed by ``workload`` / ``shape``
+    / ``batch`` / ``dtype`` / transform impl / ``backend``) wins when the
+    caller identifies its workload, its chunk clamped the same way; without
+    one, all samples at once, as the JAX package does off the TPU (a default
+    chunk for the card is for a benchmark to set)."""
     validate_sample_batch_size(sample_batch_size)
-    if sample_batch_size == "auto" or sample_batch_size is None:
+    if sample_batch_size == "auto":
+        if workload is not None and batch is not None:
+            from wam_tpu_torch.tune.cache import lookup_schedule
+
+            ent = lookup_schedule(workload, shape, batch, dtype, dwt_impl, backend)
+            if ent is not None and "sample_chunk" in ent:
+                return _clamp_chunk(ent["sample_chunk"], n_samples)
+        return None
+    if sample_batch_size is None:
         return None
     chunk = int(sample_batch_size)
     if chunk < 1:
@@ -42,21 +63,25 @@ def resolve_sample_chunk(sample_batch_size, n_samples: int) -> int | None:
 
 def resolve_checkpoint_stride(stride, n_samples: int, *, workload: str | None = None,
                               shape=None, batch: int | None = None, dtype: str = "f32",
-                              default: int = 5) -> int:
+                              default: int = 5, backend: str | None = None) -> int:
     """The anytime checkpoint stride k (`wam_tpu_torch.anytime`): an explicit
     int (or numeric string) is clamped to [1, n_samples], below 1 raises;
-    ``"auto"`` is ``default``, clamped the same way. ``workload``, ``shape``,
-    ``batch`` and ``dtype`` identify the call as the reference's tuned
-    ``anytime_stride`` lookup keys it; the port has no schedule cache yet
-    (ROADMAP.md slice E, ``tune``), so they are accepted and do not change
-    the result."""
-    del workload, shape, batch, dtype
+    ``"auto"`` is the tuned ``anytime_stride`` of the schedule cache when the
+    caller identifies its workload (``workload``, ``shape``, ``batch``,
+    ``dtype``) and an entry has one, else ``default``, clamped the same
+    way."""
     n = max(1, int(n_samples))
     if stride != "auto":
         stride = int(stride)
         if stride < 1:
             raise ValueError(f"checkpoint stride must be >= 1, got {stride}")
         return min(stride, n)
+    if workload is not None and batch is not None:
+        from wam_tpu_torch.tune.cache import lookup_schedule
+
+        ent = lookup_schedule(workload, shape, batch, dtype, backend=backend)
+        if ent is not None and ent.get("anytime_stride"):
+            return min(int(ent["anytime_stride"]), n)
     return min(int(default), n)
 
 
@@ -90,6 +115,24 @@ def sample_noise(seed: int, index: int, shape, device, dtype=torch.float32) -> t
     state = np.random.SeedSequence([int(seed), int(index)]).generate_state(1, np.uint64)[0]
     g = torch.Generator(device=device).manual_seed(int(state) & (2**63 - 1))
     return torch.randn(tuple(shape), generator=g, device=device, dtype=dtype)
+
+
+def block_draws(seed: int, n_samples: int, full_shape, lo: int, rows: int, device,
+                dtype=torch.float32, stream: bool = False) -> Callable:
+    """``draw(i0, i1)``: the standard-normal draws of samples [i0, i1) that
+    SmoothGrad makes for a batch of ``full_shape``, cut to its rows [lo, lo +
+    rows) (one block of the batch, `serve.entry.RowBlocks`): the
+    materialized path's one ``torch.randn`` of a generator seeded with
+    ``seed``, or with ``stream`` each sample's `sample_noise`."""
+    full = tuple(full_shape)
+    if stream:
+        def draw(i0, i1):
+            return torch.stack([sample_noise(seed, i, full, device, dtype)[lo:lo + rows]
+                                for i in range(i0, i1)])
+        return draw
+    g = torch.Generator(device=device).manual_seed(seed)
+    z = torch.randn((n_samples,) + full, generator=g, device=device, dtype=dtype)[:, lo:lo + rows]
+    return lambda i0, i1: z[i0:i1]
 
 
 def smoothgrad(

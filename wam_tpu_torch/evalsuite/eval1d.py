@@ -99,7 +99,8 @@ class Eval1DWAM:
         self._expl_key = None
 
     def _fan_plan(self, fan: int) -> FanPlan:
-        return plan_fan(self.batch_size, fan, fan_dtype=self._fan_dtype)
+        return plan_fan(self.batch_size, fan, workload="eval1d", fan_dtype=self._fan_dtype,
+                        backend=torch.device(self.device).type)
 
     def _melspec(self, wave: torch.Tensor) -> torch.Tensor:
         mel = melspectrogram(wave, sample_rate=self.sample_rate, n_fft=self.n_fft,

@@ -173,7 +173,8 @@ class Eval2DWAM:
         self._expl_key = None
 
     def _fan_plan(self, fan: int) -> FanPlan:
-        return plan_fan(self.batch_size, fan, fan_dtype=self._fan_dtype)
+        return plan_fan(self.batch_size, fan, fan_dtype=self._fan_dtype,
+                        backend=torch.device(self.device).type)
 
     def _inputs(self, x):
         return upload(x, self.device).float()

@@ -224,7 +224,8 @@ class _BaseEvalBaselines:
         raise NotImplementedError
 
     def _fan_plan(self, fan: int) -> FanPlan:
-        return plan_fan(self.batch_size, fan, fan_dtype=self._fan_dtype)
+        return plan_fan(self.batch_size, fan, fan_dtype=self._fan_dtype,
+                        backend=torch.device(self.device).type)
 
     def evaluate_auc(self, x, y, mode: str, n_iter: int = 128, argmax: bool = False):
         """Per-input AUC of the class probability along the nested mask

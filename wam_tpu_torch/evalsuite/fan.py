@@ -39,8 +39,8 @@ __all__ = ["FanPlan", "plan_fan", "fan_chunk_geometry", "cast_model_fn",
            "run_fan", "device_fetch",
            "fetch_count", "reset_fetch_count", "fetch_scope", "upload", "AUTO_CAP"]
 
-# rows a model call when batch_size="auto": the reference's own fallback
-# (the port has no tuned cap yet)
+# rows a model call when batch_size="auto" and no tuned cap matches: the
+# reference's own fallback
 AUTO_CAP = 128
 
 
@@ -126,15 +126,31 @@ def fan_chunk_geometry(batch_size: int, fan: int) -> tuple[int, int | None]:
     return images_per_chunk, fan_chunk
 
 
-def plan_fan(batch_size, fan: int, *, fan_dtype: str | None = None) -> FanPlan:
-    """The fan geometry of one metric call: an int ``batch_size`` is the cap;
-    ``"auto"`` is `AUTO_CAP` (the reference consults its tuned schedule
-    cache first; the port has none yet). ``fan_dtype`` None resolves through
-    `config.resolve_precision` (the ``WAM_TPU_FAN_DTYPE`` knob, then f32)."""
-    cap = AUTO_CAP if batch_size == "auto" else int(batch_size)
+def plan_fan(batch_size, fan: int, *, workload: str = "eval2d", shape=None,
+             default: int = AUTO_CAP, fan_dtype: str | None = None,
+             backend: str | None = None) -> FanPlan:
+    """The fan geometry of one metric call. An int ``batch_size`` is the cap
+    (the caller's memory budget, geometry by the cap // fan rule).
+    ``"auto"`` reads the schedule cache (`wam_tpu_torch.tune`) for the
+    (``workload``, fan) key: its ``fan_cap`` (`tune.resolve_fan_cap`, else
+    ``default``) and its ``fan_chunk``, which sets the images a chunk
+    directly. ``fan_dtype`` None resolves through `config.resolve_precision`:
+    the ``WAM_TPU_FAN_DTYPE`` knob, then (under "auto" only) the tuned
+    entry's ``fan_dtype``, then f32."""
+    from wam_tpu_torch.tune.cache import lookup_schedule, resolve_fan_cap
+
+    cap = resolve_fan_cap(batch_size, fan, workload=workload, shape=shape, default=default,
+                          backend=backend)
     images_per_chunk, fan_chunk = fan_chunk_geometry(cap, fan)
-    return FanPlan(cap, images_per_chunk, fan_chunk,
-                   resolve_precision(fan_dtype=fan_dtype).fan_dtype)
+    if batch_size == "auto":
+        ent = lookup_schedule(workload, shape or (fan,), fan, backend=backend)
+        if ent and ent.get("fan_chunk"):
+            images_per_chunk = max(1, int(ent["fan_chunk"]))
+            if images_per_chunk > 1:
+                fan_chunk = None  # several whole images a chunk: no inner split
+    policy = resolve_precision(workload if batch_size == "auto" else None, shape or (fan,), fan,
+                               fan_dtype=fan_dtype, backend=backend)
+    return FanPlan(cap, images_per_chunk, fan_chunk, policy.fan_dtype)
 
 
 def cast_model_fn(model_fn, fan_dtype: str):

@@ -46,6 +46,7 @@ __all__ = [
     "SAT_THRESHOLD",
     "health_stats",
     "combine_output_grads",
+    "merge_stats",
     "batch_stats",
     "summarize",
     "publish_stats",
@@ -146,6 +147,19 @@ def combine_output_grads(out_vec, grad_vec):
         out_vec[2], out_vec[3], out_vec[4],
         grad_vec[5],
     ])
+
+
+def merge_stats(vecs):
+    """One vector for a batch computed in blocks of its rows (the fleet's
+    oversize route, `serve.entry.RowBlocks`): the counts and the sum of
+    squares add up, the max |v| is the max over the blocks. Host arrays or
+    tensors in; a float32 numpy vector out."""
+    import numpy as np
+
+    a = np.stack([np.asarray(v, dtype=np.float32) for v in vecs])
+    out = a.sum(axis=0, dtype=np.float32)
+    out[4] = a[:, 4].max()
+    return out
 
 
 def batch_stats(out):

@@ -21,7 +21,6 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from wam_tpu_torch.wavelets.transform import _f32_convs
 
 __all__ = ["gaussian_filter2d", "superpixel_sum", "upsample_nearest"]
 
@@ -42,14 +41,22 @@ def _gauss_kernel(sigma: float, radius: int, dtype, device) -> torch.Tensor:
 
 def gaussian_filter2d(img: torch.Tensor, sigma: float = 2.0) -> torch.Tensor:
     """Separable Gaussian blur over the last two axes, edge-padded by
-    radius = int(4 sigma + 1/2), normalized kernel, in full float32."""
+    radius = int(4 sigma + 1/2), normalized kernel, in float32.
+
+    Each output is its own input plus the kernel-weighted sum of its
+    window's differences from it, x_i + sum_k w_k (x_(i+k) - x_i): equal to
+    the plain weighted sum wherever the weights sum to 1, and a constant map
+    comes back bit for bit (every difference is exactly 0), where a
+    convolution of a constant rounds its weights' sum in float32 (16² of
+    ones read 16.000002 a cell, which breaks μ-fidelity's rank ties)."""
     radius = max(1, int(4.0 * sigma + 0.5))
-    k = _gauss_kernel(float(sigma), radius, img.dtype, img.device)
+    k = _gauss_kernel(float(sigma), radius, img.dtype, img.device)[0, 0]
 
     def blur_last(a: torch.Tensor) -> torch.Tensor:
-        flat = a.reshape(-1, 1, a.shape[-1])
-        with _f32_convs():
-            out = F.conv1d(F.pad(flat, (radius, radius), mode="replicate"), k)
+        flat = a.reshape(-1, a.shape[-1])
+        win = F.pad(flat[:, None], (radius, radius), mode="replicate")[:, 0]
+        win = win.unfold(-1, 2 * radius + 1, 1)  # (rows, n, 2r + 1)
+        out = flat + ((win - flat[..., None]) * k).sum(dim=-1)
         return out.reshape(a.shape)
 
     return blur_last(blur_last(img).transpose(-1, -2)).transpose(-1, -2)

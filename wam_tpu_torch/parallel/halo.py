@@ -18,6 +18,9 @@ block's tensor, moved to its device.
   the ring.
 - A ring whose blocks all belong to this process makes no distributed call
   at all (a process group of one rank included).
+- With ``batch_axis`` the rows come in row groups, one ring each; every
+  step, gather and broadcast carries all of them, so the row groups may
+  sit on any ranks (a sequence ring across processes included).
 
 The exchange counts the elements it moves from one block to another
 (`halo_elements`): the counterpart of the reference's HLO audit that no
@@ -112,10 +115,6 @@ class Ring:
                        else int(mesh.process_ids[mesh._index(c)]) for c in row] for row in idx]
         self.rank = mesh.rank
         self.distributed = not all(all(row) for row in self.owned)
-        if self.distributed and batch_axis is not None:
-            raise NotImplementedError(
-                "batch_axis= on a mesh whose sequence ring spans processes is not supported; "
-                "shard the batch over processes with separate meshes")
         local = [d for row, own in zip(self.devices, self.owned)
                  for d, o in zip(row, own) if o]
         if not local:
@@ -337,12 +336,12 @@ class Sharded:
             whole = _Gather.apply(self, device, *[t for row in self.blocks for t in row
                                                  if t is not None])
         else:
-            rows = [torch.cat([t.to(device) for t in row], dim=self.axis) for row in self.blocks]
-            if samples > 1:
-                rows = [r.reshape((samples, -1) + tuple(r.shape[1:])) for r in rows]
-                whole = torch.cat(rows, dim=1).reshape((-1,) + tuple(rows[0].shape[2:]))
-            else:
-                whole = torch.cat(rows, dim=0)
+            whole = torch.cat([torch.cat([t.to(device) for t in row], dim=self.axis)
+                               for row in self.blocks], dim=0)
+        g = self.ring.g
+        if samples > 1 and g > 1:  # group-major (G, s, r) rows -> sample-major
+            rest = tuple(whole.shape[1:])
+            whole = whole.reshape((g, samples, -1) + rest).transpose(0, 1).reshape((-1,) + rest)
         if self.lead is not None and samples == 1:
             whole = whole.reshape(self.lead + tuple(whole.shape[1:]))
         return whole
@@ -353,8 +352,9 @@ class Sharded:
 
 
 class _Gather(torch.autograd.Function):
-    """Every block broadcast from its owner, concatenated on ``device``; the
-    backward keeps the slices of this rank's blocks (every rank computes
+    """Every block broadcast from its owner, concatenated on ``device`` (row
+    groups along the rows, in group order); the backward keeps the slices
+    of this rank's blocks (every rank computes
     the same function of the whole tensor, so no gradient crosses)."""
 
     @staticmethod
@@ -381,11 +381,13 @@ class _Gather(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         sh, m = ctx.sh, ctx.m
+        r = g.shape[0] // sh.ring.g
         outs = []
         it = iter(ctx.devs)
-        for j in range(sh.ring.k):
-            if sh.ring.owned[0][j]:
-                outs.append(g.narrow(sh.axis, j * m, m).to(next(it)))
+        for i in range(sh.ring.g):
+            for j in range(sh.ring.k):
+                if sh.ring.owned[i][j]:
+                    outs.append(g.narrow(0, i * r, r).narrow(sh.axis, j * m, m).to(next(it)))
         return (None, None, *outs)
 
 

@@ -209,14 +209,14 @@ def _core_level(grid, wav: Wavelet, mode: str, ring: Ring):
 
 def _end_segment(grid, take: int, ring: Ring) -> torch.Tensor:
     """The last ``take`` samples of every row group's last block, rows in
-    group order, on the tail device (broadcast by the last shard's owner
-    across processes)."""
+    group order, on the tail device (across processes each group's from
+    its last shard's owner, one broadcast a group)."""
     k = ring.k
     if ring.distributed:
-        last = grid[0][k - 1]
-        mine = None if last is None else last[:, -take:]
         like = _first(grid)[:, -take:]
-        return broadcast_from(ring, mine, (0, k - 1), like)
+        ends = [None if row[k - 1] is None else row[k - 1][:, -take:] for row in grid]
+        return torch.cat([broadcast_from(ring, end, (i, k - 1), like)
+                          for i, end in enumerate(ends)], dim=0)
     return torch.cat([row[k - 1][:, -take:].to(ring.tail_device) for row in grid], dim=0)
 
 

@@ -31,9 +31,10 @@ Design, where the port departs from the reference:
   call) or of the split loop's pieces (``fused=False``: draw, decompose,
   gradients, accumulation), the same operations in the same order, so the
   two are bit-equal; ``dispatch_count`` counts step calls and advances by
-  the reference's counts on the same calls. ``"auto"`` resolves to
-  ``fused=True`` and ``sample_chunk=1``: the reference's no-entry
-  fallbacks, the port having no schedule cache yet.
+  the reference's counts on the same calls. ``"auto"`` reads the schedule
+  cache's ``wamseq{n}d`` entry (`wam_tpu_torch.tune`: ``seq_fused``,
+  ``sample_chunk``) and without one resolves to ``fused=True`` and
+  ``sample_chunk=1``, the reference's no-entry fallbacks.
 - **First calls.** A step's first call at a new input signature reports
   to `obs.sentinel` under kind ``"seq"`` (the reference reports its jits'
   traces there).
@@ -114,7 +115,8 @@ class SeqShardedWam:
     (the 2D mosaic, the 3D cube); identity when None.
 
     ``model_fn`` takes the whole reconstruction on the mesh's model device
-    (block 0's; module docstring). ``fused``: True, False or "auto" (True).
+    (block 0's; module docstring). ``fused``: True, False or "auto" (the
+    tuned ``seq_fused``, else True).
     ``dwt_bf16`` casts the signal to bfloat16 at the decompose boundary; the
     transforms read it as float32. ``dispatch_count`` counts step calls.
     """
@@ -162,8 +164,6 @@ class SeqShardedWam:
         self.post_fn = post_fn
         self.model_fn = model_fn
         self.fused = fused
-        # "auto": the reference's fallback when its schedule cache has no entry
-        self._use_fused = True if fused == "auto" else bool(fused)
         self.dwt_bf16 = dwt_bf16
         self.dispatch_count = 0  # step calls launched by the entry points
         self.periodized = mode == "periodization"
@@ -417,6 +417,36 @@ class SeqShardedWam:
             return (self._gather(tree[0]), tree[1])
         return self._gather(tree)
 
+    # -- the schedule knobs ("auto": the schedule cache, wam_tpu_torch.tune) --
+
+    def _lookup(self, x):
+        from wam_tpu_torch.tune.cache import lookup_schedule
+
+        return lookup_schedule(f"wamseq{self.ndim}d", tuple(x.shape[1:]), int(x.shape[0]),
+                               backend=x.device.type)
+
+    def _resolve_fused(self, x) -> bool:
+        """``fused="auto"``: the tuned ``seq_fused`` of the ``wamseq{n}d`` key,
+        else True (one step a sample)."""
+        if self.fused != "auto":
+            return bool(self.fused)
+        ent = self._lookup(x)
+        if ent is not None and "seq_fused" in ent:
+            return bool(ent["seq_fused"])
+        return True
+
+    def _resolve_seq_chunk(self, sample_chunk, x, n: int) -> int:
+        """``sample_chunk``: None is all ``n``; "auto" the tuned chunk of the
+        ``wamseq{n}d`` key (None in the entry: all), else 1 (one sample a
+        step, never every sequence-sized sample at once)."""
+        if sample_chunk == "auto":
+            ent = self._lookup(x)
+            sample_chunk = 1
+            if ent is not None and "sample_chunk" in ent:
+                chunk = ent["sample_chunk"]
+                sample_chunk = None if chunk is None else max(1, int(chunk))
+        return n if sample_chunk is None else sample_chunk
+
     # -- entry points --------------------------------------------------------
 
     def attribute(self, x, y=None):
@@ -424,7 +454,7 @@ class SeqShardedWam:
         gives them, gathered. Fused: one step."""
         self._check_batched(x)
         shape = tuple(x.shape)
-        if self._use_fused:
+        if self._resolve_fused(x):
             self.dec._check(x)
             coeffs, grads = self._call("_fused_attr", self._fused_attr, x, y)
         else:
@@ -447,8 +477,8 @@ class SeqShardedWam:
         model rows (None: all; "auto": 1); a remainder chunk is padded with
         weight-0 slots so every chunk has one shape."""
         self._check_batched(x)
-        fused = self._use_fused
-        sample_chunk = {"auto": 1, None: n_samples}.get(sample_chunk, sample_chunk)
+        fused = self._resolve_fused(x)
+        sample_chunk = self._resolve_seq_chunk(sample_chunk, x, n_samples)
         shape = tuple(x.shape)
         if noise is not None and tuple(noise.shape) != (n_samples,) + shape:
             raise ValueError(f"noise must have shape {(n_samples,) + shape}, "
@@ -522,9 +552,10 @@ class SeqShardedWam:
         from wam_tpu_torch.core.estimators import resolve_checkpoint_stride
 
         self._check_batched(x)
-        fused = self._use_fused
+        fused = self._resolve_fused(x)
         stride = resolve_checkpoint_stride(stride, n_samples, workload=f"wamseq{self.ndim}d",
-                                           shape=tuple(x.shape[1:]), batch=x.shape[0])
+                                           shape=tuple(x.shape[1:]), batch=x.shape[0],
+                                           backend=x.device.type)
         if fused:
             self.dec._check(x)
         state = self._anytime_state(x)
@@ -554,9 +585,10 @@ class SeqShardedWam:
         from wam_tpu_torch.core.estimators import resolve_checkpoint_stride
 
         self._check_batched(x)
-        fused = self._use_fused
+        fused = self._resolve_fused(x)
         stride = resolve_checkpoint_stride(stride, n_steps, workload=f"wamseq{self.ndim}d",
-                                           shape=tuple(x.shape[1:]), batch=x.shape[0])
+                                           shape=tuple(x.shape[1:]), batch=x.shape[0],
+                                           backend=x.device.type)
         shape = tuple(x.shape)
         coeffs = self._call("dec", self._decompose_checked, self._dec_input(x))
         alphas = torch.linspace(0.0, 1.0, n_steps, dtype=torch.float32).tolist()
@@ -645,8 +677,8 @@ class SeqShardedWam:
         (None: all, "auto": 1). Decompose once, then one step a point (or a
         chunk)."""
         self._check_batched(x)
-        fused = self._use_fused
-        sample_chunk = {"auto": 1, None: n_steps}.get(sample_chunk, sample_chunk)
+        fused = self._resolve_fused(x)
+        sample_chunk = self._resolve_seq_chunk(sample_chunk, x, n_steps)
         shape = tuple(x.shape)
         coeffs = self._call("dec", self._decompose_checked, self._dec_input(x))
         alphas = torch.linspace(0.0, 1.0, n_steps, dtype=torch.float32).tolist()

@@ -42,7 +42,7 @@ from typing import Callable
 from wam_tpu_torch.obs import sentinel
 from wam_tpu_torch.pipeline.donation import release, resolve_donate
 
-__all__ = ["jit_entry", "fleet_aot_key", "signature", "RowBlocks"]
+__all__ = ["jit_entry", "fleet_aot_key", "signature", "RowBlocks", "join_blocks"]
 
 
 @dataclass(frozen=True)
@@ -61,6 +61,37 @@ class RowBlocks:
 
     partial: Callable
     finish: Callable
+
+    @classmethod
+    def local(cls, rows: Callable) -> "RowBlocks":
+        """Blocks of an entry whose only batch-wide dependences are its
+        noise draws and its loss scale: ``rows(x_block, y_block, lo,
+        total)`` gives the block's rows of the result outright (no maxima,
+        the finish passes them through)."""
+        return cls(lambda x, y, lo, total: (rows(x, y, lo, total), ()),
+                   lambda state, maxima: state)
+
+
+def join_blocks(parts: list, health: bool = False):
+    """The whole batch's result from its blocks' finished results (host
+    numpy trees, in row order): every leaf concatenated along its rows; a
+    health-carrying entry's ``(out, vec)`` pairs give ``(out, merged
+    vec)`` (`obs.health.merge_stats`)."""
+    import numpy as np
+
+    def cat(trees):
+        first = trees[0]
+        if isinstance(first, dict):
+            return {k: cat([t[k] for t in trees]) for k in first}
+        if isinstance(first, (tuple, list)):
+            return type(first)(cat([t[i] for t in trees]) for i in range(len(first)))
+        return np.concatenate([np.asarray(t) for t in trees])
+
+    if not health:
+        return cat(parts)
+    from wam_tpu_torch.obs.health import merge_stats
+
+    return cat([p[0] for p in parts]), merge_stats([p[1] for p in parts])
 
 
 def fleet_aot_key(aot_key: str | None, n_replicas: int | None,
@@ -132,7 +163,9 @@ def jit_entry(
 
     ``blocks`` becomes ``entry.wam_blocks`` (module docstring); a block's
     ``partial`` counts its first calls and releases its donated input as
-    the entry does."""
+    the entry does. With ``with_health=True`` each block's finish returns
+    ``(rows, health vector of its rows)`` (`join_blocks` merges them);
+    with ``"fused"`` the given finish already does."""
     if aot_key is not None:
         raise NotImplementedError(
             "aot_key= needs the AOT executable cache, pipeline/aot.py, which is not "
@@ -182,7 +215,15 @@ def jit_entry(
                 release(x)
             return out
 
-        entry.wam_blocks = RowBlocks(partial, blocks.finish)
+        finish = blocks.finish
+        if with_health and not fused:
+            from wam_tpu_torch.obs.health import health_stats
+
+            def finish(state, maxima):  # noqa: F811 - health-wrapped rebind
+                out = blocks.finish(state, maxima)
+                return out, health_stats(out)
+
+        entry.wam_blocks = RowBlocks(partial, finish)
     if with_health:
         entry.wam_health = True
     return entry

@@ -34,8 +34,12 @@ front:
   drawn at the batch's shape) carries ``wam_blocks`` (`serve.entry.RowBlocks`):
   each replica runs its block's share, the fleet takes the elementwise max
   of the blocks' maxima on the host (the one exchange between replicas),
-  and each replica finishes its rows with it. An entry that declares
-  neither is refused at construction with ``oversize="pjit"``;
+  and each replica finishes its rows with it. Every explainer's
+  ``serve_entry`` carries them (1D, 2D, 3D, video, `BaseWAM2D`, with or
+  without health; a health entry's per-block vectors are merged into the
+  batch's by `obs.health.merge_stats` and published under source
+  ``fleet_oversize``). An entry that declares neither is refused at
+  construction with ``oversize="pjit"``;
   ``oversize="fanout"`` splits oversize batches into routed per-item
   submits instead.
 - **Replica death**: a request whose entry raised (anything that is not a
@@ -96,11 +100,13 @@ import numpy as np
 import torch
 
 from wam_tpu_torch.evalsuite.fan import device_fetch
+from wam_tpu_torch.obs.health import publish_stats
 from wam_tpu_torch.obs import sentinel as obs_sentinel
 from wam_tpu_torch.obs import tracing as obs_tracing
 from wam_tpu_torch.parallel.mesh import P, replica_mesh, visible_devices
 from wam_tpu_torch.pipeline.stager import put_committed
 from wam_tpu_torch.serve.buckets import Bucket, BucketTable, NoBucketError, bucket_key, pad_item
+from wam_tpu_torch.serve.entry import join_blocks
 from wam_tpu_torch.serve.metrics import EMA_SEED_S, FleetMetrics, ServeMetrics
 from wam_tpu_torch.serve.models import ModelSpec
 from wam_tpu_torch.serve.result_cache import ResultCache
@@ -194,16 +200,6 @@ def _stack(rows):
     if isinstance(first, (tuple, list)):
         return type(first)(_stack([r[i] for r in rows]) for i in range(len(first)))
     return np.stack([np.asarray(r) for r in rows])
-
-
-def _concat(parts):
-    """Host result trees concatenated along axis 0."""
-    first = parts[0]
-    if isinstance(first, dict):
-        return {k: _concat([p[k] for p in parts]) for k in first}
-    if isinstance(first, (tuple, list)):
-        return type(first)(_concat([p[i] for p in parts]) for i in range(len(first)))
-    return np.concatenate([np.asarray(p) for p in parts])
 
 
 def _head(tree, k: int):
@@ -452,7 +448,8 @@ class FleetServer:
         reference's serving benchmark builds one: ``cfg.fleet`` replicas,
         ``cfg.oversize``, ``cfg.supervise`` with ``restart_max`` /
         ``restart_window_s`` / ``restart_backoff_ms`` as the
-        `SupervisorConfig` (its jitter seeded with ``seed``), the health,
+        `SupervisorConfig` (its jitter seeded with ``seed``), ``max_batch``
+        ("auto": `tune.resolve_bucket_cap` at the fleet's width), the health,
         memory, SLO, quota and cache knobs, and ``cfg.bucket_shapes()``.
         ``devices`` None takes ``cfg.device``: "auto" or "cuda" is every
         visible card, any other device is named ``cfg.fleet`` times.
@@ -460,13 +457,16 @@ class FleetServer:
         config's."""
         from wam_tpu_torch.obs.health import HealthConfig
         from wam_tpu_torch.serve.supervisor import SupervisorConfig
+        from wam_tpu_torch.tune.cache import resolve_bucket_cap
 
         if devices is None and cfg.device not in ("auto", "cuda"):
             devices = [cfg.device] * cfg.fleet
         kw = dict(
             replicas=cfg.fleet,
             devices=devices,
-            max_batch=8 if cfg.max_batch == "auto" else int(cfg.max_batch),
+            max_batch=resolve_bucket_cap(
+                cfg.max_batch, replicas=cfg.fleet,
+                backend=None if cfg.device == "auto" else torch.device(cfg.device).type),
             max_wait_ms=cfg.max_wait_ms,
             coalesce_ms=cfg.coalesce_ms,
             result_cache=int(cfg.result_cache_mb * 2**20) or None,
@@ -1183,6 +1183,7 @@ class FleetServer:
         metrics = self.metrics.oversize
         metrics.note_submit(len(xs))
         blocked = getattr(self._os_entries[0], "wam_blocks", None) is not None
+        health = getattr(self._os_entries[0], "wam_health", False)
         outs = []
         with self._os_lock:
             if self._os_pools is None:
@@ -1232,7 +1233,11 @@ class FleetServer:
                         else:
                             parts = each(lambda rid: self._replica_rows(rid, xt, yc))
                     with metrics.stages.stage("harvest"):
-                        out = _head(_concat(parts), k)
+                        out = join_blocks(parts, health=health)
+                        if health:
+                            publish_stats(out[1], source="fleet_oversize", bucket=bkey)
+                            out = out[0]
+                        out = _head(out, k)
                 service_s = time.perf_counter() - t0
                 metrics.note_batch(
                     bucket_shape=bucket.shape,
@@ -1245,7 +1250,7 @@ class FleetServer:
                     latencies_s=[service_s] * k,
                 )
                 outs.append(out)
-        return _concat(outs)
+        return join_blocks(outs)
 
 
 def _tree_max(trees: list):

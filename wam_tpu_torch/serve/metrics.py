@@ -17,8 +17,8 @@ over the window; pipelined overlap can push utilization above the card's
 true duty cycle — it is a routing/idleness signal, not a device
 measurement). ``compile_count`` counts first calls at a new signature (the
 reference counts jit traces). ``serve_batch`` rows carry the schedule
-fingerprint (`result_cache.schedule_fingerprint`: the no-table constant
-until the port's tuned schedules land). `FleetMetrics` aggregates a
+fingerprint (`tune.cache.schedule_fingerprint`, the digest of the loaded
+schedule table). `FleetMetrics` aggregates a
 fleet's replica ledgers (`serve.fleet`) into one ``fleet_summary`` row
 (aggregate attributions/s, pooled latency percentiles, per-replica
 utilization, replica deaths and restarts, oversize counters), with one

@@ -19,10 +19,9 @@ schedule_fingerprint | precision_tag``:
   only shared between servers running the SAME logical entry (fleet
   replicas built from one factory); callers serving multiple entries from
   one cache must pass distinguishing ids;
-- the schedule fingerprint is `schedule_fingerprint()`: the reference's
-  changes whenever a tuned schedule lands; the port has no schedule table
-  yet (``tune/cache.py``, ROADMAP.md slice E), so it is the constant
-  `NO_SCHEDULE`, and the key slot is in place for it;
+- the schedule fingerprint is `schedule_fingerprint()`, the digest of the
+  loaded schedule table (`tune.cache.schedule_fingerprint`): it changes
+  whenever a tuned schedule lands;
 - the precision tag (the port's `config.precision_tag`) covers
   env-routed precision flips (``WAM_TPU_FAN_DTYPE`` /
   ``WAM_TPU_MEL_BF16``) — a bf16 run can never replay a cached f32
@@ -69,12 +68,7 @@ import numpy as np
 
 from wam_tpu_torch.obs.registry import registry as _obs_registry
 
-__all__ = ["ResultCache", "result_cache_key", "cache_disabled", "schedule_fingerprint",
-           "NO_SCHEDULE"]
-
-# the schedule fingerprint of a process with no tuned schedule table: the
-# port has none until tune/cache.py lands (ROADMAP.md slice E)
-NO_SCHEDULE = "no-schedule-table"
+__all__ = ["ResultCache", "result_cache_key", "cache_disabled", "schedule_fingerprint"]
 
 _c_hits = _obs_registry.counter(
     "wam_tpu_serve_cache_hits_total",
@@ -98,9 +92,11 @@ def cache_disabled() -> bool:
 
 
 def schedule_fingerprint() -> str:
-    """The live tuned-schedule fingerprint: `NO_SCHEDULE` (module
-    docstring)."""
-    return NO_SCHEDULE
+    """The live tuned-schedule fingerprint (`tune.cache.schedule_fingerprint`,
+    module docstring)."""
+    from wam_tpu_torch.tune.cache import schedule_fingerprint as live
+
+    return live()
 
 
 def result_cache_key(x: np.ndarray, y, cache_id: str,

@@ -26,6 +26,7 @@ import torch
 
 from wam_tpu_torch.core.engine import WamEngine
 from wam_tpu_torch.core.estimators import (
+    block_draws,
     integrated_path,
     resolve_sample_chunk,
     smoothgrad,
@@ -228,16 +229,23 @@ class WaveletAttribution1D(BaseWAM1D):
         self.sample_batch_size = sample_batch_size
         self.stream_noise = stream_noise
 
-    def _chunk(self) -> int | None:
-        return resolve_sample_chunk(self.sample_batch_size, self.n_samples)
+    def _chunk(self, x) -> int | None:
+        """sample_batch_size resolved for the waveforms ``x``: explicit, or
+        for "auto" the tuned chunk of the schedule key ("wam1d", the item
+        shape, batch, backend), else every sample at once."""
+        return resolve_sample_chunk(self.sample_batch_size, self.n_samples, workload="wam1d",
+                                    shape=tuple(x.shape[1:]), batch=int(x.shape[0]),
+                                    backend=x.device.type)
 
-    def _tap_grads(self, coeffs, y, length: int, s: int) -> list[torch.Tensor]:
+    def _tap_grads(self, coeffs, y, length: int, s: int, scale: float = 1.0) -> list[torch.Tensor]:
         """Both taps' gradients for ``s`` stacked copies (coefficient leaves
         (s*N, n_l), sample-major): [mel (s, N, T, M), cA_J, cD_J, ..., cD_1
-        each (s, N, n_l)]."""
+        each (s, N, n_l)], times ``scale`` (a block's rows over its batch's,
+        `_rows`)."""
         g_coeffs, g_mel = self.engine.grads_from_coeffs(
             coeffs, y.repeat(s), (length,), samples=s, front=True)
-        return [g.reshape((s, -1) + tuple(g.shape[1:])) for g in [g_mel[:, 0], *g_coeffs]]
+        return [(g if scale == 1.0 else g * scale).reshape((s, -1) + tuple(g.shape[1:]))
+                for g in [g_mel[:, 0], *g_coeffs]]
 
     # -- SmoothGrad --------------------------------------------------------
 
@@ -247,14 +255,16 @@ class WaveletAttribution1D(BaseWAM1D):
         self.grad_coeffs = grad_avg
         return mel_avg, grad_avg
 
-    def _smooth(self, x, y, noise=None):
+    def _smooth(self, x, y, noise=None, scale: float = 1.0, stream: bool | None = None):
         """``(mel_avg, [coefficient averages])``, with no instance attribute
-        set."""
+        set. ``scale`` and ``stream`` are `_rows`' (a block of a batch)."""
         x, y = self._inputs(x, y)
+        chunk = self._chunk(x)
+        stream = self.stream_noise if stream is None else stream
         if self.mesh is not None:
             grad_avg, mel_tap = self._seq.smoothgrad(
                 x, y, self.random_seed, n_samples=self.n_samples,
-                stdev_spread=self.stdev_spread, sample_chunk=self._chunk(),
+                stdev_spread=self.stdev_spread, sample_chunk=chunk,
                 noise=None if noise is None else torch.as_tensor(noise, device=x.device))
             return mel_tap[:, 0], grad_avg
         length = x.shape[-1]
@@ -262,17 +272,17 @@ class WaveletAttribution1D(BaseWAM1D):
         def step(noisy: torch.Tensor) -> list[torch.Tensor]:  # (s, N, W)
             with torch.no_grad():
                 coeffs = self.engine.decompose(noisy.reshape(-1, length))
-            return self._tap_grads(coeffs, y, length, noisy.shape[0])
+            return self._tap_grads(coeffs, y, length, noisy.shape[0], scale)
 
         generator = None
-        if noise is None and not self.stream_noise:
+        if noise is None and not stream:
             generator = torch.Generator(device=self.device).manual_seed(self.random_seed)
         if noise is not None:
             noise = torch.as_tensor(noise, device=self.device)
         mel_avg, *grad_avg = smoothgrad(
             step, x, n_samples=self.n_samples, stdev_spread=self.stdev_spread,
-            batch_size=self._chunk(), generator=generator, noise=noise,
-            materialize_noise=not self.stream_noise, seed=self.random_seed)
+            batch_size=chunk, generator=generator, noise=noise,
+            materialize_noise=not stream, seed=self.random_seed)
         return mel_avg, grad_avg
 
     # -- Integrated gradients ---------------------------------------------
@@ -283,13 +293,14 @@ class WaveletAttribution1D(BaseWAM1D):
         self.grad_coeffs = coeff_attr
         return mel_attr, coeff_attr
 
-    def _integrated(self, x, y):
+    def _integrated(self, x, y, scale: float = 1.0):
         """``(mel_attr, [coefficient attributions])``, with no instance
-        attribute set."""
+        attribute set; ``scale`` is `_rows`'."""
         x, y = self._inputs(x, y)
+        chunk = self._chunk(x)
         if self.mesh is not None:
             coeffs, (coeff_integ, mel_integ) = self._seq.integrated(
-                x, y, n_steps=self.n_samples, sample_chunk=self._chunk())
+                x, y, n_steps=self.n_samples, sample_chunk=chunk)
             with torch.no_grad():
                 baseline_mel = self._seq_front(x)[:, 0]
             return (baseline_mel * mel_integ[:, 0],
@@ -303,10 +314,10 @@ class WaveletAttribution1D(BaseWAM1D):
             s = alphas.shape[0]
             scaled = [(c[None] * alphas.to(c.dtype).reshape(-1, 1, 1)).reshape((-1, c.shape[-1]))
                       for c in coeffs]
-            return self._tap_grads(scaled, y, length, s)
+            return self._tap_grads(scaled, y, length, s, scale)
 
         mel_integ, *coeff_integ = integrated_path(
-            grad_fn, n_steps=self.n_samples, batch_size=self._chunk(), device=self.device)
+            grad_fn, n_steps=self.n_samples, batch_size=chunk, device=self.device)
         mel_attr = baseline_mel * mel_integ
         coeff_attr = [c * g for c, g in zip(coeffs, coeff_integ)]
         return mel_attr, coeff_attr
@@ -330,16 +341,34 @@ class WaveletAttribution1D(BaseWAM1D):
         the instance seed on every call (one noise stream for every batch).
         ``mesh=`` is rejected: the serving worker owns one device.
         ``with_health=True`` computes the numeric-health vector over the
-        result tree in the same call (`serve.entry.jit_entry`)."""
+        result tree in the same call (`serve.entry.jit_entry`). The entry
+        carries the `serve.entry.RowBlocks` of `_rows` (the fleet's "pjit"
+        oversize route)."""
         if self.mesh is not None:
             raise ValueError(
                 "serve_entry() does not support mesh=; the serve worker owns "
                 "a single device — drive the sharded estimator directly")
-        from wam_tpu_torch.serve.entry import jit_entry
+        from wam_tpu_torch.serve.entry import RowBlocks, jit_entry
 
         impl = self._smooth if self.method == "smooth" else self._integrated
         return jit_entry(lambda x, y: impl(torch.as_tensor(x).float(), y), donate=donate,
-                         on_trace=on_trace, aot_key=aot_key, with_health=with_health)
+                         on_trace=on_trace, aot_key=aot_key, with_health=with_health,
+                         blocks=RowBlocks.local(self._rows))
+
+    def _rows(self, x, y, lo: int, total: int):
+        """Rows [lo, lo + len(x)) of the entry's result on a ``total``-row
+        batch: SmoothGrad's draws are the whole batch's cut to these rows,
+        and the gradients are scaled to the whole batch's loss (the mean
+        over its rows). No reduction crosses rows, so nothing else is
+        shared (`RowBlocks.local`)."""
+        x = torch.as_tensor(x).float()
+        scale = x.shape[0] / total
+        if self.method != "smooth":
+            return self._integrated(x, y, scale)
+        xs, _ = self._inputs(x, y)
+        draw = block_draws(self.random_seed, self.n_samples, (total,) + tuple(xs.shape[1:]), lo,
+                           xs.shape[0], xs.device, xs.dtype, self.stream_noise)
+        return self._smooth(x, y, draw(0, self.n_samples), scale, stream=False)
 
 
 def _minmax_normalize(a):

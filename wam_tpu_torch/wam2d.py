@@ -29,6 +29,7 @@ import torch
 
 from wam_tpu_torch.core.engine import WamEngine, map_coeffs
 from wam_tpu_torch.core.estimators import (
+    block_draws,
     integrated_path,
     noise_sigma,
     resolve_checkpoint_stride,
@@ -47,6 +48,7 @@ from wam_tpu_torch.ops.packing2d import (
     normalize_mosaic,
     reproject_mosaic,
 )
+from wam_tpu_torch.wavelets.transform import IMPLS
 
 __all__ = ["BaseWAM2D", "WaveletAttribution2D"]
 
@@ -136,9 +138,18 @@ class BaseWAM2D:
         key raises until slice E). ``with_health=True`` computes the
         numeric-health vector in the same call — mosaic saturation/max plus
         the coefficient-gradient norm and pooled NaN/Inf counts
-        (`WamEngine.attribute_with_health`), zero extra fetches."""
-        from wam_tpu_torch.serve.entry import jit_entry
+        (`WamEngine.attribute_with_health`), zero extra fetches.
 
+        The mosaic is normalized over the batch, so a row depends on the
+        rows beside it: the entry carries the `serve.entry.RowBlocks` that
+        compute a batch on blocks of its rows with the entry's result on
+        the whole batch (each block's gradients scaled to the whole batch's
+        loss, its mosaic normalized by the max over every block; with
+        health, each block's vector merged by `obs.health.merge_stats`)."""
+        from wam_tpu_torch.serve.entry import RowBlocks, jit_entry
+
+        blocks = RowBlocks(lambda x, y, lo, total: self._pass_partial(x, y, lo, total, with_health),
+                           self._pass_finish)
         if with_health:
             from wam_tpu_torch.obs.health import combine_output_grads, health_stats
 
@@ -149,14 +160,63 @@ class BaseWAM2D:
                 return m, combine_output_grads(health_stats(m), gvec)
 
             return jit_entry(impl, donate=donate, on_trace=on_trace, aot_key=aot_key,
-                             with_health="fused")
+                             with_health="fused", blocks=blocks)
 
         def impl(x, y):
             x, y = self._inputs(x, y)
             _, grads = self.engine.attribute(self._to_internal(x), y)
             return mosaic2d(grads, self.normalize_coeffs, self._caxis)
 
-        return jit_entry(impl, donate=donate, on_trace=on_trace, aot_key=aot_key)
+        return jit_entry(impl, donate=donate, on_trace=on_trace, aot_key=aot_key, blocks=blocks)
+
+    # -- Blocks of a batch's rows (the fleet's oversize route) -------------
+
+    def _block_grads(self, coeffs, y, spatial, s: int, scale: float,
+                     synth: str | None = None):
+        """`_mosaic_of_grads` of a block of rows of a larger batch, before
+        its normalization: the unnormalized mosaics (s, b, S, S), their
+        `leaf_maxima` (s, n_regions) over the block's rows and the mosaic's
+        regions. The gradients are multiplied by ``scale`` (block rows /
+        batch rows), so a row's gradient is the one the batch-mean loss of
+        the whole batch gives it. ``synth``: the synthesis impl
+        (`WaveletAttribution2D._synth`)."""
+        grads = self.engine.grads_from_coeffs(coeffs, y.repeat(s) if y is not None else None,
+                                              spatial, samples=s, synth_impl=synth)
+        grads = map_coeffs(lambda g: (g * scale).reshape((s, -1) + tuple(g.shape[1:])), grads)
+        return (mosaic2d(grads, False, self._caxis), leaf_maxima(grads, self._caxis),
+                mosaic_regions(grads, self._caxis))
+
+    def _normalized(self, mosaics, maxima, regions):
+        if not self.normalize_coeffs:
+            return mosaics
+        return normalize_mosaic(mosaics, torch.as_tensor(maxima, device=mosaics.device), regions)
+
+    def _pass_partial(self, x, y, lo: int, total: int, health: bool = False):
+        """`RowBlocks.partial` of one pass: this block's unnormalized mosaic
+        (its gradients scaled to the whole batch's loss), its maxima, and
+        with ``health`` the gradients' health vector."""
+        del lo  # one pass draws nothing
+        x, y = self._inputs(x, y)
+        xi = self._to_internal(x)
+        with torch.no_grad():
+            coeffs = self.engine.decompose(xi)
+        spatial = self.engine.spatial_shape(xi.shape)
+        grads = self.engine.grads_from_coeffs(coeffs, y, spatial)
+        grads = map_coeffs(lambda g: g * (x.shape[0] / total), grads)
+        state = (mosaic2d(grads, False, self._caxis), mosaic_regions(grads, self._caxis))
+        if health:
+            from wam_tpu_torch.obs.health import health_stats
+
+            state = state + (health_stats(grads),)
+        return state, leaf_maxima(grads, self._caxis)
+
+    def _pass_finish(self, state, maxima):
+        m = self._normalized(state[0], maxima, state[1])
+        if len(state) == 2:
+            return m
+        from wam_tpu_torch.obs.health import combine_output_grads, health_stats
+
+        return m, combine_output_grads(health_stats(m), state[2])
 
     def disentangle_scales(self, grads, approx_coeffs: bool = False):
         return disentangle_scales(grads, approx_coeffs=approx_coeffs, channel_axis=self._caxis)
@@ -191,6 +251,12 @@ class WaveletAttribution2D(BaseWAM2D):
     not depend on the chunk (the draws differ from the materialized ones).
     ``"auto"`` materializes: the reference streams above ~128 MB of noise on
     the TPU only, and no rule for the card has been measured yet.
+
+    ``synth_impl`` is the synthesis impl of this explainer's calls (``"conv"``,
+    ``"matmul"`` or ``"kernel"``). None takes ``impl`` when given, else the
+    tuned ``synth_impl`` of the call's schedule key, else the process knob
+    (`wavelets.transform.set_synth2_impl`). A tuned entry applies to the
+    call it matches and to no other: the knob is never written.
 
     ``mesh=`` shards the image ROW axis over the mesh's ``seq_axis``
     (`parallel.SeqShardedWam`; ``batch_axis`` splits the batch too,
@@ -227,6 +293,7 @@ class WaveletAttribution2D(BaseWAM2D):
         level_plan: str = "explicit",
         patch: int = 16,
         image_size: int | None = None,
+        synth_impl: str | None = None,
     ):
         super().__init__(model_fn, wavelet=wavelet, J=J, mode=mode,
                          approx_coeffs=approx_coeffs, normalize_coeffs=normalize_coeffs,
@@ -261,15 +328,60 @@ class WaveletAttribution2D(BaseWAM2D):
         self.random_seed = random_seed
         self.sample_batch_size = sample_batch_size
         self.stream_noise = stream_noise is True
+        self._stream_auto = stream_noise == "auto"
+        if synth_impl is not None and synth_impl not in IMPLS:
+            raise ValueError(f"synth_impl {synth_impl!r} not one of {IMPLS}")
+        self.synth_impl = synth_impl
 
-    def _chunk(self) -> int | None:
-        return resolve_sample_chunk(self.sample_batch_size, self.n_samples)
+    def _schedule_key(self, x, batch: int | None = None) -> dict:
+        """The call's identity in the schedule cache (`wam_tpu_torch.tune`):
+        workload "wam2d", the caller-layout item shape, the batch (``x``'s,
+        or the whole batch a block of rows belongs to), the transform dtype,
+        the engine's impl and the input's backend."""
+        batch = int(x.shape[0]) if batch is None else int(batch)
+        return {"workload": "wam2d", "shape": tuple(x.shape[1:]), "batch": batch,
+                "dtype": "bf16" if self.dwt_bf16 else "f32", "dwt_impl": self.engine.impl,
+                "backend": x.device.type}
 
-    def _mosaic_of_grads(self, coeffs, y, spatial, s: int) -> torch.Tensor:
+    def _chunk(self, x, batch: int | None = None) -> int | None:
+        """sample_batch_size resolved for ``x`` (the caller's NCHW batch): an
+        explicit value, or for "auto" the tuned chunk of this call's
+        schedule key, else every sample at once."""
+        return resolve_sample_chunk(self.sample_batch_size, self.n_samples,
+                                    **self._schedule_key(x, batch))
+
+    def _synth(self, x, batch: int | None = None) -> str | None:
+        """The synthesis impl of a call on ``x`` (the caller's NCHW batch):
+        ``synth_impl``, else ``impl``, else the tuned ``synth_impl`` of the
+        call's schedule key (`tune.cache.tuned_synth_impl`), else None (the
+        process knob)."""
+        if self.synth_impl is not None or self.engine.impl is not None:
+            return self.synth_impl or self.engine.impl
+        from wam_tpu_torch.tune.cache import tuned_synth_impl
+
+        key = self._schedule_key(x, batch)
+        return tuned_synth_impl(key["workload"], key["shape"], key["batch"], key["dtype"],
+                                backend=key["backend"])
+
+    def _stream(self, x, batch: int | None = None) -> bool:
+        """stream_noise for ``x``: True / False as given; "auto" reads the
+        tuned ``stream_noise`` of the call's schedule key, else
+        materializes."""
+        if self._stream_auto:
+            from wam_tpu_torch.tune.cache import lookup_schedule
+
+            ent = lookup_schedule(**self._schedule_key(x, batch))
+            if ent is not None and ent.get("stream_noise") is not None:
+                return bool(ent["stream_noise"])
+        return self.stream_noise
+
+    def _mosaic_of_grads(self, coeffs, y, spatial, s: int,
+                         synth: str | None = None) -> torch.Tensor:
         """Gradient mosaics of ``s`` stacked copies: coefficient leaves are
-        (s*B, C, h, w), sample-major; returns (s, B, S, S)."""
+        (s*B, C, h, w), sample-major; returns (s, B, S, S). ``synth``: the
+        synthesis impl (`_synth`)."""
         grads = self.engine.grads_from_coeffs(coeffs, y.repeat(s) if y is not None else None,
-                                              spatial, samples=s)
+                                              spatial, samples=s, synth_impl=synth)
         grads = map_coeffs(lambda g: g.reshape((s, -1) + tuple(g.shape[1:])), grads)
         return mosaic2d(grads, self.normalize_coeffs, self._caxis)
 
@@ -283,11 +395,14 @@ class WaveletAttribution2D(BaseWAM2D):
     def _smooth(self, x, y, noise=None) -> torch.Tensor:
         """The SmoothGrad mosaic, with no instance attribute set."""
         x, y = self._inputs(x, y)
+        chunk = self._chunk(x)
         if self.mesh is not None:
             return self._seq.smoothgrad(
                 x, y, self.random_seed, n_samples=self.n_samples,
-                stdev_spread=self.stdev_spread, sample_chunk=self._chunk(),
+                stdev_spread=self.stdev_spread, sample_chunk=chunk,
                 noise=None if noise is None else torch.as_tensor(noise, device=x.device))
+        stream = self._stream(x)
+        synth = self._synth(x)
         x = self._to_internal(x)  # once, outside the sample loop
         if noise is not None and self.model_layout == "nhwc":
             noise = torch.as_tensor(noise).permute(0, 1, 3, 4, 2)
@@ -300,14 +415,14 @@ class WaveletAttribution2D(BaseWAM2D):
                 flat = flat.to(torch.bfloat16)
             with torch.no_grad():
                 coeffs = self.engine.decompose(flat)
-            return self._mosaic_of_grads(coeffs, y, spatial, s)
+            return self._mosaic_of_grads(coeffs, y, spatial, s, synth)
 
         generator = None
-        if noise is None and not self.stream_noise:
+        if noise is None and not stream:
             generator = torch.Generator(device=self.device).manual_seed(self.random_seed)
         return smoothgrad(step, x, n_samples=self.n_samples, stdev_spread=self.stdev_spread,
-                          batch_size=self._chunk(), generator=generator, noise=noise,
-                          materialize_noise=not self.stream_noise, seed=self.random_seed)
+                          batch_size=chunk, generator=generator, noise=noise,
+                          materialize_noise=not stream, seed=self.random_seed)
 
     # -- Integrated gradients ---------------------------------------------
 
@@ -320,10 +435,12 @@ class WaveletAttribution2D(BaseWAM2D):
         """The Integrated-Gradients attribution, with no instance attribute
         set."""
         x, y = self._inputs(x, y)
+        chunk = self._chunk(x)
         if self.mesh is not None:
             coeffs, integral = self._seq.integrated(x, y, n_steps=self.n_samples,
-                                                    sample_chunk=self._chunk())
+                                                    sample_chunk=chunk)
             return mosaic2d(coeffs, normalize=True, channel_axis=1) * integral
+        synth = self._synth(x)
         x = self._to_internal(x)
         if self.dwt_bf16:
             x = x.to(torch.bfloat16)
@@ -337,55 +454,28 @@ class WaveletAttribution2D(BaseWAM2D):
             scaled = map_coeffs(
                 lambda c: (c[None] * alphas.to(c.dtype).reshape(-1, 1, 1, 1, 1))
                 .reshape((-1,) + tuple(c.shape[1:])), coeffs)
-            return self._mosaic_of_grads(scaled, y, spatial, s)
+            return self._mosaic_of_grads(scaled, y, spatial, s, synth)
 
         integral = integrated_path(grad_fn, n_steps=self.n_samples,
-                                   batch_size=self._chunk(), device=self.device)
+                                   batch_size=chunk, device=self.device)
         return baseline * integral
 
     # -- Blocks of a batch's rows (the fleet's oversize route) -------------
-
-    def _block_grads(self, coeffs, y, spatial, s: int, scale: float):
-        """`_mosaic_of_grads` of a block of rows of a larger batch, before
-        its normalization: the unnormalized mosaics (s, b, S, S), their
-        `leaf_maxima` (s, n_regions) over the block's rows and the mosaic's
-        regions. The gradients are multiplied by ``scale`` (block rows /
-        batch rows), so a row's gradient is the one the batch-mean loss of
-        the whole batch gives it."""
-        grads = self.engine.grads_from_coeffs(coeffs, y.repeat(s) if y is not None else None,
-                                              spatial, samples=s)
-        grads = map_coeffs(lambda g: (g * scale).reshape((s, -1) + tuple(g.shape[1:])), grads)
-        return (mosaic2d(grads, False, self._caxis), leaf_maxima(grads, self._caxis),
-                mosaic_regions(grads, self._caxis))
-
-    def _normalized(self, mosaics, maxima, regions):
-        if not self.normalize_coeffs:
-            return mosaics
-        return normalize_mosaic(mosaics, torch.as_tensor(maxima, device=mosaics.device), regions)
 
     def _smooth_partial(self, x, y, lo: int, total: int):
         """`RowBlocks.partial` of the SmoothGrad mosaic: this block's rows
         of the noise the entry draws for the whole ``total``-row batch, and
         its per-sample mosaics kept unnormalized until `_smooth_finish`."""
         x, y = self._inputs(x, y)
+        step = self._chunk(x, total) or self.n_samples
+        stream = self._stream(x, total)  # the whole batch's, as the entry resolves it
+        synth = self._synth(x, total)
         x = self._to_internal(x)
         b = x.shape[0]
-        full = (total,) + tuple(x.shape[1:])
         spatial = self.engine.spatial_shape(x.shape)
         sigma = noise_sigma(x, self.stdev_spread).reshape((-1,) + (1,) * (x.ndim - 1))
-        if self.stream_noise:
-            def draw(i0, i1):
-                return torch.stack([sample_noise(self.random_seed, i, full, x.device,
-                                                 x.dtype)[lo:lo + b] for i in range(i0, i1)])
-        else:
-            g = torch.Generator(device=self.device).manual_seed(self.random_seed)
-            z = torch.randn((self.n_samples,) + full, generator=g, device=x.device,
-                            dtype=x.dtype)[:, lo:lo + b]
-
-            def draw(i0, i1):
-                return z[i0:i1]
-
-        step = self._chunk() or self.n_samples
+        draw = block_draws(self.random_seed, self.n_samples, (total,) + tuple(x.shape[1:]), lo, b,
+                           x.device, x.dtype, stream)
         parts = []
         for i in range(0, self.n_samples, step):
             noisy = x + draw(i, min(i + step, self.n_samples)) * sigma
@@ -394,7 +484,7 @@ class WaveletAttribution2D(BaseWAM2D):
                 flat = flat.to(torch.bfloat16)
             with torch.no_grad():
                 coeffs = self.engine.decompose(flat)
-            parts.append(self._block_grads(coeffs, y, spatial, noisy.shape[0], b / total))
+            parts.append(self._block_grads(coeffs, y, spatial, noisy.shape[0], b / total, synth))
         mosaics = torch.cat([p[0] for p in parts])
         return (mosaics, parts[0][2]), torch.cat([p[1] for p in parts])
 
@@ -408,6 +498,8 @@ class WaveletAttribution2D(BaseWAM2D):
         `_integrated_finish`."""
         del lo  # IG draws nothing: a row's path depends on the row alone
         x, y = self._inputs(x, y)
+        step = self._chunk(x, total) or self.n_samples
+        synth = self._synth(x, total)
         x = self._to_internal(x)
         if self.dwt_bf16:
             x = x.to(torch.bfloat16)
@@ -415,14 +507,14 @@ class WaveletAttribution2D(BaseWAM2D):
             coeffs = self.engine.decompose(x)
         spatial = self.engine.spatial_shape(x.shape)
         alphas = torch.linspace(0.0, 1.0, self.n_samples, dtype=torch.float32, device=self.device)
-        step = self._chunk() or self.n_samples
         parts = []
         for i in range(0, self.n_samples, step):
             a = alphas[i:i + step]
             scaled = map_coeffs(
                 lambda c: (c[None] * a.to(c.dtype).reshape(-1, 1, 1, 1, 1))
                 .reshape((-1,) + tuple(c.shape[1:])), coeffs)
-            parts.append(self._block_grads(scaled, y, spatial, a.shape[0], x.shape[0] / total))
+            parts.append(self._block_grads(scaled, y, spatial, a.shape[0], x.shape[0] / total,
+                                           synth))
         base = (mosaic2d(coeffs, False, self._caxis), leaf_maxima(coeffs, self._caxis),
                 mosaic_regions(coeffs, self._caxis))
         state = (torch.cat([p[0] for p in parts]), parts[0][2], base[0], base[2])
@@ -456,8 +548,8 @@ class WaveletAttribution2D(BaseWAM2D):
         the mosaic in the same call (`serve.entry.jit_entry`).
 
         The mosaic is normalized over the batch and SmoothGrad's noise drawn
-        at its shape, so a row depends on the rows beside it. Without
-        health, the entry carries the `serve.entry.RowBlocks` that compute a
+        at its shape, so a row depends on the rows beside it. The entry
+        (with or without health) carries the `serve.entry.RowBlocks` that compute a
         batch on blocks of its rows, on several devices, with the result of
         the entry on the whole batch: a block draws its rows of the
         whole batch's noise, scales its loss to the whole batch, and keeps
@@ -467,9 +559,7 @@ class WaveletAttribution2D(BaseWAM2D):
             raise ValueError(
                 "serve_entry() does not support mesh=; the serve worker owns "
                 "a single device — drive the sharded estimator directly")
-        from wam_tpu_torch.serve.entry import jit_entry
-
-        from wam_tpu_torch.serve.entry import RowBlocks
+        from wam_tpu_torch.serve.entry import RowBlocks, jit_entry
 
         if self.method == "smooth":
             impl, blocks = self._smooth, RowBlocks(self._smooth_partial, self._smooth_finish)
@@ -477,8 +567,7 @@ class WaveletAttribution2D(BaseWAM2D):
             impl = self._integrated
             blocks = RowBlocks(self._integrated_partial, self._integrated_finish)
         return jit_entry(lambda x, y: impl(x, y), donate=donate, on_trace=on_trace,
-                         aot_key=aot_key, with_health=with_health,
-                         blocks=None if with_health else blocks)
+                         aot_key=aot_key, with_health=with_health, blocks=blocks)
 
     def anytime_serve_entry(self, stride: int | str = "auto", on_trace=None,
                             plateau_tol: float | None = None, noise=None):

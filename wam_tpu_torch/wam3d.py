@@ -31,6 +31,7 @@ import torch
 
 from wam_tpu_torch.core.engine import WamEngine, map_coeffs, target_loss
 from wam_tpu_torch.core.estimators import (
+    block_draws,
     integrated_path,
     resolve_sample_chunk,
     smoothgrad,
@@ -266,14 +267,35 @@ class WaveletAttribution3D(BaseWAM3D):
         self.sample_batch_size = sample_batch_size
         self.stream_noise = bool(stream_noise)
 
-    def _chunk(self) -> int | None:
-        return resolve_sample_chunk(self.sample_batch_size, self.n_samples)
+    def _chunk(self, x) -> int | None:
+        """sample_batch_size resolved for the volumes ``x`` (B, 1, D, H, W):
+        explicit, or for "auto" the tuned chunk of the schedule key
+        ("wam3d", the item shape, batch, backend), else every sample at
+        once."""
+        return resolve_sample_chunk(self.sample_batch_size, self.n_samples, workload="wam3d",
+                                    shape=tuple(x.shape[1:]), batch=int(x.shape[0]),
+                                    backend=x.device.type)
 
-    def _cubes(self, coeffs, y, spatial, s: int) -> torch.Tensor:
+    def _synth(self, x) -> str | None:
+        """The 3D synthesis impl of a call on ``x``: ``impl`` when given,
+        else the tuned ``synth_impl`` of the call's schedule key ("wam3d"),
+        else None (the conv form). It applies to this call only."""
+        if self.engine.impl is not None:
+            return self.engine.impl
+        from wam_tpu_torch.tune.cache import tuned_synth_impl
+
+        return tuned_synth_impl("wam3d", tuple(x.shape[1:]), int(x.shape[0]),
+                                backend=x.device.type)
+
+    def _cubes(self, coeffs, y, spatial, s: int, scale: float = 1.0,
+               synth: str | None = None) -> torch.Tensor:
         """Gradient cubes of ``s`` stacked copies: coefficient leaves are
-        (s*B, d, h, w), sample-major; returns (s, B, S, S, S)."""
+        (s*B, d, h, w), sample-major; returns (s, B, S, S, S). The gradients
+        are scaled by ``scale`` (`_rows`); ``synth`` is `_synth`'s."""
         grads = self.engine.grads_from_coeffs(coeffs, None if y is None else y.repeat(s),
-                                              spatial, samples=s)
+                                              spatial, samples=s, synth_impl=synth)
+        if scale != 1.0:
+            grads = map_coeffs(lambda g: g * scale, grads)
         cube = cube3d(grads)
         return cube.reshape((s, -1) + tuple(cube.shape[1:]))
 
@@ -283,9 +305,14 @@ class WaveletAttribution3D(BaseWAM3D):
         self.grads = self._smooth(x, y, noise)
         return self.grads
 
-    def _smooth(self, x, y=None, noise=None) -> torch.Tensor:
-        """`smooth`'s cube, with no instance attribute set."""
+    def _smooth(self, x, y=None, noise=None, scale: float = 1.0,
+                stream: bool | None = None) -> torch.Tensor:
+        """`smooth`'s cube, with no instance attribute set. ``scale`` and
+        ``stream`` are `_rows`' (a block of a batch)."""
         x, y = self._inputs(x, y)
+        chunk = self._chunk(x)
+        synth = self._synth(x)
+        stream = self.stream_noise if stream is None else stream
         vol = x[:, 0]
         spatial = tuple(vol.shape[-3:])
         if self.mesh is not None:
@@ -294,22 +321,22 @@ class WaveletAttribution3D(BaseWAM3D):
                 noise = noise.reshape((noise.shape[0],) + tuple(vol.shape))
             return self._seq.smoothgrad(vol, y, self.random_seed, n_samples=self.n_samples,
                                         stdev_spread=self.stdev_spread,
-                                        sample_chunk=self._chunk(), noise=noise)
+                                        sample_chunk=chunk, noise=noise)
 
         def step(noisy: torch.Tensor) -> torch.Tensor:  # (s, B, D, H, W)
             with torch.no_grad():
                 coeffs = self.engine.decompose(noisy.reshape((-1,) + spatial))
-            return self._cubes(coeffs, y, spatial, noisy.shape[0])
+            return self._cubes(coeffs, y, spatial, noisy.shape[0], scale, synth)
 
         generator = None
         if noise is not None:
             noise = torch.as_tensor(noise, device=self.device)
             noise = noise.reshape((noise.shape[0],) + tuple(vol.shape))
-        elif not self.stream_noise:
+        elif not stream:
             generator = torch.Generator(device=self.device).manual_seed(self.random_seed)
         return smoothgrad(step, vol, n_samples=self.n_samples, stdev_spread=self.stdev_spread,
-                          batch_size=self._chunk(), generator=generator, noise=noise,
-                          materialize_noise=not self.stream_noise, seed=self.random_seed)
+                          batch_size=chunk, generator=generator, noise=noise,
+                          materialize_noise=not stream, seed=self.random_seed)
 
     def integrated_wam(self, x, y=None) -> torch.Tensor:
         """The input coefficients' cube times the trapezoidal path integral
@@ -318,14 +345,17 @@ class WaveletAttribution3D(BaseWAM3D):
         self.grads = self._integrated(x, y)
         return self.grads
 
-    def _integrated(self, x, y=None) -> torch.Tensor:
-        """`integrated_wam`'s cube, with no instance attribute set."""
+    def _integrated(self, x, y=None, scale: float = 1.0) -> torch.Tensor:
+        """`integrated_wam`'s cube, with no instance attribute set;
+        ``scale`` is `_rows`'."""
         x, y = self._inputs(x, y)
+        chunk = self._chunk(x)
+        synth = self._synth(x)
         vol = x[:, 0]
         spatial = tuple(vol.shape[-3:])
         if self.mesh is not None:
             coeffs, integral = self._seq.integrated(vol, y, n_steps=self.n_samples,
-                                                    sample_chunk=self._chunk())
+                                                    sample_chunk=chunk)
             return cube3d(coeffs) * integral
         with torch.no_grad():
             coeffs = self.engine.decompose(vol)
@@ -335,10 +365,10 @@ class WaveletAttribution3D(BaseWAM3D):
             scaled = map_coeffs(
                 lambda c: (c[None] * alphas.to(c.dtype).reshape(-1, 1, 1, 1, 1))
                 .reshape((-1,) + tuple(c.shape[1:])), coeffs)
-            return self._cubes(scaled, y, spatial, alphas.shape[0])
+            return self._cubes(scaled, y, spatial, alphas.shape[0], scale, synth)
 
         return baseline * integrated_path(grad_fn, n_steps=self.n_samples,
-                                          batch_size=self._chunk(), device=self.device)
+                                          batch_size=chunk, device=self.device)
 
     intergrated_wam = integrated_wam  # the reference's spelling
 
@@ -359,16 +389,32 @@ class WaveletAttribution3D(BaseWAM3D):
         generator with the instance seed on every call. ``mesh=`` is
         rejected: the serving worker owns one device. ``with_health=True``
         computes the numeric-health vector over the cube in the same call
-        (`serve.entry.jit_entry`)."""
+        (`serve.entry.jit_entry`). The entry carries the
+        `serve.entry.RowBlocks` of `_rows` (the fleet's "pjit" oversize
+        route)."""
         if self.mesh is not None:
             raise ValueError(
                 "serve_entry() does not support mesh=; the serve worker owns "
                 "a single device — drive the sharded estimator directly")
-        from wam_tpu_torch.serve.entry import jit_entry
+        from wam_tpu_torch.serve.entry import RowBlocks, jit_entry
 
         impl = self._smooth if self.method == "smooth" else self._integrated
         return jit_entry(lambda x, y: impl(x, y), donate=donate, on_trace=on_trace,
-                         aot_key=aot_key, with_health=with_health)
+                         aot_key=aot_key, with_health=with_health,
+                         blocks=RowBlocks.local(self._rows))
+
+    def _rows(self, x, y, lo: int, total: int) -> torch.Tensor:
+        """Rows [lo, lo + len(x)) of the entry's cube on a ``total``-row
+        batch: SmoothGrad's draws are the whole batch's cut to these rows,
+        and the gradients are scaled to the whole batch's loss
+        (`RowBlocks.local`)."""
+        scale = x.shape[0] / total
+        if self.method != "smooth":
+            return self._integrated(x, y, scale)
+        vol = torch.as_tensor(x, device=self.device)[:, 0]
+        draw = block_draws(self.random_seed, self.n_samples, (total,) + tuple(vol.shape[1:]), lo,
+                           vol.shape[0], vol.device, vol.dtype, self.stream_noise)
+        return self._smooth(x, y, draw(0, self.n_samples), scale, stream=False)
 
     def visualize(self) -> torch.Tensor:
         """(B, J+2, S, S, S) per-level upsampled maps of the last cube."""

@@ -27,9 +27,14 @@ from wam_tpu_torch.wavelets.transform import (
     dwt2,
     dwt3,
     dwt_max_level,
+    get_dwt2_impl,
+    get_synth2_impl,
     idwt,
     idwt2,
     idwt3,
+    resolved_synth2_impl,
+    set_dwt2_impl,
+    set_synth2_impl,
     wavedec,
     wavedec2,
     wavedec3,
@@ -38,12 +43,16 @@ from wam_tpu_torch.wavelets.transform import (
     waverec3,
 )
 
-# the reference's `wam_tpu.wavelets.__all__`, less its process-wide impl
-# knobs (ROADMAP.md, slice E). The NHWC transforms are importable from here
+# the reference's `wam_tpu.wavelets.__all__`. The NHWC transforms are importable from here
 # too, but stay out of `__all__`, as the reference lists them in
 # `wavelets.nhwc` only.
 __all__ = [
     "Wavelet",
+    "set_dwt2_impl",
+    "get_dwt2_impl",
+    "set_synth2_impl",
+    "get_synth2_impl",
+    "resolved_synth2_impl",
     "build_wavelet",
     "qmf",
     "Detail2D",

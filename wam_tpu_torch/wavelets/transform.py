@@ -36,14 +36,25 @@ per call by ``impl``:
   ``SYNTH_COLLAPSE``, and K2 (`matmul.idwt2_kernel`) for every remaining
   synthesis level. CPU tensors run the kernels' plain versions.
 
-``impl=None`` resolves to ``"kernel"`` for CUDA tensors and ``"conv"`` for
-CPU tensors. bf16 inputs give float32 coefficients on every impl.
+``impl=None`` resolves through the process-wide knobs: `set_dwt2_impl`
+for analysis and `set_synth2_impl` for synthesis (the reference's names;
+the port's ``"kernel"`` is the reference's ``"pallas"``). Both default to
+``"auto"``: ``"kernel"`` for CUDA tensors and ``"conv"`` for CPU tensors
+(synthesis follows the analysis impl off the card, ``"matmul"`` unless it
+is ``"conv"``). A per-call ``impl=`` wins over the knobs. The knobs start
+from ``WAM_TORCH_DWT2_IMPL`` / ``WAM_TORCH_SYNTH2_IMPL`` when set.
+bf16 inputs give float32 coefficients on every impl.
+
+The 2D analysis runs inside ``torch.profiler`` spans named
+``SPAN_ANALYSIS`` and the 2D synthesis inside ``SPAN_SYNTH`` (forward), so
+`profiling.synth_device_split` can split a profile by them.
 """
 
 from __future__ import annotations
 
 import contextlib
 import functools
+import os
 from typing import NamedTuple, Sequence
 
 import numpy as np
@@ -70,11 +81,98 @@ __all__ = [
     "waverec3",
     "dwt_max_level",
     "SYNTH_COLLAPSE",
+    "set_dwt2_impl",
+    "get_dwt2_impl",
+    "set_dwt1_impl",
+    "set_synth2_impl",
+    "get_synth2_impl",
+    "resolved_dwt2_impl",
+    "resolved_synth2_impl",
 ]
 
 IMPLS = ("conv", "matmul", "kernel")
 SPAN_1D = "wam_dwt1"
 SPAN_3D = _mm.SPAN_3D
+SPAN_ANALYSIS = "wam_analysis"
+SPAN_SYNTH = "wam_synth"
+
+# -- the process-wide impl knobs (the reference's set_dwt2_impl & co.) -----------
+
+_DWT2_IMPLS = ("auto",) + IMPLS
+_SYNTH2_IMPLS = ("auto",) + IMPLS
+# the 1D transform has one implementation (a strided conv1d); the reference's
+# "folded" / "folded_nhc" polyphase forms have no counterpart in the port
+_DWT1_IMPLS = ("auto", "conv")
+
+
+def _check_knob(name: str, allowed: tuple) -> str:
+    if name not in allowed:
+        raise ValueError(f"impl {name!r} not one of {allowed}")
+    return name
+
+
+def set_dwt2_impl(name: str) -> None:
+    """Select the 2D analysis impl for calls that pass no ``impl=``:
+    ``"auto"`` (``"kernel"`` on CUDA tensors, ``"conv"`` on CPU tensors),
+    ``"conv"``, ``"matmul"`` or ``"kernel"`` (K1; its plain version on CPU
+    tensors). Eager PyTorch has no trace to keep an old choice: the next
+    call reads the knob."""
+    global _dwt2_impl
+    _dwt2_impl = _check_knob(name, _DWT2_IMPLS)
+
+
+def get_dwt2_impl() -> str:
+    return _dwt2_impl
+
+
+def set_dwt1_impl(name: str) -> None:
+    """The reference's 1D impl knob, as far as the port has 1D impls:
+    ``"auto"`` and ``"conv"`` name the strided conv1d, the only 1D form, so
+    the knob keeps no state; the reference's folded forms raise."""
+    _check_knob(name, _DWT1_IMPLS)
+
+
+def set_synth2_impl(name: str) -> None:
+    """Select the 2D synthesis impl for calls that pass no ``impl=``:
+    ``"auto"`` (``"kernel"`` on CUDA tensors; off the card the analysis
+    impl's pair, ``"conv"`` with ``"conv"`` and ``"matmul"`` otherwise),
+    ``"conv"``, ``"matmul"`` or ``"kernel"`` (K3 for the collapsed coarsest
+    levels, K2 for the others)."""
+    global _synth2_impl
+    _synth2_impl = _check_knob(name, _SYNTH2_IMPLS)
+
+
+def get_synth2_impl() -> str:
+    return _synth2_impl
+
+
+_dwt2_impl = _synth2_impl = "auto"
+set_dwt2_impl(os.environ.get("WAM_TORCH_DWT2_IMPL", "auto"))
+set_synth2_impl(os.environ.get("WAM_TORCH_SYNTH2_IMPL", "auto"))
+
+
+def _on_card(device) -> bool:
+    if device is None:
+        return torch.cuda.is_available()
+    return torch.device(device).type == "cuda"
+
+
+def resolved_dwt2_impl(device=None) -> str:
+    """The analysis impl a call on ``device`` takes with no ``impl=``
+    (``device`` None: the card when there is one, else the CPU)."""
+    if _dwt2_impl == "auto":
+        return "kernel" if _on_card(device) else "conv"
+    return _dwt2_impl
+
+
+def resolved_synth2_impl(device=None) -> str:
+    """The synthesis impl a call on ``device`` takes with no ``impl=``
+    (``"conv"``, ``"matmul"`` or ``"kernel"``)."""
+    if _synth2_impl == "auto":
+        if _on_card(device):
+            return "kernel"
+        return "conv" if resolved_dwt2_impl(device) == "conv" else "matmul"
+    return _synth2_impl
 
 # Level-collapse crossover: the coarsest contiguous levels whose detail sides
 # are all BELOW this run as one K3 operator pair. 128 is the starting value
@@ -108,11 +206,21 @@ def _resolve(wavelet) -> Wavelet:
 
 
 def _resolve_impl(impl: str | None, x: torch.Tensor) -> str:
+    """The analysis impl of a call on ``x``: ``impl`` when given, else the
+    knob's (`resolved_dwt2_impl`)."""
     if impl is None:
-        return "kernel" if x.is_cuda else "conv"
+        return resolved_dwt2_impl("cuda" if x.is_cuda else "cpu")
     if impl not in IMPLS:
         raise ValueError(f"impl {impl!r} not one of {IMPLS}")
     return impl
+
+
+def _resolve_synth_impl(impl: str | None, x: torch.Tensor) -> str:
+    """The synthesis impl of a call on ``x``: ``impl`` when given, else the
+    knob's (`resolved_synth2_impl`)."""
+    if impl is None:
+        return resolved_synth2_impl("cuda" if x.is_cuda else "cpu")
+    return _resolve_impl(impl, x)
 
 
 def dwt_max_level(data_len: int, filt_len: int) -> int:
@@ -352,12 +460,13 @@ def dwt2(x: torch.Tensor, wavelet, mode: str = "reflect", impl: str | None = Non
     bf16 and upcasts on load; conv/matmul upcast here."""
     wav = _resolve(wavelet)
     impl = _resolve_impl(impl, x)
-    if impl == "kernel":
-        out = _mm.dwt2_kernel(x, wav, mode)
-    else:
-        if x.dtype == torch.bfloat16:
-            x = x.float()
-        out = _mm.analysis2_mm(x, wav, mode) if impl == "matmul" else _analysis(x, wav, mode)
+    with torch.profiler.record_function(SPAN_ANALYSIS):
+        if impl == "kernel":
+            out = _mm.dwt2_kernel(x, wav, mode)
+        else:
+            if x.dtype == torch.bfloat16:
+                x = x.float()
+            out = _mm.analysis2_mm(x, wav, mode) if impl == "matmul" else _analysis(x, wav, mode)
     # channel order (row, col): 0=aa, 1=ad, 2=da, 3=dd
     return out[..., 0, :, :], Detail2D(
         horizontal=out[..., 2, :, :], vertical=out[..., 1, :, :], diagonal=out[..., 3, :, :]
@@ -375,15 +484,16 @@ def idwt2(cA: torch.Tensor, detail: Detail2D, wavelet, out_shape=None,
     n0, n1 = cA.shape[-2:]
     L = wav.filt_len
     target = (2 * n0 - L + 2, 2 * n1 - L + 2) if out_shape is None else tuple(out_shape)
-    impl = _resolve_impl(impl, cA)
-    sub = torch.stack([cA, detail.vertical, detail.horizontal, detail.diagonal], dim=-3)
-    if impl == "kernel":
-        return _mm.idwt2_kernel(sub, wav, target)
-    if sub.dtype == torch.bfloat16:
-        sub = sub.float()
-    if impl == "conv":
-        return _synthesis(sub, wav, target)
-    return _mm.synthesis2_mm(sub, wav, target)
+    impl = _resolve_synth_impl(impl, cA)
+    with torch.profiler.record_function(SPAN_SYNTH):
+        sub = torch.stack([cA, detail.vertical, detail.horizontal, detail.diagonal], dim=-3)
+        if impl == "kernel":
+            return _mm.idwt2_kernel(sub, wav, target)
+        if sub.dtype == torch.bfloat16:
+            sub = sub.float()
+        if impl == "conv":
+            return _synthesis(sub, wav, target)
+        return _mm.synthesis2_mm(sub, wav, target)
 
 
 def wavedec2(x: torch.Tensor, wavelet, level: int, mode: str = "reflect",
@@ -418,12 +528,13 @@ def waverec2(coeffs, wavelet, impl: str | None = None):
     wav = _resolve(wavelet)
     a = coeffs[0]
     details = list(coeffs[1:])
-    impl = _resolve_impl(impl, a)
+    impl = _resolve_synth_impl(impl, a)
     start = 0
     if impl == "kernel":
         k = _collapse_count(details)
         if k >= 2:
-            a = _mm.waverec2_collapsed(a, details[:k], wav)
+            with torch.profiler.record_function(SPAN_SYNTH):
+                a = _mm.waverec2_collapsed(a, details[:k], wav)
             start = k
     L = wav.filt_len
     for det in details[start:]:

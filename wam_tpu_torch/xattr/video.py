@@ -32,6 +32,7 @@ import torch
 
 from wam_tpu_torch.core.engine import _flatten, _unflatten, map_coeffs, target_loss
 from wam_tpu_torch.core.estimators import (
+    block_draws,
     integrated_path,
     resolve_sample_chunk,
     smoothgrad,
@@ -170,6 +171,10 @@ class WaveletAttributionVideo:
 
     ``device``: CUDA unless the caller asks otherwise; ``impl``: the
     spatial-only levels' 2D transform (None: the kernels on CUDA).
+    ``synth_impl``: those levels' synthesis; None takes ``impl`` when
+    given, else the tuned ``synth_impl`` of the call's schedule key
+    ("wamvid3d"), else the process knob. A tuned entry applies to the call
+    it matches only.
     ``mesh=`` shards the TIME axis over the mesh's ``seq_axis`` like the 3D
     depth (`parallel.SeqShardedWam`, one built lazily per (T, H, W) since
     the box's geometry is its ``post_fn``; ``batch_axis`` splits the batch,
@@ -198,6 +203,7 @@ class WaveletAttributionVideo:
         seq_fused: bool | str = "auto",
         device=None,
         impl: str | None = None,
+        synth_impl: str | None = None,
     ):
         if method not in ("smooth", "integratedgrad"):
             raise ValueError(f"Unknown method {method!r}")
@@ -227,6 +233,7 @@ class WaveletAttributionVideo:
         self.sample_batch_size = sample_batch_size
         self.stream_noise = bool(stream_noise)
         self.impl = impl
+        self.synth_impl = synth_impl
         self.grads = None
 
     def _inputs(self, x, y):
@@ -235,24 +242,43 @@ class WaveletAttributionVideo:
             y = torch.as_tensor(y, device=self.device)
         return x, y
 
-    def _chunk(self) -> int | None:
-        return resolve_sample_chunk(self.sample_batch_size, self.n_samples)
+    def _chunk(self, clip) -> int | None:
+        """sample_batch_size resolved for the clips (B, C, T, H, W): explicit,
+        or for "auto" the tuned chunk of the schedule key ("wamvid3d", the
+        item shape, batch, backend), else every sample at once."""
+        return resolve_sample_chunk(self.sample_batch_size, self.n_samples, workload="wamvid3d",
+                                    shape=tuple(clip.shape[1:]), batch=int(clip.shape[0]),
+                                    backend=clip.device.type)
+
+    def _synth(self, clip) -> str | None:
+        """The spatial-only levels' synthesis impl of a call on ``clip``
+        (`synth_impl` in the class docstring)."""
+        if self.synth_impl is not None or self.impl is not None:
+            return self.synth_impl or self.impl
+        from wam_tpu_torch.tune.cache import tuned_synth_impl
+
+        return tuned_synth_impl("wamvid3d", tuple(clip.shape[1:]), int(clip.shape[0]),
+                                backend=clip.device.type)
 
     def _decompose(self, clip: torch.Tensor):
         with torch.no_grad():
             return wavedec_video(clip, self.wavelet, self.levels, self.mode, self.impl)
 
-    def _coeff_grads(self, coeffs, y, shape, s: int):
+    def _coeff_grads(self, coeffs, y, shape, s: int, scale: float = 1.0,
+                     synth: str | None = None):
         """Gradient of the target loss w.r.t. every coefficient of ``s``
         stacked copies of the batch (rows sample-major): the loss is the sum
-        over copies of each copy's batch mean."""
+        over copies of each copy's batch mean, times ``scale`` (`_rows`).
+        ``synth``: `_synth`'s."""
         leaves = [c.detach().requires_grad_(True) for c in _flatten(coeffs)]
         t, h, w = shape
         with torch.enable_grad():
-            rec = waverec_video(_unflatten(leaves, coeffs), self.wavelet, self.impl)
+            rec = waverec_video(_unflatten(leaves, coeffs), self.wavelet, synth)
             out = self.model_fn(rec[..., :t, :h, :w])
             loss = target_loss(out, None if y is None else y.repeat(s)) * s
             grads = torch.autograd.grad(loss, leaves)
+        if scale != 1.0:
+            grads = [g * scale for g in grads]
         return _unflatten(grads, coeffs)
 
     def _boxes(self, grads, shape, s: int) -> torch.Tensor:
@@ -281,9 +307,14 @@ class WaveletAttributionVideo:
                 batch_axis=self.batch_axis, fused=self.seq_fused)
         return self._seq_cache[key]
 
-    def _smooth(self, x, y=None, noise=None) -> torch.Tensor:
-        """`smooth`'s box, with no instance attribute set."""
+    def _smooth(self, x, y=None, noise=None, scale: float = 1.0,
+                stream: bool | None = None) -> torch.Tensor:
+        """`smooth`'s box, with no instance attribute set. ``scale`` and
+        ``stream`` are `_rows`' (a block of a batch)."""
         clip, y = self._inputs(x, y)
+        chunk = self._chunk(clip)
+        synth = self._synth(clip)
+        stream = self.stream_noise if stream is None else stream
         shape = tuple(clip.shape[-3:])
         if self.mesh is not None:
             if clip.shape[1] != 1:
@@ -294,21 +325,21 @@ class WaveletAttributionVideo:
                 noise = torch.as_tensor(noise, device=self.device)[:, :, 0]
             return self._get_seq(clip.shape).smoothgrad(
                 clip[:, 0], y, self.random_seed, n_samples=self.n_samples,
-                stdev_spread=self.stdev_spread, sample_chunk=self._chunk(), noise=noise)
+                stdev_spread=self.stdev_spread, sample_chunk=chunk, noise=noise)
 
         def step(noisy: torch.Tensor) -> torch.Tensor:  # (s, B, C, T, H, W)
             s = noisy.shape[0]
             coeffs = self._decompose(noisy.reshape((-1,) + tuple(noisy.shape[2:])))
-            return self._boxes(self._coeff_grads(coeffs, y, shape, s), shape, s)
+            return self._boxes(self._coeff_grads(coeffs, y, shape, s, scale, synth), shape, s)
 
         generator = None
         if noise is not None:
             noise = torch.as_tensor(noise, device=self.device)
-        elif not self.stream_noise:
+        elif not stream:
             generator = torch.Generator(device=self.device).manual_seed(self.random_seed)
         return smoothgrad(step, clip, n_samples=self.n_samples, stdev_spread=self.stdev_spread,
-                          batch_size=self._chunk(), generator=generator, noise=noise,
-                          materialize_noise=not self.stream_noise, seed=self.random_seed)
+                          batch_size=chunk, generator=generator, noise=noise,
+                          materialize_noise=not stream, seed=self.random_seed)
 
     # -- Integrated Gradients ----------------------------------------------
 
@@ -316,28 +347,31 @@ class WaveletAttributionVideo:
         self.grads = self._integrated(x, y)
         return self.grads
 
-    def _integrated(self, x, y=None) -> torch.Tensor:
-        """`integrated_wam`'s box, with no instance attribute set."""
+    def _integrated(self, x, y=None, scale: float = 1.0) -> torch.Tensor:
+        """`integrated_wam`'s box, with no instance attribute set; ``scale``
+        is `_rows`'."""
         if self.mesh is not None:
             raise ValueError(
                 "mesh= supports method='smooth' only for video — the IG "
                 "path's coefficient-domain multiply needs the gathered "
                 "pytree; run IG unsharded or via chunked batches")
         clip, y = self._inputs(x, y)
+        chunk = self._chunk(clip)
+        synth = self._synth(clip)
         shape = tuple(clip.shape[-3:])
         coeffs = self._decompose(clip)
 
         def grad_fn(alphas: torch.Tensor) -> list:  # (s,) -> per leaf (s, B, ...)
             s = alphas.shape[0]
 
-            def scale(c):
+            def along(c):
                 a = alphas.to(c.dtype).reshape((-1,) + (1,) * c.ndim)
                 return (c[None] * a).reshape((-1,) + tuple(c.shape[1:]))
 
-            grads = self._coeff_grads(map_coeffs(scale, coeffs), y, shape, s)
+            grads = self._coeff_grads(map_coeffs(along, coeffs), y, shape, s, scale, synth)
             return [g.reshape((s, -1) + tuple(g.shape[1:])) for g in _flatten(grads)]
 
-        integral = integrated_path(grad_fn, n_steps=self.n_samples, batch_size=self._chunk(),
+        integral = integrated_path(grad_fn, n_steps=self.n_samples, batch_size=chunk,
                                    device=self.device)
         attr = _unflatten([c * g for c, g in zip(_flatten(coeffs), integral)], coeffs)
         return spacetime_map(attr, shape, self.approx_coeffs).mean(dim=1)
@@ -357,13 +391,28 @@ class WaveletAttributionVideo:
                     aot_key: str | None = None, with_health: bool = False):
         """Batched serving entry ``(x, y) → (B, T, H, W)`` for the serve
         worker (labeled-only, one device — the contract of
-        `WaveletAttribution3D.serve_entry`)."""
+        `WaveletAttribution3D.serve_entry`), with the
+        `serve.entry.RowBlocks` of `_rows`."""
         if self.mesh is not None:
             raise ValueError(
                 "serve_entry() does not support mesh=; the serve worker owns "
                 "a single device — drive the sharded estimator directly")
-        from wam_tpu_torch.serve.entry import jit_entry
+        from wam_tpu_torch.serve.entry import RowBlocks, jit_entry
 
         impl = self._smooth if self.method == "smooth" else self._integrated
         return jit_entry(lambda x, y: impl(x, y), donate=donate, on_trace=on_trace,
-                         aot_key=aot_key, with_health=with_health)
+                         aot_key=aot_key, with_health=with_health,
+                         blocks=RowBlocks.local(self._rows))
+
+    def _rows(self, x, y, lo: int, total: int) -> torch.Tensor:
+        """Rows [lo, lo + len(x)) of the entry's box on a ``total``-row
+        batch: SmoothGrad's draws are the whole batch's cut to these rows,
+        and the gradients are scaled to the whole batch's loss
+        (`RowBlocks.local`)."""
+        scale = x.shape[0] / total
+        if self.method != "smooth":
+            return self._integrated(x, y, scale)
+        clip = torch.as_tensor(x, device=self.device)
+        draw = block_draws(self.random_seed, self.n_samples, (total,) + tuple(clip.shape[1:]), lo,
+                           clip.shape[0], clip.device, clip.dtype, self.stream_noise)
+        return self._smooth(x, y, draw(0, self.n_samples), scale, stream=False)

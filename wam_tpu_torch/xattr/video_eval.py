@@ -80,7 +80,8 @@ class EvalVideoWAM:
         self._expl_key = None
 
     def _fan_plan(self, fan: int) -> FanPlan:
-        return plan_fan(self.batch_size, fan)
+        return plan_fan(self.batch_size, fan, workload="evalvid3d",
+                        backend=torch.device(self.device).type)
 
     @staticmethod
     def _perturb(clip: torch.Tensor, scores: torch.Tensor, mode: str, n_iter: int) -> torch.Tensor:
