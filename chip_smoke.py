@@ -323,6 +323,37 @@ sm_90a). Phases, each fatal on failure:
    to its chunk, bit-equal to the explicit call (cuDNN deterministic);
    the phase within TUNE_BUDGET_S. The kernels phase holds K1 (first level
    on bfloat16 input) and K3 at its nchw probe's shapes.
+26. aot: cold start through the compiled-step cache (`pipeline.aot`),
+   ``python -m wam_tpu_torch.prewarm`` and the artifact registry, in cache
+   directories of the phase's own (``WAM_TPU_AOT_CACHE``,
+   ``WAM_TPU_CACHE_DIR``, ``TORCHINDUCTOR_CACHE_DIR``, ``TRITON_CACHE_DIR``):
+   two fresh processes prewarm the flagship preset (the tune phase's nchw
+   runner, each chunk step compiled by Inductor), "exported" then "hit"
+   (0 compiles), their warm seconds printed; ``registry publish
+   --from-prewarm``, then empty caches: ``inspect`` (the checkout's four
+   kernel libraries present or hydratable), ``hydrate`` and a third prewarm:
+   "registry_hit", 0 compiles (the bundle: the compiled steps, the kernel
+   libraries and the schedules, no compile-cache file). In this process
+   the compiled runner (loaded from the cache: 0 compiles after every
+   earlier phase) against the eager one: K1 21 and K3 14 each (asserted),
+   no fallback, no graph break, the distance (`_distance`) within
+   AOT_BF16_TOL, ms a call (CUDA events, median of AOT_CALLS after a warm
+   call) and peak GB of both, in turns, and one call of each under
+   ``torch.profiler`` by kernel group; then an
+   ``AttributionServer(compilation_cache=True)`` over the runner's
+   explainer's ``serve_entry(aot_key=)`` (the prewarm's key) serves
+   AOT_REQUESTS 224² requests in one batch with ``compile_count == 0``,
+   every program a "hit" and the batch's launches as the runner's
+   (asserted), its rows within AOT_BF16_TOL of the eager entry on the same
+   batch; a float32 ResNet-18 under the same runner, one chunk step
+   compiled in this process, within AOT_TOL of eager (cuDNN deterministic,
+   TF32 off: `_aot_f32`). Then every custom operator on CUDA tensors at
+   its path's shapes (`_aot_operators`: each wrapper's operator branch
+   bit-equal to its eager route, forward and backward, the operators
+   within KERNEL_RTOL of the plain versions, `torch.library.opcheck`), and
+   the host cost of that branch a launch (`_aot_dispatch`), with what it
+   would add to a call of the vit, video and eval2d phases. Each kernels
+   row carries ``aot_launches``.
 
 Prints a summary JSON line (with the script's wall time), the kernels' JSON
 line, the nvidia-smi line, and as its last line
@@ -333,6 +364,7 @@ there is no CUDA device or the port is not beside this script.
 from __future__ import annotations
 
 import atexit
+import contextlib
 import json
 import math
 import os
@@ -614,6 +646,30 @@ SEQ_TOL = {"seq1d": (0.9998, 1.3e-1), "seq2d": (0.999999, 3.6e-2),
 # the tune phase: the autotuner on the flagship preset (wam_tpu_torch.tune)
 TUNE_K, TUNE_LAPS = 3, 1                # timed regions a candidate, calls a region
 TUNE_BUDGET_S = 45.0
+# the aot phase: cold start through the compiled-step cache on the flagship
+# preset prewarm builds (wam_tpu_torch.prewarm)
+AOT_CONFIG = "flagship"
+AOT_CHUNKS = math.ceil(N_SAMPLES / SAMPLE_CHUNK)
+AOT_LAUNCHES = {**ZERO_LAUNCHES, "dwt2": LEVELS * AOT_CHUNKS, "pair": 2 * AOT_CHUNKS}
+AOT_CALLS = 5               # event-timed calls of each route after a warm one
+AOT_REQUESTS = 16           # served 224^2 requests after the prewarm
+AOT_CLASSES = 1000          # the preset's ResNet-50 classes (the requests' labels)
+# compiled against eager (`_distance`). AOT_TOL holds the compiled step of a
+# float32 model (`_aot_f32`: cuDNN deterministic, TF32 off), where only
+# Inductor's summation order differs: measured max 5.267e-3, ||d||/||m||
+# 2.467e-4, 8.0e-5 of the elements off by > 1e-3 max (a typical value is
+# 6.6e-2 of the max; the same in two runs on an H100 80GB HBM3, 700 W). The
+# few elements off are where ReLU gates within rounding of zero flip, as
+# between layouts (phase nhwc); a wrong tap, mode or missing chunk moves
+# most elements. AOT_BF16_TOL holds the flagship's bf16 model and the
+# served rows, whose roundings flip many more gates: measured max 4.052e-2 /
+# 3.207e-2 and ||d||/||m|| 2.382e-2 / 2.446e-2 (runner / served rows, 35% /
+# 33% of the elements off by > 1e-3 max; the same runs)
+AOT_TOL = {"max": 1.5e-2, "rel_l2": 2.5e-3, "off": 1e-3}
+AOT_BF16_TOL = {"max": 0.1, "rel_l2": 0.06}
+AOT_WAIT_MS = 250.0         # the server's batch window: the 16 requests make one batch
+AOT_OP_CALLS = 200          # eager calls of each route in the dispatch measurement
+AOT_TIMEOUT_S = 900.0       # a prewarm or registry subprocess at most
 
 
 def _log(*args):
@@ -5302,6 +5358,644 @@ def phase_tune(torch, wtt, kernels, smi: str) -> dict:
             "resolved_chunk": resolved, "bit_equal": True, "phase_s": phase_s}
 
 
+_AOT_ENV = ("WAM_TPU_AOT_CACHE", "WAM_TPU_CACHE_DIR", "TORCHINDUCTOR_CACHE_DIR",
+            "TRITON_CACHE_DIR")
+
+
+def _aot_env(root: str, tag: str) -> dict:
+    """The cache directories of one simulated host under ``root``."""
+    compile_dir = os.path.join(root, f"compile{tag}")
+    return {"WAM_TPU_AOT_CACHE": os.path.join(root, f"aot{tag}"),
+            "WAM_TPU_CACHE_DIR": compile_dir, "TORCHINDUCTOR_CACHE_DIR": compile_dir,
+            "TRITON_CACHE_DIR": os.path.join(compile_dir, "triton")}
+
+
+def _aot_cli(args: list, env: dict) -> tuple[dict, float]:
+    """One fresh process ``python -m <args>`` with the phase's cache
+    directories; (its JSON output, seconds). Fails on a nonzero exit."""
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", *args], cwd=ROOT,
+                          env={**os.environ, **env}, capture_output=True, text=True,
+                          timeout=AOT_TIMEOUT_S)
+    seconds = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise AssertionError(f"aot: {' '.join(args[:3])} exited {proc.returncode}: "
+                             f"{proc.stderr[-3000:]}")
+    text = proc.stdout.strip()
+    try:
+        out = json.loads(text.splitlines()[-1])
+    except ValueError:
+        out = json.loads(text)  # an indented document
+    return out, seconds
+
+
+def _aot_prewarm(env: dict, manifest: str, want: str) -> dict:
+    out, seconds = _aot_cli(["wam_tpu_torch.prewarm", "--config", AOT_CONFIG, "--device",
+                             DEVICE, "--manifest", manifest], env)
+    compiles = out["compiles"]
+    if out["aot"] != want or out["backend"] != _device_type() or (
+            (compiles == 0) == (want == "exported")):
+        raise AssertionError(f"aot: prewarm gave {out['aot']} with {compiles} compiles, "
+                             f"expected {want}: {out['aot_steps']}")
+    _log(f"  aot: prewarm {want}: warm {out['warm_s']:.1f} s, process {seconds:.1f} s, "
+         f"{compiles} compiles, steps "
+         + ", ".join(f"{st['key'].rsplit('|', 3)[-3]}: {st['aot']}" for st in out["aot_steps"]))
+    return {"warm_s": out["warm_s"], "process_s": seconds, "compiles": compiles,
+            "aot": out["aot"], "aot_key": out["aot_key"],
+            "steps": [st["aot"] for st in out["aot_steps"]]}
+
+
+def _device_type() -> str:
+    return "cuda" if str(DEVICE).startswith("cuda") else "cpu"
+
+
+def _aot_timed(torch, fn, args) -> dict:
+    """ms a call (CUDA events, median of AOT_CALLS after a warm call) and
+    peak GB of one call."""
+    from wam_tpu_torch.profiling import device_time_samples, median_iqr
+
+    samples = device_time_samples(lambda: fn(*args), k=AOT_CALLS, laps=1, warmup=1,
+                                  device=DEVICE)
+    med, q1, q3, _ = median_iqr([t * 1e3 for t in samples])
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    fn(*args)
+    torch.cuda.synchronize()
+    return {"ms": med, "q1_ms": q1, "q3_ms": q3,
+            "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
+
+
+def _aot_serve(torch, np, wtt, kernels, ex, aot_key: str, smi: str) -> dict:
+    """The prewarmed programs behind a server: `serve_entry(aot_key=)` of
+    the runner's explainer, compilation_cache=True, AOT_REQUESTS requests
+    in one batch (a window of AOT_WAIT_MS), every program a "hit"; the
+    served rows against the eager entry on the batch the server built (its
+    pad rows replicate the first request) within AOT_BF16_TOL."""
+    from wam_tpu_torch.serve import AttributionServer, ServeMetrics
+
+    metrics = ServeMetrics()
+    entry = ex.serve_entry(on_trace=metrics.note_compile, aot_key=aot_key)
+    t0 = time.perf_counter()
+    server = AttributionServer(entry, [(CHANNELS, SIDE, SIDE)], max_batch=BATCH,
+                               max_wait_ms=AOT_WAIT_MS, compilation_cache=True,
+                               metrics=metrics, device=DEVICE)
+    warm_s = time.perf_counter() - t0
+    rng = np.random.default_rng(17)
+    reqs = [(rng.standard_normal((CHANNELS, SIDE, SIDE)).astype(np.float32), i % AOT_CLASSES)
+            for i in range(AOT_REQUESTS)]
+    try:
+        torch.cuda.synchronize()
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        futures = [server.submit(x, y) for x, y in reqs]
+        rows = [f.result(timeout=SERVE_TIMEOUT_S) for f in futures]
+        wall = time.perf_counter() - t0
+        launches = kernels.launch_counts()
+    finally:
+        server.close()
+    snap = metrics.snapshot()  # the worker's counts, complete once it has joined
+    statuses = sorted({f.aot_status for d in entry.wam_aot_fns for f in d.fns.values()})
+    batches = snap["batches"]
+    want = {k: v * batches for k, v in AOT_LAUNCHES.items()}
+    if (metrics.compile_count != 0 or snap["completed"] != AOT_REQUESTS or launches != want
+            or statuses != ["hit"] or batches != 1):
+        raise AssertionError(f"aot serve: compile_count {metrics.compile_count}, completed "
+                             f"{snap['completed']} of {AOT_REQUESTS}, launches {launches} "
+                             f"(expected {want} for {batches} batches, want 1), programs "
+                             f"{statuses} (want hit)")
+    if any(not np.isfinite(np.asarray(r)).all() or np.asarray(r).shape != rows[0].shape
+           for r in rows):
+        raise AssertionError("aot serve: a served mosaic is not finite or has another shape")
+    # the eager entry on the batch the server built
+    pad = BATCH - AOT_REQUESTS
+    xs = torch.from_numpy(np.stack([x for x, _ in reqs] + [reqs[0][0]] * pad)).to(DEVICE)
+    ys = torch.tensor([y for _, y in reqs] + [reqs[0][1]] * pad, dtype=torch.int32,
+                      device=DEVICE)
+    eager = ex.serve_entry()(xs, ys)[:AOT_REQUESTS].float().cpu()
+    served = torch.stack([torch.as_tensor(np.asarray(r)) for r in rows]).float()
+    dist = _distance(torch, served, eager)
+    _log(f"  aot: server (compilation_cache=True) warm {warm_s:.1f} s, {AOT_REQUESTS} "
+         f"requests in {batches} batch, {wall:.2f} s = {AOT_REQUESTS / wall:.2f} requests/s, "
+         f"compile_count {metrics.compile_count}, programs {statuses}, launches {launches}; "
+         f"served rows vs the eager entry: {_distance_text(dist)} (bound {AOT_BF16_TOL}) "
+         f"on {smi}")
+    if not math.isfinite(dist["max"]) or not _within(dist, AOT_BF16_TOL):
+        raise AssertionError(f"aot serve: served rows against the eager entry {dist} "
+                             f"(bound {AOT_BF16_TOL})")
+    return {"warm_s": warm_s, "wall_s": wall, "requests": AOT_REQUESTS, "batches": batches,
+            "compile_count": metrics.compile_count, "programs": statuses,
+            "launches": launches, "mosaic_shape": list(np.asarray(rows[0]).shape),
+            "distance": dist}
+
+
+@contextlib.contextmanager
+def _operator_route(torch):
+    """A context in which the kernel wrappers take the branch a compiled
+    graph takes (`torch.compiler.is_compiling` reads True): each calls its
+    custom operator (`torch.ops.wam_tpu_torch.*`) with the arguments the
+    graph would pass, but eagerly."""
+    real = torch.compiler.is_compiling
+    torch.compiler.is_compiling = lambda: True
+    try:
+        yield
+    finally:
+        torch.compiler.is_compiling = real
+
+
+def _bit_equal(name: str, got, want) -> None:
+    import torch
+
+    torch.cuda.synchronize()
+    got = list(got) if isinstance(got, (list, tuple)) else [got]
+    want = list(want) if isinstance(want, (list, tuple)) else [want]
+    if len(got) != len(want) or not all(
+            a.dtype == b.dtype and a.shape == b.shape and torch.equal(a, b)
+            for a, b in zip(got, want)):
+        raise AssertionError(f"aot operator {name}: not bit-equal to the eager wrapper")
+
+
+def _plain_err(name: str, got, want) -> float:
+    """`_check` (KERNEL_RTOL x max) over each pair of ``got`` / ``want``."""
+    got = list(got) if isinstance(got, (list, tuple)) else [got]
+    want = list(want) if isinstance(want, (list, tuple)) else [want]
+    return max(_check(f"{name} [{i}]" if len(got) > 1 else name, a, b)[0]
+               for i, (a, b) in enumerate(zip(got, want)))
+
+
+def _aot_operators(torch, tmm, kernels, sites) -> dict:
+    """Each custom operator on the card at the shapes its path gives it: K1
+    (``dwt2``, ``dwt2_adjoint``) and K3 (``pair``, ``pair_bwd``) at the
+    flagship preset's chunk (SAMPLE_CHUNK x BATCH x CHANNELS planes of
+    SIDE^2, db4, level 1 on bfloat16 as ``dwt_bf16`` reads it), K2
+    (``synth2``, ``synth2_bwd``) and K4/K5 (``relu_fwd``, ``relu_bwd``, at
+    path 2's ReLU ``sites``) at path 2's. Each wrapper's operator branch
+    (`_operator_route`), forward and backward through autograd, is
+    bit-equal to its eager route on the same inputs, and the operators'
+    outputs are within KERNEL_RTOL x max of the plain versions (K4/K5:
+    equal); then `torch.library.opcheck` on CUDA tensors of these shapes
+    (schema, fake shapes and strides against the kernel's output, autograd
+    registration, AOT dispatch). Returns the largest error of each
+    operator against its plain version."""
+    from collections import Counter
+
+    from wam_tpu_torch.tune import fused_relu as tfr
+    from wam_tpu_torch.wavelets import transform as tt
+
+    dev = torch.device(DEVICE)
+    g = torch.Generator(device=dev).manual_seed(SEED + 17)
+    ops = torch.ops.wam_tpu_torch
+    lo, hi, rlo, rhi = tmm._taps(WAVELET)
+    n = SAMPLE_CHUNK * BATCH * CHANNELS
+    errs: dict = {}
+    checks: list = []  # (name, operator, args) for opcheck
+
+    def note(op, err):
+        errs[op] = max(errs.get(op, 0.0), err)
+
+    def both_routes(call, inputs, gout):
+        """(out, grads) of ``call`` on fresh leaves of ``inputs``, eager
+        route then operator route."""
+        res = []
+        for operator in (False, True):
+            leaves = [t.detach().requires_grad_(True) for t in inputs]
+            if operator:
+                with _operator_route(torch):
+                    out = call(leaves)
+                    grads = torch.autograd.grad(out, leaves, gout)
+            else:
+                out = call(leaves)
+                grads = torch.autograd.grad(out, leaves, gout)
+            res.append((out.detach(), grads))
+        return res
+
+    # K1 at the flagship's three levels (level 1 on bfloat16), its adjoint
+    x = torch.randn((n, SIDE, SIDE), generator=g, device=dev).to(torch.bfloat16)
+    for level in range(1, LEVELS + 1):
+        q = x.shape[-1]
+        A, At = tmm._kernel_analysis(q, tuple(lo), tuple(hi), MODE, dev)
+        tag = f"dwt2 {WAVELET} {q}^2 level {level} {str(x.dtype)[6:]}"
+        gq = torch.randn((n, 4, A.shape[0] // 2, A.shape[0] // 2), generator=g, device=dev)
+        (e_out, e_gr), (o_out, o_gr) = both_routes(
+            lambda ls: tmm.dwt2_kernel(ls[0], WAVELET, MODE), [x], gq)
+        _bit_equal(tag, (o_out, *o_gr), (e_out, *e_gr))
+        got = ops.dwt2(x, lo, hi, MODE)
+        _bit_equal(f"{tag} (operator)", got, kernels.dwt2(x, tmm.dwt2_band(
+            q, q, tuple(lo), tuple(hi), MODE, dev)))
+        note("dwt2", _plain_err(tag, got, tmm.dwt2_plain(x, At, At)))
+        adj = ops.dwt2_adjoint(gq, q, q, lo, hi, MODE)
+        note("dwt2_adjoint", _plain_err(f"{tag} adjoint", adj, torch.matmul(
+            torch.matmul(A.T, tmm._merge_quadrants(gq)), A)))
+        if level == 1:
+            checks += [("dwt2", ops.dwt2, (x.detach().requires_grad_(True), lo, hi, MODE)),
+                       ("dwt2_adjoint", ops.dwt2_adjoint, (gq, q, q, lo, hi, MODE))]
+        x = got[:, 0].contiguous()
+        del got, adj, gq, e_out, e_gr, o_out, o_gr
+
+    # K3 forward and backward on the flagship's collapsed levels
+    imgs = torch.randn((n // CHANNELS, CHANNELS, SIDE, SIDE), generator=g, device=dev)
+    with torch.no_grad():
+        coeffs = tt.wavedec2(imgs, WAVELET, LEVELS, MODE, impl="kernel")
+    ncol = tt._collapse_count(coeffs[1:])
+    flat = [coeffs[0]] + [t for d in coeffs[1:][:ncol] for t in d]
+    rs = [int(d.horizontal.shape[-2]) for d in coeffs[1:][:ncol]]
+    cs = [int(d.horizontal.shape[-1]) for d in coeffs[1:][:ncol]]
+
+    def collapsed(ls):
+        dets = [tt.Detail2D(*ls[1 + 3 * i:4 + 3 * i]) for i in range(ncol)]
+        return tmm.waverec2_collapsed(ls[0], dets, WAVELET)
+
+    fwd, bwd = tmm.pair_band(tuple(rs), tuple(cs), tuple(rlo), tuple(rhi), dev)
+    gout = torch.randn(imgs.shape[:2] + (fwd.p, fwd.t), generator=g, device=dev)
+    (e_out, e_gr), (o_out, o_gr) = both_routes(collapsed, flat, gout)
+    tag = f"pair {WAVELET} {SIDE}^2 {ncol} levels"
+    _bit_equal(tag, (o_out, *o_gr), (e_out, *e_gr))
+    leaves = [tmm._leaf3(t) for t in [flat[0][..., :rs[0], :cs[0]]] + flat[1:]]
+    got = ops.pair(leaves, rs, cs, rlo, rhi)
+    _bit_equal(f"{tag} (operator)", got, kernels.pair(leaves, fwd))
+    R, Rt, C, Ct = tmm.collapsed_operators(coeffs[1:][:ncol], WAVELET, dev)
+    y = tmm.assemble_collapsed(flat[0], coeffs[1:][:ncol])
+    note("pair", _plain_err(tag, got, tmm.pair_plain(y.reshape((n,) + y.shape[-2:]), Rt, Ct)))
+    g3 = gout.reshape((n, fwd.p, fwd.t))
+    got_b = ops.pair_bwd(g3, rs, cs, rlo, rhi)
+    _bit_equal(f"{tag} backward (operator)", got_b, kernels.pair_bwd(g3, bwd))
+    dY = tmm.pair_plain(g3, R, C)
+    want_b, r0, c0 = [], 0, 0
+    for i, (r, c) in enumerate(zip(rs, cs)):
+        if i == 0:
+            want_b.append(dY[:, r0:r0 + r, c0:c0 + c])
+        want_b += [dY[:, r0 + r:r0 + 2 * r, c0:c0 + c], dY[:, r0:r0 + r, c0 + c:c0 + 2 * c],
+                   dY[:, r0 + r:r0 + 2 * r, c0 + c:c0 + 2 * c]]
+        r0, c0 = r0 + 2 * r, c0 + 2 * c
+    note("pair_bwd", _plain_err(f"{tag} backward", got_b, want_b))
+    checks += [("pair", ops.pair, ([t.detach().requires_grad_(True) for t in leaves], rs, cs,
+                                   rlo, rhi)),
+               ("pair_bwd", ops.pair_bwd, (g3, rs, cs, rlo, rhi))]
+    del imgs, coeffs, flat, e_out, e_gr, o_out, o_gr, y, dY, got_b, want_b, got
+
+    # K2 forward (float32 and bfloat16 subbands) and backward at path 2's finest level
+    h = (SIDE2 + len(rlo) - 1) // 2
+    Sr, Srt = tmm._kernel_synthesis(h, tuple(rlo), tuple(rhi), dev)
+    full = Sr.shape[0]
+    sub = torch.randn((n, 4, h, h), generator=g, device=dev)
+    gfull = torch.randn((n, full, full), generator=g, device=dev)
+    plans = tmm.idwt2_band(h, h, tuple(rlo), tuple(rhi), dev)
+    for dtype in (torch.float32, torch.bfloat16):
+        sin = sub.to(dtype)
+        tag = f"synth2 {WAVELET} -> {SIDE2}^2 {str(dtype)[6:]}"
+        (e_out, e_gr), (o_out, o_gr) = both_routes(
+            lambda ls: tmm.idwt2_kernel(ls[0], WAVELET), [sin], gfull)
+        _bit_equal(tag, (o_out, *o_gr), (e_out, *e_gr))
+        got = ops.synth2(sin, rlo, rhi)
+        _bit_equal(f"{tag} (operator)", got, kernels.synth2(sin, plans[0]))
+        note("synth2", _plain_err(tag, got, tmm.idwt2_plain(sin, Sr, Srt)))
+        del e_out, e_gr, o_out, o_gr, got
+    got = ops.synth2_bwd(gfull, h, h, rlo, rhi)
+    _bit_equal(f"synth2_bwd {WAVELET} {SIDE2}^2 (operator)", got, kernels.dwt2(gfull, plans[1]))
+    note("synth2_bwd", _plain_err(f"synth2_bwd {WAVELET} {SIDE2}^2", got,
+                                  tmm.dwt2_plain(gfull, Sr, Sr)))
+    checks += [("synth2", ops.synth2, (sub.detach().requires_grad_(True), rlo, rhi)),
+               ("synth2_bwd", ops.synth2_bwd, (gfull, h, h, rlo, rhi))]
+    del got
+
+    # K4/K5 at path 2's ReLU sites, one step's rows: fused_relu both routes, the operators
+    for shape, _ in sorted(Counter(sites).items(), key=lambda kv: -math.prod(kv[0])):
+        xr = torch.randn((SAMPLE_CHUNK * BATCH,) + shape, generator=g, device=dev)
+        xr.view(-1)[::97] = 0  # exact zeros: gate x > 0
+        gr = torch.randn(xr.shape, generator=g, device=dev)
+        tag = f"relu {tuple(xr.shape)}"
+        (e_out, e_gr), (o_out, o_gr) = both_routes(lambda ls: tfr.fused_relu(ls[0]), [xr], gr)
+        _bit_equal(tag, (o_out, *o_gr), (e_out, *e_gr))
+        y, m = ops.relu_fwd(xr)
+        _bit_equal(f"{tag} relu_fwd (operator)", (y, m), kernels.relu_fwd(xr))
+        _equal(f"{tag} relu_fwd", (y, m), tfr.relu_fwd_plain(xr))
+        dx = ops.relu_bwd(m, gr)
+        _bit_equal(f"{tag} relu_bwd (operator)", dx, kernels.relu_bwd(m, gr))
+        _equal(f"{tag} relu_bwd", (dx,), (tfr.relu_bwd_plain(m, gr),))
+        note("relu_fwd", 0.0)
+        note("relu_bwd", 0.0)
+        if "relu_fwd" not in {c[0] for c in checks}:  # opcheck at the largest site
+            checks += [("relu_fwd", ops.relu_fwd, (xr.detach().requires_grad_(True),)),
+                       ("relu_bwd", ops.relu_bwd, (m, gr))]
+        del xr, gr, e_out, e_gr, o_out, o_gr, y, dx
+    for _, op, args in checks:
+        torch.library.opcheck(op, args)
+    _log(f"  aot: every operator's branch bit-equal to the eager wrapper at its path's shapes, "
+         f"forward and backward; against the plain versions "
+         + ", ".join(f"{k} {v:.3e}" for k, v in errs.items())
+         + f"; opcheck on CUDA: {', '.join(c[0] for c in checks)}")
+    return errs
+
+
+def _aot_dispatch(torch, tmm) -> dict:
+    """Host microseconds an eager call of each kernel wrapper pays on its
+    operator branch (`_operator_route`) over its autograd Function, forward
+    and backward, at a small shape where the host bounds the call (haar,
+    3 planes of 64^2; K4/K5 on 4096 elements): AOT_OP_CALLS calls of each
+    route in turns (Function, operator, operator, Function), the faster turn
+    of each; per launch (K1's backward is no launch; K2's is one K1)."""
+    from wam_tpu_torch.tune import fused_relu as tfr
+    from wam_tpu_torch.wavelets import transform as tt
+
+    dev = torch.device(DEVICE)
+    g = torch.Generator(device=dev).manual_seed(SEED + 19)
+    img = torch.randn((1, CHANNELS, 64, 64), generator=g, device=dev)
+    with torch.no_grad():
+        coeffs = tt.wavedec2(img, "haar", LEVELS, MODE, impl="kernel")
+    ncol = tt._collapse_count(coeffs[1:])
+    flat = [coeffs[0]] + [t for d in coeffs[1:][:ncol] for t in d]
+
+    def collapsed(ls):
+        dets = [tt.Detail2D(*ls[1 + 3 * i:4 + 3 * i]) for i in range(ncol)]
+        return tmm.waverec2_collapsed(ls[0], dets, "haar")
+
+    sub = torch.randn((CHANNELS, 4, 32, 32), generator=g, device=dev)
+    cases = {  # kernel: (call on leaves, inputs, launches of one forward + backward)
+        "dwt2": (lambda ls: tmm.dwt2_kernel(ls[0], "haar", MODE), [img[0]], 1),
+        "pair": (collapsed, flat, 2),
+        "synth2": (lambda ls: tmm.idwt2_kernel(ls[0], "haar"), [sub], 2),
+        "relu": (lambda ls: tfr.fused_relu(ls[0]), [torch.randn(4096, generator=g,
+                                                                device=dev)], 2),
+    }
+    out = {}
+    for name, (call, inputs, launches) in cases.items():
+        leaves = [t.detach().requires_grad_(True) for t in inputs]
+        gout = torch.ones_like(call(leaves))
+
+        def turn(operator: bool) -> float:
+            with _operator_route(torch) if operator else contextlib.nullcontext():
+                for i in range(AOT_OP_CALLS + 1):  # a warm call, then the timed ones
+                    if i == 1:
+                        torch.cuda.synchronize()
+                        t0 = time.perf_counter()
+                    torch.autograd.grad(call(leaves), leaves, gout)
+                torch.cuda.synchronize()
+            return (time.perf_counter() - t0) / AOT_OP_CALLS * 1e6
+
+        fn_a, op_a, op_b, fn_b = turn(False), turn(True), turn(True), turn(False)
+        function_us, operator_us = min(fn_a, fn_b), min(op_a, op_b)
+        out[name] = {"function_us": function_us, "operator_us": operator_us,
+                     "launches": launches,
+                     "extra_us_a_launch": (operator_us - function_us) / launches}
+    _log("  aot: eager host us of a forward + backward, autograd Function / operator branch "
+         "(extra a launch): " + "; ".join(
+             f"{k} {v['function_us']:.1f} / {v['operator_us']:.1f} "
+             f"({v['extra_us_a_launch']:+.1f})" for k, v in out.items()))
+    return out
+
+
+def aot_dispatch_estimate(dispatch: dict, phases: dict) -> dict:
+    """What routing every eager launch of a host-bound phase through the
+    operators would add to its call (`_aot_dispatch`'s extra microseconds
+    a launch times the call's launches), beside the call's median and its
+    spread (max - min of the timed calls). ``phases``: label -> (launches
+    a call, median ms, [min, max] ms)."""
+    per = {"dwt2": dispatch["dwt2"], "pair": dispatch["pair"], "synth2": dispatch["synth2"],
+           "relu_fwd": dispatch["relu"], "relu_bwd": dispatch["relu"]}
+    out = {}
+    for label, (launches, median_ms, spread) in phases.items():
+        extra = sum(launches.get(k, 0) * v["extra_us_a_launch"] for k, v in per.items()) / 1e3
+        out[label] = {"extra_ms": extra, "median_ms": median_ms,
+                      "spread_ms": spread[1] - spread[0], "share": extra / median_ms}
+        _log(f"  aot dispatch: {label}: {extra:.3f} ms a call on the operator branch against "
+             f"a median of {median_ms:.2f} ms (spread {spread[1] - spread[0]:.2f} ms)")
+    return out
+
+
+def _aot_profile_group(ev) -> str:
+    """A device event's group in the compiled-vs-eager profile."""
+    name = ev.name
+    low = name.lower()
+    if "band::band2_kernel" in name:
+        return "K1/K2"
+    if "collapsed::" in name:
+        return "K3"
+    if "wam_relu::" in name:
+        return "K4/K5"
+    if "nchwtonhwc" in low or "nhwctonchw" in low:
+        return "layout conversions (NCHW<->NHWC)"
+    if low.startswith("triton_") or "triton" in low:
+        return "Inductor-generated (triton)"
+    if any(k in low for k in ("conv", "cudnn", "xmma", "fprop", "dgrad", "wgrad", "implicit")):
+        return "convolution (cuDNN)"
+    if "gemm" in low or "cutlass" in low:
+        return "matmul"
+    return "other (elementwise, reductions, copies)"
+
+
+def _aot_profile(torch, calls: dict, args) -> dict:
+    """Device ms by group (`_aot_profile_group`) of one call of each route
+    under ``torch.profiler`` (after the timed calls, so warm)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from wam_tpu_torch.profiling import named_op_split
+
+    out = {}
+    for tag, fn in calls.items():
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            fn(*args)
+            torch.cuda.synchronize()
+        split = named_op_split(prof, classify=_aot_profile_group)
+        out[tag] = {k: v * 1e3 for k, v in (split or {}).items()}
+    groups = sorted({k for v in out.values() for k in v if k != "total"})
+    _log("  aot: device ms of one call by group, " + " / ".join(out) + ": " + "; ".join(
+        f"{k} " + " / ".join(f"{out[t].get(k, 0.0):.1f}" for t in out) for k in groups)
+        + "; busy " + " / ".join(f"{out[t].get('total', 0.0):.1f}" for t in out))
+    return out
+
+
+def _distance(torch, got, want) -> dict:
+    """How far ``got`` lies from ``want``, over want's largest magnitude m:
+    ``max`` = max |d| / m; ``rel_l2`` = ||d|| / ||want||; ``cosine``;
+    ``typical`` = mean |want| / m; ``off`` = the share of elements with
+    |d| > 1e-3 m (few where ReLU gates flip, most where the work differs)."""
+    got, want = got.detach().double(), want.detach().double()
+    d = got - want
+    m = want.abs().max()
+    return {"max": float(d.abs().max() / m), "rel_l2": float(d.norm() / want.norm()),
+            "cosine": float((got * want).sum() / (got.norm() * want.norm())),
+            "typical": float(want.abs().mean() / m),
+            "off": float((d.abs() > 1e-3 * m).double().mean())}
+
+
+def _distance_text(dist: dict) -> str:
+    return (f"max|d|/max {dist['max']:.3e}, ||d||/||m|| {dist['rel_l2']:.3e}, cosine "
+            f"{dist['cosine']:.9f}, share off by > 1e-3 max {dist['off']:.2e}, a typical "
+            f"value mean|m|/max {dist['typical']:.3e}")
+
+
+def _within(dist: dict, bound) -> bool:
+    """``dist`` within every key of ``bound`` (None: no bound yet)."""
+    return bound is None or all(dist[k] <= v for k, v in bound.items())
+
+
+def _aot_f32(torch, kernels) -> dict:
+    """The compiled chunk step against the eager one with a float32 model:
+    ResNet-18 (AOT_CLASSES classes, ``fold_bn``, seeded) under the flagship
+    preset's runner (`tune.workloads._wam2d_runner`: BATCH x CHANNELS x
+    SIDE^2, db4 J=3 reflect, float32 transform input) with n = SAMPLE_CHUNK,
+    one chunk step, compiled in this process; cuDNN deterministic, TF32 off
+    for both routes (restored after). Returns the distance of the compiled
+    mosaic from the eager one (`_distance`), the launches and the compile
+    seconds."""
+    from wam_tpu_torch.models.resnet import bind_inference, resnet18
+    from wam_tpu_torch.tune.autotuner import Candidate
+    from wam_tpu_torch.tune.workloads import _wam2d_runner
+
+    dev = torch.device(DEVICE)
+    flags = (torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark,
+             torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        g = torch.Generator().manual_seed(SEED + 23)
+        x = torch.randn((BATCH, CHANNELS, SIDE, SIDE), generator=g).to(dev)
+        y = (torch.arange(BATCH) % AOT_CLASSES).to(dev)
+        torch.manual_seed(SEED)
+        model = bind_inference(resnet18(num_classes=AOT_CLASSES), fold_bn=True, device=dev)
+        fn, wargs = _wam2d_runner(model, x, y, Candidate(sample_chunk=SAMPLE_CHUNK,
+                                                         layout="nchw"), dev,
+                                  wavelet=WAVELET, J=LEVELS, n_samples=SAMPLE_CHUNK)
+        fns: list = []
+        compiled = fn.wam_aot("chip_smoke|aot|resnet18-f32", obs_kind="prewarm",
+                              record=lambda d: fns.append(d) or d)
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        out_c = compiled(*wargs)
+        torch.cuda.synchronize()
+        compile_s = time.perf_counter() - t0
+        launches_c = kernels.launch_counts()
+        kernels.reset_launch_counts()
+        out_e = fn(*wargs)
+        torch.cuda.synchronize()
+        launches_e = kernels.launch_counts()
+        statuses = sorted({f.aot_status for d in fns for f in d.fns.values()})
+        want = {**ZERO_LAUNCHES, "dwt2": LEVELS, "pair": 2}
+        if launches_c != want or launches_e != want or statuses != ["exported"]:
+            raise AssertionError(f"aot f32: launches compiled {launches_c}, eager {launches_e} "
+                                 f"(expected {want}), programs {statuses}")
+        dist = _distance(torch, out_c, out_e)
+        finite = bool(torch.isfinite(out_c).all())
+    finally:
+        (torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark,
+         torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32) = flags
+    _log(f"  aot f32 (ResNet-18, float32, n={SAMPLE_CHUNK}, cuDNN deterministic, TF32 off): "
+         f"compile + first call {compile_s:.1f} s, compiled vs eager {_distance_text(dist)} "
+         f"(bound {AOT_TOL}), launches {launches_c}")
+    if not finite or not _within(dist, AOT_TOL):
+        raise AssertionError(f"aot f32: compiled against eager {dist} (bound {AOT_TOL})")
+    return {"distance": dist, "compile_s": compile_s, "launches": launches_c,
+            "programs": statuses}
+
+
+def phase_aot(torch, wtt, kernels, smi: str, sites) -> dict:
+    """Cold start on the card (module docstring, phase 26); ``sites`` are
+    path 2's ReLU sites (`relu_sites`)."""
+    import numpy as np
+
+    from wam_tpu_torch.wavelets import matmul as tmm
+
+    from wam_tpu_torch.pipeline import aot
+    from wam_tpu_torch.tune.autotuner import Candidate
+    from wam_tpu_torch.tune.workloads import get_workload
+
+    t_phase = time.perf_counter()
+    root = tempfile.mkdtemp(prefix="wam_aot_")
+    atexit.register(shutil.rmtree, root, ignore_errors=True)
+    host1, host2 = _aot_env(root, "1"), _aot_env(root, "2")
+    manifest = os.path.join(root, "prewarm.json")
+    cold = _aot_prewarm(host1, manifest, "exported")
+    hit = _aot_prewarm(host1, os.path.join(root, "prewarm_hit.json"), "hit")
+
+    bundle = os.path.join(root, "bundle")
+    pub, pub_s = _aot_cli(["wam_tpu_torch.registry", "publish", "--out", bundle,
+                           "--from-prewarm", manifest], host1)
+    if pub["aot"] != len(cold["steps"]) or pub["compile"] < 1:
+        raise AssertionError(f"aot: the bundle holds {pub['aot']} compiled steps and "
+                             f"{pub['compile']} compile files: {pub}")
+    probe, _ = _aot_cli(["wam_tpu_torch.registry", "inspect", bundle], host2)
+    libs = {k.library_path().name for k in kernels.KERNELS.values()}
+    outcomes = {r["key"].split("/", 1)[1]: r["outcome"] for r in probe["artifacts"]
+                if r["key"].startswith("kernels/")}
+    if any(outcomes.get(name) not in ("ok", "present") for name in libs):
+        raise AssertionError(f"aot: kernel libraries {sorted(libs)} in the bundle: {outcomes}")
+    hyd, hyd_s = _aot_cli(["wam_tpu_torch.registry", "hydrate", bundle], host2)
+    if hyd["status"] != "hydrated" or hyd["artifacts"].get("aot:hydrated") != len(cold["steps"]):
+        raise AssertionError(f"aot: hydration {hyd}")
+    hydrated = _aot_prewarm(host2, os.path.join(root, "prewarm_registry.json"), "registry_hit")
+    _log(f"  aot: bundle of {pub['artifacts']} artifacts ({pub['aot']} compiled steps, "
+         f"{pub['compile']} compile files) published in {pub_s:.1f} s, hydrated into empty "
+         f"caches in {hyd_s:.1f} s ({hyd['artifacts']}); kernel libraries {outcomes}")
+
+    saved = {k: os.environ.get(k) for k in _AOT_ENV}
+    os.environ.update(host1)
+    dev = torch.device(DEVICE)
+    try:
+        wl = get_workload(AOT_CONFIG, device=dev)
+        fn, wargs = wl.build(Candidate(sample_chunk=max(1, 128 // wl.batch), layout="nchw",
+                                       fan_cap=128))
+        fns: list = []
+        compiled = fn.wam_aot(cold["aot_key"], obs_kind="prewarm",
+                              record=lambda d: fns.append(d) or d)
+        breaks = aot.graph_breaks()
+        t0 = time.perf_counter()
+        kernels.reset_launch_counts()
+        out_c = compiled(*wargs)
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+        launches_c = kernels.launch_counts()
+        kernels.reset_launch_counts()
+        out_e = fn(*wargs)
+        torch.cuda.synchronize()
+        launches_e = kernels.launch_counts()
+        statuses = sorted({f.aot_status for d in fns for f in d.fns.values()})
+        compiles = sum(f.compiles for d in fns for f in d.fns.values())
+        if launches_c != AOT_LAUNCHES or launches_e != AOT_LAUNCHES:
+            raise AssertionError(f"aot: launches compiled {launches_c}, eager {launches_e}, "
+                                 f"expected {AOT_LAUNCHES}")
+        if statuses != ["hit"] or compiles or aot.graph_breaks() != breaks:
+            raise AssertionError(f"aot: in-process programs {statuses} with {compiles} "
+                                 f"compiles (want hit, 0), graph breaks "
+                                 f"{aot.graph_breaks() - breaks}")
+        dist = _distance(torch, out_c, out_e)
+        if not torch.isfinite(out_c).all() or not _within(dist, AOT_BF16_TOL):
+            raise AssertionError(f"aot: compiled against eager {dist} (bound {AOT_BF16_TOL})")
+        turns = {}
+        for tag, call in (("eager", fn), ("compiled", compiled), ("compiled", compiled),
+                          ("eager", fn)):
+            turns.setdefault(tag, []).append(_aot_timed(torch, call, wargs))
+        _log(f"  aot: in-process load + first call {load_s:.1f} s (programs {statuses}, "
+             f"{compiles} compiles, after every earlier phase); "
+             f"compiled vs eager {_distance_text(dist)} (bound {AOT_BF16_TOL}); ms a call "
+             f"(events, median of "
+             f"{AOT_CALLS}) / peak GB: "
+             + "; ".join(f"{tag} " + ", ".join(f"{r['ms']:.2f} ({r['q1_ms']:.2f}-"
+                                               f"{r['q3_ms']:.2f}) / {r['peak_gb']:.2f}"
+                                               for r in rs) for tag, rs in turns.items())
+             + f"; launches {launches_c} each, 0 graph breaks, on {smi}")
+        profile = _aot_profile(torch, {"eager": fn, "compiled": compiled}, wargs)
+        served = _aot_serve(torch, np, wtt, kernels, fn.explainer, cold["aot_key"], smi)
+        del fn, compiled, wargs, out_c, out_e
+        f32 = _aot_f32(torch, kernels)
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    operators = _aot_operators(torch, tmm, kernels, sites)
+    dispatch = _aot_dispatch(torch, tmm)
+    phase_s = time.perf_counter() - t_phase
+    _log(f"  aot: cold warm {cold['warm_s']:.1f} s, hit {hit['warm_s']:.1f} s, registry "
+         f"{hydrated['warm_s']:.1f} s; phase {phase_s:.1f} s")
+    return {"gpu": smi, "cold": cold, "hit": hit, "registry": hydrated,
+            "bundle": {k: pub[k] for k in ("artifacts", "aot", "compile")},
+            "hydration": hyd["artifacts"], "libraries": outcomes, "load_s": load_s,
+            "distance": dist, "launches": launches_c,
+            "programs": statuses, "timed": turns, "profile_ms": profile, "serve": served,
+            "f32": f32, "operators": operators, "dispatch": dispatch, "phase_s": phase_s}
+
+
 def main() -> int:
     import torch
 
@@ -5378,6 +6072,14 @@ def main() -> int:
     fleet = timed("fleet", phase_fleet, torch, wtt, kernels, smi)
     seq = timed("seq", phase_seq, torch, wtt, kernels, smi)
     tune = timed("tune", phase_tune, torch, wtt, kernels, smi)
+    aot_ = timed("aot", phase_aot, torch, wtt, kernels, smi, sites)
+    # what routing the host-bound phases' eager launches through the
+    # operators would add to a call (phase aot's dispatch measurement)
+    aot_["dispatch_estimate"] = aot_dispatch_estimate(aot_["dispatch"], {
+        "vit": (vit["call_launches"], vit["median_ms"], vit["spread_ms"]),
+        "video": (video["call_launches"], video["median_ms"], video["spread_ms"]),
+        **{f"eval2d {m}": (eval2d[m]["launches"], eval2d[m]["median_ms"],
+                           eval2d[m]["spread_ms"]) for m in EVAL_METRICS}})
     an_calls = ("isolate_scales", "insertion", "deletion")
     launches = {"flagship": slice_["launches"], "path 2": slice2["launches"],
                 "vit": vit["call_launches"], "vol": vol["fused"]["call_launches"],
@@ -5421,6 +6123,7 @@ def main() -> int:
         row["seq_launches"] = {arm: seq[arm]["launches"][row["kernel"]] for arm in SEQ_ARMS}
         row["tune_launches"] = {c["label"]: c["launches"][row["kernel"]]
                                 for c in tune["candidates"]}
+        row["aot_launches"] = aot_["launches"][row["kernel"]]
 
     print(json.dumps({"slice": {k: v for k, v in slice_.items() if k != "launches"},
                       "slice2": {k: v for k, v in slice2.items() if k != "launches"},
@@ -5431,6 +6134,7 @@ def main() -> int:
                       "attention": attention, "video": video, "anytime": anytime_,
                       "serve": serve_, "parallel": par, "fleet": fleet, "seq": seq,
                       "tune": {k: v for k, v in tune.items() if k != "entry"},
+                      "aot": aot_,
                       "phase_s": seconds,
                       "wall_s": time.perf_counter() - t_start, "gpu": smi}),
           flush=True)

@@ -269,9 +269,12 @@ def test_fan_runner_builds_no_graph_and_refuses_unported_options():
     w = torch.ones(3, requires_grad=True)
     out = tfan.fan_runner(lambda x: x * w)(torch.ones(3))
     assert not out.requires_grad
-    for kw in ({"aot_key": "k"}, {"donate": True}):
-        with pytest.raises(NotImplementedError, match="slice E"):
-            tfan.fan_runner(lambda x: x, **kw)
+    # aot_key= is the compiled-step cache's dispatcher (tests/test_torch_aot.py);
+    # donate=True releases CUDA inputs only, so CPU tensors pass through
+    assert tfan.fan_runner(lambda x: x, aot_key="k").fns == {}
+    x = torch.arange(3.0)
+    assert torch.equal(tfan.fan_runner(lambda x: x * 2, donate=True, donate_argnums=(0,))(x),
+                       torch.arange(3.0) * 2) and x.numel() == 3
     tfan.fan_runner(lambda x: x, donate=False)
     # mesh= is ported (tests/test_torch_parallel.py): the sharded runner,
     # no graph there either

@@ -17,7 +17,6 @@ import wam_tpu
 import wam_tpu_torch
 
 ROOT = Path(__file__).resolve().parent.parent
-SLICE_E = "ROADMAP.md queue 1 item 1 (slice E)"
 SLICE_F = "ROADMAP.md queue 1 item 2 (slice F)"
 VIZ3D = "ROADMAP.md queue 1 item 3 (viz/viz3d.py)"
 
@@ -33,10 +32,8 @@ PENDING = {
     "serve": {},
     "parallel": {},
     "testing": {"PodChaosKiller": SLICE_F},  # the pod tier's process-kill chaos
-    "obs": {"record_aot": SLICE_E},  # the AOT cache's events (pipeline/aot.py)
-    "pipeline": {name: SLICE_E for name in ("AOT_CACHE_VERSION", "aot_entry_path",
-                                            "aval_signature", "cached_entry", "cached_jit",
-                                            "default_aot_dir", "load_aot", "save_aot")},
+    "obs": {},
+    "pipeline": {},
     # the port's fused ReLU picks the kernel or its plain version by the
     # tensor's device: no process-wide impl knob (wam_tpu_torch/tune/__init__.py)
     "tune": {"set_fused_relu_impl": "no counterpart", "get_fused_relu_impl": "no counterpart"},

@@ -151,8 +151,9 @@ def test_fleet_submit_validation_and_unported_options(monkeypatch):
         with pytest.raises(NoBucketError):  # no sequence-sharded route
             fleet.attribute_batch(np.zeros((2, 4096), np.float32), np.zeros((2,), np.int32))
         assert fleet.describe()["seq_route"] is False
-        with pytest.raises(NotImplementedError, match="slice F"):
-            fleet.start(registry="bundle.tar")
+        # registry= is ported (tests/test_torch_registry.py): start() on a
+        # started fleet returns it and hydrates nothing
+        assert fleet.start(registry="bundle.tar") is fleet and fleet.registry_report is None
     finally:
         _release(gates)
         fleet.close()
@@ -170,8 +171,13 @@ def test_fleet_submit_validation_and_unported_options(monkeypatch):
         assert len(meshes) == 1 and meshes[0].shape == {"data": 2}
     finally:
         seq.close()
-    with pytest.raises(NotImplementedError, match="slice F"):
-        _fleet(_double, registry="bundle.tar")
+    # a bundle that is not there is a silent miss: the fleet compiles as without one
+    missing = _fleet(lambda rid, m, dev: _double, registry="no-such-bundle")
+    try:
+        assert missing.registry_report.status == "no_manifest"
+        assert missing.describe()["registry"] == "no-such-bundle"
+    finally:
+        missing.close()
     with pytest.raises(ValueError, match="oversize"):
         _fleet(_double, oversize="spread")
     with pytest.raises(ValueError, match="replicas=3 with 2"):

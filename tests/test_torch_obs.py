@@ -239,11 +239,22 @@ def test_assert_no_retrace_raises_with_events():
 
 
 def test_sentinel_aot_events_wait_for_the_aot_cache():
-    """The reference's AOT-cache events (`test_sentinel_counts_aot_events`)
-    wait for pipeline/aot.py: the names are absent, not stubs."""
-    for name in ("record_aot", "aot_event_count", "aot_events"):
-        assert hasattr(jobs.sentinel, name) and not hasattr(sentinel, name)
-    assert "record_aot" not in obs.__all__
+    """The AOT cache (pipeline/aot.py) has landed: the reference's
+    `test_sentinel_counts_aot_events` on the port, and the same scenario's
+    event rows (less their times) equal to the reference's."""
+    rows = {}
+    for mod in (jobs.sentinel, sentinel):
+        mod.clear_events()
+        with mod.label(bucket="3x8x8", phase="warmup"):
+            for event in ("miss", "export", "hit", "hit", "registry_hit"):
+                mod.record_aot(event, "k1")
+        rows[mod] = [{k: v for k, v in r.items() if k != "t"} for r in mod.aot_events()]
+        assert mod.aot_event_count("hit") == 2 and mod.aot_event_count() == 5
+        assert mod.trace_count() == 0  # AOT events never count as traces
+        mod.clear_events()
+    assert rows[sentinel] == rows[jobs.sentinel]
+    assert registry.counter("wam_tpu_compile_aot_events_total").value(event="hit") == 2.0
+    assert "record_aot" in obs.__all__
 
 
 def test_sentinel_stays_live_when_obs_disabled():

@@ -21,6 +21,7 @@ cross-package cases:
 Every wait takes a timeout."""
 
 import json
+import os
 import threading
 import time
 
@@ -418,15 +419,20 @@ def test_percentile_ms_empty_is_nan():
     assert tserve.percentile_ms(lat, 99) == jserve.percentile_ms(lat, 99)
 
 
-def test_unported_options_raise_naming_their_slice():
-    with pytest.raises(NotImplementedError, match="slice E"):
-        _server(lambda xs, ys: xs, compilation_cache=True)
-    with pytest.raises(NotImplementedError, match="registry"):
-        _server(lambda xs, ys: xs, registry="bundle.tar")
-    with pytest.raises(NotImplementedError, match="registry"):
-        tserve.ModelSpec("m", lambda: None, registry="bundle.tar")
-    with pytest.raises(NotImplementedError, match="slice E"):
-        tserve.jit_entry(lambda x, y: x, aot_key="k")
+def test_unported_options_raise_naming_their_slice(tmp_path, monkeypatch):
+    # every option of the reference's is ported now (tests/test_torch_aot.py,
+    # tests/test_torch_registry.py): none raises
+    monkeypatch.setenv("WAM_TPU_CACHE_DIR", str(tmp_path / "compile"))
+    monkeypatch.setenv("TORCHINDUCTOR_CACHE_DIR", str(tmp_path / "before"))
+    monkeypatch.setenv("TRITON_CACHE_DIR", str(tmp_path / "before"))
+    srv = _server(lambda xs, ys: xs, compilation_cache=True)
+    srv.close()
+    assert os.environ["TORCHINDUCTOR_CACHE_DIR"] == str(tmp_path / "compile")
+    srv = _server(lambda xs, ys: xs, registry="no-such-bundle")
+    srv.close()
+    assert srv.registry_report.status == "no_manifest"
+    assert tserve.ModelSpec("m", lambda: None, registry="bundle.tar").registry == "bundle.tar"
+    assert tserve.jit_entry(lambda x, y: x, aot_key="k").wam_aot_fns[0].fns == {}
     assert tserve.fleet_aot_key("k", 4, "bf16") == jserve.fleet_aot_key("k", 4, "bf16")
     assert tserve.fleet_aot_key(None, 4) is None and tserve.fleet_aot_key("k", 1) == "k"
 

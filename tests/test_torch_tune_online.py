@@ -159,9 +159,10 @@ def test_the_shadow_tuner_mines_sweeps_and_promotes(caches):
     promoted = tuner.promote(chall, verdict)
     assert promoted["live_fingerprint"] == chall["fingerprint"]
     assert tcache.load_schedule_cache().get(chall["keys"][0]) is not None
+    # bundle_dir= publishes the promotion (tests/test_torch_registry.py)
     tuner.config.bundle_dir = str(caches / "bundle")
-    with pytest.raises(NotImplementedError, match="registry"):
-        tuner.promote(chall, verdict)
+    tuner.config.bundle_aot_keys = []
+    assert tuner.promote(chall, verdict)["bundle"]["dir"] == str(caches / "bundle")
 
 
 def test_the_kill_switch_freezes_the_tuner(caches, monkeypatch):

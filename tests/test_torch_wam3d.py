@@ -501,8 +501,11 @@ def test_wam3d_rejects_unported_options(r3d):
     with pytest.raises(ValueError, match="serve_entry"):
         meshed.serve_entry()
     assert callable(tw3.WaveletAttribution3D(tfn, device="cpu").serve_entry())
-    with pytest.raises(NotImplementedError, match="slice E"):
-        tw3.WaveletAttribution3D(tfn, device="cpu").serve_entry(aot_key="vol")
+    # the AOT key is ported (tests/test_torch_aot.py); the 3D entry has no
+    # compiled step, so it warns and runs eager with no programs
+    with pytest.warns(UserWarning, match="no compiled step"):
+        assert tw3.WaveletAttribution3D(tfn, device="cpu").serve_entry(
+            aot_key="vol").wam_aot_fns == []
     with pytest.raises(ValueError):
         tw3.WaveletAttribution3D(tfn, method="gradcam", device="cpu")
     with pytest.raises(ValueError):

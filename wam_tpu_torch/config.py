@@ -34,6 +34,7 @@ import torch
 
 __all__ = ["FAN_DTYPES", "PrecisionPolicy", "resolve_precision", "resolve_compute_dtype",
            "precision_tag", "compute_cast", "fp8_supported", "probe_accelerator",
+           "enable_compilation_cache",
            "WAM2DConfig", "WAM1DConfig", "WAM3DConfig", "EvalConfig", "ServeConfig",
            "ObsConfig", "add_config_args", "config_from_args"]
 
@@ -197,6 +198,31 @@ def probe_accelerator(timeout_s: float = 180.0) -> bool:
     return proc.returncode == 0
 
 
+def enable_compilation_cache(cache_dir: str | None = None,
+                             min_compile_time_secs: float | None = None) -> str:
+    """Persist compiled programs across processes (the counterpart of the
+    reference's persistent XLA cache): turns on Inductor's FX-graph cache
+    and AOTAutograd's cache and points ``TORCHINDUCTOR_CACHE_DIR`` and
+    ``TRITON_CACHE_DIR`` under ``cache_dir`` (default
+    ``$WAM_TPU_CACHE_DIR`` or ``~/.cache/wam_tpu/inductor``), as the
+    reference sets JAX's cache directory. Returns the directory. A process that loads
+    the compiled-step cache's artifacts (`pipeline.aot`) installs them
+    here. ``min_compile_time_secs`` has no counterpart (Inductor caches
+    every graph) and is accepted for the reference's signature."""
+    del min_compile_time_secs
+    cache_dir = cache_dir or os.environ.get(
+        "WAM_TPU_CACHE_DIR", os.path.expanduser("~/.cache/wam_tpu/inductor"))
+    os.makedirs(cache_dir, exist_ok=True)
+    os.environ["TORCHINDUCTOR_CACHE_DIR"] = cache_dir
+    os.environ["TRITON_CACHE_DIR"] = os.path.join(cache_dir, "triton")
+    import torch._functorch.config as functorch_config
+    import torch._inductor.config as inductor_config
+
+    inductor_config.fx_graph_cache = True
+    functorch_config.enable_autograd_cache = True
+    return cache_dir
+
+
 @dataclass
 class WAM2DConfig:
     wavelet: str = "haar"
@@ -271,14 +297,12 @@ class ServeConfig:
     fleet mesh, "fanout" = per-item routing); ``supervise`` and
     ``restart_*`` are the replicas' restart policy. `serve.FleetServer.from_config`
     reads these knobs; the single-device server has no reader yet (the
-    serving benchmark's port, ROADMAP.md queue 1 item 2). ``max_batch`` accepts "auto":
+    serving benchmark's port, ROADMAP.md queue 1 item 1). ``max_batch`` accepts "auto":
     the tuned per-bucket cap from the schedule cache
     (`tune.resolve_bucket_cap`, keyed by the fleet's replica count), else 8.
-
-    The reference's ``registry`` knob waits for the port's artifact
-    registry (ROADMAP.md slice F). ``compilation_cache`` defaults off here:
-    the server raises NotImplementedError when it is on, until the port's
-    AOT cache (``pipeline/aot.py``, slice E2) lands."""
+    ``compilation_cache`` (`config.enable_compilation_cache` at start) and
+    ``registry`` (a bundle of `wam_tpu_torch.registry` hydrated before
+    warmup) are the cold-start knobs, with the reference's defaults."""
 
     max_batch: int | str = 8  # rows per dispatched batch, or "auto"
     max_wait_ms: float = 5.0
@@ -295,7 +319,7 @@ class ServeConfig:
     buckets: str = ""
     warmup: bool = True
     pipelined: bool = True  # one-in-flight overlapped dispatch (serve/runtime)
-    compilation_cache: bool = False
+    compilation_cache: bool = True
     metrics_path: str = ""
     device: str = "auto"
     fleet: int = 1  # replica workers (one per device); 1 = single-device server
@@ -318,6 +342,8 @@ class ServeConfig:
     restart_backoff_ms: float = 50.0  # base restart backoff (exp, jittered)
     retry_attempts: int = 4  # client-side submit attempts (serve.retry)
     retry_budget_s: float = 30.0  # total per-request retry budget; 0 = none
+    # -- cold start (wam_tpu_torch.registry) --------------------------------
+    registry: str = ""  # compile-artifact bundle to hydrate before warmup
 
     def bucket_shapes(self) -> list[tuple[int, ...]]:
         if not self.buckets:

@@ -142,7 +142,7 @@ class WamEngine:
         return rec[..., : spatial_shape[0], : spatial_shape[1]]
 
     def grads_from_coeffs(self, coeffs, y, spatial_shape, samples: int = 1,
-                          front: bool = False, synth_impl: str | None = None):
+                          front: bool = False, synth_impl: str | None = None, anchor=None):
         """Gradient of the target loss w.r.t. every coefficient, in the
         coefficients' structure; with ``front=True`` the pair (those
         gradients, the gradient at the front end's output), both from one
@@ -151,11 +151,19 @@ class WamEngine:
         ``samples`` > 1 means the rows hold that many stacked copies of one
         batch (sample-major, ``y`` repeated to match): the loss is then the
         SUM over copies of each copy's batch mean, so every coefficient gets
-        exactly its own copy's gradient. ``synth_impl``: `reconstruct`'s."""
+        exactly its own copy's gradient. ``synth_impl``: `reconstruct`'s.
+
+        ``anchor`` (a 0-d zero tensor that requires grad) makes the leaves
+        ``coefficient + anchor`` in place of detached copies made to require
+        grad: the form a compiled graph (`pipeline.aot`) takes, since Dynamo
+        does not trace ``requires_grad_``; the gradients are the same."""
         if front and self.front_fn is None:
             raise ValueError("front=True requires front_fn")
-        leaves = [c.detach().requires_grad_(True) for c in _flatten(coeffs)]
         with torch.enable_grad():
+            if anchor is None:
+                leaves = [c.detach().requires_grad_(True) for c in _flatten(coeffs)]
+            else:
+                leaves = [c.detach() + anchor for c in _flatten(coeffs)]
             feats = self.reconstruct(_unflatten(leaves, coeffs), spatial_shape, synth_impl)
             if self.front_fn is not None:
                 feats = self.front_fn(feats)
@@ -171,15 +179,18 @@ class WamEngine:
             return tuple(x_shape[-3:-1])
         return tuple(x_shape[-self.ndim:])
 
-    def attribute(self, x: torch.Tensor, y: torch.Tensor | None, samples: int = 1):
-        """Full single pass: decompose -> grads. Returns (coeffs, grads)."""
+    def attribute(self, x: torch.Tensor, y: torch.Tensor | None, samples: int = 1,
+                  anchor=None):
+        """Full single pass: decompose -> grads. Returns (coeffs, grads).
+        ``anchor``: `grads_from_coeffs`'."""
         with torch.no_grad():
             coeffs = self.decompose(x)
-        grads = self.grads_from_coeffs(coeffs, y, self.spatial_shape(x.shape), samples)
+        grads = self.grads_from_coeffs(coeffs, y, self.spatial_shape(x.shape), samples,
+                                       anchor=anchor)
         return coeffs, grads
 
     def attribute_with_health(self, x: torch.Tensor, y: torch.Tensor | None,
-                              samples: int = 1):
+                              samples: int = 1, anchor=None):
         """`attribute` plus the gradient tree's numeric-health vector
         (`wam_tpu_torch.obs.health.health_stats` over the coefficient
         gradients: the per-call grad-norm / NaN-Inf summary), computed on
@@ -188,7 +199,7 @@ class WamEngine:
         ``(coeffs, grads, health_vec)``."""
         from wam_tpu_torch.obs.health import health_stats
 
-        coeffs, grads = self.attribute(x, y, samples)
+        coeffs, grads = self.attribute(x, y, samples, anchor)
         return coeffs, grads, health_stats(grads)
 
     def attribute_with_front_grads(self, x: torch.Tensor, y: torch.Tensor | None,

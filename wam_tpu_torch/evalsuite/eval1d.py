@@ -18,7 +18,7 @@ import torch
 
 from wam_tpu_torch.config import PrecisionPolicy
 from wam_tpu_torch.device import resolve_device
-from wam_tpu_torch.evalsuite.fan import FanPlan, check_ported, plan_fan, upload
+from wam_tpu_torch.evalsuite.fan import FanPlan, plan_fan, upload
 from wam_tpu_torch.evalsuite.metrics import (
     batch_fingerprint,
     generate_masks,
@@ -60,7 +60,8 @@ class Eval1DWAM:
         precision=None,
         device=None,
     ):
-        check_ported(donate=donate_inputs, aot_key=aot_key)
+        self.donate_inputs = donate_inputs
+        self.aot_key = aot_key
         self.mesh = mesh
         self.data_axis = data_axis
         self.device = resolve_device(device)
@@ -160,7 +161,8 @@ class Eval1DWAM:
         mel_bf16 = get_mel_bf16() if self._mel_bf16 is None else self._mel_bf16
         return run_cached_auc(self._auc_runners, (mode, target, mel_bf16), inputs_fn,
                               self.model_fn, self._fan_plan(n_iter + 1), n_iter, x, expl, y,
-                              return_logits=argmax, mesh=self.mesh, data_axis=self.data_axis)
+                              return_logits=argmax, mesh=self.mesh, data_axis=self.data_axis,
+                              donate=self.donate_inputs, aot_key=self.aot_key)
 
     def insertion(self, x, y, target: str = "wavelet", n_iter: int = 64):
         scores, curves = self.evaluate_auc(x, y, "insertion", target, n_iter)

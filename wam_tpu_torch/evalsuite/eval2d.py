@@ -28,10 +28,10 @@ import torch
 
 from wam_tpu_torch.config import PrecisionPolicy
 from wam_tpu_torch.device import resolve_device
+from wam_tpu_torch.pipeline.donation import donation_safe, resolve_donate
 from wam_tpu_torch.evalsuite.fan import (
     FanPlan,
     cast_model_fn,
-    check_ported,
     fan_runner,
     make_chunked_forward,
     plan_fan,
@@ -103,8 +103,11 @@ class Eval2DWAM:
     transforms' implementation (`wavelets.transform`; None is the kernels
     on CUDA). ``mesh``: a `parallel.Mesh`; every metric's fan splits its
     images over ``data_axis`` (`fan.make_sharded_runner`), still one
-    result fetch a call. ``aot_key`` and ``donate_inputs=True`` are not
-    ported yet and raise.
+    result fetch a call. ``donate_inputs`` releases each metric's staged
+    inputs after its fan (on the card only by default; caller-held tensors
+    are copied first, `pipeline.donation.donation_safe`); ``aot_key`` runs
+    each single-device fan through the compiled-step cache
+    (`pipeline.aot`), keyed as the reference keys it.
     """
 
     def __init__(
@@ -126,7 +129,8 @@ class Eval2DWAM:
         device=None,
         impl: str | None = None,
     ):
-        check_ported(donate=donate_inputs, aot_key=aot_key)
+        self.donate_inputs = donate_inputs
+        self.aot_key = aot_key
         self.mesh = mesh
         self.data_axis = data_axis
         self.device = resolve_device(device)
@@ -219,7 +223,7 @@ class Eval2DWAM:
             self._auc_runners, (mode, tuple(wams.shape[1:])),
             lambda img, wam: self._perturb_for_auc(img, wam, mode, n_iter),
             self.model_fn, self._fan_plan(n_iter + 1), n_iter, x, wams, y, mesh=self.mesh,
-            data_axis=self.data_axis)
+            data_axis=self.data_axis, donate=self.donate_inputs, aot_key=self.aot_key)
 
     def insertion(self, x, y, n_iter: int = 64):
         scores, curves = self.evaluate_auc(x, y, "insertion", n_iter)
@@ -281,7 +285,13 @@ class Eval2DWAM:
                     out.append(spearman(deltas[j], (onehotb[i] * cells).sum(dim=1)))
             return torch.stack(out)
 
-        return fan_runner(run, mesh=self.mesh, data_axis=self.data_axis)
+        aot_key = None
+        if self.aot_key is not None:
+            # dtype-tagged: a bf16 μ program never hits the f32 one
+            aot_key = (f"{self.aot_key}|mu|g{grid_size}|s{sample_size}"
+                       f"|c{plan.images_per_chunk}|{plan.fan_dtype}")
+        return fan_runner(run, mesh=self.mesh, data_axis=self.data_axis,
+                          donate=self.donate_inputs, donate_argnums=(0,), aot_key=aot_key)
 
     def mu_fidelity(self, x, y, grid_size: int = 28, sample_size: int = 128,
                     subset_size: int = 157):
@@ -300,5 +310,7 @@ class Eval2DWAM:
         runner = self._mu_runners.get(key)
         if runner is None:
             runner = self._mu_runners[key] = self._make_mu_runner(grid_size, sample_size, plan)
+        if self.mesh is None and resolve_donate(self.donate_inputs):
+            x = donation_safe(x, True)
         out = run_fan(runner, (x, wams, upload(y, self.device).long(), rand_all, onehot_all))
         return [float(v) for v in out]

@@ -20,11 +20,11 @@ from wam_tpu_torch.config import FP8, resolve_compute_dtype
 from wam_tpu_torch.device import resolve_device
 from wam_tpu_torch.evalsuite import baselines as B
 from wam_tpu_torch.evalsuite.eval2d import _minmax01, imagenet_denormalize, imagenet_preprocess
+from wam_tpu_torch.pipeline.donation import donation_safe, resolve_donate
 from wam_tpu_torch.evalsuite.fan import (
     AUTO_CAP,
     FanPlan,
     cast_model_fn,
-    check_ported,
     fan_runner,
     make_chunked_forward,
     plan_fan,
@@ -81,7 +81,7 @@ class _BaseEvalBaselines:
     convolution; the input rounding passes gradients straight through.
     ``mesh``: a `parallel.Mesh`; every metric's fan splits its inputs over
     ``data_axis`` (`fan.make_sharded_runner`), one result fetch a call.
-    ``aot_key=`` and ``donate_inputs=True`` are not ported yet and raise.
+    ``donate_inputs`` and ``aot_key`` as for `Eval2DWAM`.
     Constructor arguments are frozen configuration."""
 
     def __init__(self, model, variables, method: str, batch_size: int | str,
@@ -103,7 +103,8 @@ class _BaseEvalBaselines:
                 "the ViT with capture_attn=True (models/vit.py); the stock "
                 "attention body never materializes them"
             )
-        check_ported(donate=donate_inputs, aot_key=aot_key)
+        self.donate_inputs = donate_inputs
+        self.aot_key = aot_key
         self.mesh = mesh
         self.data_axis = data_axis
         self.device = resolve_device(device)
@@ -241,7 +242,8 @@ class _BaseEvalBaselines:
 
         return run_cached_auc(self._auc_runners, (mode, tuple(expl.shape[1:])), inputs_fn,
                               self.model_fn, self._fan_plan(n_iter + 1), n_iter, x, expl, y,
-                              return_logits=argmax, mesh=self.mesh, data_axis=self.data_axis)
+                              return_logits=argmax, mesh=self.mesh, data_axis=self.data_axis,
+                              donate=self.donate_inputs, aot_key=self.aot_key)
 
     def insertion(self, x, y, n_iter: int = 128):
         scores, curves = self.evaluate_auc(x, y, "insertion", n_iter)
@@ -309,7 +311,12 @@ class EvalImageBaselines(_BaseEvalBaselines):
                     out.append(spearman(deltas[j], onehotb[i] @ cells))
             return torch.stack(out)
 
-        return fan_runner(run, mesh=self.mesh, data_axis=self.data_axis)
+        aot_key = None
+        if self.aot_key is not None:
+            aot_key = (f"{self.aot_key}|mu|g{grid_size}|s{sample_size}"
+                       f"|c{plan.images_per_chunk}|{plan.fan_dtype}")
+        return fan_runner(run, mesh=self.mesh, data_axis=self.data_axis,
+                          donate=self.donate_inputs, donate_argnums=(0,), aot_key=aot_key)
 
     def mu_fidelity(self, x, y, grid_size: int = 28, sample_size: int = 128,
                     subset_size: int = 157):
@@ -327,6 +334,8 @@ class EvalImageBaselines(_BaseEvalBaselines):
         if runner is None:
             runner = self._mu_runners[key] = self._make_mu_runner(
                 grid_size, sample_size, tuple(x.shape[-2:]), plan)
+        if self.mesh is None and resolve_donate(self.donate_inputs):
+            x = donation_safe(x, True)
         out = run_fan(runner, (x, expl, upload(y, self.device).long(), onehot_all))
         return [float(v) for v in out]
 

@@ -35,7 +35,7 @@ from wam_tpu_torch.parallel.mesh import P
 from wam_tpu_torch.parallel.tree import cyclic_pad_index, tree_leaves, tree_map, tree_zip_map
 
 __all__ = ["FanPlan", "plan_fan", "fan_chunk_geometry", "cast_model_fn",
-           "make_chunked_forward", "check_ported", "make_sharded_runner", "fan_runner",
+           "make_chunked_forward", "make_sharded_runner", "fan_runner",
            "run_fan", "device_fetch",
            "fetch_count", "reset_fetch_count", "fetch_scope", "upload", "AUTO_CAP"]
 
@@ -186,17 +186,6 @@ def make_chunked_forward(model_fn, fan_chunk: int | None):
 # -- dispatch --------------------------------------------------------------------
 
 
-def check_ported(*, donate: bool | None = None, aot_key: str | None = None) -> None:
-    """Raise NotImplementedError for the reference's dispatch options that
-    are not ported yet: ``aot_key=`` (its executable cache) and
-    ``donate=True`` (it donates on the TPU only, so None and False mean the
-    same here)."""
-    if aot_key is not None:
-        raise NotImplementedError("aot_key= is not ported yet (ROADMAP.md, slice E2)")
-    if donate:
-        raise NotImplementedError("donate_inputs=True is not ported yet (ROADMAP.md, slice E2)")
-
-
 def make_sharded_runner(body, mesh, data_axis: str = "data"):
     """The on-mesh fan: axis 0 of every positional argument split over
     ``data_axis`` (cyclically padded to its size), one block a data index
@@ -226,19 +215,42 @@ def make_sharded_runner(body, mesh, data_axis: str = "data"):
 
 
 def fan_runner(body, *, mesh=None, data_axis: str = "data", donate: bool | None = None,
-               aot_key: str | None = None):
-    """The dispatch every fan step goes through: ``body`` run under
-    ``torch.no_grad()``, or over ``mesh`` by `make_sharded_runner`
-    (`check_ported` for the other options)."""
-    check_ported(donate=donate, aot_key=aot_key)
+               donate_argnums: tuple = (), aot_key: str | None = None):
+    """The dispatch every fan step goes through.
+
+    One device: ``body`` under ``torch.no_grad()``, its CUDA arguments at
+    ``donate_argnums`` released after the call when the shared donation
+    policy says so (`pipeline.donation.resolve_donate`: on the card only by
+    default; the caller passes copies of what it keeps, `donation_safe`),
+    or through the compiled-step cache (`pipeline.aot.cached_entry`) when
+    the caller gives an ``aot_key`` (which must identify the model + params).
+    With ``mesh``, `make_sharded_runner` splits axis 0 over ``data_axis``;
+    donation and the compiled cache are not used there, as in the
+    reference."""
     if mesh is not None:
         return make_sharded_runner(body, mesh, data_axis)
+    from wam_tpu_torch.pipeline.donation import release, resolve_donate
+
+    argnums = tuple(donate_argnums) if resolve_donate(donate) else ()
 
     def run(*args):
         with torch.no_grad():
             return body(*args)
 
-    return run
+    if aot_key is not None:
+        from wam_tpu_torch.pipeline.aot import cached_entry
+
+        return cached_entry(run, aot_key, donate_argnums=argnums, obs_kind="fan")
+    if not argnums:
+        return run
+
+    def donating(*args):
+        out = run(*args)
+        for i in argnums:
+            release(args[i])
+        return out
+
+    return donating
 
 
 def run_fan(runner, args: tuple):

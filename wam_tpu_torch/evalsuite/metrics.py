@@ -21,6 +21,7 @@ from wam_tpu_torch.evalsuite.fan import (
     run_fan,
     upload,
 )
+from wam_tpu_torch.pipeline.donation import donation_safe, resolve_donate
 
 __all__ = ["host_labels", "batch_fingerprint", "softmax_probs", "compute_auc", "generate_masks",
            "minmax_normalize", "spearman", "mu_fidelity_draws", "batched_auc_runner",
@@ -144,7 +145,8 @@ def _image_expl(expl, i: int):
 
 def batched_auc_runner(inputs_fn, model_fn, images_per_chunk: int, return_logits: bool = False,
                        fan_chunk: int | None = None, fan_dtype: str = "f32", mesh=None,
-                       data_axis: str = "data"):
+                       data_axis: str = "data", donate: bool | None = None,
+                       aot_key: str | None = None):
     """Insertion/deletion over an image batch in one fan step.
 
     ``inputs_fn(x_s, expl_s) -> (M, ...)`` builds one image's perturbation
@@ -155,7 +157,10 @@ def batched_auc_runner(inputs_fn, model_fn, images_per_chunk: int, return_logits
     curve, or with ``return_logits`` the (B, M, K) logits. ``fan_dtype``
     wraps the forward in the precision boundary (`fan.cast_model_fn`), so
     softmax and AUC run in float32. ``mesh`` splits the images over
-    ``data_axis`` (`fan.make_sharded_runner`)."""
+    ``data_axis`` (`fan.make_sharded_runner`). ``donate`` releases the
+    images and explanations after the call (`fan.fan_runner`: on the card
+    only by default); ``aot_key`` runs the step through the compiled-step
+    cache (single device only)."""
     forward = cast_model_fn(make_chunked_forward(model_fn, fan_chunk), fan_dtype)
 
     def body(xb, explb, yb):
@@ -176,18 +181,24 @@ def batched_auc_runner(inputs_fn, model_fn, images_per_chunk: int, return_logits
             return out
         return torch.cat([compute_auc(out)[:, None], out], dim=1)
 
-    return fan_runner(body, mesh=mesh, data_axis=data_axis)
+    return fan_runner(body, mesh=mesh, data_axis=data_axis, donate=donate,
+                      donate_argnums=(0, 1), aot_key=aot_key)
 
 
 def run_cached_auc(cache: dict, key_extra, inputs_fn, model_fn, batch_size, n_iter: int,
-                   x, expl, y, return_logits: bool = False, mesh=None, data_axis: str = "data"):
+                   x, expl, y, return_logits: bool = False, mesh=None, data_axis: str = "data",
+                   donate: bool | None = None, aot_key: str | None = None):
     """Memoized `batched_auc_runner` call shared by the evaluators.
 
     ``batch_size`` is a `FanPlan` or an int cap (geometry by the cap // fan
     law). The call ends in EXACTLY ONE `fan.device_fetch`: the [score |
     curve] array, or the logits on the ``return_logits`` path. Returns
     (scores, curves) as host lists, or the list of per-image logits.
-    ``mesh`` / ``data_axis``: the evaluator's, for `batched_auc_runner`."""
+    ``mesh`` / ``data_axis``: the evaluator's, for `batched_auc_runner`.
+    ``donate`` / ``aot_key`` go there too, with ``x`` / ``expl`` passed
+    through `donation_safe` so caller-held and instance-cached tensors
+    survive the release; the AOT key is the reference's: the caller's key,
+    the runner's cache key and the synthesis impl."""
     if isinstance(batch_size, FanPlan):
         plan = batch_size
     else:
@@ -196,9 +207,19 @@ def run_cached_auc(cache: dict, key_extra, inputs_fn, model_fn, batch_size, n_it
            plan.fan_chunk, plan.fan_dtype)
     runner = cache.get(key)
     if runner is None:
+        if aot_key is not None:
+            # the caller's key names model + params; the runner-cache key the
+            # metric mode and fan geometry the body bakes in; the synth tag
+            # the synthesis impl the fan's reconstructions run
+            from wam_tpu_torch.wavelets.transform import resolved_synth2_impl
+
+            aot_key = f"{aot_key}|auc|{key!r}|synth-{resolved_synth2_impl(x.device)}"
         runner = batched_auc_runner(inputs_fn, model_fn, plan.images_per_chunk, return_logits,
-                                    plan.fan_chunk, plan.fan_dtype, mesh, data_axis)
+                                    plan.fan_chunk, plan.fan_dtype, mesh, data_axis, donate,
+                                    aot_key)
         cache[key] = runner
+    if mesh is None and resolve_donate(donate):
+        x, expl = donation_safe((x, expl), True)
     out = run_fan(runner, (x, expl, upload(y, x.device).long()))
     if return_logits:
         return list(out)

@@ -15,8 +15,8 @@ Three pillars, one import surface:
 - **First-call sentinel** (`obs.sentinel`, `obs.assert_no_retrace`) —
   every first call of an entry at a new input signature (the port's
   counterpart of a jit trace) counted and attributed. See
-  `wam_tpu_torch.obs.sentinel`. The reference's ``record_aot`` waits for
-  the AOT cache (ROADMAP.md slice E).
+  `wam_tpu_torch.obs.sentinel`, which also counts the compiled-step
+  cache's events (`record_aot`, `wam_tpu_compile_aot_events_total`).
 
 The health plane builds on the pillars:
 
@@ -51,7 +51,7 @@ from wam_tpu_torch.obs.memory import MemoryBudget
 from wam_tpu_torch.obs.slo import SLObjectives, SLOTracker, parse_slo
 from wam_tpu_torch.obs.registry import Registry, registry, render_prom
 from wam_tpu_torch.obs.sentinel import (RetraceError, assert_no_retrace, compile_events,
-                                        record_trace, trace_count)
+                                        record_aot, record_trace, trace_count)
 from wam_tpu_torch.obs.tracing import (NULL_SPAN, Span, clear_spans, current_context, enabled,
                                        export_chrome_trace, record_span, set_enabled,
                                        set_ring_size, span, spans, start_span, use_context)
@@ -61,7 +61,7 @@ __all__ = [
     "spans", "clear_spans", "export_chrome_trace", "Span", "NULL_SPAN",
     "registry", "Registry", "render_prom", "start_metrics_server",
     "stop_metrics_server",
-    "sentinel", "record_trace", "trace_count",
+    "sentinel", "record_trace", "record_aot", "trace_count",
     "compile_events", "assert_no_retrace", "RetraceError",
     "health", "memory", "slo",
     "HealthConfig", "HealthMonitor", "health_stats", "MemoryBudget",

@@ -37,17 +37,24 @@ from collections import deque
 
 from wam_tpu_torch.obs.registry import registry
 
-__all__ = ["RetraceError", "label", "record_trace", "trace_count", "compile_events",
+__all__ = ["RetraceError", "label", "record_trace", "record_aot",
+           "trace_count", "aot_event_count", "compile_events", "aot_events",
            "assert_no_retrace", "clear_events"]
 
 _lock = threading.Lock()
 _events: deque = deque(maxlen=1024)
+_aot_log: deque = deque(maxlen=1024)
 _trace_count = 0
+_aot_seq = 0
+_aot_counts: dict[str, int] = {}
 _tls = threading.local()
 
 _jit_traces = registry.counter(
     "wam_tpu_compile_jit_traces_total",
     "jit traces observed by the compile sentinel", labels=("entry_kind",))
+_aot_events = registry.counter(
+    "wam_tpu_compile_aot_events_total",
+    "AOT executable cache events (hit/miss/export)", labels=("event",))
 
 
 class RetraceError(AssertionError):
@@ -134,9 +141,43 @@ def record_trace(entry_kind: str, detail: str = "", **labels) -> dict:
     return event
 
 
+def record_aot(event: str, key: str = "") -> dict:
+    """Record a compiled-step cache event (`pipeline.aot`): "hit", "miss",
+    "export", or with the artifact registry "registry_hit" (artifacts
+    seeded from a bundle skipped this compile) / "registry_miss" (a bundle
+    artifact failed verification and could not be seeded). Each event also
+    lands as a structured row (ambient `label(...)` attribution, its own
+    seq stream: AOT events never trip `assert_no_retrace`)."""
+    global _aot_seq
+    merged = _current_labels()
+    row = {
+        "event": "aot_event",
+        "aot_event": event,
+        "key": key,
+        "bucket": merged.get("bucket"),
+        "replica": merged.get("replica"),
+        "phase": merged.get("phase"),
+        "t": time.time(),
+    }
+    with _lock:
+        _aot_counts[event] = _aot_counts.get(event, 0) + 1
+        _aot_seq += 1
+        row["seq"] = _aot_seq
+        _aot_log.append(row)
+    _aot_events.inc(event=event)
+    return row
+
+
 def trace_count() -> int:
     with _lock:
         return _trace_count
+
+
+def aot_event_count(event: str | None = None) -> int:
+    with _lock:
+        if event is None:
+            return sum(_aot_counts.values())
+        return _aot_counts.get(event, 0)
 
 
 def compile_events(since_seq: int = 0) -> list[dict]:
@@ -144,6 +185,13 @@ def compile_events(since_seq: int = 0) -> list[dict]:
     the event ring — 1024 events dwarfs any real compile volume)."""
     with _lock:
         return [dict(e) for e in _events if e["seq"] > since_seq]
+
+
+def aot_events(since_seq: int = 0) -> list[dict]:
+    """Structured aot_event rows with ``seq > since_seq`` (a seq stream of
+    their own, apart from `compile_events`)."""
+    with _lock:
+        return [dict(e) for e in _aot_log if e["seq"] > since_seq]
 
 
 class assert_no_retrace:
@@ -169,9 +217,12 @@ class assert_no_retrace:
 
 
 def clear_events() -> None:
-    """Forget all events and zero the count (the registry counters are
-    reset separately via `registry.reset()`)."""
-    global _trace_count
+    """Forget all compile/AOT events and zero the counts (the registry
+    counters are reset separately via `registry.reset()`)."""
+    global _trace_count, _aot_seq
     with _lock:
         _events.clear()
+        _aot_log.clear()
         _trace_count = 0
+        _aot_seq = 0
+        _aot_counts.clear()

@@ -28,14 +28,18 @@ port's kernels are built and their band plans made:
   over every block. (An entry whose rows depend on their own input alone
   says so with ``entry.wam_row_wise = True`` instead.)
 
-``aot_key=`` (the reference's AOT executable cache) raises
-NotImplementedError until the port's ``pipeline/aot.py`` lands
-(ROADMAP.md slice E); `fleet_aot_key` is a string function and is here.
+``aot_key=`` (the reference's AOT executable cache) runs the entry
+through the compiled-step cache (`pipeline.aot`): the impl's compiled unit
+(``impl.wam_aot``) or the impl whole. An entry built with ``eager_only=``
+(its reason) has no compiled step; ``aot_key=`` on it warns once, naming
+the reason, and the entry runs eager with no programs (``wam_aot_fns ==
+[]``). `fleet_aot_key` builds the reference's keys.
 """
 
 from __future__ import annotations
 
 import threading
+import warnings
 from dataclasses import dataclass
 from typing import Callable
 
@@ -126,6 +130,23 @@ def signature(*args) -> tuple:
     return tuple(sig)
 
 
+def _aot_call(impl, aot_key: str, on_trace, obs_kind: str, made: list):
+    """``impl``'s compiled unit (``impl.wam_aot``), or ``impl`` whole,
+    through `pipeline.aot`; each `pipeline.aot.cached_entry` it makes is
+    appended to ``made`` (the entry's ``wam_aot_fns``: its programs' status
+    and keys). The oversize route's row blocks stay eager."""
+    from wam_tpu_torch.pipeline.aot import cached_entry
+
+    def record(fn):
+        made.append(fn)
+        return fn
+
+    make = getattr(impl, "wam_aot", None)
+    if make is not None:
+        return make(aot_key, on_trace=on_trace, obs_kind=obs_kind, record=record)
+    return record(cached_entry(impl, aot_key, on_trace=on_trace, obs_kind=obs_kind))
+
+
 def _bucket_of(x):
     """Bucket label for a first-call event: the input's shape."""
     try:
@@ -143,6 +164,7 @@ def jit_entry(
     obs_kind: str = "serve",
     with_health: bool | str = False,
     blocks: RowBlocks | None = None,
+    eager_only: str | None = None,
 ):
     """Wrap ``impl(x, y)`` as a serving entry (see module docstring).
 
@@ -165,11 +187,18 @@ def jit_entry(
     ``partial`` counts its first calls and releases its donated input as
     the entry does. With ``with_health=True`` each block's finish returns
     ``(rows, health vector of its rows)`` (`join_blocks` merges them);
-    with ``"fused"`` the given finish already does."""
-    if aot_key is not None:
-        raise NotImplementedError(
-            "aot_key= needs the AOT executable cache, pipeline/aot.py, which is not "
-            "ported yet (ROADMAP.md, slice E)")
+    with ``"fused"`` the given finish already does.
+
+    ``aot_key`` routes the entry through the compiled-step cache (module
+    docstring), tagged ``|health`` when ``with_health``, as the reference
+    tags it: a health-carrying program never hits a plain one.
+    ``eager_only`` says why ``impl`` has no compiled step: ``aot_key`` then
+    warns once and the entry runs eager (module docstring)."""
+    no_programs = aot_key is not None and bool(eager_only)
+    if no_programs:
+        warnings.warn(f"wam_tpu_torch serve entry: aot_key={aot_key!r} ignored, "
+                      f"{eager_only}; the entry runs eager")
+        aot_key = None
     fused = with_health == "fused"
     if with_health and not fused:
         from wam_tpu_torch.obs.health import health_stats
@@ -181,6 +210,20 @@ def jit_entry(
             return out, health_stats(out)
 
         impl.__name__ = getattr(base_impl, "__name__", "entry") + "+health"
+        base_aot = getattr(base_impl, "wam_aot", None)
+        if base_aot is not None:
+            def wam_aot(key, **kw):
+                call = base_aot(key, **kw)
+
+                def health_call(x, y):
+                    out = call(x, y)
+                    return out, health_stats(out)
+
+                return health_call
+
+            impl.wam_aot = wam_aot
+    if with_health and aot_key is not None:
+        aot_key = f"{aot_key}|health"
 
     donating = resolve_donate(donate)
     seen: set = set()
@@ -197,9 +240,15 @@ def jit_entry(
             if on_trace is not None:
                 on_trace()
 
+    call, count = impl, first_call
+    if aot_key is not None:  # the cache counts its compiles itself
+        aot_fns: list = []
+        call, count = _aot_call(impl, aot_key, on_trace, obs_kind, aot_fns), None
+
     def entry(x, y):
-        first_call(x, y)
-        out = impl(x, y)
+        if count is not None:
+            count(x, y)
+        out = call(x, y)
         if donating:
             release(x)
         return out
@@ -207,6 +256,10 @@ def jit_entry(
     entry.__name__ = detail or "entry"
     entry.wam_donate = donating
     entry.wam_blocks = None
+    if aot_key is not None:
+        entry.wam_aot_fns = aot_fns
+    elif no_programs:
+        entry.wam_aot_fns = []
     if blocks is not None:
         def partial(x, y, lo, total):
             first_call(x, y)

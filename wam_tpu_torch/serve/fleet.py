@@ -85,8 +85,9 @@ path, under the ``seq_sharded_batch`` span and the sentinel label
 ``phase="seq_sharded"``, with one oversize ledger row (fill 1.0, the item
 shape as its bucket).
 
-Not ported yet, and NotImplementedError naming its slice: ``registry=``
-(the compile-artifact bundle, slice F).
+``registry=`` (a bundle of `wam_tpu_torch.registry`) is hydrated once
+fleet-wide before the replicas warm and again before each supervisor
+rebuild.
 """
 
 from __future__ import annotations
@@ -256,8 +257,14 @@ class FleetServer:
         backoff + jitter and escalates crash loops to permanent-dead;
         None/False (default) keeps permanent-on-first-death. In-flight and
         queued work re-routes to survivors either way.
-    registry : must stay None/"": the compile-artifact registry waits for
-        ROADMAP.md slice F (NotImplementedError, here and in `start`).
+    registry : compile-artifact bundle (`wam_tpu_torch.registry`): a bundle
+        path or `RegistryClient`, hydrated ONCE fleet-wide before the
+        replicas warm (the caches are process-wide, so one hydration serves
+        every replica) and AGAIN before each supervisor rebuild
+        (idempotent: present artifacts are skipped, but a cache wiped under
+        a running fleet re-seeds instead of recompiling). Can also be passed
+        to `start(registry=...)`. Same silent-miss fallback as
+        `AttributionServer`.
     coalesce_ms : per-replica cross-request admission window, forwarded to
         every replica.
     result_cache : ONE shared content-addressed result cache at the fleet
@@ -324,7 +331,8 @@ class FleetServer:
             raise TypeError("entry_factory must be callable(replica_id, metrics, device)")
         if oversize not in ("pjit", "fanout"):
             raise ValueError(f"oversize must be 'pjit' or 'fanout', got {oversize!r}")
-        _check_registry(registry)
+        self._registry = registry
+        self.registry_report = None  # latest fleet-wide HydrationReport
         devices = visible_devices(devices)
         n = len(devices) if replicas is None else int(replicas)
         if not 1 <= n <= len(devices):
@@ -474,6 +482,7 @@ class FleetServer:
             deadline_ms=cfg.deadline_ms,
             warmup=cfg.warmup,
             compilation_cache=cfg.compilation_cache,
+            registry=cfg.registry or None,
             metrics_path=cfg.metrics_path or None,
             oversize=cfg.oversize,
             pipelined=cfg.pipelined,
@@ -530,17 +539,32 @@ class FleetServer:
             **{**self._server_kw, **overrides},
         )
 
+    def _hydrate(self):
+        """Hydrate the configured registry bundle into the process-wide
+        caches (no-op without one). Idempotent, so the supervisor calls it
+        before every rebuild."""
+        if self._registry is None or self._registry == "":
+            return None
+        from wam_tpu_torch.registry.client import resolve_client
+
+        client = resolve_client(self._registry)
+        if client is None:
+            return None
+        self.registry_report = client.hydrate()
+        return self.registry_report
+
     def _rebuild_replica(self, rid) -> None:
         """Supervisor restart procedure: close the dead server (drains any
         request that raced in — each fails with `ServerClosedError` and
-        re-routes), build + warm a fresh one (`start()` warms every bucket
-        on the new worker thread), then swap it live under the fleet
-        lock."""
+        re-routes), re-hydrate the registry bundle (when configured), build
+        + warm a fresh one (`start()` warms every bucket on the new worker
+        thread), then swap it live under the fleet lock."""
         replica = self._replicas[rid]
         try:
             replica.server.close(emit_metrics=False)
         except Exception:  # noqa: BLE001 - the old server may be arbitrarily broken
             pass  # the fresh one replaces it regardless
+        self._hydrate()
         server = self._make_server(rid, replica.metrics)
         server.start()
         with self._lock:
@@ -556,10 +580,13 @@ class FleetServer:
 
     def start(self, registry=None) -> "FleetServer":
         """Start (and warm) every replica concurrently. Idempotent.
-        ``registry`` must stay None (slice F)."""
-        _check_registry(registry)
+        ``registry`` overrides the constructor's bundle for this start;
+        hydration runs ONCE here, before any replica's warmup."""
         if self._started:
             return self
+        if registry is not None:
+            self._registry = registry
+        self._hydrate()
         live = [r for r in self._replicas if r.alive]
         if len(live) == 1:
             live[0].server.start()
@@ -591,6 +618,8 @@ class FleetServer:
             from wam_tpu_torch.results import JsonlWriter
 
             writer = JsonlWriter(self.metrics_path)
+            if self.registry_report is not None:
+                writer.write(self.registry_report.row())
             self.metrics.emit(
                 writer,
                 config=self.describe(),
@@ -632,7 +661,8 @@ class FleetServer:
                 self._supervisor.describe() if self._supervisor is not None
                 else None
             ),
-            "registry": None,
+            "registry": (getattr(self._registry, "bundle", None)
+                         or (str(self._registry) if self._registry else None)),
             "models": sorted(self._models) if self._models else None,
             "tenant_quota": self.tenant_quota,
         }
@@ -1258,10 +1288,3 @@ def _tree_max(trees: list):
     if isinstance(trees[0], (tuple, list)):
         return type(trees[0])(_tree_max(list(t)) for t in zip(*trees))
     return np.maximum.reduce([np.asarray(t) for t in trees])
-
-
-def _check_registry(registry) -> None:
-    if registry is not None and registry != "":
-        raise NotImplementedError(
-            "registry= needs the compile-artifact registry, registry/*, which is not "
-            "ported yet (ROADMAP.md, slice F)")

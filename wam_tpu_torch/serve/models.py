@@ -8,9 +8,9 @@ budget.
 
 `ModelSpec` declares one servable model: a zero-arg ``factory`` building
 its serving entry, the bucket subset it serves, and a device-footprint
-estimate. (The reference's ``registry`` bundle, which makes a page-in a
-hydration rather than a compile, waits for the port's ``registry/*``,
-ROADMAP.md: a spec that names one raises NotImplementedError.)
+estimate, and optionally a ``registry`` bundle (`wam_tpu_torch.registry`)
+hydrated at page-in, which makes the page-in a load of compiled steps
+rather than a compile.
 `ModelPager` owns the residency state machine:
 
 - **Page-in** (`ensure`): the first `submit(model=...)` for a non-resident
@@ -105,10 +105,6 @@ class ModelSpec:
                 f"model_id must not contain '|' or '@': {self.model_id!r}")
         if not callable(self.factory):
             raise TypeError("ModelSpec.factory must be a zero-arg callable")
-        if self.registry is not None and self.registry != "":
-            raise NotImplementedError(
-                "ModelSpec(registry=) needs the compile-artifact registry, registry/*, "
-                "which is not ported yet (ROADMAP.md, slice F)")
 
 
 @dataclass

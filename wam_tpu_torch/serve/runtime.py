@@ -96,9 +96,13 @@ concurrently because XLA compiles in parallel; on one card the warmups
 share one stream, and two buckets' working sets at once would double the
 peak), on the worker thread: cuDNN keeps state per host thread (its
 execution plans), so a warmup on the caller's thread would leave the
-worker's first batch of each bucket to build it again. The reference's ``compilation_cache=True`` and ``registry=`` wait
-for the port's AOT cache and artifact registry (ROADMAP.md) and raise
-NotImplementedError.
+worker's first batch of each bucket to build it again.
+
+Cold start: ``registry=`` hydrates a bundle of `wam_tpu_torch.registry`
+before any warmup, and ``compilation_cache=True`` points the compile caches
+at their persistent directory (`config.enable_compilation_cache`), so an
+entry built with an AOT key (`serve.entry.jit_entry`) warms from cached
+artifacts at ``compile_count == 0``.
 """
 
 from __future__ import annotations
@@ -421,8 +425,8 @@ class AttributionServer:
         per bucket, so it is rejected at `submit`.
     warmup : run every bucket's first call at `start()`, so no request
         ever pays it on the hot path.
-    compilation_cache : must stay False: the AOT cache it turns on waits
-        for ROADMAP.md slice E (NotImplementedError).
+    compilation_cache : call `config.enable_compilation_cache()` at
+        `start()`, after any registry hydration and before warmup.
     metrics : a shared `ServeMetrics`; constructed fresh when None. Pass
         the same object given to ``serve_entry(on_trace=...)`` so first-call
         counts land in the same ledger.
@@ -458,8 +462,11 @@ class AttributionServer:
         builds a per-server `MemoryBudget` on this server's device; an
         existing budget is used as-is; None/0 disables the admission check
         (watermarks are still captured when a budget object is given).
-    registry : must stay None/"": the compile-artifact registry waits for
-        the port's ``registry/*`` (ROADMAP.md slice F; NotImplementedError).
+    registry : compile-artifact bundle to hydrate from BEFORE any warmup
+        compile (`wam_tpu_torch.registry`): a bundle path or
+        `RegistryClient`; None/"" (default) skips. The `HydrationReport`
+        is kept as ``registry_report`` and, when ``metrics_path`` is set,
+        written as a ``registry_hydration`` ledger row.
     result_cache : content-addressed result cache
         (`serve.result_cache.ResultCache`): an int byte budget builds a
         per-server cache; an existing instance is SHARED as-is;
@@ -535,15 +542,11 @@ class AttributionServer:
             raise ValueError("queue_depth must be >= 1")
         if coalesce_ms < 0:
             raise ValueError("coalesce_ms must be >= 0")
-        if compilation_cache:
-            raise NotImplementedError(
-                "compilation_cache=True needs the AOT executable cache, pipeline/aot.py, "
-                "which is not ported yet (ROADMAP.md, slice E)")
-        if registry is not None and registry != "":
-            raise NotImplementedError(
-                "registry= needs the compile-artifact registry, registry/*, which is not "
-                "ported yet (ROADMAP.md, slice F)")
         self._entry = entry
+        self._registry = registry
+        # the hydration's HydrationReport (None when no bundle was given,
+        # or not started yet)
+        self.registry_report = None
         # anytime serving (wam_tpu_torch.anytime): an entry built by
         # make_anytime_entry flips the server into progressive-refinement
         # mode — deadlines deliver best-so-far AnytimeResults instead of
@@ -677,6 +680,20 @@ class AttributionServer:
         (`ServeMetrics.note_warmup` → ``warmup_s``)."""
         if self._started:
             return self
+        if self._registry is not None and self._registry != "":
+            # hydrate FIRST: seeded compiled steps make the bucket warmups
+            # below compile-free, the bundle's compile-cache files must be
+            # in place before the compile cache is pointed at them, and the
+            # schedule snapshot must land before the entries read the table
+            from wam_tpu_torch.registry.client import resolve_client
+
+            client = resolve_client(self._registry)
+            if client is not None:
+                self.registry_report = client.hydrate()
+        if self.compilation_cache:
+            from wam_tpu_torch.config import enable_compilation_cache
+
+            enable_compilation_cache()
         warmed, failed = threading.Event(), []
         self._worker = threading.Thread(
             target=self._worker_loop, args=(warmed, failed), name="wam-serve-worker",
@@ -728,6 +745,8 @@ class AttributionServer:
             from wam_tpu_torch.results import JsonlWriter
 
             writer = JsonlWriter(self.metrics_path)
+            if self.registry_report is not None:
+                writer.write(self.registry_report.row())
             if self._pager is not None:
                 self.metrics.models_resident = self.models_resident()
             self.metrics.emit(writer, config=self.describe())
@@ -761,6 +780,8 @@ class AttributionServer:
                 else None
             ),
             "memory": self._memory.describe() if self._memory is not None else None,
+            "registry": (getattr(self._registry, "bundle", None)
+                         or (str(self._registry) if self._registry else None)),
             "models": (self._pager.describe()
                        if self._pager is not None else None),
             "tenant_quota": self.tenant_quota,
@@ -1032,9 +1053,11 @@ class AttributionServer:
 
     def _page_in(self, spec: ModelSpec):
         """One model's page-in, under its build lock (`ModelPager.ensure`):
-        build the entry and warm every bucket the model serves — all inside
-        one ``model_switch`` span so traces show the switch cost
-        end-to-end. Returns ``(entry, footprint_bytes)``."""
+        hydrate its registry bundle (seeded compiled steps make the warmups
+        below loads, not compiles), build the entry, and warm every bucket
+        the model serves — all inside one ``model_switch`` span so traces
+        show the switch cost end-to-end. Returns ``(entry,
+        footprint_bytes)``."""
         buckets = self._model_buckets(spec)
         est = int(spec.est_bytes) or sum(
             self._estimate_bytes(b) for b in buckets)
@@ -1042,6 +1065,12 @@ class AttributionServer:
             "model_switch", cat="serve", model=spec.model_id,
             replica=self.replica_id,
         ):
+            if spec.registry is not None and spec.registry != "":
+                from wam_tpu_torch.registry.client import resolve_client
+
+                client = resolve_client(spec.registry)
+                if client is not None:
+                    client.hydrate()
             entry = spec.factory()
             for bucket in buckets:
                 with obs_sentinel.label(

@@ -52,12 +52,14 @@ def main(argv=None) -> int:
                    help="sweep and report but do not persist the winner")
     args = p.parse_args(argv)
 
+    from wam_tpu_torch.config import enable_compilation_cache
     from wam_tpu_torch.device import resolve_device
     from wam_tpu_torch.tune.autotuner import autotune
     from wam_tpu_torch.tune.cache import default_cache_path
     from wam_tpu_torch.tune.workloads import get_workload
 
     device = resolve_device(args.device)
+    enable_compilation_cache()
     if device.type == "cuda":
         from wam_tpu_torch import kernels
 

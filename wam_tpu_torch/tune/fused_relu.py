@@ -106,10 +106,64 @@ class _FusedRelu(torch.autograd.Function):
         return kernels.relu_bwd(m, g.contiguous())
 
 
+# -- the kernels as custom operators, for compiled graphs --------------------
+#
+# Inside `torch.compile` `fused_relu` calls these (`wavelets.matmul` says
+# why): the CUDA implementations are K4/K5's launch wrappers, the CPU ones
+# the plain versions.
+
+
+@torch.library.custom_op("wam_tpu_torch::relu_fwd", mutates_args=(), device_types="cpu")
+def relu_fwd_op(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """K4: (relu(x), packed sign mask)."""
+    return relu_fwd_plain(x)
+
+
+@relu_fwd_op.register_kernel("cuda")
+def _(x):
+    return kernels.relu_fwd(x)
+
+
+@relu_fwd_op.register_fake
+def _(x):
+    return (torch.empty_like(x),
+            x.new_empty((kernels.mask_rows(x.numel()), _LANES), dtype=torch.uint8))
+
+
+@torch.library.custom_op("wam_tpu_torch::relu_bwd", mutates_args=(), device_types="cpu")
+def relu_bwd_op(m: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
+    """K5: g * unpack(m)."""
+    return relu_bwd_plain(m, g)
+
+
+@relu_bwd_op.register_kernel("cuda")
+def _(m, g):
+    return kernels.relu_bwd(m, g)
+
+
+@relu_bwd_op.register_fake
+def _(m, g):
+    return torch.empty_like(g)
+
+
+def _relu_op_setup(ctx, inputs, output):
+    ctx.save_for_backward(output[1])
+
+
+def _relu_op_backward(ctx, gy, gm):
+    (m,) = ctx.saved_tensors
+    return relu_bwd_op(m, gy.contiguous())
+
+
+relu_fwd_op.register_autograd(_relu_op_backward, setup_context=_relu_op_setup)
+
+
 def fused_relu(x: torch.Tensor) -> torch.Tensor:
     """ReLU with the packed-mask fused backward (module docstring). As in
     the reference, the primal is a plain ``torch.relu`` when autograd does
     not record (no gradient needed); the kernel pair runs whenever it does."""
     if torch.is_grad_enabled() and x.requires_grad:
+        if torch.compiler.is_compiling():
+            return relu_fwd_op(x.contiguous())[0]
         return _FusedRelu.apply(x)
     return torch.relu(x)

@@ -20,10 +20,9 @@ A champion / challenger pipeline over the serve ledger:
    replica's fingerprint, so `canary_verdict` compares the two arms from
    the ledger alone.
 5. **Promote**: on a clear win, install the challenger's entries into the
-   live table and record a ``schedule_promotion`` v2 row. Publishing the
-   promotion as a registry bundle (``bundle_dir``) needs the artifact
-   registry, which the port does not have yet: it raises
-   NotImplementedError (ROADMAP.md slice F, ``registry/*``).
+   live table, publish them as a registry bundle (``bundle_dir``:
+   `wam_tpu_torch.registry`, the schedules and the compiled steps named by
+   ``bundle_aot_keys``), and record a ``schedule_promotion`` v2 row.
 
 ``python -m wam_tpu_torch.tune.online --ledger L --once`` runs one
 mine -> drift -> sweep pass (exit 1 when the ledger yields no mix);
@@ -105,7 +104,9 @@ class OnlineTuneConfig:
     replicas: int = 1  # fleet width the serve entries are keyed under
     challenger_path: str | None = None  # default: <ledger>.challenger.json
     bundle_dir: str | None = None  # publish target; None = no bundle
-    # AOT keys to ship in the promotion bundle (with bundle_dir: not ported)
+    # compiled-step keys to ship in the promotion bundle; None publishes
+    # every local entry, [] a schedules-only bundle (the common case: a
+    # promotion changes admission caps and sweep winners, not kernels)
     bundle_aot_keys: list | None = None
     device: str = "cpu"  # where the shadow sweep runs
 
@@ -332,26 +333,37 @@ class OnlineTuner:
                           "plane": res["winner"]["plane"]}}
 
     def promote(self, challenger: dict, verdict: dict) -> dict:
-        """Install the winning challenger entries into the live user table
-        and record the flip as a ``schedule_promotion`` v2 row. With
-        ``bundle_dir`` (a registry bundle) it raises before installing
-        anything: the registry is not ported."""
+        """Install the winning challenger entries into the live user table,
+        publish the bundle (schedules + the chosen compiled steps; the
+        compile-cache files are skipped: a schedule flip does not
+        invalidate compiled code), and record the flip as a
+        ``schedule_promotion`` v2 row."""
         from wam_tpu_torch.tune.cache import (
             invalidate_process_cache,
             load_schedule_cache,
             schedule_fingerprint,
         )
 
-        if self.config.bundle_dir:
-            raise NotImplementedError(
-                "publishing a promotion as a registry bundle (bundle_dir=) needs the artifact "
-                "registry, registry/*, which is not ported yet (ROADMAP.md, slice F)")
         cache = load_schedule_cache()
         for key, entry in challenger["entries"].items():
             cache.put(key, entry)
         cache.save()
         invalidate_process_cache()
         live_fp = schedule_fingerprint()
+        bundle = None
+        if self.config.bundle_dir:
+            from wam_tpu_torch.registry.bundle import publish_bundle
+
+            manifest = publish_bundle(
+                self.config.bundle_dir, keys=self.config.bundle_aot_keys,
+                include_compile=False,
+                source={"publisher": "tune.online",
+                        "challenger_fingerprint": challenger["fingerprint"],
+                        "verdict": verdict.get("verdict")},
+                backend=str(self.config.device).split(":")[0])
+            bundle = {"dir": self.config.bundle_dir, "artifacts": len(manifest["artifacts"])}
+            self.log(f"promote: bundle -> {self.config.bundle_dir} "
+                     f"({bundle['artifacts']} artifacts)")
         _c_promotions.inc()
         row = {
             "metric": "schedule_promotion",
@@ -363,13 +375,13 @@ class OnlineTuner:
             "improvement": round(float(verdict.get("improvement", 0.0)), 4),
             "champion_batches": verdict.get("champion_batches"),
             "challenger_batches": verdict.get("challenger_batches"),
-            "bundle": None,
+            "bundle": bundle,
             "timestamp": time.time(),
         }
         self._write_row(row)
         self.log(f"promote: {challenger['fingerprint']} is champion "
                  f"(+{row['improvement'] * 100:.1f}%)")
-        return {"live_fingerprint": live_fp, "bundle": None, "row": row}
+        return {"live_fingerprint": live_fp, "bundle": bundle, "row": row}
 
     # -- one full pass -----------------------------------------------------
 
@@ -424,8 +436,7 @@ def main(argv=None) -> int:
                    help="challenger schedule file "
                         "(default <ledger>.challenger.json)")
     p.add_argument("--bundle-dir", default=None,
-                   help="publish promotions as a registry bundle here (needs the "
-                        "registry, not ported: raises)")
+                   help="publish promotions as a registry bundle here")
     p.add_argument("--out-ledger", default=None,
                    help="where drift/promotion rows go (default: the "
                         "input ledger)")
@@ -439,9 +450,11 @@ def main(argv=None) -> int:
                    help="calls per timed region")
     args = p.parse_args(argv)
 
+    from wam_tpu_torch.config import enable_compilation_cache
     from wam_tpu_torch.device import resolve_device
 
     device = str(resolve_device(args.device))
+    enable_compilation_cache()
 
     cfg = OnlineTuneConfig(
         ledger=args.ledger,

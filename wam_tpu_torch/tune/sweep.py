@@ -81,6 +81,9 @@ def main(argv=None) -> int:
         device = argv[i + 1]
         del argv[i:i + 2]
     device = str(resolve_device(device))
+    from wam_tpu_torch.config import enable_compilation_cache
+
+    enable_compilation_cache()
     if not argv:
         sys.exit("usage: python -m wam_tpu_torch.tune.sweep {audio|vol|vit} [chunk ...] "
                  "[--device cuda|cpu]")

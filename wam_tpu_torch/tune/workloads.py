@@ -100,7 +100,19 @@ def _wam2d_runner(model_fn, x, y, cand: Candidate, dev, *, wavelet: str, J: int,
                               stream_noise=bool(cand.stream_noise), dwt_bf16=dwt_bf16,
                               model_layout=model_layout, device=dev, impl=cand.dwt_impl,
                               synth_impl=_synth(cand, dev))
-    return (lambda x: ex._smooth(x, y)), (x,)
+
+    def run(x):
+        return ex._smooth(x, y)
+
+    def wam_aot(key, **kw):
+        """The runner with each chunk step compiled (`pipeline.aot`;
+        `wam2d.WaveletAttribution2D._aot_steps`), as `prewarm` runs it."""
+        steps = ex._aot_steps(key, **kw)
+        return lambda x: ex._smooth(x, y, steps=steps)
+
+    run.wam_aot = wam_aot
+    run.explainer = ex
+    return run, (x,)
 
 
 def _toy_workload(n_samples: int = 8, batch: int = 4, size: int = 32, device=None) -> Workload:

@@ -36,6 +36,10 @@ from wam_tpu_torch.device import resolve_device
 from wam_tpu_torch.ops.melspec import mel_to_stft_magnitude, melspectrogram, stft_power
 from wam_tpu_torch.wavelets.transform import wavedec, waverec
 
+# why the 1D entry has no compiled step (`serve.entry.jit_entry(eager_only=)`)
+EAGER_ONLY = ("the 1D transforms and the mel chain build their filters with numpy, "
+              "which a compiled graph cannot trace: the 1D entry has no compiled step")
+
 __all__ = [
     "normalize_waveforms",
     "BaseWAM1D",
@@ -343,7 +347,8 @@ class WaveletAttribution1D(BaseWAM1D):
         ``with_health=True`` computes the numeric-health vector over the
         result tree in the same call (`serve.entry.jit_entry`). The entry
         carries the `serve.entry.RowBlocks` of `_rows` (the fleet's "pjit"
-        oversize route)."""
+        oversize route). ``aot_key`` warns and is ignored: the entry has
+        no compiled step (`EAGER_ONLY`)."""
         if self.mesh is not None:
             raise ValueError(
                 "serve_entry() does not support mesh=; the serve worker owns "
@@ -353,7 +358,7 @@ class WaveletAttribution1D(BaseWAM1D):
         impl = self._smooth if self.method == "smooth" else self._integrated
         return jit_entry(lambda x, y: impl(torch.as_tensor(x).float(), y), donate=donate,
                          on_trace=on_trace, aot_key=aot_key, with_health=with_health,
-                         blocks=RowBlocks.local(self._rows))
+                         blocks=RowBlocks.local(self._rows), eager_only=EAGER_ONLY)
 
     def _rows(self, x, y, lo: int, total: int):
         """Rows [lo, lo + len(x)) of the entry's result on a ``total``-row

@@ -23,6 +23,7 @@ loop; ``__call__`` takes (B, C, H, W) either way, and so does ``noise=``.
 
 from __future__ import annotations
 
+import copy
 from typing import Callable
 
 import torch
@@ -51,6 +52,21 @@ from wam_tpu_torch.ops.packing2d import (
 from wam_tpu_torch.wavelets.transform import IMPLS
 
 __all__ = ["BaseWAM2D", "WaveletAttribution2D"]
+
+
+def _anchor(device) -> torch.Tensor:
+    """A compiled step's anchor (`core.engine.WamEngine.grads_from_coeffs`):
+    a 0-d zero that requires grad, made outside the compiled graph."""
+    return torch.zeros((), device=device, requires_grad=True)
+
+
+def _aot_entry(unit: Callable, key: str, record=None, **kw):
+    """``unit`` through the compiled-step cache (`pipeline.aot.cached_entry`);
+    ``record`` (`serve.entry.jit_entry`'s) is handed the dispatcher."""
+    from wam_tpu_torch.pipeline.aot import cached_entry
+
+    fn = cached_entry(unit, key, **kw)
+    return fn if record is None else record(fn)
 
 
 class BaseWAM2D:
@@ -114,6 +130,24 @@ class BaseWAM2D:
             y = torch.as_tensor(y, device=self.device)
         return x, y
 
+    def _compile_twin(self):
+        """A shallow copy of this explainer for compiled graphs
+        (`pipeline.aot`): its engine holds the Wavelet object, not its name,
+        and takes the kernel route of the 2D transforms whatever ``impl``
+        says (the custom operators of `wavelets.matmul`: the kernels on the
+        card, their plain versions on the CPU), because the conv and matmul
+        forms build their filters with numpy, which a graph must not trace.
+        The channel-last transforms (`wavelets.nhwc`) have no operator form;
+        their compile falls back to eager."""
+        from wam_tpu_torch.wavelets.matmul import remember_wavelet
+
+        twin = copy.copy(self)
+        twin.engine = copy.copy(self.engine)
+        twin.engine.wavelet = remember_wavelet(self.engine.wavelet)
+        if not self.engine.channel_last:
+            twin.engine.impl = "kernel"
+        return twin
+
     def _to_internal(self, x: torch.Tensor) -> torch.Tensor:
         """NCHW caller layout -> the engine's layout (one contiguous copy for
         NHWC)."""
@@ -134,8 +168,9 @@ class BaseWAM2D:
         `wam_tpu_torch.serve` worker: no instance-attribute stashing (unlike
         ``__call__``), so it is safe to call from the worker thread.
         ``donate`` / ``on_trace`` / ``aot_key`` go to `serve.entry.jit_entry`
-        (the staged batch released on the card, first-call counting; an AOT
-        key raises until slice E). ``with_health=True`` computes the
+        (the staged batch released on the card, first-call counting; with an
+        AOT key the whole pass is one compiled program of the compiled-step
+        cache, `pipeline.aot`). ``with_health=True`` computes the
         numeric-health vector in the same call — mosaic saturation/max plus
         the coefficient-gradient norm and pooled NaN/Inf counts
         (`WamEngine.attribute_with_health`), zero extra fetches.
@@ -150,24 +185,31 @@ class BaseWAM2D:
 
         blocks = RowBlocks(lambda x, y, lo, total: self._pass_partial(x, y, lo, total, with_health),
                            self._pass_finish)
-        if with_health:
-            from wam_tpu_torch.obs.health import combine_output_grads, health_stats
+        def make(wam):
+            if with_health:
+                from wam_tpu_torch.obs.health import combine_output_grads, health_stats
 
-            def impl(x, y):
-                x, y = self._inputs(x, y)
-                _, grads, gvec = self.engine.attribute_with_health(self._to_internal(x), y)
-                m = mosaic2d(grads, self.normalize_coeffs, self._caxis)
-                return m, combine_output_grads(health_stats(m), gvec)
+                def impl(x, y, anchor=None):
+                    x, y = wam._inputs(x, y)
+                    _, grads, gvec = wam.engine.attribute_with_health(wam._to_internal(x), y,
+                                                                      anchor=anchor)
+                    m = mosaic2d(grads, wam.normalize_coeffs, wam._caxis)
+                    return m, combine_output_grads(health_stats(m), gvec)
+            else:
+                def impl(x, y, anchor=None):
+                    x, y = wam._inputs(x, y)
+                    _, grads = wam.engine.attribute(wam._to_internal(x), y, anchor=anchor)
+                    return mosaic2d(grads, wam.normalize_coeffs, wam._caxis)
+            return impl
 
-            return jit_entry(impl, donate=donate, on_trace=on_trace, aot_key=aot_key,
-                             with_health="fused", blocks=blocks)
+        def wam_aot(key, **kw):
+            entry = _aot_entry(make(self._compile_twin()), key, **kw)
+            return lambda x, y: entry(*self._inputs(x, y), _anchor(self.device))
 
-        def impl(x, y):
-            x, y = self._inputs(x, y)
-            _, grads = self.engine.attribute(self._to_internal(x), y)
-            return mosaic2d(grads, self.normalize_coeffs, self._caxis)
-
-        return jit_entry(impl, donate=donate, on_trace=on_trace, aot_key=aot_key, blocks=blocks)
+        impl = make(self)
+        impl.wam_aot = wam_aot
+        return jit_entry(impl, donate=donate, on_trace=on_trace, aot_key=aot_key,
+                         with_health="fused" if with_health else False, blocks=blocks)
 
     # -- Blocks of a batch's rows (the fleet's oversize route) -------------
 
@@ -376,12 +418,14 @@ class WaveletAttribution2D(BaseWAM2D):
         return self.stream_noise
 
     def _mosaic_of_grads(self, coeffs, y, spatial, s: int,
-                         synth: str | None = None) -> torch.Tensor:
+                         synth: str | None = None, anchor=None) -> torch.Tensor:
         """Gradient mosaics of ``s`` stacked copies: coefficient leaves are
         (s*B, C, h, w), sample-major; returns (s, B, S, S). ``synth``: the
-        synthesis impl (`_synth`)."""
+        synthesis impl (`_synth`); ``anchor``: the engine's, in a compiled
+        step (`core.engine.WamEngine.grads_from_coeffs`)."""
         grads = self.engine.grads_from_coeffs(coeffs, y.repeat(s) if y is not None else None,
-                                              spatial, samples=s, synth_impl=synth)
+                                              spatial, samples=s, synth_impl=synth,
+                                              anchor=anchor)
         grads = map_coeffs(lambda g: g.reshape((s, -1) + tuple(g.shape[1:])), grads)
         return mosaic2d(grads, self.normalize_coeffs, self._caxis)
 
@@ -392,8 +436,72 @@ class WaveletAttribution2D(BaseWAM2D):
         self.scales = reproject_mosaic(avg, self.J, self.approx_coeffs)
         return avg
 
-    def _smooth(self, x, y, noise=None) -> torch.Tensor:
-        """The SmoothGrad mosaic, with no instance attribute set."""
+    def _smooth_step(self, synth: str | None):
+        """One chunk of SmoothGrad, the compiled unit of `pipeline.aot`:
+        ``step(noisy, y)`` maps a stack of noisy batches (s, B, C, H, W), in
+        the engine's layout, to their gradient mosaics (s, B, S, S). The
+        noise is drawn outside it (a generator inside a compiled region
+        breaks the graph)."""
+
+        def step(noisy: torch.Tensor, y, anchor=None) -> torch.Tensor:
+            s = noisy.shape[0]
+            flat = noisy.reshape((-1,) + tuple(noisy.shape[2:]))
+            if self.dwt_bf16:
+                flat = flat.to(torch.bfloat16)
+            with torch.no_grad():
+                coeffs = self.engine.decompose(flat)
+            return self._mosaic_of_grads(coeffs, y, self.engine.spatial_shape(flat.shape), s,
+                                         synth, anchor)
+
+        return step
+
+    def _ig_step(self, synth: str | None, spatial, like):
+        """One chunk of Integrated Gradients, the compiled unit of
+        `pipeline.aot`: ``step(alphas, y, anchor, *leaves)`` maps a chunk of
+        path points (s,) and the input's coefficient leaves (in the structure
+        of ``like``) to the path's gradient mosaics (s, B, S, S)."""
+        from wam_tpu_torch.core.engine import _unflatten
+
+        def step(alphas: torch.Tensor, y, anchor, *leaves) -> torch.Tensor:
+            s = alphas.shape[0]
+            scaled = map_coeffs(
+                lambda c: (c[None] * alphas.to(c.dtype).reshape(-1, 1, 1, 1, 1))
+                .reshape((-1,) + tuple(c.shape[1:])), _unflatten(leaves, like))
+            return self._mosaic_of_grads(scaled, y, spatial, s, synth, anchor)
+
+        return step
+
+    def _aot_steps(self, aot_key: str, **kw):
+        """``steps(kind, *step_args)`` -> the chunk step
+        ("smooth" or "ig") compiled through the compiled-step cache, one
+        program per (kind, argument signature), keyed
+        ``{aot_key}|{kind}|synth-kernel|...`` (`pipeline.aot.cached_entry`):
+        a compiled step synthesizes on the kernel route (`_compile_twin`)
+        whatever the eager call's ``synth`` is."""
+        twin = self._compile_twin()
+        synth = twin.engine.impl
+        made: dict = {}
+
+        def steps(kind: str, *extra):
+            tag = (kind,) + extra[:1]
+            if tag not in made:
+                unit = (twin._smooth_step(synth) if kind == "smooth"
+                        else twin._ig_step(synth, *extra))
+                entry = _aot_entry(unit, f"{aot_key}|{kind}|synth-{synth}", **kw)
+
+                def call(a, y, *rest, entry=entry):
+                    # int64 labels, as every caller's labels are read, so
+                    # a server's int32 batch hits a prewarmed program
+                    return entry(a, None if y is None else y.long(), _anchor(a.device), *rest)
+
+                made[tag] = call
+            return made[tag]
+
+        return steps
+
+    def _smooth(self, x, y, noise=None, steps=None) -> torch.Tensor:
+        """The SmoothGrad mosaic, with no instance attribute set; ``steps``
+        (`_aot_steps`) runs each chunk compiled."""
         x, y = self._inputs(x, y)
         chunk = self._chunk(x)
         if self.mesh is not None:
@@ -406,16 +514,11 @@ class WaveletAttribution2D(BaseWAM2D):
         x = self._to_internal(x)  # once, outside the sample loop
         if noise is not None and self.model_layout == "nhwc":
             noise = torch.as_tensor(noise).permute(0, 1, 3, 4, 2)
-        spatial = self.engine.spatial_shape(x.shape)
+        run = (self._smooth_step(synth) if steps is None
+               else steps("smooth"))
 
         def step(noisy: torch.Tensor) -> torch.Tensor:  # (s, B, C, H, W)
-            s = noisy.shape[0]
-            flat = noisy.reshape((-1,) + tuple(noisy.shape[2:]))
-            if self.dwt_bf16:
-                flat = flat.to(torch.bfloat16)
-            with torch.no_grad():
-                coeffs = self.engine.decompose(flat)
-            return self._mosaic_of_grads(coeffs, y, spatial, s, synth)
+            return run(noisy, y)
 
         generator = None
         if noise is None and not stream:
@@ -431,9 +534,9 @@ class WaveletAttribution2D(BaseWAM2D):
         self.scales = reproject_mosaic(attr, self.J, self.approx_coeffs)
         return attr
 
-    def _integrated(self, x, y) -> torch.Tensor:
+    def _integrated(self, x, y, steps=None) -> torch.Tensor:
         """The Integrated-Gradients attribution, with no instance attribute
-        set."""
+        set; ``steps`` (`_aot_steps`) runs each chunk compiled."""
         x, y = self._inputs(x, y)
         chunk = self._chunk(x)
         if self.mesh is not None:
@@ -448,13 +551,18 @@ class WaveletAttribution2D(BaseWAM2D):
             coeffs = self.engine.decompose(x)
         baseline = mosaic2d(coeffs, normalize=True, channel_axis=self._caxis)
         spatial = self.engine.spatial_shape(x.shape)
+        from wam_tpu_torch.core.engine import _flatten, _unflatten
+
+        leaves = _flatten(coeffs)
+        like = _unflatten([None] * len(leaves), coeffs)  # the structure alone
+        if steps is None:
+            run = self._ig_step(synth, spatial, like)
+            extra = (None,)  # no anchor: the leaves are made to require grad
+        else:
+            run, extra = steps("ig", spatial, like), ()
 
         def grad_fn(alphas: torch.Tensor) -> torch.Tensor:  # (s,)
-            s = alphas.shape[0]
-            scaled = map_coeffs(
-                lambda c: (c[None] * alphas.to(c.dtype).reshape(-1, 1, 1, 1, 1))
-                .reshape((-1,) + tuple(c.shape[1:])), coeffs)
-            return self._mosaic_of_grads(scaled, y, spatial, s, synth)
+            return run(alphas, y, *extra, *leaves)
 
         integral = integrated_path(grad_fn, n_steps=self.n_samples,
                                    batch_size=chunk, device=self.device)
@@ -554,7 +662,13 @@ class WaveletAttribution2D(BaseWAM2D):
         the entry on the whole batch: a block draws its rows of the
         whole batch's noise, scales its loss to the whole batch, and keeps
         its per-sample mosaics unnormalized until every block's maxima are
-        known (the fleet's "pjit" oversize route)."""
+        known (the fleet's "pjit" oversize route).
+
+        With ``aot_key`` each chunk step (`_smooth_step`, `_ig_step`) is a
+        program of the compiled-step cache (`pipeline.aot`), keyed by the
+        key, the step's kind and synthesis impl and its arguments'
+        signature; the noise draws and the loop over chunks stay eager, so
+        the kernels launch as often as in the eager entry."""
         if self.mesh is not None:
             raise ValueError(
                 "serve_entry() does not support mesh=; the serve worker owns "
@@ -566,7 +680,16 @@ class WaveletAttribution2D(BaseWAM2D):
         else:
             impl = self._integrated
             blocks = RowBlocks(self._integrated_partial, self._integrated_finish)
-        return jit_entry(lambda x, y: impl(x, y), donate=donate, on_trace=on_trace,
+
+        def entry_impl(x, y):
+            return impl(x, y)
+
+        def wam_aot(key, **kw):
+            steps = self._aot_steps(key, **kw)
+            return lambda x, y: impl(x, y, steps=steps)
+
+        entry_impl.wam_aot = wam_aot
+        return jit_entry(entry_impl, donate=donate, on_trace=on_trace,
                          aot_key=aot_key, with_health=with_health, blocks=blocks)
 
     def anytime_serve_entry(self, stride: int | str = "auto", on_trace=None,

@@ -41,6 +41,10 @@ from wam_tpu_torch.device import resolve_device
 from wam_tpu_torch.ops.packing3d import cube3d, visualize_cube
 from wam_tpu_torch.wavelets.transform import wavedec, waverec, waverec3
 
+# why the 3D entry has no compiled step (`serve.entry.jit_entry(eager_only=)`)
+EAGER_ONLY = ("the 3D transforms build their filters with numpy, which a compiled graph "
+              "cannot trace: the 3D entry has no compiled step")
+
 __all__ = ["filter_coeffs", "BaseWAM3D", "WaveletAttribution3D"]
 
 
@@ -391,7 +395,8 @@ class WaveletAttribution3D(BaseWAM3D):
         computes the numeric-health vector over the cube in the same call
         (`serve.entry.jit_entry`). The entry carries the
         `serve.entry.RowBlocks` of `_rows` (the fleet's "pjit" oversize
-        route)."""
+        route). ``aot_key`` warns and is ignored: the entry has no compiled
+        step (`EAGER_ONLY`)."""
         if self.mesh is not None:
             raise ValueError(
                 "serve_entry() does not support mesh=; the serve worker owns "
@@ -401,7 +406,7 @@ class WaveletAttribution3D(BaseWAM3D):
         impl = self._smooth if self.method == "smooth" else self._integrated
         return jit_entry(lambda x, y: impl(x, y), donate=donate, on_trace=on_trace,
                          aot_key=aot_key, with_health=with_health,
-                         blocks=RowBlocks.local(self._rows))
+                         blocks=RowBlocks.local(self._rows), eager_only=EAGER_ONLY)
 
     def _rows(self, x, y, lo: int, total: int) -> torch.Tensor:
         """Rows [lo, lo + len(x)) of the entry's cube on a ``total``-row

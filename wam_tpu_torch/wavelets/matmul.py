@@ -39,6 +39,7 @@ from __future__ import annotations
 
 import contextlib
 import functools
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -802,6 +803,294 @@ class _CollapsedCore(torch.autograd.Function):
         return (None, *kernels.pair_bwd(g.contiguous(), ctx.bwd_plan))
 
 
+# ---------------------------------------------------------------------------
+# The kernels as custom operators, for compiled graphs (`pipeline.aot`)
+# ---------------------------------------------------------------------------
+#
+# Inside `torch.compile` the wrappers below call these operators instead of
+# the autograd Functions: Dynamo can neither trace a ctypes launch nor see a
+# plan object as an argument, so an operator takes the level's geometry
+# (sides and taps) and looks its plan up where it runs. Each one has a CUDA
+# implementation, the launch wrapper of `kernels` (counted, raising on a
+# failed launch), a CPU implementation, the plain version, and a fake one
+# that gives the output's shape from the geometry. Inductor keeps them as
+# opaque calls, so a compiled graph runs the hand-written kernels. Eager
+# calls never reach them.
+
+
+_COMPILED_WAVELETS: dict[str, Wavelet] = {}
+
+
+def remember_wavelet(wavelet) -> Wavelet:
+    """Register ``wavelet`` under its name for compiled graphs, whose
+    operators find their taps by name (`_name_taps`); returns the Wavelet."""
+    w = _wav(wavelet)
+    _COMPILED_WAVELETS[w.name] = w
+    return w
+
+
+def _name_taps(name: str) -> tuple:
+    """(dec_lo, dec_hi, rec_lo, rec_hi) of the wavelet ``name`` (a
+    registered one first, `remember_wavelet`) as lists of floats, the
+    operators' argument form; evaluated once while compiling, not traced."""
+    w = _COMPILED_WAVELETS.get(name) or build_wavelet(name)
+    return tuple([float(v) for v in f] for f in (w.dec_lo, w.dec_hi, w.rec_lo, w.rec_hi))
+
+
+# `torch.compiler.assume_constant_result(_name_taps)`, which sets just this
+# mark, without importing Dynamo when the package is imported
+_name_taps._dynamo_marked_constant = True
+
+
+def _taps(wavelet) -> tuple:
+    """`_name_taps` of a wavelet or its name: the constant function takes
+    a string (Dynamo cannot hand it a frozen dataclass)."""
+    return _name_taps(wavelet if isinstance(wavelet, str) else wavelet.name)
+
+
+def _out_dtype(t: torch.Tensor) -> torch.dtype:
+    """An operator's output dtype: float64 for float64 input (the plain
+    versions compute in it; the kernels in float32, upcast), else float32."""
+    return torch.float64 if t.dtype == torch.float64 else torch.float32
+
+
+def _empty(like: torch.Tensor, shape) -> torch.Tensor:
+    return like.new_empty(tuple(shape), dtype=_out_dtype(like))
+
+
+def _on_kernel(fn):
+    """A kernel's CUDA implementation of an operator: float64 operands run
+    through the float32 kernel and come back upcast (the fake's dtype)."""
+
+    def run(t, *rest):
+        if (t[0] if isinstance(t, list) else t).dtype != torch.float64:
+            return fn(t, *rest)
+        out = fn([x.float() for x in t] if isinstance(t, list) else t.float(), *rest)
+        return [o.double() for o in out] if isinstance(out, list) else out.double()
+
+    return run
+
+
+def _operators(kind: str, n, lo, hi, dtype, device, mode: str = ""):
+    """The dense operator of the plain versions: float32 ones from the
+    kernel path's caches, float64 ones built in float64."""
+    lo, hi = tuple(lo), tuple(hi)
+    if dtype == torch.float64:
+        if kind == "analysis":
+            A = _analysis_operator(n, lo, hi, mode, dtype, device)
+        elif kind == "synthesis":
+            A = _synthesis_operator(n, lo, hi, dtype, device)
+        else:
+            A = torch.as_tensor(_collapsed_axis_np(tuple(n), lo, hi), dtype=dtype,
+                                device=device)
+        return A, A.T
+    if kind == "analysis":
+        return _kernel_analysis(n, lo, hi, mode, device)
+    if kind == "synthesis":
+        return _kernel_synthesis(n, lo, hi, device)
+    return _kernel_collapsed(tuple(n), lo, hi, device)
+
+
+def _two_sided(x, m1t, m2) -> torch.Tensor:
+    """m1t^T @ x[n] @ m2 in the operators' dtype (`pair_plain` for float32)."""
+    if m2.dtype != torch.float64:
+        return pair_plain(x, m1t, m2)
+    return torch.matmul(torch.matmul(m1t.T, x.to(m2.dtype)), m2)
+
+
+@torch.library.custom_op("wam_tpu_torch::dwt2", mutates_args=(), device_types="cpu")
+def dwt2_op(x3: torch.Tensor, lo: list[float], hi: list[float], mode: str) -> torch.Tensor:
+    """K1 on (N, H, W) f32/bf16 -> (N, 4, h', w') f32 (`kernels.dwt2`)."""
+    dt = _out_dtype(x3)
+    _, At = _operators("analysis", x3.shape[-2], lo, hi, dt, x3.device, mode)
+    _, Bt = _operators("analysis", x3.shape[-1], lo, hi, dt, x3.device, mode)
+    return _split_quadrants(_two_sided(x3, At, Bt), At.shape[1] // 2, Bt.shape[1] // 2)
+
+
+@dwt2_op.register_kernel("cuda")
+@_on_kernel
+def _(x3, lo, hi, mode):
+    return kernels.dwt2(x3, dwt2_band(x3.shape[-2], x3.shape[-1], tuple(lo), tuple(hi), mode,
+                                      x3.device))
+
+
+@dwt2_op.register_fake
+def _(x3, lo, hi, mode):
+    L = len(lo)  # `_analysis_np`'s side: (n + L - 1) // 2
+    return _empty(x3, (x3.shape[0], 4, (x3.shape[-2] + L - 1) // 2,
+                       (x3.shape[-1] + L - 1) // 2))
+
+
+@torch.library.custom_op("wam_tpu_torch::dwt2_adjoint", mutates_args=())
+def dwt2_adjoint_op(g: torch.Tensor, h: int, w: int, lo: list[float], hi: list[float],
+                    mode: str) -> torch.Tensor:
+    """K1's backward, A^T [[aa, ad], [da, dd]] B (plain on every device, as
+    `_Dwt2Core.backward`), (N, h, w)."""
+    dt = _out_dtype(g)
+    A, _ = _operators("analysis", h, lo, hi, dt, g.device, mode)
+    B, _ = _operators("analysis", w, lo, hi, dt, g.device, mode)
+    return torch.matmul(torch.matmul(A.T, _merge_quadrants(g.to(dt))), B)
+
+
+@dwt2_adjoint_op.register_fake
+def _(g, h, w, lo, hi, mode):
+    return _empty(g, (g.shape[0], h, w))
+
+
+def _dwt2_op_setup(ctx, inputs, output):
+    x3, lo, hi, mode = inputs
+    ctx.geometry = (x3.shape[-2], x3.shape[-1], lo, hi, mode)
+    ctx.x_dtype = x3.dtype
+
+
+def _dwt2_op_backward(ctx, g):
+    dx = dwt2_adjoint_op(g.contiguous(), *ctx.geometry)
+    return dx.to(ctx.x_dtype), None, None, None
+
+
+dwt2_op.register_autograd(_dwt2_op_backward, setup_context=_dwt2_op_setup)
+
+
+@torch.library.custom_op("wam_tpu_torch::synth2", mutates_args=(), device_types="cpu")
+def synth2_op(sub3: torch.Tensor, lo: list[float], hi: list[float]) -> torch.Tensor:
+    """K2 on (N, 4, h, w) f32/bf16 subbands -> (N, P, T) f32 (`kernels.synth2`)."""
+    dt = _out_dtype(sub3)
+    Sr, _ = _operators("synthesis", sub3.shape[-2], lo, hi, dt, sub3.device)
+    _, Sct = _operators("synthesis", sub3.shape[-1], lo, hi, dt, sub3.device)
+    if dt != torch.float64:
+        return idwt2_plain(sub3, Sr, Sct)
+    return torch.matmul(torch.matmul(Sr, _merge_quadrants(sub3)), Sct)
+
+
+@synth2_op.register_kernel("cuda")
+@_on_kernel
+def _(sub3, lo, hi):
+    plans = idwt2_band(sub3.shape[-2], sub3.shape[-1], tuple(lo), tuple(hi), sub3.device)
+    return kernels.synth2(sub3, plans[0])
+
+
+@synth2_op.register_fake
+def _(sub3, lo, hi):
+    L = len(lo)  # `_synthesis_np`'s side: 2 n - L + 2
+    return _empty(sub3, (sub3.shape[0], 2 * sub3.shape[-2] - L + 2,
+                         2 * sub3.shape[-1] - L + 2))
+
+
+@torch.library.custom_op("wam_tpu_torch::synth2_bwd", mutates_args=(), device_types="cpu")
+def synth2_bwd_op(g: torch.Tensor, h: int, w: int, lo: list[float],
+                  hi: list[float]) -> torch.Tensor:
+    """K2's backward, the quadrant split of Sr^T g Sc: K1 on K2's backward
+    plan (`_Idwt2Core.backward`), (N, 4, h, w)."""
+    dt = _out_dtype(g)
+    Sr, _ = _operators("synthesis", h, lo, hi, dt, g.device)
+    Sc, _ = _operators("synthesis", w, lo, hi, dt, g.device)
+    return _split_quadrants(_two_sided(g, Sr, Sc), Sr.shape[1] // 2, Sc.shape[1] // 2)
+
+
+@synth2_bwd_op.register_kernel("cuda")
+@_on_kernel
+def _(g, h, w, lo, hi):
+    return kernels.dwt2(g, idwt2_band(h, w, tuple(lo), tuple(hi), g.device)[1])
+
+
+@synth2_bwd_op.register_fake
+def _(g, h, w, lo, hi):
+    return _empty(g, (g.shape[0], 4, h, w))
+
+
+def _synth2_op_setup(ctx, inputs, output):
+    sub3, lo, hi = inputs
+    ctx.geometry = (sub3.shape[-2], sub3.shape[-1], lo, hi)
+    ctx.sub_dtype = sub3.dtype
+
+
+def _synth2_op_backward(ctx, g):
+    return synth2_bwd_op(g.contiguous(), *ctx.geometry).to(ctx.sub_dtype), None, None
+
+
+synth2_op.register_autograd(_synth2_op_backward, setup_context=_synth2_op_setup)
+
+
+class _Level(NamedTuple):
+    """One collapsed level's leaves as `assemble_collapsed` reads them."""
+
+    horizontal: torch.Tensor
+    vertical: torch.Tensor
+    diagonal: torch.Tensor
+
+
+@torch.library.custom_op("wam_tpu_torch::pair", mutates_args=(), device_types="cpu")
+def pair_op(leaves: list[torch.Tensor], rsizes: list[int], csizes: list[int],
+            lo: list[float], hi: list[float]) -> torch.Tensor:
+    """K3 forward on the collapsed levels' leaves -> (N, P, T) f32
+    (`kernels.pair`); the plain version assembles Y, then R Y C^T."""
+    dt = _out_dtype(leaves[0])
+    details = [_Level(*leaves[1 + 3 * i:4 + 3 * i]) for i in range(len(rsizes))]
+    Y = assemble_collapsed(leaves[0], details, dtype=dt)
+    _, Rt = _operators("collapsed", rsizes, lo, hi, dt, leaves[0].device)
+    _, Ct = _operators("collapsed", csizes, lo, hi, dt, leaves[0].device)
+    return _two_sided(Y, Rt, Ct)
+
+
+@pair_op.register_kernel("cuda")
+@_on_kernel
+def _(leaves, rsizes, csizes, lo, hi):
+    plans = pair_band(tuple(rsizes), tuple(csizes), tuple(lo), tuple(hi), leaves[0].device)
+    return kernels.pair(leaves, plans[0])
+
+
+@pair_op.register_fake
+def _(leaves, rsizes, csizes, lo, hi):
+    L = len(lo)  # `_collapsed_axis_np`'s side: 2 n_1 - L + 2 of the finest level
+    return _empty(leaves[0], (leaves[0].shape[0], 2 * rsizes[-1] - L + 2,
+                              2 * csizes[-1] - L + 2))
+
+
+@torch.library.custom_op("wam_tpu_torch::pair_bwd", mutates_args=(), device_types="cpu")
+def pair_bwd_op(g: torch.Tensor, rsizes: list[int], csizes: list[int], lo: list[float],
+                hi: list[float]) -> list[torch.Tensor]:
+    """K3 backward: each leaf's gradient from g (N, P, T) f32
+    (`kernels.pair_bwd`); the plain version slices R^T g C."""
+    dt = _out_dtype(g)
+    R, _ = _operators("collapsed", rsizes, lo, hi, dt, g.device)
+    C, _ = _operators("collapsed", csizes, lo, hi, dt, g.device)
+    dY = torch.matmul(torch.matmul(R.T, g.to(dt)), C)
+    out, r0, c0 = [], 0, 0
+    for i, (r, c) in enumerate(zip(rsizes, csizes)):
+        if i == 0:
+            out.append(dY[:, r0:r0 + r, c0:c0 + c].contiguous())
+        out += [dY[:, r0 + r:r0 + 2 * r, c0:c0 + c].contiguous(),      # H
+                dY[:, r0:r0 + r, c0 + c:c0 + 2 * c].contiguous(),      # V
+                dY[:, r0 + r:r0 + 2 * r, c0 + c:c0 + 2 * c].contiguous()]  # D
+        r0, c0 = r0 + 2 * r, c0 + 2 * c
+    return out
+
+
+@pair_bwd_op.register_kernel("cuda")
+@_on_kernel
+def _(g, rsizes, csizes, lo, hi):
+    plans = pair_band(tuple(rsizes), tuple(csizes), tuple(lo), tuple(hi), g.device)
+    return kernels.pair_bwd(g, plans[1])
+
+
+@pair_bwd_op.register_fake
+def _(g, rsizes, csizes, lo, hi):
+    shapes = [(rsizes[0], csizes[0])] + [(r, c) for r, c in zip(rsizes, csizes)
+                                         for _ in range(3)]
+    return [_empty(g, (g.shape[0], r, c)) for r, c in shapes]
+
+
+def _pair_op_setup(ctx, inputs, output):
+    ctx.geometry = tuple(inputs[1:])
+
+
+def _pair_op_backward(ctx, g):
+    return pair_bwd_op(g.contiguous(), *ctx.geometry), None, None, None, None
+
+
+pair_op.register_autograd(_pair_op_backward, setup_context=_pair_op_setup)
+
+
 def dwt2_kernel(x: torch.Tensor, wavelet, mode: str) -> torch.Tensor:
     """One 2D analysis level through K1 (counterpart of ``dwt2_pallas``).
 
@@ -811,6 +1100,14 @@ def dwt2_kernel(x: torch.Tensor, wavelet, mode: str) -> torch.Tensor:
     FLOAT32 coefficients, so the multi-level cascade never re-rounds to bf16;
     other dtypes are computed in float32 (the conv and matmul impls of
     `transform` keep float64)."""
+    if torch.compiler.is_compiling():
+        lo, hi, _, _ = _taps(wavelet)
+        h, wd = x.shape[-2:]
+        x3 = x.reshape((-1, h, wd))
+        if x3.dtype not in (torch.bfloat16, torch.float64):
+            x3 = x3.float()
+        out = dwt2_op(x3.contiguous(), lo, hi, mode)
+        return out.reshape(x.shape[:-2] + out.shape[1:])
     w = _wav(wavelet)
     h, wd = x.shape[-2:]
     taps = (tuple(w.dec_lo), tuple(w.dec_hi), mode)
@@ -833,6 +1130,17 @@ def idwt2_kernel(subbands: torch.Tensor, wavelet, out_shape=None) -> torch.Tenso
     is applied after the kernel. Differentiable: the backward is K1. bf16
     subbands are read as bf16 and upcast inside the kernel; bf16 and f32
     both give FLOAT32 pixels; other dtypes are computed in float32."""
+    if torch.compiler.is_compiling():
+        _, _, lo, hi = _taps(wavelet)
+        h, wd = subbands.shape[-2:]
+        sub3 = subbands.reshape((-1, 4, h, wd))
+        if sub3.dtype not in (torch.bfloat16, torch.float64):
+            sub3 = sub3.float()
+        out = synth2_op(sub3.contiguous(), lo, hi)
+        out = out.reshape(subbands.shape[:-3] + out.shape[1:])
+        if out_shape is not None and tuple(out_shape) != tuple(out.shape[-2:]):
+            out = out[..., : out_shape[0], : out_shape[1]]
+        return out
     w = _wav(wavelet)
     h, wd = subbands.shape[-2:]
     rec = (tuple(w.rec_lo), tuple(w.rec_hi))
@@ -865,6 +1173,13 @@ def waverec2_collapsed(cA: torch.Tensor, details, wavelet) -> torch.Tensor:
     level from the leaves themselves (views such as K1's subbands are read
     in place), so neither Y nor its gradient is ever allocated."""
     batch_shape = cA.shape[:-2]
+    if torch.compiler.is_compiling():
+        _, _, lo, hi = _taps(wavelet)
+        rsizes = [int(d.horizontal.shape[-2]) for d in details]
+        csizes = [int(d.horizontal.shape[-1]) for d in details]
+        leaves = [cA[..., :rsizes[0], :csizes[0]]] + [t for d in details for t in d]
+        out = pair_op([_leaf3(t, keep_f64=True) for t in leaves], rsizes, csizes, lo, hi)
+        return out.reshape(batch_shape + out.shape[1:])
     if on_cpu(cA):
         Y = assemble_collapsed(cA, details)
         _, Rt, _, Ct = collapsed_operators(details, wavelet, cA.device)
@@ -879,11 +1194,14 @@ def waverec2_collapsed(cA: torch.Tensor, details, wavelet) -> torch.Tensor:
     return out.reshape(batch_shape + out.shape[1:])
 
 
-def _leaf3(t: torch.Tensor) -> torch.Tensor:
+def _leaf3(t: torch.Tensor, keep_f64: bool = False) -> torch.Tensor:
     """A leaf as K3 reads it: (N, r, c) float32 with contiguous columns, a
     view wherever the leaf's strides allow (K1's subbands are), else a
-    copy. bf16 and other dtypes are upcast here (differentiably)."""
-    t = t.float().reshape((-1,) + t.shape[-2:])
+    copy. bf16 and other dtypes are upcast here (differentiably);
+    ``keep_f64`` keeps float64 (the operators' plain float64 form)."""
+    if not (keep_f64 and t.dtype == torch.float64):
+        t = t.float()
+    t = t.reshape((-1,) + t.shape[-2:])
     return t if t.stride(-1) == 1 or t.shape[-1] == 1 else t.contiguous()
 
 
@@ -899,15 +1217,15 @@ def collapsed_operators(details, wavelet, device) -> tuple[torch.Tensor, ...]:
     return R, Rt, C, Ct
 
 
-def assemble_collapsed(cA: torch.Tensor, details) -> torch.Tensor:
+def assemble_collapsed(cA: torch.Tensor, details, dtype=torch.float32) -> torch.Tensor:
     """The block-diagonal coefficient matrix Y (..., 2*sum(r), 2*sum(c)) of
     the collapsed levels: per level [[aa, V], [H, D]], aa only at the
-    coarsest; float32. Differentiable (slice assignment into a fresh zero
-    tensor)."""
+    coarsest; float32 (or ``dtype``). Differentiable (slice assignment into
+    a fresh zero tensor)."""
     rsizes = [int(d.horizontal.shape[-2]) for d in details]
     csizes = [int(d.horizontal.shape[-1]) for d in details]
     Y = torch.zeros(cA.shape[:-2] + (2 * sum(rsizes), 2 * sum(csizes)),
-                    dtype=torch.float32, device=cA.device)
+                    dtype=dtype, device=cA.device)
     off_r = off_c = 0
     for i, det in enumerate(details):
         hr, wc = rsizes[i], csizes[i]

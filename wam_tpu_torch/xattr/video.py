@@ -43,6 +43,10 @@ from wam_tpu_torch.ops.filters import upsample_nearest
 from wam_tpu_torch.wavelets.filters import build_wavelet
 from wam_tpu_torch.wavelets.transform import DETAIL3D_KEYS, dwt2, dwt3, idwt2, idwt3
 
+# why the video entry has no compiled step (`serve.entry.jit_entry(eager_only=)`)
+EAGER_ONLY = ("the video transforms build their filters with numpy, which a compiled graph "
+              "cannot trace: the video entry has no compiled step")
+
 __all__ = [
     "VideoLevels",
     "wavedec_video",
@@ -392,7 +396,8 @@ class WaveletAttributionVideo:
         """Batched serving entry ``(x, y) → (B, T, H, W)`` for the serve
         worker (labeled-only, one device — the contract of
         `WaveletAttribution3D.serve_entry`), with the
-        `serve.entry.RowBlocks` of `_rows`."""
+        `serve.entry.RowBlocks` of `_rows`. ``aot_key`` warns and is
+        ignored: the entry has no compiled step (`EAGER_ONLY`)."""
         if self.mesh is not None:
             raise ValueError(
                 "serve_entry() does not support mesh=; the serve worker owns "
@@ -402,7 +407,7 @@ class WaveletAttributionVideo:
         impl = self._smooth if self.method == "smooth" else self._integrated
         return jit_entry(lambda x, y: impl(x, y), donate=donate, on_trace=on_trace,
                          aot_key=aot_key, with_health=with_health,
-                         blocks=RowBlocks.local(self._rows))
+                         blocks=RowBlocks.local(self._rows), eager_only=EAGER_ONLY)
 
     def _rows(self, x, y, lo: int, total: int) -> torch.Tensor:
         """Rows [lo, lo + len(x)) of the entry's box on a ``total``-row

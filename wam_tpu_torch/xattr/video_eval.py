@@ -20,7 +20,7 @@ from typing import Callable
 import torch
 
 from wam_tpu_torch.device import resolve_device
-from wam_tpu_torch.evalsuite.fan import FanPlan, check_ported, plan_fan, upload
+from wam_tpu_torch.evalsuite.fan import FanPlan, plan_fan, upload
 from wam_tpu_torch.evalsuite.metrics import (
     batch_fingerprint,
     generate_masks,
@@ -41,14 +41,15 @@ class EvalVideoWAM:
     ``batch_size`` caps the model rows a call (`fan.plan_fan`). ``device``:
     CUDA unless the caller asks otherwise. ``mesh``: a `parallel.Mesh`;
     the fan splits its clips over ``data_axis`` (`fan.make_sharded_runner`),
-    one result fetch a call. ``aot_key=`` and ``donate_inputs=True`` wait
-    for ROADMAP.md slice E2 and raise.
+    one result fetch a call. ``donate_inputs`` and ``aot_key`` as for
+    `evalsuite.Eval2DWAM`.
     Constructor arguments are frozen configuration."""
 
     def __init__(self, model_fn: Callable[[torch.Tensor], torch.Tensor], explainer: Callable,
                  batch_size: int | str = 64, mesh=None, data_axis: str = "data",
                  donate_inputs: bool | None = None, aot_key: str | None = None, device=None):
-        check_ported(donate=donate_inputs, aot_key=aot_key)
+        self.donate_inputs = donate_inputs
+        self.aot_key = aot_key
         self.mesh = mesh
         self.data_axis = data_axis
         self.device = resolve_device(device)
@@ -102,7 +103,8 @@ class EvalVideoWAM:
         return run_cached_auc(self._auc_runners, (mode, tuple(scores.shape[1:])),
                               lambda clip, s: self._perturb(clip, s, mode, n_iter),
                               self.model_fn, self._fan_plan(n_iter + 1), n_iter, x, scores, y,
-                              mesh=self.mesh, data_axis=self.data_axis)
+                              mesh=self.mesh, data_axis=self.data_axis,
+                              donate=self.donate_inputs, aot_key=self.aot_key)
 
     def insertion(self, x, y, n_iter: int = 16):
         scores, curves = self.evaluate_auc(x, y, "insertion", n_iter)
