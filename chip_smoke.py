@@ -19,8 +19,9 @@ sm_90a). Phases, each fatal on failure:
    leaves that are views of the masked packed array of one image's 65 and
    128 masks) at the eval2d path's, K1 and K3 (forward, 4 and 20 masks) at
    the analyzers path's, K1 and K3 (forward and backward, 25 path points)
-   at the iou path's under each of its four wavelets; one line per kernel
-   and path, each case
+   at the iou path's under each of its four wavelets, K1 and K3 (forward
+   and backward, haar J=2) on one pod worker's batch of 8 requests x 25
+   samples x 3 planes at 224^2; one line per kernel and path, each case
    and line
    with its bound and bound_share (bound / kernel time). K1-K3 launch
    with their band plans (K3 on the coefficient leaves, views of K1's
@@ -354,6 +355,35 @@ sm_90a). Phases, each fatal on failure:
    the host cost of that branch a launch (`_aot_dispatch`), with what it
    would add to a call of the vit, video and eval2d phases. Each kernels
    row carries ``aot_launches``.
+27. pod: pod serving (`wam_tpu_torch.pod`) on the card. First the
+   workers' entry in this process (the toy `WaveletAttribution2D`, haar
+   J=2, n=25, over 3x224^2 items, `pod.worker.toy_wam`) on a batch of
+   POD_MAX_BATCH copies of the phase's one seeded request: its rows, its
+   launches (POD_LAUNCHES: K1 2 and K3 2 a batch, K2, K4, K5 0; asserted,
+   and the same kernels counted in a ``torch.profiler`` capture), its ms a
+   batch. Then ``PodRouter(transport="tcp")`` over POD_WORKERS worker
+   processes, every one on cuda:0 (``--device cuda:0 --buckets 3x224x224
+   --n-samples 25 --max-batch 8``), supervised: each worker's
+   spawn-to-ready seconds by part (interpreter and imports, CUDA context,
+   kernel libraries, fleet warmup, from the worker's stamps) and its peak
+   memory; POD_REQUESTS requests of that item from POD_CLIENTS client
+   threads through ``submit_with_retry`` while `testing.PodChaosKiller`
+   SIGKILLs a worker at POD_KILLS of the stream: 0 lost, two deaths and two
+   respawns (asserted), requests/s, p50/p99, kill to rejoin seconds; every
+   answer within POD_TOL (x max) of the in-process entry's rows (the
+   batch is copies of the one item: the answer's row is one of them), the
+   bit-equal count printed; then POD_THROUGHPUT_REQUESTS requests from
+   POD_THROUGHPUT_CLIENTS clients on the two workers and, after a
+   ``shrink`` that drains, on one; the workers' own launch counts after
+   warmup (reported beside their snapshots): K1 and K3 above 0, K2, K4,
+   K5 0 (asserted). Last, a cold join from a wire bundle: this process
+   compiles the toy step (``--aot-key-base``'s, at a worker's batch
+   signature) under throwaway caches, the compiled step and the kernel
+   libraries are published, and a worker
+   with empty caches and ``--registry wire`` over tcp is ready at
+   ``compile_count == 0`` (asserted), its ready seconds printed, its answer
+   within POD_AOT_TOL of the eager rows. Each kernels row carries
+   ``pod_launches``.
 
 Prints a summary JSON line (with the script's wall time), the kernels' JSON
 line, the nvidia-smi line, and as its last line
@@ -670,6 +700,25 @@ AOT_BF16_TOL = {"max": 0.1, "rel_l2": 0.06}
 AOT_WAIT_MS = 250.0         # the server's batch window: the 16 requests make one batch
 AOT_OP_CALLS = 200          # eager calls of each route in the dispatch measurement
 AOT_TIMEOUT_S = 900.0       # a prewarm or registry subprocess at most
+
+# phase pod: the toy entry at the flagship's image side and sample count
+POD_WORKERS = 2
+POD_DEVICE = "cuda:0"       # every worker on the one card
+POD_SIDE = 224
+POD_MAX_BATCH = 8
+POD_REQUESTS = 64           # the chaos stream: seeded requests
+POD_CLIENTS = 4
+POD_KILLS = (0.25, 0.6)     # PodChaosKiller's fractions of the stream
+POD_THROUGHPUT_REQUESTS = 128   # the clean streams, two workers then one
+POD_THROUGHPUT_CLIENTS = 16
+POD_LAUNCHES = {**ZERO_LAUNCHES, "dwt2": 2, "pair": 2}  # a batch: haar J=2, one chunk
+POD_TOL = 2e-6              # an answer against the in-process entry's row, x max: ~9x the
+                            # 2.23e-7 two calls of that entry differ by (cuDNN's default
+                            # algorithms, on an H100)
+POD_AOT_TOL = 2e-6          # the compiled worker's answer against the eager rows, x max
+                            # (the same 2.23e-7 read there)
+POD_READY_S = 300.0         # a worker's spawn to hello, at most
+POD_BUDGET_S = 150.0
 
 
 def _log(*args):
@@ -1183,6 +1232,21 @@ def phase_kernels(torch, tmm, kernels, sites, vol_sites) -> list[dict]:
                              "torch.einsum (the matmul pair on the merged matrix, merge not "
                              "timed)", f"forward, f32 subbands, one served batch at {side}^2 "
                              "(its backward is on K1's serve 256 line)"))
+    # the pod path: the workers' toy entry, one batch of POD_MAX_BATCH
+    # requests x 25 samples x 3 planes at 224^2, haar J=2 (detail sides 112
+    # and 56, under the collapse crossover: K1 both levels, K3 the synthesis)
+    pod_rows = POD_MAX_BATCH * N_SAMPLES * CHANNELS
+    rows.append(_row(*k1, "pod", _k1_cases(torch, tmm, kernels, g, POD_SIDE, "haar", pod_rows,
+                                           levels=2), einsum,
+                     f"2 analysis levels at {POD_SIDE}^2, haar, f32 input, one pod worker's "
+                     f"batch ({POD_MAX_BATCH} requests x {N_SAMPLES} samples x {CHANNELS} "
+                     "planes)"))
+    k3_cases = _k3_cases(torch, tmm, kernels, g, POD_SIDE, "haar", pod_rows, levels=2)
+    rows.append(_row(*k3, "pod", k3_cases,
+                     "torch.einsum (the matmul pair on the assembled Y; dense dY)",
+                     f"forward + backward of the collapsed levels at {POD_SIDE}^2, haar J=2, "
+                     f"one pod worker's batch ({pod_rows} rows)"))
+    rows[-1]["assemble_ms"] = k3_cases[0]["assemble_ms"]
     # the parallel path: one block of the spmd mesh (5 samples x 16 images x
     # 3 planes); the IG mesh's block (4 path points x 16 images), whose K1
     # runs once a data shard on its 16 images
@@ -5996,6 +6060,415 @@ def phase_aot(torch, wtt, kernels, smi: str, sites) -> dict:
             "f32": f32, "operators": operators, "dispatch": dispatch, "phase_s": phase_s}
 
 
+# -- phase pod: worker processes behind PodRouter on the one card -------------------------
+
+
+def _pod_argv(*extra) -> list:
+    """The pod worker's command on the card: the reference's worker recipe
+    at the flagship's image side and sample count (the toy entry), every
+    worker on cuda:0."""
+    return [sys.executable, "-m", "wam_tpu_torch.pod.worker", "--device", POD_DEVICE,
+            "--buckets", f"{CHANNELS}x{POD_SIDE}x{POD_SIDE}", "--n-samples", str(N_SAMPLES),
+            "--max-batch", str(POD_MAX_BATCH), *extra]
+
+
+def _pod_env(extra: dict | None = None) -> dict:
+    """The workers' environment beyond this process's: this checkout first
+    on their import path, wherever the script was started from."""
+    path = os.environ.get("PYTHONPATH", "")
+    return {"PYTHONPATH": str(ROOT) + (os.pathsep + path if path else ""), **(extra or {})}
+
+
+@contextlib.contextmanager
+def _torch_defaults(torch):
+    """cuDNN and TF32 at a fresh process's settings (a pod worker's), for the
+    in-process entry its answers are held against; restored after."""
+    b, c = torch.backends, torch.backends.cudnn
+    saved = (c.benchmark, c.deterministic, c.allow_tf32, b.cuda.matmul.allow_tf32)
+    c.benchmark, c.deterministic, c.allow_tf32, b.cuda.matmul.allow_tf32 = (
+        False, False, True, False)
+    try:
+        yield
+    finally:
+        c.benchmark, c.deterministic, c.allow_tf32, b.cuda.matmul.allow_tf32 = saved
+
+
+def _pod_reference(torch, np, kernels, x, y) -> dict:
+    """The workers' entry in this process at their batch shape (POD_MAX_BATCH
+    copies of the phase's one request, as a worker pads it): the rows a
+    pod answer must equal, the launches of one batch (counts set to 0 just
+    before, read just after; and the same call's device kernels under
+    ``torch.profiler``), the batch's ms (CUDA events) and peak GB."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from wam_tpu_torch.pod.worker import toy_wam
+    from wam_tpu_torch.profiling import device_time_samples, kernel_events, median_iqr
+
+    card = torch.device(POD_DEVICE)
+    # donate=False: the workers' entry releases its staged batch on the card,
+    # and this one is called again on the same tensors
+    entry = toy_wam(N_SAMPLES, card).serve_entry(donate=False)
+    xs = torch.from_numpy(np.repeat(x[None], POD_MAX_BATCH, axis=0)).to(card)
+    ys = torch.full((POD_MAX_BATCH,), y, dtype=torch.int32, device=card)
+    with _torch_defaults(torch):
+        rows = entry(xs, ys).cpu().numpy()  # first call: cuDNN plans, the allocator
+        torch.cuda.synchronize()
+        kernels.reset_launch_counts()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            again = entry(xs, ys)
+            torch.cuda.synchronize()
+        launches = kernels.launch_counts()
+        events = kernel_events(prof)
+        samples = device_time_samples(lambda: entry(xs, ys), k=5, laps=1, warmup=1,
+                                      device=card)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        entry(xs, ys)
+        torch.cuda.synchronize()
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    if launches != POD_LAUNCHES:
+        raise AssertionError(f"pod: the entry's batch launched {launches}, "
+                             f"expected {POD_LAUNCHES}")
+    scale = float(np.abs(rows).max())
+    repeat = float(np.abs(again.cpu().numpy() - rows).max()) / scale
+    if repeat > POD_TOL:
+        raise AssertionError(f"pod: the in-process entry moved {repeat:.3e} x max between "
+                             f"two calls on the same batch (bound {POD_TOL})")
+    profiled = None
+    if events is not None:
+        profiled = {"dwt2": sum("band::band2_kernel" in e.name for e in events),
+                    "pair": sum("collapsed::" in e.name for e in events),
+                    "relu": sum("wam_relu::" in e.name for e in events)}
+        want = {"dwt2": POD_LAUNCHES["dwt2"] + POD_LAUNCHES["synth2"],
+                "pair": POD_LAUNCHES["pair"], "relu": 0}
+        if profiled != want:
+            raise AssertionError(f"pod: the profiler saw {profiled} of the port's kernels "
+                                 f"in one batch, expected {want}")
+    ms, q1, q3, _ = median_iqr([t * 1e3 for t in samples])
+    if not np.isfinite(rows).all() or np.abs(rows).max() == 0:
+        raise AssertionError("pod: the in-process entry's rows are not finite and nonzero")
+    return {"rows": rows, "repeat_max_rel": repeat, "launches": launches,
+            "profiled": profiled, "batch_ms": ms,
+            "batch_q1_ms": q1, "batch_q3_ms": q3, "peak_gb": peak_gb}
+
+
+def _pod_stream(router, x, y, n: int, clients: int, killer=None, budget_s: float = 240.0):
+    """``n`` requests of (x, y) from ``clients`` threads, each one request
+    in flight, every submit through `submit_with_retry` (retrying
+    QueueFullError and NoLiveWorkerError, so an outage window is
+    backpressure); ``killer.on_progress`` after every resolved request.
+    Returns the results, the errors, each request's seconds and the wall
+    seconds."""
+    import random
+    import threading
+
+    from wam_tpu_torch.pod import NoLiveWorkerError
+    from wam_tpu_torch.serve import QueueFullError, RetryPolicy, RetryStats
+
+    policy = RetryPolicy(max_attempts=64, budget_s=budget_s, backoff_base_s=0.05,
+                         retry_on=(QueueFullError, NoLiveWorkerError))
+    stats = RetryStats()
+    results, errors, latencies = [], [], []
+    lock = threading.Lock()
+    todo = iter(range(n))
+
+    def client(cid):
+        rng = random.Random(SEED * 1000 + cid)
+        while True:
+            with lock:
+                i = next(todo, None)
+            if i is None:
+                return
+            t0 = time.perf_counter()
+            try:
+                r = router.submit_with_retry(x, y, policy=policy, stats=stats,
+                                             rng=rng).result(timeout=budget_s + 60.0)
+            except Exception as e:  # noqa: BLE001 - every loss is reported and fails the phase
+                with lock:
+                    errors.append(repr(e))
+                continue
+            with lock:
+                results.append(r)
+                latencies.append(time.perf_counter() - t0)
+                done = len(results)
+            if killer is not None:
+                killer.on_progress(done)
+
+    t0 = time.perf_counter()
+    threads = [threading.Thread(target=client, args=(c,), daemon=True) for c in range(clients)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(budget_s + 120.0)
+    if any(t.is_alive() for t in threads):
+        raise AssertionError("pod: a client thread is still waiting after its budget")
+    return {"results": results, "errors": errors, "latencies_s": latencies,
+            "wall_s": time.perf_counter() - t0, "retries": stats.as_dict()}
+
+
+def _pod_rows_held(np, results, ref_rows, tag: str) -> dict:
+    """Every answer against the in-process entry's rows: a request's row is
+    the one of its position in the worker's batch (the batch is copies of
+    the one request, so any of the rows); the distance to the nearest row,
+    x max, within POD_TOL."""
+    scale = float(np.abs(ref_rows).max())
+    worst, exact = 0.0, 0
+    for r in results:
+        r = np.asarray(r)
+        if r.shape != ref_rows.shape[1:] or r.dtype != np.float32 or not np.isfinite(r).all():
+            raise AssertionError(f"pod {tag}: an answer of shape {r.shape} {r.dtype}, "
+                                 f"expected {ref_rows.shape[1:]} float32, finite")
+        d = min(float(np.abs(r - row).max()) for row in ref_rows) / scale
+        exact += d == 0.0
+        worst = max(worst, d)
+    if worst > POD_TOL:
+        raise AssertionError(f"pod {tag}: an answer {worst:.3e} x max from the in-process "
+                             f"entry's nearest row (bound {POD_TOL})")
+    return {"max_rel": worst, "bit_equal": exact, "answers": len(results)}
+
+
+def _pod_launch_delta(router) -> dict:
+    """The kernels' launches the workers made after their warmup: each
+    current incarnation's counts at its last heartbeat (which can fall
+    inside a batch) less its counts at hello (its ready row)."""
+    at_ready = {(r["worker_id"], r["incarnation"]): r["kernel_launches"]
+                for r in _pod_ready(router)}
+    total = dict.fromkeys(ZERO_LAUNCHES, 0)
+    for w in router.pod_summary()["per_worker"]:
+        for k in total:
+            total[k] += (w["device"]["kernel_launches"][k]
+                         - at_ready[(w["worker_id"], w["incarnation"])][k])
+    return total
+
+
+def _pod_ready(router, incarnation=None) -> list:
+    return [r for r in router.metrics.worker_rows if r["phase"] == "ready"
+            and (incarnation is None or r["incarnation"] == incarnation)]
+
+
+def _pod_ms(np, latencies) -> dict:
+    from wam_tpu_torch.serve.metrics import percentile_ms
+
+    return {"p50_ms": percentile_ms(latencies, 50), "p99_ms": percentile_ms(latencies, 99)}
+
+
+def _pod_wire(torch, np, wtt, ref_rows, x, y, smi: str) -> dict:
+    """A cold worker joining from a wire bundle: this process compiles the
+    workers' toy entry (``--aot-key-base``'s compiled step, on the batch
+    signature a worker's warmup gives it) under throwaway caches, the
+    compiled step and the kernel libraries are published as a bundle, and a
+    worker with empty caches and ``--registry wire`` over tcp hydrates from
+    the bytes the router streams: ready at compile_count 0."""
+    from wam_tpu_torch.pod import PodRouter
+    from wam_tpu_torch.pod.metrics import _c_registry_stream
+    from wam_tpu_torch.pod.worker import toy_wam
+    from wam_tpu_torch.registry import publish_bundle
+
+    root = tempfile.mkdtemp(prefix="wam_pod_")
+    atexit.register(shutil.rmtree, root, ignore_errors=True)
+    key = f"chip_smoke|pod|toy2d|J2|n{N_SAMPLES}|mb{POD_MAX_BATCH}"
+    seed_env = _aot_env(root, "seed")
+    saved = {k: os.environ.get(k) for k in _AOT_ENV}
+    os.environ.update(seed_env)
+    card = torch.device(POD_DEVICE)
+    compiles: list = []
+    try:
+        entry = toy_wam(N_SAMPLES, card).serve_entry(on_trace=lambda: compiles.append(1),
+                                                     aot_key=key)
+        xs = torch.from_numpy(np.repeat(x[None], POD_MAX_BATCH, axis=0)).to(card)
+        ys = torch.full((POD_MAX_BATCH,), y, dtype=torch.int32, device=card)
+        t0 = time.perf_counter()
+        with _torch_defaults(torch):  # a fresh worker's flags: its program's key
+            entry(xs, ys)
+        if card.type == "cuda":
+            torch.cuda.synchronize()
+        seed_s = time.perf_counter() - t0
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    if len(compiles) != 1:
+        raise AssertionError(f"pod: the seed compile counted {len(compiles)} compiles, not 1")
+    bundle = os.path.join(root, "bundle")
+    manifest = publish_bundle(
+        bundle, aot_dir=seed_env["WAM_TPU_AOT_CACHE"],
+        schedule_path=os.path.join(root, "seed_schedules.json"), include_compile=True,
+        source={"publisher": "chip_smoke phase pod"})
+    kinds = {}
+    for a in manifest["artifacts"]:
+        kinds[a["kind"]] = kinds.get(a["kind"], 0) + 1
+    if kinds.get("aot", 0) < 1:
+        raise AssertionError(f"pod: the bundle holds no compiled step: {kinds}")
+    streamed = _c_registry_stream.value()
+    wire_env = {**_aot_env(root, "wire"), "WAM_TORCH_SCHEDULE_CACHE":
+                os.path.join(root, "wire_schedules.json")}
+    wire = PodRouter(_pod_argv("--aot-key-base", key, "--registry", "wire"),
+                     f"{CHANNELS}x{POD_SIDE}x{POD_SIDE}", workers=1, env=_pod_env(wire_env),
+                     transport="tcp", registry=bundle, ready_timeout_s=POD_READY_S)
+    try:
+        ready = _pod_ready(wire)[0]
+        answer = np.asarray(wire.attribute(x, y))
+    finally:
+        wire.close()
+    streamed = _c_registry_stream.value() - streamed
+    if ready["compile_count"] != 0 or ready["post_warm_compiles"] != 0 or streamed <= 0:
+        raise AssertionError(f"pod: the wire worker was ready at compile_count "
+                             f"{ready['compile_count']} (post-warm "
+                             f"{ready['post_warm_compiles']}) after {streamed} bytes streamed")
+    scale = float(np.abs(ref_rows).max())
+    dist = min(float(np.abs(answer - row).max()) for row in ref_rows) / scale
+    if not np.isfinite(answer).all() or dist > POD_AOT_TOL:
+        raise AssertionError(f"pod: the compiled worker's answer is {dist:.3e} x max from "
+                             f"the eager entry's nearest row (bound {POD_AOT_TOL})")
+    _log(f"  pod wire: the toy step compiled in this process in {seed_s:.1f} s (1 compile); "
+         f"bundle {kinds}; the wire worker streamed {streamed} bytes "
+         f"and was ready in {ready['spawn_s']:.2f} s (start-up "
+         + ", ".join(f"{k} {v:.2f}" for k, v in ready["startup_s"].items())
+         + f") at compile_count 0; its answer {dist:.3e} x max from eager (bound "
+           f"{POD_AOT_TOL}); on {smi}")
+    return {"seed_s": seed_s, "bundle": kinds,
+            "streamed_bytes": streamed, "ready_s": ready["spawn_s"],
+            "startup_s": ready["startup_s"], "compile_count": ready["compile_count"],
+            "distance": dist}
+
+
+def phase_pod(torch, wtt, kernels, smi: str) -> dict:
+    """Pod serving on the card (module docstring, phase 27)."""
+    import numpy as np
+
+    from wam_tpu_torch.pod import PodRouter
+    from wam_tpu_torch.serve import SupervisorConfig
+    from wam_tpu_torch.testing import PodChaosKiller
+
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()  # the workers share the card with this process
+    rng = np.random.default_rng(SEED + 18)
+    x = rng.standard_normal((CHANNELS, POD_SIDE, POD_SIDE)).astype(np.float32)
+    y = int(rng.integers(0, 4))
+    ref = _pod_reference(torch, np, kernels, x, y)
+    _log(f"  pod: the workers' entry in process, toy WaveletAttribution2D (haar, J=2, "
+         f"n={N_SAMPLES}) on a batch of {POD_MAX_BATCH} x {CHANNELS}x{POD_SIDE}^2: two calls "
+         f"{ref['repeat_max_rel']:.3e} x max apart (cuDNN's default algorithms); launches "
+         f"{ref['launches']} (asserted), the profiler's kernels {ref['profiled']}, "
+         f"{ref['batch_ms']:.3f} ms ({ref['batch_q1_ms']:.3f}-{ref['batch_q3_ms']:.3f}) a "
+         f"batch, peak {ref['peak_gb']:.2f} GB")
+    bucket = f"{CHANNELS}x{POD_SIDE}x{POD_SIDE}"
+    t0 = time.perf_counter()
+    router = PodRouter(_pod_argv(), bucket, workers=POD_WORKERS, transport="tcp", env=_pod_env(),
+                       supervise=SupervisorConfig(seed=SEED, backoff_base_s=0.05),
+                       ready_timeout_s=POD_READY_S, seed=SEED)
+    start_s = time.perf_counter() - t0
+    out = {"gpu": smi, "start_s": start_s, "launches": ref["launches"],
+           "repeat_max_rel": ref["repeat_max_rel"],
+           "profiled": ref["profiled"], "in_process_batch_ms": ref["batch_ms"],
+           "in_process_peak_gb": ref["peak_gb"]}
+    try:
+        ready = _pod_ready(router)
+        if len(ready) != POD_WORKERS or any(r["compile_count"] != 1 for r in ready):
+            raise AssertionError(f"pod: ready rows {ready}")
+        out["ready"] = [{"worker": r["worker_id"], "spawn_s": r["spawn_s"],
+                         "startup_s": r["startup_s"], "peak_gb": r["peak_memory_bytes"] / 1e9}
+                        for r in ready]
+        _log(f"  pod: PodRouter(transport=tcp) over {POD_WORKERS} workers on cuda:0 ready in "
+             f"{start_s:.2f} s; spawn-to-ready " + "; ".join(
+                 f"w{r['worker']} {r['spawn_s']:.2f} s ("
+                 + ", ".join(f"{k} {v:.2f}" for k, v in r["startup_s"].items())
+                 + f"), peak {r['peak_gb']:.2f} GB" for r in out["ready"]))
+
+        killer = PodChaosKiller(router, POD_REQUESTS, fractions=POD_KILLS, seed=SEED)
+        chaos = _pod_stream(router, x, y, POD_REQUESTS, POD_CLIENTS, killer=killer)
+        if chaos["errors"] or len(chaos["results"]) != POD_REQUESTS:
+            raise AssertionError(f"pod: lost {POD_REQUESTS - len(chaos['results'])} requests "
+                                 f"under chaos: {chaos['errors'][:3]}")
+        if [k["killed"] for k in killer.kills] != [True] * len(POD_KILLS):
+            raise AssertionError(f"pod: kills {killer.kills}")
+
+        def alive_rows():
+            return [r for r in router.metrics.restarts if r["transition"] == "alive"]
+
+        deadline = time.monotonic() + POD_READY_S
+        while time.monotonic() < deadline and (
+                len(alive_rows()) < len(POD_KILLS)
+                or router.live_worker_ids() != list(range(POD_WORKERS))):
+            time.sleep(0.05)
+        deaths = router.metrics.deaths
+        if len(deaths) != len(POD_KILLS) or len(alive_rows()) != len(POD_KILLS):
+            raise AssertionError(f"pod: deaths {deaths}, restarts {router.metrics.restarts}")
+        rejoin = []
+        for d in deaths:
+            back = [r["t_s"] for r in alive_rows()
+                    if r["worker_id"] == d["worker_id"] and r["t_s"] > d["t_s"]]
+            rejoin.append(min(back) - d["t_s"])
+        held = _pod_rows_held(np, chaos["results"], ref["rows"], "chaos")
+        out["chaos"] = {"requests": POD_REQUESTS, "lost": 0, "wall_s": chaos["wall_s"],
+                        "requests_per_s": POD_REQUESTS / chaos["wall_s"],
+                        **_pod_ms(np, chaos["latencies_s"]), "retries": chaos["retries"],
+                        "kills": killer.kills, "deaths": deaths, "kill_to_rejoin_s": rejoin,
+                        "respawn_ready": [{"worker": r["worker_id"],
+                                           "incarnation": r["incarnation"],
+                                           "spawn_s": r["spawn_s"],
+                                           "startup_s": r["startup_s"],
+                                           "compile_count": r["compile_count"]}
+                                          for r in _pod_ready(router) if r["incarnation"] > 0],
+                        "held": held}
+        _log(f"  pod chaos: {POD_REQUESTS} requests from {POD_CLIENTS} clients, kills at "
+             f"{POD_KILLS} of them ({[(k['threshold'], k['worker_id']) for k in killer.kills]})"
+             f", 0 lost, {out['chaos']['requests_per_s']:.2f} requests/s, p50 "
+             f"{out['chaos']['p50_ms']:.1f} ms, p99 {out['chaos']['p99_ms']:.1f} ms, retries "
+             f"{chaos['retries']}; kill to rejoin "
+             + ", ".join(f"{s:.2f}" for s in rejoin) + " s; respawns ready in "
+             + ", ".join(f"{r['spawn_s']:.2f} s" for r in out["chaos"]["respawn_ready"])
+             + f"; answers against the in-process entry: {held['bit_equal']} of "
+               f"{held['answers']} bit-equal, worst {held['max_rel']:.3e} x max")
+
+        for tag, n_workers in (("two", POD_WORKERS), ("one", 1)):
+            if n_workers < len(router.live_worker_ids()):
+                wid = router.shrink()
+                deadline = time.monotonic() + 60.0
+                while time.monotonic() < deadline and len(router.live_worker_ids()) > 1:
+                    time.sleep(0.02)
+                if router.live_worker_ids() != [1 - wid]:
+                    raise AssertionError(f"pod: shrink left {router.live_worker_ids()}")
+            clean = _pod_stream(router, x, y, POD_THROUGHPUT_REQUESTS, POD_THROUGHPUT_CLIENTS)
+            if clean["errors"] or len(clean["results"]) != POD_THROUGHPUT_REQUESTS:
+                raise AssertionError(f"pod {tag}: lost requests {clean['errors'][:3]}")
+            held = _pod_rows_held(np, clean["results"], ref["rows"], tag)
+            out[f"{tag}_worker"] = {"requests": POD_THROUGHPUT_REQUESTS,
+                                    "clients": POD_THROUGHPUT_CLIENTS,
+                                    "wall_s": clean["wall_s"],
+                                    "requests_per_s": POD_THROUGHPUT_REQUESTS / clean["wall_s"],
+                                    **_pod_ms(np, clean["latencies_s"]), "held": held}
+            _log(f"  pod {tag} worker(s): {POD_THROUGHPUT_REQUESTS} requests from "
+                 f"{POD_THROUGHPUT_CLIENTS} clients in {clean['wall_s']:.2f} s: "
+                 f"{out[f'{tag}_worker']['requests_per_s']:.2f} requests/s, p50 "
+                 f"{out[f'{tag}_worker']['p50_ms']:.1f} ms, p99 "
+                 f"{out[f'{tag}_worker']['p99_ms']:.1f} ms; {held['bit_equal']} of "
+                 f"{held['answers']} answers bit-equal, worst {held['max_rel']:.3e} x max")
+        worker_launches = _pod_launch_delta(router)
+    finally:
+        router.close()
+    summary = router.pod_summary()
+    if any(worker_launches[k] <= 0 for k in ("dwt2", "pair")) or any(
+            worker_launches[k] for k in ("synth2", "relu_fwd", "relu_bwd")):
+        raise AssertionError(f"pod: the workers' launches after warmup {worker_launches}")
+    out["worker_launches"] = worker_launches
+    out["per_worker"] = summary["per_worker"]
+    peaks = [w["device"]["peak_memory_bytes"] / 1e9 for w in summary["per_worker"]
+             if "device" in w]
+    out["peak_gb_per_worker"] = peaks
+    _log(f"  pod: the workers' launches after their warmup (their current incarnations' "
+         f"last heartbeats less their hello) {worker_launches}; peak GB of each worker's "
+         "current incarnation "
+         + ", ".join(f"{p:.3f}" for p in peaks))
+    out["wire"] = _pod_wire(torch, np, wtt, ref["rows"], x, y, smi)
+    out["phase_s"] = time.perf_counter() - t_phase
+    _log(f"  pod: phase {out['phase_s']:.1f} s (budget {POD_BUDGET_S:.0f} s"
+         + ("" if out["phase_s"] <= POD_BUDGET_S else ", OVER") + ")")
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -6073,6 +6546,7 @@ def main() -> int:
     seq = timed("seq", phase_seq, torch, wtt, kernels, smi)
     tune = timed("tune", phase_tune, torch, wtt, kernels, smi)
     aot_ = timed("aot", phase_aot, torch, wtt, kernels, smi, sites)
+    pod = timed("pod", phase_pod, torch, wtt, kernels, smi)
     # what routing the host-bound phases' eager launches through the
     # operators would add to a call (phase aot's dispatch measurement)
     aot_["dispatch_estimate"] = aot_dispatch_estimate(aot_["dispatch"], {
@@ -6094,7 +6568,7 @@ def main() -> int:
                 "anytime": anytime_["launches"],
                 **{f"serve {s}": serve_["batch_launches"][s] for s in SERVE_LAUNCHES},
                 "parallel": par["spmd"]["launches"], "parallel ig": par["ig"]["launches"],
-                "tune": tune["nchw_launches"]}
+                "tune": tune["nchw_launches"], "pod": pod["launches"]}
     for row in rows:
         row["launches"] = launches[row["path"]][row["kernel"]]
         row["audio_launches"] = audio["launches"][row["kernel"]]
@@ -6124,6 +6598,7 @@ def main() -> int:
         row["tune_launches"] = {c["label"]: c["launches"][row["kernel"]]
                                 for c in tune["candidates"]}
         row["aot_launches"] = aot_["launches"][row["kernel"]]
+        row["pod_launches"] = pod["launches"][row["kernel"]]
 
     print(json.dumps({"slice": {k: v for k, v in slice_.items() if k != "launches"},
                       "slice2": {k: v for k, v in slice2.items() if k != "launches"},
@@ -6134,7 +6609,7 @@ def main() -> int:
                       "attention": attention, "video": video, "anytime": anytime_,
                       "serve": serve_, "parallel": par, "fleet": fleet, "seq": seq,
                       "tune": {k: v for k, v in tune.items() if k != "entry"},
-                      "aot": aot_,
+                      "aot": aot_, "pod": pod,
                       "phase_s": seconds,
                       "wall_s": time.perf_counter() - t_start, "gpu": smi}),
           flush=True)

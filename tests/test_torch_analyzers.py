@@ -42,6 +42,10 @@ from wam_tpu_torch.models.ingest import flax_convnext_to_torch
 from wam_tpu_torch.wavelets import filters as tfilters
 from wam_tpu_torch.wavelets import matmul as tmm
 
+# the suite runs in several pytest-xdist worker processes at once: one
+# intra-op thread a process keeps them from oversubscribing the cores
+torch.set_num_threads(1)
+
 TOL = 1e-5
 QS = list(np.linspace(0.95, 0.0, 20))  # the flagship analyzer's insertion sweep
 

@@ -36,6 +36,10 @@ from wam_tpu_torch.evalsuite import fan as tfan
 from wam_tpu_torch.models.toy import toy_conv_model as ttoy
 from wam_tpu_torch.wavelets.transform import Detail2D
 
+# the suite runs in several pytest-xdist worker processes at once: one
+# intra-op thread a process keeps them from oversubscribing the cores
+torch.set_num_threads(1)
+
 
 def _rng(*key):
     return np.random.default_rng(zlib.crc32(repr(key).encode()))

@@ -33,6 +33,10 @@ from wam_tpu_torch.pipeline import aot
 from wam_tpu_torch.tune import fused_relu as tfr
 from wam_tpu_torch.wavelets import matmul as tmm
 
+# the suite runs in several pytest-xdist worker processes at once: one
+# intra-op thread a process keeps them from oversubscribing the cores
+torch.set_num_threads(1)
+
 T = 120  # seconds a served future is waited on
 
 

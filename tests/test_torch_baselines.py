@@ -57,6 +57,10 @@ from wam_tpu_torch.models.ingest import (
 )
 from wam_tpu_torch.models.layers import tap, tap_scope
 
+# the suite runs in several pytest-xdist worker processes at once: one
+# intra-op thread a process keeps them from oversubscribing the cores
+torch.set_num_threads(1)
+
 TOL = 1e-4
 TAP_TOL = 1e-6
 TAP_F32 = 1e-5

@@ -25,6 +25,10 @@ import numpy as np
 import pytest
 import torch
 
+# the suite runs in several pytest-xdist worker processes at once: one
+# intra-op thread a process keeps them from oversubscribing the cores
+torch.set_num_threads(1)
+
 matplotlib.use("Agg")
 
 import matplotlib.pyplot as plt  # noqa: E402

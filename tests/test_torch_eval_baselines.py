@@ -41,6 +41,10 @@ from wam_tpu_torch.models import audio as taudio
 from wam_tpu_torch.models import resnet as tres
 from wam_tpu_torch.models.ingest import flax_audio_to_torch, flax_resnet_to_torch
 
+# the suite runs in several pytest-xdist worker processes at once: one
+# intra-op thread a process keeps them from oversubscribing the cores
+torch.set_num_threads(1)
+
 TOL = 1e-5
 MAP_TOL = {"gradcampp": 1e-2}  # GradCAM++'s measured float32 bound (test_torch_baselines.py)
 # the CAMs' bilinear upsampling makes positions that tie in exact arithmetic

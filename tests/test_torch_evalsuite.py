@@ -30,6 +30,10 @@ from wam_tpu_torch.evalsuite import packing as tpack
 from wam_tpu_torch.ops import filters as tfilters
 from wam_tpu_torch.wavelets import transform as tt
 
+# the suite runs in several pytest-xdist worker processes at once: one
+# intra-op thread a process keeps them from oversubscribing the cores
+torch.set_num_threads(1)
+
 CPU = torch.device("cpu")
 
 

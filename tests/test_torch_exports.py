@@ -12,9 +12,14 @@ import sys
 from pathlib import Path
 
 import pytest
+import torch
 
 import wam_tpu
 import wam_tpu_torch
+
+# the suite runs in several pytest-xdist worker processes at once: one
+# intra-op thread a process keeps them from oversubscribing the cores
+torch.set_num_threads(1)
 
 ROOT = Path(__file__).resolve().parent.parent
 SLICE_F = "ROADMAP.md queue 1 item 2 (slice F)"
@@ -31,7 +36,8 @@ PENDING = {
     "anytime": {},
     "serve": {},
     "parallel": {},
-    "testing": {"PodChaosKiller": SLICE_F},  # the pod tier's process-kill chaos
+    "testing": {},
+    "pod": {},
     "obs": {},
     "pipeline": {},
     # the port's fused ReLU picks the kernel or its plain version by the
@@ -52,7 +58,8 @@ def _pkgs(sub: str):
 
 
 @pytest.mark.parametrize("sub", ["wavelets", "core", "ops", "data", "viz", "xattr", "anytime",
-                                 "serve", "obs", "pipeline", "parallel", "testing", "tune"])
+                                 "serve", "obs", "pipeline", "parallel", "testing", "tune",
+                                 "pod"])
 def test_subpackage_all_equals_the_reference_less_pending(sub):
     ref, port = _pkgs(sub)
     want = [n for n in ref.__all__ if n not in PENDING[sub]]

@@ -44,6 +44,10 @@ from wam_tpu_torch.serve import (
 )
 from wam_tpu_torch.serve.entry import RowBlocks
 
+# the suite runs in several pytest-xdist worker processes at once: one
+# intra-op thread a process keeps them from oversubscribing the cores
+torch.set_num_threads(1)
+
 T = 10  # seconds: every future / join waits at most this long
 
 
@@ -581,11 +585,18 @@ def test_restart_rejoins_warm_with_ledger_roundtrip(tmp_path):
         for rid in range(3):
             kills[rid].set()
             deadline = time.monotonic() + 30
+            # rounds grow until the load spills onto every replica: the
+            # router scores by each replica's own EMA, so a replica whose
+            # one slow batch left it a high EMA takes no item while the
+            # others have room (up to 150 items: under the fleet's 3 x 64
+            # queue slots)
+            n = 6
             while kills[rid].is_set():
-                futs = [fleet.submit(x, i % 4) for i in range(6)]
+                futs = [fleet.submit(x, i % 4) for i in range(n)]
                 for f in futs:
                     np.testing.assert_array_equal(f.result(timeout=T), x * 2.0)
                 assert time.monotonic() < deadline, f"replica {rid} never took its kill"
+                n = min(2 * n, 150)
             while not fleet._replicas[rid].alive:
                 assert time.monotonic() < deadline, f"replica {rid} never restarted"
                 time.sleep(0.005)

@@ -18,6 +18,10 @@ import torch
 
 from wam_tpu_torch.tune import fused_relu as tfr
 
+# the suite runs in several pytest-xdist worker processes at once: one
+# intra-op thread a process keeps them from oversubscribing the cores
+torch.set_num_threads(1)
+
 # `wam_tpu.tune` re-exports the function `fused_relu` under the module's name
 jfr = importlib.import_module("wam_tpu.tune.fused_relu")
 

@@ -41,6 +41,10 @@ from wam_tpu_torch.parallel.tree import tree_leaves
 from wam_tpu_torch.wavelets import periodized as tper
 from wam_tpu_torch.wavelets import transform as twt
 
+# the suite runs in several pytest-xdist worker processes at once: one
+# intra-op thread a process keeps them from oversubscribing the cores
+torch.set_num_threads(1)
+
 ROOT = Path(__file__).resolve().parents[1]
 
 # (ndim, shape, shards, wavelet, mode, level, batch_axis); "periodization" = the _per family
@@ -466,7 +470,8 @@ def test_two_gloo_processes_reproduce_the_one_process_mesh(tmp_path):
     out = str(tmp_path / "out")
     code = WORKER.format(root=str(ROOT), coord=f"127.0.0.1:{_free_port()}", case=str(case),
                          out=out)
-    env = {k: v for k, v in os.environ.items() if k not in ("WORLD_SIZE", "RANK")}
+    env = {**{k: v for k, v in os.environ.items() if k not in ("WORLD_SIZE", "RANK")},
+           "OMP_NUM_THREADS": "1", "MKL_NUM_THREADS": "1"}  # as this process
     env.setdefault("GLOO_SOCKET_IFNAME", "lo")
     procs = [subprocess.Popen([sys.executable, "-c", code, str(pid)], cwd=str(ROOT), env=env,
                               stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
@@ -547,7 +552,8 @@ def test_batch_axis_on_a_ring_across_two_gloo_processes():
         out = os.path.join(tmp, "out")
         code = BATCH_WORKER.format(root=str(ROOT), coord=f"127.0.0.1:{_free_port()}", case=case,
                                    out=out)
-        env = {k: v for k, v in os.environ.items() if k not in ("WORLD_SIZE", "RANK")}
+        env = {**{k: v for k, v in os.environ.items() if k not in ("WORLD_SIZE", "RANK")},
+               "OMP_NUM_THREADS": "1", "MKL_NUM_THREADS": "1"}  # as this process
         env.setdefault("GLOO_SOCKET_IFNAME", "lo")
         procs = [subprocess.Popen([sys.executable, "-c", code, str(pid)], cwd=str(ROOT), env=env,
                                   stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)

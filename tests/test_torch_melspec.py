@@ -23,6 +23,10 @@ from wam_tpu.wam1d import BaseWAM1D as JBaseWAM1D
 from wam_tpu_torch.ops import melspec as tm
 from wam_tpu_torch.wam1d import BaseWAM1D
 
+# the suite runs in several pytest-xdist worker processes at once: one
+# intra-op thread a process keeps them from oversubscribing the cores
+torch.set_num_threads(1)
+
 IMPLS = ["fft", "matmul"]
 
 

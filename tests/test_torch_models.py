@@ -29,6 +29,10 @@ from wam_tpu_torch.models.ingest import flax_audio_to_torch, flax_resnet_to_torc
 from wam_tpu_torch.models.toy import toy_conv_model as ttoy
 from wam_tpu_torch.tune.fused_relu import fused_relu
 
+# the suite runs in several pytest-xdist worker processes at once: one
+# intra-op thread a process keeps them from oversubscribing the cores
+torch.set_num_threads(1)
+
 TOL = 1e-4
 # `wam_tpu.tune` re-exports the function `fused_relu` under the module's name
 jfr = importlib.import_module("wam_tpu.tune.fused_relu")

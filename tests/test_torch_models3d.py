@@ -32,6 +32,10 @@ from wam_tpu_torch.models.ingest import (
 )
 from wam_tpu_torch.models.voxel import VoxelModel as TVoxel
 
+# the suite runs in several pytest-xdist worker processes at once: one
+# intra-op thread a process keeps them from oversubscribing the cores
+torch.set_num_threads(1)
+
 TOL = 1e-4
 
 

@@ -34,6 +34,10 @@ from wam_tpu_torch.ops import packing2d as tpack
 from wam_tpu_torch.wavelets import nhwc as tn
 from wam_tpu_torch.wavelets import transform as tt
 
+# the suite runs in several pytest-xdist worker processes at once: one
+# intra-op thread a process keeps them from oversubscribing the cores
+torch.set_num_threads(1)
+
 TOL = 1e-5
 MODES = ["reflect", "symmetric", "zero", "constant", "periodic"]
 

@@ -33,6 +33,10 @@ from wam_tpu_torch.obs.health import HealthConfig, HealthMonitor
 from wam_tpu_torch.obs.memory import MemoryBudget, estimate_entry_bytes
 from wam_tpu_torch.obs.registry import Registry, registry
 
+# the suite runs in several pytest-xdist worker processes at once: one
+# intra-op thread a process keeps them from oversubscribing the cores
+torch.set_num_threads(1)
+
 ROOT = Path(__file__).resolve().parent.parent
 
 
@@ -508,19 +512,27 @@ def test_health_monitor_states_equal_the_reference():
 
 
 def test_fan_health_piggyback_waits_and_the_fan_fetches_once():
-    """The reference piggybacks health on the fan's fetch
-    (`test_fan_single_fetch_with_health_on`, `test_fan_health_gates_off_with_obs`);
-    the port's fan keeps its one-copy fetch, and the piggyback's switch is
-    absent until it lands (ROADMAP.md slice F)."""
+    """The reference's `test_fan_single_fetch_with_health_on` and
+    `test_fan_health_gates_off_with_obs` on the port: the fan's health
+    vector rides its one fetch and is published under source "fan"; with
+    the obs layer off the switch reads off and nothing is published."""
     from wam_tpu_torch.evalsuite.fan import fetch_scope, run_fan
 
     for name in ("fan_health_enabled", "set_fan_health"):
-        assert hasattr(jhealth, name) and not hasattr(obs_health, name)
+        assert hasattr(jhealth, name) and hasattr(obs_health, name)
+    assert obs_health.fan_health_enabled()
+    checks = registry.counter("wam_tpu_health_checks_total", labels=("source", "replica"))
     with fetch_scope() as fs:
         out = run_fan(lambda x: x * 2.0, (torch.ones(8),))
     assert fs.count == 1 and np.array_equal(out, np.full((8,), 2.0, np.float32))
-    assert registry.counter("wam_tpu_health_checks_total", labels=("source", "replica")).value(
-        source="fan", replica="-") == 0.0
+    assert checks.value(source="fan", replica="-") == 1.0
+    obs.configure(enabled=False)
+    try:
+        run_fan(lambda x: x + 1.0, (torch.zeros(4),))
+        assert not obs_health.fan_health_enabled()
+    finally:
+        obs.configure(enabled=True)
+    assert checks.value(source="fan", replica="-") == 1.0
 
 
 class _PoisonEntry:

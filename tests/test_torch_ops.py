@@ -26,6 +26,10 @@ from wam_tpu_torch.models.toy import toy_conv_model as ttoy
 from wam_tpu_torch.ops import packing2d as tpack
 from wam_tpu_torch.wavelets import transform as tt
 
+# the suite runs in several pytest-xdist worker processes at once: one
+# intra-op thread a process keeps them from oversubscribing the cores
+torch.set_num_threads(1)
+
 PURE_TOL = 1e-6
 
 

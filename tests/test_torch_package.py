@@ -34,6 +34,10 @@ from wam_tpu_torch.wavelets import filters as tfilters
 from wam_tpu_torch.wavelets import matmul as tmm
 from wam_tpu_torch.wavelets import transform as tt
 
+# the suite runs in several pytest-xdist worker processes at once: one
+# intra-op thread a process keeps them from oversubscribing the cores
+torch.set_num_threads(1)
+
 ROOT = Path(__file__).resolve().parent.parent
 PKG = ROOT / "wam_tpu_torch"
 FORBIDDEN = ("jax", "jaxlib", "flax", "wam_tpu")

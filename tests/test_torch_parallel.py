@@ -43,6 +43,10 @@ from wam_tpu_torch.models.toy import toy_conv_model
 from wam_tpu_torch.ops.packing2d import mosaic2d
 from wam_tpu_torch.parallel.multihost import CoordinatorConnectError
 
+# the suite runs in several pytest-xdist worker processes at once: one
+# intra-op thread a process keeps them from oversubscribing the cores
+torch.set_num_threads(1)
+
 ROOT = Path(__file__).resolve().parent.parent
 SIDE, N = 16, 4
 SPREAD = 0.15
@@ -521,7 +525,8 @@ def test_two_gloo_processes_reproduce_the_one_process_mesh(toy, tmp_path):
     out = str(tmp_path / "out")
     code = WORKER.format(root=str(ROOT), coord=f"127.0.0.1:{_free_port()}", case=str(case),
                          out=out)
-    env = {k: v for k, v in os.environ.items() if k not in ("WORLD_SIZE", "RANK")}
+    env = {**{k: v for k, v in os.environ.items() if k not in ("WORLD_SIZE", "RANK")},
+           "OMP_NUM_THREADS": "1", "MKL_NUM_THREADS": "1"}  # as this process
     env.setdefault("GLOO_SOCKET_IFNAME", "lo")  # both ranks on this host's loopback
     procs = [subprocess.Popen([sys.executable, "-c", code, str(pid)], cwd=str(ROOT), env=env,
                               stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)

@@ -22,6 +22,10 @@ from wam_tpu_torch.wavelets import filters as tfilters
 from wam_tpu_torch.wavelets import periodized as tp
 from wam_tpu_torch.wavelets.transform import Detail2D
 
+# the suite runs in several pytest-xdist worker processes at once: one
+# intra-op thread a process keeps them from oversubscribing the cores
+torch.set_num_threads(1)
+
 TOL = 1e-5
 WAVELETS = ["haar", "db4", "sym8"]
 # the shapes of each rank: a batch axis and sides of 32 (two levels of sym8

@@ -29,6 +29,10 @@ from wam_tpu_torch.pipeline import (
 )
 from wam_tpu_torch.pipeline.donation import release
 
+# the suite runs in several pytest-xdist worker processes at once: one
+# intra-op thread a process keeps them from oversubscribing the cores
+torch.set_num_threads(1)
+
 
 class FakeCuda(torch.Tensor):
     """A CPU tensor that says it lives on CUDA, to follow the card's route."""

@@ -4,15 +4,26 @@ exported, then loaded by a second process ("hit", no compile), then a
 bundle published from its manifest (``registry publish --from-prewarm``),
 hydrated into empty cache directories and loaded by a third process
 ("registry_hit", no compile). Three subprocesses, each with the caches of
-the test's own."""
+the test's own, torch on one thread. The third process's compile directory
+starts with the first's built C++ kernels (``.cpp``/``.so``) and none of
+its graph caches (``fxgraph``, ``aotautograd``): on the CPU the kernels'
+g++ builds are most of a start, and a compile counts the graph caches'
+misses only (`pipeline.aot`), which the bundle alone turns into hits."""
 
 import json
 import os
+import shutil
 import subprocess
 import sys
 from pathlib import Path
 
+import torch
+
 from wam_tpu_torch.registry import __main__ as registry_cli
+
+# the suite runs in several pytest-xdist worker processes at once: one
+# intra-op thread a process keeps them from oversubscribing the cores
+torch.set_num_threads(1)
 
 ROOT = Path(__file__).resolve().parent.parent
 # the reference's summary keys (`wam_tpu/prewarm.py`), its xla_cache_dir
@@ -29,7 +40,8 @@ def _env(root: Path, tag: str) -> dict:
             "TORCHINDUCTOR_CACHE_DIR": str(root / f"compile{tag}"),
             "TRITON_CACHE_DIR": str(root / f"compile{tag}" / "triton"),
             "WAM_TORCH_SCHEDULE_CACHE": str(root / "schedules.json"),
-            "TORCHINDUCTOR_COMPILE_THREADS": "1"}  # the suite's workers share the machine
+            "TORCHINDUCTOR_COMPILE_THREADS": "1",  # the suite's workers share the machine
+            "OMP_NUM_THREADS": "1"}
 
 
 def _prewarm(root: Path, tag: str, manifest=None) -> dict:
@@ -76,6 +88,8 @@ def test_prewarm_exports_then_hits_then_hydrates_from_a_bundle(tmp_path, capsys)
                               "--schedule-cache", str(tmp_path / "schedules.json")]) == 0
     row = json.loads(capsys.readouterr().out)
     assert row["status"] == "hydrated" and row["artifacts"]["aot:hydrated"] == pub["aot"]
+    shutil.copytree(tmp_path / "compile1", tmp_path / "compile2", dirs_exist_ok=True,
+                    ignore=shutil.ignore_patterns("fxgraph", "aotautograd", "locks"))
 
     hydrated = _prewarm(tmp_path, "2")
     assert hydrated["aot"] == "registry_hit" and hydrated["compiles"] == 0

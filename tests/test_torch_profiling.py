@@ -27,6 +27,10 @@ from wam_tpu import profiling as jprof
 from wam_tpu_torch import env_check
 from wam_tpu_torch import profiling as tprof
 
+# the suite runs in several pytest-xdist worker processes at once: one
+# intra-op thread a process keeps them from oversubscribing the cores
+torch.set_num_threads(1)
+
 ROOT = Path(__file__).resolve().parents[1]
 
 

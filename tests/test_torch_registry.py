@@ -38,6 +38,10 @@ from wam_tpu_torch.registry import (
 from wam_tpu_torch.registry import __main__ as registry_cli
 from wam_tpu_torch.tune.cache import SCHEDULE_CACHE_VERSION, ScheduleCache
 
+# the suite runs in several pytest-xdist worker processes at once: one
+# intra-op thread a process keeps them from oversubscribing the cores
+torch.set_num_threads(1)
+
 T = 60  # seconds a future is waited on
 
 

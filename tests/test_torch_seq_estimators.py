@@ -38,6 +38,10 @@ from wam_tpu_torch.obs import sentinel as tsentinel
 from wam_tpu_torch.obs import tracing as ttracing
 from wam_tpu_torch.parallel.tree import tree_leaves
 
+# the suite runs in several pytest-xdist worker processes at once: one
+# intra-op thread a process keeps them from oversubscribing the cores
+torch.set_num_threads(1)
+
 SEED = 42  # the explainers' default random_seed
 N = 3
 

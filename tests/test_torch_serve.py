@@ -49,6 +49,10 @@ from wam_tpu_torch.serve import (
     pad_item,
 )
 
+# the suite runs in several pytest-xdist worker processes at once: one
+# intra-op thread a process keeps them from oversubscribing the cores
+torch.set_num_threads(1)
+
 T = 10  # seconds: every future / join waits at most this long
 
 

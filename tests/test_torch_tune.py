@@ -47,6 +47,10 @@ from wam_tpu_torch.tune import autotuner as tauto
 from wam_tpu_torch.tune import workloads as twl
 from wam_tpu_torch.wavelets import transform as tt
 
+# the suite runs in several pytest-xdist worker processes at once: one
+# intra-op thread a process keeps them from oversubscribing the cores
+torch.set_num_threads(1)
+
 ROOT = Path(__file__).resolve().parents[1]
 TO_PORT = {"pallas": "kernel", "tpu": "cuda"}
 # the sweeps run many small ops: one intra-op thread keeps them from

@@ -26,6 +26,10 @@ import wam_tpu_torch.tune.online as tonline
 from wam_tpu.tune import workloads as jwl
 from wam_tpu_torch.tune import workloads as twl
 
+# the suite runs in several pytest-xdist worker processes at once: one
+# intra-op thread a process keeps them from oversubscribing the cores
+torch.set_num_threads(1)
+
 ROOT = Path(__file__).resolve().parents[1]
 # the sweeps run many small ops: one intra-op thread keeps them from
 # stalling on a machine whose cores other test workers share
@@ -145,7 +149,7 @@ def test_the_shadow_tuner_mines_sweeps_and_promotes(caches):
     ledger = caches / "serve.jsonl"
     _write_ledger(ledger, _rows(6, n=48, shift=3.0), torn=False)
     cfg = tonline.OnlineTuneConfig(ledger=str(ledger), force_sweep=True, n_samples=2,
-                                   sweep_k=1, sweep_laps=1, min_batches=4)
+                                   sweep_k=1, sweep_laps=1, min_batches=4, device="cpu")
     tuner = tonline.OnlineTuner(cfg)
     out = tuner.step()
     assert out["mix"]["rows"] == 48 and out["drift"]["drifted"]
@@ -170,7 +174,7 @@ def test_the_kill_switch_freezes_the_tuner(caches, monkeypatch):
     _write_ledger(ledger, _rows(7), torn=False)
     monkeypatch.setenv("WAM_TPU_NO_ONLINE_TUNE", "1")
     assert tonline.online_tune_disabled()
-    out = tonline.OnlineTuner(tonline.OnlineTuneConfig(ledger=str(ledger))).step()
+    out = tonline.OnlineTuner(tonline.OnlineTuneConfig(ledger=str(ledger), device="cpu")).step()
     assert out == {"disabled": True}
 
 
@@ -188,6 +192,21 @@ def test_the_cli_once_on_a_ledger(caches):
     empty = caches / "empty.jsonl"
     empty.write_text("")
     proc = subprocess.run([sys.executable, "-m", "wam_tpu_torch.tune.online", "--ledger",
-                           str(empty), "--once"], cwd=ROOT, env=env, capture_output=True,
-                          text=True, timeout=120)
+                           str(empty), "--once", "--device", "cpu"], cwd=ROOT, env=env,
+                          capture_output=True, text=True, timeout=120)
     assert proc.returncode == 1 and json.loads(proc.stdout.strip()) == {"mix": None}
+
+
+def test_the_config_takes_the_card_by_default(monkeypatch, tmp_path):
+    """`OnlineTuneConfig()` with no device takes the card (None, as the
+    CLI's ``--device auto``) and raises without one; ``device="cpu"`` is the
+    only way onto the CPU, and the CLI's default is "auto"."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        tonline.OnlineTuneConfig(ledger=str(tmp_path / "serve.jsonl"))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        tonline.OnlineTuneConfig(ledger=str(tmp_path / "serve.jsonl"), device="cuda")
+    assert tonline.OnlineTuneConfig(ledger=str(tmp_path / "serve.jsonl"),
+                                    device="cpu").device == "cpu"
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        tonline.main(["--ledger", str(tmp_path / "serve.jsonl"), "--once"])

@@ -48,6 +48,10 @@ from wam_tpu_torch.wavelets import filters as tfilters
 from wam_tpu_torch.wavelets import matmul as tmm
 from wam_tpu_torch.wavelets import transform as tt
 
+# the suite runs in several pytest-xdist worker processes at once: one
+# intra-op thread a process keeps them from oversubscribing the cores
+torch.set_num_threads(1)
+
 TOL = 1e-4
 SIDE = 32  # both tiny models at 32^2: haar J=3 detail sides 16 / 8 / 4
 # `wam_tpu.tune` re-exports the function `fused_relu` under the module's name

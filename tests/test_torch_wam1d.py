@@ -38,6 +38,10 @@ from wam_tpu_torch.models.ingest import flax_audio_to_torch
 from wam_tpu_torch.models.toy import toy_conv_model
 from wam_tpu_torch.ops import melspec as tmel
 
+# the suite runs in several pytest-xdist worker processes at once: one
+# intra-op thread a process keeps them from oversubscribing the cores
+torch.set_num_threads(1)
+
 SR, NFFT, NMELS, WLEN = 8000, 256, 32, 4096
 KW = dict(n_mels=NMELS, n_fft=NFFT, sample_rate=SR)
 TOL = 1e-4

@@ -34,6 +34,10 @@ from wam_tpu_torch.models import resnet as tres
 from wam_tpu_torch.models.ingest import flax_resnet_to_torch
 from wam_tpu_torch.wavelets import transform as tt
 
+# the suite runs in several pytest-xdist worker processes at once: one
+# intra-op thread a process keeps them from oversubscribing the cores
+torch.set_num_threads(1)
+
 SLICE_TOL = 1e-4
 # `wam_tpu.tune` re-exports the function `fused_relu` under the module's name
 jfr = importlib.import_module("wam_tpu.tune.fused_relu")

@@ -45,6 +45,10 @@ from wam_tpu_torch.ops import packing3d as tpack
 from wam_tpu_torch.wavelets import matmul as tmm
 from wam_tpu_torch.wavelets import transform as tt
 
+# the suite runs in several pytest-xdist worker processes at once: one
+# intra-op thread a process keeps them from oversubscribing the cores
+torch.set_num_threads(1)
+
 MODES = ["reflect", "symmetric", "zero", "constant", "periodic"]
 KEYS = tt.DETAIL3D_KEYS
 TOL = 1e-5

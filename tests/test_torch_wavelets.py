@@ -27,6 +27,10 @@ from wam_tpu_torch.wavelets import filters as tfilters
 from wam_tpu_torch.wavelets import matmul as tmm
 from wam_tpu_torch.wavelets import transform as tt
 
+# the suite runs in several pytest-xdist worker processes at once: one
+# intra-op thread a process keeps them from oversubscribing the cores
+torch.set_num_threads(1)
+
 MODES = ["reflect", "symmetric", "zero", "constant", "periodic"]
 TOL = 1e-5
 

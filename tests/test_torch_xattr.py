@@ -44,6 +44,10 @@ from wam_tpu_torch.models.ingest import flax_vit_to_torch
 from wam_tpu_torch.models.resnet import bind_inference
 from wam_tpu_torch.models.toy import toy_conv_model as ttoy
 
+# the suite runs in several pytest-xdist worker processes at once: one
+# intra-op thread a process keeps them from oversubscribing the cores
+torch.set_num_threads(1)
+
 CLASSES, SIDE, PATCH = 5, 32, 8
 CLIP = (2, 1, 8, 16, 16)
 

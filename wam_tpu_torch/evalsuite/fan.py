@@ -31,6 +31,8 @@ import numpy as np
 import torch
 
 from wam_tpu_torch.config import PrecisionPolicy, compute_cast, resolve_precision
+from wam_tpu_torch.obs import tracing as _obs_tracing
+from wam_tpu_torch.obs.registry import registry as _registry
 from wam_tpu_torch.parallel.mesh import P
 from wam_tpu_torch.parallel.tree import cyclic_pad_index, tree_leaves, tree_map, tree_zip_map
 
@@ -49,16 +51,64 @@ AUTO_CAP = 128
 _FETCH_COUNT = 0
 _fetch_tls = threading.local()  # per-thread stack of live fetch_scopes
 
+_c_fetches = _registry.counter(
+    "wam_tpu_fan_result_fetches_total",
+    "device_fetch calls (one per fan metric call is the contract)")
+
 
 def device_fetch(out):
     """THE result fetch: the whole result (a tensor, or a tuple, list or
-    dict of them) copied to the host as numpy, in the same structure. Every fan metric's device-to-host
-    transfer goes through here, counted by `fetch_scope` and `fetch_count`."""
+    dict of them) copied to the host as numpy, in the same structure, in
+    one copy a device: a tree of several tensors is packed into one byte
+    buffer on its device (each leaf at a 16-byte aligned offset), copied
+    once, and unpacked on the host as views of that buffer. A bfloat16
+    tensor arrives as float32 (numpy has no bfloat16), converted on the
+    host. Every fan metric's device-to-host transfer goes through here,
+    counted by `fetch_scope` and `fetch_count`, and on the obs registry's
+    fan-fetch counter."""
     global _FETCH_COUNT
     _FETCH_COUNT += 1
     for scope in getattr(_fetch_tls, "scopes", ()):
         scope._count += 1
-    return tree_map(lambda t: t.detach().cpu().numpy(), out)
+    _c_fetches.inc()
+    leaves = tree_leaves(out)
+    if len(leaves) <= 1:
+        return tree_map(lambda t: _numpy(t.detach().cpu()), out)
+    host = {}
+    for dev in dict.fromkeys(t.device for t in leaves):
+        group = list({id(t): t for t in leaves if t.device == dev}.values())
+        parts, spans, off = [], [], 0
+        for t in group:
+            pad = -off % 16
+            if pad:
+                parts.append(torch.zeros(pad, dtype=torch.uint8, device=dev))
+                off += pad
+            raw = t.detach().contiguous().reshape(-1).view(torch.uint8)
+            parts.append(raw)
+            spans.append((off, raw.numel()))
+            off += raw.numel()
+        buf = torch.cat(parts).cpu().numpy()  # the one copy (and wait) of the device
+        for t, (o, n) in zip(group, spans):
+            host[id(t)] = _from_bytes(buf[o:o + n], t.dtype, tuple(t.shape))
+    return tree_map(lambda t: host[id(t)], out)
+
+
+def _numpy(t: torch.Tensor) -> np.ndarray:
+    return (t.float() if t.dtype == torch.bfloat16 else t).numpy()
+
+
+def _from_bytes(raw: np.ndarray, dtype: torch.dtype, shape: tuple) -> np.ndarray:
+    """A leaf's bytes (a uint8 view of the fetched buffer) as its numpy
+    array, bfloat16 widened to float32 exactly."""
+    if dtype == torch.bfloat16:
+        return (raw.view(np.uint16).astype(np.uint32) << 16).view(np.float32).reshape(shape)
+    return raw.view(_NP_DTYPES[dtype]).reshape(shape)
+
+
+_NP_DTYPES = {torch.float64: np.float64, torch.float32: np.float32, torch.float16: np.float16,
+              torch.int64: np.int64, torch.int32: np.int32, torch.int16: np.int16,
+              torch.int8: np.int8, torch.uint8: np.uint8, torch.bool: np.bool_,
+              torch.complex64: np.complex64, torch.complex128: np.complex128}
 
 
 def fetch_count() -> int:
@@ -255,8 +305,25 @@ def fan_runner(body, *, mesh=None, data_axis: str = "data", donate: bool | None 
 
 def run_fan(runner, args: tuple):
     """Run a fan step and fetch its result ONCE; returns the host (numpy)
-    result of the single `device_fetch`."""
-    return device_fetch(runner(*args))
+    result of the single `device_fetch`. The step runs in span
+    ``fan.dispatch`` and the fetch in span ``fan.fetch``; with the health
+    piggyback on (`obs.health.fan_health_enabled`) the result's health
+    vector is reduced on the device behind it, rides the same fetch, and
+    is published under source "fan"."""
+    from wam_tpu_torch.obs.health import batch_stats, fan_health_enabled, publish_stats
+
+    with _obs_tracing.span("fan.dispatch", cat="fan"):
+        out = runner(*args)
+    if fan_health_enabled():
+        # a few small reductions enqueued behind the result, no extra
+        # fetch: the 6-float vector crosses with the result
+        stats = batch_stats(out)
+        with _obs_tracing.span("fan.fetch", cat="fan"):
+            host, host_stats = device_fetch((out, stats))
+        publish_stats(host_stats, source="fan")
+        return host
+    with _obs_tracing.span("fan.fetch", cat="fan"):
+        return device_fetch(out)
 
 
 def upload(a, device) -> torch.Tensor:

@@ -29,6 +29,7 @@ callers in `wam_tpu_torch.wavelets.matmul` and `wam_tpu_torch.tune.fused_relu`.
 from __future__ import annotations
 
 import ctypes
+import fcntl
 import hashlib
 import os
 import shutil
@@ -151,12 +152,25 @@ def build_all(kernels=None) -> dict[str, dict]:
     libraries built (``log`` holds ptxas's register and shared-memory
     report)."""
     kernels = list(KERNELS.values()) if kernels is None else list(kernels)
+    if all(k.library_path().exists() for k in kernels):
+        return {}
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    # one build at a time across processes (pod workers starting together
+    # on a fresh checkout): the others wait here and then find the libraries
+    with open(BUILD_DIR / ".build.lock", "a") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        try:
+            return _build_missing(kernels)
+        finally:
+            fcntl.flock(lock, fcntl.LOCK_UN)
+
+
+def _build_missing(kernels) -> dict[str, dict]:
     todo = list({k.library_path(): k for k in kernels
                  if not k.library_path().exists()}.values())
     if not todo:
         return {}
     nvcc = _nvcc()
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
     t0 = time.perf_counter()
     running = []
     for k in todo:

@@ -15,12 +15,10 @@ device that rides *inside* the result tree already being fetched:
 - computed post-hoc by the serve worker (`batch_stats`) for entries that
   are not health-fused (fake entries, user callables) — a few more
   reductions enqueued behind the result, still harvested in the worker's
-  single `evalsuite.fan.device_fetch`.
-
-(The reference also piggybacks the vector on the eval fan's fetch, with
-its switch ``fan_health_enabled`` / ``set_fan_health``; the port's fan
-keeps its one-copy fetch, and the piggyback and its switch wait for
-ROADMAP.md slice F.)
+  single `evalsuite.fan.device_fetch`;
+- computed by the eval fan (`evalsuite.fan.run_fan`) over each metric's
+  result and fetched with it in the metric's single `device_fetch`
+  (switch: `set_fan_health`, on by default, and the obs enabled flag).
 
 The host side (`summarize`, `publish_stats`, `HealthMonitor`) turns the
 vector into ``wam_tpu_health_*`` registry series and the quarantine
@@ -52,6 +50,8 @@ __all__ = [
     "publish_stats",
     "HealthConfig",
     "HealthMonitor",
+    "fan_health_enabled",
+    "set_fan_health",
 ]
 
 # The on-device vector layout (f32, fixed size so every health-fused graph
@@ -70,6 +70,24 @@ HEALTH_VEC_SIZE = 6
 SAT_THRESHOLD = 0.995
 
 # -- device side (torch reductions, no host sync) ----------------------------
+
+
+# Eval-fan health piggyback switch (module-level: the fan has no server
+# object to carry per-instance config). Gated on the obs enabled flag too.
+_FAN_HEALTH = True
+
+
+def set_fan_health(enabled: bool) -> None:
+    global _FAN_HEALTH
+    _FAN_HEALTH = bool(enabled)
+
+
+def fan_health_enabled() -> bool:
+    """Whether `evalsuite.fan.run_fan` should piggyback health stats onto
+    its single fetch: the module switch AND the obs enabled flag."""
+    from wam_tpu_torch.obs import tracing as _tracing
+
+    return _FAN_HEALTH and _tracing._STATE.enabled
 
 
 def _leaves(tree) -> list:
@@ -128,9 +146,11 @@ def health_stats(out, grads=None, *, sat_threshold: float = SAT_THRESHOLD):
     out_count = float(sum(t.numel() for t in leaves))
     max_abs = torch.stack([t.to(f32).abs().amax().to(dev) for t in leaves]).amax()
     sumsq = sum(t.to(f32).square().sum().to(dev) for t in gleaves)
+    # the counts are filled on the device (torch.full), not copied from the
+    # host: a host-to-device copy of a scalar would wait on the device
     return torch.stack([
-        nonfinite, torch.tensor(total, dtype=f32, device=dev), sat,
-        torch.tensor(out_count, dtype=f32, device=dev), max_abs, sumsq,
+        nonfinite, torch.full((), total, dtype=f32, device=dev), sat,
+        torch.full((), out_count, dtype=f32, device=dev), max_abs, sumsq,
     ])
 
 

@@ -69,8 +69,9 @@ class JsonlWriter:
 def read_jsonl(path: str, *, strict: bool = False) -> list[dict]:
     """Parse a JSONL ledger, tolerating corrupt lines (a torn trailing
     write from a crashed process): bad lines are skipped with one
-    `LedgerCorruptWarning` per call. ``strict=True`` raises on a bad line
-    instead."""
+    `LedgerCorruptWarning` per call and counted into the
+    ``wam_tpu_serve_ledger_corrupt_lines_total`` registry counter.
+    ``strict=True`` raises on a bad line instead."""
     rows, corrupt = read_jsonl_stats(path, strict=strict)
     return rows
 
@@ -94,7 +95,19 @@ def read_jsonl_stats(path: str, *, strict: bool = False) -> tuple[list[dict], in
             f"{path}: skipped {corrupt} corrupt JSONL line(s) "
             "(torn write from an interrupted process?)",
             LedgerCorruptWarning, stacklevel=2)
+        _note_corrupt_lines(corrupt)
     return out, corrupt
+
+
+def _note_corrupt_lines(n: int) -> None:
+    # obs is stdlib-only at import time, so this lazy import cannot cycle
+    # back into results; mutations no-op when the obs layer is disabled
+    from wam_tpu_torch.obs.registry import registry as _registry
+
+    _registry.counter(
+        "wam_tpu_serve_ledger_corrupt_lines_total",
+        "corrupt JSONL ledger lines skipped by tolerant readers",
+    ).inc(n)
 
 
 class CsvWriter:

@@ -2,8 +2,8 @@
 tests (PyTorch port of `wam_tpu.testing`). Production code never imports
 this package; the serve stack is exercised through its public factories
 (entry_factory wrapping), not patched internals — except the stager
-latency hook, which is an explicit context manager. The reference's
-``PodChaosKiller`` waits for ROADMAP.md slice F.
+latency hook, which is an explicit context manager.
+``PodChaosKiller`` kills pod worker processes (`wam_tpu_torch.pod`).
 """
 
 from wam_tpu_torch.testing.faults import (
@@ -12,6 +12,7 @@ from wam_tpu_torch.testing.faults import (
     ChaosSchedule,
     FaultInjector,
     FaultSpec,
+    PodChaosKiller,
     parse_chaos,
     stager_chaos,
 )
@@ -22,6 +23,7 @@ __all__ = [
     "DEFAULT_CHAOS",
     "FaultInjector",
     "FaultSpec",
+    "PodChaosKiller",
     "parse_chaos",
     "stager_chaos",
 ]

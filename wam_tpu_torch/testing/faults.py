@@ -39,8 +39,9 @@ Spec grammar::
 
 ``latency=p`` uses the default 5 ms; ``latency=p:ms`` sets both.
 
-The reference's process-kill chaos for its pod tier (``PodChaosKiller``)
-waits for the port's ``pod/*`` (ROADMAP.md slice F).
+``PodChaosKiller`` is the process-kill chaos of the pod tier: it SIGKILLs
+a worker process through `wam_tpu_torch.pod.PodRouter.kill_worker` at
+seeded progress thresholds.
 """
 
 from __future__ import annotations
@@ -60,6 +61,7 @@ __all__ = [
     "DEFAULT_CHAOS",
     "FaultInjector",
     "FaultSpec",
+    "PodChaosKiller",
     "parse_chaos",
     "stager_chaos",
 ]
@@ -331,6 +333,60 @@ class ChaosSchedule:
             for kind, n in i.counts.items():
                 out[kind] = out.get(kind, 0) + n
         return out
+
+
+class PodChaosKiller:
+    """Process-kill chaos for the pod tier: SIGKILL a live worker each
+    time the driven request count crosses a progress threshold.
+
+    Where `ChaosSchedule` injects faults INSIDE a process (entry raises,
+    NaN poison, staging latency), this kills the process itself — the
+    failure mode the pod tier exists to survive. Deterministic like the
+    rest of the chaos layer: thresholds are fixed fractions of the
+    planned request count and the victim at each crossing comes from a
+    seeded RNG over the live worker ids, so a failing chaos run replays
+    exactly (`random.Random(f"wam-pod-chaos:{seed}")`).
+
+    Drive it from the client loop: ``on_progress(resolved_so_far)`` after
+    every resolved request; at most one kill fires per threshold
+    crossing, and kills land mid-stream by construction (fractions
+    strictly inside (0, 1)). The kill goes through
+    `PodRouter.kill_worker`, so detection, in-flight re-route, and
+    supervised respawn all exercise the REAL failure paths — nothing is
+    mocked."""
+
+    def __init__(self, router, total_requests: int, *,
+                 fractions=(0.25, 0.6), seed: int = 0):
+        for f in fractions:
+            if not 0.0 < f < 1.0:
+                raise ValueError(f"kill fraction {f} not inside (0, 1)")
+        self._router = router
+        self._thresholds = sorted(
+            max(1, int(f * total_requests)) for f in fractions)
+        self._rng = random.Random(f"wam-pod-chaos:{seed}")
+        self._lock = threading.Lock()
+        self._fired = 0
+        self.kills: list[dict] = []
+
+    def on_progress(self, resolved: int) -> None:
+        """Fire every threshold ``resolved`` has crossed (one victim
+        each). Thread-safe; a crossing with zero live workers is consumed
+        without a kill (the pod is already fully down — nothing to do)."""
+        while True:
+            with self._lock:
+                if (self._fired >= len(self._thresholds)
+                        or resolved < self._thresholds[self._fired]):
+                    return
+                threshold = self._thresholds[self._fired]
+                self._fired += 1
+                live = self._router.live_worker_ids()
+                wid = (live[self._rng.randrange(len(live))] if live else None)
+            killed = wid is not None and self._router.kill_worker(wid)
+            if killed:
+                _c_injected.inc(kind="kill", replica=str(wid))
+            with self._lock:
+                self.kills.append({"threshold": threshold,
+                                   "worker_id": wid, "killed": killed})
 
 
 @contextlib.contextmanager

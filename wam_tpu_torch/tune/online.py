@@ -108,7 +108,14 @@ class OnlineTuneConfig:
     # every local entry, [] a schedules-only bundle (the common case: a
     # promotion changes admission caps and sweep winners, not kernels)
     bundle_aot_keys: list | None = None
-    device: str = "cpu"  # where the shadow sweep runs
+    # where the shadow sweep runs: None takes the card, or raises without
+    # one (`device.resolve_device`); "cpu" asks for the plain versions
+    device: str | None = None
+
+    def __post_init__(self):
+        from wam_tpu_torch.device import resolve_device
+
+        self.device = str(resolve_device(self.device))
 
 
 def plan_serve_schedule(mix: WorkloadMix, *, current_cap: int | None = None,
@@ -425,7 +432,7 @@ def main(argv=None) -> int:
                    help="loop period without --once")
     p.add_argument("--window-s", type=float, default=None,
                    help="mine only the trailing window (ledger clock)")
-    p.add_argument("--device", default="cpu",
+    p.add_argument("--device", default="auto",
                    help="device of the shadow sweep: auto (the card; an error "
                         "without one) | cuda | cpu")
     p.add_argument("--drift-threshold", type=float,
