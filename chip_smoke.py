@@ -21,7 +21,9 @@ sm_90a). Phases, each fatal on failure:
    the analyzers path's, K1 and K3 (forward and backward, 25 path points)
    at the iou path's under each of its four wavelets, K1 and K3 (forward
    and backward, haar J=2) on one pod worker's batch of 8 requests x 25
-   samples x 3 planes at 224^2; one line per kernel and path, each case
+   samples x 3 planes at 224^2, K1 and K3 (forward and backward, haar
+   J=3) on the quickstart example's 25 samples x 3 planes at 224^2; one
+   line per kernel and path, each case
    and line
    with its bound and bound_share (bound / kernel time). K1-K3 launch
    with their band plans (K3 on the coefficient leaves, views of K1's
@@ -59,7 +61,41 @@ sm_90a). Phases, each fatal on failure:
    cosine and max abs error on the mel attribution and every coefficient
    level, in float32 through `WaveletAttribution1D` and in float64 through
    its engine;
-7. vit: the ViT path (`BASELINE.json`'s config #5, as
+7. esc50: one ESC-50 test fold written from the seed into a temporary
+   directory in ESC-50's layout (``meta/esc50.csv``, ``audio/*.wav``: 8
+   clips of each of 50 classes, 5 s of mono 16-bit PCM at 44.1 kHz, ~176
+   MB), after asserting that the port's native WAV library built
+   (`wam_tpu_torch.native`). The fold streams from disk through
+   ``ESC50(mode="test", num_FOLD=1).iter_waveforms(workers=4)`` (the C++
+   prefetcher) in batches of 8, each explained by the audio phase's
+   `WaveletAttribution1D` at full width as it comes, launch counts set to 0
+   just before and read just after (all 0, asserted): waveforms/s for the
+   whole fold by CUDA events and by the host clock, the host's wait for
+   each next batch, peak memory; the prefetcher's decode rate alone and
+   ``read_wav``'s one after another (warm reads). The route is held: the
+   first batch's prefetched waveforms equal ``read_wav``'s and the same
+   normalization bit for bit, and their maps are equal under deterministic
+   cuDNN. On that batch the three 1D transforms (``set_dwt1_impl`` "conv",
+   "folded", "folded_nhc"): a warm call and 5 calls by CUDA events each,
+   the device ms inside the ``wam_dwt1`` spans of one profiled call (in a
+   child process: a capture of the audio call here left this process's
+   later captures without device events), each
+   fold held against "conv" (the transform in float32 and float64, the
+   call's maps in float32; ESC50_TOL); then the forward transform pair alone
+   under each impl at three lengths, two shorter than the call's and one
+   batched as the call batches it (ESC50_SWEEP; median of 5 by events,
+   each fold held against conv). Then the six example scripts in this
+   process through their ``main(argv)`` with ``--device cuda``: the
+   quickstart at its defaults (``--layout nchw``: ResNet-18, 224^2, haar
+   J=3, n=25), the audio, volume, level-attribution and IoU scripts with
+   ``--quick``, the sharded one with ``--virtual 8`` at its own sizes; each
+   must return 0, write its files (the quickstart's mosaic a PNG) and launch
+   exactly the kernels its path holds (`example_launches`: K1 and K3 on the
+   2D ones, 0 on audio and volume), counted from 0 for each. The phase must
+   end within ESC50_BUDGET_S. Each kernels row carries ``esc50_launches``
+   and ``examples_launches``; the K1 and K3 rows of path ``quickstart``
+   time the kernels at the quickstart's shapes;
+8. vit: the ViT path (`BASELINE.json`'s config #5, as
    ``bench_workloads.vit_workload`` defines it): `WaveletAttribution2D`
    Integrated Gradients on ViT-B/16 (1000 classes, seeded weights drawn as
    the reference's initialisers draw them) bound with ``bind_inference(
@@ -75,9 +111,9 @@ sm_90a). Phases, each fatal on failure:
    Then the reduced check: the kernel path against the plain path on the
    same model, one image, 4 path points, TF32 off (cosine >= 0.99999, max
    abs <= 1e-4 x the plain result's max);
-8. convnext: the same call on ConvNeXt-T (1000 classes): launch counts as
+9. convnext: the same call on ConvNeXt-T (1000 classes): launch counts as
    for the ViT, median of 3 calls, peak memory, and the same reduced check;
-9. vol: the 3D path (`BASELINE.json`'s config #4, as
+10. vol: the 3D path (`BASELINE.json`'s config #4, as
    ``bench_workloads.vol_workload`` defines it): `WaveletAttribution3D`
    SmoothGrad on the 3D ResNet-18 (10 classes, width 16, seeded weights
    drawn as the reference's initialisers draw them, BatchNorm statistics
@@ -100,7 +136,7 @@ sm_90a). Phases, each fatal on failure:
    16^3, 2 samples, noise handed over, TF32 off) in float32 through the
    class (cosine >= 0.99999, max abs <= 1e-4 x max) and in float64 through
    its engine (cosine >= 0.9999999, max abs <= 1e-9 x max);
-10. voxel3d: the reference's own 3D models: `VoxelModel` (10 classes) on 32
+11. voxel3d: the reference's own 3D models: `VoxelModel` (10 classes) on 32
    volumes of 16^3 (3D-MNIST), `WaveletAttribution3D` SmoothGrad (haar,
    J=2, symmetric, n_samples=25, chunk 4) timed over 3 calls, then
    `visualize`, one pass and `filter_voxels`; `PointNetCls` (k=10) on 32
@@ -109,7 +145,7 @@ sm_90a). Phases, each fatal on failure:
    kernel may launch (asserted); then card against CPU in float64 (the
    voxel model's coefficient gradients on 4 volumes of 16^3, PointNet's on
    2 clouds of 256 points; cosine >= 0.9999999, max abs <= 1e-9 x max);
-11. eval2d: the evaluation of 2D attributions at scripts/bench_eval.py's
+12. eval2d: the evaluation of 2D attributions at scripts/bench_eval.py's
    full geometry: `Eval2DWAM` (haar, J=3, 128 rows a model call) on
    ResNet-50 (1000 classes, seeded weights) bound in bfloat16 with fold_bn,
    8 images of 3x224^2, explanations from `WaveletAttribution2D` (haar,
@@ -123,7 +159,7 @@ sm_90a). Phases, each fatal on failure:
    the kernel path against the plain path (impl="matmul") on 2 images with
    the mosaics handed to both, ResNet-50 in float32, TF32 off (scores,
    curves and μ values within EVAL_TOL);
-12. eval1d: `Eval1DWAM` (db6, J=5, 32 rows a model call) on the audio
+13. eval1d: `Eval1DWAM` (db6, J=5, 32 rows a model call) on the audio
    phase's AudioCNN, 4 waveforms of 220,500 samples, explanations from
    `WaveletAttribution1D` SmoothGrad (8 samples) computed once; insertion
    on the wavelet target (n_iter 64) and input fidelity, counted (no port
@@ -133,7 +169,7 @@ sm_90a). Phases, each fatal on failure:
    through the class (probabilities and AUCs within 1e-4, input fidelity's
    classes equal) and in float64 through one waveform's fan step and the
    model's scores on it (within 1e-9 x max);
-13. baselines: the baseline methods and their evaluators. The image
+14. baselines: the baseline methods and their evaluators. The image
    registry at scripts/bench_methods.py's geometry: `EvalImageBaselines`
    on ResNet-50 (1000 classes, seeded weights) in bfloat16, 64 rows a model
    call, 8 path points or noisy copies, 4 images of 3x224^2, each of the
@@ -158,7 +194,7 @@ sm_90a). Phases, each fatal on failure:
    of the audio mels (saliency, IG, gradcam): float64 through
    the methods within 1e-9 x max, float32 through the evaluators within
    BASE_F32_TOL, insertion on a handed-over map within 1e-5;
-14. nhwc: the flagship's call (phase slice's model weights, batch, labels
+15. nhwc: the flagship's call (phase slice's model weights, batch, labels
    and precision) with ``WaveletAttribution2D(model_layout="nhwc")`` on the
    same ResNet-50 bound with ``bind_inference(nchw=False)``, bench.py's
    layout: the NCHW and NHWC arms in turns (nchw, nhwc, nhwc, nchw), each a
@@ -172,7 +208,7 @@ sm_90a). Phases, each fatal on failure:
    and in float32 against the NCHW kernel path at cosine >= 0.99999 and max
    abs <= 2e-2 x max (ReLU gates at zero flip between the layouts, as
    between phase slice's kernel and plain paths);
-15. analyzers: `WAMAnalyzer2D` (haar, J=3) on the flagship's ResNet-50 in
+16. analyzers: `WAMAnalyzer2D` (haar, J=3) on the flagship's ResNet-50 in
    float32 (TF32 on), 8 images of 3x224^2 labelled with the model's own
    classes, explainer `WaveletAttribution2D` SmoothGrad (n=25) computed once
    by ``precompute`` (counted and event-timed); `isolate_scales` (EPS 0.1)
@@ -184,7 +220,7 @@ sm_90a). Phases, each fatal on failure:
    images with the mosaics handed to both, TF32 off (partial images and kept
    reconstructions within 1e-5 x max; masks, kept masks, indices and
    recorded quantiles equal);
-16. iou: the fork's cross-wavelet IoU experiment at
+17. iou: the fork's cross-wavelet IoU experiment at
    examples/iou_experiment.py's defaults: ConvNeXt-T (1000 classes) from
    `data.build_vision_model`, the script's 5 synthetic 224^2 images (its
    own copy), WAM-IG (J=3, 25 path points) under haar, db4, sym4 and sym8:
@@ -194,20 +230,20 @@ sm_90a). Phases, each fatal on failure:
    provenance "synthetic-sines+random-init"; then the reduced check: image
    0's maps on the kernel path against impl="matmul", TF32 off (each map
    within 1e-5 x max, the IoUs equal);
-17. patch: bench_workloads.vit_patch_workload's geometry: the vit phase's
+18. patch: bench_workloads.vit_patch_workload's geometry: the vit phase's
    call with ``level_plan="patch", patch=16, image_size=224`` (J=4): the
    TF32 headline with one call's launches asserted (K1 4, K3 8, the rest
    0) and 5 event-timed calls, the TF32-off arm, `WAMAnalyzerViT.token_maps`
    ((1, 4, 14, 14), asserted), and the reduced check (kernel vs
    impl="matmul", 4 path points, TF32 off, the vit phase's bounds);
-18. attention: `EvalImageBaselines` rollout and attngrad on ViT-B/16 built
+19. attention: `EvalImageBaselines` rollout and attngrad on ViT-B/16 built
    with ``capture_attn=True`` (the vit phase's weights), 4 x 3x224^2, 64
    rows a model call: each explanation counted and 3 event-timed, insertion
    and deletion (n_iter 32) counted (no port kernel, one fetch, one host
    wait: asserted) and timed as in eval2d; then the logits of the capture
    form against the SDPA form (TF32 off, within 1e-5 x max) and both maps
    of one image on the card against the CPU in float64 (within 1e-9 x max);
-19. video: bench_workloads.video_workload's full row: `WaveletAttributionVideo`
+20. video: bench_workloads.video_workload's full row: `WaveletAttributionVideo`
    SmoothGrad on the 3D ResNet-18 (10 classes, seeded, calibrated) at 4
    clips of 1x16x32^2, haar, levels (2, 1), symmetric, n=25 in one chunk
    ("auto"): one call's launches asserted (K1 2, K2 1) and 5 event-timed
@@ -218,7 +254,7 @@ sm_90a). Phases, each fatal on failure:
    handed over, TF32 off): float32 through the kernels (cosine >= 0.99999,
    max abs <= 1e-2 x max: a gate flip), float64 on the conv route (<= 1e-9
    x max);
-20. anytime: the flagship's explainer through ``anytime_serve_entry(
+21. anytime: the flagship's explainer through ``anytime_serve_entry(
    stride=5)`` and `anytime.run_anytime`: a counted full run (5 strides,
    complete, one fetch, K1 75 and K3 50: asserted), 3 runs timed by CUDA
    events with each stride's host time and its wait on the confidence
@@ -228,7 +264,7 @@ sm_90a). Phases, each fatal on failure:
    samples: asserted), its confidence vector printed per row. The kernels
    phase holds K1/K3 at the patch plan's and the anytime step's shapes and
    K1/K2 at the video's; each ``kernels`` row carries every path's launches;
-21. serve: README.md's server, ``AttributionServer(wam.serve_entry(),
+22. serve: README.md's server, ``AttributionServer(wam.serve_entry(),
    [(3, 224, 224), (3, 256, 256)], max_batch=8)``, over the flagship's
    explainer (ResNet-50, db4, J=3, n=25 in one call: 200 model rows a
    batch): both buckets warmed (one first call each, asserted, none after:
@@ -251,7 +287,7 @@ sm_90a). Phases, each fatal on failure:
    served path in float64 (ResNet-18, 32², IG) against the CPU within 1e-9
    x max. The kernels phase holds K1/K3 (and K2 at 256²) at a served
    batch's 600 planes;
-22. parallel: the flagship (TF32 off, normalize=False) through
+23. parallel: the flagship (TF32 off, normalize=False) through
    `parallel.sharded_smoothgrad_spmd` over ``make_mesh({"data": 2,
    "sample": 5}, ["cuda"] * 10)``: ten blocks of 5 samples x 16 images (80
    model rows), run one after another on the one card; a warm call, a
@@ -273,7 +309,7 @@ sm_90a). Phases, each fatal on failure:
    CPU (ResNet-18, 2 x 32², db4 J=2, plain transforms) within 1e-9 x max.
    The kernels phase holds K1/K3 at a block's 240 planes and at the IG
    block's shapes;
-23. fleet: the serve phase's server as `FleetServer(devices=["cuda"] * 2,
+24. fleet: the serve phase's server as `FleetServer(devices=["cuda"] * 2,
    supervise=True)` over the flagship's explainer, each replica's entry
    from ``lambda rid, m, dev: wam_on(dev).serve_entry(on_trace=m.note_compile)``
    (the explainer of the replica's device) behind
@@ -293,7 +329,7 @@ sm_90a). Phases, each fatal on failure:
    replica 1: zero lost, ``replica_restart`` rows restarting -> alive, the
    rebuilt replica serves again, its first calls at its warmup; and
    `NoLiveReplicaError` from an unsupervised fleet whose replicas all die;
-24. seq: sequence-sharded attribution (`parallel.SeqShardedWam` under the
+25. seq: sequence-sharded attribution (`parallel.SeqShardedWam` under the
    explainers' ``mesh=``) on meshes that name the card once a block, no
    port kernel (K1-K5 0 on every counted call: the sharded transforms are
    cuDNN convolutions), each arm one counted call (its halo elements
@@ -311,7 +347,7 @@ sm_90a). Phases, each fatal on failure:
    entry); seq3d, the vol phase's volumes, depth over {data: 4}, haar n=25
    (no halo) and db2 n=5; video, the video phase's clips, time over {data:
    2}, haar levels (2, 2), n=25.
-25. tune: the autotuner (`wam_tpu_torch.tune`) on the flagship preset:
+26. tune: the autotuner (`wam_tpu_torch.tune`) on the flagship preset:
    ResNet-50 bound in bfloat16 with fold_bn, 32 x 3x224^2, db4 J=3, n=25,
    the input rounded to bfloat16 at the transform; its eight candidates
    (chunks of 128/256/512 rows and all 800, stream_noise off, an nchw
@@ -324,19 +360,20 @@ sm_90a). Phases, each fatal on failure:
    to its chunk, bit-equal to the explicit call (cuDNN deterministic);
    the phase within TUNE_BUDGET_S. The kernels phase holds K1 (first level
    on bfloat16 input) and K3 at its nchw probe's shapes.
-26. aot: cold start through the compiled-step cache (`pipeline.aot`),
+27. aot: cold start through the compiled-step cache (`pipeline.aot`),
    ``python -m wam_tpu_torch.prewarm`` and the artifact registry, in cache
    directories of the phase's own (``WAM_TPU_AOT_CACHE``,
    ``WAM_TPU_CACHE_DIR``, ``TORCHINDUCTOR_CACHE_DIR``, ``TRITON_CACHE_DIR``):
-   two fresh processes prewarm the flagship preset (the tune phase's nchw
-   runner, each chunk step compiled by Inductor), "exported" then "hit"
+   two fresh processes prewarm the flagship preset at AOT_BATCH images (the
+   tune phase's nchw runner, 5 chunks of 5 samples: one chunk step compiled
+   by Inductor), "exported" then "hit"
    (0 compiles), their warm seconds printed; ``registry publish
    --from-prewarm``, then empty caches: ``inspect`` (the checkout's four
    kernel libraries present or hydratable), ``hydrate`` and a third prewarm:
    "registry_hit", 0 compiles (the bundle: the compiled steps, the kernel
    libraries and the schedules, no compile-cache file). In this process
    the compiled runner (loaded from the cache: 0 compiles after every
-   earlier phase) against the eager one: K1 21 and K3 14 each (asserted),
+   earlier phase) against the eager one: K1 15 and K3 10 each (asserted),
    no fallback, no graph break, the distance (`_distance`) within
    AOT_BF16_TOL, ms a call (CUDA events, median of AOT_CALLS after a warm
    call) and peak GB of both, in turns, and one call of each under
@@ -355,7 +392,7 @@ sm_90a). Phases, each fatal on failure:
    the host cost of that branch a launch (`_aot_dispatch`), with what it
    would add to a call of the vit, video and eval2d phases. Each kernels
    row carries ``aot_launches``.
-27. pod: pod serving (`wam_tpu_torch.pod`) on the card. First the
+28. pod: pod serving (`wam_tpu_torch.pod`) on the card. First the
    workers' entry in this process (the toy `WaveletAttribution2D`, haar
    J=2, n=25, over 3x224^2 items, `pod.worker.toy_wam`) on a batch of
    POD_MAX_BATCH copies of the phase's one seeded request: its rows, its
@@ -679,7 +716,12 @@ TUNE_BUDGET_S = 45.0
 # the aot phase: cold start through the compiled-step cache on the flagship
 # preset prewarm builds (wam_tpu_torch.prewarm)
 AOT_CONFIG = "flagship"
-AOT_CHUNKS = math.ceil(N_SAMPLES / SAMPLE_CHUNK)
+# the preset's 32 images cut to 25, so that its 128-row rule gives chunks of
+# 5 samples that divide n = 25: the cold prewarm compiles one chunk step,
+# not two (4 samples and a 1-sample tail). Two took 206-348 s of a cold
+# prewarm, and the script 744-1038 s of its 1200 (H100 80GB HBM3, 700 W)
+AOT_BATCH = 25
+AOT_CHUNKS = math.ceil(N_SAMPLES / (128 // AOT_BATCH))
 AOT_LAUNCHES = {**ZERO_LAUNCHES, "dwt2": LEVELS * AOT_CHUNKS, "pair": 2 * AOT_CHUNKS}
 AOT_CALLS = 5               # event-timed calls of each route after a warm one
 AOT_REQUESTS = 16           # served 224^2 requests after the prewarm
@@ -719,6 +761,40 @@ POD_AOT_TOL = 2e-6          # the compiled worker's answer against the eager row
                             # (the same 2.23e-7 read there)
 POD_READY_S = 300.0         # a worker's spawn to hello, at most
 POD_BUDGET_S = 150.0
+
+# the esc50 phase: one ESC-50 test fold written from SEED in ESC-50's layout,
+# streamed from disk through the native prefetcher into the audio phase's
+# explainer, the three 1D transforms on one batch, and the example scripts
+ESC50_FOLD = 1
+ESC50_CLIPS_PER_CLASS = 8                 # a fold of ESC-50: 8 clips x 50 classes = 400
+ESC50_WORKERS, ESC50_CAPACITY = 4, 8      # prefetch threads, files decoded ahead
+ESC50_IMPLS = ("conv", "folded", "folded_nhc")
+ESC50_IMPL_CALLS = 5                      # timed calls of each 1D impl after a warm one
+# each fold against the conv form: the transform in float32 (x max) and in
+# float64 (x max); the whole call's maps in float32 (cosine, x max) at ~10x
+# the distance measured on an H100 (cosine 0.99942, 7.15e-2 x max: the
+# AudioCNN's ReLU gates within rounding of zero flip with the sum order);
+# the whole call in float64, where no gate flips (x max). The maps' float32
+# bound is about a typical map value, so it catches only a route that fails
+# outright: the transform's bounds and the float64 call's are the ones that
+# hold the fold (the maps' share of elements off by > 1e-3 x max is
+# recorded beside them, ``maps_off``)
+ESC50_TOL = {"transform": 1e-5, "float64": 1e-9, "maps": (0.994, 0.7), "call_float64": 1e-9}
+# the forward transform pair alone (wavedec + waverec) under each 1D impl at
+# shorter and batched lengths than the audio call's: (rows, samples)
+ESC50_SWEEP = ((64, 4096), (64, 32768), (AUDIO_BATCH * AUDIO_CHUNK, AUDIO_LEN))
+ESC50_BUDGET_S = 90.0
+# the examples as the phase runs them: script, its arguments (each also gets
+# --device DEVICE and its outputs under a temporary directory), the files it
+# must write
+EXAMPLES = (
+    ("torch_quickstart", ["--layout", "nchw"], ("wam_mosaic.png",)),
+    ("torch_audio_quickstart", ["--quick"], ("scaleogram.png",)),
+    ("torch_volume_quickstart", ["--quick"], ("volume.png",)),
+    ("torch_level_attribution", ["--quick"], ("levels_variance.csv", "levels_mean_grads.png")),
+    ("torch_iou_experiment", ["--quick"], ("iou.csv",)),
+    ("torch_sharded_attribution", ["--virtual", "8"], ()),
+)
 
 
 def _log(*args):
@@ -1247,6 +1323,19 @@ def phase_kernels(torch, tmm, kernels, sites, vol_sites) -> list[dict]:
                      f"forward + backward of the collapsed levels at {POD_SIDE}^2, haar J=2, "
                      f"one pod worker's batch ({pod_rows} rows)"))
     rows[-1]["assemble_ms"] = k3_cases[0]["assemble_ms"]
+    # the quickstart example (phase esc50): one 224^2 image, haar J=3, its
+    # 25 samples in one chunk (detail sides 112/56/28, all collapsed): K1 on
+    # 75 planes at each level, K3 on 75 rows
+    qs_rows = N_SAMPLES * CHANNELS
+    rows.append(_row(*k1, "quickstart", _k1_cases(torch, tmm, kernels, g, SIDE, "haar", qs_rows),
+                     einsum, f"3 analysis levels at {SIDE}^2, haar, f32 input, the quickstart's "
+                     f"{N_SAMPLES} samples x {CHANNELS} planes"))
+    k3_cases = _k3_cases(torch, tmm, kernels, g, SIDE, "haar", qs_rows)
+    rows.append(_row(*k3, "quickstart", k3_cases,
+                     "torch.einsum (the matmul pair on the assembled Y; dense dY)",
+                     f"forward + backward of the collapsed levels at {SIDE}^2, haar J=3, the "
+                     f"quickstart's {qs_rows} rows"))
+    rows[-1]["assemble_ms"] = k3_cases[0]["assemble_ms"]
     # the parallel path: one block of the spmd mesh (5 samples x 16 images x
     # 3 planes); the IG mesh's block (4 path points x 16 images), whose K1
     # runs once a data shard on its 16 images
@@ -1760,6 +1849,459 @@ def phase_audio(torch, wtt, kernels, smi: str) -> dict:
     del bf16, fn16, run, mel, coeffs
     summary["reduced_check"] = _audio_reduced_check(torch, wtt, model, fn)
     return summary
+
+
+def write_esc50_fold(root: str) -> None:
+    """One ESC-50 test fold in ESC-50's layout under ``root``:
+    ``meta/esc50.csv`` (its columns) and ``audio/<fold>-<src>-<take>-<target>.wav``,
+    ESC50_CLIPS_PER_CLASS clips of each of the AUDIO_CLASSES classes, each
+    AUDIO_LEN samples (5 s at 44.1 kHz) of mono 16-bit PCM: 0.1 x standard
+    normal from numpy seeded SEED + 5, made in one draw."""
+    import numpy as np
+    from scipy.io import wavfile
+
+    n = ESC50_CLIPS_PER_CLASS * AUDIO_CLASSES
+    waves = np.random.default_rng(SEED + 5).standard_normal((n, AUDIO_LEN), dtype=np.float32)
+    pcm = np.clip(waves * (0.1 * 32768.0), -32768, 32767).astype(np.int16)
+    os.makedirs(os.path.join(root, "meta"))
+    os.makedirs(os.path.join(root, "audio"))
+    with open(os.path.join(root, "meta", "esc50.csv"), "w") as f:
+        f.write("filename,fold,target,category,esc10,src_file,take\n")
+        for i in range(n):
+            target, src = i % AUDIO_CLASSES, 100000 + i
+            name = f"{ESC50_FOLD}-{src}-A-{target}.wav"
+            f.write(f"{name},{ESC50_FOLD},{target},class{target},False,{src},A\n")
+            wavfile.write(os.path.join(root, "audio", name), SAMPLE_RATE, pcm[i])
+
+
+def _esc50_stream(torch, np, kernels, ds, wam) -> dict:
+    """The whole fold through `ESC50.iter_waveforms` (the native prefetcher,
+    ESC50_WORKERS threads, ESC50_CAPACITY files ahead) in batches of
+    AUDIO_BATCH, each explained as it comes (pinned host memory, copied
+    without a wait), launch counts set to 0 just before and read just after.
+    Returns the rates by CUDA events and by the host clock, the host's wait
+    for each next batch, the peak memory, and the first batch (its indices,
+    input and maps)."""
+    dev = torch.device(DEVICE)
+    labels = torch.tensor([int(r["target"]) for r in ds.rows])
+    bad = torch.zeros((), dtype=torch.int64, device=dev)  # read once, at the end
+    waits, first, n = [], None, 0
+    kernels.reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    t0 = time.perf_counter()
+    start.record()
+    it = ds.iter_waveforms(workers=ESC50_WORKERS, capacity=ESC50_CAPACITY)
+    try:
+        while n < len(ds):
+            tw = time.perf_counter()
+            batch = [next(it) for _ in range(min(AUDIO_BATCH, len(ds) - n))]
+            waits.append(time.perf_counter() - tw)
+            idx = [i for i, _ in batch]
+            x = torch.from_numpy(np.stack([w for _, w in batch])).pin_memory()
+            x = x.to(dev, non_blocking=True)
+            mel, coeffs = wam(x, labels[idx].to(dev, non_blocking=True))
+            for t in (mel, *coeffs):
+                bad += (~torch.isfinite(t)).sum()
+            if first is None:
+                first = {"idx": idx, "x": x, "maps": [mel, *coeffs]}
+            n += len(batch)
+    finally:
+        it.close()  # joins the prefetcher's threads
+    end.record()
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    launches = kernels.launch_counts()
+    event_ms = start.elapsed_time(end)
+    if int(bad) or n != len(ds):
+        raise AssertionError(f"esc50: {int(bad)} non-finite map values, {n} of {len(ds)} clips")
+    if any(launches.values()):
+        raise AssertionError(f"esc50: a port kernel launched on the audio path: {launches}")
+    w = sorted(waits)
+    return {"clips": n, "batches": len(waits), "event_ms": event_ms, "wall_s": wall_s,
+            "waveforms_per_s_events": n / (event_ms / 1e3), "waveforms_per_s_host": n / wall_s,
+            "wait_ms": {"median": 1e3 * w[len(w) // 2], "max": 1e3 * w[-1],
+                        "first": 1e3 * waits[0], "total": 1e3 * sum(waits)},
+            "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
+            "launches": launches, "first": first}
+
+
+def _esc50_decode_rates(ds, native) -> dict:
+    """Clips a second decoded by the prefetcher alone (ESC50_WORKERS threads,
+    no consumer work) and by ``read_wav`` one after another, over the fold
+    (the files were just written: the reads are warm)."""
+    paths = [os.path.join(ds.root_dir, "audio", r["filename"]) for r in ds.rows]
+    t0 = time.perf_counter()
+    with native.WavPrefetcher(paths, workers=ESC50_WORKERS, capacity=ESC50_CAPACITY) as pf:
+        n = sum(1 for _ in pf)
+    pf_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    for p in paths:
+        native.read_wav(p)
+    serial_s = time.perf_counter() - t0
+    return {"prefetcher_clips_per_s": n / pf_s, "read_wav_clips_per_s": len(paths) / serial_s}
+
+
+def _esc50_held(torch, np, native, ds, wam, first) -> dict:
+    """The prefetched route against ``read_wav`` and the same normalization
+    on the first batch's clips: the inputs equal bit for bit, then the maps
+    of both inputs equal under deterministic cuDNN."""
+    dev = torch.device(DEVICE)
+    sync = np.stack([ds._normalize(native.read_wav(
+        os.path.join(ds.root_dir, "audio", ds.rows[i]["filename"]))[1]) for i in first["idx"]])
+    x_sync = torch.from_numpy(sync).to(dev)
+    if not torch.equal(first["x"], x_sync):
+        raise AssertionError("esc50: the prefetched waveforms differ from read_wav's")
+    y = torch.tensor([int(ds.rows[i]["target"]) for i in first["idx"]], device=dev)
+    c = torch.backends.cudnn
+    saved = c.deterministic
+    c.deterministic = True
+    try:
+        a, b = wam(first["x"], y), wam(x_sync, y)
+        equal = all(torch.equal(u, v) for u, v in zip((a[0], *a[1]), (b[0], *b[1])))
+    finally:
+        c.deterministic = saved
+    if not equal:
+        raise AssertionError("esc50: the prefetched route's maps differ from read_wav's")
+    stream_vs = max(float((u - v).abs().max() / v.abs().max())
+                    for u, v in zip(first["maps"], (a[0], *a[1])))
+    return {"inputs_bit_equal": True, "maps_bit_equal_deterministic": True,
+            "stream_maps_vs_deterministic_x_max": stream_vs}
+
+
+def _esc50_call64(torch, wtt, model, tt) -> dict:
+    """The whole attribution in float64 under each 1D impl, through the audio
+    explainer's engine on a float64 copy of ``model`` (AUDIO_REDUCED: 2
+    waveforms of 65,536 samples, 2 samples of handed-over noise): the mel
+    and coefficient gradients of every impl."""
+    import numpy as np
+
+    dev = torch.device(DEVICE)
+    n_wave, length, n_smp = AUDIO_REDUCED
+    state = {k: v.detach() for k, v in model.state_dict().items()}
+    f = wtt.bind_audio_inference(wtt.AudioCNN(num_classes=AUDIO_CLASSES).double(), state,
+                                 device=dev)
+    rng = np.random.default_rng(SEED + 6)
+    x = torch.from_numpy(0.1 * rng.standard_normal((n_wave, length))).to(dev)
+    z = torch.from_numpy(rng.standard_normal((n_smp, n_wave, length))).to(dev)
+    y = torch.arange(n_wave, device=dev) % AUDIO_CLASSES
+    noisy = (x + z * wtt.noise_sigma(x, AUDIO_SPREAD).reshape(-1, 1)).reshape(-1, length)
+    engine = audio_wam(wtt, f, dev, n_samples=n_smp).engine
+    maps = {}
+    for impl in ESC50_IMPLS:
+        tt.set_dwt1_impl(impl)
+        _, grads, g_mel = engine.attribute_with_front_grads(noisy, y.repeat(n_smp),
+                                                            samples=n_smp)
+        maps[impl] = [g_mel[:, 0], *grads]
+    return maps
+
+
+def esc50_span_child(path: str, device: str) -> None:
+    """The child process of `_esc50_spans`: the audio explainer (built as
+    `build_audio` builds it) on the batch saved at ``path``, under each 1D
+    impl a warm call and one call under ``torch.profiler``; prints one JSON
+    line, each impl's device ms inside the ``wam_dwt1`` spans (forward and
+    backward) and its busy ms (null without device events)."""
+    global DEVICE
+    DEVICE = device
+    import torch
+
+    import wam_tpu_torch as wtt
+    from wam_tpu_torch.profiling import named_op_split, profile_to
+    from wam_tpu_torch.wavelets import transform as tt
+
+    batch = torch.load(path)
+    x, y = batch["x"].to(device), batch["y"].to(device)
+    _, fn, _, _ = build_audio(torch, wtt)
+    wam = audio_wam(wtt, fn, torch.device(device))
+    out = {}
+    for impl in ESC50_IMPLS:
+        tt.set_dwt1_impl(impl)
+        wam(x, y)
+        with tempfile.TemporaryDirectory() as logdir:
+            with profile_to(logdir):
+                wam(x, y)
+                if device != "cpu":
+                    torch.cuda.synchronize()
+            split = named_op_split(logdir, tokens=(tt.SPAN_1D,))
+        out[impl] = {"dwt1_device_ms": None if split is None else split[tt.SPAN_1D] * 1e3,
+                     "busy_ms": None if split is None else split["total"] * 1e3}
+    print(json.dumps(out), flush=True)
+
+
+def _esc50_spans(torch, x, y) -> dict:
+    """`esc50_span_child` in a fresh process on this batch. Profiling the
+    audio call here left this process's later ``torch.profiler`` captures
+    without device events (phase pod's, in two whole runs on an H100), so
+    the profiled calls run apart."""
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "batch.pt")
+        torch.save({"x": x.cpu(), "y": y.cpu()}, path)
+        code = (f"import sys; sys.path.insert(0, {str(ROOT)!r}); import chip_smoke; "
+                f"chip_smoke.esc50_span_child({path!r}, {DEVICE!r})")
+        proc = subprocess.run([sys.executable, "-c", code], cwd=str(ROOT), capture_output=True,
+                              text=True, timeout=600)
+    if proc.returncode != 0:
+        raise AssertionError(f"esc50: the profiling child failed:\n{proc.stderr[-3000:]}")
+    return json.loads(proc.stdout.strip().splitlines()[-1])
+
+
+def _esc50_impls(torch, wtt, model, wam, x, y, kernels) -> dict:
+    """`set_dwt1_impl` "conv", "folded" and "folded_nhc" on one batch: a warm
+    call (the fold's matrices built) and ESC50_IMPL_CALLS calls by CUDA
+    events, and in a child process one profiled call (`_esc50_spans`:
+    device ms inside the ``wam_dwt1`` spans, and the call's busy ms); each
+    fold held against "conv" at ESC50_TOL: the 5-level transform of the
+    batch and its inverse in float32 and in float64, the call's maps in
+    float32, and the whole call in float64 at a reduced size
+    (`_esc50_call64`). The knob is put back."""
+    from wam_tpu_torch.wavelets import transform as tt
+
+    saved = tt._dwt1_impl
+    out, maps, trans = {}, {}, {}
+    try:
+        for impl in ESC50_IMPLS:
+            tt.set_dwt1_impl(impl)
+            kernels.reset_launch_counts()
+            wam(x, y)
+            torch.cuda.synchronize()
+            times = []
+            for _ in range(ESC50_IMPL_CALLS):
+                s, e = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+                s.record()
+                res = wam(x, y)
+                e.record()
+                torch.cuda.synchronize()
+                times.append(s.elapsed_time(e))
+            maps[impl] = [res[0], *res[1]]
+            with torch.no_grad():
+                trans[impl] = {dt: tt.wavedec(x.to(dt), AUDIO_WAVELET, AUDIO_LEVELS, "reflect")
+                               for dt in (torch.float32, torch.float64)}
+                for dt, cs in list(trans[impl].items()):
+                    trans[impl][dt] = cs + [tt.waverec(cs, AUDIO_WAVELET)]
+            launches = kernels.launch_counts()
+            if any(launches.values()):
+                raise AssertionError(f"esc50 {impl}: a port kernel launched: {launches}")
+            med = sorted(times)[len(times) // 2]
+            out[impl] = {"calls_ms": times, "median_ms": med, "spread_ms": [min(times), max(times)]}
+        call64 = _esc50_call64(torch, wtt, model, tt)
+    finally:
+        tt.set_dwt1_impl(saved)
+    for impl, span in _esc50_spans(torch, x, y).items():
+        out[impl].update(span)
+        _log(f"  esc50 1D impl {impl}: {[round(t, 3) for t in out[impl]['calls_ms']]} ms, median "
+             f"{out[impl]['median_ms']:.3f} ms; device ms in the {tt.SPAN_1D} spans "
+             f"{span['dwt1_device_ms']} of {span['busy_ms']} busy (a child process)")
+    for impl in ESC50_IMPLS[1:]:
+        held = {}
+        for dt, tol in ((torch.float32, ESC50_TOL["transform"]),
+                        (torch.float64, ESC50_TOL["float64"])):
+            err = max(float((a - b).abs().max() / b.abs().max())
+                      for a, b in zip(trans[impl][dt], trans["conv"][dt]))
+            held[f"transform_{str(dt)[6:]}_x_max"] = err
+            if not err <= tol:
+                raise AssertionError(f"esc50: {impl}'s transform ({dt}) is {err:.3e} x max "
+                                     f"from conv's (tol {tol})")
+        cos_tol, rel_tol = ESC50_TOL["maps"]
+        cos = min(_cosine(torch, a, b) for a, b in zip(maps[impl], maps["conv"]))
+        rel = max(float((a - b).abs().max() / b.abs().max())
+                  for a, b in zip(maps[impl], maps["conv"]))
+        rel64 = max(float((a - b).abs().max() / b.abs().max())
+                    for a, b in zip(call64[impl], call64["conv"]))
+        off = max(_distance(torch, a, b)["off"] for a, b in zip(maps[impl], maps["conv"]))
+        held.update({"maps_min_cosine": cos, "maps_x_max": rel, "maps_off": off,
+                     "call_float64_x_max": rel64})
+        if not (cos >= cos_tol and rel <= rel_tol and rel64 <= ESC50_TOL["call_float64"]):
+            raise AssertionError(f"esc50: {impl}'s maps against conv's: cosine {cos:.8f}, "
+                                 f"{rel:.3e} x max, float64 {rel64:.3e} x max "
+                                 f"(tol {ESC50_TOL})")
+        out[impl]["held_against_conv"] = held
+        _log(f"  esc50 {impl} against conv: {held}")
+    return out
+
+
+def _esc50_sweep(torch) -> dict:
+    """The forward transform pair alone (`wavedec` then `waverec`: the audio
+    path's wavelet, levels and mode, no autograd) on seeded float32 input
+    of each ESC50_SWEEP shape under each 1D impl: a warm call (the fold's
+    matrices built) and ESC50_IMPL_CALLS calls by CUDA events, their median
+    ms, and the fastest impl; each fold's reconstruction held against
+    conv's at ESC50_TOL["transform"] x max. Whether the fold wins at any
+    of these lengths. The knob is put back."""
+    from wam_tpu_torch.wavelets import transform as tt
+
+    saved = tt._dwt1_impl
+    g = torch.Generator(device=DEVICE).manual_seed(SEED + 31)
+    out = {}
+    try:
+        for rows, n in ESC50_SWEEP:
+            x = torch.randn((rows, n), generator=g, device=DEVICE)
+            ms, rec = {}, {}
+            with torch.no_grad():
+                for impl in ESC50_IMPLS:
+                    tt.set_dwt1_impl(impl)
+
+                    def pair():
+                        cs = tt.wavedec(x, AUDIO_WAVELET, AUDIO_LEVELS, "reflect")
+                        return tt.waverec(cs, AUDIO_WAVELET)
+
+                    pair()
+                    torch.cuda.synchronize()
+                    times = []
+                    for _ in range(ESC50_IMPL_CALLS):
+                        s = torch.cuda.Event(enable_timing=True)
+                        e = torch.cuda.Event(enable_timing=True)
+                        s.record()
+                        rec[impl] = pair()
+                        e.record()
+                        torch.cuda.synchronize()
+                        times.append(s.elapsed_time(e))
+                    ms[impl] = sorted(times)[len(times) // 2]
+            errs = {impl: float((rec[impl] - rec["conv"]).abs().max() / rec["conv"].abs().max())
+                    for impl in ESC50_IMPLS[1:]}
+            for impl, err in errs.items():
+                if not err <= ESC50_TOL["transform"]:
+                    raise AssertionError(f"esc50 sweep {rows}x{n}: {impl}'s transform pair is "
+                                         f"{err:.3e} x max from conv's")
+            out[f"{rows}x{n}"] = {"median_ms": ms, "fold_x_max": errs,
+                                  "fastest": min(ms, key=ms.get)}
+            _log(f"  esc50 1D sweep {rows}x{n} (wavedec + waverec, float32): median ms {ms}, "
+                 f"fastest {out[f'{rows}x{n}']['fastest']}; the folds {errs} x max from conv")
+    finally:
+        tt.set_dwt1_impl(saved)
+    return out
+
+
+def example_launches() -> dict:
+    """The K1 (``dwt2``) and K3 (``pair``) launches each example's path holds
+    with the phase's arguments, from the code: a 2D explanation at these
+    sizes decomposes once a sample chunk (K1 once a level) and runs its
+    collapsed synthesis forward and backward once a chunk (K3 2: every
+    detail side is under the collapse crossover, so K2 0); the chunk is the
+    "auto" one (`core.estimators.resolve_sample_chunk` with an empty
+    schedule table); the audio and volume paths and the sequence-sharded 1D
+    loop run no port kernel."""
+    from wam_tpu_torch.core.estimators import resolve_sample_chunk
+    from wam_tpu_torch.parallel import data_sample_mesh
+
+    def explanation(levels: int, n: int) -> dict:
+        chunk = resolve_sample_chunk("auto", n) or n
+        chunks = -(-n // chunk)
+        return {**ZERO_LAUNCHES, "dwt2": levels * chunks, "pair": 2 * chunks}
+
+    def times(launches: dict, k: int) -> dict:
+        return {name: k * v for name, v in launches.items()}
+
+    # torch_sharded_attribution.py --virtual 8: its ('data', 'sample') mesh
+    # runs the propagation step once a sample shard, on all the rows of it
+    shards = data_sample_mesh(devices=["cpu"] * 8).shape["sample"]
+    return {"torch_quickstart": explanation(3, 25),           # haar J=3, n=25, 224^2
+            "torch_audio_quickstart": dict(ZERO_LAUNCHES),
+            "torch_volume_quickstart": dict(ZERO_LAUNCHES),
+            # 2 models x 2 images, haar J=3, n=4 at 64^2
+            "torch_level_attribution": times(explanation(3, 4), 2 * 2),
+            # 4 wavelets x 2 images, IG with 4 path points, J=3 at 64^2
+            "torch_iou_experiment": times(explanation(3, 4), 4 * 2),
+            # db4 J=3 at 64^2, 16 samples split over the sample shards
+            "torch_sharded_attribution": times(explanation(3, 16 // shards), shards)}
+
+
+def _run_examples(torch, kernels, outdir: str) -> dict:
+    """Each example of EXAMPLES in this process through its ``main(argv)``
+    with ``--device DEVICE`` (and ``--out`` under ``outdir``), its standard
+    output sent to the log, the launch counts set to 0 just before and read
+    just after: it must return 0, write its files, and launch exactly
+    `example_launches`'s kernels. The quickstart's mosaic must be a PNG."""
+    import importlib.util
+    import io
+
+    want = example_launches()
+    out = {}
+    for name, args, files in EXAMPLES:
+        spec = importlib.util.spec_from_file_location(f"example_{name}",
+                                                      ROOT / "examples" / f"{name}.py")
+        mod = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(mod)
+        argv = [*args, "--device", DEVICE]
+        if files:
+            stem = files[0].split("_")[0] if name == "torch_level_attribution" else files[0]
+            argv += ["--out", os.path.join(outdir, stem)]
+        text = io.StringIO()
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(text):
+            rc = mod.main(argv)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        launches = kernels.launch_counts()
+        for line in text.getvalue().splitlines():
+            _log(f"    {name}: {line}")
+        missing = [f for f in files if not (os.path.isfile(os.path.join(outdir, f))
+                                            and os.path.getsize(os.path.join(outdir, f)))]
+        if rc != 0 or missing:
+            raise AssertionError(f"esc50: {name} {argv} returned {rc}, empty outputs {missing}")
+        if launches != want[name]:
+            raise AssertionError(f"esc50: {name} launched {launches}, its path holds {want[name]}")
+        out[name] = {"argv": argv, "seconds": seconds, "launches": launches}
+        _log(f"  esc50 example {name} {' '.join(argv)}: exit 0 in {seconds:.2f} s, launches "
+             f"{launches}")
+    with open(os.path.join(outdir, "wam_mosaic.png"), "rb") as f:
+        if f.read(8) != b"\x89PNG\r\n\x1a\n":
+            raise AssertionError("esc50: the quickstart's mosaic is not a PNG file")
+    return out
+
+
+def phase_esc50(torch, wtt, kernels, smi: str) -> dict:
+    """One ESC-50 test fold from disk through the native prefetcher and the
+    audio phase's explainer at full width, the route held against
+    ``read_wav``, the three 1D transforms timed and held on one batch, then
+    the example scripts (module docstring)."""
+    import numpy as np
+
+    from wam_tpu_torch import native
+    from wam_tpu_torch.data import ESC50
+
+    t_phase = time.perf_counter()
+    if not native.native_available():
+        raise AssertionError("esc50: the native WAV library did not build or load")
+    model, fn, _, _ = build_audio(torch, wtt)
+    wam = audio_wam(wtt, fn, torch.device(DEVICE))
+    out = {}
+    with tempfile.TemporaryDirectory(prefix="wam_esc50_") as tmp:
+        root = os.path.join(tmp, "ESC50")
+        t0 = time.perf_counter()
+        write_esc50_fold(root)
+        out["write_s"] = time.perf_counter() - t0
+        ds = ESC50(mode="test", num_FOLD=ESC50_FOLD, root_dir=root)
+        nbytes = sum(os.path.getsize(os.path.join(root, "audio", r["filename"])) for r in ds.rows)
+        _log(f"phase esc50: fold {ESC50_FOLD} written in {out['write_s']:.2f} s: {len(ds)} clips "
+             f"x {AUDIO_LEN} samples, {nbytes / 1e6:.1f} MB of 16-bit PCM; the native library "
+             f"{native.library_path().name} feeds the route (WavPrefetcher, {ESC50_WORKERS} "
+             f"threads, {ESC50_CAPACITY} ahead)")
+        stream = _esc50_stream(torch, np, kernels, ds, wam)
+        first = stream.pop("first")
+        out["stream"] = {**stream, "native": True, "bytes": nbytes}
+        _log(f"  esc50 stream: {stream['clips']} clips in {stream['batches']} batches: "
+             f"{stream['event_ms']:.1f} ms by events = {stream['waveforms_per_s_events']:.2f} "
+             f"waveforms/s, {stream['wall_s']:.3f} s by the host clock = "
+             f"{stream['waveforms_per_s_host']:.2f} waveforms/s; the host's wait for a batch "
+             f"{stream['wait_ms']}; peak {stream['peak_memory_gb']:.2f} GB; launches "
+             f"{stream['launches']} on {smi}")
+        out["decode"] = _esc50_decode_rates(ds, native)
+        _log(f"  esc50 decode (warm reads): {out['decode']}")
+        out["held"] = _esc50_held(torch, np, native, ds, wam, first)
+        _log(f"  esc50 prefetched route against read_wav: {out['held']}")
+        y = torch.tensor([int(ds.rows[i]["target"]) for i in first["idx"]], device=DEVICE)
+        out["impls"] = _esc50_impls(torch, wtt, model, wam, first["x"], y, kernels)
+        del first
+        out["sweep"] = _esc50_sweep(torch)
+        with _torch_defaults(torch):
+            out["examples"] = _run_examples(torch, kernels, tmp)
+    out["phase_s"] = time.perf_counter() - t_phase
+    _log(f"  esc50: phase {out['phase_s']:.1f} s (budget {ESC50_BUDGET_S:.0f} s)")
+    if out["phase_s"] > ESC50_BUDGET_S:
+        raise AssertionError(f"esc50: the phase took {out['phase_s']:.1f} s > {ESC50_BUDGET_S} s")
+    return out
 
 
 def _precision(torch, tf32: bool) -> str:
@@ -5455,7 +5997,7 @@ def _aot_cli(args: list, env: dict) -> tuple[dict, float]:
 
 def _aot_prewarm(env: dict, manifest: str, want: str) -> dict:
     out, seconds = _aot_cli(["wam_tpu_torch.prewarm", "--config", AOT_CONFIG, "--device",
-                             DEVICE, "--manifest", manifest], env)
+                             DEVICE, "--batch", str(AOT_BATCH), "--manifest", manifest], env)
     compiles = out["compiles"]
     if out["aot"] != want or out["backend"] != _device_type() or (
             (compiles == 0) == (want == "exported")):
@@ -5500,7 +6042,7 @@ def _aot_serve(torch, np, wtt, kernels, ex, aot_key: str, smi: str) -> dict:
     metrics = ServeMetrics()
     entry = ex.serve_entry(on_trace=metrics.note_compile, aot_key=aot_key)
     t0 = time.perf_counter()
-    server = AttributionServer(entry, [(CHANNELS, SIDE, SIDE)], max_batch=BATCH,
+    server = AttributionServer(entry, [(CHANNELS, SIDE, SIDE)], max_batch=AOT_BATCH,
                                max_wait_ms=AOT_WAIT_MS, compilation_cache=True,
                                metrics=metrics, device=DEVICE)
     warm_s = time.perf_counter() - t0
@@ -5531,7 +6073,7 @@ def _aot_serve(torch, np, wtt, kernels, ex, aot_key: str, smi: str) -> dict:
            for r in rows):
         raise AssertionError("aot serve: a served mosaic is not finite or has another shape")
     # the eager entry on the batch the server built
-    pad = BATCH - AOT_REQUESTS
+    pad = AOT_BATCH - AOT_REQUESTS
     xs = torch.from_numpy(np.stack([x for x, _ in reqs] + [reqs[0][0]] * pad)).to(DEVICE)
     ys = torch.tensor([y for _, y in reqs] + [reqs[0][1]] * pad, dtype=torch.int32,
                       device=DEVICE)
@@ -5995,7 +6537,7 @@ def phase_aot(torch, wtt, kernels, smi: str, sites) -> dict:
     os.environ.update(host1)
     dev = torch.device(DEVICE)
     try:
-        wl = get_workload(AOT_CONFIG, device=dev)
+        wl = get_workload(AOT_CONFIG, device=dev, batch=AOT_BATCH)
         fn, wargs = wl.build(Candidate(sample_chunk=max(1, 128 // wl.batch), layout="nchw",
                                        fan_cap=128))
         fns: list = []
@@ -6526,6 +7068,7 @@ def main() -> int:
     slice_ = timed("slice", phase_slice, torch, wtt, kernels, smi)
     slice2 = timed("slice2", phase_slice2, torch, wtt, kernels, smi, len(sites))
     audio = timed("audio", phase_audio, torch, wtt, kernels, smi)
+    esc50 = timed("esc50", phase_esc50, torch, wtt, kernels, smi)
     vit = timed("vit", phase_vit, torch, wtt, kernels, smi)
     convnext = timed("convnext", phase_convnext, torch, wtt, kernels, smi)
     vol = timed("vol", phase_vol, torch, wtt, kernels, smi)
@@ -6568,10 +7111,14 @@ def main() -> int:
                 "anytime": anytime_["launches"],
                 **{f"serve {s}": serve_["batch_launches"][s] for s in SERVE_LAUNCHES},
                 "parallel": par["spmd"]["launches"], "parallel ig": par["ig"]["launches"],
-                "tune": tune["nchw_launches"], "pod": pod["launches"]}
+                "tune": tune["nchw_launches"], "pod": pod["launches"],
+                "quickstart": esc50["examples"]["torch_quickstart"]["launches"]}
     for row in rows:
         row["launches"] = launches[row["path"]][row["kernel"]]
         row["audio_launches"] = audio["launches"][row["kernel"]]
+        row["esc50_launches"] = esc50["stream"]["launches"][row["kernel"]]
+        row["examples_launches"] = {name: ex["launches"][row["kernel"]]
+                                    for name, ex in esc50["examples"].items()}
         row["vit_launches"] = vit["call_launches"][row["kernel"]]
         row["convnext_launches"] = convnext["call_launches"][row["kernel"]]
         row["vol_launches"] = vol["call_launches"][row["kernel"]]
@@ -6602,7 +7149,7 @@ def main() -> int:
 
     print(json.dumps({"slice": {k: v for k, v in slice_.items() if k != "launches"},
                       "slice2": {k: v for k, v in slice2.items() if k != "launches"},
-                      "audio": audio, "vit": vit, "convnext": convnext, "vol": vol,
+                      "audio": audio, "esc50": esc50, "vit": vit, "convnext": convnext, "vol": vol,
                       "voxel3d": voxel3d, "eval2d": eval2d, "eval1d": eval1d,
                       "baselines": baselines, "periodized": periodized, "nhwc": nhwc,
                       "analyzers": analyzers, "iou": iou, "patch": patch,

@@ -22,8 +22,6 @@ import wam_tpu_torch
 torch.set_num_threads(1)
 
 ROOT = Path(__file__).resolve().parent.parent
-SLICE_F = "ROADMAP.md queue 1 item 2 (slice F)"
-VIZ3D = "ROADMAP.md queue 1 item 3 (viz/viz3d.py)"
 
 # name -> the ROADMAP item that brings it, per package
 PENDING = {
@@ -31,7 +29,7 @@ PENDING = {
     "wavelets": {},
     "core": {},
     "ops": {},
-    "data": {"ESC50": SLICE_F, "load_sound": SLICE_F},
+    "data": {},
     "xattr": {},
     "anytime": {},
     "serve": {},
@@ -43,11 +41,7 @@ PENDING = {
     # the port's fused ReLU picks the kernel or its plain version by the
     # tensor's device: no process-wide impl knob (wam_tpu_torch/tune/__init__.py)
     "tune": {"set_fused_relu_impl": "no counterpart", "get_fused_relu_impl": "no counterpart"},
-    "viz": {name: VIZ3D for name in ("scatter3d", "scatter3d_batch", "scatter3d_superpose",
-                                     "scatter3d_colors", "scatter3d_explanation_batch",
-                                     "voxel_figure", "voxel_superpose", "voxel_surface_mesh",
-                                     "scatter3d_plotly", "voxels_plotly",
-                                     "voxel_superpose_plotly", "HAS_PLOTLY")},
+    "viz": {},
 }
 
 

@@ -22,7 +22,6 @@ graph compiles once)."""
 
 import math
 import os
-import socket
 import subprocess
 import sys
 import textwrap
@@ -398,12 +397,6 @@ def test_coeff_grads_cores_match_the_reference(ndim, shape, wavelet, mode):
             _close(g, np.asarray(w), 1e-5, f"grads leaf {i} (y={yy})")
 
 
-def _free_port() -> int:
-    with socket.socket() as s:
-        s.bind(("127.0.0.1", 0))
-        return s.getsockname()[1]
-
-
 WORKER = textwrap.dedent("""
     import sys
     sys.path.insert(0, {root!r})
@@ -468,8 +461,10 @@ def test_two_gloo_processes_reproduce_the_one_process_mesh(tmp_path):
     moved = thalo.halo_elements()
     flat_want = [t.detach().numpy() for k in sorted(want) for t in want[k]]
     out = str(tmp_path / "out")
-    code = WORKER.format(root=str(ROOT), coord=f"127.0.0.1:{_free_port()}", case=str(case),
-                         out=out)
+    # a file rendezvous in the test's own directory: no port to lose to
+    # another process between choosing it and binding it
+    code = WORKER.format(root=str(ROOT), coord=f"file://{tmp_path / 'rendezvous'}",
+                         case=str(case), out=out)
     env = {**{k: v for k, v in os.environ.items() if k not in ("WORLD_SIZE", "RANK")},
            "OMP_NUM_THREADS": "1", "MKL_NUM_THREADS": "1"}  # as this process
     env.setdefault("GLOO_SOCKET_IFNAME", "lo")
@@ -550,7 +545,7 @@ def test_batch_axis_on_a_ring_across_two_gloo_processes():
         case = os.path.join(tmp, "case.npz")
         np.savez(case, x=x, y=y, w=w, z=z)
         out = os.path.join(tmp, "out")
-        code = BATCH_WORKER.format(root=str(ROOT), coord=f"127.0.0.1:{_free_port()}", case=case,
+        code = BATCH_WORKER.format(root=str(ROOT), coord=f"file://{tmp}/rendezvous", case=case,
                                    out=out)
         env = {**{k: v for k, v in os.environ.items() if k not in ("WORLD_SIZE", "RANK")},
                "OMP_NUM_THREADS": "1", "MKL_NUM_THREADS": "1"}  # as this process

@@ -52,7 +52,9 @@ def _imports(path: Path):
 
 
 @pytest.mark.parametrize("path", sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"]
-                         + sorted((ROOT / "scripts").glob("torch_*.py")),
+                         + sorted((ROOT / "scripts").glob("torch_*.py"))
+                         + sorted((ROOT / "examples").glob("torch_*.py"))
+                         + [ROOT / "examples" / "_png.py"],
                          ids=lambda p: str(p.relative_to(ROOT)))
 def test_no_jax_or_reference_imports(path):
     for mod in _imports(path):

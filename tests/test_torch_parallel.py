@@ -564,3 +564,29 @@ def test_init_distributed_raises_on_an_unreachable_coordinator():
                           text=True, timeout=120)
     assert "RAISED True True" in proc.stdout, (proc.stdout + proc.stderr)[-3000:]
     assert issubclass(CoordinatorConnectError, RuntimeError)
+
+
+def test_init_distributed_takes_a_file_rendezvous_and_destroys_the_group_at_exit(tmp_path):
+    """A ``file://`` coordinator starts the group with no port to choose, and
+    the group is destroyed at interpreter exit: the handler registered by
+    `init_distributed` leaves no group alive, and the process exits 0 (a
+    gloo rank that exited with its group alive could abort in teardown)."""
+    code = textwrap.dedent(f"""
+        import atexit, sys
+        sys.path.insert(0, {str(ROOT)!r})
+        import torch.distributed as dist
+        from wam_tpu_torch.parallel import init_distributed
+        from wam_tpu_torch.parallel import multihost
+        info = init_distributed("file://{tmp_path / 'rendezvous'}", 1, 0,
+                                initialization_timeout=30, device="cpu")
+        assert info["process_count"] == 1 and dist.is_initialized()
+        assert multihost._shutdown_registered
+        multihost._shutdown()
+        print("DESTROYED", not dist.is_initialized(), flush=True)
+        init_distributed("file://{tmp_path / 'rendezvous2'}", 1, 0, device="cpu")
+        print("LIVE AT EXIT", dist.is_initialized(), flush=True)
+    """)
+    proc = subprocess.run([sys.executable, "-c", code], cwd=str(ROOT), capture_output=True,
+                          text=True, timeout=120)
+    assert proc.returncode == 0, (proc.stdout + proc.stderr)[-3000:]
+    assert "DESTROYED True" in proc.stdout and "LIVE AT EXIT True" in proc.stdout

@@ -470,9 +470,17 @@ def test_the_knobs_match_the_reference(caches):
         with pytest.raises(ValueError) as jerr:
             getattr(jt, setter)("bogus")
         assert str(terr.value) == _port_name(str(jerr.value)).replace(", 'pallas_interpret'", "")
-    with pytest.raises(ValueError, match="'folded' not one of"):
-        tt.set_dwt1_impl("folded")
-    tt.set_dwt1_impl("conv")
+    saved = jt._dwt1_impl
+    for name in ("auto", "conv", "folded", "folded_nhc"):  # the reference's four names
+        tt.set_dwt1_impl(name)
+        jt.set_dwt1_impl(name)
+        assert tt._dwt1_impl == jt._dwt1_impl == name
+    jt.set_dwt1_impl(saved)
+    with pytest.raises(ValueError) as terr:
+        tt.set_dwt1_impl("pallas")
+    with pytest.raises(ValueError) as jerr:
+        jt.set_dwt1_impl("pallas")
+    assert str(terr.value) == str(jerr.value)
     tt.set_dwt1_impl("auto")
 
 

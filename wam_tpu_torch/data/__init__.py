@@ -1,10 +1,13 @@
 """Data and checkpoints (PyTorch port of `wam_tpu.data`): the model registry
 and checkpoint loading, image preprocessing and loaders, 3D-MNIST, and the
-numpy half of the audio features. PIL, matplotlib and h5py are imported by
-the functions that need them, never on import."""
+audio data layer (ESC-50 through the native WAV reader, `load_sound`, the
+host-side features). PIL, matplotlib and h5py are imported by the functions
+that need them, never on import."""
 
 from wam_tpu_torch.data.audio import (
+    ESC50,
     add_0db_noise,
+    load_sound,
     logmel_np,
     make_weights_for_balanced_classes,
     stft_np,
@@ -27,7 +30,9 @@ from wam_tpu_torch.data.image import (
 from wam_tpu_torch.data.mnist3d import batches, load_3d_mnist, load_3dvoxel_mnist
 
 __all__ = [
+    "ESC50",
     "add_0db_noise",
+    "load_sound",
     "logmel_np",
     "stft_np",
     "make_weights_for_balanced_classes",

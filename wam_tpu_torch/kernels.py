@@ -28,6 +28,7 @@ callers in `wam_tpu_torch.wavelets.matmul` and `wam_tpu_torch.tune.fused_relu`.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import fcntl
 import hashlib
@@ -43,7 +44,7 @@ import torch
 
 __all__ = ["KERNELS", "BandPlan", "PairLevel", "PairPlan", "pair_plan", "build_all", "dwt2",
            "synth2", "pair", "pair_bwd", "relu_fwd", "relu_bwd", "band_smem_bytes", "launch_counts",
-           "reset_launch_counts", "nvcc_command"]
+           "reset_launch_counts", "nvcc_command", "build_lock"]
 
 _CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "wam_tpu_torch"
@@ -154,13 +155,20 @@ def build_all(kernels=None) -> dict[str, dict]:
     kernels = list(KERNELS.values()) if kernels is None else list(kernels)
     if all(k.library_path().exists() for k in kernels):
         return {}
+    with build_lock():
+        return _build_missing(kernels)
+
+
+@contextlib.contextmanager
+def build_lock():
+    """One build at a time across processes (pod workers or test workers
+    starting together on a fresh checkout): the others wait here and then
+    find the libraries. The kernels and `wam_tpu_torch.native` share it."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    # one build at a time across processes (pod workers starting together
-    # on a fresh checkout): the others wait here and then find the libraries
     with open(BUILD_DIR / ".build.lock", "a") as lock:
         fcntl.flock(lock, fcntl.LOCK_EX)
         try:
-            return _build_missing(kernels)
+            yield
         finally:
             fcntl.flock(lock, fcntl.LOCK_UN)
 

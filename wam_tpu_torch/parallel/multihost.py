@@ -20,6 +20,7 @@ local one (`make_mesh`, one process).
 
 from __future__ import annotations
 
+import atexit
 import datetime
 import math
 import os
@@ -106,7 +107,9 @@ def init_distributed(
 ) -> dict:
     """Connect this process to its process group.
 
-    ``coordinator_address`` ("host:port", rank 0 listens there),
+    ``coordinator_address`` ("host:port", rank 0 listens there; or a
+    ``file://`` path on a file system every rank shares, a rendezvous no
+    other process can take between choosing it and binding it),
     ``num_processes`` and ``process_id`` start a group explicitly; with none
     of them, a launcher's environment (``WORLD_SIZE`` above 1, with
     ``MASTER_ADDR``/``MASTER_PORT``, as torchrun sets) starts one, and a
@@ -117,7 +120,10 @@ def init_distributed(
     ``initialization_timeout`` seconds, then `CoordinatorConnectError`.
     Returns {"process_index", "process_count", "local_devices",
     "global_devices"} (local devices: the visible CUDA devices, 1 without
-    any)."""
+    any). The group is destroyed when the interpreter exits, as
+    ``jax.distributed`` shuts down at exit: a process that ends with its
+    group alive can abort in teardown ("terminate called without an active
+    exception") while its communication threads still run."""
     env_world = int(os.environ.get("WORLD_SIZE", "1") or 1)
     explicit = coordinator_address is not None or num_processes not in (None, 1)
     if not explicit and env_world <= 1:
@@ -130,14 +136,29 @@ def init_distributed(
         if coordinator_address is None or num_processes is None or process_id is None:
             raise ValueError("an explicit process group needs coordinator_address, "
                              "num_processes and process_id")
-        _initialize_with_retries(f"tcp://{coordinator_address}", coordinator_address,
-                                 connect_attempts, connect_backoff_s,
-                                 world_size=int(num_processes), rank=int(process_id), **kwargs)
+        method = (coordinator_address if coordinator_address.startswith("file://")
+                  else f"tcp://{coordinator_address}")
+        _initialize_with_retries(method, coordinator_address, connect_attempts,
+                                 connect_backoff_s, world_size=int(num_processes),
+                                 rank=int(process_id), **kwargs)
     else:
         label = (f"{os.environ.get('MASTER_ADDR', '<unset>')}:"
                  f"{os.environ.get('MASTER_PORT', '<unset>')}")
         _initialize_with_retries("env://", label, connect_attempts, connect_backoff_s, **kwargs)
+    global _shutdown_registered
+    if not _shutdown_registered:
+        atexit.register(_shutdown)
+        _shutdown_registered = True
     return _info()
+
+
+_shutdown_registered = False
+
+
+def _shutdown() -> None:
+    """Destroy the process group if one is alive (at interpreter exit)."""
+    if _initialized():
+        _dist().destroy_process_group()
 
 
 def hybrid_mesh(

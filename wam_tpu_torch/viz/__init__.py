@@ -1,5 +1,6 @@
-"""Visualization (PyTorch port of `wam_tpu.viz`): the 2D mosaic viewers.
-matplotlib is imported by the functions that draw, never on import."""
+"""Visualization (PyTorch port of `wam_tpu.viz`): the 2D mosaic viewers and
+the 3D point-cloud and voxel renders. matplotlib (and plotly, where it is
+installed) is imported by the functions that draw, never on import."""
 
 from wam_tpu_torch.viz.viewers import (
     add_lines,
@@ -10,6 +11,20 @@ from wam_tpu_torch.viz.viewers import (
     visualize_gradients_at_levels,
     wavelet_region_lines,
 )
+from wam_tpu_torch.viz.viz3d import (
+    HAS_PLOTLY,
+    scatter3d,
+    scatter3d_batch,
+    scatter3d_colors,
+    scatter3d_explanation_batch,
+    scatter3d_plotly,
+    scatter3d_superpose,
+    voxel_figure,
+    voxel_superpose,
+    voxel_superpose_plotly,
+    voxel_surface_mesh,
+    voxels_plotly,
+)
 
 __all__ = [
     "plot_wam",
@@ -19,4 +34,16 @@ __all__ = [
     "plot_diagonal",
     "visualize_explanations_basic",
     "visualize_gradients_at_levels",
+    "scatter3d",
+    "scatter3d_batch",
+    "scatter3d_superpose",
+    "scatter3d_colors",
+    "scatter3d_explanation_batch",
+    "voxel_figure",
+    "voxel_superpose",
+    "voxel_surface_mesh",
+    "scatter3d_plotly",
+    "voxels_plotly",
+    "voxel_superpose_plotly",
+    "HAS_PLOTLY",
 ]

@@ -43,7 +43,9 @@ the port's ``"kernel"`` is the reference's ``"pallas"``). Both default to
 (synthesis follows the analysis impl off the card, ``"matmul"`` unless it
 is ``"conv"``). A per-call ``impl=`` wins over the knobs. The knobs start
 from ``WAM_TORCH_DWT2_IMPL`` / ``WAM_TORCH_SYNTH2_IMPL`` when set.
-bf16 inputs give float32 coefficients on every impl.
+bf16 inputs give float32 coefficients on every impl. The 1D transform's
+knob, `set_dwt1_impl` (``WAM_TORCH_DWT1_IMPL``), picks the strided conv1d
+or the polyphase fold (`wavelets.folded1d`).
 
 The 2D analysis runs inside ``torch.profiler`` spans named
 ``SPAN_ANALYSIS`` and the 2D synthesis inside ``SPAN_SYNTH`` (forward), so
@@ -100,9 +102,10 @@ SPAN_SYNTH = "wam_synth"
 
 _DWT2_IMPLS = ("auto",) + IMPLS
 _SYNTH2_IMPLS = ("auto",) + IMPLS
-# the 1D transform has one implementation (a strided conv1d); the reference's
-# "folded" / "folded_nhc" polyphase forms have no counterpart in the port
-_DWT1_IMPLS = ("auto", "conv")
+# the 1D transform: "conv" the strided conv1d, "folded" / "folded_nhc" the
+# polyphase channel fold (wavelets/folded1d.py) in its two layouts; "auto"
+# is "conv" on every device (the reference folds long signals on a TPU only)
+_DWT1_IMPLS = ("auto", "conv", "folded", "folded_nhc")
 
 
 def _check_knob(name: str, allowed: tuple) -> str:
@@ -126,10 +129,17 @@ def get_dwt2_impl() -> str:
 
 
 def set_dwt1_impl(name: str) -> None:
-    """The reference's 1D impl knob, as far as the port has 1D impls:
-    ``"auto"`` and ``"conv"`` name the strided conv1d, the only 1D form, so
-    the knob keeps no state; the reference's folded forms raise."""
-    _check_knob(name, _DWT1_IMPLS)
+    """Select the 1D transform for the calls that follow: ``"auto"`` and
+    ``"conv"`` (the strided conv1d), ``"folded"`` or ``"folded_nhc"`` (the
+    polyphase fold, `wavelets.folded1d`, in its "nch" or "nhc" layout).
+    `dwt`, `idwt` and so `wavedec` / `waverec` read it at every call."""
+    global _dwt1_impl
+    _dwt1_impl = _check_knob(name, _DWT1_IMPLS)
+
+
+def _fold1d_layout() -> str | None:
+    """The fold's layout under the 1D knob, None for the conv form."""
+    return {"folded": "nch", "folded_nhc": "nhc"}.get(_dwt1_impl)
 
 
 def set_synth2_impl(name: str) -> None:
@@ -146,9 +156,10 @@ def get_synth2_impl() -> str:
     return _synth2_impl
 
 
-_dwt2_impl = _synth2_impl = "auto"
+_dwt2_impl = _synth2_impl = _dwt1_impl = "auto"
 set_dwt2_impl(os.environ.get("WAM_TORCH_DWT2_IMPL", "auto"))
 set_synth2_impl(os.environ.get("WAM_TORCH_SYNTH2_IMPL", "auto"))
+set_dwt1_impl(os.environ.get("WAM_TORCH_DWT1_IMPL", "auto"))
 
 
 def _on_card(device) -> bool:
@@ -401,10 +412,17 @@ def dwt(x: torch.Tensor, wavelet, mode: str = "symmetric"):
     if x.dtype == torch.bfloat16:
         x = x.float()
     batch_shape = x.shape[:-1]
+    layout = _fold1d_layout()
     with torch.profiler.record_function(SPAN_1D):
         # offset by one so the stride-2 correlation lands on pywt's positions
         xp = _pad_axes(x.reshape(-1, 1, x.shape[-1]), wav.filt_len - 1, mode, axes=(-1,))[..., 1:]
-        out = _Analysis.apply(xp, _bank(wav, 1, x.dtype, x.device, rec=False))
+        if layout is None:
+            out = _Analysis.apply(xp, _bank(wav, 1, x.dtype, x.device, rec=False))
+        else:
+            from wam_tpu_torch.wavelets.folded1d import fold_analysis1d
+
+            out = fold_analysis1d(xp[:, 0], wav, (x.shape[-1] + wav.filt_len - 1) // 2,
+                                  layout=layout)
     out = out.reshape(batch_shape + out.shape[1:])
     return out[..., 0, :], out[..., 1, :]
 
@@ -417,9 +435,15 @@ def idwt(cA: torch.Tensor, cD: torch.Tensor, wavelet, out_len: int | None = None
     if sub.dtype == torch.bfloat16:
         sub = sub.float()
     batch_shape = sub.shape[:-2]
+    layout = _fold1d_layout()
     with torch.profiler.record_function(SPAN_1D):
-        out = _Synthesis.apply(sub.reshape(-1, 2, sub.shape[-1]),
-                               _bank(wav, 1, sub.dtype, sub.device, rec=True))[:, 0]
+        if layout is None:
+            out = _Synthesis.apply(sub.reshape(-1, 2, sub.shape[-1]),
+                                   _bank(wav, 1, sub.dtype, sub.device, rec=True))[:, 0]
+        else:
+            from wam_tpu_torch.wavelets.folded1d import fold_synthesis1d
+
+            out = fold_synthesis1d(sub.reshape(-1, 2, sub.shape[-1]), wav, layout=layout)
     if out_len is not None:
         out = out[:, :out_len]
     return out.reshape(batch_shape + out.shape[-1:])
