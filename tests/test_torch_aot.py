@@ -29,9 +29,11 @@ from torch._dynamo.utils import counters
 from wam_tpu.obs import sentinel as jsentinel
 from wam_tpu.pipeline import aot as jaot
 from wam_tpu_torch.obs import sentinel
+from wam_tpu_torch.ops import graph_const
 from wam_tpu_torch.pipeline import aot
 from wam_tpu_torch.tune import fused_relu as tfr
 from wam_tpu_torch.wavelets import matmul as tmm
+from wam_tpu_torch.wavelets import transform as tt
 
 # the suite runs in several pytest-xdist worker processes at once: one
 # intra-op thread a process keeps them from oversubscribing the cores
@@ -245,14 +247,40 @@ def _op_cases():
         "relu_fwd": (tfr.relu_fwd_op, (r(5, 300),)),
         "relu_bwd": (tfr.relu_bwd_op, (tfr.relu_fwd_plain(torch.randn(5, 300))[1],
                                       r(5, 300, grad=False))),
+        # the 1D / 3D levels (wavelets/transform.py) and the host-built constants
+        "dwt1": (tt._level_op, (r(3, 37), "dwt1", "db2", "reflect", "conv", [])),
+        "dwt1_folded": (tt._level_op, (r(3, 37), "dwt1", "db2", "reflect", "folded_nhc", [])),
+        "idwt1": (tt._level_op, (r(3, 2, 20), "idwt1", "db2", "", "folded", [])),
+        "dwt3": (tt._level_op, (r(2, 6, 7, 5), "dwt3", "db2", "symmetric", "", [])),
+        "idwt3": (tt._level_op, (r(2, 8, 4, 4, 4), "idwt3", "db2", "", "conv", [6, 5, 6])),
+        "idwt3_matmul": (tt._level_op, (r(2, 8, 4, 4, 4), "idwt3", "db2", "", "matmul",
+                                        [6, 5, 6])),
+        "wave_level_vjp": (tt._level_vjp_op, (r(3, 2, 20, grad=False), [3, 37], "dwt1", "db2",
+                                              "reflect", "conv", [])),
+        "graph_const": (graph_const._const_op, (torch.zeros(2), "mel_filterbank",
+                                                [33, 8, 8000])),
     }
 
 
 @pytest.mark.parametrize("name", ["dwt2", "dwt2_adjoint", "synth2", "synth2_bwd", "pair",
-                                  "pair_bwd", "relu_fwd", "relu_bwd"])
+                                  "pair_bwd", "relu_fwd", "relu_bwd", "dwt1", "dwt1_folded",
+                                  "idwt1", "dwt3", "idwt3", "idwt3_matmul", "wave_level_vjp",
+                                  "graph_const"])
 def test_opcheck_every_kernel_operator(name):
     op, args = _op_cases()[name]
     torch.library.opcheck(op, args)
+
+
+@pytest.mark.parametrize("name", ["dwt1", "dwt1_folded", "idwt1", "dwt3", "idwt3",
+                                  "idwt3_matmul"])
+def test_the_level_operators_are_the_eager_levels_and_their_adjoints(name):
+    """Each 1D / 3D level operator computes its eager level (`_level_rows`)
+    and its registered backward is that level's adjoint (float64
+    gradcheck)."""
+    op, (t, *rest) = _op_cases()[name]
+    torch.testing.assert_close(op(t, *rest), tt._level_rows(t, *rest), rtol=0, atol=0)
+    x = t.detach().double().requires_grad_(True)
+    assert torch.autograd.gradcheck(lambda a: op(a, *rest), (x,))
 
 
 def test_the_operators_are_the_plain_versions_and_their_adjoints():

@@ -38,9 +38,7 @@ PENDING = {
     "pod": {},
     "obs": {},
     "pipeline": {},
-    # the port's fused ReLU picks the kernel or its plain version by the
-    # tensor's device: no process-wide impl knob (wam_tpu_torch/tune/__init__.py)
-    "tune": {"set_fused_relu_impl": "no counterpart", "get_fused_relu_impl": "no counterpart"},
+    "tune": {},
     "viz": {},
 }
 

@@ -121,3 +121,53 @@ def test_plain_kernels_round_trip_the_layout():
     assert m.shape == (2, 128)
     assert torch.equal(y, torch.relu(x))
     assert torch.equal(tfr.relu_bwd_plain(m, g), torch.where(x > 0, g, torch.zeros_like(g)))
+
+
+@pytest.fixture
+def restore_impl():
+    """The port's and the reference's fused-ReLU knobs, restored after."""
+    prev, jprev = tfr.get_fused_relu_impl(), jfr.get_fused_relu_impl()
+    yield
+    tfr.set_fused_relu_impl(prev)
+    jfr.set_fused_relu_impl(jprev)
+
+
+def test_the_impl_knob_takes_the_references_names(restore_impl, monkeypatch):
+    """`set_fused_relu_impl`: the reference's four names, its ValueError on
+    any other; "auto", "xla" and "pallas_interpret" run the plain version on
+    a CPU tensor, "pallas" raises there; on a tensor the wrapper treats as
+    on the card, "auto" and "pallas" take K4/K5 (stand-ins here) and "xla" /
+    "pallas_interpret" the plain version."""
+    for name in ("auto", "xla", "pallas", "pallas_interpret"):
+        tfr.set_fused_relu_impl(name)
+        jfr.set_fused_relu_impl(name)
+        assert tfr.get_fused_relu_impl() == jfr.get_fused_relu_impl() == name
+    with pytest.raises(ValueError) as want:
+        jfr.set_fused_relu_impl("cuda")
+    with pytest.raises(ValueError) as got:
+        tfr.set_fused_relu_impl("cuda")
+    assert str(got.value) == str(want.value)
+    assert tfr.get_fused_relu_impl() == "pallas_interpret"  # unchanged by the refusal
+
+    x = torch.from_numpy(_with_zeros((4, 37), 3)).requires_grad_(True)
+    for name in ("auto", "xla", "pallas_interpret"):
+        tfr.set_fused_relu_impl(name)
+        y = tfr.fused_relu(x)
+        (g,) = torch.autograd.grad(y.sum(), x)
+        assert torch.equal(y, torch.relu(x)) and torch.equal(g, (x > 0).to(x.dtype))
+    tfr.set_fused_relu_impl("pallas")
+    with pytest.raises(ValueError, match="pallas"):
+        tfr.fused_relu(x)
+
+    calls = []
+    monkeypatch.setattr(tfr, "on_cpu", lambda t: False)  # the card's route
+    monkeypatch.setattr(tfr.kernels, "relu_fwd",
+                        lambda t: calls.append("K4") or tfr.relu_fwd_plain(t))
+    monkeypatch.setattr(tfr.kernels, "relu_bwd",
+                        lambda m, g: calls.append("K5") or tfr.relu_bwd_plain(m, g))
+    for name, want_calls in (("auto", ["K4", "K5"]), ("pallas", ["K4", "K5"]),
+                             ("xla", []), ("pallas_interpret", [])):
+        calls.clear()
+        tfr.set_fused_relu_impl(name)
+        torch.autograd.grad(tfr.fused_relu(x).sum(), x)
+        assert calls == want_calls, name

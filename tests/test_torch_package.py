@@ -62,6 +62,19 @@ def test_no_jax_or_reference_imports(path):
         assert top not in FORBIDDEN, f"{path.name} imports {mod}"
 
 
+@pytest.mark.parametrize("path", sorted((PKG / "lint").rglob("*.py")),
+                         ids=lambda p: str(p.relative_to(ROOT)))
+def test_lint_modules_import_only_the_stdlib_and_their_package(path):
+    """`wam_tpu_torch.lint` scans the code without importing it: its
+    modules import the standard library and each other, nothing else."""
+    for mod in _imports(path):
+        top = mod.split(".")[0]
+        assert top in sys.stdlib_module_names or mod.startswith("wam_tpu_torch.lint"), \
+            f"{path.name} imports {mod}"
+    for node in ast.walk(ast.parse(path.read_text())):
+        assert not (isinstance(node, ast.ImportFrom) and node.level), path.name
+
+
 def test_package_imports_with_jax_blocked():
     """Every module of the port imports in a process where jax, flax and
     wam_tpu cannot be imported."""

@@ -338,7 +338,7 @@ def test_visualizer_mel_filters_match_jax(visualizers, method):
         tv.filter_melspec(jpower, mel, "st")
 
 
-def test_wam1d_rejects_unported_options(tiny):
+def test_wam1d_rejects_unported_options(tiny, monkeypatch):
     _, tfn = tiny
     # mesh= is ported (tests/test_torch_seq_estimators.py): a meshed explainer
     # refuses serve_entry, batch_axis needs a mesh
@@ -350,9 +350,21 @@ def test_wam1d_rejects_unported_options(tiny):
     with pytest.raises(ValueError, match="batch_axis= requires mesh="):
         tw.WaveletAttribution1D(tfn, batch_axis="data", device="cpu")
     m = tw.WaveletAttribution1D(tfn, device="cpu", **KW)
-    assert callable(m.serve_entry())  # ported (tests/test_torch_serve.py), and the AOT key
-    with pytest.warns(UserWarning, match="no compiled step"):  # eager, no programs
-        assert m.serve_entry(aot_key="k").wam_aot_fns == []
+    assert callable(m.serve_entry())  # ported (tests/test_torch_serve.py), and the AOT key:
+    # each chunk step is a program of the compiled-step cache (compiled for
+    # real in tests/test_torch_aot_entries.py; a recording stand-in here)
+    from tests.torch_aot_stub import record_aot_keys
+
+    keys = record_aot_keys(monkeypatch)
+    small = tw.WaveletAttribution1D(tfn, device="cpu", n_samples=2, **KW)
+    entry = small.serve_entry(aot_key="k")
+    assert entry.wam_aot_fns == []  # steps made at the first call
+    x = torch.from_numpy(_rng("aot").standard_normal((2, WLEN)).astype(np.float32))
+    got = entry(x, torch.tensor([0, 1]))
+    assert keys == ["k|smooth|dwt1-conv|stft-fft"] and len(entry.wam_aot_fns) == 1
+    want = small.serve_entry()(x, torch.tensor([0, 1]))
+    for g, w in zip([got[0], *got[1]], [want[0], *want[1]]):
+        assert torch.equal(g, w)
     with pytest.raises(ValueError):
         tw.WaveletAttribution1D(tfn, method="gradcam", device="cpu")
     with pytest.raises(ValueError):

@@ -492,8 +492,8 @@ def test_point_clouds_match_jax(labeled):
 # -- the rest of the surface --------------------------------------------------------
 
 
-def test_wam3d_rejects_unported_options(r3d):
-    _, tfn, *_ = r3d
+def test_wam3d_rejects_unported_options(r3d, monkeypatch):
+    _, tfn, x, y, _ = r3d
     # mesh= is ported (tests/test_torch_seq_estimators.py): batch_axis needs a
     # mesh, seq_axis alone is inert, a meshed explainer refuses serve_entry
     from wam_tpu_torch.parallel import make_mesh
@@ -505,11 +505,18 @@ def test_wam3d_rejects_unported_options(r3d):
     with pytest.raises(ValueError, match="serve_entry"):
         meshed.serve_entry()
     assert callable(tw3.WaveletAttribution3D(tfn, device="cpu").serve_entry())
-    # the AOT key is ported (tests/test_torch_aot.py); the 3D entry has no
-    # compiled step, so it warns and runs eager with no programs
-    with pytest.warns(UserWarning, match="no compiled step"):
-        assert tw3.WaveletAttribution3D(tfn, device="cpu").serve_entry(
-            aot_key="vol").wam_aot_fns == []
+    # the AOT key is ported: each chunk step is a program of the
+    # compiled-step cache, keyed by the 3D synthesis it runs (compiled for
+    # real in tests/test_torch_aot_entries.py; a recording stand-in here)
+    from tests.torch_aot_stub import record_aot_keys
+
+    keys = record_aot_keys(monkeypatch)
+    small = tw3.WaveletAttribution3D(tfn, device="cpu", J=2, n_samples=2)
+    entry = small.serve_entry(aot_key="vol")
+    assert entry.wam_aot_fns == []  # steps made at the first call
+    got = entry(torch.from_numpy(x), torch.from_numpy(y))
+    assert keys == ["vol|smooth|synth-conv"] and len(entry.wam_aot_fns) == 1
+    assert torch.equal(got, small.serve_entry()(torch.from_numpy(x), torch.from_numpy(y)))
     with pytest.raises(ValueError):
         tw3.WaveletAttribution3D(tfn, method="gradcam", device="cpu")
     with pytest.raises(ValueError):

@@ -408,7 +408,7 @@ def test_video_wam_without_labels_matches_jax(video):
     _rel_close(tw(torch.from_numpy(clip)), jw(jnp.asarray(clip)), 1e-4, "y=None")
 
 
-def test_video_wam_rejects_as_jax(video):
+def test_video_wam_rejects_as_jax(video, monkeypatch):
     jfn, tfn = video
     for kw in ({"levels": (2, 1), "mesh": object()}, {"levels": (2, 2), "batch_axis": "data"},
                {"method": "occlusion"}, {"sample_batch_size": "all"}):
@@ -427,8 +427,20 @@ def test_video_wam_rejects_as_jax(video):
         meshed.serve_entry()
     tw = tx.WaveletAttributionVideo(tfn, method="integratedgrad", device="cpu")
     assert callable(tw.serve_entry())
-    with pytest.warns(UserWarning, match="no compiled step"):  # eager, no programs
-        assert tw.serve_entry(aot_key="video").wam_aot_fns == []
+    # the AOT key: each chunk step is a program of the compiled-step cache,
+    # on the kernel route (compiled for real in
+    # tests/test_torch_aot_entries.py; a recording stand-in here)
+    from tests.torch_aot_stub import record_aot_keys
+
+    keys = record_aot_keys(monkeypatch)
+    small = tx.WaveletAttributionVideo(tfn, levels=(2, 1), method="integratedgrad",
+                                       n_samples=2, device="cpu")
+    entry = small.serve_entry(aot_key="video")
+    assert entry.wam_aot_fns == []  # steps made at the first call
+    clip = torch.from_numpy(np.random.default_rng(5).standard_normal(CLIP).astype(np.float32))
+    got = entry(clip, torch.tensor([0, 1]))
+    assert keys == ["video|ig|synth-kernel"] and len(entry.wam_aot_fns) == 1
+    _rel_close(got, small.serve_entry()(clip, torch.tensor([0, 1])), 1e-5, "kernel route")
     with pytest.raises(ValueError, match="noise"):
         tw(torch.zeros(CLIP), noise=torch.zeros((25,) + CLIP))
 

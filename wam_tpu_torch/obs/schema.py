@@ -1,14 +1,13 @@
 """Declared observability schema: the single source of truth for metric
 instrument names and v2 ledger row types (a copy of `wam_tpu.obs.schema`:
 the port publishes under the same names, so one schema covers both
-packages; the ``schema-drift`` lint rule that reads it waits for the
-port's ``lint/*``, ROADMAP.md).
+packages).
 
 Dashboards, alert rules, and ledger readers key on these literals, so
 they are an *external contract*: renaming an instrument or adding a row
 type without updating this registry silently breaks consumers. The
-`schema-drift` lint rule (``python -m wam_tpu.lint --rules schema-drift``)
-AST-scans the tree and flags any ``registry.counter/gauge/histogram``
+port's `schema-drift` lint rule (``python -m wam_tpu_torch.lint --rules
+schema-drift``) AST-scans the port and flags any ``registry.counter/gauge/histogram``
 name or ``{"metric": ...}`` row literal that is not declared here — so
 the workflow for a new instrument is: declare it here first, then wire
 it up.

@@ -21,6 +21,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from wam_tpu_torch.ops.graph_const import graph_const, register_const
 
 __all__ = ["gaussian_filter2d", "superpixel_sum", "upsample_nearest"]
 
@@ -74,6 +75,10 @@ def _nearest_index(n_in: int, n_out: int, device) -> torch.Tensor:
     return torch.as_tensor(idx, device=device)
 
 
+register_const("nearest_index", lambda like, n_in, n_out: _nearest_index(n_in, n_out, like.device),
+               lambda n_in, n_out: (n_out,), lambda like: torch.int64)
+
+
 def superpixel_sum(img: torch.Tensor, grid: int) -> torch.Tensor:
     """Sums over grid x grid superpixels: (..., H, W) -> (..., grid, grid).
     Where the sides do not divide, every pixel lands in the cell that the
@@ -94,5 +99,5 @@ def upsample_nearest(a: torch.Tensor, shape) -> torch.Tensor:
     rule of ``jax.image.resize(..., "nearest")`` on each axis."""
     for k, n_out in enumerate(shape):
         axis = a.ndim - len(shape) + k
-        a = a.index_select(axis, _nearest_index(a.shape[axis], int(n_out), a.device))
+        a = a.index_select(axis, graph_const("nearest_index", a, a.shape[axis], int(n_out)))
     return a

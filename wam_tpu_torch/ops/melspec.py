@@ -34,6 +34,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from wam_tpu_torch.ops.graph_const import graph_const, register_const
+
 __all__ = ["mel_filterbank", "stft_power", "melspectrogram", "amplitude_to_db",
            "mel_to_stft_magnitude", "set_stft_impl", "get_stft_impl",
            "set_mel_bf16", "get_mel_bf16"]
@@ -95,6 +97,13 @@ def _hann(n_fft: int, dtype: torch.dtype, device: torch.device) -> torch.Tensor:
     return torch.as_tensor(np.hanning(n_fft + 1)[:-1], dtype=dtype, device=device)
 
 
+register_const("dft_cos", lambda like, n: _dft_matrices(n, like.dtype, like.device)[0],
+               lambda n: (n, n // 2 + 1))
+register_const("dft_sin", lambda like, n: _dft_matrices(n, like.dtype, like.device)[1],
+               lambda n: (n, n // 2 + 1))
+register_const("hann", lambda like, n: _hann(n, like.dtype, like.device), lambda n: (n,))
+
+
 def _hz_to_mel(f):
     return 2595.0 * np.log10(1.0 + np.asarray(f) / 700.0)
 
@@ -127,6 +136,11 @@ def _filterbank(n_freqs: int, n_mels: int, sample_rate: int, dtype: torch.dtype,
                            device=device)
 
 
+register_const("mel_filterbank",
+               lambda like, f, m, sr: _filterbank(f, m, sr, like.dtype, like.device),
+               lambda f, m, sr: (f, m))
+
+
 def _use_matmul(impl: str | None) -> bool:
     if impl is not None and impl not in _STFT_IMPLS:
         raise ValueError(f"impl {impl!r} not one of {_STFT_IMPLS}")
@@ -149,13 +163,13 @@ def stft_power(x: torch.Tensor, n_fft: int = 1024, hop: int | None = None, cente
     if use_matmul:
         use_bf16 = _mel_bf16 if bf16 is None else bool(bf16)
         out = torch.promote_types(x.dtype, torch.float32)
-        C, S = _dft_matrices(n_fft, x.dtype, x.device)
+        C, S = graph_const("dft_cos", x, n_fft), graph_const("dft_sin", x, n_fft)
         if use_bf16:
             re, im = _bf16_matmul(frames, C, out), _bf16_matmul(frames, S, out)
         else:
             re, im = (frames @ C).to(out), (frames @ S).to(out)
     else:
-        spec = torch.fft.rfft(frames * _hann(n_fft, x.dtype, x.device), dim=-1)
+        spec = torch.fft.rfft(frames * graph_const("hann", x, n_fft), dim=-1)
         re, im = spec.real, spec.imag
     return re * re + im * im
 
@@ -174,7 +188,7 @@ def melspectrogram(x: torch.Tensor, sample_rate: int = 44100, n_fft: int = 1024,
     filterbank matmul takes bf16 inputs too."""
     use_bf16 = _mel_bf16 if bf16 is None else bool(bf16)
     p = stft_power(x, n_fft=n_fft, hop=hop, impl=impl, bf16=use_bf16)
-    fb = _filterbank(n_fft // 2 + 1, n_mels, sample_rate, p.dtype, p.device)
+    fb = graph_const("mel_filterbank", p, n_fft // 2 + 1, n_mels, sample_rate)
     mel = _bf16_matmul(p, fb, p.dtype) if use_bf16 else p @ fb
     return amplitude_to_db(mel) if to_db else mel
 

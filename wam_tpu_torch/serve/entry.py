@@ -30,16 +30,13 @@ port's kernels are built and their band plans made:
 
 ``aot_key=`` (the reference's AOT executable cache) runs the entry
 through the compiled-step cache (`pipeline.aot`): the impl's compiled unit
-(``impl.wam_aot``) or the impl whole. An entry built with ``eager_only=``
-(its reason) has no compiled step; ``aot_key=`` on it warns once, naming
-the reason, and the entry runs eager with no programs (``wam_aot_fns ==
-[]``). `fleet_aot_key` builds the reference's keys.
+(``impl.wam_aot``) or the impl whole. `fleet_aot_key` builds the
+reference's keys.
 """
 
 from __future__ import annotations
 
 import threading
-import warnings
 from dataclasses import dataclass
 from typing import Callable
 
@@ -164,7 +161,6 @@ def jit_entry(
     obs_kind: str = "serve",
     with_health: bool | str = False,
     blocks: RowBlocks | None = None,
-    eager_only: str | None = None,
 ):
     """Wrap ``impl(x, y)`` as a serving entry (see module docstring).
 
@@ -191,14 +187,7 @@ def jit_entry(
 
     ``aot_key`` routes the entry through the compiled-step cache (module
     docstring), tagged ``|health`` when ``with_health``, as the reference
-    tags it: a health-carrying program never hits a plain one.
-    ``eager_only`` says why ``impl`` has no compiled step: ``aot_key`` then
-    warns once and the entry runs eager (module docstring)."""
-    no_programs = aot_key is not None and bool(eager_only)
-    if no_programs:
-        warnings.warn(f"wam_tpu_torch serve entry: aot_key={aot_key!r} ignored, "
-                      f"{eager_only}; the entry runs eager")
-        aot_key = None
+    tags it: a health-carrying program never hits a plain one."""
     fused = with_health == "fused"
     if with_health and not fused:
         from wam_tpu_torch.obs.health import health_stats
@@ -258,8 +247,6 @@ def jit_entry(
     entry.wam_blocks = None
     if aot_key is not None:
         entry.wam_aot_fns = aot_fns
-    elif no_programs:
-        entry.wam_aot_fns = []
     if blocks is not None:
         def partial(x, y, lo, total):
             first_call(x, y)

@@ -12,8 +12,8 @@
   kept for the backward (K4/K5), enabled by
   ``models.bind_inference(..., fused_relu_vjp=True)``. Here ``fused_relu``
   is the module; its wrapper picks the kernel or the plain version by the
-  tensor's device, so the reference's ``set_fused_relu_impl`` /
-  ``get_fused_relu_impl`` have no counterpart.
+  tensor's device, or by ``set_fused_relu_impl`` / ``get_fused_relu_impl``
+  (the reference's knob, ``WAM_TPU_FUSED_RELU_IMPL``).
 - **Online schedule learning** (`mix`, `online`): a shadow tuner that mines
   the serve ledger into a `WorkloadMix`, re-sweeps against the observed
   distribution (the ``wamlive`` preset) and canary-A/Bs the challenger on
@@ -22,6 +22,7 @@
 """
 
 from wam_tpu_torch.tune import fused_relu
+from wam_tpu_torch.tune.fused_relu import get_fused_relu_impl, set_fused_relu_impl
 from wam_tpu_torch.tune.cache import (
     SCHEDULE_CACHE_VERSION,
     ScheduleCache,
@@ -38,8 +39,7 @@ from wam_tpu_torch.tune.cache import (
     schedule_key,
 )
 
-# the reference's `wam_tpu.tune.__all__`, less set_fused_relu_impl and
-# get_fused_relu_impl (module docstring)
+# the reference's `wam_tpu.tune.__all__`
 __all__ = [
     "SCHEDULE_CACHE_VERSION",
     "ScheduleCache",
@@ -54,6 +54,8 @@ __all__ = [
     "schedule_fingerprint",
     "schedule_key",
     "fused_relu",
+    "get_fused_relu_impl",
+    "set_fused_relu_impl",
     "autotune",
     "Candidate",
     "chunk_candidates",

@@ -5,9 +5,14 @@ the activation and re-derives the gate from it; `fused_relu` keeps only
 the sign mask, bit-packed 8 to a byte (1/32 of a float32 activation), and
 its backward is one masked multiply. On CUDA tensors the forward is K4
 (``csrc/relu_mask.cu``, y and the mask in one pass) and the backward K5;
-CPU tensors run the plain versions below. The device picks the route, as
-for every kernel of the port (the reference's ``set_fused_relu_impl`` knob
-has no counterpart).
+CPU tensors run the plain versions below.
+
+`set_fused_relu_impl` takes the reference's four names (the process knob
+starts from ``WAM_TPU_FUSED_RELU_IMPL``): ``"auto"`` picks the route by the
+tensor's device as above; ``"xla"`` and ``"pallas_interpret"`` run the
+plain versions on every device; ``"pallas"`` runs K4/K5 and raises on a
+CPU tensor. It is an explicit choice, read at every call (inside a
+compiled graph too), never a fallback.
 
 The gradient convention is ``torch.relu``'s and ``jax.nn.relu``'s: the gate
 is ``x > 0``, so the gradient at exactly 0 is 0.
@@ -18,6 +23,8 @@ Wire-up: ``models.resnet.bind_inference(..., fused_relu_vjp=True)`` sets
 
 from __future__ import annotations
 
+import os
+
 import torch
 import torch.nn.functional as F
 from torch.autograd.function import once_differentiable
@@ -25,10 +32,46 @@ from torch.autograd.function import once_differentiable
 from wam_tpu_torch import kernels
 from wam_tpu_torch.device import on_cpu
 
-__all__ = ["fused_relu", "pack_mask", "unpack_mask"]
+__all__ = ["fused_relu", "set_fused_relu_impl", "get_fused_relu_impl",
+           "pack_mask", "unpack_mask"]
 
 _LANES = kernels.MASK_LANES
 _PACK = kernels.MASK_PACK
+
+_IMPLS = ("auto", "xla", "pallas", "pallas_interpret")
+_impl = "auto"
+
+
+def set_fused_relu_impl(name: str) -> None:
+    """Select the fused-ReLU route for the calls that follow (module
+    docstring): ``"auto"``, ``"xla"``, ``"pallas"`` or
+    ``"pallas_interpret"``."""
+    global _impl
+    if name not in _IMPLS:
+        raise ValueError(f"impl {name!r} not one of {_IMPLS}")
+    _impl = name
+
+
+set_fused_relu_impl(os.environ.get("WAM_TPU_FUSED_RELU_IMPL", "auto"))
+
+
+def get_fused_relu_impl() -> str:
+    return _impl
+
+
+def _on_kernel(t: torch.Tensor) -> bool:
+    """Whether a call on ``t`` runs K4/K5 under the knob (module
+    docstring); "pallas" on a CPU tensor raises."""
+    if _impl == "auto":
+        return not on_cpu(t)
+    if _impl == "pallas":
+        if on_cpu(t):
+            raise ValueError("fused-ReLU impl 'pallas' runs K4/K5, which take CUDA "
+                             "tensors; got a CPU tensor (set_fused_relu_impl('auto') "
+                             "picks the route by the device)")
+        return True
+    return False
+
 
 # -- packed-mask layout ------------------------------------------------------
 #
@@ -90,10 +133,11 @@ class _FusedRelu(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, x):
-        if on_cpu(x):
-            y, m = relu_fwd_plain(x)
-        else:
+        ctx.kernel = _on_kernel(x)
+        if ctx.kernel:
             y, m = kernels.relu_fwd(x.contiguous())
+        else:
+            y, m = relu_fwd_plain(x)
         ctx.save_for_backward(m)
         return y
 
@@ -101,27 +145,28 @@ class _FusedRelu(torch.autograd.Function):
     @once_differentiable
     def backward(ctx, g):
         (m,) = ctx.saved_tensors
-        if on_cpu(g):
-            return relu_bwd_plain(m, g)
-        return kernels.relu_bwd(m, g.contiguous())
+        if ctx.kernel:
+            return kernels.relu_bwd(m, g.contiguous())
+        return relu_bwd_plain(m, g)
 
 
 # -- the kernels as custom operators, for compiled graphs --------------------
 #
 # Inside `torch.compile` `fused_relu` calls these (`wavelets.matmul` says
-# why): the CUDA implementations are K4/K5's launch wrappers, the CPU ones
-# the plain versions.
+# why): each implementation takes the knob's route where it runs, K4/K5's
+# launch wrappers or the plain versions.
 
 
 @torch.library.custom_op("wam_tpu_torch::relu_fwd", mutates_args=(), device_types="cpu")
 def relu_fwd_op(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     """K4: (relu(x), packed sign mask)."""
+    _on_kernel(x)  # "pallas" raises on a CPU tensor
     return relu_fwd_plain(x)
 
 
 @relu_fwd_op.register_kernel("cuda")
 def _(x):
-    return kernels.relu_fwd(x)
+    return kernels.relu_fwd(x) if _on_kernel(x) else relu_fwd_plain(x)
 
 
 @relu_fwd_op.register_fake
@@ -138,7 +183,7 @@ def relu_bwd_op(m: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
 
 @relu_bwd_op.register_kernel("cuda")
 def _(m, g):
-    return kernels.relu_bwd(m, g)
+    return kernels.relu_bwd(m, g) if _on_kernel(g) else relu_bwd_plain(m, g)
 
 
 @relu_bwd_op.register_fake

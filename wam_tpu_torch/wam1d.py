@@ -15,10 +15,17 @@ bound to its device (e.g. `models.audio.bind_audio_inference`). The 1D
 transform, the STFT and the model run on library calls (cuDNN convolutions,
 cuFFT): no TPU kernel lies on this path, and none of the port's CUDA
 kernels is launched by it.
+
+``serve_entry(aot_key=)`` compiles each chunk step through the
+compiled-step cache (`pipeline.aot`): inside the graph the 1D levels are
+the operators of `wavelets.transform` (the impl of the 1D knob when the
+step was traced) and the mel chain's constants come from
+`ops.graph_const`.
 """
 
 from __future__ import annotations
 
+import copy
 from typing import Callable, Sequence
 
 import numpy as np
@@ -35,10 +42,6 @@ from wam_tpu_torch.core.estimators import (
 from wam_tpu_torch.device import resolve_device
 from wam_tpu_torch.ops.melspec import mel_to_stft_magnitude, melspectrogram, stft_power
 from wam_tpu_torch.wavelets.transform import wavedec, waverec
-
-# why the 1D entry has no compiled step (`serve.entry.jit_entry(eager_only=)`)
-EAGER_ONLY = ("the 1D transforms and the mel chain build their filters with numpy, "
-              "which a compiled graph cannot trace: the 1D entry has no compiled step")
 
 __all__ = [
     "normalize_waveforms",
@@ -241,15 +244,93 @@ class WaveletAttribution1D(BaseWAM1D):
                                     shape=tuple(x.shape[1:]), batch=int(x.shape[0]),
                                     backend=x.device.type)
 
-    def _tap_grads(self, coeffs, y, length: int, s: int, scale: float = 1.0) -> list[torch.Tensor]:
+    def _tap_grads(self, coeffs, y, length: int, s: int, scale: float = 1.0,
+                   anchor=None) -> list[torch.Tensor]:
         """Both taps' gradients for ``s`` stacked copies (coefficient leaves
         (s*N, n_l), sample-major): [mel (s, N, T, M), cA_J, cD_J, ..., cD_1
         each (s, N, n_l)], times ``scale`` (a block's rows over its batch's,
-        `_rows`)."""
+        `_rows`). ``anchor``: the engine's, in a compiled step
+        (`core.engine.WamEngine.grads_from_coeffs`)."""
         g_coeffs, g_mel = self.engine.grads_from_coeffs(
-            coeffs, y.repeat(s), (length,), samples=s, front=True)
+            coeffs, y.repeat(s), (length,), samples=s, front=True, anchor=anchor)
         return [(g if scale == 1.0 else g * scale).reshape((s, -1) + tuple(g.shape[1:]))
                 for g in [g_mel[:, 0], *g_coeffs]]
+
+    def _smooth_step(self, scale: float = 1.0):
+        """One chunk of SmoothGrad, the compiled unit of `pipeline.aot`:
+        ``step(noisy, y)`` maps a stack of noisy batches (s, N, W) to both
+        taps' gradients (`_tap_grads`). The noise is drawn outside it."""
+
+        def step(noisy: torch.Tensor, y, anchor=None) -> list[torch.Tensor]:
+            length = noisy.shape[-1]
+            with torch.no_grad():
+                coeffs = self.engine.decompose(noisy.reshape(-1, length))
+            return self._tap_grads(coeffs, y, length, noisy.shape[0], scale, anchor)
+
+        return step
+
+    def _ig_step(self, length: int, scale: float = 1.0):
+        """One chunk of Integrated Gradients, the compiled unit of
+        `pipeline.aot`: ``step(alphas, y, anchor, *coeffs)`` maps path points
+        (s,) and the input's coefficients to both taps' gradients along
+        alpha * coefficients."""
+
+        def step(alphas: torch.Tensor, y, anchor, *coeffs) -> list[torch.Tensor]:
+            s = alphas.shape[0]
+            scaled = [(c[None] * alphas.to(c.dtype).reshape(-1, 1, 1)).reshape((-1, c.shape[-1]))
+                      for c in coeffs]
+            return self._tap_grads(scaled, y, length, s, scale, anchor)
+
+        return step
+
+    def _compile_twin(self):
+        """A shallow copy of this explainer for compiled graphs
+        (`pipeline.aot`): its engine holds the Wavelet object, registered by
+        name for the graph's level operators (`matmul.remember_wavelet`)."""
+        from wam_tpu_torch.wavelets.matmul import remember_wavelet
+
+        twin = copy.copy(self)
+        twin.engine = copy.copy(self.engine)
+        twin.engine.wavelet = remember_wavelet(self.engine.wavelet)
+        return twin
+
+    def _aot_steps(self, aot_key: str, **kw):
+        """``steps(kind, *step_args)`` -> the chunk step ("smooth" or "ig")
+        compiled through the compiled-step cache, one program per (kind,
+        argument signature), keyed ``{aot_key}|{kind}|dwt1-{impl}|stft-{impl}|...``
+        (`pipeline.aot.cached_entry`): the 1D knob's impl and the STFT form
+        are traced into the graph, so a step compiled under another is
+        another program. A step whose compile fails raises, naming the 1D
+        impl, where other compiled steps run eager (`pipeline.aot`)."""
+        from wam_tpu_torch.ops.melspec import get_stft_impl
+        from wam_tpu_torch.wam2d import _anchor, _aot_entry
+        from wam_tpu_torch.wavelets.transform import _dwt1_name
+
+        twin = self._compile_twin()
+        made: dict = {}
+
+        def steps(kind: str, *extra):
+            impl = _dwt1_name()
+            stft = "fft" if get_stft_impl() == "auto" else get_stft_impl()
+            tag = (kind, impl, stft) + extra
+            if tag not in made:
+                unit = twin._smooth_step() if kind == "smooth" else twin._ig_step(*extra)
+                entry = _aot_entry(unit, f"{aot_key}|{kind}|dwt1-{impl}|stft-{stft}", **kw)
+
+                def call(a, y, *rest, entry=entry):
+                    # int64 labels, as every caller's labels are read
+                    out = entry(a, y.long(), _anchor(a.device), *rest)
+                    failed = [f.error for f in entry.fns.values() if f.aot_status == "fallback"]
+                    if failed:  # the selected impl, compiled, or nothing
+                        raise RuntimeError(f"WaveletAttribution1D aot_key={aot_key!r}: the "
+                                           f"compiled step of the 1D impl {impl!r} failed "
+                                           f"to compile: {failed[0]}")
+                    return out
+
+                made[tag] = call
+            return made[tag]
+
+        return steps
 
     # -- SmoothGrad --------------------------------------------------------
 
@@ -259,9 +340,11 @@ class WaveletAttribution1D(BaseWAM1D):
         self.grad_coeffs = grad_avg
         return mel_avg, grad_avg
 
-    def _smooth(self, x, y, noise=None, scale: float = 1.0, stream: bool | None = None):
+    def _smooth(self, x, y, noise=None, scale: float = 1.0, stream: bool | None = None,
+                steps=None):
         """``(mel_avg, [coefficient averages])``, with no instance attribute
-        set. ``scale`` and ``stream`` are `_rows`' (a block of a batch)."""
+        set. ``scale`` and ``stream`` are `_rows`' (a block of a batch);
+        ``steps`` (`_aot_steps`) runs each chunk compiled."""
         x, y = self._inputs(x, y)
         chunk = self._chunk(x)
         stream = self.stream_noise if stream is None else stream
@@ -271,12 +354,10 @@ class WaveletAttribution1D(BaseWAM1D):
                 stdev_spread=self.stdev_spread, sample_chunk=chunk,
                 noise=None if noise is None else torch.as_tensor(noise, device=x.device))
             return mel_tap[:, 0], grad_avg
-        length = x.shape[-1]
+        run = self._smooth_step(scale) if steps is None else steps("smooth")
 
         def step(noisy: torch.Tensor) -> list[torch.Tensor]:  # (s, N, W)
-            with torch.no_grad():
-                coeffs = self.engine.decompose(noisy.reshape(-1, length))
-            return self._tap_grads(coeffs, y, length, noisy.shape[0], scale)
+            return run(noisy, y)
 
         generator = None
         if noise is None and not stream:
@@ -297,9 +378,10 @@ class WaveletAttribution1D(BaseWAM1D):
         self.grad_coeffs = coeff_attr
         return mel_attr, coeff_attr
 
-    def _integrated(self, x, y, scale: float = 1.0):
+    def _integrated(self, x, y, scale: float = 1.0, steps=None):
         """``(mel_attr, [coefficient attributions])``, with no instance
-        attribute set; ``scale`` is `_rows`'."""
+        attribute set; ``scale`` is `_rows`'; ``steps`` (`_aot_steps`) runs
+        each chunk compiled."""
         x, y = self._inputs(x, y)
         chunk = self._chunk(x)
         if self.mesh is not None:
@@ -314,11 +396,13 @@ class WaveletAttribution1D(BaseWAM1D):
             coeffs = self.engine.decompose(x)
             baseline_mel = self.compute_melspec(x)[:, 0]
 
+        if steps is None:
+            run, extra = self._ig_step(length, scale), (None,)
+        else:
+            run, extra = steps("ig", length), ()
+
         def grad_fn(alphas: torch.Tensor) -> list[torch.Tensor]:  # (s,)
-            s = alphas.shape[0]
-            scaled = [(c[None] * alphas.to(c.dtype).reshape(-1, 1, 1)).reshape((-1, c.shape[-1]))
-                      for c in coeffs]
-            return self._tap_grads(scaled, y, length, s, scale)
+            return run(alphas, y, *extra, *coeffs)
 
         mel_integ, *coeff_integ = integrated_path(
             grad_fn, n_steps=self.n_samples, batch_size=chunk, device=self.device)
@@ -347,8 +431,10 @@ class WaveletAttribution1D(BaseWAM1D):
         ``with_health=True`` computes the numeric-health vector over the
         result tree in the same call (`serve.entry.jit_entry`). The entry
         carries the `serve.entry.RowBlocks` of `_rows` (the fleet's "pjit"
-        oversize route). ``aot_key`` warns and is ignored: the entry has
-        no compiled step (`EAGER_ONLY`)."""
+        oversize route). With ``aot_key`` each chunk step (`_smooth_step`,
+        `_ig_step`) is a program of the compiled-step cache
+        (`pipeline.aot`, `_aot_steps`); the noise draws and the loop over
+        chunks stay eager."""
         if self.mesh is not None:
             raise ValueError(
                 "serve_entry() does not support mesh=; the serve worker owns "
@@ -356,9 +442,17 @@ class WaveletAttribution1D(BaseWAM1D):
         from wam_tpu_torch.serve.entry import RowBlocks, jit_entry
 
         impl = self._smooth if self.method == "smooth" else self._integrated
-        return jit_entry(lambda x, y: impl(torch.as_tensor(x).float(), y), donate=donate,
-                         on_trace=on_trace, aot_key=aot_key, with_health=with_health,
-                         blocks=RowBlocks.local(self._rows), eager_only=EAGER_ONLY)
+
+        def entry_impl(x, y):
+            return impl(torch.as_tensor(x).float(), y)
+
+        def wam_aot(key, **kw):
+            steps = self._aot_steps(key, **kw)
+            return lambda x, y: impl(torch.as_tensor(x).float(), y, steps=steps)
+
+        entry_impl.wam_aot = wam_aot
+        return jit_entry(entry_impl, donate=donate, on_trace=on_trace, aot_key=aot_key,
+                         with_health=with_health, blocks=RowBlocks.local(self._rows))
 
     def _rows(self, x, y, lo: int, total: int):
         """Rows [lo, lo + len(x)) of the entry's result on a ``total``-row

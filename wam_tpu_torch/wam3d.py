@@ -20,16 +20,21 @@ a ``conv_transpose3d`` (the default) or three banded products
 (`matmul.synthesis3_mm`, ``impl="matmul"`` or ``"kernel"``), the models
 cuDNN's. A model bound with
 ``fused_relu_vjp=True`` runs its ReLUs through K4/K5.
+
+``serve_entry(aot_key=)`` compiles each chunk step through the
+compiled-step cache (`pipeline.aot`): inside the graph the 3D levels are
+the operators of `wavelets.transform`.
 """
 
 from __future__ import annotations
 
+import copy
 from typing import Callable
 
 import numpy as np
 import torch
 
-from wam_tpu_torch.core.engine import WamEngine, map_coeffs, target_loss
+from wam_tpu_torch.core.engine import WamEngine, _flatten, _unflatten, map_coeffs, target_loss
 from wam_tpu_torch.core.estimators import (
     block_draws,
     integrated_path,
@@ -40,10 +45,6 @@ from wam_tpu_torch.core.estimators import (
 from wam_tpu_torch.device import resolve_device
 from wam_tpu_torch.ops.packing3d import cube3d, visualize_cube
 from wam_tpu_torch.wavelets.transform import wavedec, waverec, waverec3
-
-# why the 3D entry has no compiled step (`serve.entry.jit_entry(eager_only=)`)
-EAGER_ONLY = ("the 3D transforms build their filters with numpy, which a compiled graph "
-              "cannot trace: the 3D entry has no compiled step")
 
 __all__ = ["filter_coeffs", "BaseWAM3D", "WaveletAttribution3D"]
 
@@ -292,16 +293,87 @@ class WaveletAttribution3D(BaseWAM3D):
                                 backend=x.device.type)
 
     def _cubes(self, coeffs, y, spatial, s: int, scale: float = 1.0,
-               synth: str | None = None) -> torch.Tensor:
+               synth: str | None = None, anchor=None) -> torch.Tensor:
         """Gradient cubes of ``s`` stacked copies: coefficient leaves are
         (s*B, d, h, w), sample-major; returns (s, B, S, S, S). The gradients
-        are scaled by ``scale`` (`_rows`); ``synth`` is `_synth`'s."""
+        are scaled by ``scale`` (`_rows`); ``synth`` is `_synth`'s;
+        ``anchor`` the engine's, in a compiled step
+        (`core.engine.WamEngine.grads_from_coeffs`)."""
         grads = self.engine.grads_from_coeffs(coeffs, None if y is None else y.repeat(s),
-                                              spatial, samples=s, synth_impl=synth)
+                                              spatial, samples=s, synth_impl=synth,
+                                              anchor=anchor)
         if scale != 1.0:
             grads = map_coeffs(lambda g: g * scale, grads)
         cube = cube3d(grads)
         return cube.reshape((s, -1) + tuple(cube.shape[1:]))
+
+    def _smooth_step(self, synth: str | None, scale: float = 1.0):
+        """One chunk of SmoothGrad, the compiled unit of `pipeline.aot`:
+        ``step(noisy, y)`` maps a stack of noisy volume batches (s, B, D, H,
+        W) to their gradient cubes (s, B, S, S, S). The noise is drawn
+        outside it."""
+
+        def step(noisy: torch.Tensor, y, anchor=None) -> torch.Tensor:
+            spatial = tuple(noisy.shape[-3:])
+            with torch.no_grad():
+                coeffs = self.engine.decompose(noisy.reshape((-1,) + spatial))
+            return self._cubes(coeffs, y, spatial, noisy.shape[0], scale, synth, anchor)
+
+        return step
+
+    def _ig_step(self, synth: str | None, spatial, like, scale: float = 1.0):
+        """One chunk of Integrated Gradients, the compiled unit of
+        `pipeline.aot`: ``step(alphas, y, anchor, *leaves)`` maps path points
+        (s,) and the input's coefficient leaves (in the structure of
+        ``like``) to the path's gradient cubes (s, B, S, S, S)."""
+
+        def step(alphas: torch.Tensor, y, anchor, *leaves) -> torch.Tensor:
+            scaled = map_coeffs(
+                lambda c: (c[None] * alphas.to(c.dtype).reshape(-1, 1, 1, 1, 1))
+                .reshape((-1,) + tuple(c.shape[1:])), _unflatten(leaves, like))
+            return self._cubes(scaled, y, spatial, alphas.shape[0], scale, synth, anchor)
+
+        return step
+
+    def _compile_twin(self):
+        """A shallow copy of this explainer for compiled graphs
+        (`pipeline.aot`): its engine holds the Wavelet object, registered by
+        name for the graph's level operators (`matmul.remember_wavelet`)."""
+        from wam_tpu_torch.wavelets.matmul import remember_wavelet
+
+        twin = copy.copy(self)
+        twin.engine = copy.copy(self.engine)
+        twin.engine.wavelet = remember_wavelet(self.engine.wavelet)
+        return twin
+
+    def _aot_steps(self, aot_key: str, **kw):
+        """``steps(kind, synth, *step_args)`` -> the chunk step ("smooth" or
+        "ig") compiled through the compiled-step cache, one program per
+        (kind, synthesis, argument signature), keyed
+        ``{aot_key}|{kind}|synth-{synth}|...`` (`pipeline.aot.cached_entry`;
+        the reference tags its key with the synthesis impl the same way,
+        ``wam2d._synth_tagged``), ``synth`` the 3D synthesis the step runs
+        ("conv" for None)."""
+        from wam_tpu_torch.wam2d import _anchor, _aot_entry
+
+        twin = self._compile_twin()
+        made: dict = {}
+
+        def steps(kind: str, synth: str | None, *extra):
+            tag = (kind, synth) + extra[:1]
+            if tag not in made:
+                unit = (twin._smooth_step(synth) if kind == "smooth"
+                        else twin._ig_step(synth, *extra))
+                entry = _aot_entry(unit, f"{aot_key}|{kind}|synth-{synth or 'conv'}", **kw)
+
+                def call(a, y, *rest, entry=entry):
+                    # int64 labels, as every caller's labels are read
+                    return entry(a, None if y is None else y.long(), _anchor(a.device), *rest)
+
+                made[tag] = call
+            return made[tag]
+
+        return steps
 
     def smooth(self, x, y=None, noise=None) -> torch.Tensor:
         """The mean gradient cube over the noisy samples (B, S, S, S)."""
@@ -310,9 +382,10 @@ class WaveletAttribution3D(BaseWAM3D):
         return self.grads
 
     def _smooth(self, x, y=None, noise=None, scale: float = 1.0,
-                stream: bool | None = None) -> torch.Tensor:
+                stream: bool | None = None, steps=None) -> torch.Tensor:
         """`smooth`'s cube, with no instance attribute set. ``scale`` and
-        ``stream`` are `_rows`' (a block of a batch)."""
+        ``stream`` are `_rows`' (a block of a batch); ``steps``
+        (`_aot_steps`) runs each chunk compiled."""
         x, y = self._inputs(x, y)
         chunk = self._chunk(x)
         synth = self._synth(x)
@@ -327,10 +400,10 @@ class WaveletAttribution3D(BaseWAM3D):
                                         stdev_spread=self.stdev_spread,
                                         sample_chunk=chunk, noise=noise)
 
+        run = self._smooth_step(synth, scale) if steps is None else steps("smooth", synth)
+
         def step(noisy: torch.Tensor) -> torch.Tensor:  # (s, B, D, H, W)
-            with torch.no_grad():
-                coeffs = self.engine.decompose(noisy.reshape((-1,) + spatial))
-            return self._cubes(coeffs, y, spatial, noisy.shape[0], scale, synth)
+            return run(noisy, y)
 
         generator = None
         if noise is not None:
@@ -349,9 +422,10 @@ class WaveletAttribution3D(BaseWAM3D):
         self.grads = self._integrated(x, y)
         return self.grads
 
-    def _integrated(self, x, y=None, scale: float = 1.0) -> torch.Tensor:
+    def _integrated(self, x, y=None, scale: float = 1.0, steps=None) -> torch.Tensor:
         """`integrated_wam`'s cube, with no instance attribute set;
-        ``scale`` is `_rows`'."""
+        ``scale`` is `_rows`'; ``steps`` (`_aot_steps`) runs each chunk
+        compiled."""
         x, y = self._inputs(x, y)
         chunk = self._chunk(x)
         synth = self._synth(x)
@@ -364,12 +438,15 @@ class WaveletAttribution3D(BaseWAM3D):
         with torch.no_grad():
             coeffs = self.engine.decompose(vol)
         baseline = cube3d(coeffs)
+        leaves = _flatten(coeffs)
+        like = _unflatten([None] * len(leaves), coeffs)  # the structure alone
+        if steps is None:
+            run, extra = self._ig_step(synth, spatial, like, scale), (None,)
+        else:
+            run, extra = steps("ig", synth, spatial, like), ()
 
         def grad_fn(alphas: torch.Tensor) -> torch.Tensor:  # (s,)
-            scaled = map_coeffs(
-                lambda c: (c[None] * alphas.to(c.dtype).reshape(-1, 1, 1, 1, 1))
-                .reshape((-1,) + tuple(c.shape[1:])), coeffs)
-            return self._cubes(scaled, y, spatial, alphas.shape[0], scale, synth)
+            return run(alphas, y, *extra, *leaves)
 
         return baseline * integrated_path(grad_fn, n_steps=self.n_samples,
                                           batch_size=chunk, device=self.device)
@@ -395,8 +472,10 @@ class WaveletAttribution3D(BaseWAM3D):
         computes the numeric-health vector over the cube in the same call
         (`serve.entry.jit_entry`). The entry carries the
         `serve.entry.RowBlocks` of `_rows` (the fleet's "pjit" oversize
-        route). ``aot_key`` warns and is ignored: the entry has no compiled
-        step (`EAGER_ONLY`)."""
+        route). With ``aot_key`` each chunk step (`_smooth_step`, `_ig_step`)
+        is a program of the compiled-step cache (`pipeline.aot`,
+        `_aot_steps`); the noise draws and the loop over chunks stay
+        eager."""
         if self.mesh is not None:
             raise ValueError(
                 "serve_entry() does not support mesh=; the serve worker owns "
@@ -404,9 +483,17 @@ class WaveletAttribution3D(BaseWAM3D):
         from wam_tpu_torch.serve.entry import RowBlocks, jit_entry
 
         impl = self._smooth if self.method == "smooth" else self._integrated
-        return jit_entry(lambda x, y: impl(x, y), donate=donate, on_trace=on_trace,
-                         aot_key=aot_key, with_health=with_health,
-                         blocks=RowBlocks.local(self._rows), eager_only=EAGER_ONLY)
+
+        def entry_impl(x, y):
+            return impl(x, y)
+
+        def wam_aot(key, **kw):
+            steps = self._aot_steps(key, **kw)
+            return lambda x, y: impl(x, y, steps=steps)
+
+        entry_impl.wam_aot = wam_aot
+        return jit_entry(entry_impl, donate=donate, on_trace=on_trace, aot_key=aot_key,
+                         with_health=with_health, blocks=RowBlocks.local(self._rows))
 
     def _rows(self, x, y, lo: int, total: int) -> torch.Tensor:
         """Rows [lo, lo + len(x)) of the entry's cube on a ``total``-row

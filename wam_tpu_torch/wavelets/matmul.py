@@ -829,11 +829,17 @@ def remember_wavelet(wavelet) -> Wavelet:
     return w
 
 
+def compiled_wavelet(name: str) -> Wavelet:
+    """The wavelet ``name`` as an operator finds it: a registered one first
+    (`remember_wavelet`), else the built-in of that name."""
+    return _COMPILED_WAVELETS.get(name) or build_wavelet(name)
+
+
 def _name_taps(name: str) -> tuple:
-    """(dec_lo, dec_hi, rec_lo, rec_hi) of the wavelet ``name`` (a
-    registered one first, `remember_wavelet`) as lists of floats, the
-    operators' argument form; evaluated once while compiling, not traced."""
-    w = _COMPILED_WAVELETS.get(name) or build_wavelet(name)
+    """(dec_lo, dec_hi, rec_lo, rec_hi) of the wavelet ``name``
+    (`compiled_wavelet`) as lists of floats, the operators' argument form;
+    evaluated once while compiling, not traced."""
+    w = compiled_wavelet(name)
     return tuple([float(v) for v in f] for f in (w.dec_lo, w.dec_hi, w.rec_lo, w.rec_hi))
 
 

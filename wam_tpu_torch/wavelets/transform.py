@@ -137,9 +137,10 @@ def set_dwt1_impl(name: str) -> None:
     _dwt1_impl = _check_knob(name, _DWT1_IMPLS)
 
 
-def _fold1d_layout() -> str | None:
-    """The fold's layout under the 1D knob, None for the conv form."""
-    return {"folded": "nch", "folded_nhc": "nhc"}.get(_dwt1_impl)
+def _fold1d_layout(impl: str | None = None) -> str | None:
+    """The fold's layout under the 1D knob (or the 1D impl ``impl``), None
+    for the conv form."""
+    return {"folded": "nch", "folded_nhc": "nhc"}.get(impl or _dwt1_impl)
 
 
 def set_synth2_impl(name: str) -> None:
@@ -405,6 +406,29 @@ class _Synthesis(torch.autograd.Function):
             return conv(g, bank, stride=2, padding=bank.shape[-1] - 2), None
 
 
+def _dwt1_rows(x2: torch.Tensor, wav: Wavelet, mode: str, layout: str | None) -> torch.Tensor:
+    """One 1D analysis level of the rows of ``x2`` (N, n) -> (N, 2, m)."""
+    with torch.profiler.record_function(SPAN_1D):
+        # offset by one so the stride-2 correlation lands on pywt's positions
+        xp = _pad_axes(x2[:, None], wav.filt_len - 1, mode, axes=(-1,))[..., 1:]
+        if layout is None:
+            return _Analysis.apply(xp, _bank(wav, 1, x2.dtype, x2.device, rec=False))
+        from wam_tpu_torch.wavelets.folded1d import fold_analysis1d
+
+        return fold_analysis1d(xp[:, 0], wav, (x2.shape[-1] + wav.filt_len - 1) // 2,
+                               layout=layout)
+
+
+def _idwt1_rows(sub: torch.Tensor, wav: Wavelet, layout: str | None) -> torch.Tensor:
+    """One 1D synthesis level of (N, 2, h) subbands -> (N, 2h - L + 2)."""
+    with torch.profiler.record_function(SPAN_1D):
+        if layout is None:
+            return _Synthesis.apply(sub, _bank(wav, 1, sub.dtype, sub.device, rec=True))[:, 0]
+        from wam_tpu_torch.wavelets.folded1d import fold_synthesis1d
+
+        return fold_synthesis1d(sub, wav, layout=layout)
+
+
 def dwt(x: torch.Tensor, wavelet, mode: str = "symmetric"):
     """Single-level 1D DWT along the last axis. Returns (cA, cD), each of
     length floor((n + L - 1)/2); bf16 inputs give float32 coefficients."""
@@ -412,17 +436,11 @@ def dwt(x: torch.Tensor, wavelet, mode: str = "symmetric"):
     if x.dtype == torch.bfloat16:
         x = x.float()
     batch_shape = x.shape[:-1]
-    layout = _fold1d_layout()
-    with torch.profiler.record_function(SPAN_1D):
-        # offset by one so the stride-2 correlation lands on pywt's positions
-        xp = _pad_axes(x.reshape(-1, 1, x.shape[-1]), wav.filt_len - 1, mode, axes=(-1,))[..., 1:]
-        if layout is None:
-            out = _Analysis.apply(xp, _bank(wav, 1, x.dtype, x.device, rec=False))
-        else:
-            from wam_tpu_torch.wavelets.folded1d import fold_analysis1d
-
-            out = fold_analysis1d(xp[:, 0], wav, (x.shape[-1] + wav.filt_len - 1) // 2,
-                                  layout=layout)
+    x2 = x.reshape(-1, x.shape[-1])
+    if torch.compiler.is_compiling():
+        out = _level_op(x2, "dwt1", wav.name, mode, _dwt1_name(), [])
+    else:
+        out = _dwt1_rows(x2, wav, mode, _fold1d_layout())
     out = out.reshape(batch_shape + out.shape[1:])
     return out[..., 0, :], out[..., 1, :]
 
@@ -435,15 +453,11 @@ def idwt(cA: torch.Tensor, cD: torch.Tensor, wavelet, out_len: int | None = None
     if sub.dtype == torch.bfloat16:
         sub = sub.float()
     batch_shape = sub.shape[:-2]
-    layout = _fold1d_layout()
-    with torch.profiler.record_function(SPAN_1D):
-        if layout is None:
-            out = _Synthesis.apply(sub.reshape(-1, 2, sub.shape[-1]),
-                                   _bank(wav, 1, sub.dtype, sub.device, rec=True))[:, 0]
-        else:
-            from wam_tpu_torch.wavelets.folded1d import fold_synthesis1d
-
-            out = fold_synthesis1d(sub.reshape(-1, 2, sub.shape[-1]), wav, layout=layout)
+    sub = sub.reshape(-1, 2, sub.shape[-1])
+    if torch.compiler.is_compiling():
+        out = _level_op(sub, "idwt1", wav.name, "", _dwt1_name(), [])
+    else:
+        out = _idwt1_rows(sub, wav, _fold1d_layout())
     if out_len is not None:
         out = out[:, :out_len]
     return out.reshape(batch_shape + out.shape[-1:])
@@ -573,6 +587,23 @@ def waverec2(coeffs, wavelet, impl: str | None = None):
 DETAIL3D_KEYS = ("aad", "ada", "add", "daa", "dad", "dda", "ddd")
 
 
+def _dwt3_rows(x4: torch.Tensor, wav: Wavelet, mode: str) -> torch.Tensor:
+    """One 3D analysis level of (N, D, H, W) volumes -> (N, 8, d, h, w)."""
+    with torch.profiler.record_function(SPAN_3D):
+        # offset by one so the stride-2 correlation lands on pywt's positions
+        xp = _pad_axes(x4[:, None], wav.filt_len - 1, mode, axes=(-3, -2, -1))[..., 1:, 1:, 1:]
+        return _Analysis.apply(xp, _bank(wav, 3, x4.dtype, x4.device, rec=False))
+
+
+def _idwt3_rows(sub: torch.Tensor, wav: Wavelet, target, impl: str) -> torch.Tensor:
+    """One 3D synthesis level of (N, 8, d, h, w) subbands -> (N, *target)."""
+    with torch.profiler.record_function(SPAN_3D):
+        if impl != "conv":
+            return _mm.synthesis3_mm(sub, wav, target)
+        out = _Synthesis.apply(sub, _bank(wav, 3, sub.dtype, sub.device, rec=True))[:, 0]
+        return out[:, : target[0], : target[1], : target[2]]
+
+
 def dwt3(x: torch.Tensor, wavelet, mode: str = "symmetric"):
     """Single-level 3D DWT over the last three axes. Returns (cA, {key:
     detail}) with the keys of `DETAIL3D_KEYS` (a/d over axes -3, -2, -1),
@@ -582,11 +613,11 @@ def dwt3(x: torch.Tensor, wavelet, mode: str = "symmetric"):
     if x.dtype == torch.bfloat16:
         x = x.float()
     batch_shape = x.shape[:-3]
-    with torch.profiler.record_function(SPAN_3D):
-        xb = x.reshape((-1, 1) + tuple(x.shape[-3:]))
-        # offset by one so the stride-2 correlation lands on pywt's positions
-        xp = _pad_axes(xb, wav.filt_len - 1, mode, axes=(-3, -2, -1))[..., 1:, 1:, 1:]
-        out = _Analysis.apply(xp, _bank(wav, 3, x.dtype, x.device, rec=False))
+    x4 = x.reshape((-1,) + tuple(x.shape[-3:]))
+    if torch.compiler.is_compiling():
+        out = _level_op(x4, "dwt3", wav.name, mode, "", [])
+    else:
+        out = _dwt3_rows(x4, wav, mode)
     out = out.reshape(batch_shape + out.shape[1:])
     coeffs = {k: out[..., i, :, :, :] for i, k in enumerate(("aaa",) + DETAIL3D_KEYS)}
     return coeffs.pop("aaa"), coeffs
@@ -611,13 +642,12 @@ def idwt3(cA: torch.Tensor, details: dict, wavelet, out_shape=None, impl: str | 
     sub = torch.stack([cA] + [details[k] for k in DETAIL3D_KEYS], dim=-4)
     if sub.dtype == torch.bfloat16:
         sub = sub.float()
-    with torch.profiler.record_function(SPAN_3D):
-        if impl != "conv":
-            return _mm.synthesis3_mm(sub, wav, target)
-        batch_shape = sub.shape[:-4]
-        out = _Synthesis.apply(sub.reshape((-1,) + tuple(sub.shape[-4:])),
-                               _bank(wav, 3, sub.dtype, sub.device, rec=True))[:, 0]
-        out = out[:, : target[0], : target[1], : target[2]]
+    batch_shape = sub.shape[:-4]
+    sub = sub.reshape((-1,) + tuple(sub.shape[-4:]))
+    if torch.compiler.is_compiling():
+        out = _level_op(sub, "idwt3", wav.name, "", impl, [int(t) for t in target])
+    else:
+        out = _idwt3_rows(sub, wav, target, impl)
     return out.reshape(batch_shape + tuple(out.shape[-3:]))
 
 
@@ -644,3 +674,101 @@ def waverec3(coeffs, wavelet, impl: str | None = None):
         a = a[..., : tgt[0], : tgt[1], : tgt[2]]
         a = idwt3(a, det, wav, out_shape=tuple(2 * s - L + 2 for s in tgt), impl=impl)
     return a
+
+
+# -- the 1D and 3D levels as custom operators, for compiled graphs -----------------
+#
+# Inside `torch.compile` (`pipeline.aot`) a 1D or 3D level is one opaque
+# operator: its eager form builds its filter bank and pad index with numpy
+# under an lru_cache and runs its convolutions in full float32 whatever the
+# caller's TF32 setting, none of which a graph can hold. The operator runs
+# that eager form where the graph runs (`_level_rows`), and its backward is
+# the eager form's own vector-Jacobian product (a level is linear, so the
+# product is taken at a zero input). The 1D operator carries the impl of the
+# 1D knob the graph was traced under, so a compiled step runs the impl the
+# caller selected. Eager calls never reach them.
+
+
+def _dwt1_name() -> str:
+    """The 1D knob resolved ("auto" is "conv")."""
+    return "conv" if _dwt1_impl == "auto" else _dwt1_impl
+
+
+def _level_rows(t: torch.Tensor, kind: str, wavelet: str, mode: str, impl: str,
+                target: list) -> torch.Tensor:
+    """The eager form of a level operator (see `_level_op`)."""
+    wav = _mm.compiled_wavelet(wavelet)
+    if kind == "dwt1":
+        return _dwt1_rows(t, wav, mode, _fold1d_layout(impl))
+    if kind == "idwt1":
+        return _idwt1_rows(t, wav, _fold1d_layout(impl))
+    if kind == "dwt3":
+        return _dwt3_rows(t, wav, mode)
+    return _idwt3_rows(t, wav, tuple(target), impl)
+
+
+def _level_shape(shape, kind: str, L: int, target) -> tuple:
+    if kind == "dwt1":
+        return (shape[0], 2, (shape[-1] + L - 1) // 2)
+    if kind == "idwt1":
+        return (shape[0], 2 * shape[-1] - L + 2)
+    if kind == "dwt3":
+        return (shape[0], 8) + tuple((n + L - 1) // 2 for n in shape[-3:])
+    return (shape[0],) + tuple(target)
+
+
+@torch.library.custom_op("wam_tpu_torch::wave_level", mutates_args=())
+def _level_op(t: torch.Tensor, kind: str, wavelet: str, mode: str, impl: str,
+              target: list[int]) -> torch.Tensor:
+    """One 1D or 3D level (``kind`` "dwt1", "idwt1", "dwt3" or "idwt3") of
+    the rows of ``t`` (`_dwt1_rows`, `_idwt1_rows`, `_dwt3_rows`,
+    `_idwt3_rows`), the wavelet by name; contiguous, as the fake gives it."""
+    return _level_rows(t, kind, wavelet, mode, impl, target).contiguous()
+
+
+@_level_op.register_fake
+def _(t, kind, wavelet, mode, impl, target):
+    L = _mm.compiled_wavelet(wavelet).filt_len
+    return t.new_empty(_level_shape(t.shape, kind, L, target), dtype=_mm._out_dtype(t))
+
+
+@contextlib.contextmanager
+def _autograd_in_operator():
+    """Autograd inside an operator's implementation, which the dispatcher
+    runs with the autograd keys excluded (restored on exit)."""
+    key = torch._C.DispatchKey.AutogradFunctionality
+    prev = torch._C._dispatch_tls_is_dispatch_key_excluded(key)
+    torch._C._dispatch_tls_set_dispatch_key_excluded(key, False)
+    try:
+        yield
+    finally:
+        torch._C._dispatch_tls_set_dispatch_key_excluded(key, prev)
+
+
+@torch.library.custom_op("wam_tpu_torch::wave_level_vjp", mutates_args=())
+def _level_vjp_op(g: torch.Tensor, shape: list[int], kind: str, wavelet: str, mode: str,
+                  impl: str, target: list[int]) -> torch.Tensor:
+    """The level's vector-Jacobian product at ``g``: the eager form's
+    backward, taken at a zero input of ``shape`` (the map is linear)."""
+    with _autograd_in_operator(), torch.enable_grad():
+        t = torch.zeros(shape, dtype=g.dtype, device=g.device, requires_grad=True)
+        (dt,) = torch.autograd.grad(_level_rows(t, kind, wavelet, mode, impl, target), t, g)
+    return dt.contiguous()
+
+
+@_level_vjp_op.register_fake
+def _(g, shape, kind, wavelet, mode, impl, target):
+    return g.new_empty(tuple(shape))
+
+
+def _level_setup(ctx, inputs, output):
+    t, *rest = inputs
+    ctx.args = (list(t.shape),) + tuple(rest)
+    ctx.dtype = t.dtype
+
+
+def _level_backward(ctx, g):
+    return (_level_vjp_op(g.contiguous(), *ctx.args).to(ctx.dtype),) + (None,) * 5
+
+
+_level_op.register_autograd(_level_backward, setup_context=_level_setup)

@@ -21,10 +21,17 @@ reconstruction, aggregate. The aggregate is `spacetime_map`: each level's
 float32 index arithmetic, `ops.filters.upsample_nearest`) and summed.
 `frame_importance` reduces a box to (B, T) per-frame scores, which the
 temporal insertion/deletion fan ranks (`xattr.video_eval`).
+
+``serve_entry(aot_key=)`` compiles each chunk step through the
+compiled-step cache (`pipeline.aot`): inside the graph the spatial-only
+levels run K1 and K2 as the custom operators of `wavelets.matmul` (their
+plain versions on the CPU) and the 3D levels the operators of
+`wavelets.transform`.
 """
 
 from __future__ import annotations
 
+import copy
 import dataclasses
 from typing import Callable
 
@@ -42,10 +49,6 @@ from wam_tpu_torch.device import resolve_device
 from wam_tpu_torch.ops.filters import upsample_nearest
 from wam_tpu_torch.wavelets.filters import build_wavelet
 from wam_tpu_torch.wavelets.transform import DETAIL3D_KEYS, dwt2, dwt3, idwt2, idwt3
-
-# why the video entry has no compiled step (`serve.entry.jit_entry(eager_only=)`)
-EAGER_ONLY = ("the video transforms build their filters with numpy, which a compiled graph "
-              "cannot trace: the video entry has no compiled step")
 
 __all__ = [
     "VideoLevels",
@@ -269,14 +272,18 @@ class WaveletAttributionVideo:
             return wavedec_video(clip, self.wavelet, self.levels, self.mode, self.impl)
 
     def _coeff_grads(self, coeffs, y, shape, s: int, scale: float = 1.0,
-                     synth: str | None = None):
+                     synth: str | None = None, anchor=None):
         """Gradient of the target loss w.r.t. every coefficient of ``s``
         stacked copies of the batch (rows sample-major): the loss is the sum
         over copies of each copy's batch mean, times ``scale`` (`_rows`).
-        ``synth``: `_synth`'s."""
-        leaves = [c.detach().requires_grad_(True) for c in _flatten(coeffs)]
+        ``synth``: `_synth`'s; ``anchor``: a compiled step's
+        (`core.engine.WamEngine.grads_from_coeffs`)."""
         t, h, w = shape
         with torch.enable_grad():
+            if anchor is None:
+                leaves = [c.detach().requires_grad_(True) for c in _flatten(coeffs)]
+            else:
+                leaves = [c.detach() + anchor for c in _flatten(coeffs)]
             rec = waverec_video(_unflatten(leaves, coeffs), self.wavelet, synth)
             out = self.model_fn(rec[..., :t, :h, :w])
             loss = target_loss(out, None if y is None else y.repeat(s)) * s
@@ -289,6 +296,84 @@ class WaveletAttributionVideo:
         """(s*B, C, ...) gradient list -> (s, B, T, H, W) channel-mean boxes."""
         box = spacetime_map(grads, shape, self.approx_coeffs).mean(dim=1)
         return box.reshape((s, -1) + tuple(box.shape[1:]))
+
+    def _smooth_step(self, synth: str | None, scale: float = 1.0):
+        """One chunk of SmoothGrad, the compiled unit of `pipeline.aot`:
+        ``step(noisy, y)`` maps a stack of noisy clip batches (s, B, C, T,
+        H, W) to their boxes (s, B, T, H, W). The noise is drawn outside
+        it."""
+
+        def step(noisy: torch.Tensor, y, anchor=None) -> torch.Tensor:
+            s, shape = noisy.shape[0], tuple(noisy.shape[-3:])
+            coeffs = self._decompose(noisy.reshape((-1,) + tuple(noisy.shape[2:])))
+            return self._boxes(self._coeff_grads(coeffs, y, shape, s, scale, synth, anchor),
+                               shape, s)
+
+        return step
+
+    def _ig_step(self, synth: str | None, shape, like, scale: float = 1.0):
+        """One chunk of Integrated Gradients, the compiled unit of
+        `pipeline.aot`: ``step(alphas, y, anchor, *leaves)`` maps path points
+        (s,) and the clip's coefficient leaves (in the structure of
+        ``like``) to each leaf's gradients (s, B, ...) along alpha *
+        coefficients."""
+
+        def step(alphas: torch.Tensor, y, anchor, *leaves) -> list:
+            s = alphas.shape[0]
+
+            def along(c):
+                a = alphas.to(c.dtype).reshape((-1,) + (1,) * c.ndim)
+                return (c[None] * a).reshape((-1,) + tuple(c.shape[1:]))
+
+            grads = self._coeff_grads(map_coeffs(along, _unflatten(leaves, like)), y, shape, s,
+                                      scale, synth, anchor)
+            return [g.reshape((s, -1) + tuple(g.shape[1:])) for g in _flatten(grads)]
+
+        return step
+
+    def _compile_twin(self):
+        """A shallow copy of this explainer for compiled graphs
+        (`pipeline.aot`): it holds the Wavelet object, registered by name for
+        the graph's operators (`matmul.remember_wavelet`), and runs the
+        spatial-only levels on the kernel route (the custom operators of
+        `wavelets.matmul`: K1 and K2 on the card, their plain versions on
+        the CPU) whatever ``impl`` and ``synth_impl`` say, since the conv and
+        matmul forms build their filters with numpy."""
+        from wam_tpu_torch.wavelets.matmul import remember_wavelet
+
+        twin = copy.copy(self)
+        twin.wavelet = remember_wavelet(self.wavelet)
+        twin.impl = twin.synth_impl = "kernel"
+        return twin
+
+    def _aot_steps(self, aot_key: str, **kw):
+        """``steps(kind, *step_args)`` -> the chunk step ("smooth" or "ig")
+        compiled through the compiled-step cache, one program per (kind,
+        argument signature), keyed ``{aot_key}|{kind}|synth-kernel|...``
+        (`pipeline.aot.cached_entry`; the reference tags its key with the
+        synthesis impl the same way, ``wam2d._synth_tagged``): a compiled
+        step runs the spatial-only levels on the kernel route
+        (`_compile_twin`) whatever the eager call's synthesis is."""
+        from wam_tpu_torch.wam2d import _anchor, _aot_entry
+
+        twin = self._compile_twin()
+        made: dict = {}
+
+        def steps(kind: str, *extra):
+            tag = (kind,) + extra[:1]
+            if tag not in made:
+                unit = twin._smooth_step("kernel") if kind == "smooth" else twin._ig_step(
+                    "kernel", *extra)
+                entry = _aot_entry(unit, f"{aot_key}|{kind}|synth-kernel", **kw)
+
+                def call(a, y, *rest, entry=entry):
+                    # int64 labels, as every caller's labels are read
+                    return entry(a, None if y is None else y.long(), _anchor(a.device), *rest)
+
+                made[tag] = call
+            return made[tag]
+
+        return steps
 
     # -- SmoothGrad --------------------------------------------------------
 
@@ -312,9 +397,10 @@ class WaveletAttributionVideo:
         return self._seq_cache[key]
 
     def _smooth(self, x, y=None, noise=None, scale: float = 1.0,
-                stream: bool | None = None) -> torch.Tensor:
+                stream: bool | None = None, steps=None) -> torch.Tensor:
         """`smooth`'s box, with no instance attribute set. ``scale`` and
-        ``stream`` are `_rows`' (a block of a batch)."""
+        ``stream`` are `_rows`' (a block of a batch); ``steps``
+        (`_aot_steps`) runs each chunk compiled."""
         clip, y = self._inputs(x, y)
         chunk = self._chunk(clip)
         synth = self._synth(clip)
@@ -331,10 +417,10 @@ class WaveletAttributionVideo:
                 clip[:, 0], y, self.random_seed, n_samples=self.n_samples,
                 stdev_spread=self.stdev_spread, sample_chunk=chunk, noise=noise)
 
+        run = self._smooth_step(synth, scale) if steps is None else steps("smooth")
+
         def step(noisy: torch.Tensor) -> torch.Tensor:  # (s, B, C, T, H, W)
-            s = noisy.shape[0]
-            coeffs = self._decompose(noisy.reshape((-1,) + tuple(noisy.shape[2:])))
-            return self._boxes(self._coeff_grads(coeffs, y, shape, s, scale, synth), shape, s)
+            return run(noisy, y)
 
         generator = None
         if noise is not None:
@@ -351,9 +437,9 @@ class WaveletAttributionVideo:
         self.grads = self._integrated(x, y)
         return self.grads
 
-    def _integrated(self, x, y=None, scale: float = 1.0) -> torch.Tensor:
+    def _integrated(self, x, y=None, scale: float = 1.0, steps=None) -> torch.Tensor:
         """`integrated_wam`'s box, with no instance attribute set; ``scale``
-        is `_rows`'."""
+        is `_rows`'; ``steps`` (`_aot_steps`) runs each chunk compiled."""
         if self.mesh is not None:
             raise ValueError(
                 "mesh= supports method='smooth' only for video — the IG "
@@ -364,16 +450,15 @@ class WaveletAttributionVideo:
         synth = self._synth(clip)
         shape = tuple(clip.shape[-3:])
         coeffs = self._decompose(clip)
+        leaves = _flatten(coeffs)
+        like = _unflatten([None] * len(leaves), coeffs)  # the structure alone
+        if steps is None:
+            run, extra = self._ig_step(synth, shape, like, scale), (None,)
+        else:
+            run, extra = steps("ig", shape, like), ()
 
         def grad_fn(alphas: torch.Tensor) -> list:  # (s,) -> per leaf (s, B, ...)
-            s = alphas.shape[0]
-
-            def along(c):
-                a = alphas.to(c.dtype).reshape((-1,) + (1,) * c.ndim)
-                return (c[None] * a).reshape((-1,) + tuple(c.shape[1:]))
-
-            grads = self._coeff_grads(map_coeffs(along, coeffs), y, shape, s, scale, synth)
-            return [g.reshape((s, -1) + tuple(g.shape[1:])) for g in _flatten(grads)]
+            return run(alphas, y, *extra, *leaves)
 
         integral = integrated_path(grad_fn, n_steps=self.n_samples, batch_size=chunk,
                                    device=self.device)
@@ -396,8 +481,10 @@ class WaveletAttributionVideo:
         """Batched serving entry ``(x, y) → (B, T, H, W)`` for the serve
         worker (labeled-only, one device — the contract of
         `WaveletAttribution3D.serve_entry`), with the
-        `serve.entry.RowBlocks` of `_rows`. ``aot_key`` warns and is
-        ignored: the entry has no compiled step (`EAGER_ONLY`)."""
+        `serve.entry.RowBlocks` of `_rows`. With ``aot_key`` each chunk
+        step (`_smooth_step`, `_ig_step`) is a program of the compiled-step
+        cache (`pipeline.aot`, `_aot_steps`); the noise draws and the loop
+        over chunks stay eager."""
         if self.mesh is not None:
             raise ValueError(
                 "serve_entry() does not support mesh=; the serve worker owns "
@@ -405,9 +492,17 @@ class WaveletAttributionVideo:
         from wam_tpu_torch.serve.entry import RowBlocks, jit_entry
 
         impl = self._smooth if self.method == "smooth" else self._integrated
-        return jit_entry(lambda x, y: impl(x, y), donate=donate, on_trace=on_trace,
-                         aot_key=aot_key, with_health=with_health,
-                         blocks=RowBlocks.local(self._rows), eager_only=EAGER_ONLY)
+
+        def entry_impl(x, y):
+            return impl(x, y)
+
+        def wam_aot(key, **kw):
+            steps = self._aot_steps(key, **kw)
+            return lambda x, y: impl(x, y, steps=steps)
+
+        entry_impl.wam_aot = wam_aot
+        return jit_entry(entry_impl, donate=donate, on_trace=on_trace, aot_key=aot_key,
+                         with_health=with_health, blocks=RowBlocks.local(self._rows))
 
     def _rows(self, x, y, lo: int, total: int) -> torch.Tensor:
         """Rows [lo, lo + len(x)) of the entry's box on a ``total``-row
